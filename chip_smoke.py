@@ -5,27 +5,40 @@
 
 From the root of a checkout, with one CUDA card:
 
-1. prints the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/kernels/pq_adc/csrc`` (one ``nvcc`` per source, in
-   parallel) and prints the build time;
+1. prints the card's name and power limit, builds the six CUDA kernels
+   from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, in
+   parallel), prints the build time and each ``ptxas`` register/spill line;
 2. holds each kernel against its plain PyTorch version on the card at
-   small shapes (ragged N, B = 1 and 64, S not a multiple of the block,
-   all-pad rows, constructed ties, M in {8, 32});
+   small shapes: the ADC scans at ragged N, B = 1 and 64, S not a multiple
+   of the block, all-pad rows, a mostly-padding last block, N < topk,
+   constructed ties, M in {8, 32}; exact L2 and flash attention in f32 and
+   bf16, ragged sizes, MQA (Hk = 1), causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
    ``FusionANNSIndex.build``, and prints the cuts of scale on a
    ``reduced`` line with each build stage's time;
-4. serves ``--queries`` queries through three paths — the dense window
-   (``window=64``), ``fused=True`` and ``fused=True, lut_int8=True`` —
-   each with the launch counts set to 0 just before it and read just
-   after, and prints recall@10 against exact ground truth, QPS and
-   p50/p99; it fails unless dense and fused f32 give identical ids for
+4. computes exact ground truth through the ``l2dist`` kernel
+   (``ground_truth``, chunks of 2^20 rows) and once more through its plain
+   version, and fails unless the ids are identical for every query (on
+   uint8 data every partial sum is an integer below 2^24, so both are
+   exact); serves ``--queries`` queries through three paths — the dense
+   window (``window=64``), ``fused=True`` and ``fused=True,
+   lut_int8=True`` — each with the launch counts set to 0 just before it
+   and read just after, and prints recall@10 against the ground truth, QPS
+   and p50/p99; it fails unless dense and fused f32 give identical ids for
    every query, f32 recall > 0.5, int8 recall >= f32 recall - 0.05, and
    each path launched its kernel;
-5. holds each kernel against its plain version again on the inputs the
-   first serving window gave it, and times kernel, plain version and (where
-   one exists) a single PyTorch call computing the same function, with
-   CUDA events, beside the least time the card could take.
+5. drives the kernel entry points at full width, counts set to 0 just
+   before: ``pq_adc`` and ``pq_adc_topk(topk=top_n)`` over the index's
+   codes with the LUTs of the first 8 queries (top-k ids must equal the
+   first top_n of a stable argsort of ``pq_adc``), ``l2_distances`` on the
+   first ground-truth chunk, and ``flash_attention`` at Qwen3-0.6B's
+   attention widths (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096,
+   causal, in bf16 and once in f32; each against its plain version;
+6. holds each kernel against its plain version on the inputs its path
+   gave it, and times kernel, plain version and (where one exists) a
+   single PyTorch call computing the same function, with CUDA events,
+   beside the least time the card could take.
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -48,19 +61,35 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # float32 outside the tensor cores
+BF16_FLOPS = 989e12              # dense bf16 on the tensor cores
 RTOL = 1e-5                      # M f32 terms summed in another order
+L2_ATOL = 1e-3                   # D products summed in another order
+FLASH_TOL = {torch.float32: 2e-5,    # online softmax against a plain one
+             torch.bfloat16: 5e-2}   # output rounded to bf16 on each side
 WINDOW = 64
-FUSED_SRC = "src/repro_torch/kernels/pq_adc/csrc/adc_fused_topk.cu"
+QWEN3_ATTN = dict(H=16, Hk=8, dh=128)    # src/repro/configs/qwen3_0_6b.py
+ATTN_LEN = 4096                          # S = T of the full-width flash run
+PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
+PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 KERNELS = {
-    "adc_scan_batch": dict(
-        route="cuda", source="src/repro_torch/kernels/pq_adc/csrc/"
-        "adc_scan_batch.cu", replaces="src/repro/kernels/pq_adc/pq_adc.py:80"),
-    "adc_fused_topk": dict(
-        route="cuda", source=FUSED_SRC,
-        replaces="src/repro/kernels/pq_adc/pq_adc.py:239"),
+    "adc_scan_batch": dict(route="cuda", source=PQ_SRC + "adc_scan_batch.cu",
+                           replaces=PQ_TPU + "80"),
+    "adc_fused_topk": dict(route="cuda", source=PQ_SRC + "adc_fused_topk.cu",
+                           replaces=PQ_TPU + "239"),
     "adc_fused_topk[lut_int8]": dict(
-        route="cuda", source=FUSED_SRC,
-        replaces="src/repro/kernels/pq_adc/pq_adc.py:177"),
+        route="cuda", source=PQ_SRC + "adc_fused_topk.cu",
+        replaces=PQ_TPU + "177"),
+    "adc_scan": dict(route="cuda", source=PQ_SRC + "adc_scan.cu",
+                     replaces=PQ_TPU + "43"),
+    "adc_scan_topk": dict(route="cuda", source=PQ_SRC + "adc_scan_topk.cu",
+                          replaces=PQ_TPU + "133"),
+    "l2dist": dict(route="cuda",
+                   source="src/repro_torch/kernels/l2dist/csrc/l2dist.cu",
+                   replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "flash_attn_fwd": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
 }
 
 
@@ -92,6 +121,21 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
             tie[..., :-1] |= eq
         if (diff & ~tie).any():
             raise AssertionError(f"{name}: ids differ outside distance ties")
+    return err
+
+
+def check_tol(name: str, got: torch.Tensor, want: torch.Tensor,
+              rtol: float, atol: float) -> float:
+    """Values within rtol/atol (compared in f32); returns the max abs
+    error."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
+                             f"{tuple(w.shape)}")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: max abs error {err} beyond rtol "
+                             f"{rtol}, atol {atol}")
     return err
 
 
@@ -161,6 +205,60 @@ def check_kernels_small(dev: torch.device, rng: np.random.Generator) -> None:
     torch.cuda.synchronize()
 
 
+def check_entry_kernels_small(dev: torch.device,
+                              rng: np.random.Generator) -> None:
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+    from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
+    from repro_torch.kernels.pq_adc import ops, ref
+    for m in (8, 32):
+        # ragged N, N < topk, a mostly-padding last block (2048 + 7 rows),
+        # topk above the 2048-row block; every code row three times, so
+        # distances tie exactly and ids must come out lowest row first
+        for n, topk in ((1, 10), (5, 512), (777, 512), (2048 + 7, 32),
+                        (3 * 2048 + 5, 2048), (50_000, 4000)):
+            base = rng.integers(0, 256, (-(-n // 3), m)).astype(np.uint8)
+            codes = torch.from_numpy(np.repeat(base, 3, axis=0)[:n]).to(dev)
+            flat = torch.empty(n * m + 1, dtype=torch.uint8, device=dev)
+            flat[1:] = codes.reshape(-1)
+            lut = torch.from_numpy(rng.random((m, 256)).astype(
+                np.float32)).to(dev)
+            # a 1-byte storage offset exercises the byte-load path too
+            for cds in (codes, flat[1:].view(n, m)):
+                check_close(f"adc_scan m{m} n{n}", ops.pq_adc(cds, lut),
+                            ref.pq_adc_ref(cds, lut))
+                kv, ki = ops.pq_adc_topk(cds, lut, topk)
+                pv, pi = ops.pq_adc_topk_plain(cds, lut, topk)
+                check_close(f"adc_scan_topk m{m} n{n} k{topk}", kv, pv, ki,
+                            pi)
+                if not torch.equal(ki, pi):
+                    raise AssertionError("adc_scan_topk ids differ on exact "
+                                         "ties")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
+                        (256, 5003, 96)):
+            q = torch.from_numpy(rng.standard_normal((b, d)).astype(
+                np.float32)).to(dev, dtype)
+            v = torch.from_numpy(rng.standard_normal((n, d)).astype(
+                np.float32)).to(dev, dtype)
+            check_tol(f"l2dist {dtype} b{b} n{n} d{d}", l2_distances(q, v),
+                      l2dist_ref(q, v), RTOL, L2_ATOL)
+        # MQA (Hk = 1), causal and not, S != T both ways, ragged tiles
+        for bsz, s, t, h, hk, dh, causal in (
+                (2, 16, 16, 4, 2, 8, True), (1, 32, 32, 2, 2, 16, False),
+                (2, 100, 100, 6, 3, 64, True), (1, 24, 24, 4, 1, 8, True),
+                (1, 70, 130, 4, 2, 128, True), (1, 130, 70, 4, 4, 128, True),
+                (1, 257, 257, 8, 1, 128, False)):
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev, dtype) for shape in (
+                    (bsz, s, h, dh), (bsz, t, hk, dh), (bsz, t, hk, dh)))
+            tol = FLASH_TOL[dtype]
+            check_tol(f"flash_attn_fwd {dtype} {(bsz, s, t, h, hk, dh)} "
+                      f"causal={causal}",
+                      flash_attention(q, k, v, causal=causal),
+                      flash_attn_ref(q, k, v, causal=causal), tol, tol)
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------- phase 3/4
 def make_data(n: int, n_queries: int, seed: int):
     from repro_torch.data.synthetic import clustered_vectors
@@ -173,7 +271,7 @@ def make_data(n: int, n_queries: int, seed: int):
 
 class Recorder:
     """Keeps the inputs of the first call of each kernel wrapper while
-    the main path runs, so phase 5 can hold the kernels against their
+    the main path runs, so phase 6 can hold the kernels against their
     plain versions at the shapes the main path gave them."""
 
     def __init__(self):
@@ -225,7 +323,78 @@ def serve(index, queries: np.ndarray, gt: np.ndarray, **plan):
                          [r.stats.candidates_scanned for r in res])))
 
 
+def ground_truth_plain(data: np.ndarray, queries: np.ndarray,
+                       k: int) -> np.ndarray:
+    """``ground_truth`` with its distance blocks from the plain version
+    of the ``l2dist`` kernel."""
+    from repro_torch.core import engine
+    from repro_torch.kernels.l2dist.ref import l2dist_ref
+    kernel = engine.l2_distances
+    engine.l2_distances = l2dist_ref
+    try:
+        return engine.ground_truth(data, queries, k)
+    finally:
+        engine.l2_distances = kernel
+
+
 # ---------------------------------------------------------------- phase 5
+def drive_entry_points(index, top_n: int, data: np.ndarray,
+                       queries: np.ndarray, seed: int):
+    """The kernel entry points at full width, launch counts set to 0 just
+    before and read just after; then each output against its plain
+    version.  Returns (launches, the inputs for phase 6)."""
+    from repro_torch.core.pq import adc_lut_batch
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+    from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
+    from repro_torch.kernels.pq_adc import ops, ref
+    dev = index.device
+    codes = index.codes
+    luts = adc_lut_batch(index.codebook, torch.from_numpy(queries[:8]).to(
+        dev))
+    q = torch.from_numpy(queries).to(dev)
+    chunk = torch.from_numpy(np.ascontiguousarray(data[:1 << 20])).to(
+        dev).float()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = ATTN_LEN
+    attn = {dtype: tuple(torch.randn(shape, generator=gen, device=dev).to(
+        dtype) for shape in ((1, s, QWEN3_ATTN["H"], QWEN3_ATTN["dh"]),
+                             (1, s, QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"]),
+                             (1, s, QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"])))
+        for dtype in (torch.bfloat16, torch.float32)}
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    dists = [ops.pq_adc(codes, luts[i]) for i in range(len(luts))]
+    tops = [ops.pq_adc_topk(codes, luts[i], top_n) for i in range(len(luts))]
+    d2 = l2_distances(q, chunk)
+    outs = {dtype: flash_attention(*qkv, causal=True)
+            for dtype, qkv in attn.items()}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+
+    for i, (d, (tv, ti)) in enumerate(zip(dists, tops)):
+        check_close(f"adc_scan query {i} at N={len(codes)}", d,
+                    ref.pq_adc_ref(codes, luts[i]))
+        order = torch.sort(d, stable=True)[1][:top_n]
+        if not (torch.equal(ti.long(), order) and torch.equal(tv, d[order])):
+            raise AssertionError(f"pq_adc_topk query {i}: not the first "
+                                 f"{top_n} of a stable argsort of pq_adc")
+    check_tol("l2dist on the first ground-truth chunk", d2,
+              l2dist_ref(q, chunk), RTOL, L2_ATOL)
+    for dtype, qkv in attn.items():
+        tol = FLASH_TOL[dtype]
+        check_tol(f"flash_attn_fwd {dtype} at the Qwen3-0.6B shape",
+                  outs[dtype], flash_attn_ref(*qkv, causal=True), tol, tol)
+    log(f"entry points at full width vs plain: ok; pq_adc_topk ids == "
+        f"stable argsort of pq_adc for {len(luts)} queries; "
+        f"launches={launches}")
+    return launches, {"adc_scan": (codes, luts[0]),
+                      "adc_scan_topk": (codes, luts[0], top_n),
+                      "l2dist": (q, chunk),
+                      "flash_attn_fwd": attn[torch.bfloat16]}
+
+
+# ---------------------------------------------------------------- phase 6
 def measure(calls) -> list:
     from repro_torch.kernels.pq_adc import ops, ref
     out = []
@@ -279,9 +448,92 @@ def measure(calls) -> list:
     return out
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def measure_entry(calls) -> list:
+    """Phase 6 for the four entry-point kernels, on phase 5's inputs."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+    from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
+    from repro_torch.kernels.pq_adc import ops, ref
+    F = torch.nn.functional
+    out = []
+
+    codes, lut = calls["adc_scan"]
+    n, m = codes.shape
+    k = lut.shape[1]
+    plain = ref.pq_adc_ref(codes, lut)
+    err = check_close("adc_scan", ops.pq_adc(codes, lut), plain)
+    flat_idx = codes.long() + torch.arange(m, device=codes.device) * k
+    weight = lut.reshape(m * k, 1)
+    check_close("embedding_bag yardstick (B = 1)", F.embedding_bag(
+        flat_idx, weight, mode="sum")[:, 0], plain)
+    out.append(dict(
+        name="adc_scan", shape=dict(N=n, M=m, K=k), max_abs_err=err,
+        ms=gpu_ms(lambda: ops.pq_adc(codes, lut), 20),
+        plain_ms=gpu_ms(lambda: ref.pq_adc_ref(codes, lut), 3),
+        library_ms=gpu_ms(lambda: F.embedding_bag(flat_idx, weight,
+                                                  mode="sum"), 5),
+        **bound(n * m + m * k * 4 + n * 4, n * m)))
+    del flat_idx, plain
+
+    codes, lut, topk = calls["adc_scan_topk"]
+    kv, ki = ops.pq_adc_topk(codes, lut, topk)
+    pv, pi = ops.pq_adc_topk_plain(codes, lut, topk)
+    err = check_close("adc_scan_topk", kv, pv, ki, pi)
+    out.append(dict(
+        name="adc_scan_topk", shape=dict(N=n, M=m, K=k, topk=topk),
+        max_abs_err=err,
+        ms=gpu_ms(lambda: ops.pq_adc_topk(codes, lut, topk), 10),
+        plain_ms=gpu_ms(lambda: ops.pq_adc_topk_plain(codes, lut, topk), 3),
+        library_ms=None,
+        **bound(n * m + m * k * 4 + min(topk, n) * 8, n * m)))
+
+    q, v = calls["l2dist"]
+    (b, d), nv = q.shape, v.shape[0]
+    plain = l2dist_ref(q, v)
+    err = check_tol("l2dist", l2_distances(q, v), plain, RTOL, L2_ATOL)
+    norms = (q * q).sum(-1, keepdim=True) + (v * v).sum(-1)[None]
+    check_tol("addmm yardstick", torch.addmm(norms, q, v.T, alpha=-2),
+              plain, RTOL, L2_ATOL)
+    del plain
+    out.append(dict(
+        name="l2dist", shape=dict(B=b, N=nv, D=d), max_abs_err=err,
+        ms=gpu_ms(lambda: l2_distances(q, v), 10),
+        plain_ms=gpu_ms(lambda: l2dist_ref(q, v), 3),
+        library_ms=gpu_ms(lambda: torch.addmm(norms, q, v.T, alpha=-2), 10),
+        **bound((b * d + nv * d + b * nv) * 4, 2 * b * nv * d)))
+    del norms
+
+    q, k, v = calls["flash_attn_fwd"]
+    bsz, s, h, dh = q.shape
+    t = k.shape[1]
+    plain = flash_attn_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[q.dtype]
+    err = check_tol("flash_attn_fwd", flash_attention(q, k, v, causal=True),
+                    plain, tol, tol)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    check_tol("scaled_dot_product_attention yardstick",
+              sdpa().transpose(1, 2), plain, tol, tol)
+    del plain
+    pairs = sum(min(i + 1, t) for i in range(s))       # unmasked (s, t)
+    out.append(dict(
+        name="flash_attn_fwd",
+        shape=dict(B=bsz, S=s, T=t, H=h, Hk=k.shape[2], dh=dh,
+                   dtype=str(q.dtype), causal=True),
+        max_abs_err=err,
+        ms=gpu_ms(lambda: flash_attention(q, k, v, causal=True), 10),
+        plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=True), 3),
+        library_ms=gpu_ms(sdpa, 10),
+        **bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                4 * bsz * h * dh * pairs, peak=BF16_FLOPS)))
+    return out
+
+
+def bound(nbytes: int, flops: int, peak: float = F32_FLOPS) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -304,9 +556,13 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.configs.anns_datasets import SIFT1B
     from repro_torch.core.engine import FusionANNSIndex, ground_truth
-    from repro_torch.kernels.pq_adc import build, ops
+    from repro_torch.kernels import build
+    from repro_torch.kernels.pq_adc import ops
 
     dev = torch.device("cuda")
+    # the plain versions' products and the yardsticks in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -324,6 +580,7 @@ def main() -> int:
 
     t = time.perf_counter()
     check_kernels_small(dev, np.random.default_rng(args.seed + 1))
+    check_entry_kernels_small(dev, np.random.default_rng(args.seed + 2))
     log(f"kernels vs plain (small shapes): ok, "
         f"{time.perf_counter() - t:.1f} s")
 
@@ -359,9 +616,22 @@ def main() -> int:
         "build_s": secs}))
 
     t = time.perf_counter()
+    ops.reset_launches()
     gt = ground_truth(data, queries, 10)
-    log(f"ground truth (torch.matmul, chunked): "
-        f"{time.perf_counter() - t:.1f} s")
+    gt_launches = dict(ops.LAUNCHES)
+    t_gt = time.perf_counter() - t
+    if gt_launches["l2dist"] < 1:
+        raise AssertionError("ground truth never launched l2dist")
+    t = time.perf_counter()
+    gt_plain = ground_truth_plain(data, queries, 10)
+    if not np.array_equal(gt, gt_plain):
+        bad = int((gt != gt_plain).any(1).sum())
+        raise AssertionError(f"ground truth ids differ from the plain "
+                             f"version's on {bad} queries")
+    log(f"ground truth (l2dist kernel, chunks of 2^20 rows): {t_gt:.1f} s, "
+        f"launches={gt_launches}; plain version "
+        f"{time.perf_counter() - t:.1f} s; ids identical for all "
+        f"{len(gt)} queries")
 
     paths = (("dense", "adc_scan_batch", {}),
              ("fused", "adc_fused_topk", {"fused": True}),
@@ -388,11 +658,21 @@ def main() -> int:
         raise AssertionError(f"int8 recall@10 {r8} < f32 {r32} - 0.05")
     log("dense == fused ids for every query; recall checks: ok")
 
-    rows = measure(recorder.calls)
+    entry_launches, entry_calls = drive_entry_points(
+        index, cfg.top_n, data, queries, args.seed)
+    for name in ("adc_scan", "adc_scan_topk", "l2dist", "flash_attn_fwd"):
+        if entry_launches[name] < 1:
+            raise AssertionError(f"the entry points never launched {name}")
+
+    rows = measure(recorder.calls) + measure_entry(entry_calls)
     per_path = {"adc_scan_batch": launches["dense"]["adc_scan_batch"],
                 "adc_fused_topk": launches["fused"]["adc_fused_topk"],
                 "adc_fused_topk[lut_int8]":
-                    launches["fused_int8"]["adc_fused_topk"]}
+                    launches["fused_int8"]["adc_fused_topk"],
+                "adc_scan": entry_launches["adc_scan"],
+                "adc_scan_topk": entry_launches["adc_scan_topk"],
+                "l2dist": gt_launches["l2dist"],
+                "flash_attn_fwd": entry_launches["flash_attn_fwd"]}
     kernels = []
     for r in rows:
         shape = r.pop("shape")

@@ -35,6 +35,7 @@ from repro_torch.core.filters import AttributeTable
 from repro_torch.core.futures import BatchTicket
 from repro_torch.core.io_sim import SSDSim, StorageLayout
 from repro_torch.core.segments import DeltaSegment, IndexView
+from repro_torch.kernels.l2dist.ops import l2_distances
 
 # the JAX package's snapshot format (manifest.json + arrays.npz, DESIGN.md
 # §10); v1 snapshots carry no id map and no attributes
@@ -307,17 +308,17 @@ class FusionANNSIndex:
 def ground_truth(data: np.ndarray, queries: np.ndarray, k: int,
                  device=None, chunk: int = 1 << 20) -> np.ndarray:
     """Exact top-k ids per query: brute-force squared L2 on ``device``,
-    ``|q|² - 2q·vᵀ + |v|²`` in float32 matmuls over chunks of rows, with a
-    running (stable, lowest-id-first) top-k."""
+    ``|q|² - 2q·vᵀ + |v|²`` in float32 by the ``l2dist`` kernel
+    (``kernels.l2dist.l2_distances``) over chunks of rows, with a running
+    (stable, lowest-id-first) top-k."""
     dev = resolve_device(device)
     q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(dev)
-    qn = (q * q).sum(-1, keepdim=True)
     best_d = torch.empty(len(q), 0, device=dev)
     best_i = torch.empty(len(q), 0, dtype=torch.int64, device=dev)
     for s in range(0, len(data), chunk):
         blk = torch.from_numpy(np.ascontiguousarray(data[s:s + chunk])).to(
             dev).float()
-        d2 = qn - 2.0 * (q @ blk.T) + (blk * blk).sum(-1)[None]
+        d2 = l2_distances(q, blk)
         ids = torch.arange(s, s + len(blk), device=dev).expand(len(q), -1)
         cat_d = torch.cat([best_d, d2], 1)
         cat_i = torch.cat([best_i, ids], 1)

@@ -1,0 +1,109 @@
+"""Builds the port's CUDA sources and loads them.
+
+Every kernel is one ``<package>/csrc/<name>.cu`` under
+``repro_torch/kernels`` (:data:`SOURCES` names them), compiled by ``nvcc``
+for ``sm_90a`` into its own shared library with a plain C interface, which
+``ctypes`` loads (no PyTorch headers, so a build takes seconds).
+:func:`build` starts one ``nvcc`` per source, all together.  Libraries go
+to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
+hash of their source, of every header (``*.cuh``) in the source's
+``csrc/`` directory and of the flags, so an edited source or header is
+rebuilt and an unchanged one is not.  Nothing is built until a kernel is
+first used on a CUDA tensor, or :func:`build` is called.
+
+FMA policy: every source is compiled with ``-fmad=false``, so no multiply
+and add are contracted unless the source writes ``__fmaf_rn``.
+
+* ``pq_adc`` (``adc_scan``, ``adc_scan_topk``, ``adc_scan_batch``,
+  ``adc_fused_topk``): the LUT chain is written with ``__fmaf_rn`` where
+  the plain version fuses, and every other step rounds on its own, so the
+  kernels give the plain versions' bits.
+* ``l2dist`` and ``flash_attn_fwd``: their inner products and norms are
+  written as ``__fmaf_rn`` chains (one rounding per term, what contraction
+  would give); their epilogues (``|q|^2 - 2 q.v + |v|^2``, the softmax
+  rescaling, the final division) round each step, as the plain versions
+  do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch_kernels"
+# kernel name -> the package whose csrc/ holds <name>.cu
+SOURCES = {
+    "adc_scan_batch": "pq_adc",
+    "adc_fused_topk": "pq_adc",
+    "adc_scan": "pq_adc",
+    "adc_scan_topk": "pq_adc",
+    "l2dist": "l2dist",
+    "flash_attn_fwd": "flash_attn",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "of repro_torch are built from source at first use")
+
+
+def source_path(name: str) -> Path:
+    return KERNELS / SOURCES[name] / "csrc" / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    src = source_path(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns each compiled
+    source's ``ptxas`` report (registers, shared memory, spills)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)        # atomic: a concurrent loader sees all
+        reports[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

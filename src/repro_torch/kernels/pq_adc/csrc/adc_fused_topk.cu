@@ -35,14 +35,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "adc_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ bool key_greater(float da, int pa, float db,
-                                            int pb) {
-  return da > db || (da == db && pa > pb);
-}
 
 template <bool kInt8>
 __global__ void __launch_bounds__(kThreads)
@@ -144,23 +141,7 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
   __syncthreads();
 
   // 3. bitonic sort of the block_s keys, ascending by (dist, slot)
-  for (int size = 2; size <= block_s; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < block_s; i += blockDim.x) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const bool ascending = (i & size) == 0;
-          const float di = key_d[i], dj = key_d[j];
-          const int pi = key_p[i], pj = key_p[j];
-          if (key_greater(di, pi, dj, pj) == ascending) {
-            key_d[i] = dj; key_d[j] = di;
-            key_p[i] = pj; key_p[j] = pi;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  adc::bitonic_sort(key_d, key_p, block_s);
 
   // 4. the block's tk best pairs
   const int nb = (s + block_s - 1) / block_s;

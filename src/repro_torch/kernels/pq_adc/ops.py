@@ -1,7 +1,12 @@
 """Wrappers of the ADC kernels, their plain versions, and the top-k glue.
 
-Two kernels, written in CUDA C++ for ``sm_90a`` (``csrc/``):
+Four kernels, written in CUDA C++ for ``sm_90a`` (``csrc/``):
 
+* ``adc_scan`` (:func:`pq_adc`) — one query's distances, the port of the
+  Pallas ``pq_adc_scan``; plain version ``ref.pq_adc_ref``.
+* ``adc_scan_topk`` (:func:`pq_adc_topk`) — one query's scan with a
+  block-local top-k, the port of the Pallas ``pq_adc_scan_topk``; plain
+  version :func:`pq_adc_topk_plain`.
 * ``adc_scan_batch`` (:func:`pq_adc_batch`) — the dense batch scan, the
   port of the Pallas ``pq_adc_scan_batch``; plain version
   ``ref.pq_adc_batch_ref``.
@@ -15,7 +20,7 @@ CUDA tensor it launches the kernel, or raises: it checks device, dtype,
 shape and contiguity first, and the ``cudaError_t`` the launch returns
 after.  It allocates the outputs with ``torch.empty`` and launches on the
 current stream without synchronising.  Each launch adds one to
-``LAUNCHES[<kernel name>]``.
+``LAUNCHES[<kernel name>]`` (``repro_torch.kernels.launch``).
 
 Top-k selection everywhere is a stable ascending sort, so equal distances
 keep the lower position — the lower row — as ``lax.top_k`` does in the JAX
@@ -24,66 +29,93 @@ package (DESIGN.md §2).
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.pq_adc.build import load
+from repro_torch.kernels.launch import (LAUNCHES,  # noqa: F401
+                                        check, launch, reset_launches)
 from repro_torch.kernels.pq_adc.ref import (build_luts_ref, fma_f32,
-                                            pq_adc_batch_ref,
+                                            pq_adc_batch_ref, pq_adc_ref,
                                             pq_adc_rows_ref)
-
-# kernel launches since the last reset_launches()
-LAUNCHES = {"adc_scan_batch": 0, "adc_fused_topk": 0}
 
 _SMEM_MAX = 232448              # bytes of shared memory a block may use
 _MAX_QUERIES_PER_BLOCK = 8      # adc_scan_batch.cu: kMaxQ
 _FUSED_BLOCK_S = 2048           # candidate slots per fused-kernel block
+_TOPK_BLOCK_N = 2048            # rows per adc_scan_topk block (the TPU's)
 _INV255 = 1.0 / 255.0           # rounds to the float32 XLA folds `/ 255.0`
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "adc_scan_batch": (_P, _P, _P) + (_I,) * 7 + (_P,),
-    "adc_fused_topk": (_P, _P, _P, _P, _P, _P) + (_I,) * 10 + (_P,),
-}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    fn = getattr(load(name), name)
-    fn.argtypes = list(_SIGNATURES[name])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(name: str, *args) -> None:
-    err = _kernel(name)(*args)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
 
 
 def _vec16(codes: torch.Tensor) -> int:
     return int(codes.shape[1] % 16 == 0 and codes.data_ptr() % 16 == 0)
+
+
+def _check_lut(codes: torch.Tensor, lut: torch.Tensor) -> Tuple[int, int, int]:
+    dev = codes.device
+    check("codes", codes, torch.uint8, 2, dev)
+    check("lut", lut, torch.float32, 2, dev)
+    n, m = codes.shape
+    lm, k = lut.shape
+    if lm != m or k > 256 or m * k * 4 > _SMEM_MAX:
+        raise ValueError(f"lut {tuple(lut.shape)} does not fit codes "
+                         f"{tuple(codes.shape)} (K <= 256, M*K*4 bytes of "
+                         f"shared memory)")
+    return n, m, k
+
+
+# ------------------------------------------------------------ single query
+def pq_adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """codes (N, M) uint8, lut (M, K) f32 -> distances (N,) f32."""
+    if codes.device.type == "cpu":
+        return pq_adc_ref(codes, lut)
+    n, m, k = _check_lut(codes, lut)
+    out = torch.empty(n, dtype=torch.float32, device=codes.device)
+    if n:
+        launch("adc_scan", codes.device, codes.data_ptr(), lut.data_ptr(),
+               out.data_ptr(), n, m, k, _vec16(codes))
+    return out
+
+
+def pq_adc_topk_plain(codes: torch.Tensor, lut: torch.Tensor, topk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`pq_adc_topk`."""
+    d = pq_adc_ref(codes, lut)
+    tk = min(topk, d.shape[0])
+    vals, pos = torch.sort(d, stable=True)
+    return vals[:tk], pos[:tk].to(torch.int32)
+
+
+def pq_adc_topk(codes: torch.Tensor, lut: torch.Tensor, topk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query's scan + top-k: codes (N, M) uint8, lut (M, K) f32 ->
+    (dists (tk,) f32, row ids (tk,) int32) ascending, tk = min(topk, N) —
+    real rows only, equal distances in ascending row order.
+
+    The kernel keeps each 2048-row block's best min(topk, block) pairs
+    (rows past N set to +inf first); the blocks, each sorted by
+    (dist, row) and in ascending row order, are merged here by a stable
+    sort, so the result is the (dist, row) order of all N rows."""
+    if codes.device.type == "cpu":
+        return pq_adc_topk_plain(codes, lut, topk)
+    n, m, k = _check_lut(codes, lut)
+    dev = codes.device
+    tk_out = min(topk, n)
+    if tk_out <= 0:
+        return (torch.empty(0, dtype=torch.float32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev))
+    block_n = min(_TOPK_BLOCK_N, 1 << (n - 1).bit_length())
+    if m * k * 4 + block_n * 8 > _SMEM_MAX:
+        raise ValueError(f"M={m}, K={k} leaves no shared memory for the "
+                         f"top-k keys")
+    tk = min(topk, block_n)
+    nb = -(-n // block_n)
+    vals = torch.empty(nb * tk, dtype=torch.float32, device=dev)
+    ids = torch.empty(nb * tk, dtype=torch.int32, device=dev)
+    launch("adc_scan_topk", dev, codes.data_ptr(), lut.data_ptr(),
+           vals.data_ptr(), ids.data_ptr(), n, m, k, block_n, tk,
+           _vec16(codes))
+    merged, pos = torch.sort(vals, stable=True)
+    return merged[:tk_out], ids[pos[:tk_out]]
 
 
 # --------------------------------------------------------------- dense scan
@@ -92,8 +124,8 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     if codes.device.type == "cpu":
         return pq_adc_batch_ref(codes, luts)
     dev = codes.device
-    _check("codes", codes, torch.uint8, 2, dev)
-    _check("luts", luts, torch.float32, 3, dev)
+    check("codes", codes, torch.uint8, 2, dev)
+    check("luts", luts, torch.float32, 3, dev)
     n, m = codes.shape
     b, lm, k = luts.shape
     if lm != m or k > 256:
@@ -110,10 +142,8 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_block = -(-n // max(1, -(-2 * sms // -(-b // qb))))
     per_block = min(8192, max(256, -(-per_block // 256) * 256))
-    with torch.cuda.device(dev):
-        _launch("adc_scan_batch", codes.data_ptr(), luts.data_ptr(),
-                out.data_ptr(), n, m, k, b, qb, per_block, _vec16(codes),
-                torch.cuda.current_stream(dev).cuda_stream)
+    launch("adc_scan_batch", dev, codes.data_ptr(), luts.data_ptr(),
+           out.data_ptr(), n, m, k, b, qb, per_block, _vec16(codes))
     return out
 
 
@@ -193,10 +223,10 @@ def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
         return pq_adc_fused_topk_plain(codes, queries, codebooks, rows, topk,
                                        lut_int8=lut_int8)
     dev = codes.device
-    _check("codes", codes, torch.uint8, 2, dev)
-    _check("queries", queries, torch.float32, 2, dev)
-    _check("codebooks", codebooks, torch.float32, 3, dev)
-    _check("rows", rows, torch.int32, 2, dev)
+    check("codes", codes, torch.uint8, 2, dev)
+    check("queries", queries, torch.float32, 2, dev)
+    check("codebooks", codebooks, torch.float32, 3, dev)
+    check("rows", rows, torch.int32, 2, dev)
     n, m = codes.shape
     cm, k, dsub = codebooks.shape
     b, s = rows.shape
@@ -217,12 +247,10 @@ def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
     nb = -(-s // block_s)
     vals = torch.empty(b, nb * tk, dtype=torch.float32, device=dev)
     ids = torch.empty(b, nb * tk, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("adc_fused_topk", rows.data_ptr(), codes.data_ptr(),
-                queries.data_ptr(), codebooks.data_ptr(), vals.data_ptr(),
-                ids.data_ptr(), b, s, n, m, k, dsub, block_s, tk,
-                int(lut_int8), _vec16(codes),
-                torch.cuda.current_stream(dev).cuda_stream)
+    launch("adc_fused_topk", dev, rows.data_ptr(), codes.data_ptr(),
+           queries.data_ptr(), codebooks.data_ptr(), vals.data_ptr(),
+           ids.data_ptr(), b, s, n, m, k, dsub, block_s, tk, int(lut_int8),
+           _vec16(codes))
     # cross-block merge: blocks are in ascending slot order and each is
     # sorted by (dist, slot), so a stable sort keeps (dist, slot) order
     merged, pos = torch.sort(vals, dim=1, stable=True)

@@ -52,6 +52,11 @@ def build_luts_ref(codebooks: torch.Tensor,
     return acc
 
 
+def pq_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """One query: codes (N, M) uint8, lut (M, K) f32 -> (N,) f32."""
+    return pq_adc_batch_ref(codes, lut[None])[0]
+
+
 def pq_adc_batch_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """codes (N, M) uint8, luts (B, M, K) f32 -> (B, N) f32."""
     b, m, _ = luts.shape

@@ -5,15 +5,21 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerance: distances to rtol 1e-5 (M f32 terms; in fact the kernels
-repeat the plain versions' operations in order and agree to the bit);
-ids exactly.
+Tolerances: ADC distances to rtol 1e-5 (M f32 terms; in fact the
+kernels repeat the plain versions' operations in order and agree to the
+bit), ids exactly; exact L2 rtol 1e-5 with atol 1e-3 (D products summed in
+another order than cuBLAS's, on values of size D); flash attention 2e-5
+in f32 (an online softmax against a plain one) and 5e-2 in bf16 (the
+output's one rounding to bf16 may fall on either side).  TF32 is off for
+the plain versions' products.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
 from repro_torch.kernels.pq_adc import ops, ref
 
 RTOL = 1e-5
@@ -39,6 +45,8 @@ def _t(x):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -89,3 +97,83 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
         ops.pq_adc_batch(codes, luts.transpose(0, 1))
     with pytest.raises(ValueError):
         ops.pq_adc_batch(codes, luts.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 32])
+def test_cuda_single_query_kernels_match_plain(cuda, m):
+    """pq_adc bit-equal to its plain version; pq_adc_topk ids equal to a
+    stable argsort: ragged N, N < topk, a mostly-padding last block, and
+    ties from repeated code rows."""
+    rng = np.random.default_rng(23)
+    for n, topk in ((1, 10), (5, 16), (777, 512), (2048 + 7, 32),
+                    (300_001, 512), (50_000, 4000)):
+        codes = _t(np.repeat(_codes(rng, -(-n // 3), m), 3, axis=0)[:n])
+        codes = codes.to(cuda)
+        lut = _t((rng.random((m, 256)) + 1.0).astype(np.float32)).to(cuda)
+        d = ops.pq_adc(codes, lut)
+        v, i = ops.pq_adc_topk(codes, lut, topk)
+        pv, pi = ops.pq_adc_topk_plain(codes, lut, topk)
+        torch.cuda.synchronize()
+        assert torch.equal(d, ref.pq_adc_ref(codes, lut))
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_l2dist_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(24)
+    for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
+                    (256, 5003, 96)):
+        q = _t(rng.standard_normal((b, d)).astype(np.float32))
+        v = _t(rng.standard_normal((n, d)).astype(np.float32))
+        q, v = q.to(cuda, dtype), v.to(cuda, dtype)
+        got = l2_distances(q, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, l2dist_ref(q, v), rtol=RTOL,
+                                   atol=1e-3)
+    # integers: every partial sum is exact in f32, so the two agree exactly
+    q = _t(rng.integers(0, 256, (37, 128)).astype(np.float32)).to(cuda)
+    v = _t(rng.integers(0, 256, (3001, 128)).astype(np.float32)).to(cuda)
+    if dtype == torch.float32:
+        assert torch.equal(l2_distances(q, v), l2dist_ref(q, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(25)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    for B, S, T, H, Hk, dh, causal in (
+            (2, 16, 16, 4, 2, 8, True), (1, 32, 32, 2, 2, 16, False),
+            (2, 100, 100, 6, 3, 64, True), (1, 24, 24, 4, 1, 8, True),
+            (1, 70, 130, 4, 2, 128, True), (1, 130, 70, 4, 4, 128, True),
+            (1, 257, 257, 8, 2, 128, False)):
+        q = _t(rng.standard_normal((B, S, H, dh)).astype(np.float32))
+        k = _t(rng.standard_normal((B, T, Hk, dh)).astype(np.float32))
+        v = _t(rng.standard_normal((B, T, Hk, dh)).astype(np.float32))
+        q, k, v = (x.to(cuda, dtype) for x in (q, k, v))
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        torch.testing.assert_close(
+            got.float(), flash_attn_ref(q, k, v, causal=causal).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_new_wrappers_reject_bad_inputs(cuda):
+    x = torch.zeros(1, 8, 4, 16, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(x, x[:, :, :3].contiguous(), x[:, :, :3].contiguous())
+    with pytest.raises(TypeError):
+        flash_attention(x, x.half(), x.half())
+    with pytest.raises(ValueError):
+        l2_distances(x[0, 0], x[0, 0, :, :8].contiguous())
+    with pytest.raises(TypeError):
+        l2_distances(x[0, 0], x[0, 0].double())
+    with pytest.raises(ValueError):
+        ops.pq_adc(torch.zeros(4, 8, dtype=torch.uint8, device=cuda),
+                   torch.zeros(4, 256, device=cuda))

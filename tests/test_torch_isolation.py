@@ -29,6 +29,8 @@ def test_imports_with_jax_and_repro_blocked():
         "sys.modules['jax'] = sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core.engine\n"
         "import repro_torch.kernels.pq_adc.ops\n"
+        "import repro_torch.kernels.l2dist.ops\n"
+        "import repro_torch.kernels.flash_attn.ops\n"
         "assert not [m for m, v in sys.modules.items() if v is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print('ok')\n")
