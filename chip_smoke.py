@@ -5,7 +5,7 @@
 
 From the root of a checkout, with one CUDA card:
 
-1. prints the card's name and power limit, builds the six CUDA kernels
+1. prints the card's name and power limit, builds the seven CUDA kernels
    from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, in
    parallel), prints the build time and each ``ptxas`` register/spill line;
 2. holds each kernel against its plain PyTorch version on the card at
@@ -34,7 +34,9 @@ From the root of a checkout, with one CUDA card:
    first top_n of a stable argsort of ``pq_adc``), ``l2_distances`` on the
    first ground-truth chunk, and ``flash_attention`` at Qwen3-0.6B's
    attention widths (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096,
-   causal, in bf16 and once in f32; each against its plain version;
+   causal, in bf16 and once in f32; each against its plain version; it
+   fails unless the bf16 call launched ``flash_attn_fwd_wgmma`` (tensor
+   cores) and the f32 call ``flash_attn_fwd`` (CUDA cores);
 6. holds each kernel against its plain version on the inputs its path
    gave it, and times kernel, plain version and (where one exists) a
    single PyTorch call computing the same function, with CUDA events,
@@ -71,6 +73,7 @@ QWEN3_ATTN = dict(H=16, Hk=8, dh=128)    # src/repro/configs/qwen3_0_6b.py
 ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
+FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
 KERNELS = {
     "adc_scan_batch": dict(route="cuda", source=PQ_SRC + "adc_scan_batch.cu",
                            replaces=PQ_TPU + "80"),
@@ -86,9 +89,11 @@ KERNELS = {
     "l2dist": dict(route="cuda",
                    source="src/repro_torch/kernels/l2dist/csrc/l2dist.cu",
                    replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "flash_attn_fwd_wgmma": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
     "flash_attn_fwd": dict(
-        route="cuda",
-        source="src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd.cu",
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
 }
 
@@ -252,7 +257,7 @@ def check_entry_kernels_small(dev: torch.device,
                 np.float32)).to(dev, dtype) for shape in (
                     (bsz, s, h, dh), (bsz, t, hk, dh), (bsz, t, hk, dh)))
             tol = FLASH_TOL[dtype]
-            check_tol(f"flash_attn_fwd {dtype} {(bsz, s, t, h, hk, dh)} "
+            check_tol(f"flash_attention {dtype} {(bsz, s, t, h, hk, dh)} "
                       f"causal={causal}",
                       flash_attention(q, k, v, causal=causal),
                       flash_attn_ref(q, k, v, causal=causal), tol, tol)
@@ -367,10 +372,19 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     dists = [ops.pq_adc(codes, luts[i]) for i in range(len(luts))]
     tops = [ops.pq_adc_topk(codes, luts[i], top_n) for i in range(len(luts))]
     d2 = l2_distances(q, chunk)
-    outs = {dtype: flash_attention(*qkv, causal=True)
-            for dtype, qkv in attn.items()}
+    outs, flash_ran = {}, {}
+    for dtype, qkv in attn.items():
+        before = dict(ops.LAUNCHES)
+        outs[dtype] = flash_attention(*qkv, causal=True)
+        flash_ran[dtype] = {name for name, c in ops.LAUNCHES.items()
+                            if c != before[name]}
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    for dtype, want in ((torch.bfloat16, "flash_attn_fwd_wgmma"),
+                        (torch.float32, "flash_attn_fwd")):
+        if flash_ran[dtype] != {want}:
+            raise AssertionError(f"flash_attention in {dtype} launched "
+                                 f"{sorted(flash_ran[dtype])}, not {want}")
 
     for i, (d, (tv, ti)) in enumerate(zip(dists, tops)):
         check_close(f"adc_scan query {i} at N={len(codes)}", d,
@@ -383,7 +397,7 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
               l2dist_ref(q, chunk), RTOL, L2_ATOL)
     for dtype, qkv in attn.items():
         tol = FLASH_TOL[dtype]
-        check_tol(f"flash_attn_fwd {dtype} at the Qwen3-0.6B shape",
+        check_tol(f"flash_attention {dtype} at the Qwen3-0.6B shape",
                   outs[dtype], flash_attn_ref(*qkv, causal=True), tol, tol)
     log(f"entry points at full width vs plain: ok; pq_adc_topk ids == "
         f"stable argsort of pq_adc for {len(luts)} queries; "
@@ -391,7 +405,8 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     return launches, {"adc_scan": (codes, luts[0]),
                       "adc_scan_topk": (codes, luts[0], top_n),
                       "l2dist": (q, chunk),
-                      "flash_attn_fwd": attn[torch.bfloat16]}
+                      "flash_attn_fwd_wgmma": attn[torch.bfloat16],
+                      "flash_attn_fwd": attn[torch.float32]}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -502,32 +517,37 @@ def measure_entry(calls) -> list:
         **bound((b * d + nv * d + b * nv) * 4, 2 * b * nv * d)))
     del norms
 
-    q, k, v = calls["flash_attn_fwd"]
-    bsz, s, h, dh = q.shape
-    t = k.shape[1]
-    plain = flash_attn_ref(q, k, v, causal=True)
-    tol = FLASH_TOL[q.dtype]
-    err = check_tol("flash_attn_fwd", flash_attention(q, k, v, causal=True),
-                    plain, tol, tol)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # bf16 on the tensor cores, f32 on the CUDA cores (flash_kernel's rule)
+    for name, peak in (("flash_attn_fwd_wgmma", BF16_FLOPS),
+                       ("flash_attn_fwd", F32_FLOPS)):
+        q, k, v = calls[name]
+        bsz, s, h, dh = q.shape
+        t = k.shape[1]
+        plain = flash_attn_ref(q, k, v, causal=True)
+        tol = FLASH_TOL[q.dtype]
+        err = check_tol(f"{name} ({q.dtype})",
+                        flash_attention(q, k, v, causal=True), plain, tol,
+                        tol)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    check_tol("scaled_dot_product_attention yardstick",
-              sdpa().transpose(1, 2), plain, tol, tol)
-    del plain
-    pairs = sum(min(i + 1, t) for i in range(s))       # unmasked (s, t)
-    out.append(dict(
-        name="flash_attn_fwd",
-        shape=dict(B=bsz, S=s, T=t, H=h, Hk=k.shape[2], dh=dh,
-                   dtype=str(q.dtype), causal=True),
-        max_abs_err=err,
-        ms=gpu_ms(lambda: flash_attention(q, k, v, causal=True), 10),
-        plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=True), 3),
-        library_ms=gpu_ms(sdpa, 10),
-        **bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                4 * bsz * h * dh * pairs, peak=BF16_FLOPS)))
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        check_tol(f"scaled_dot_product_attention yardstick ({q.dtype})",
+                  sdpa().transpose(1, 2), plain, tol, tol)
+        del plain
+        pairs = sum(min(i + 1, t) for i in range(s))       # unmasked (s, t)
+        out.append(dict(
+            name=name,
+            shape=dict(B=bsz, S=s, T=t, H=h, Hk=k.shape[2], dh=dh,
+                       dtype=str(q.dtype), causal=True),
+            max_abs_err=err,
+            ms=gpu_ms(lambda: flash_attention(q, k, v, causal=True), 10),
+            plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=True), 3),
+            library_ms=gpu_ms(sdpa, 10),
+            **bound((2 * q.numel() + k.numel() + v.numel())
+                    * q.element_size(), 4 * bsz * h * dh * pairs,
+                    peak=peak)))
     return out
 
 
@@ -660,7 +680,8 @@ def main() -> int:
 
     entry_launches, entry_calls = drive_entry_points(
         index, cfg.top_n, data, queries, args.seed)
-    for name in ("adc_scan", "adc_scan_topk", "l2dist", "flash_attn_fwd"):
+    for name in ("adc_scan", "adc_scan_topk", "l2dist",
+                 "flash_attn_fwd_wgmma", "flash_attn_fwd"):
         if entry_launches[name] < 1:
             raise AssertionError(f"the entry points never launched {name}")
 
@@ -672,6 +693,8 @@ def main() -> int:
                 "adc_scan": entry_launches["adc_scan"],
                 "adc_scan_topk": entry_launches["adc_scan_topk"],
                 "l2dist": gt_launches["l2dist"],
+                "flash_attn_fwd_wgmma":
+                    entry_launches["flash_attn_fwd_wgmma"],
                 "flash_attn_fwd": entry_launches["flash_attn_fwd"]}
     kernels = []
     for r in rows:

@@ -23,6 +23,9 @@ and add are contracted unless the source writes ``__fmaf_rn``.
   would give); their epilogues (``|q|^2 - 2 q.v + |v|^2``, the softmax
   rescaling, the final division) round each step, as the plain versions
   do.
+* ``flash_attn_fwd_wgmma``: its products run on the tensor cores (bf16
+  in, f32 sums, in the tensor cores' order); the softmax is written out
+  step by step in base 2 (``ex2.approx``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ SOURCES = {
     "adc_scan_topk": "pq_adc",
     "l2dist": "l2dist",
     "flash_attn_fwd": "flash_attn",
+    "flash_attn_fwd_wgmma": "flash_attn",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

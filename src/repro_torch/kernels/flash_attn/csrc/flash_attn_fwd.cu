@@ -17,8 +17,11 @@
 // widths (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096, causal, the two
 // products are 4*S*T*dh*H/2 = 68.7 GFLOP: 0.07 ms at the dense bf16
 // tensor-core rate (989 TFLOP/s), 1.0 ms at the f32 CUDA-core rate this
-// form uses; its bytes (q, k, v, o: 50 MB in bf16) take 0.015 ms.
-// wgmma on bf16 tiles is the later step toward the tensor-core bound.
+// form uses; its bytes (q, k, v, o: 50 MB in bf16) take 0.015 ms.  bf16
+// at dh 64 or 128 runs on the tensor cores instead
+// (flash_attn_fwd_wgmma.cu; flash_attn/ops.py::flash_kernel): this kernel
+// serves f32, where TF32 products would break the f32 tolerance, and bf16
+// of other head widths.
 //
 // Design: the TPU grid (B, Hk, G, S/bq, T/bk) walks KV blocks in order on
 // one core and carries (m, l, acc) in VMEM between grid steps.  Hopper

@@ -1,16 +1,22 @@
-"""Wrapper of the flash-attention forward kernel.
+"""Wrapper of the flash-attention forward kernels.
 
-One kernel, written in CUDA C++ for ``sm_90a``: ``flash_attn_fwd``
-(``csrc/flash_attn_fwd.cu``), the port of the Pallas
-``flash_attention_fwd``; plain version ``ref.flash_attn_ref``.  The
-wrapper keeps the JAX package's layout — q (B, S, H, dh), k and v
-(B, T, Hk, dh) — and runs the plain version when its tensors lie on the
-CPU.  On CUDA tensors it launches the kernel, or raises: it checks device,
-dtype, shape and contiguity first and the ``cudaError_t`` after, allocates
-the output with ``torch.empty``, launches on the current stream and counts
-the launch in ``LAUNCHES["flash_attn_fwd"]``
-(``repro_torch.kernels.launch``).  Ragged S and T need no padding: the
-kernel masks its edge tiles.
+Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
+``flash_attention_fwd``; plain version ``ref.flash_attn_ref``:
+
+* ``flash_attn_fwd_wgmma`` (``csrc/flash_attn_fwd_wgmma.cu``): bf16 on
+  the tensor cores (``wgmma``, TMA), for dh 64 or 128;
+* ``flash_attn_fwd`` (``csrc/flash_attn_fwd.cu``): f32 or bf16 on the CUDA
+  cores, for every other case: f32 (TF32 products would break the f32
+  tolerance) and bf16 of another head width.
+
+:func:`flash_kernel` states that rule.  The wrapper keeps the JAX
+package's layout — q (B, S, H, dh), k and v (B, T, Hk, dh) — and runs the
+plain version when its tensors lie on the CPU.  On CUDA tensors it
+launches the kernel the rule names, or raises: it checks device, dtype,
+shape and contiguity first and the ``cudaError_t`` after, allocates the
+output with ``torch.empty``, launches on the current stream and counts
+the launch in ``LAUNCHES[<kernel name>]`` (``repro_torch.kernels.launch``).
+Ragged S and T need no padding: the kernels mask their edge tiles.
 """
 
 from __future__ import annotations
@@ -25,6 +31,17 @@ from repro_torch.kernels.launch import check, launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_DH = 128                   # flash_attn_fwd.cu: kMaxDh
+_WGMMA_DH = (64, 128)           # flash_attn_fwd_wgmma.cu: its head widths
+
+
+def flash_kernel(dtype: torch.dtype, dh: int, aligned16: bool = True) -> str:
+    """The kernel that computes attention for inputs of ``dtype`` and head
+    width ``dh``: ``flash_attn_fwd_wgmma`` for bf16 with dh 64 or 128
+    whose q, k and v start on 16-byte boundaries (its TMA loads need it),
+    ``flash_attn_fwd`` for everything else."""
+    if dtype == torch.bfloat16 and dh in _WGMMA_DH and aligned16:
+        return "flash_attn_fwd_wgmma"
+    return "flash_attn_fwd"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -51,10 +68,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if t == 0:
         raise ValueError("attention over zero keys")
     out = torch.empty_like(q)
-    if b and s and h:
-        launch("flash_attn_fwd", dev, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), b, s, t, h, hk, dh,
-               int(q.dtype == torch.bfloat16),
-               scale if scale is not None else 1.0 / math.sqrt(dh),
-               int(causal))
+    if not (b and s and h):
+        return out
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    name = flash_kernel(q.dtype, dh, all(p % 16 == 0 for p in ptrs[:3]))
+    if name == "flash_attn_fwd_wgmma":
+        launch(name, dev, *ptrs, b, s, t, h, hk, dh, scale, int(causal))
+    else:
+        launch(name, dev, *ptrs, b, s, t, h, hk, dh,
+               int(q.dtype == torch.bfloat16), scale, int(causal))
     return out

@@ -29,7 +29,7 @@ package (DESIGN.md §2).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +41,9 @@ from repro_torch.kernels.pq_adc.ref import (build_luts_ref, fma_f32,
 
 _SMEM_MAX = 232448              # bytes of shared memory a block may use
 _MAX_QUERIES_PER_BLOCK = 8      # adc_scan_batch.cu: kMaxQ
+_DENSE_ROWS = 128               # adc_scan_batch.cu: rows a block's pass takes
+_DENSE_PAD = 4                  # adc_scan_batch.cu: floats after each LUT
+_BARRIER_BYTES = 16             # adc_scan_batch.cu: its static mbarrier
 _FUSED_BLOCK_S = 2048           # candidate slots per fused-kernel block
 _TOPK_BLOCK_N = 2048            # rows per adc_scan_topk block (the TPU's)
 _INV255 = 1.0 / 255.0           # rounds to the float32 XLA folds `/ 255.0`
@@ -119,6 +122,40 @@ def pq_adc_topk(codes: torch.Tensor, lut: torch.Tensor, topk: int
 
 
 # --------------------------------------------------------------- dense scan
+class DensePlan(NamedTuple):
+    """Launch shape of ``adc_scan_batch``: the queries split into ``tiles``
+    tiles of ``q_max`` or ``q_max - 1`` queries (tile t holds queries
+    ``b*t//tiles .. b*(t+1)//tiles``); ``grid_y`` blocks walk the tiles,
+    ``grid_x`` blocks stride over the rows of each, 128 rows a pass of a
+    block (1,024 threads, eight on a row)."""
+    tiles: int
+    q_max: int
+    grid_x: int
+    grid_y: int
+
+
+def dense_plan(b: int, n: int, m: int, k: int, sms: int) -> DensePlan:
+    """The one-wave grid of ``adc_scan_batch`` for B queries over N rows of
+    M codes into K-entry LUTs on a card of ``sms`` SMs.
+
+    A block's LUT tile (``q_max`` LUTs of (M*K + 4)*4 bytes) takes most of
+    an SM's shared memory, so one block resides on an SM and the grid
+    holds at most ``sms`` blocks: ``grid_y`` = min(tiles, sms) of them walk
+    the tiles and ``grid_x`` <= sms // grid_y stride over the rows, at
+    least one pass of rows each.  Tiles are as few as the shared memory
+    allows and differ by at most one query (6 or 7 at B = 64, M = 32,
+    K = 256)."""
+    lut_bytes = (m * k + _DENSE_PAD) * 4
+    fit = min(_MAX_QUERIES_PER_BLOCK,
+              (_SMEM_MAX - _BARRIER_BYTES) // lut_bytes)
+    if fit < 1:
+        raise ValueError(f"one LUT of M={m}, K={k} exceeds shared memory")
+    tiles = -(-b // fit)
+    grid_y = min(tiles, sms)
+    grid_x = max(1, min(sms // grid_y, -(-n // _DENSE_ROWS)))
+    return DensePlan(tiles, -(-b // tiles), grid_x, grid_y)
+
+
 def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """codes (N, M) uint8, luts (B, M, K) f32 -> distances (B, N) f32."""
     if codes.device.type == "cpu":
@@ -131,19 +168,14 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     if lm != m or k > 256:
         raise ValueError(f"luts {tuple(luts.shape)} do not fit codes "
                          f"{tuple(codes.shape)} (K <= 256)")
-    qb = min(_MAX_QUERIES_PER_BLOCK, b, _SMEM_MAX // (m * k * 4))
-    if qb < 1:
-        raise ValueError(f"one LUT of M={m}, K={k} exceeds shared memory")
     out = torch.empty(b, n, dtype=torch.float32, device=dev)
     if n == 0 or b == 0:
         return out
-    # rows per block: at least two blocks per SM over the whole grid, each
-    # scanning 256..8192 rows (its LUT tile fill is amortised over them)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_block = -(-n // max(1, -(-2 * sms // -(-b // qb))))
-    per_block = min(8192, max(256, -(-per_block // 256) * 256))
+    plan = dense_plan(b, n, m, k, sms)
     launch("adc_scan_batch", dev, codes.data_ptr(), luts.data_ptr(),
-           out.data_ptr(), n, m, k, b, qb, per_block, _vec16(codes))
+           out.data_ptr(), n, m, k, b, plan.tiles, plan.grid_x, plan.grid_y,
+           _vec16(codes))
     return out
 
 

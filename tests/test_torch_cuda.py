@@ -5,12 +5,13 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerances: ADC distances to rtol 1e-5 (M f32 terms; in fact the
-kernels repeat the plain versions' operations in order and agree to the
-bit), ids exactly; exact L2 rtol 1e-5 with atol 1e-3 (D products summed in
+Tolerances: the dense ADC scan bit for bit, other ADC distances to rtol
+1e-5 (M f32 terms; in fact the kernels repeat the plain versions'
+operations in order and agree to the bit), ids exactly; exact L2 rtol 1e-5 with atol 1e-3 (D products summed in
 another order than cuBLAS's, on values of size D); flash attention 2e-5
 in f32 (an online softmax against a plain one) and 5e-2 in bf16 (the
-output's one rounding to bf16 may fall on either side).  TF32 is off for
+output's one rounding to bf16 may fall on either side; the tensor-core
+kernel also rounds P to bf16 before the second product).  TF32 is off for
 the plain versions' products.
 """
 
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import launch
 from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
 from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
 from repro_torch.kernels.pq_adc import ops, ref
@@ -51,17 +53,26 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [8, 32])
-def test_cuda_dense_kernel_matches_plain(cuda, m):
-    rng = np.random.default_rng(21)
-    for n, b in ((1, 1), (777, 64), (9000, 64), (300_001, 5)):
-        codes = _t(_codes(rng, n, m)).to(cuda)
-        luts = _t(rng.random((b, m, 256)).astype(np.float32)).to(cuda)
-        got = ops.pq_adc_batch(codes, luts)
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(),
-                                   ref.pq_adc_batch_ref(codes, luts).cpu(),
-                                   rtol=RTOL)
+@pytest.mark.parametrize("b,n,m,k", [
+    (64, 32_768, 32, 256),     # the dense window's shape on the main path
+    (1, 1, 8, 256), (1, 1, 32, 256), (64, 777, 8, 256), (64, 777, 32, 256),
+    (1, 777, 32, 256), (64, 9000, 8, 256), (64, 9000, 32, 256),
+    (5, 300_001, 8, 256), (5, 300_001, 32, 256), (9, 300_001, 32, 256),
+    (9, 5, 8, 256),
+    (130, 3001, 32, 256),      # more tiles than one per block of a column
+    (9, 5000, 3, 255),         # M*K*4 off 16 bytes: the 4-byte cp.async fill
+])
+def test_cuda_dense_kernel_matches_plain(cuda, b, n, m, k):
+    """One wave, balanced query tiles, asynchronous LUT fill: the
+    distances keep the plain version's adds in order, bit for bit."""
+    rng = np.random.default_rng(26)
+    codes = _t(rng.integers(0, k, (n, m)).astype(np.uint8)).to(cuda)
+    luts = _t(rng.standard_normal((b, m, k)).astype(np.float32)).to(cuda)
+    before = launch.LAUNCHES["adc_scan_batch"]
+    got = ops.pq_adc_batch(codes, luts)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["adc_scan_batch"] == before + 1
+    assert torch.equal(got, ref.pq_adc_batch_ref(codes, luts))
 
 
 @pytest.mark.gpu
@@ -161,6 +172,63 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype):
         torch.testing.assert_close(
             got.float(), flash_attn_ref(q, k, v, causal=causal).float(),
             rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_wgmma_matches_plain(cuda, dh, causal):
+    """The tensor-core kernel: S and T off the 128-row tiles, S != T both
+    ways, MQA (Hk = 1), G = 2, B = 2."""
+    rng = np.random.default_rng(27)
+    for B, S, T, H, Hk in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
+                           (1, 300, 70, 2, 1), (2, 1, 129, 2, 2),
+                           (1, 513, 513, 8, 4)):
+        q, k, v = (_t(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda, torch.bfloat16) for shape in (
+                (B, S, H, dh), (B, T, Hk, dh), (B, T, Hk, dh)))
+        before = dict(launch.LAUNCHES)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["flash_attn_fwd_wgmma"] == \
+            before["flash_attn_fwd_wgmma"] + 1
+        assert launch.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"]
+        torch.testing.assert_close(
+            got.float(), flash_attn_ref(q, k, v, causal=causal).float(),
+            rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,dh,offset,kernel", [
+    (torch.bfloat16, 128, 0, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 64, 0, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 96, 0, "flash_attn_fwd"),
+    (torch.bfloat16, 128, 1, "flash_attn_fwd"),     # not 16-byte aligned
+    (torch.float32, 128, 0, "flash_attn_fwd"),
+    (torch.float32, 64, 0, "flash_attn_fwd"),
+])
+def test_cuda_flash_dispatch_launches(cuda, dtype, dh, offset, kernel):
+    """f32 and bf16 of another head width (or start) run on the CUDA-core
+    kernel, bf16 at dh 64 or 128 on the tensor-core one; the launch count
+    of the kernel that ran, and only it, goes up."""
+    rng = np.random.default_rng(28)
+    shapes = ((1, 100, 4, dh), (1, 100, 2, dh), (1, 100, 2, dh))
+    qkv = []
+    for shape in shapes:
+        x = _t(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+        flat = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+        flat[offset:] = x.reshape(-1)
+        qkv.append(flat[offset:].view(shape))
+    before = dict(launch.LAUNCHES)
+    got = flash_attention(*qkv, causal=True)
+    torch.cuda.synchronize()
+    grew = {name for name, c in launch.LAUNCHES.items() if c != before[name]}
+    assert grew == {kernel}
+    assert launch.LAUNCHES[kernel] == before[kernel] + 1
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(),
+                               flash_attn_ref(*qkv, causal=True).float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu

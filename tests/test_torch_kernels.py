@@ -14,8 +14,10 @@ those of ``tests/test_kernels.py``.  Tolerances:
 * flash attention 2e-5 in f32 (an online softmax against a plain one)
   and 5e-2 in bf16 (one rounding of the output to bf16 on each side).
 
-The CUDA kernels against their plain versions are in
-``test_torch_cuda.py``.
+The launch planners that size the CUDA kernels (which flash kernel a
+dtype and head width go to; the dense scan's one-wave grid) are pure
+Python and are held here too.  The CUDA kernels against their plain
+versions are in ``test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -31,7 +33,8 @@ from repro.kernels.pq_adc import pq_adc as j_pq_adc
 from repro.kernels.pq_adc import pq_adc_topk as j_pq_adc_topk
 from repro_torch.core.engine import ground_truth
 from repro_torch.kernels import launch
-from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
+                                            flash_kernel)
 from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
 from repro_torch.kernels.pq_adc import ops, ref
 
@@ -232,3 +235,66 @@ def test_new_wrappers_run_plain_versions_on_cpu_tensors():
     assert torch.equal(flash_attention(x, x[:, :, :1], x[:, :, :1]),
                        flash_attn_ref(x, x[:, :, :1], x[:, :, :1]))
     assert launch.LAUNCHES == before
+
+
+# ------------------------------------------------------- launch planners
+@pytest.mark.parametrize("dtype,dh,aligned,kernel", [
+    (torch.bfloat16, 128, True, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 64, True, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 96, True, "flash_attn_fwd"),
+    (torch.bfloat16, 32, True, "flash_attn_fwd"),
+    (torch.bfloat16, 128, False, "flash_attn_fwd"),
+    (torch.float32, 128, True, "flash_attn_fwd"),
+    (torch.float32, 64, True, "flash_attn_fwd"),
+])
+def test_flash_kernel_rule(dtype, dh, aligned, kernel):
+    """bf16 at dh 64 or 128 goes to the tensor-core kernel; f32 (TF32
+    would break its tolerance), other head widths and inputs off 16-byte
+    boundaries to the CUDA-core one."""
+    assert flash_kernel(dtype, dh, aligned) == kernel
+    assert kernel in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("b,n,m,k,sms", [
+    (64, 32_768, 32, 256, 132),      # the dense window on an H100
+    (1, 777, 32, 256, 132),
+    (9, 300_001, 32, 256, 132),
+    (9, 5, 8, 256, 132),
+    (130, 3001, 32, 256, 132),
+    (1000, 10, 32, 256, 132),        # more tiles than SMs
+    (64, 1 << 21, 8, 256, 132),
+    (64, 100, 16, 16, 4),
+    (3, 1, 1, 1, 1),
+])
+def test_dense_plan_one_wave_every_row_once(b, n, m, k, sms):
+    """The dense grid: at most one block per SM, a LUT tile within 232,448
+    bytes of shared memory (each LUT padded by 4 floats, and the block's
+    mbarrier), query tiles that differ by at most one, and the kernel's
+    loops (block (x, y) takes tiles y, y + grid_y, ... and rows x*P + i,
+    x*P + i + grid_x*P, ... for i < P = 128 rows a pass) scan every
+    (tile, row) once."""
+    plan = ops.dense_plan(b, n, m, k, sms)
+    assert plan.grid_x * plan.grid_y <= sms
+    assert 1 <= plan.q_max <= 8
+    assert plan.q_max * (m * k + 4) * 4 + 16 <= 232_448
+    sizes = [b * (t + 1) // plan.tiles - b * t // plan.tiles
+             for t in range(plan.tiles)]
+    assert sum(sizes) == b and min(sizes) >= 1
+    assert max(sizes) == plan.q_max and max(sizes) - min(sizes) <= 1
+    rows = 128
+    seen = np.zeros((plan.tiles, n), np.int64)
+    for y in range(plan.grid_y):
+        for tile in range(y, plan.tiles, plan.grid_y):
+            for x in range(plan.grid_x):
+                for start in range(x * rows, n, plan.grid_x * rows):
+                    seen[tile, start:start + rows] += 1
+    assert (seen == 1).all()
+
+
+def test_dense_plan_balances_the_serving_window():
+    """B = 64 at M = 32, K = 256: ten tiles of 6 or 7 queries (not nine of
+    7 and one of 1), 13 x 10 blocks on 132 SMs."""
+    plan = ops.dense_plan(64, 32_768, 32, 256, 132)
+    assert plan == ops.DensePlan(tiles=10, q_max=7, grid_x=13, grid_y=10)
+    with pytest.raises(ValueError):
+        ops.dense_plan(1, 10, 256, 256, 132)    # one LUT over 227 KB
