@@ -1,40 +1,39 @@
 #!/usr/bin/env python3
-"""Times earlier versions of two CUDA kernels of ``repro_torch`` beside
-the current ones, on one card, in one process.
+"""Times the dense ADC scan and bf16 flash attention of other source trees
+beside this one's on one card, and reads each output against its plain
+version.
 
-    python3 scripts/kernel_ab.py --parent DIR [--old-variant NAME=FILE]
-                                 [--variant NAME=FILE] [--out FILE]
-                                 [--seed 0]
+    python3 scripts/kernel_ab.py --against DIR [--against DIR ...]
+                                 [--out FILE] [--seed 0]
 
-``DIR`` holds earlier sources of ``adc_scan_batch.cu`` and
-``flash_attn_fwd.cu``, with the C entry points and arguments they had
-before the dense planner and the tensor-core flash kernel
-(``adc_scan_batch(codes, luts, out, n, m, k, b, qb, rows_per_block,
-vec16, stream)``; ``flash_attn_fwd`` as today).  Each ``--old-variant``
-is another source with that older ``adc_scan_batch`` entry point (for
-example one that only fills its LUT tile); each ``--variant`` another
-source of one of today's kernels, ``adc_scan_batch`` or
-``flash_attn_fwd_wgmma``, with today's entry point (a draft to compare).
-Every source is built with the flags of ``repro_torch.kernels.build``.
+Each ``DIR`` is the root of another tree of this repo, or of its
+``src/repro_torch`` at least: an earlier commit unpacked with
+``git archive``, or a copy with one kernel source changed.  Its package
+is built and driven through its own public wrappers,
+``kernels.pq_adc.ops.pq_adc_batch`` and ``kernels.flash_attn.
+flash_attention``, so the trees may differ in launch shapes, C entry
+points and which kernel a call reaches.  Both packages are named
+``repro_torch``, so every tree runs in a process of its own, in turns:
+``DIR``, this tree, this tree, ``DIR``.
 
-At the shapes of the main path — the dense window's B = 64 LUTs over a
-32,768-row bucket of M = 32 codes, and flash attention at Qwen3-0.6B's
-widths (H 16, Hk 8, dh 128), S = T = 4096, bf16, causal — it checks each
-version against the plain one (ADC bit-equal, flash within 5e-2), then
-times them with CUDA events in turns (earlier, current, current, earlier;
-each variant in turns with the current kernel) beside the one PyTorch
-call that computes the same function
-(``embedding_bag``, ``scaled_dot_product_attention``).  It prints the
-card's name and power limit and one JSON object, which ``--out`` also
-writes.
+Every process makes the same inputs from ``--seed``: the dense window's
+B = 64 LUTs over a 32,768-row bucket of M = 32 codes, and flash
+attention at Qwen3-0.6B's widths (H 16, Hk 8, dh 128), B = 1,
+S = T = 4096, bf16, causal.  It reports the device time of each call
+(``chip_smoke.gpu_ms``), the kernels the call launched, whether the dense
+output is bit-equal to ``pq_adc_batch_ref``, and the flash output's max
+abs error, its largest row-relative error and whether ``chip_smoke``'s
+bf16 check accepts it against ``flash_attn_ref``.  This tree's processes
+also time the one PyTorch call for each function (``embedding_bag``,
+``scaled_dot_product_attention``).  A tree whose process fails is
+reported with its error, and the others still run.  Prints the card's
+name and power limit, and one JSON object, which ``--out`` also writes.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import math
 import subprocess
 import sys
 from pathlib import Path
@@ -43,204 +42,112 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-from repro_torch.kernels import build, launch  # noqa: E402
-from repro_torch.kernels.flash_attn import (  # noqa: E402
-    flash_attention, flash_attn_ref)
-from repro_torch.kernels.pq_adc import ops, ref  # noqa: E402
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-OLD_DENSE = (_P, _P, _P) + (_I,) * 7 + (_P,)
-OLD_FLASH = (_P,) * 4 + (_I,) * 7 + (_F, _I, _P)
-# today's entry points
-ENTRIES = {"adc_scan_batch": launch._SIGNATURES["adc_scan_batch"],
-           "flash_attn_fwd_wgmma": launch._SIGNATURES["flash_attn_fwd_wgmma"]}
+B, N, M, K = 64, 32_768, 32, 256                 # the dense window
+ATTN = dict(S=4096, H=16, Hk=8, dh=128)          # Qwen3-0.6B's attention
 
 
-def compile_lib(src: Path, tag: str) -> ctypes.CDLL:
-    out = build.BUILD_DIR / f"ab-{tag}.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                          str(src)], capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}"
-                           f"{res.stderr}")
-    for line in (res.stdout + res.stderr).splitlines():
-        if "registers" in line or "spill" in line or "arning" in line:
-            print(f"  ptxas {tag}: {line.strip()}", flush=True)
-    return ctypes.CDLL(str(out))
-
-
-def entry(lib: ctypes.CDLL, name: str, argtypes):
-    fn = getattr(lib, name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def checked(fn, *args):
-    def call():
-        err = fn(*args, stream())
-        if err:
-            raise RuntimeError(f"launch failed: cudaError_t {err}")
-    return call
-
-
-def gpu_ms(fn, reps: int) -> float:
-    fn()
-    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def turns(old, new, reps: int) -> dict:
-    """earlier, current, current, earlier; each the mean of ``reps``"""
-    o1, n1, n2, o2 = (gpu_ms(f, reps) for f in (old, new, new, old))
-    return {"old_ms": [o1, o2], "new_ms": [n1, n2]}
-
-
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def dense(parent: Path, old_variants: dict, variants: dict,
-          rng: np.random.Generator) -> dict:
+def measure(tree: Path, seed: int) -> dict:
+    """One tree's readings, in this process."""
+    sys.path[:0] = [str(tree / "src"), str(ROOT)]
+    import chip_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+    from repro_torch.kernels.pq_adc import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build()
     dev = torch.device("cuda")
-    b, n, m, k = 64, 32_768, 32, 256
-    codes = torch.from_numpy(rng.integers(0, 256, (n, m)).astype(
+    F = torch.nn.functional
+    yardsticks = tree.resolve() == ROOT
+
+    def ran(fn):
+        before = dict(ops.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, sorted(n for n, c in ops.LAUNCHES.items()
+                           if c != before[n])
+
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, K, (N, M)).astype(
         np.uint8)).to(dev)
-    luts = torch.from_numpy(rng.random((b, m, k)).astype(np.float32)).to(dev)
-    want = ref.pq_adc_batch_ref(codes, luts)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # the earlier wrapper's launch shape
-    qb = min(8, b, 232448 // (m * k * 4))
-    per_block = -(-n // max(1, -(-2 * sms // -(-b // qb))))
-    per_block = min(8192, max(256, -(-per_block // 256) * 256))
-    plan = ops.dense_plan(b, n, m, k, sms)
+    luts = torch.from_numpy(rng.random((B, M, K)).astype(np.float32)).to(dev)
+    out, launched = ran(lambda: ops.pq_adc_batch(codes, luts))
+    dense = dict(launched=launched, bit_equal=bool(torch.equal(
+        out, ref.pq_adc_batch_ref(codes, luts))),
+        ms=chip_smoke.gpu_ms(lambda: ops.pq_adc_batch(codes, luts), 200))
+    if yardsticks:
+        weight = luts.permute(1, 2, 0).reshape(M * K, B).contiguous()
+        idx = codes.long() + torch.arange(M, device=dev) * K
+        dense["embedding_bag_ms"] = chip_smoke.gpu_ms(
+            lambda: F.embedding_bag(idx, weight, mode="sum"), 200)
 
-    def old_call(lib, out):
-        return checked(entry(lib, "adc_scan_batch", OLD_DENSE),
-                       codes.data_ptr(), luts.data_ptr(), out.data_ptr(), n,
-                       m, k, b, qb, per_block, 1)
-
-    out_old = torch.empty(b, n, device=dev)
-    old = old_call(compile_lib(parent / "adc_scan_batch.cu",
-                               "parent-adc_scan_batch"), out_old)
-    old()
-    new_out = ops.pq_adc_batch(codes, luts)
-    torch.cuda.synchronize()
-    res = {"shape": dict(B=b, N=n, M=m, K=k), "old_plan": dict(
-        qb=qb, rows_per_block=per_block), "new_plan": plan._asdict(),
-        "old_bit_equal": bool(torch.equal(out_old, want)),
-        "new_bit_equal": bool(torch.equal(new_out, want))}
-    if not (res["old_bit_equal"] and res["new_bit_equal"]):
-        raise AssertionError(f"dense: not bit-equal to the plain version "
-                             f"{res}")
-    res.update(turns(old, lambda: ops.pq_adc_batch(codes, luts), 200))
-    weight = luts.permute(1, 2, 0).reshape(m * k, b).contiguous()
-    flat_idx = codes.long() + torch.arange(m, device=dev) * k
-    res["embedding_bag_ms"] = gpu_ms(lambda: torch.nn.functional.embedding_bag(
-        flat_idx, weight, mode="sum"), 200)
-    for name, path in old_variants.items():
-        lib = compile_lib(Path(path), f"old-variant-{name}")
-        res[f"{name}_ms"] = gpu_ms(old_call(lib, torch.empty(b, n,
-                                                             device=dev)), 200)
-    for name, lib in variants.items():
-        out = torch.empty(b, n, device=dev)
-        call = checked(entry(lib, "adc_scan_batch", ENTRIES["adc_scan_batch"]),
-                       codes.data_ptr(), luts.data_ptr(), out.data_ptr(), n,
-                       m, k, b, plan.tiles, plan.grid_x, plan.grid_y, 1)
-        call()
-        torch.cuda.synchronize()
-        res[f"{name}_bit_equal"] = bool(torch.equal(out, want))
-        t = turns(call, lambda: ops.pq_adc_batch(codes, luts), 200)
-        res[f"{name}_ms"], res[f"new_beside_{name}_ms"] = t["old_ms"], \
-            t["new_ms"]
-    return res
-
-
-def flash(parent: Path, variants: dict, seed: int) -> dict:
-    dev = torch.device("cuda")
-    bsz, s, h, hk, dh = 1, 4096, 16, 8, 128
     gen = torch.Generator(device=dev).manual_seed(seed)
+    s, h, hk, dh = ATTN["S"], ATTN["H"], ATTN["Hk"], ATTN["dh"]
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
-        torch.bfloat16) for shape in ((bsz, s, h, dh), (bsz, s, hk, dh),
-                                      (bsz, s, hk, dh)))
-    scale = 1.0 / math.sqrt(dh)
-    out_old = torch.empty_like(q)
-    old = checked(entry(compile_lib(parent / "flash_attn_fwd.cu",
-                                    "parent-flash_attn_fwd"),
-                        "flash_attn_fwd", OLD_FLASH),
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out_old.data_ptr(),
-                  bsz, s, s, h, hk, dh, 1, scale, 1)
-    old()
-    new_out = flash_attention(q, k, v, causal=True)
-    want = flash_attn_ref(q, k, v, causal=True).float()
-    torch.cuda.synchronize()
-    res = {"shape": dict(B=bsz, S=s, T=s, H=h, Hk=hk, dh=dh,
-                         dtype="bfloat16", causal=True),
-           "old_max_abs_err": float((out_old.float() - want).abs().max()),
-           "new_max_abs_err": float((new_out.float() - want).abs().max())}
-    if max(res["old_max_abs_err"], res["new_max_abs_err"]) > 5e-2:
-        raise AssertionError(f"flash: beyond 5e-2 of the plain version {res}")
-    res.update(turns(old, lambda: flash_attention(q, k, v, causal=True), 20))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    res["sdpa_ms"] = gpu_ms(lambda: torch.nn.functional.
-                            scaled_dot_product_attention(
-                                qt, kt, vt, is_causal=True, enable_gqa=True),
-                            20)
-    for name, lib in variants.items():
-        out = torch.empty_like(q)
-        call = checked(entry(lib, "flash_attn_fwd_wgmma",
-                             ENTRIES["flash_attn_fwd_wgmma"]),
-                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), bsz, s, s, h, hk, dh, scale, 1)
-        call()
-        torch.cuda.synchronize()
-        res[f"{name}_max_abs_err"] = float((out.float() - want).abs().max())
-        t = turns(call, lambda: flash_attention(q, k, v, causal=True), 20)
-        res[f"{name}_ms"], res[f"new_beside_{name}_ms"] = t["old_ms"], \
-            t["new_ms"]
-    return res
+        torch.bfloat16) for shape in ((1, s, h, dh), (1, s, hk, dh),
+                                      (1, s, hk, dh)))
+    out, launched = ran(lambda: flash_attention(q, k, v, causal=True))
+    want = flash_attn_ref(q, k, v, causal=True)
+    try:
+        chip_smoke.check_attn("flash bf16", out, want)
+        accepted = True
+    except AssertionError:
+        accepted = False
+    flash = dict(launched=launched,
+                 max_abs_err=float((out.float() - want.float()).abs().max()),
+                 row_rel_err=chip_smoke.row_rel_err(out, want),
+                 smoke_check_accepts=accepted,
+                 ms=chip_smoke.gpu_ms(
+                     lambda: flash_attention(q, k, v, causal=True), 20))
+    if yardsticks:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        flash["sdpa_ms"] = chip_smoke.gpu_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    return {"adc_scan_batch": dense, "flash_attn[bf16]": flash}
+
+
+def in_process(tree: Path, seed: int) -> dict:
+    res = subprocess.run([sys.executable, __file__, "--tree", str(tree),
+                          "--seed", str(seed)], capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode:
+        raise RuntimeError(f"{tree}: exit {res.returncode}\n"
+                           f"{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--old-variant", action="append", default=[],
-                    metavar="NAME=FILE")
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=FILE")
+    ap.add_argument("--against", action="append", type=Path, default=[],
+                    metavar="DIR")
+    ap.add_argument("--tree", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    if args.tree is not None:           # one tree's process
+        print(json.dumps(measure(args.tree, args.seed)))
+        return 0
+    if not args.against:
+        ap.error("give at least one --against DIR")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    build.build()
-    old_variants = dict(v.split("=", 1) for v in args.old_variant)
-    variants = {kernel: {} for kernel in ENTRIES}
-    for v in args.variant:
-        name, path = v.split("=", 1)
-        lib = compile_lib(Path(path), f"variant-{name}")
-        kernel = next(e for e in ENTRIES if hasattr(lib, e))
-        variants[kernel][name] = lib
     result = {"card": card, "device": torch.cuda.get_device_name(0),
-              "adc_scan_batch": dense(args.parent, old_variants,
-                                      variants["adc_scan_batch"],
-                                      np.random.default_rng(args.seed)),
-              "flash_attn_fwd[bf16]": flash(
-                  args.parent, variants["flash_attn_fwd_wgmma"], args.seed)}
+              "runs": []}
+    for other in args.against:
+        try:
+            turns = [in_process(t, args.seed)
+                     for t in (other, ROOT, ROOT, other)]
+            run = {"against": str(other), "other": [turns[0], turns[3]],
+                   "this": [turns[1], turns[2]]}
+        except RuntimeError as e:       # a tree whose launch fails
+            run = {"against": str(other), "error": str(e)}
+        result["runs"].append(run)
+        print(json.dumps(result["runs"][-1]), flush=True)
     text = json.dumps(result)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

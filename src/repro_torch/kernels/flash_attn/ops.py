@@ -4,7 +4,8 @@ Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 ``flash_attention_fwd``; plain version ``ref.flash_attn_ref``:
 
 * ``flash_attn_fwd_wgmma`` (``csrc/flash_attn_fwd_wgmma.cu``): bf16 on
-  the tensor cores (``wgmma``, TMA), for dh 64 or 128;
+  the tensor cores (``wgmma``, TMA), for dh 64 or 128 (q, k or v that
+  does not start on a 16-byte boundary is copied first);
 * ``flash_attn_fwd`` (``csrc/flash_attn_fwd.cu``): f32 or bf16 on the CUDA
   cores, for every other case: f32 (TF32 products would break the f32
   tolerance) and bf16 of another head width.
@@ -34,12 +35,11 @@ _MAX_DH = 128                   # flash_attn_fwd.cu: kMaxDh
 _WGMMA_DH = (64, 128)           # flash_attn_fwd_wgmma.cu: its head widths
 
 
-def flash_kernel(dtype: torch.dtype, dh: int, aligned16: bool = True) -> str:
+def flash_kernel(dtype: torch.dtype, dh: int) -> str:
     """The kernel that computes attention for inputs of ``dtype`` and head
-    width ``dh``: ``flash_attn_fwd_wgmma`` for bf16 with dh 64 or 128
-    whose q, k and v start on 16-byte boundaries (its TMA loads need it),
+    width ``dh``: ``flash_attn_fwd_wgmma`` for bf16 with dh 64 or 128,
     ``flash_attn_fwd`` for everything else."""
-    if dtype == torch.bfloat16 and dh in _WGMMA_DH and aligned16:
+    if dtype == torch.bfloat16 and dh in _WGMMA_DH:
         return "flash_attn_fwd_wgmma"
     return "flash_attn_fwd"
 
@@ -70,9 +70,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if not (b and s and h):
         return out
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    name = flash_kernel(q.dtype, dh, all(p % 16 == 0 for p in ptrs[:3]))
+    name = flash_kernel(q.dtype, dh)
+    if name == "flash_attn_fwd_wgmma":
+        # its TMA loads start on 16-byte boundaries: a view that starts
+        # elsewhere is copied into a fresh (aligned) buffer first
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (q, k, v))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if name == "flash_attn_fwd_wgmma":
         launch(name, dev, *ptrs, b, s, t, h, hk, dh, scale, int(causal))
     else:

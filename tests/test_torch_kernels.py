@@ -238,20 +238,20 @@ def test_new_wrappers_run_plain_versions_on_cpu_tensors():
 
 
 # ------------------------------------------------------- launch planners
-@pytest.mark.parametrize("dtype,dh,aligned,kernel", [
-    (torch.bfloat16, 128, True, "flash_attn_fwd_wgmma"),
-    (torch.bfloat16, 64, True, "flash_attn_fwd_wgmma"),
-    (torch.bfloat16, 96, True, "flash_attn_fwd"),
-    (torch.bfloat16, 32, True, "flash_attn_fwd"),
-    (torch.bfloat16, 128, False, "flash_attn_fwd"),
-    (torch.float32, 128, True, "flash_attn_fwd"),
-    (torch.float32, 64, True, "flash_attn_fwd"),
+@pytest.mark.parametrize("dtype,dh,kernel", [
+    (torch.bfloat16, 128, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 64, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 96, "flash_attn_fwd"),
+    (torch.bfloat16, 32, "flash_attn_fwd"),
+    (torch.bfloat16, 8, "flash_attn_fwd"),
+    (torch.float32, 128, "flash_attn_fwd"),
+    (torch.float32, 64, "flash_attn_fwd"),
 ])
-def test_flash_kernel_rule(dtype, dh, aligned, kernel):
+def test_flash_kernel_rule(dtype, dh, kernel):
     """bf16 at dh 64 or 128 goes to the tensor-core kernel; f32 (TF32
-    would break its tolerance), other head widths and inputs off 16-byte
-    boundaries to the CUDA-core one."""
-    assert flash_kernel(dtype, dh, aligned) == kernel
+    would break its tolerance) and other head widths to the CUDA-core
+    one."""
+    assert flash_kernel(dtype, dh) == kernel
     assert kernel in launch.LAUNCHES
 
 
