@@ -5,23 +5,25 @@
 
 From the root of a checkout, with one CUDA card:
 
-1. prints the card's name and power limit, builds the seven CUDA kernels
+1. prints the card's name and power limit, builds the eight CUDA kernels
    from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, in
    parallel), prints the build time and each ``ptxas`` register/spill line;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes: the ADC scans at ragged N, B = 1 and 64, S not a multiple
    of the block, all-pad rows, a mostly-padding last block, N < topk,
-   constructed ties, M in {8, 32}; exact L2 and flash attention in f32 and
-   bf16, ragged sizes, MQA (Hk = 1), causal and not, S != T;
+   constructed ties, M in {8, 32}; exact L2 in f32 (both kernels of
+   ``l2_kernel``'s rule: d in {1, 4, 36, 96, 100, 128}, a view off a
+   16-byte boundary, integer data bit for bit) and bf16; flash attention
+   in f32 and bf16, ragged sizes, MQA (Hk = 1), causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
    ``FusionANNSIndex.build``, and prints the cuts of scale on a
    ``reduced`` line with each build stage's time;
-4. computes exact ground truth through the ``l2dist`` kernel
-   (``ground_truth``, chunks of 2^20 rows) and once more through its plain
-   version, and fails unless the ids are identical for every query (on
-   uint8 data every partial sum is an integer below 2^24, so both are
-   exact); serves ``--queries`` queries through three paths — the dense
+4. computes exact ground truth through the ``l2dist_wgmma`` kernel
+   (``ground_truth``, chunks of 2^20 rows, f32 at d = 128) and once more
+   through its plain version, and fails unless it launched that kernel and
+   the ids are identical for every query (on uint8 data every partial sum
+   is an integer below 2^24, so both are exact); serves ``--queries`` queries through three paths — the dense
    window (``window=64``), ``fused=True`` and ``fused=True,
    lut_int8=True`` — each with the launch counts set to 0 just before it
    and read just after, and prints recall@10 against the ground truth, QPS
@@ -32,11 +34,13 @@ From the root of a checkout, with one CUDA card:
    before: ``pq_adc`` and ``pq_adc_topk(topk=top_n)`` over the index's
    codes with the LUTs of the first 8 queries (top-k ids must equal the
    first top_n of a stable argsort of ``pq_adc``), ``l2_distances`` on the
-   first ground-truth chunk, and ``flash_attention`` at Qwen3-0.6B's
-   attention widths (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096,
-   causal, in bf16 and once in f32; each against its plain version; it
-   fails unless the bf16 call launched ``flash_attn_fwd_wgmma`` (tensor
-   cores) and the f32 call ``flash_attn_fwd`` (CUDA cores);
+   first ground-truth chunk in f32 and once in bf16, and
+   ``flash_attention`` at Qwen3-0.6B's attention widths (H = 16, Hk = 8,
+   dh = 128), B = 1, S = T = 4096, causal, in bf16 and once in f32; each
+   against its plain version; it fails unless the f32 L2 call launched
+   ``l2dist_wgmma`` and the bf16 one ``l2dist``, and the bf16 flash call
+   ``flash_attn_fwd_wgmma`` (tensor cores) and the f32 one
+   ``flash_attn_fwd`` (CUDA cores);
 6. holds each kernel against its plain version on the inputs its path
    gave it, and times kernel, plain version and (where one exists) a
    single PyTorch call computing the same function, with CUDA events,
@@ -67,6 +71,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # float32 outside the tensor cores
+TF32_FLOPS = 495e12              # dense TF32 on the tensor cores
 BF16_FLOPS = 989e12              # dense bf16 on the tensor cores
 RTOL = 1e-5                      # M f32 terms summed in another order
 L2_ATOL = 1e-3                   # D products summed in another order
@@ -84,6 +89,7 @@ ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
+L2_SRC = "src/repro_torch/kernels/l2dist/csrc/"
 KERNELS = {
     "adc_scan_batch": dict(route="cuda", source=PQ_SRC + "adc_scan_batch.cu",
                            replaces=PQ_TPU + "80"),
@@ -96,8 +102,9 @@ KERNELS = {
                      replaces=PQ_TPU + "43"),
     "adc_scan_topk": dict(route="cuda", source=PQ_SRC + "adc_scan_topk.cu",
                           replaces=PQ_TPU + "133"),
-    "l2dist": dict(route="cuda",
-                   source="src/repro_torch/kernels/l2dist/csrc/l2dist.cu",
+    "l2dist_wgmma": dict(route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+                         replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist": dict(route="cuda", source=L2_SRC + "l2dist.cu",
                    replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "flash_attn_fwd_wgmma": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
@@ -245,10 +252,46 @@ def check_kernels_small(dev: torch.device, rng: np.random.Generator) -> None:
     torch.cuda.synchronize()
 
 
+def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
+    """Both exact-L2 kernels against the plain version: each call must
+    launch the kernel ``l2_kernel`` names, and only it."""
+    from repro_torch.kernels.l2dist import l2_distances, l2_kernel, l2dist_ref
+    from repro_torch.kernels.pq_adc import ops
+
+    def run(name, q, v, exact=False):
+        before = dict(ops.LAUNCHES)
+        got = l2_distances(q, v)
+        torch.cuda.synchronize()
+        ran = {k for k, c in ops.LAUNCHES.items() if c != before[k]}
+        want = l2_kernel(q.dtype, q.shape[1])
+        if ran != {want}:
+            raise AssertionError(f"{name} launched {sorted(ran)}, not {want}")
+        if exact and not torch.equal(got, l2dist_ref(q, v)):
+            raise AssertionError(f"{name}: not bit-equal on integer data")
+        check_tol(name, got, l2dist_ref(q, v), RTOL, L2_ATOL)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
+                        (256, 5003, 96), (1, 5003, 4), (130, 777, 36)):
+            run(f"l2dist {dtype} b{b} n{n} d{d}", normal(b, d).to(dtype),
+                normal(n, d).to(dtype))
+    # views off a 16-byte boundary, copied before the TMA loads
+    flat = normal(3 * 100 + 1)
+    run("l2dist f32 unaligned view", flat[1:].view(3, 100),
+        normal(777, 100))
+    # integer data: every partial sum is exact, so equal bit for bit
+    ints = [torch.from_numpy(rng.integers(0, 256, shape).astype(
+        np.float32)).to(dev) for shape in ((37, 128), (3001, 128))]
+    run("l2dist f32 integers", *ints, exact=True)
+
+
 def check_entry_kernels_small(dev: torch.device,
                               rng: np.random.Generator) -> None:
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
-    from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
     from repro_torch.kernels.pq_adc import ops, ref
     for m in (8, 32):
         # ragged N, N < topk, a mostly-padding last block (2048 + 7 rows),
@@ -273,15 +316,8 @@ def check_entry_kernels_small(dev: torch.device,
                 if not torch.equal(ki, pi):
                     raise AssertionError("adc_scan_topk ids differ on exact "
                                          "ties")
+    check_l2_small(dev, rng)
     for dtype in (torch.float32, torch.bfloat16):
-        for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
-                        (256, 5003, 96)):
-            q = torch.from_numpy(rng.standard_normal((b, d)).astype(
-                np.float32)).to(dev, dtype)
-            v = torch.from_numpy(rng.standard_normal((n, d)).astype(
-                np.float32)).to(dev, dtype)
-            check_tol(f"l2dist {dtype} b{b} n{n} d{d}", l2_distances(q, v),
-                      l2dist_ref(q, v), RTOL, L2_ATOL)
         # MQA (Hk = 1), causal and not, S != T both ways, ragged tiles
         for bsz, s, t, h, hk, dh, causal in (
                 (2, 16, 16, 4, 2, 8, True), (1, 32, 32, 2, 2, 16, False),
@@ -400,12 +436,19 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
                              (1, s, QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"]),
                              (1, s, QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"])))
         for dtype in (torch.bfloat16, torch.float32)}
+    q16, chunk16 = q.bfloat16(), chunk.bfloat16()
     torch.cuda.synchronize()
 
     ops.reset_launches()
     dists = [ops.pq_adc(codes, luts[i]) for i in range(len(luts))]
     tops = [ops.pq_adc_topk(codes, luts[i], top_n) for i in range(len(luts))]
-    d2 = l2_distances(q, chunk)
+    d2, l2_ran = {}, {}
+    for dtype, qv in ((torch.float32, (q, chunk)),
+                      (torch.bfloat16, (q16, chunk16))):
+        before = dict(ops.LAUNCHES)
+        d2[dtype] = l2_distances(*qv)
+        l2_ran[dtype] = {name for name, c in ops.LAUNCHES.items()
+                         if c != before[name]}
     outs, flash_ran = {}, {}
     for dtype, qkv in attn.items():
         before = dict(ops.LAUNCHES)
@@ -414,11 +457,15 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
                             if c != before[name]}
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    for dtype, want in ((torch.bfloat16, "flash_attn_fwd_wgmma"),
-                        (torch.float32, "flash_attn_fwd")):
-        if flash_ran[dtype] != {want}:
-            raise AssertionError(f"flash_attention in {dtype} launched "
-                                 f"{sorted(flash_ran[dtype])}, not {want}")
+    for what, ran, dtype, want in (
+            ("l2_distances", l2_ran, torch.float32, "l2dist_wgmma"),
+            ("l2_distances", l2_ran, torch.bfloat16, "l2dist"),
+            ("flash_attention", flash_ran, torch.bfloat16,
+             "flash_attn_fwd_wgmma"),
+            ("flash_attention", flash_ran, torch.float32, "flash_attn_fwd")):
+        if ran[dtype] != {want}:
+            raise AssertionError(f"{what} in {dtype} launched "
+                                 f"{sorted(ran[dtype])}, not {want}")
 
     for i, (d, (tv, ti)) in enumerate(zip(dists, tops)):
         check_close(f"adc_scan query {i} at N={len(codes)}", d,
@@ -427,8 +474,13 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         if not (torch.equal(ti.long(), order) and torch.equal(tv, d[order])):
             raise AssertionError(f"pq_adc_topk query {i}: not the first "
                                  f"{top_n} of a stable argsort of pq_adc")
-    check_tol("l2dist on the first ground-truth chunk", d2,
-              l2dist_ref(q, chunk), RTOL, L2_ATOL)
+    for dtype, qv in ((torch.float32, (q, chunk)),
+                      (torch.bfloat16, (q16, chunk16))):
+        err = check_tol(f"l2_distances {dtype} on the first ground-truth "
+                        f"chunk", d2[dtype], l2dist_ref(*qv), RTOL, L2_ATOL)
+        log(f"l2_distances {dtype} on the first ground-truth chunk: max abs "
+            f"error {err}")
+    del d2
     for dtype, qkv in attn.items():
         want = flash_attn_ref(*qkv, causal=True)
         err = check_attn(f"flash_attention {dtype} at the Qwen3-0.6B shape",
@@ -441,7 +493,8 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         f"launches={launches}")
     return launches, {"adc_scan": (codes, luts[0]),
                       "adc_scan_topk": (codes, luts[0], top_n),
-                      "l2dist": (q, chunk),
+                      "l2dist_wgmma": (q, chunk),
+                      "l2dist": (q16, chunk16),
                       "flash_attn_fwd_wgmma": attn[torch.bfloat16],
                       "flash_attn_fwd": attn[torch.float32]}
 
@@ -501,7 +554,7 @@ def measure(calls) -> list:
 
 
 def measure_entry(calls) -> list:
-    """Phase 6 for the four entry-point kernels, on phase 5's inputs."""
+    """Phase 6 for the entry-point kernels, on phase 5's inputs."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
     from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
     from repro_torch.kernels.pq_adc import ops, ref
@@ -538,21 +591,33 @@ def measure_entry(calls) -> list:
         library_ms=None,
         **bound(n * m + m * k * 4 + min(topk, n) * 8, n * m)))
 
-    q, v = calls["l2dist"]
-    (b, d), nv = q.shape, v.shape[0]
-    plain = l2dist_ref(q, v)
-    err = check_tol("l2dist", l2_distances(q, v), plain, RTOL, L2_ATOL)
-    norms = (q * q).sum(-1, keepdim=True) + (v * v).sum(-1)[None]
-    check_tol("addmm yardstick", torch.addmm(norms, q, v.T, alpha=-2),
-              plain, RTOL, L2_ATOL)
-    del plain
-    out.append(dict(
-        name="l2dist", shape=dict(B=b, N=nv, D=d), max_abs_err=err,
-        ms=gpu_ms(lambda: l2_distances(q, v), 10),
-        plain_ms=gpu_ms(lambda: l2dist_ref(q, v), 3),
-        library_ms=gpu_ms(lambda: torch.addmm(norms, q, v.T, alpha=-2), 10),
-        **bound((b * d + nv * d + b * nv) * 4, 2 * b * nv * d)))
-    del norms
+    # f32 on the tensor cores in 3xTF32 (three products each), bf16 on the
+    # CUDA cores (l2_kernel's rule); the output alone is B * N * 4 bytes
+    for name, peak, products in (("l2dist_wgmma", TF32_FLOPS, 3),
+                                 ("l2dist", F32_FLOPS, 1)):
+        q, v = calls[name]
+        (b, d), nv = q.shape, v.shape[0]
+        plain = l2dist_ref(q, v)
+        err = check_tol(f"{name} ({q.dtype})", l2_distances(q, v), plain,
+                        RTOL, L2_ATOL)
+        library_ms = None       # no one call takes bf16 and returns f32
+        if q.dtype == torch.float32:
+            norms = (q * q).sum(-1, keepdim=True) + (v * v).sum(-1)[None]
+            check_tol("addmm yardstick", torch.addmm(norms, q, v.T,
+                                                     alpha=-2),
+                      plain, RTOL, L2_ATOL)
+            library_ms = gpu_ms(lambda: torch.addmm(norms, q, v.T, alpha=-2),
+                                10)
+            del norms
+        del plain
+        out.append(dict(
+            name=name, shape=dict(B=b, N=nv, D=d, dtype=str(q.dtype)),
+            max_abs_err=err,
+            ms=gpu_ms(lambda: l2_distances(q, v), 10),
+            plain_ms=gpu_ms(lambda: l2dist_ref(q, v), 3),
+            library_ms=library_ms,
+            **bound((b * d + nv * d) * q.element_size() + b * nv * 4,
+                    products * 2 * b * nv * d, peak=peak)))
 
     # bf16 on the tensor cores, f32 on the CUDA cores (flash_kernel's rule)
     for name, peak in (("flash_attn_fwd_wgmma", BF16_FLOPS),
@@ -676,15 +741,16 @@ def main() -> int:
     gt = ground_truth(data, queries, 10)
     gt_launches = dict(ops.LAUNCHES)
     t_gt = time.perf_counter() - t
-    if gt_launches["l2dist"] < 1:
-        raise AssertionError("ground truth never launched l2dist")
+    if gt_launches["l2dist_wgmma"] < 1:
+        raise AssertionError("ground truth never launched l2dist_wgmma")
     t = time.perf_counter()
     gt_plain = ground_truth_plain(data, queries, 10)
     if not np.array_equal(gt, gt_plain):
         bad = int((gt != gt_plain).any(1).sum())
         raise AssertionError(f"ground truth ids differ from the plain "
                              f"version's on {bad} queries")
-    log(f"ground truth (l2dist kernel, chunks of 2^20 rows): {t_gt:.1f} s, "
+    log(f"ground truth (l2dist_wgmma kernel, chunks of 2^20 rows): "
+        f"{t_gt:.1f} s, "
         f"launches={gt_launches}; plain version "
         f"{time.perf_counter() - t:.1f} s; ids identical for all "
         f"{len(gt)} queries")
@@ -716,7 +782,7 @@ def main() -> int:
 
     entry_launches, entry_calls = drive_entry_points(
         index, cfg.top_n, data, queries, args.seed)
-    for name in ("adc_scan", "adc_scan_topk", "l2dist",
+    for name in ("adc_scan", "adc_scan_topk", "l2dist_wgmma", "l2dist",
                  "flash_attn_fwd_wgmma", "flash_attn_fwd"):
         if entry_launches[name] < 1:
             raise AssertionError(f"the entry points never launched {name}")
@@ -728,7 +794,8 @@ def main() -> int:
                     launches["fused_int8"]["adc_fused_topk"],
                 "adc_scan": entry_launches["adc_scan"],
                 "adc_scan_topk": entry_launches["adc_scan_topk"],
-                "l2dist": gt_launches["l2dist"],
+                "l2dist_wgmma": gt_launches["l2dist_wgmma"],
+                "l2dist": entry_launches["l2dist"],
                 "flash_attn_fwd_wgmma":
                     entry_launches["flash_attn_fwd_wgmma"],
                 "flash_attn_fwd": entry_launches["flash_attn_fwd"]}

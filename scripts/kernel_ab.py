@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the dense ADC scan and bf16 flash attention of other source trees
-beside this one's on one card, and reads each output against its plain
-version.
+"""Times the dense ADC scan, bf16 flash attention and exact L2 of other
+source trees beside this one's on one card, and reads each output against
+its plain version.
 
     python3 scripts/kernel_ab.py --against DIR [--against DIR ...]
                                  [--out FILE] [--seed 0]
@@ -10,22 +10,27 @@ Each ``DIR`` is the root of another tree of this repo, or of its
 ``src/repro_torch`` at least: an earlier commit unpacked with
 ``git archive``, or a copy with one kernel source changed.  Its package
 is built and driven through its own public wrappers,
-``kernels.pq_adc.ops.pq_adc_batch`` and ``kernels.flash_attn.
-flash_attention``, so the trees may differ in launch shapes, C entry
-points and which kernel a call reaches.  Both packages are named
+``kernels.pq_adc.ops.pq_adc_batch``, ``kernels.flash_attn.
+flash_attention`` and ``kernels.l2dist.l2_distances``, so the trees may
+differ in launch shapes, C entry points and which kernel a call reaches.  Both packages are named
 ``repro_torch``, so every tree runs in a process of its own, in turns:
 ``DIR``, this tree, this tree, ``DIR``.
 
 Every process makes the same inputs from ``--seed``: the dense window's
 B = 64 LUTs over a 32,768-row bucket of M = 32 codes, and flash
 attention at Qwen3-0.6B's widths (H 16, Hk 8, dh 128), B = 1,
-S = T = 4096, bf16, causal.  It reports the device time of each call
-(``chip_smoke.gpu_ms``), the kernels the call launched, whether the dense
-output is bit-equal to ``pq_adc_batch_ref``, and the flash output's max
-abs error, its largest row-relative error and whether ``chip_smoke``'s
-bf16 check accepts it against ``flash_attn_ref``.  This tree's processes
-also time the one PyTorch call for each function (``embedding_bag``,
-``scaled_dot_product_attention``).  A tree whose process fails is
+S = T = 4096, bf16, causal, and exact L2 at the ground-truth chunk,
+256 queries x 2^20 vectors x 128, f32, once on integers in [0, 256)
+(SIFT's values) and once on normal values.  It reports the device time of
+each call (``chip_smoke.gpu_ms``), the kernels the call launched, whether
+the dense output is bit-equal to ``pq_adc_batch_ref``, the flash output's
+max abs error, its largest row-relative error and whether
+``chip_smoke``'s bf16 check accepts it against ``flash_attn_ref``, and
+the L2 output's max abs error against ``l2dist_ref``, whether it is
+bit-equal on the integers and within ``chip_smoke``'s L2 tolerance on the
+normal values.  This tree's processes also time the one PyTorch call for
+each function (``embedding_bag``, ``scaled_dot_product_attention``,
+``addmm``).  A tree whose process fails is
 reported with its error, and the others still run.  Prints the card's
 name and power limit, and one JSON object, which ``--out`` also writes.
 """
@@ -44,6 +49,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 B, N, M, K = 64, 32_768, 32, 256                 # the dense window
 ATTN = dict(S=4096, H=16, Hk=8, dh=128)          # Qwen3-0.6B's attention
+L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 
 
 def measure(tree: Path, seed: int) -> dict:
@@ -52,6 +58,7 @@ def measure(tree: Path, seed: int) -> dict:
     import chip_smoke
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+    from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
     from repro_torch.kernels.pq_adc import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
@@ -103,7 +110,32 @@ def measure(tree: Path, seed: int) -> dict:
         flash["sdpa_ms"] = chip_smoke.gpu_ms(
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    return {"adc_scan_batch": dense, "flash_attn[bf16]": flash}
+    del q, k, v, out, want
+
+    b, n, d = L2["B"], L2["N"], L2["D"]
+    ints = [torch.from_numpy(rng.integers(0, 256, (rows, d), dtype=np.uint8)
+                             ).to(dev).float() for rows in (b, n)]
+    normal = [torch.randn(rows, d, generator=gen, device=dev)
+              for rows in (b, n)]
+    out, launched = ran(lambda: l2_distances(*ints))
+    want = l2dist_ref(*ints)
+    l2 = dict(launched=launched, bit_equal_on_integers=bool(torch.equal(
+        out, want)), max_abs_err_integers=float((out - want).abs().max()))
+    del out, want
+    out, _ = ran(lambda: l2_distances(*normal))
+    want = l2dist_ref(*normal)
+    l2["max_abs_err_normal"] = float((out - want).abs().max())
+    l2["within_tol_normal"] = bool(torch.allclose(
+        out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
+    del out, want
+    l2["ms"] = chip_smoke.gpu_ms(lambda: l2_distances(*ints), 20)
+    if yardsticks:
+        qi, vi = ints
+        norms = (qi * qi).sum(-1, keepdim=True) + (vi * vi).sum(-1)[None]
+        l2["addmm_ms"] = chip_smoke.gpu_ms(
+            lambda: torch.addmm(norms, qi, vi.T, alpha=-2), 20)
+    return {"adc_scan_batch": dense, "flash_attn[bf16]": flash,
+            "l2dist[f32]": l2}
 
 
 def in_process(tree: Path, seed: int) -> dict:

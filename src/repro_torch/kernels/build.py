@@ -7,9 +7,11 @@ for ``sm_90a`` into its own shared library with a plain C interface, which
 :func:`build` starts one ``nvcc`` per source, all together.  Libraries go
 to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
 hash of their source, of every header (``*.cuh``) in the source's
-``csrc/`` directory and of the flags, so an edited source or header is
-rebuilt and an unchanged one is not.  Nothing is built until a kernel is
-first used on a CUDA tensor, or :func:`build` is called.
+``csrc/`` directory and in ``repro_torch/kernels`` itself (``hopper.cuh``,
+the Hopper helpers of the tensor-core kernels, found with ``-I``), and of
+the flags, so an edited source or header is rebuilt and an unchanged one
+is not.  Nothing is built until a kernel is first used on a CUDA tensor,
+or :func:`build` is called.
 
 FMA policy: every source is compiled with ``-fmad=false``, so no multiply
 and add are contracted unless the source writes ``__fmaf_rn``.
@@ -26,6 +28,9 @@ and add are contracted unless the source writes ``__fmaf_rn``.
 * ``flash_attn_fwd_wgmma``: its products run on the tensor cores (bf16
   in, f32 sums, in the tensor cores' order); the softmax is written out
   step by step in base 2 (``ex2.approx``).
+* ``l2dist_wgmma``: its product runs on the tensor cores in 3xTF32 (f32
+  sums in the tensor cores' order); its norms are ``__fmaf_rn`` sums and
+  its epilogue rounds each step, as ``l2dist``'s does.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ SOURCES = {
     "adc_scan": "pq_adc",
     "adc_scan_topk": "pq_adc",
     "l2dist": "l2dist",
+    "l2dist_wgmma": "l2dist",
     "flash_attn_fwd": "flash_attn",
     "flash_attn_fwd_wgmma": "flash_attn",
 }
@@ -69,10 +75,17 @@ def source_path(name: str) -> Path:
     return KERNELS / SOURCES[name] / "csrc" / f"{name}.cu"
 
 
+def headers(name: str) -> list:
+    """The headers a source may include: its ``csrc/*.cuh`` and the shared
+    ``repro_torch/kernels/*.cuh``."""
+    return (sorted(source_path(name).parent.glob("*.cuh"))
+            + sorted(KERNELS.glob("*.cuh")))
+
+
 def library_path(name: str) -> Path:
     src = source_path(name)
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in headers(name):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -89,7 +102,8 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        cmd = [nvcc(), *NVCC_FLAGS, f"-I{KERNELS}", "-o", str(tmp),
+               str(source_path(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -49,7 +49,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBQ = 128;              // query rows per block
 constexpr int kBKV = 128;             // keys per KV tile
@@ -64,91 +68,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 // barriers: q, full K [stage], full V [stage], empty [stage]
 constexpr int kBarQ = 0, kBarK = 1, kBarV = 1 + kStages,
               kBarEmpty = 1 + 2 * kStages, kNumBars = 1 + 3 * kStages;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ------------------------------------------------------------- mbarriers
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               ::"r"(bar) : "memory");
-}
-// waits for the phase of the given parity to complete; traps after about
-// ten seconds (a lost arrival or copy) rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-// one 64-column x rows box of a (B, L, heads, dh) bf16 tensor, viewed by
-// its tensor map as 4-d (dh, heads, L, B), into 128-byte-swizzled rows
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
-        "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// ----------------------------------------------------------------- wgmma
-// shared-memory matrix descriptor, 128-byte swizzle; lbo and sbo in bytes
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-              "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define D32 D8(0), D8(8), D8(16), D8(24)
-#define D64 D32, D8(32), D8(40), D8(48), D8(56)
-#define R32                                                                \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31}"
-#define R64                                                                \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
-  "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x 128, f32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T, both
 // K-major; accumulate = 0 overwrites d
@@ -230,7 +149,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(bar(kBarV + st), 1);
       mbar_init(bar(kBarEmpty + st), kConsumerThreads / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 
@@ -238,8 +157,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (tid == kConsumerThreads) {
       mbar_expect_tx(bar(kBarQ), kTileBytes);
       for (int c = 0; c < kHalves; ++c)
-        tma_load(q_s + c * kBoxBytes, &map_q, bar(kBarQ), c * kBox, h, q0,
-                 bb);
+        tma_load_4d(q_s + c * kBoxBytes, &map_q, bar(kBarQ), c * kBox, h,
+                    q0, bb);
       for (int j = 0; j < n_kv; ++j) {
         const int st = j % kStages;
         if (j >= kStages)
@@ -247,12 +166,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t kd = k_s + st * kTileBytes, vd = v_s + st * kTileBytes;
         mbar_expect_tx(bar(kBarK + st), kTileBytes);
         for (int c = 0; c < kHalves; ++c)
-          tma_load(kd + c * kBoxBytes, &map_k, bar(kBarK + st), c * kBox, kh,
-                   j * kBKV, bb);
+          tma_load_4d(kd + c * kBoxBytes, &map_k, bar(kBarK + st),
+                      c * kBox, kh, j * kBKV, bb);
         mbar_expect_tx(bar(kBarV + st), kTileBytes);
         for (int c = 0; c < kHalves; ++c)
-          tma_load(vd + c * kBoxBytes, &map_v, bar(kBarV + st), c * kBox, kh,
-                   j * kBKV, bb);
+          tma_load_4d(vd + c * kBoxBytes, &map_v, bar(kBarV + st),
+                      c * kBox, kh, j * kBKV, bb);
       }
     }
     return;
@@ -371,33 +290,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ------------------------------------------------------------------ host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // (batch, len, heads, dh) bf16, 64-column x rows boxes, 128-byte swizzle;
 // rows past len read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,

@@ -7,8 +7,11 @@ has only PyTorch:
 
 Tolerances: the dense ADC scan bit for bit, other ADC distances to rtol
 1e-5 (M f32 terms; in fact the kernels repeat the plain versions'
-operations in order and agree to the bit), ids exactly; exact L2 rtol 1e-5 with atol 1e-3 (D products summed in
-another order than cuBLAS's, on values of size D); flash attention 2e-5
+operations in order and agree to the bit), ids exactly; exact L2 rtol
+1e-5 with atol 1e-3 (D products summed in another order than cuBLAS's, on
+values of size D; the tensor-core kernel's 3xTF32 product also drops the
+lo*lo term, about 2^-22 of each product) and bit for bit on integer data
+(every partial sum an integer below 2^24); flash attention 2e-5
 in f32 (an online softmax against a plain one) and, in bf16, 5e-2 for
 every element and 2^-6 for each (b, s, h) row's L2 error over the row's
 L2 norm (the output's one rounding to bf16 may fall on either side; the
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.kernels import launch
 from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
-from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
+from repro_torch.kernels.l2dist import l2_distances, l2_kernel, l2dist_ref
 from repro_torch.kernels.pq_adc import ops, ref
 
 RTOL = 1e-5
@@ -144,25 +147,91 @@ def test_cuda_single_query_kernels_match_plain(cuda, m):
         assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
+def _l2_launched(q, v):
+    """l2_distances(q, v) and the one kernel it launched, which must be
+    the one l2_kernel names."""
+    before = dict(launch.LAUNCHES)
+    got = l2_distances(q, v)
+    torch.cuda.synchronize()
+    grew = {name for name, c in launch.LAUNCHES.items() if c != before[name]}
+    assert grew == {l2_kernel(q.dtype, q.shape[1])}
+    return got
+
+
+def _aligned_or_not(x, offset):
+    """x itself, or a copy of it that starts ``offset`` elements into a
+    fresh buffer (off a 16-byte boundary for offset % 4 != 0)."""
+    if not offset:
+        return x
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:] = x.reshape(-1)
+    return flat[offset:].view(x.shape)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_l2dist_matches_plain(cuda, dtype):
+    """Both kernels of l2_kernel's rule (f32 at d 1 runs on the CUDA
+    cores, at d % 4 == 0 on the tensor cores; bf16 on the CUDA cores), and
+    integer data bit for bit."""
     rng = np.random.default_rng(24)
     for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
                     (256, 5003, 96)):
         q = _t(rng.standard_normal((b, d)).astype(np.float32))
         v = _t(rng.standard_normal((n, d)).astype(np.float32))
         q, v = q.to(cuda, dtype), v.to(cuda, dtype)
-        got = l2_distances(q, v)
-        torch.cuda.synchronize()
+        got = _l2_launched(q, v)
         torch.testing.assert_close(got, l2dist_ref(q, v), rtol=RTOL,
                                    atol=1e-3)
     # integers: every partial sum is exact in f32, so the two agree exactly
     q = _t(rng.integers(0, 256, (37, 128)).astype(np.float32)).to(cuda)
     v = _t(rng.integers(0, 256, (3001, 128)).astype(np.float32)).to(cuda)
     if dtype == torch.float32:
-        assert torch.equal(l2_distances(q, v), l2dist_ref(q, v))
+        assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 129, 256])
+@pytest.mark.parametrize("n,d", [(777, 4), (5003, 96), (777, 100),
+                                 (5003, 128)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_cuda_l2dist_wgmma_matches_plain(cuda, b, n, d, offset):
+    """The tensor-core kernel: ragged B and N, d off the 32-column
+    k-slice (4, 100), views that do not start on a 16-byte boundary
+    (copied first); normal values to the L2 tolerance, integers bit for
+    bit."""
+    rng = np.random.default_rng(29)
+    assert l2_kernel(torch.float32, d) == "l2dist_wgmma"
+    def make(shape, ints):
+        x = rng.integers(0, 256, shape) if ints else rng.standard_normal(shape)
+        return _aligned_or_not(_t(x.astype(np.float32)).to(cuda), offset)
+
+    for ints in (False, True):
+        q, v = make((b, d), ints), make((n, d), ints)
+        got = _l2_launched(q, v)
+        want = l2dist_ref(q, v)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-3)
+        if ints:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int_side", ["queries", "vectors"])
+def test_cuda_l2dist_wgmma_cross_terms(cuda, int_side):
+    """One operand small integers (its lo part is 0), the other normal,
+    so every distance is about 640 and its limit about 0.0074: a dropped
+    or doubled hi*lo or lo*hi product moves each distance by 2 * sum(int
+    * lo), about 0.006 RMS, and the largest of the 387k by several times
+    the limit."""
+    rng = np.random.default_rng(30)
+    b, n, d = 129, 3001, 128
+    ints = rng.integers(-3, 4, (b if int_side == "queries" else n, d))
+    normal = rng.standard_normal((n if int_side == "queries" else b, d))
+    q, v = ((ints, normal) if int_side == "queries" else (normal, ints))
+    q, v = (_t(x.astype(np.float32)).to(cuda) for x in (q, v))
+    torch.testing.assert_close(_l2_launched(q, v), l2dist_ref(q, v),
+                               rtol=RTOL, atol=1e-3)
 
 
 @pytest.mark.gpu

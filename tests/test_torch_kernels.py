@@ -15,7 +15,8 @@ those of ``tests/test_kernels.py``.  Tolerances:
   and 5e-2 in bf16 (one rounding of the output to bf16 on each side).
 
 The launch planners that size the CUDA kernels (which flash kernel a
-dtype and head width go to; the dense scan's one-wave grid) are pure
+dtype and head width go to, which L2 kernel a dtype and width go to; the
+dense scan's one-wave grid) and the builder's library names are pure
 Python and are held here too.  The CUDA kernels against their plain
 versions are in ``test_torch_cuda.py``.
 """
@@ -32,10 +33,10 @@ from repro.kernels.l2dist import l2_distances as j_l2
 from repro.kernels.pq_adc import pq_adc as j_pq_adc
 from repro.kernels.pq_adc import pq_adc_topk as j_pq_adc_topk
 from repro_torch.core.engine import ground_truth
-from repro_torch.kernels import launch
+from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
                                             flash_kernel)
-from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
+from repro_torch.kernels.l2dist import l2_distances, l2_kernel, l2dist_ref
 from repro_torch.kernels.pq_adc import ops, ref
 
 ADC_RTOL = 1e-5
@@ -253,6 +254,51 @@ def test_flash_kernel_rule(dtype, dh, kernel):
     one."""
     assert flash_kernel(dtype, dh) == kernel
     assert kernel in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.float32, 128, "l2dist_wgmma"),     # the ground-truth chunk
+    (torch.float32, 96, "l2dist_wgmma"),
+    (torch.float32, 100, "l2dist_wgmma"),     # d off the 32-column slice
+    (torch.float32, 4, "l2dist_wgmma"),
+    (torch.float32, 1, "l2dist"),             # row stride off 16 bytes
+    (torch.float32, 102, "l2dist"),
+    (torch.float32, 132, "l2dist"),           # wider than the q tile
+    (torch.float32, 960, "l2dist"),
+    (torch.bfloat16, 128, "l2dist"),
+    (torch.bfloat16, 96, "l2dist"),
+])
+def test_l2_kernel_rule(dtype, d, kernel):
+    """f32 with d % 4 == 0 (TMA's 16-byte row stride) and d <= 128 (the
+    query tile kept in shared memory) goes to the tensor-core kernel;
+    bf16 and every other f32 width to the CUDA-core one."""
+    assert l2_kernel(dtype, d) == kernel
+    assert kernel in launch.LAUNCHES
+
+
+def test_library_path_hashes_every_header(tmp_path, monkeypatch):
+    """A library's name changes with its source, with a header of its
+    csrc/ and with the shared Hopper header beside the packages, so an
+    edit to any of them rebuilds it; an unrelated package's header does
+    not."""
+    for pkg in ("l2dist", "pq_adc"):
+        (tmp_path / pkg / "csrc").mkdir(parents=True)
+    src = tmp_path / "l2dist" / "csrc" / "l2dist_wgmma.cu"
+    own = tmp_path / "l2dist" / "csrc" / "own.cuh"
+    shared = tmp_path / "hopper.cuh"
+    other = tmp_path / "pq_adc" / "csrc" / "adc_common.cuh"
+    for f in (src, own, shared, other):
+        f.write_text("// v1\n")
+    monkeypatch.setattr(build, "KERNELS", tmp_path)
+    assert build.headers("l2dist_wgmma") == [own, shared]
+    names = {build.library_path("l2dist_wgmma").name}
+    for f in (src, own, shared):
+        f.write_text("// v2\n")
+        names.add(build.library_path("l2dist_wgmma").name)
+    other.write_text("// v2\n")
+    assert build.library_path("l2dist_wgmma").name in names
+    assert len(names) == 4
+    assert all(n.startswith("libl2dist_wgmma-") for n in names)
 
 
 @pytest.mark.parametrize("b,n,m,k,sms", [
