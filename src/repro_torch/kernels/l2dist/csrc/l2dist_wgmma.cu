@@ -22,16 +22,22 @@
 // the kernel reads; the epilogue rounds each step, as
 // ref.py::l2dist_ref does.
 //
-// Design (this first form): one block of two warpgroups owns 128 queries
-// x 128 vectors.  One thread loads the query tile by TMA (128-byte
-// swizzled 32-column k-slices, all of d resident) and then, one k-slice
-// at a time, the vector slice, behind mbarriers; TMA fills rows and
-// columns past B, N and d with zeros.  The 256 threads split each tile
-// that has landed (hi in place, lo into a second buffer of the same
-// layout), fence the generic-proxy stores for the async proxy, and
-// synchronise; each warpgroup then issues the twelve wgmmas of the slice
-// for its 64 queries and waits.  The epilogue writes float2 pairs from
-// the accumulator's layout (a warp writes 32-byte row segments).
+// Design: a persistent grid, one block an SM (l2dist/ops.py::l2_plan):
+// block (x, y) owns the 128 queries of tile y and walks the 128-vector
+// tiles x, x + grid_x, ...; the blocks of one x walk the same vector
+// tiles at the same time, so each tile comes from HBM about once.  A
+// producer warp loads the query tile once (all of d: 32-column, 128-byte
+// swizzled k-slices) and streams the vector tiles' k-slices through a
+// three-stage ring, all by TMA behind full / empty mbarriers; TMA fills
+// rows and columns past B, N and d with zeros.  Two consumer warpgroups
+// (64 queries each) split every slice that has landed (hi in place, lo
+// into a second buffer of the same layout), fence the generic-proxy
+// stores for the async proxy, synchronise on a named barrier, and issue
+// the slice's twelve wgmmas; the split of the next slice runs while they
+// do, and a slice is handed back to the producer once its wgmmas are
+// done.  The epilogue writes float2 pairs from the accumulator's layout
+// (a warp writes whole 32-byte row segments) while the producer is
+// already loading the next tile.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -49,9 +55,16 @@ constexpr int kBK = 32;                    // floats of one 128-byte k-slice
 constexpr int kMaxD = 128;                 // the resident query tile's width
 constexpr int kSlices = kMaxD / kBK;
 constexpr int kSliceBytes = 128 * kBK * 4; // 128 rows x 128 B, q or v
-constexpr int kThreads = 256;              // two warpgroups
+constexpr int kStages = 3;                 // depth of the vector-slice ring
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
 // dynamic shared memory: q hi | q lo (kSlices each) | v hi | v lo
-constexpr int kSmemBytes = (2 * kSlices + 2) * kSliceBytes + 1024;
+// (kStages each), 1024-byte aligned: 224 KB of the 227 KB
+constexpr int kSmemBytes =
+    (2 * kSlices + 2 * kStages) * kSliceBytes + 1024;
+// barriers: the q tile, full [stage], empty [stage]
+constexpr int kBarQ = 0, kBarFull = 1, kBarEmpty = 1 + kStages,
+              kNumBars = 1 + 2 * kStages;
 
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
@@ -73,7 +86,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t da,
 
 // Splits one landed 128-row k-slice: x -> hi = tf32(x) in place and
 // lo = tf32(x - hi) at the same offset of lo (the same swizzled layout).
-// Thread t takes 16-byte chunks t + 256 i, of rows t / 8 + 32 i
+// Consumer thread t takes 16-byte chunks t + 256 i, of rows t / 8 + 32 i
 // (i < 4); sq[i] sums the squares of the elements it saw of that row.
 __device__ __forceinline__ void split_slice(float4* hi, float4* lo, int t,
                                             float (&sq)[4]) {
@@ -106,107 +119,145 @@ __device__ __forceinline__ void store_norms(const float (&sq)[4],
   }
 }
 
+// the two consumer warpgroups, not the producer warp
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_v,
                     float* __restrict__ out, int b, int n, int d) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2];   // q tile, v slice
+  __shared__ __align__(8) uint64_t bars[kNumBars];
   __shared__ float qn_s[kBM];
-  __shared__ float vn_s[kBN];
+  __shared__ float vn_s[2][kBN];           // by the parity of the tile
   uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
                               smem_u32(smem_raw));
   auto q_hi = [&](int s) { return base + s * kSliceBytes; };
   auto q_lo = [&](int s) { return base + (kSlices + s) * kSliceBytes; };
-  uint8_t* v_hi = base + 2 * kSlices * kSliceBytes;
-  uint8_t* v_lo = v_hi + kSliceBytes;
-  const uint32_t bar_q = smem_u32(&bars[0]), bar_v = smem_u32(&bars[1]);
+  auto v_hi = [&](int st) {
+    return base + (2 * kSlices + st) * kSliceBytes;
+  };
+  auto v_lo = [&](int st) {
+    return base + (2 * kSlices + kStages + st) * kSliceBytes;
+  };
+  const uint32_t bar0 = smem_u32(bars);
+  auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
 
   const int t = threadIdx.x;
-  const int q0 = blockIdx.y * kBM, v0 = blockIdx.x * kBN;
+  const int q0 = blockIdx.y * kBM;
+  const int n_vt = (n + kBN - 1) / kBN;
   const int ns = (d + kBK - 1) / kBK;
   if (t == 0) {
-    mbar_init(bar_q, 1);
-    mbar_init(bar_v, 1);
+    mbar_init(bar(kBarQ), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar(kBarFull + st), 1);
+      mbar_init(bar(kBarEmpty + st), kConsumers / 32);
+    }
     fence_mbar_init();
   }
   __syncthreads();
-  if (t == 0) {
-    mbar_expect_tx(bar_q, ns * kSliceBytes);
-    for (int s = 0; s < ns; ++s)
-      tma_load_2d(smem_u32(q_hi(s)), &map_q, bar_q, s * kBK, q0);
-  }
-  mbar_wait(bar_q, 0);
-  float sq[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < ns; ++s)
-    split_slice(reinterpret_cast<float4*>(q_hi(s)),
-                reinterpret_cast<float4*>(q_lo(s)), t, sq);
-  store_norms(sq, qn_s, t);
-  fence_proxy_async();
-  __syncthreads();
 
-  const int wg = t / 128;
+  if (t >= kConsumers) {                               // producer warp
+    if (t == kConsumers) {
+      mbar_expect_tx(bar(kBarQ), ns * kSliceBytes);
+      for (int s = 0; s < ns; ++s)
+        tma_load_2d(smem_u32(q_hi(s)), &map_q, bar(kBarQ), s * kBK, q0);
+      int g = 0;                                       // slices issued
+      for (int vt = blockIdx.x; vt < n_vt; vt += gridDim.x) {
+        for (int s = 0; s < ns; ++s, ++g) {
+          const int st = g % kStages;
+          if (g >= kStages)
+            mbar_wait(bar(kBarEmpty + st), ((g / kStages) - 1) & 1);
+          mbar_expect_tx(bar(kBarFull + st), kSliceBytes);
+          tma_load_2d(smem_u32(v_hi(st)), &map_v, bar(kBarFull + st),
+                      s * kBK, vt * kBN);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the query tile, split once
+  mbar_wait(bar(kBarQ), 0);
+  {
+    float sq[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < ns; ++s)
+      split_slice(reinterpret_cast<float4*>(q_hi(s)),
+                  reinterpret_cast<float4*>(q_lo(s)), t, sq);
+    store_norms(sq, qn_s, t);
+  }
+  fence_proxy_async();
+  consumers_sync();
+
+  const int wg = t / 128, lane = t % 32, quad = lane % 4;
+  // element 4j + 2h + e of the accumulator: row ra + 8h, column
+  // 8j + 2 quad + e of the tile
+  const int ra = 64 * wg + 16 * ((t % 128) / 32) + lane / 4;
+  const float qn[2] = {qn_s[ra], qn_s[ra + 8]};
+  const bool pairs = (n & 1) == 0;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  float vsq[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < ns; ++s) {
-    if (t == 0) {
-      mbar_expect_tx(bar_v, kSliceBytes);
-      tma_load_2d(smem_u32(v_hi), &map_v, bar_v, s * kBK, v0);
-    }
-    mbar_wait(bar_v, s & 1);
-    split_slice(reinterpret_cast<float4*>(v_hi),
-                reinterpret_cast<float4*>(v_lo), t, vsq);
-    if (s == ns - 1) store_norms(vsq, vn_s, t);
-    fence_proxy_async();
-    __syncthreads();
-    // k-step kk reads 32 bytes at kk * 32 of every 128-byte row
-    const uint32_t a_hi = smem_u32(q_hi(s)) + wg * 64 * 128;
-    const uint32_t a_lo = smem_u32(q_lo(s)) + wg * 64 * 128;
-    const uint32_t b_hi = smem_u32(v_hi), b_lo = smem_u32(v_lo);
-    fence_regs(acc);
-    wgmma_fence();
+  int g = 0;                                           // slices consumed
+  for (int vt = blockIdx.x, tp = 0; vt < n_vt; vt += gridDim.x, tp ^= 1) {
+    float vsq[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < ns; ++s, ++g) {
+      const int st = g % kStages;
+      mbar_wait(bar(kBarFull + st), (g / kStages) & 1);
+      split_slice(reinterpret_cast<float4*>(v_hi(st)),
+                  reinterpret_cast<float4*>(v_lo(st)), t, vsq);
+      if (s == ns - 1) store_norms(vsq, vn_s[tp], t);
+      fence_proxy_async();
+      consumers_sync();
+      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row
+      const uint32_t a_hi = smem_u32(q_hi(s)) + wg * 64 * 128;
+      const uint32_t a_lo = smem_u32(q_lo(s)) + wg * 64 * 128;
+      const uint32_t b_hi = smem_u32(v_hi(st)), b_lo = smem_u32(v_lo(st));
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 8; ++kk) {
-      const uint32_t off = kk * 32;
-      mma_tf32(acc, desc(a_hi + off, 16, 1024), desc(b_lo + off, 16, 1024),
-               s > 0 || kk > 0);
-      mma_tf32(acc, desc(a_lo + off, 16, 1024), desc(b_hi + off, 16, 1024),
-               1);
-      mma_tf32(acc, desc(a_hi + off, 16, 1024), desc(b_hi + off, 16, 1024),
-               1);
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        const uint32_t off = kk * 32;
+        mma_tf32(acc, desc(a_hi + off, 16, 1024),
+                 desc(b_lo + off, 16, 1024), s > 0 || kk > 0);
+        mma_tf32(acc, desc(a_lo + off, 16, 1024),
+                 desc(b_hi + off, 16, 1024), 1);
+        mma_tf32(acc, desc(a_hi + off, 16, 1024),
+                 desc(b_hi + off, 16, 1024), 1);
+      }
+      wgmma_commit();
+      if (s > 0) {              // the previous slice's products are done
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(bar(kBarEmpty + (g - 1) % kStages));
+      }
     }
-    wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    __syncthreads();                  // the slice is free for the next load
-  }
+    if (lane == 0) mbar_arrive(bar(kBarEmpty + (g - 1) % kStages));
 
-  // element 4j + 2h + e: row ra + 8h, column 8j + 2 quad + e
-  const int lane = t % 32, quad = lane % 4;
-  const int ra = 64 * wg + 16 * ((t % 128) / 32) + lane / 4;
-  const bool pairs = (n & 1) == 0;
+    const int v0 = vt * kBN;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = ra + 8 * h;
-    if (q0 + row >= b) continue;
-    const float qn = qn_s[row];
-    float* orow = out + (long long)(q0 + row) * n;
+    for (int h = 0; h < 2; ++h) {
+      const int row = ra + 8 * h;
+      if (q0 + row >= b) continue;
+      float* orow = out + (long long)(q0 + row) * n;
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int col = 8 * j + 2 * quad;
-      const int gc = v0 + col;
-      const float o0 = __fadd_rn(
-          __fsub_rn(qn, __fmul_rn(2.f, acc[4 * j + 2 * h])), vn_s[col]);
-      const float o1 = __fadd_rn(
-          __fsub_rn(qn, __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
-          vn_s[col + 1]);
-      if (pairs && gc + 1 < n) {
-        *reinterpret_cast<float2*>(orow + gc) = make_float2(o0, o1);
-      } else {
-        if (gc < n) orow[gc] = o0;
-        if (gc + 1 < n) orow[gc + 1] = o1;
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = 8 * j + 2 * quad;
+        const int gc = v0 + col;
+        const float o0 = __fadd_rn(
+            __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h])),
+            vn_s[tp][col]);
+        const float o1 = __fadd_rn(
+            __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
+            vn_s[tp][col + 1]);
+        if (pairs && gc + 1 < n) {
+          *reinterpret_cast<float2*>(orow + gc) = make_float2(o0, o1);
+        } else {
+          if (gc < n) orow[gc] = o0;
+          if (gc + 1 < n) orow[gc + 1] = o1;
+        }
       }
     }
   }
@@ -230,10 +281,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int d) {
 }  // namespace
 
 // queries (b, d) and vectors (n, d), f32, row-major, each 16-byte aligned,
-// d % 4 == 0 and d <= 128; out (b, n) f32.  Returns a cudaError_t.
+// d % 4 == 0 and d <= 128; out (b, n) f32; grid_x blocks for each
+// 128-query tile (l2dist/ops.py::l2_plan).  Returns a cudaError_t.
 extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
-                            float* out, int b, int n, int d, void* stream) {
-  if (b < 1 || n < 1 || d < 4 || d > kMaxD || d % 4 ||
+                            float* out, int b, int n, int d, int grid_x,
+                            void* stream) {
+  if (b < 1 || n < 1 || d < 4 || d > kMaxD || d % 4 || grid_x < 1 ||
       (b + kBM - 1) / kBM > 65535 ||
       ((reinterpret_cast<uintptr_t>(queries) |
         reinterpret_cast<uintptr_t>(vectors)) & 15u))
@@ -245,7 +298,7 @@ extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
       l2dist_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + kBN - 1) / kBN, (b + kBM - 1) / kBM);
+  const dim3 grid(grid_x, (b + kBM - 1) / kBM);
   l2dist_wgmma_kernel<<<grid, kThreads, kSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(mq, mv, out, b,
                                                              n, d);

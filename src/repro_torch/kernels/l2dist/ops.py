@@ -6,7 +6,8 @@ Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 * ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): f32 on the tensor cores
   (3xTF32 ``wgmma``, TMA), for widths d % 4 == 0 (TMA's 16-byte row
   stride) up to 128 (the query tile it keeps in shared memory); q or v
-  that does not start on a 16-byte boundary is copied first;
+  that does not start on a 16-byte boundary is copied first; its
+  persistent grid comes from :func:`l2_plan`;
 * ``l2dist`` (``csrc/l2dist.cu``): f32 or bf16 on the CUDA cores, for
   every other case: bf16, and f32 of another width.
 
@@ -21,6 +22,8 @@ N and d need no padding: the kernels mask their edge tiles.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels.l2dist.ref import l2dist_ref
@@ -28,6 +31,7 @@ from repro_torch.kernels.launch import check, launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _WGMMA_MAX_D = 128              # l2dist_wgmma.cu: kMaxD
+_WGMMA_TILE = 128               # l2dist_wgmma.cu: kBM = kBN
 
 
 def l2_kernel(dtype: torch.dtype, d: int) -> str:
@@ -37,6 +41,21 @@ def l2_kernel(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.float32 and d % 4 == 0 and 0 < d <= _WGMMA_MAX_D:
         return "l2dist_wgmma"
     return "l2dist"
+
+
+def l2_plan(b: int, n: int, sms: int) -> Tuple[int, int]:
+    """The persistent grid ``(grid_x, grid_y)`` of ``l2dist_wgmma`` for B
+    queries against N vectors on a card of ``sms`` SMs.
+
+    One block resides on an SM (its tiles take 224 KB of shared memory).
+    Row y of the grid owns query tile y (128 queries), so grid_y is the
+    number of query tiles; its grid_x = sms // grid_y blocks (at least
+    one, at most one per vector tile) walk the 128-vector tiles x,
+    x + grid_x, ..., each in step with the blocks of the other rows at
+    the same x."""
+    q_tiles = -(-b // _WGMMA_TILE)
+    v_tiles = -(-n // _WGMMA_TILE)
+    return max(1, min(v_tiles, sms // q_tiles)), q_tiles
 
 
 def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
@@ -62,8 +81,9 @@ def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
         # elsewhere is copied into a fresh (aligned) buffer first
         queries, vectors = (x if x.data_ptr() % 16 == 0 else x.clone()
                             for x in (queries, vectors))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), b, n, d)
+               out.data_ptr(), b, n, d, l2_plan(b, n, sms)[0])
     else:
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
                out.data_ptr(), b, n, d,

@@ -29,7 +29,7 @@ _SIGNATURES = {
     "adc_scan": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "adc_scan_topk": (_P,) * 4 + (_I,) * 6 + (_P,),
     "l2dist": (_P, _P, _P) + (_I,) * 4 + (_P,),
-    "l2dist_wgmma": (_P, _P, _P) + (_I,) * 3 + (_P,),
+    "l2dist_wgmma": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "flash_attn_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
     "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
 }

@@ -36,7 +36,8 @@ from repro_torch.core.engine import ground_truth
 from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
                                             flash_kernel)
-from repro_torch.kernels.l2dist import l2_distances, l2_kernel, l2dist_ref
+from repro_torch.kernels.l2dist import (l2_distances, l2_kernel, l2_plan,
+                                        l2dist_ref)
 from repro_torch.kernels.pq_adc import ops, ref
 
 ADC_RTOL = 1e-5
@@ -274,6 +275,33 @@ def test_l2_kernel_rule(dtype, d, kernel):
     bf16 and every other f32 width to the CUDA-core one."""
     assert l2_kernel(dtype, d) == kernel
     assert kernel in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("b,n,sms", [
+    (256, 1 << 20, 132),        # the ground-truth chunk on an H100
+    (1, 777, 132), (3, 5003, 132), (129, 1000, 132), (256, 128, 132),
+    (1000, 10_000, 132), (20_000, 300, 132), (5, 1, 1), (300, 999, 4),
+])
+def test_l2_plan_covers_every_tile_once(b, n, sms):
+    """The tensor-core L2 kernel's grid: one row of blocks per 128-query
+    tile, at most one block per SM where the query tiles fit, and the
+    kernel's loop (block (x, y) takes vector tiles x, x + grid_x, ...)
+    computes every (query tile, vector tile) pair once."""
+    gx, gy = l2_plan(b, n, sms)
+    q_tiles, v_tiles = -(-b // 128), -(-n // 128)
+    assert gy == q_tiles and 1 <= gx <= v_tiles
+    assert gx * gy <= max(sms, q_tiles)
+    seen = np.zeros((q_tiles, v_tiles), np.int64)
+    for y in range(gy):
+        for x in range(gx):
+            seen[y, x::gx] += 1
+    assert (seen == 1).all()
+
+
+def test_l2_plan_of_the_ground_truth_chunk():
+    """256 queries x 2^20 vectors on 132 SMs: 66 x 2 blocks, each pair of
+    rows in step over 124 or 125 of the 8,192 vector tiles."""
+    assert l2_plan(256, 1 << 20, 132) == (66, 2)
 
 
 def test_library_path_hashes_every_header(tmp_path, monkeypatch):
