@@ -29,15 +29,17 @@
 // producer warp loads the query tile once (all of d: 32-column, 128-byte
 // swizzled k-slices) and streams the vector tiles' k-slices through a
 // three-stage ring, all by TMA behind full / empty mbarriers; TMA fills
-// rows and columns past B, N and d with zeros.  Two consumer warpgroups
-// (64 queries each) split every slice that has landed (hi in place, lo
-// into a second buffer of the same layout), fence the generic-proxy
-// stores for the async proxy, synchronise on a named barrier, and issue
-// the slice's twelve wgmmas; the split of the next slice runs while they
-// do, and a slice is handed back to the producer once its wgmmas are
-// done.  The epilogue writes float2 pairs from the accumulator's layout
-// (a warp writes whole 32-byte row segments) while the producer is
-// already loading the next tile.
+// rows and columns past B, N and d with zeros.  The two consumer
+// warpgroups split the query tile once and then take the block's vector
+// tiles in turns (ping-pong): one splits each slice of its tile that has
+// landed (hi in place, lo into a second buffer of the same layout),
+// fences the generic-proxy stores for the async proxy, synchronises on a
+// named barrier and issues the slice's 24 wgmmas (two 64-query halves),
+// splitting the next slice while they run, and hands a slice back to
+// the producer once its wgmmas are done; meanwhile the other writes its
+// finished 128 x 128 tile out as float2 pairs straight from the
+// accumulators' layout (a warp writes whole 32-byte row segments).  So
+// the output, most of the bound, leaves while the tensor cores work.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -62,9 +64,10 @@ constexpr int kThreads = kConsumers + 32;  // + one producer warp
 // (kStages each), 1024-byte aligned: 224 KB of the 227 KB
 constexpr int kSmemBytes =
     (2 * kSlices + 2 * kStages) * kSliceBytes + 1024;
-// barriers: the q tile, full [stage], empty [stage]
+// barriers: the q tile, full [stage], empty [stage] (a stage goes to one
+// warpgroup), turn [warpgroup] (whose products run next)
 constexpr int kBarQ = 0, kBarFull = 1, kBarEmpty = 1 + kStages,
-              kNumBars = 1 + 2 * kStages;
+              kBarTurn = 1 + 2 * kStages, kNumBars = 3 + 2 * kStages;
 
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
@@ -84,44 +87,80 @@ __device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Splits one landed 128-row k-slice: x -> hi = tf32(x) in place and
-// lo = tf32(x - hi) at the same offset of lo (the same swizzled layout).
-// Consumer thread t takes 16-byte chunks t + 256 i, of rows t / 8 + 32 i
-// (i < 4); sq[i] sums the squares of the elements it saw of that row.
+// Splits one landed 128-row k-slice (1024 chunks of 16 bytes) among kT
+// threads: x -> hi = tf32(x) in place and lo = tf32(x - hi) at the same
+// offset of lo (the same swizzled layout).  Thread t takes chunks
+// t + kT i, of rows t / 8 + (kT / 8) i; sq[i] sums the squares of the
+// elements it saw of that row.
+template <int kT>
 __device__ __forceinline__ void split_slice(float4* hi, float4* lo, int t,
-                                            float (&sq)[4]) {
+                                            float (&sq)[1024 / kT]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 x = hi[t + 256 * i];
+  for (int i = 0; i < 1024 / kT; ++i) {
+    const float4 x = hi[t + kT * i];
     sq[i] = __fmaf_rn(x.x, x.x, sq[i]);
     sq[i] = __fmaf_rn(x.y, x.y, sq[i]);
     sq[i] = __fmaf_rn(x.z, x.z, sq[i]);
     sq[i] = __fmaf_rn(x.w, x.w, sq[i]);
     const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y),
                                  tf32_rna(x.z), tf32_rna(x.w));
-    hi[t + 256 * i] = h;
-    lo[t + 256 * i] = make_float4(
+    hi[t + kT * i] = h;
+    lo[t + kT * i] = make_float4(
         tf32_rna(__fsub_rn(x.x, h.x)), tf32_rna(__fsub_rn(x.y, h.y)),
         tf32_rna(__fsub_rn(x.z, h.z)), tf32_rna(__fsub_rn(x.w, h.w)));
   }
 }
 
 // the eight threads of a row add their sums; the first stores the norm
-__device__ __forceinline__ void store_norms(const float (&sq)[4],
+template <int kT>
+__device__ __forceinline__ void store_norms(const float (&sq)[1024 / kT],
                                             float* norm, int t) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 1024 / kT; ++i) {
     float s = sq[i];
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
-    if ((t & 7) == 0) norm[t / 8 + 32 * i] = s;
+    if ((t & 7) == 0) norm[t / 8 + (kT / 8) * i] = s;
   }
 }
 
-// the two consumer warpgroups, not the producer warp
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+// named barriers: 1 for both consumer warpgroups, 2 + w for warpgroup w
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Writes the 64 x 128 block of a finished tile held in acc: element
+// 4j + 2h + e is (row + 8h, column 8j + 2 quad + e), `row` this thread's
+// first global row, `v0` the tile's first vector: out = (|q|^2 - 2 q.v) +
+// |v|^2, each step rounded.  A warp writes whole 32-byte row segments,
+// as float2 pairs where n is even.
+__device__ __forceinline__ void store_tile(const float (&acc)[64],
+                                           float* __restrict__ out,
+                                           const float* vn,
+                                           const float (&qn)[2], int row,
+                                           int v0, int quad, int b, int n) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= b) continue;
+    float* orow = out + (long long)(row + 8 * h) * n;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      const int gc = v0 + col;
+      const float o0 = __fadd_rn(
+          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h])), vn[col]);
+      const float o1 = __fadd_rn(
+          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
+          vn[col + 1]);
+      if ((n & 1) == 0 && gc + 1 < n) {
+        *reinterpret_cast<float2*>(orow + gc) = make_float2(o0, o1);
+      } else {
+        if (gc < n) orow[gc] = o0;
+        if (gc + 1 < n) orow[gc + 1] = o1;
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -131,16 +170,22 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
   __shared__ float qn_s[kBM];
-  __shared__ float vn_s[2][kBN];           // by the parity of the tile
+  __shared__ float vn_s[2][kBN];           // each warpgroup's current tile
   uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
                               smem_u32(smem_raw));
-  auto q_hi = [&](int s) { return base + s * kSliceBytes; };
-  auto q_lo = [&](int s) { return base + (kSlices + s) * kSliceBytes; };
+  auto q_hi = [&](int s) {
+    return reinterpret_cast<float4*>(base + s * kSliceBytes);
+  };
+  auto q_lo = [&](int s) {
+    return reinterpret_cast<float4*>(base + (kSlices + s) * kSliceBytes);
+  };
   auto v_hi = [&](int st) {
-    return base + (2 * kSlices + st) * kSliceBytes;
+    return reinterpret_cast<float4*>(base +
+                                     (2 * kSlices + st) * kSliceBytes);
   };
   auto v_lo = [&](int st) {
-    return base + (2 * kSlices + kStages + st) * kSliceBytes;
+    return reinterpret_cast<float4*>(
+        base + (2 * kSlices + kStages + st) * kSliceBytes);
   };
   const uint32_t bar0 = smem_u32(bars);
   auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
@@ -153,8 +198,10 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(bar(kBarQ), 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(bar(kBarFull + st), 1);
-      mbar_init(bar(kBarEmpty + st), kConsumers / 32);
+      mbar_init(bar(kBarEmpty + st), 4);    // the warps of one warpgroup
     }
+    mbar_init(bar(kBarTurn), 4);
+    mbar_init(bar(kBarTurn + 1), 4);
     fence_mbar_init();
   }
   __syncthreads();
@@ -179,52 +226,59 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  // ---- consumers: the query tile, split once
+  // ---- both warpgroups: the query tile, split once
   mbar_wait(bar(kBarQ), 0);
   {
     float sq[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < ns; ++s)
-      split_slice(reinterpret_cast<float4*>(q_hi(s)),
-                  reinterpret_cast<float4*>(q_lo(s)), t, sq);
-    store_norms(sq, qn_s, t);
+    for (int s = 0; s < ns; ++s) split_slice<kConsumers>(q_hi(s), q_lo(s), t,
+                                                         sq);
+    store_norms<kConsumers>(sq, qn_s, t);
   }
   fence_proxy_async();
-  consumers_sync();
+  named_sync(1, kConsumers);
 
-  const int wg = t / 128, lane = t % 32, quad = lane % 4;
-  // element 4j + 2h + e of the accumulator: row ra + 8h, column
-  // 8j + 2 quad + e of the tile
-  const int ra = 64 * wg + 16 * ((t % 128) / 32) + lane / 4;
-  const float qn[2] = {qn_s[ra], qn_s[ra + 8]};
-  const bool pairs = (n & 1) == 0;
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  int g = 0;                                           // slices consumed
-  for (int vt = blockIdx.x, tp = 0; vt < n_vt; vt += gridDim.x, tp ^= 1) {
-    float vsq[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < ns; ++s, ++g) {
+  // ---- warpgroup wg: the block's tiles wg, wg + 2, ... (vector tiles
+  // blockIdx.x + i * gridDim.x), all 128 queries, in two 64-row halves.
+  // The warpgroups take turns: one splits and multiplies its tile's
+  // slices while the other writes its finished tile out, so the slices
+  // are taken from the ring in the order they were loaded (a wait on a
+  // full barrier is never two phases ahead of it).
+  const int wg = t / 128, wt = t % 128, lane = t % 32, quad = lane % 4;
+  const int ra = 16 * (wt / 32) + lane / 4;   // rows ra, ra + 8 of a half
+  const float qn[2][2] = {{qn_s[ra], qn_s[ra + 8]},
+                          {qn_s[64 + ra], qn_s[64 + ra + 8]}};
+  float* vn = vn_s[wg];
+  float acc0[64], acc1[64];                   // query rows 0-63, 64-127
+  for (int i = wg; blockIdx.x + i * gridDim.x < n_vt; i += 2) {
+    const int vt = blockIdx.x + i * gridDim.x;
+    if (i > 0) mbar_wait(bar(kBarTurn + wg), ((i - 1) / 2) & 1);
+    float vsq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < ns; ++s) {
+      const int g = i * ns + s;               // the slice's place in the ring
       const int st = g % kStages;
       mbar_wait(bar(kBarFull + st), (g / kStages) & 1);
-      split_slice(reinterpret_cast<float4*>(v_hi(st)),
-                  reinterpret_cast<float4*>(v_lo(st)), t, vsq);
-      if (s == ns - 1) store_norms(vsq, vn_s[tp], t);
+      split_slice<128>(v_hi(st), v_lo(st), wt, vsq);
       fence_proxy_async();
-      consumers_sync();
-      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row
-      const uint32_t a_hi = smem_u32(q_hi(s)) + wg * 64 * 128;
-      const uint32_t a_lo = smem_u32(q_lo(s)) + wg * 64 * 128;
+      named_sync(2 + wg, 128);
+      // after the barrier: the warpgroup is done with its last epilogue
+      if (s == ns - 1) store_norms<128>(vsq, vn, wt);
+      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row; the
+      // second half of the queries starts 64 rows (8 KB) on
+      const uint32_t a_hi = smem_u32(q_hi(s)), a_lo = smem_u32(q_lo(s));
       const uint32_t b_hi = smem_u32(v_hi(st)), b_lo = smem_u32(v_lo(st));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 8; ++kk) {
         const uint32_t off = kk * 32;
-        mma_tf32(acc, desc(a_hi + off, 16, 1024),
-                 desc(b_lo + off, 16, 1024), s > 0 || kk > 0);
-        mma_tf32(acc, desc(a_lo + off, 16, 1024),
-                 desc(b_hi + off, 16, 1024), 1);
-        mma_tf32(acc, desc(a_hi + off, 16, 1024),
-                 desc(b_hi + off, 16, 1024), 1);
+        const uint64_t bh = desc(b_hi + off, 16, 1024);
+        const uint64_t bl = desc(b_lo + off, 16, 1024);
+        mma_tf32(acc0, desc(a_hi + off, 16, 1024), bl, s > 0 || kk > 0);
+        mma_tf32(acc0, desc(a_lo + off, 16, 1024), bh, 1);
+        mma_tf32(acc0, desc(a_hi + off, 16, 1024), bh, 1);
+        mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bl,
+                 s > 0 || kk > 0);
+        mma_tf32(acc1, desc(a_lo + 8192 + off, 16, 1024), bh, 1);
+        mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, 1);
       }
       wgmma_commit();
       if (s > 0) {              // the previous slice's products are done
@@ -232,34 +286,14 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         if (lane == 0) mbar_arrive(bar(kBarEmpty + (g - 1) % kStages));
       }
     }
+    if (lane == 0) mbar_arrive(bar(kBarTurn + (wg ^ 1)));   // its turn
     wgmma_wait<0>();
-    fence_regs(acc);
-    if (lane == 0) mbar_arrive(bar(kBarEmpty + (g - 1) % kStages));
-
-    const int v0 = vt * kBN;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = ra + 8 * h;
-      if (q0 + row >= b) continue;
-      float* orow = out + (long long)(q0 + row) * n;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int col = 8 * j + 2 * quad;
-        const int gc = v0 + col;
-        const float o0 = __fadd_rn(
-            __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h])),
-            vn_s[tp][col]);
-        const float o1 = __fadd_rn(
-            __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
-            vn_s[tp][col + 1]);
-        if (pairs && gc + 1 < n) {
-          *reinterpret_cast<float2*>(orow + gc) = make_float2(o0, o1);
-        } else {
-          if (gc < n) orow[gc] = o0;
-          if (gc + 1 < n) orow[gc + 1] = o1;
-        }
-      }
-    }
+    fence_regs(acc0);
+    fence_regs(acc1);
+    if (lane == 0) mbar_arrive(bar(kBarEmpty + (i * ns + ns - 1) % kStages));
+    named_sync(2 + wg, 128);                  // the tile's norms are stored
+    store_tile(acc0, out, vn, qn[0], q0 + ra, vt * kBN, quad, b, n);
+    store_tile(acc1, out, vn, qn[1], q0 + 64 + ra, vt * kBN, quad, b, n);
   }
 }
 
