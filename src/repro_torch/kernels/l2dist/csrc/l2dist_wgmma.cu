@@ -45,6 +45,12 @@
 // of four output rows), so the output, most of the bound, leaves while
 // the tensor cores work.
 
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
 namespace {
 
 using namespace hopper;
@@ -258,7 +264,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // A fragments in two register sets: k-step kk's are written while the
   // products of kk - 1 still read the other set
   float hi[2][2][4], lo[2][2][4];
-  for (int i = wg; blockIdx.x + i * gridDim.x < n_vt; i += 2) {
+  for (int i = wg; (int)(blockIdx.x + i * gridDim.x) < n_vt; i += 2) {
     const int vt = blockIdx.x + i * gridDim.x;
     if (i > 0) mbar_wait(bar(kBarTurn + wg), ((i - 1) / 2) & 1);
     float sq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
