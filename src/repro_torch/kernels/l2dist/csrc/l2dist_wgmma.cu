@@ -25,8 +25,9 @@
 // Design: a persistent grid, one block an SM (l2dist/ops.py::l2_plan):
 // block (x, y) owns the 128 queries of tile y and walks the 128-vector
 // tiles x, x + grid_x, ...; the blocks of one x walk the same vector
-// tiles at the same time, so each tile comes from HBM about once.  A
-// producer warp loads the query tile once (all of d: 32-column, 128-byte
+// tiles at the same time, so each tile comes from HBM about once.  One
+// thread of a producer warpgroup (which hands most of its registers to
+// the consumers) loads the query tile once (all of d: 32-column, 128-byte
 // swizzled k-slices) and streams the vector tiles' k-slices through a
 // six-stage ring, all by TMA behind full / empty mbarriers; TMA fills
 // rows and columns past B, N and d with zeros.  The queries are the
@@ -63,7 +64,10 @@ constexpr int kSlices = kMaxD / kBK;
 constexpr int kSliceBytes = 128 * kBK * 4; // 128 rows x 128 B, q or v
 constexpr int kStages = 6;                 // depth of the vector-slice ring
 constexpr int kConsumers = 256;            // two warpgroups
-constexpr int kThreads = kConsumers + 32;  // + one producer warp
+constexpr int kThreads = kConsumers + 128; // + the producer warpgroup
+// registers a thread: a block of three warpgroups starts at 168; the
+// producer gives most of its own to the consumers' accumulators
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 // dynamic shared memory: q hi | q lo (kSlices each) | the ring (kStages),
 // 1024-byte aligned: 224 KB of the 227 KB
 constexpr int kSmemBytes = (2 * kSlices + kStages) * kSliceBytes + 1024;
@@ -220,7 +224,8 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
-  if (t >= kConsumers) {                               // producer warp
+  if (t >= kConsumers) {                          // producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
     if (t == kConsumers) {
       mbar_expect_tx(bar(kBarQ), ns * kSliceBytes);
       for (int s = 0; s < ns; ++s)
@@ -240,7 +245,8 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  // ---- both warpgroups: the query tile, split once
+  // ---- both consumer warpgroups: the query tile, split once
+  setmaxnreg_inc<kConsumerRegs>();
   mbar_wait(bar(kBarQ), 0);
   {
     float sq[4] = {0.f, 0.f, 0.f, 0.f};
