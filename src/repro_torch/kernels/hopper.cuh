@@ -1,11 +1,10 @@
 // Hopper (sm_90a) helpers shared by the tensor-core kernels
 // (flash_attn/csrc/flash_attn_fwd_wgmma.cu, l2dist/csrc/l2dist_wgmma.cu):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma fence / commit / wait, setmaxnreg, and the driver's
-// cuTensorMapEncodeTiled found through the runtime (so no library links
-// -lcuda).  kernels/build.py puts this directory on every source's include
-// path and hashes this file into every library's name, so an edit here
-// rebuilds them all.
+// wgmma fence / commit / wait, and the driver's cuTensorMapEncodeTiled
+// found through the runtime (so no library links -lcuda).  kernels/build.py
+// puts this directory on every source's include path and hashes this file
+// into every library's name, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -108,17 +107,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// moves registers between warpgroups: every thread of the warpgroup
-// executes it; N is a multiple of 8 in [24, 256]
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // operand lists of the accumulator registers d[0..N) for wgmma's inline asm

@@ -14,7 +14,7 @@
 //
 // The product runs on wgmma m64n128k8 in TF32, three times per k-step:
 // each operand is split as hi = tf32(x) (round to nearest), lo = tf32(x -
-// hi), and hi*hi + hi*lo + lo*hi is summed into the f32 accumulator (the
+// hi), and hi*lo + lo*hi + hi*hi is summed into the f32 accumulator (the
 // lo*lo term is below f32's resolution of the sum).  On integer data
 // below 2^11 (SIFT's uint8) lo is 0, every product and partial sum is an
 // integer below 2^24, so the result equals the plain version's bit for
@@ -25,26 +25,21 @@
 // Design: a persistent grid, one block an SM (l2dist/ops.py::l2_plan):
 // block (x, y) owns the 128 queries of tile y and walks the 128-vector
 // tiles x, x + grid_x, ...; the blocks of one x walk the same vector
-// tiles at the same time, so each tile comes from HBM about once.  One
-// thread of a producer warpgroup (which hands most of its registers to
-// the consumers) loads the query tile once (all of d: 32-column, 128-byte
+// tiles at the same time, so each tile comes from HBM about once.  A
+// producer warp loads the query tile once (all of d: 32-column, 128-byte
 // swizzled k-slices) and streams the vector tiles' k-slices through a
-// six-stage ring, all by TMA behind full / empty mbarriers; TMA fills
-// rows and columns past B, N and d with zeros.  The queries are the
-// product's B operand: the two consumer warpgroups split the query tile
-// once into hi and lo tiles of the same swizzled layout, fence the
-// generic-proxy stores for the async proxy (wgmma reads them) and
-// synchronise.  The vectors are the A operand, from registers: each
-// thread loads its fragment of a landed slice from shared memory, splits
-// it in registers and sums its squares, so a slice goes back to the
-// producer as soon as it is read and the ring keeps many loads in
-// flight.  The products of one k-step (two 64-vector halves, three terms
-// each) run while the next k-step's fragments are loaded and split.  The
-// warpgroups take the block's tiles in turns (ping-pong): while one
-// multiplies, the other writes its finished 128 x 128 tile out straight
-// from the accumulators (each warp store covers whole 32-byte segments
-// of four output rows), so the output, most of the bound, leaves while
-// the tensor cores work.
+// three-stage ring, all by TMA behind full / empty mbarriers; TMA fills
+// rows and columns past B, N and d with zeros.  The two consumer
+// warpgroups split the query tile once and then take the block's vector
+// tiles in turns (ping-pong): one splits each slice of its tile that has
+// landed (hi in place, lo into a second buffer of the same layout),
+// fences the generic-proxy stores for the async proxy, synchronises on a
+// named barrier and issues the slice's 24 wgmmas (two 64-query halves),
+// splitting the next slice while they run, and hands a slice back to
+// the producer once its wgmmas are done; meanwhile the other writes its
+// finished 128 x 128 tile out as float2 pairs straight from the
+// accumulators' layout (a warp writes whole 32-byte row segments).  So
+// the output, most of the bound, leaves while the tensor cores work.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -62,15 +57,13 @@ constexpr int kBK = 32;                    // floats of one 128-byte k-slice
 constexpr int kMaxD = 128;                 // the resident query tile's width
 constexpr int kSlices = kMaxD / kBK;
 constexpr int kSliceBytes = 128 * kBK * 4; // 128 rows x 128 B, q or v
-constexpr int kStages = 6;                 // depth of the vector-slice ring
+constexpr int kStages = 3;                 // depth of the vector-slice ring
 constexpr int kConsumers = 256;            // two warpgroups
-constexpr int kThreads = kConsumers + 128; // + the producer warpgroup
-// registers a thread: a block of three warpgroups starts at 168; the
-// producer gives most of its own to the consumers' accumulators
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-// dynamic shared memory: q hi | q lo (kSlices each) | the ring (kStages),
-// 1024-byte aligned: 224 KB of the 227 KB
-constexpr int kSmemBytes = (2 * kSlices + kStages) * kSliceBytes + 1024;
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+// dynamic shared memory: q hi | q lo (kSlices each) | v hi | v lo
+// (kStages each), 1024-byte aligned: 224 KB of the 227 KB
+constexpr int kSmemBytes =
+    (2 * kSlices + 2 * kStages) * kSliceBytes + 1024;
 // barriers: the q tile, full [stage], empty [stage] (a stage goes to one
 // warpgroup), turn [warpgroup] (whose products run next)
 constexpr int kBarQ = 0, kBarFull = 1, kBarEmpty = 1 + kStages,
@@ -82,110 +75,89 @@ __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float(r);
 }
 
-// d (64 x 128, f32) (+)= A (64 x 8, registers) * B (128 x 8, smem)^T in
-// TF32, B K-major; A's fragment a[0..3] holds (row g, k t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4) for g = 16 warp + lane / 4, t = lane % 4;
-// accumulate = 0 overwrites d
-__device__ __forceinline__ void mma_tf32(float (&d)[64], const float (&a)[4],
+// d (64 x 128, f32) (+)= A (64 x 8, smem) * B (128 x 8, smem)^T in TF32,
+// both K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      ", %64, %65, p, 1, 1;\n}\n"
       : D64
-      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
-        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(db),
-        "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Splits the landed query tile's k-slice in place: x -> hi = tf32(x) and
-// lo = tf32(x - hi) at the same offset of lo (the same swizzled layout).
-// Thread t of 256 takes 16-byte chunks t + 256 i, of rows t / 8 + 32 i;
-// sq[i] sums the squares of the elements it saw of that row.
+// Splits one landed 128-row k-slice (1024 chunks of 16 bytes) among kT
+// threads: x -> hi = tf32(x) in place and lo = tf32(x - hi) at the same
+// offset of lo (the same swizzled layout).  Thread t takes chunks
+// t + kT i, of rows t / 8 + (kT / 8) i; sq[i] sums the squares of the
+// elements it saw of that row.
+template <int kT>
 __device__ __forceinline__ void split_slice(float4* hi, float4* lo, int t,
-                                            float (&sq)[4]) {
+                                            float (&sq)[1024 / kT]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 x = hi[t + 256 * i];
+  for (int i = 0; i < 1024 / kT; ++i) {
+    const float4 x = hi[t + kT * i];
     sq[i] = __fmaf_rn(x.x, x.x, sq[i]);
     sq[i] = __fmaf_rn(x.y, x.y, sq[i]);
     sq[i] = __fmaf_rn(x.z, x.z, sq[i]);
     sq[i] = __fmaf_rn(x.w, x.w, sq[i]);
     const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y),
                                  tf32_rna(x.z), tf32_rna(x.w));
-    hi[t + 256 * i] = h;
-    lo[t + 256 * i] = make_float4(
+    hi[t + kT * i] = h;
+    lo[t + kT * i] = make_float4(
         tf32_rna(__fsub_rn(x.x, h.x)), tf32_rna(__fsub_rn(x.y, h.y)),
         tf32_rna(__fsub_rn(x.z, h.z)), tf32_rna(__fsub_rn(x.w, h.w)));
   }
 }
 
-// the eight threads of a query row add their sums; the first stores it
-__device__ __forceinline__ void store_norms(const float (&sq)[4],
+// the eight threads of a row add their sums; the first stores the norm
+template <int kT>
+__device__ __forceinline__ void store_norms(const float (&sq)[1024 / kT],
                                             float* norm, int t) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 1024 / kT; ++i) {
     float s = sq[i];
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
-    if ((t & 7) == 0) norm[t / 8 + 32 * i] = s;
+    if ((t & 7) == 0) norm[t / 8 + (kT / 8) * i] = s;
   }
 }
 
-// One k-step's A fragments of both 64-vector halves, from a landed
-// 128-row slice (128-byte rows, their 16-byte chunks swizzled by the
-// row's low three bits) at 8-column group kk: hi[h] and lo[h] of half h,
-// the squares summed into sq[h][0] (row g) and sq[h][1] (row g + 8).
-__device__ __forceinline__ void load_split(const uint8_t* slice, int kk,
-                                           int g, int t4, float (&hi)[2][4],
-                                           float (&lo)[2][4],
-                                           float (&sq)[2][2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 64 * h + g + 8 * (r & 1);
-      const int col = 8 * kk + t4 + 4 * (r >> 1);
-      const float x = *reinterpret_cast<const float*>(
-          slice + row * 128 + ((((col >> 2) ^ row) & 7) << 4) +
-          (col & 3) * 4);
-      sq[h][r & 1] = __fmaf_rn(x, x, sq[h][r & 1]);
-      hi[h][r] = tf32_rna(x);
-      lo[h][r] = tf32_rna(__fsub_rn(x, hi[h][r]));
-    }
-  }
-}
-
+// named barriers: 1 for both consumer warpgroups, 2 + w for warpgroup w
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Writes half h (vectors 64 h ..) of a finished tile held in acc, the
-// transposed product: element 4j + 2hh + e is (vector row + 8 hh, query
-// 8j + 2 t4 + e), `row` this thread's first vector of the half (global),
-// vn[hh] that vector's norm: out[query, vector] = (|q|^2 - 2 q.v) +
-// |v|^2, each step rounded.  The eight threads of a quad column write 32
-// contiguous bytes of one output row.
-__device__ __forceinline__ void store_half(const float (&acc)[64],
+// Writes the 64 x 128 block of a finished tile held in acc: element
+// 4j + 2h + e is (row + 8h, column 8j + 2 quad + e), `row` this thread's
+// first global row, `v0` the tile's first vector: out = (|q|^2 - 2 q.v) +
+// |v|^2, each step rounded.  A warp writes whole 32-byte row segments,
+// as float2 pairs where n is even.
+__device__ __forceinline__ void store_tile(const float (&acc)[64],
                                            float* __restrict__ out,
-                                           const float* qn_s,
-                                           const float (&vn)[2], int q0,
-                                           int row, int t4, int b, int n) {
+                                           const float* vn,
+                                           const float (&qn)[2], int row,
+                                           int v0, int quad, int b, int n) {
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int col = 8 * j + 2 * t4;
-    const float2 qn = *reinterpret_cast<const float2*>(qn_s + col);
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= b) continue;
+    float* orow = out + (long long)(row + 8 * h) * n;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (q0 + col + e >= b) continue;
-      float* orow = out + (long long)(q0 + col + e) * n;
-      const float qe = e ? qn.y : qn.x;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        if (row + 8 * hh >= n) continue;
-        orow[row + 8 * hh] = __fadd_rn(
-            __fsub_rn(qe, __fmul_rn(2.f, acc[4 * j + 2 * hh + e])), vn[hh]);
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      const int gc = v0 + col;
+      const float o0 = __fadd_rn(
+          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h])), vn[col]);
+      const float o1 = __fadd_rn(
+          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
+          vn[col + 1]);
+      if ((n & 1) == 0 && gc + 1 < n) {
+        *reinterpret_cast<float2*>(orow + gc) = make_float2(o0, o1);
+      } else {
+        if (gc < n) orow[gc] = o0;
+        if (gc + 1 < n) orow[gc + 1] = o1;
       }
     }
   }
@@ -197,13 +169,23 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     float* __restrict__ out, int b, int n, int d) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
-  __shared__ __align__(8) float qn_s[kBM];
+  __shared__ float qn_s[kBM];
+  __shared__ float vn_s[2][kBN];           // each warpgroup's current tile
   uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
                               smem_u32(smem_raw));
-  auto q_hi = [&](int s) { return base + s * kSliceBytes; };
-  auto q_lo = [&](int s) { return base + (kSlices + s) * kSliceBytes; };
-  auto ring = [&](int st) {
-    return base + (2 * kSlices + st) * kSliceBytes;
+  auto q_hi = [&](int s) {
+    return reinterpret_cast<float4*>(base + s * kSliceBytes);
+  };
+  auto q_lo = [&](int s) {
+    return reinterpret_cast<float4*>(base + (kSlices + s) * kSliceBytes);
+  };
+  auto v_hi = [&](int st) {
+    return reinterpret_cast<float4*>(base +
+                                     (2 * kSlices + st) * kSliceBytes);
+  };
+  auto v_lo = [&](int st) {
+    return reinterpret_cast<float4*>(
+        base + (2 * kSlices + kStages + st) * kSliceBytes);
   };
   const uint32_t bar0 = smem_u32(bars);
   auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
@@ -224,8 +206,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
-  if (t >= kConsumers) {                          // producer warpgroup
-    setmaxnreg_dec<kProducerRegs>();
+  if (t >= kConsumers) {                               // producer warp
     if (t == kConsumers) {
       mbar_expect_tx(bar(kBarQ), ns * kSliceBytes);
       for (int s = 0; s < ns; ++s)
@@ -237,7 +218,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           if (g >= kStages)
             mbar_wait(bar(kBarEmpty + st), ((g / kStages) - 1) & 1);
           mbar_expect_tx(bar(kBarFull + st), kSliceBytes);
-          tma_load_2d(smem_u32(ring(st)), &map_v, bar(kBarFull + st),
+          tma_load_2d(smem_u32(v_hi(st)), &map_v, bar(kBarFull + st),
                       s * kBK, vt * kBN);
         }
       }
@@ -245,79 +226,74 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  // ---- both consumer warpgroups: the query tile, split once
-  setmaxnreg_inc<kConsumerRegs>();
+  // ---- both warpgroups: the query tile, split once
   mbar_wait(bar(kBarQ), 0);
   {
     float sq[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < ns; ++s)
-      split_slice(reinterpret_cast<float4*>(q_hi(s)),
-                  reinterpret_cast<float4*>(q_lo(s)), t, sq);
-    store_norms(sq, qn_s, t);
+    for (int s = 0; s < ns; ++s) split_slice<kConsumers>(q_hi(s), q_lo(s), t,
+                                                         sq);
+    store_norms<kConsumers>(sq, qn_s, t);
   }
   fence_proxy_async();
   named_sync(1, kConsumers);
 
   // ---- warpgroup wg: the block's tiles wg, wg + 2, ... (vector tiles
-  // blockIdx.x + i * gridDim.x), all 128 queries, the vectors in two
-  // 64-row halves.  The warpgroups take turns: one loads and multiplies
-  // its tile's slices while the other writes its finished tile out, so
-  // the slices are taken from the ring in the order they were loaded (a
-  // wait on a full barrier is never two phases ahead of it).
-  const int wg = t / 128, lane = t % 32, t4 = lane % 4;
-  const int g = 16 * ((t % 128) / 32) + lane / 4;   // rows g, g + 8
-  float acc0[64], acc1[64];                  // vectors 0-63, 64-127
-  // A fragments in two register sets: k-step kk's are written while the
-  // products of kk - 1 still read the other set
-  float hi[2][2][4], lo[2][2][4];
+  // blockIdx.x + i * gridDim.x), all 128 queries, in two 64-row halves.
+  // The warpgroups take turns: one splits and multiplies its tile's
+  // slices while the other writes its finished tile out, so the slices
+  // are taken from the ring in the order they were loaded (a wait on a
+  // full barrier is never two phases ahead of it).
+  const int wg = t / 128, wt = t % 128, lane = t % 32, quad = lane % 4;
+  const int ra = 16 * (wt / 32) + lane / 4;   // rows ra, ra + 8 of a half
+  const float qn[2][2] = {{qn_s[ra], qn_s[ra + 8]},
+                          {qn_s[64 + ra], qn_s[64 + ra + 8]}};
+  float* vn = vn_s[wg];
+  float acc0[64], acc1[64];                   // query rows 0-63, 64-127
   for (int i = wg; (int)(blockIdx.x + i * gridDim.x) < n_vt; i += 2) {
     const int vt = blockIdx.x + i * gridDim.x;
     if (i > 0) mbar_wait(bar(kBarTurn + wg), ((i - 1) / 2) & 1);
-    float sq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float vsq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int s = 0; s < ns; ++s) {
-      const int gs = i * ns + s;              // the slice's place in the ring
-      const int st = gs % kStages;
-      const uint8_t* slice = ring(st);
-      const uint32_t b_hi = smem_u32(q_hi(s)), b_lo = smem_u32(q_lo(s));
-      mbar_wait(bar(kBarFull + st), (gs / kStages) & 1);
+      const int g = i * ns + s;               // the slice's place in the ring
+      const int st = g % kStages;
+      mbar_wait(bar(kBarFull + st), (g / kStages) & 1);
+      split_slice<128>(v_hi(st), v_lo(st), wt, vsq);
+      fence_proxy_async();
+      named_sync(2 + wg, 128);
+      // after the barrier: the warpgroup is done with its last epilogue
+      if (s == ns - 1) store_norms<128>(vsq, vn, wt);
+      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row; the
+      // second half of the queries starts 64 rows (8 KB) on
+      const uint32_t a_hi = smem_u32(q_hi(s)), a_lo = smem_u32(q_lo(s));
+      const uint32_t b_hi = smem_u32(v_hi(st)), b_lo = smem_u32(v_lo(st));
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 8; ++kk) {
-        const int set = kk & 1;
-        load_split(slice, kk, g, t4, hi[set], lo[set], sq);
-        if (kk == kBK / 8 - 1 && lane == 0)   // the slice is read: free it
-          mbar_arrive(bar(kBarEmpty + st));
-        // k-step kk reads 32 bytes at kk * 32 of every 128-byte q row
-        const uint64_t qh = desc(b_hi + kk * 32, 16, 1024);
-        const uint64_t ql = desc(b_lo + kk * 32, 16, 1024);
-        const int accumulate = s > 0 || kk > 0;
-        wgmma_fence();
-        mma_tf32(acc0, hi[set][0], ql, accumulate);
-        mma_tf32(acc0, lo[set][0], qh, 1);
-        mma_tf32(acc0, hi[set][0], qh, 1);
-        mma_tf32(acc1, hi[set][1], ql, accumulate);
-        mma_tf32(acc1, lo[set][1], qh, 1);
-        mma_tf32(acc1, hi[set][1], qh, 1);
-        wgmma_commit();
-        wgmma_wait<1>();                      // k-step kk - 1 is done
+        const uint32_t off = kk * 32;
+        const uint64_t bh = desc(b_hi + off, 16, 1024);
+        const uint64_t bl = desc(b_lo + off, 16, 1024);
+        mma_tf32(acc0, desc(a_hi + off, 16, 1024), bl, s > 0 || kk > 0);
+        mma_tf32(acc0, desc(a_lo + off, 16, 1024), bh, 1);
+        mma_tf32(acc0, desc(a_hi + off, 16, 1024), bh, 1);
+        mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bl,
+                 s > 0 || kk > 0);
+        mma_tf32(acc1, desc(a_lo + 8192 + off, 16, 1024), bh, 1);
+        mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, 1);
+      }
+      wgmma_commit();
+      if (s > 0) {              // the previous slice's products are done
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(bar(kBarEmpty + (g - 1) % kStages));
       }
     }
     if (lane == 0) mbar_arrive(bar(kBarTurn + (wg ^ 1)));   // its turn
     wgmma_wait<0>();
     fence_regs(acc0);
     fence_regs(acc1);
-    // the quad's four threads hold all of d of rows g and g + 8
-    float vn[2][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float x = sq[h][hh];
-        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
-        vn[h][hh] = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      }
-    const int v0 = vt * kBN;
-    store_half(acc0, out, qn_s, vn[0], q0, v0 + g, t4, b, n);
-    store_half(acc1, out, qn_s, vn[1], q0, v0 + 64 + g, t4, b, n);
+    if (lane == 0) mbar_arrive(bar(kBarEmpty + (i * ns + ns - 1) % kStages));
+    named_sync(2 + wg, 128);                  // the tile's norms are stored
+    store_tile(acc0, out, vn, qn[0], q0 + ra, vt * kBN, quad, b, n);
+    store_tile(acc1, out, vn, qn[1], q0 + 64 + ra, vt * kBN, quad, b, n);
   }
 }
 
