@@ -16,7 +16,7 @@ those of ``tests/test_kernels.py``.  Tolerances:
 
 The launch planners that size the CUDA kernels (which flash kernel a
 dtype and head width go to, which L2 kernel a dtype and width go to; the
-dense scan's one-wave grid) and the builder's library names are pure
+dense scan's one-wave grid) and ``build.py``'s library names are pure
 Python and are held here too.  The CUDA kernels against their plain
 versions are in ``test_torch_cuda.py``.
 """
