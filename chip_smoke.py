@@ -275,8 +275,10 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             np.float32)).to(dev)
 
     for dtype in (torch.float32, torch.bfloat16):
+        # f32 at d 1, 102, 132 and 960 on l2dist.cu, the rest on wgmma
         for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
-                        (256, 5003, 96), (1, 5003, 4), (130, 777, 36)):
+                        (256, 5003, 96), (1, 5003, 4), (130, 777, 36),
+                        (3, 777, 102), (129, 1000, 132), (5, 5003, 960)):
             run(f"l2dist {dtype} b{b} n{n} d{d}", normal(b, d).to(dtype),
                 normal(n, d).to(dtype))
     # views off a 16-byte boundary, copied before the TMA loads
@@ -284,9 +286,11 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
     run("l2dist f32 unaligned view", flat[1:].view(3, 100),
         normal(777, 100))
     # integer data: every partial sum is exact, so equal bit for bit
-    ints = [torch.from_numpy(rng.integers(0, 256, shape).astype(
-        np.float32)).to(dev) for shape in ((37, 128), (3001, 128))]
-    run("l2dist f32 integers", *ints, exact=True)
+    # (at d 132, on l2dist.cu, still below 2^24: 132 * 255^2)
+    for d in (128, 132):
+        ints = [torch.from_numpy(rng.integers(0, 256, shape).astype(
+            np.float32)).to(dev) for shape in ((37, d), (3001, d))]
+        run(f"l2dist f32 integers d{d}", *ints, exact=True)
 
 
 def check_entry_kernels_small(dev: torch.device,
@@ -481,6 +485,22 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         log(f"l2_distances {dtype} on the first ground-truth chunk: max abs "
             f"error {err}")
     del d2
+    # the chunk's integers leave every lo part 0, so hold the cross
+    # products (hi*lo, lo*hi) at full width on normal values of its shape
+    qn, vn = (torch.randn(x.shape, generator=gen, device=dev)
+              for x in (q, chunk))
+    before = dict(ops.LAUNCHES)
+    got = l2_distances(qn, vn)
+    torch.cuda.synchronize()
+    ran = {name for name, c in ops.LAUNCHES.items() if c != before[name]}
+    if ran != {"l2dist_wgmma"}:
+        raise AssertionError(f"l2_distances on normal values launched "
+                             f"{sorted(ran)}, not l2dist_wgmma")
+    err = check_tol("l2_distances f32 on normal values at the chunk's "
+                    "shape", got, l2dist_ref(qn, vn), RTOL, L2_ATOL)
+    log(f"l2_distances f32 on normal values at the chunk's shape: max abs "
+        f"error {err}")
+    del qn, vn, got
     for dtype, qkv in attn.items():
         want = flash_attn_ref(*qkv, causal=True)
         err = check_attn(f"flash_attention {dtype} at the Qwen3-0.6B shape",
@@ -591,33 +611,38 @@ def measure_entry(calls) -> list:
         library_ms=None,
         **bound(n * m + m * k * 4 + min(topk, n) * 8, n * m)))
 
-    # f32 on the tensor cores in 3xTF32 (three products each), bf16 on the
-    # CUDA cores (l2_kernel's rule); the output alone is B * N * 4 bytes
+    # the least time for either dtype is on the tensor cores: f32 in
+    # 3xTF32 (three products each), bf16 in one (its products are exact
+    # in f32), whichever kernel l2_kernel's rule picks; the output alone
+    # is B * N * 4 bytes.  The yardstick is one addmm, bf16 in and f32 out
+    # for bf16.
     for name, peak, products in (("l2dist_wgmma", TF32_FLOPS, 3),
-                                 ("l2dist", F32_FLOPS, 1)):
+                                 ("l2dist", BF16_FLOPS, 1)):
         q, v = calls[name]
         (b, d), nv = q.shape, v.shape[0]
         plain = l2dist_ref(q, v)
         err = check_tol(f"{name} ({q.dtype})", l2_distances(q, v), plain,
                         RTOL, L2_ATOL)
-        library_ms = None       # no one call takes bf16 and returns f32
-        if q.dtype == torch.float32:
-            norms = (q * q).sum(-1, keepdim=True) + (v * v).sum(-1)[None]
-            check_tol("addmm yardstick", torch.addmm(norms, q, v.T,
-                                                     alpha=-2),
-                      plain, RTOL, L2_ATOL)
-            library_ms = gpu_ms(lambda: torch.addmm(norms, q, v.T, alpha=-2),
-                                10)
-            del norms
+        qf, vf = q.float(), v.float()
+        norms = (qf * qf).sum(-1, keepdim=True) + (vf * vf).sum(-1)[None]
+        del qf, vf
+        kw = ({} if q.dtype == torch.float32
+              else dict(out_dtype=torch.float32))
+
+        def addmm(q=q, v=v, norms=norms, kw=kw):
+            return torch.addmm(norms, q, v.T, alpha=-2, **kw)
+        check_tol(f"addmm yardstick ({q.dtype})", addmm(), plain, RTOL,
+                  L2_ATOL)
         del plain
         out.append(dict(
             name=name, shape=dict(B=b, N=nv, D=d, dtype=str(q.dtype)),
             max_abs_err=err,
             ms=gpu_ms(lambda: l2_distances(q, v), 10),
             plain_ms=gpu_ms(lambda: l2dist_ref(q, v), 3),
-            library_ms=library_ms,
+            library_ms=gpu_ms(addmm, 10),
             **bound((b * d + nv * d) * q.element_size() + b * nv * 4,
                     products * 2 * b * nv * d, peak=peak)))
+        del norms, addmm
 
     # bf16 on the tensor cores, f32 on the CUDA cores (flash_kernel's rule)
     for name, peak in (("flash_attn_fwd_wgmma", BF16_FLOPS),

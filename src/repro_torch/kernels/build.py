@@ -6,11 +6,11 @@ for ``sm_90a`` into its own shared library with a plain C interface, which
 ``ctypes`` loads (no PyTorch headers, so a build takes seconds).
 :func:`build` starts one ``nvcc`` per source, all together.  Libraries go
 to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
-hash of their source, of every header (``*.cuh``) in the source's
-``csrc/`` directory and in ``repro_torch/kernels`` itself (``hopper.cuh``,
-the Hopper helpers of the tensor-core kernels, found with ``-I``), and of
-the flags, so an edited source or header is rebuilt and an unchanged one
-is not.  Nothing is built until a kernel is first used on a CUDA tensor,
+hash of their source, of each header it includes (``#include "x.cuh"``,
+found in the source's ``csrc/`` directory or in ``repro_torch/kernels``
+itself, which holds ``hopper.cuh``, the Hopper helpers of the
+tensor-core kernels, and is passed with ``-I``), and of the flags, so an
+edited source or header rebuilds the libraries that use it and no other.  Nothing is built until a kernel is first used on a CUDA tensor,
 or :func:`build` is called.
 
 FMA policy: every source is compiled with ``-fmad=false``, so no multiply
@@ -39,6 +39,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -75,11 +76,23 @@ def source_path(name: str) -> Path:
     return KERNELS / SOURCES[name] / "csrc" / f"{name}.cu"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
 def headers(name: str) -> list:
-    """The headers a source may include: its ``csrc/*.cuh`` and the shared
-    ``repro_torch/kernels/*.cuh``."""
-    return (sorted(source_path(name).parent.glob("*.cuh"))
-            + sorted(KERNELS.glob("*.cuh")))
+    """The headers source ``name`` includes, directly or through another
+    header: each ``#include "x"`` looked up in the source's ``csrc/`` and
+    then in ``repro_torch/kernels``, as ``nvcc`` finds it."""
+    src = source_path(name)
+    found, todo = [], [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = next((d / inc for d in (src.parent, KERNELS)
+                         if (d / inc).is_file()), None)
+            if path is not None and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
 
 
 def library_path(name: str) -> Path:

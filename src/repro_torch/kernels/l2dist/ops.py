@@ -22,8 +22,6 @@ N and d need no padding: the kernels mask their edge tiles.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from repro_torch.kernels.l2dist.ref import l2dist_ref
@@ -43,19 +41,18 @@ def l2_kernel(dtype: torch.dtype, d: int) -> str:
     return "l2dist"
 
 
-def l2_plan(b: int, n: int, sms: int) -> Tuple[int, int]:
-    """The persistent grid ``(grid_x, grid_y)`` of ``l2dist_wgmma`` for B
-    queries against N vectors on a card of ``sms`` SMs.
+def l2_plan(b: int, n: int, sms: int) -> int:
+    """``grid_x`` of ``l2dist_wgmma``'s persistent grid for B queries
+    against N vectors on a card of ``sms`` SMs.
 
     One block resides on an SM (its tiles take 224 KB of shared memory).
-    Row y of the grid owns query tile y (128 queries), so grid_y is the
-    number of query tiles; its grid_x = sms // grid_y blocks (at least
-    one, at most one per vector tile) walk the 128-vector tiles x,
-    x + grid_x, ..., each in step with the blocks of the other rows at
-    the same x."""
+    The kernel's entry gives its grid one row per query tile (128
+    queries); each row's grid_x = sms // rows blocks (at least one, at
+    most one per vector tile) walk the 128-vector tiles x, x + grid_x,
+    ..., each in step with the blocks of the other rows at the same x."""
     q_tiles = -(-b // _WGMMA_TILE)
     v_tiles = -(-n // _WGMMA_TILE)
-    return max(1, min(v_tiles, sms // q_tiles)), q_tiles
+    return max(1, min(v_tiles, sms // q_tiles))
 
 
 def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
@@ -83,7 +80,7 @@ def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
                             for x in (queries, vectors))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), b, n, d, l2_plan(b, n, sms)[0])
+               out.data_ptr(), b, n, d, l2_plan(b, n, sms))
     else:
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
                out.data_ptr(), b, n, d,

@@ -172,23 +172,32 @@ def _aligned_or_not(x, offset):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_l2dist_matches_plain(cuda, dtype):
-    """Both kernels of l2_kernel's rule (f32 at d 1 runs on the CUDA
-    cores, at d % 4 == 0 on the tensor cores; bf16 on the CUDA cores), and
-    integer data bit for bit."""
+    """Both kernels of l2_kernel's rule (f32 at d % 4 == 0 up to 128 runs
+    on the tensor cores; f32 at d 1, 102, 132 and 960 and all bf16 on the
+    CUDA cores, with ragged B and N, edge tiles and a k tail), and integer
+    data bit for bit on each f32 kernel."""
     rng = np.random.default_rng(24)
+    ran = set()
     for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
-                    (256, 5003, 96)):
+                    (256, 5003, 96), (3, 777, 102), (129, 1000, 132),
+                    (5, 5003, 960)):
         q = _t(rng.standard_normal((b, d)).astype(np.float32))
         v = _t(rng.standard_normal((n, d)).astype(np.float32))
         q, v = q.to(cuda, dtype), v.to(cuda, dtype)
         got = _l2_launched(q, v)
+        ran.add(l2_kernel(dtype, d))
         torch.testing.assert_close(got, l2dist_ref(q, v), rtol=RTOL,
                                    atol=1e-3)
+    assert ran == ({"l2dist", "l2dist_wgmma"} if dtype == torch.float32
+                   else {"l2dist"})
     # integers: every partial sum is exact in f32, so the two agree exactly
-    q = _t(rng.integers(0, 256, (37, 128)).astype(np.float32)).to(cuda)
-    v = _t(rng.integers(0, 256, (3001, 128)).astype(np.float32)).to(cuda)
+    # (at d 132 still below 2^24: 132 * 255^2)
     if dtype == torch.float32:
-        assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
+        for d in (128, 132):
+            q = _t(rng.integers(0, 256, (37, d)).astype(np.float32))
+            v = _t(rng.integers(0, 256, (3001, d)).astype(np.float32))
+            q, v = q.to(cuda), v.to(cuda)
+            assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
 
 
 @pytest.mark.gpu

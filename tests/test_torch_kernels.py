@@ -287,9 +287,10 @@ def test_l2_plan_covers_every_tile_once(b, n, sms):
     tile, at most one block per SM where the query tiles fit, and the
     kernel's loop (block (x, y) takes vector tiles x, x + grid_x, ...)
     computes every (query tile, vector tile) pair once."""
-    gx, gy = l2_plan(b, n, sms)
+    gx = l2_plan(b, n, sms)
     q_tiles, v_tiles = -(-b // 128), -(-n // 128)
-    assert gy == q_tiles and 1 <= gx <= v_tiles
+    gy = q_tiles                        # l2dist_wgmma.cu's grid rows
+    assert 1 <= gx <= v_tiles
     assert gx * gy <= max(sms, q_tiles)
     seen = np.zeros((q_tiles, v_tiles), np.int64)
     for y in range(gy):
@@ -301,31 +302,39 @@ def test_l2_plan_covers_every_tile_once(b, n, sms):
 def test_l2_plan_of_the_ground_truth_chunk():
     """256 queries x 2^20 vectors on 132 SMs: 66 x 2 blocks, each pair of
     rows in step over 124 or 125 of the 8,192 vector tiles."""
-    assert l2_plan(256, 1 << 20, 132) == (66, 2)
+    assert l2_plan(256, 1 << 20, 132) == 66
 
 
 def test_library_path_hashes_every_header(tmp_path, monkeypatch):
-    """A library's name changes with its source, with a header of its
-    csrc/ and with the shared Hopper header beside the packages, so an
-    edit to any of them rebuilds it; an unrelated package's header does
-    not."""
+    """A library's name changes with its source and with every header it
+    includes: one of its csrc/, the shared Hopper header beside the
+    packages, and a header that one of those includes, so an edit to any
+    of them rebuilds it; a header it does not include (of another
+    package, or shared but unused) leaves it as it was."""
     for pkg in ("l2dist", "pq_adc"):
         (tmp_path / pkg / "csrc").mkdir(parents=True)
     src = tmp_path / "l2dist" / "csrc" / "l2dist_wgmma.cu"
     own = tmp_path / "l2dist" / "csrc" / "own.cuh"
     shared = tmp_path / "hopper.cuh"
+    nested = tmp_path / "nested.cuh"
+    unused = tmp_path / "unused.cuh"
     other = tmp_path / "pq_adc" / "csrc" / "adc_common.cuh"
-    for f in (src, own, shared, other):
-        f.write_text("// v1\n")
+    includes = {src: '#include <stdint.h>\n#include "own.cuh"\n'
+                     '#include "hopper.cuh"\n',
+                own: '#include "nested.cuh"\n'}
+    for f in (src, own, shared, nested, unused, other):
+        f.write_text(includes.get(f, "") + "// v1\n")
     monkeypatch.setattr(build, "KERNELS", tmp_path)
-    assert build.headers("l2dist_wgmma") == [own, shared]
+    assert sorted(build.headers("l2dist_wgmma")) == sorted(
+        [own, shared, nested])
     names = {build.library_path("l2dist_wgmma").name}
-    for f in (src, own, shared):
-        f.write_text("// v2\n")
+    for f in (src, own, shared, nested):
+        f.write_text(includes.get(f, "") + "// v2\n")
         names.add(build.library_path("l2dist_wgmma").name)
-    other.write_text("// v2\n")
+    for f in (other, unused):
+        f.write_text("// v2\n")
     assert build.library_path("l2dist_wgmma").name in names
-    assert len(names) == 4
+    assert len(names) == 5
     assert all(n.startswith("libl2dist_wgmma-") for n in names)
 
 
