@@ -5,7 +5,9 @@ tables of Eq. (1).
 Both training and encoding walk the rows in chunks: the JAX package's
 one-hot (M, N, K) assignment and (M, N, K) distance array would take
 hundreds of GB at N = 10M.  Training accumulates per-centroid sums with
-``index_add_``.  The initial centroids come from a ``torch.Generator``,
+``index_add_`` in f64: on the card it adds in no fixed order, and f32
+sums of SIFT's integers pass 2^24 at 10M rows, so f32 sums would round
+differently from run to run and so would the codebook.  The initial centroids come from a ``torch.Generator``,
 so a port-built codebook differs from the JAX package's (which draws with
 ``jax.random``); ``encode`` of a given codebook is the same function.
 """
@@ -84,16 +86,17 @@ def train_codebooks(gen: torch.Generator, data, m: int, nbits: int = 8,
         device=device, dtype=torch.float32), m).contiguous()  # (M, K, dsub)
     offs = (torch.arange(m, device=device) * k)[:, None]
     for _ in range(iters):
-        sums = torch.zeros(m * k, dsub, device=device)
-        cnts = torch.zeros(m * k, device=device)
+        sums = torch.zeros(m * k, dsub, dtype=torch.float64, device=device)
+        cnts = torch.zeros(m * k, dtype=torch.float64, device=device)
         for s in range(0, n, _CHUNK):
             sub = _split_subspaces(_rows(data, s, s + _CHUNK, device), m)
             flat = (_assign(sub, centers) + offs).reshape(-1)
-            sums.index_add_(0, flat, sub.reshape(-1, dsub))
+            sums.index_add_(0, flat, sub.reshape(-1, dsub).double())
             cnts.index_add_(0, flat, torch.ones_like(flat, dtype=sums.dtype))
         sums = sums.reshape(m, k, dsub)
         cnts = cnts.reshape(m, k, 1)
-        centers = torch.where(cnts > 0, sums / cnts.clamp_min(1.0), centers)
+        centers = torch.where(cnts > 0, (sums / cnts.clamp_min(1.0)).float(),
+                              centers)
     return PQCodebook(codebooks=centers)
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import pq
 from repro_torch.kernels import launch
 from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
 from repro_torch.kernels.l2dist import l2_distances, l2_kernel, l2dist_ref
@@ -330,3 +331,16 @@ def test_cuda_new_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ops.pq_adc(torch.zeros(4, 8, dtype=torch.uint8, device=cuda),
                    torch.zeros(4, 256, device=cuda))
+
+
+@pytest.mark.gpu
+def test_cuda_pq_training_is_reproducible(cuda):
+    """Two trainings from one seed give the same codebook bit for bit.
+    With 2 centroids a sub-space each holds about 200k integer rows, so
+    its sums pass 2^24, where f32 sums from the card's unordered
+    index_add_ would round differently from run to run."""
+    rng = np.random.default_rng(31)
+    data = _t(rng.integers(0, 256, (400_000, 8)).astype(np.uint8)).to(cuda)
+    cbs = [pq.train_codebooks(torch.Generator().manual_seed(0), data, 2, 1,
+                              device=cuda).codebooks for _ in range(2)]
+    assert torch.equal(*cbs)
