@@ -10,7 +10,8 @@ hash of their source, of each header it includes (``#include "x.cuh"``,
 found in the source's ``csrc/`` directory or in ``repro_torch/kernels``
 itself, which holds ``hopper.cuh``, the Hopper helpers of the
 tensor-core kernels, and is passed with ``-I``), and of the flags, so an
-edited source or header rebuilds the libraries that use it and no other.  Nothing is built until a kernel is first used on a CUDA tensor,
+edited source or header rebuilds the libraries that use it and no
+other.  Nothing is built until a kernel is first used on a CUDA tensor,
 or :func:`build` is called.
 
 FMA policy: every source is compiled with ``-fmad=false``, so no multiply
