@@ -11,10 +11,13 @@ From the root of a checkout, with one CUDA card:
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes: the ADC scans at ragged N, B = 1 and 64, S not a multiple
    of the block, all-pad rows, a mostly-padding last block, N < topk,
-   constructed ties, M in {8, 32}; exact L2 in f32 (both kernels of
-   ``l2_kernel``'s rule: d in {1, 4, 36, 96, 100, 128}, a view off a
-   16-byte boundary, integer data bit for bit) and bf16; flash attention
-   in f32 and bf16, ragged sizes, MQA (Hk = 1), causal and not, S != T;
+   constructed ties, M in {8, 32} (and 16 for the single-query scans),
+   rows in descending distance and a topk that fills the top-k kernel's
+   candidate buffer; exact L2 in f32 and bf16 (both kernels of
+   ``l2_kernel``'s rule, in both instantiations of the tensor-core one:
+   d in {1, 4, 8, 36, 96, 100, 102, 104, 128, 132, 960}, a view off a
+   16-byte boundary, integer data bit for bit); flash attention in f32
+   and bf16, ragged sizes, MQA (Hk = 1), causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
    ``FusionANNSIndex.build``, and prints the cuts of scale on a
@@ -34,13 +37,16 @@ From the root of a checkout, with one CUDA card:
    before: ``pq_adc`` and ``pq_adc_topk(topk=top_n)`` over the index's
    codes with the LUTs of the first 8 queries (top-k ids must equal the
    first top_n of a stable argsort of ``pq_adc``), ``l2_distances`` on the
-   first ground-truth chunk in f32 and once in bf16, and
-   ``flash_attention`` at Qwen3-0.6B's attention widths (H = 16, Hk = 8,
-   dh = 128), B = 1, S = T = 4096, causal, in bf16 and once in f32; each
-   against its plain version; it fails unless the f32 L2 call launched
-   ``l2dist_wgmma`` and the bf16 one ``l2dist``, and the bf16 flash call
-   ``flash_attn_fwd_wgmma`` (tensor cores) and the f32 one
-   ``flash_attn_fwd`` (CUDA cores);
+   first ground-truth chunk in f32, in bf16, and in bf16 cut to
+   SPACEV1B's width (d = 100), each bit-equal to its plain version on the
+   chunk's integers, then in f32 and bf16 on normal values of its shape,
+   and ``flash_attention`` at Qwen3-0.6B's attention widths (H = 16,
+   Hk = 8, dh = 128), B = 1, S = T = 4096, causal, in bf16 and once in
+   f32; each against its plain version; it fails unless the f32 L2 call
+   launched ``l2dist_wgmma``, the bf16 one at d = 128 its bf16
+   instantiation (counted as ``l2dist_wgmma[bf16]``) and the one at
+   d = 100 ``l2dist``, and the bf16 flash call ``flash_attn_fwd_wgmma``
+   (tensor cores) and the f32 one ``flash_attn_fwd`` (CUDA cores);
 6. holds each kernel against its plain version on the inputs its path
    gave it, and times kernel, plain version and (where one exists) a
    single PyTorch call computing the same function, with CUDA events,
@@ -85,6 +91,7 @@ FLASH_TOL = {torch.float32: 2e-5,    # online softmax against a plain one
 FLASH_ROW_RTOL = 2.0 ** -6
 WINDOW = 64
 QWEN3_ATTN = dict(H=16, Hk=8, dh=128)    # src/repro/configs/qwen3_0_6b.py
+SPACEV_DIM = 100                         # configs/anns_datasets.SPACEV1B.dim
 ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
@@ -104,6 +111,9 @@ KERNELS = {
                           replaces=PQ_TPU + "133"),
     "l2dist_wgmma": dict(route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
                          replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist_wgmma[bf16]": dict(
+        route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+        replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "l2dist": dict(route="cuda", source=L2_SRC + "l2dist.cu",
                    replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "flash_attn_fwd_wgmma": dict(
@@ -253,9 +263,11 @@ def check_kernels_small(dev: torch.device, rng: np.random.Generator) -> None:
 
 
 def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
-    """Both exact-L2 kernels against the plain version: each call must
-    launch the kernel ``l2_kernel`` names, and only it."""
-    from repro_torch.kernels.l2dist import l2_distances, l2_kernel, l2dist_ref
+    """Both exact-L2 kernels, in f32 and bf16, against the plain version:
+    each call must launch the kernel ``l2_kernel`` names, and only it,
+    counted under ``l2_instance``'s key."""
+    from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
+                                            l2dist_ref)
     from repro_torch.kernels.pq_adc import ops
 
     def run(name, q, v, exact=False):
@@ -263,7 +275,7 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
         got = l2_distances(q, v)
         torch.cuda.synchronize()
         ran = {k for k, c in ops.LAUNCHES.items() if c != before[k]}
-        want = l2_kernel(q.dtype, q.shape[1])
+        want = l2_instance(q.dtype, q.shape[1])
         if ran != {want}:
             raise AssertionError(f"{name} launched {sorted(ran)}, not {want}")
         if exact and not torch.equal(got, l2dist_ref(q, v)):
@@ -275,40 +287,52 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             np.float32)).to(dev)
 
     for dtype in (torch.float32, torch.bfloat16):
-        # f32 at d 1, 102, 132 and 960 on l2dist.cu, the rest on wgmma
+        # d 1, 102, 132 and 960 on l2dist.cu, and in bf16 also d 4, 36 and
+        # 100 (rows off 16 bytes); the rest on wgmma
         for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
                         (256, 5003, 96), (1, 5003, 4), (130, 777, 36),
+                        (1, 5003, 8), (130, 777, 104),
                         (3, 777, 102), (129, 1000, 132), (5, 5003, 960)):
             run(f"l2dist {dtype} b{b} n{n} d{d}", normal(b, d).to(dtype),
                 normal(n, d).to(dtype))
-    # views off a 16-byte boundary, copied before the TMA loads
-    flat = normal(3 * 100 + 1)
-    run("l2dist f32 unaligned view", flat[1:].view(3, 100),
-        normal(777, 100))
-    # integer data: every partial sum is exact, so equal bit for bit
-    # (at d 132, on l2dist.cu, still below 2^24: 132 * 255^2)
-    for d in (128, 132):
-        ints = [torch.from_numpy(rng.integers(0, 256, shape).astype(
-            np.float32)).to(dev) for shape in ((37, d), (3001, d))]
-        run(f"l2dist f32 integers d{d}", *ints, exact=True)
+        # views off a 16-byte boundary, copied before the TMA loads
+        flat = normal(3 * 104 + 1).to(dtype)
+        run(f"l2dist {dtype} unaligned view", flat[1:].view(3, 104),
+            normal(777, 104).to(dtype))
+        # integer data below 256 (exact in bf16): every partial sum is
+        # exact, so equal bit for bit (at d 132, on l2dist.cu, still below
+        # 2^24: 132 * 255^2)
+        for d in (128, 132):
+            ints = [torch.from_numpy(rng.integers(0, 256, shape).astype(
+                np.float32)).to(dev, dtype) for shape in ((37, d), (3001, d))]
+            run(f"l2dist {dtype} integers d{d}", *ints, exact=True)
 
 
 def check_entry_kernels_small(dev: torch.device,
                               rng: np.random.Generator) -> None:
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
     from repro_torch.kernels.pq_adc import ops, ref
-    for m in (8, 32):
-        # ragged N, N < topk, a mostly-padding last block (2048 + 7 rows),
-        # topk above the 2048-row block; every code row three times, so
+    for m in (8, 16, 32):
+        # ragged N, N < topk, short last ranges, topk above a range of
+        # rows (every row kept), a topk that fills the candidate buffer
+        # (2,048 + a round of 2,048 = 4,096 slots: each round with a
+        # candidate compacts), and rows in descending distance (every row
+        # beats the running threshold); every code row three times, so
         # distances tie exactly and ids must come out lowest row first
-        for n, topk in ((1, 10), (5, 512), (777, 512), (2048 + 7, 32),
-                        (3 * 2048 + 5, 2048), (50_000, 4000)):
+        for n, topk, descending in (
+                (1, 10, False), (5, 512, False), (777, 512, False),
+                (2048 + 7, 32, False), (3 * 2048 + 5, 2048, False),
+                (50_000, 4000, False), (2_000_001, 2048, False),
+                (2_000_001, 512, True)):
             base = rng.integers(0, 256, (-(-n // 3), m)).astype(np.uint8)
             codes = torch.from_numpy(np.repeat(base, 3, axis=0)[:n]).to(dev)
-            flat = torch.empty(n * m + 1, dtype=torch.uint8, device=dev)
-            flat[1:] = codes.reshape(-1)
             lut = torch.from_numpy(rng.random((m, 256)).astype(
                 np.float32)).to(dev)
+            if descending:
+                codes = codes[torch.sort(ref.pq_adc_ref(codes, lut),
+                                         descending=True, stable=True)[1]]
+            flat = torch.empty(n * m + 1, dtype=torch.uint8, device=dev)
+            flat[1:] = codes.reshape(-1)
             # a 1-byte storage offset exercises the byte-load path too
             for cds in (codes, flat[1:].view(n, m)):
                 check_close(f"adc_scan m{m} n{n}", ops.pq_adc(cds, lut),
@@ -441,18 +465,24 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
                              (1, s, QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"])))
         for dtype in (torch.bfloat16, torch.float32)}
     q16, chunk16 = q.bfloat16(), chunk.bfloat16()
+    # the chunk in f32 and in bf16 at SIFT1B's width (on the tensor cores),
+    # and in bf16 cut to SPACEV1B's width, d = 100 (rows of 200 bytes,
+    # off TMA's 16-byte stride: on the CUDA cores)
+    l2_calls = {"l2dist_wgmma": (q, chunk),
+                "l2dist_wgmma[bf16]": (q16, chunk16),
+                "l2dist": (q16[:, :SPACEV_DIM].contiguous(),
+                           chunk16[:, :SPACEV_DIM].contiguous())}
     torch.cuda.synchronize()
 
     ops.reset_launches()
     dists = [ops.pq_adc(codes, luts[i]) for i in range(len(luts))]
     tops = [ops.pq_adc_topk(codes, luts[i], top_n) for i in range(len(luts))]
     d2, l2_ran = {}, {}
-    for dtype, qv in ((torch.float32, (q, chunk)),
-                      (torch.bfloat16, (q16, chunk16))):
+    for key, qv in l2_calls.items():
         before = dict(ops.LAUNCHES)
-        d2[dtype] = l2_distances(*qv)
-        l2_ran[dtype] = {name for name, c in ops.LAUNCHES.items()
-                         if c != before[name]}
+        d2[key] = l2_distances(*qv)
+        l2_ran[key] = {name for name, c in ops.LAUNCHES.items()
+                       if c != before[name]}
     outs, flash_ran = {}, {}
     for dtype, qkv in attn.items():
         before = dict(ops.LAUNCHES)
@@ -461,15 +491,17 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
                             if c != before[name]}
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    for what, ran, dtype, want in (
-            ("l2_distances", l2_ran, torch.float32, "l2dist_wgmma"),
-            ("l2_distances", l2_ran, torch.bfloat16, "l2dist"),
+    for what, ran, key, want in (
+            ("l2_distances", l2_ran, "l2dist_wgmma", "l2dist_wgmma"),
+            ("l2_distances", l2_ran, "l2dist_wgmma[bf16]",
+             "l2dist_wgmma[bf16]"),
+            ("l2_distances", l2_ran, "l2dist", "l2dist"),
             ("flash_attention", flash_ran, torch.bfloat16,
              "flash_attn_fwd_wgmma"),
             ("flash_attention", flash_ran, torch.float32, "flash_attn_fwd")):
-        if ran[dtype] != {want}:
-            raise AssertionError(f"{what} in {dtype} launched "
-                                 f"{sorted(ran[dtype])}, not {want}")
+        if ran[key] != {want}:
+            raise AssertionError(f"{what} for {key} launched "
+                                 f"{sorted(ran[key])}, not {want}")
 
     for i, (d, (tv, ti)) in enumerate(zip(dists, tops)):
         check_close(f"adc_scan query {i} at N={len(codes)}", d,
@@ -478,29 +510,39 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         if not (torch.equal(ti.long(), order) and torch.equal(tv, d[order])):
             raise AssertionError(f"pq_adc_topk query {i}: not the first "
                                  f"{top_n} of a stable argsort of pq_adc")
-    for dtype, qv in ((torch.float32, (q, chunk)),
-                      (torch.bfloat16, (q16, chunk16))):
-        err = check_tol(f"l2_distances {dtype} on the first ground-truth "
-                        f"chunk", d2[dtype], l2dist_ref(*qv), RTOL, L2_ATOL)
-        log(f"l2_distances {dtype} on the first ground-truth chunk: max abs "
-            f"error {err}")
+    for key, qv in l2_calls.items():
+        what = (f"l2_distances {qv[0].dtype} d={qv[0].shape[1]} on the first "
+                f"ground-truth chunk ({key})")
+        want = l2dist_ref(*qv)
+        if not torch.equal(d2[key], want):    # integers: every sum exact
+            raise AssertionError(f"{what}: not bit-equal to the plain "
+                                 f"version on integer data")
+        err = check_tol(what, d2[key], want, RTOL, L2_ATOL)
+        log(f"{what}: bit-equal, max abs error {err}")
+        del want
     del d2
-    # the chunk's integers leave every lo part 0, so hold the cross
-    # products (hi*lo, lo*hi) at full width on normal values of its shape
+    # the chunk's integers leave every lo part 0 and every sum exact, so
+    # hold the tensor cores' products (in f32 the cross products hi*lo,
+    # lo*hi) and sums at full width on normal values of its shape
     qn, vn = (torch.randn(x.shape, generator=gen, device=dev)
               for x in (q, chunk))
-    before = dict(ops.LAUNCHES)
-    got = l2_distances(qn, vn)
-    torch.cuda.synchronize()
-    ran = {name for name, c in ops.LAUNCHES.items() if c != before[name]}
-    if ran != {"l2dist_wgmma"}:
-        raise AssertionError(f"l2_distances on normal values launched "
-                             f"{sorted(ran)}, not l2dist_wgmma")
-    err = check_tol("l2_distances f32 on normal values at the chunk's "
-                    "shape", got, l2dist_ref(qn, vn), RTOL, L2_ATOL)
-    log(f"l2_distances f32 on normal values at the chunk's shape: max abs "
-        f"error {err}")
-    del qn, vn, got
+    for key, dtype in (("l2dist_wgmma", torch.float32),
+                       ("l2dist_wgmma[bf16]", torch.bfloat16)):
+        qd, vd = qn.to(dtype), vn.to(dtype)
+        before = dict(ops.LAUNCHES)
+        got = l2_distances(qd, vd)
+        torch.cuda.synchronize()
+        ran = {name for name, c in ops.LAUNCHES.items() if c != before[name]}
+        if ran != {key}:
+            raise AssertionError(f"l2_distances on normal values launched "
+                                 f"{sorted(ran)}, not {key}")
+        err = check_tol(f"l2_distances {dtype} on normal values at the "
+                        f"chunk's shape", got, l2dist_ref(qd, vd), RTOL,
+                        L2_ATOL)
+        log(f"l2_distances {dtype} on normal values at the chunk's shape: "
+            f"max abs error {err}")
+        del qd, vd, got
+    del qn, vn
     for dtype, qkv in attn.items():
         want = flash_attn_ref(*qkv, causal=True)
         err = check_attn(f"flash_attention {dtype} at the Qwen3-0.6B shape",
@@ -513,8 +555,7 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         f"launches={launches}")
     return launches, {"adc_scan": (codes, luts[0]),
                       "adc_scan_topk": (codes, luts[0], top_n),
-                      "l2dist_wgmma": (q, chunk),
-                      "l2dist": (q16, chunk16),
+                      **l2_calls,
                       "flash_attn_fwd_wgmma": attn[torch.bfloat16],
                       "flash_attn_fwd": attn[torch.float32]}
 
@@ -617,6 +658,7 @@ def measure_entry(calls) -> list:
     # is B * N * 4 bytes.  The yardstick is one addmm, bf16 in and f32 out
     # for bf16.
     for name, peak, products in (("l2dist_wgmma", TF32_FLOPS, 3),
+                                 ("l2dist_wgmma[bf16]", BF16_FLOPS, 1),
                                  ("l2dist", BF16_FLOPS, 1)):
         q, v = calls[name]
         (b, d), nv = q.shape, v.shape[0]
@@ -807,8 +849,9 @@ def main() -> int:
 
     entry_launches, entry_calls = drive_entry_points(
         index, cfg.top_n, data, queries, args.seed)
-    for name in ("adc_scan", "adc_scan_topk", "l2dist_wgmma", "l2dist",
-                 "flash_attn_fwd_wgmma", "flash_attn_fwd"):
+    for name in ("adc_scan", "adc_scan_topk", "l2dist_wgmma",
+                 "l2dist_wgmma[bf16]", "l2dist", "flash_attn_fwd_wgmma",
+                 "flash_attn_fwd"):
         if entry_launches[name] < 1:
             raise AssertionError(f"the entry points never launched {name}")
 
@@ -820,6 +863,7 @@ def main() -> int:
                 "adc_scan": entry_launches["adc_scan"],
                 "adc_scan_topk": entry_launches["adc_scan_topk"],
                 "l2dist_wgmma": gt_launches["l2dist_wgmma"],
+                "l2dist_wgmma[bf16]": entry_launches["l2dist_wgmma[bf16]"],
                 "l2dist": entry_launches["l2dist"],
                 "flash_attn_fwd_wgmma":
                     entry_launches["flash_attn_fwd_wgmma"],

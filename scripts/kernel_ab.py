@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the dense ADC scan, bf16 flash attention and exact L2 of other
-source trees beside this one's on one card, and reads each output against
-its plain version.
+"""Times the dense ADC scan, the single-query ADC scan + top-k, bf16
+flash attention and exact L2 (f32 and bf16) of other source trees beside
+this one's on one card, and reads each output against its plain version.
 
     python3 scripts/kernel_ab.py --against DIR [--against DIR ...]
                                  [--out FILE] [--seed 0]
@@ -10,27 +10,34 @@ Each ``DIR`` is the root of another tree of this repo, or of its
 ``src/repro_torch`` at least: an earlier commit unpacked with
 ``git archive``, or a copy with one kernel source changed.  Its package
 is built and driven through its own public wrappers,
-``kernels.pq_adc.ops.pq_adc_batch``, ``kernels.flash_attn.
-flash_attention`` and ``kernels.l2dist.l2_distances``, so the trees may
+``kernels.pq_adc.ops.pq_adc_batch``, ``kernels.pq_adc.ops.pq_adc_topk``,
+``kernels.flash_attn.flash_attention`` and
+``kernels.l2dist.l2_distances``, so the trees may
 differ in launch shapes, C entry points and which kernel a call reaches.  Both packages are named
 ``repro_torch``, so every tree runs in a process of its own, in turns:
 ``DIR``, this tree, this tree, ``DIR``.
 
 Every process makes the same inputs from ``--seed``: the dense window's
-B = 64 LUTs over a 32,768-row bucket of M = 32 codes, and flash
-attention at Qwen3-0.6B's widths (H 16, Hk 8, dh 128), B = 1,
-S = T = 4096, bf16, causal, and exact L2 at the ground-truth chunk,
-256 queries x 2^20 vectors x 128, f32, once on integers in [0, 256)
-(SIFT's values) and once on normal values.  It reports the device time of
-each call (``chip_smoke.gpu_ms``), the kernels the call launched, whether
-the dense output is bit-equal to ``pq_adc_batch_ref``, the flash output's
-max abs error, its largest row-relative error and whether
+B = 64 LUTs over a 32,768-row bucket of M = 32 codes; one query's LUT
+over 10M rows of M = 32 codes with topk 512 (the smoke's phase 5), once
+with the rows in random order and once sorted by descending distance,
+where every row beats each block's running threshold; flash attention at
+Qwen3-0.6B's widths (H 16, Hk 8, dh 128), B = 1, S = T = 4096, bf16,
+causal; and exact L2 at the ground-truth chunk, 256 queries x 2^20
+vectors x 128, in f32 and in bf16, once on integers in [0, 256) (SIFT's
+values) and once on normal values.  It reports the device time of each
+call (``chip_smoke.gpu_ms``), the kernels the call launched, whether the
+dense output is bit-equal to ``pq_adc_batch_ref``, whether the top-k
+equals the first topk of a stable argsort of ``pq_adc`` (values and ids)
+and its time with every ``torch.sort`` of the wrapper stubbed out (the
+kernel without the merge; ``ms`` less that is the merge), the flash
+output's max abs error, its largest row-relative error and whether
 ``chip_smoke``'s bf16 check accepts it against ``flash_attn_ref``, and
 the L2 output's max abs error against ``l2dist_ref``, whether it is
 bit-equal on the integers and within ``chip_smoke``'s L2 tolerance on the
 normal values.  This tree's processes also time the one PyTorch call for
-each function (``embedding_bag``, ``scaled_dot_product_attention``,
-``addmm``).  A tree whose process fails is
+each function where there is one (``embedding_bag``,
+``scaled_dot_product_attention``, ``addmm``).  A tree whose process fails is
 reported with its error, and the others still run.  Prints the card's
 name and power limit, and one JSON object, which ``--out`` also writes.
 """
@@ -48,6 +55,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 B, N, M, K = 64, 32_768, 32, 256                 # the dense window
+TOPK = dict(N=10_000_000, topk=512)               # smoke phase 5's top-k
 ATTN = dict(S=4096, H=16, Hk=8, dh=128)          # Qwen3-0.6B's attention
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 
@@ -88,6 +96,7 @@ def measure(tree: Path, seed: int) -> dict:
             lambda: F.embedding_bag(idx, weight, mode="sum"), 200)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    topk = topk_readings(ops, ref, dev, gen, luts[0], chip_smoke.gpu_ms)
     s, h, hk, dh = ATTN["S"], ATTN["H"], ATTN["Hk"], ATTN["dh"]
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
         torch.bfloat16) for shape in ((1, s, h, dh), (1, s, hk, dh),
@@ -113,29 +122,83 @@ def measure(tree: Path, seed: int) -> dict:
     del q, k, v, out, want
 
     b, n, d = L2["B"], L2["N"], L2["D"]
-    ints = [torch.from_numpy(rng.integers(0, 256, (rows, d), dtype=np.uint8)
-                             ).to(dev).float() for rows in (b, n)]
-    normal = [torch.randn(rows, d, generator=gen, device=dev)
+    ints32 = [torch.from_numpy(rng.integers(0, 256, (rows, d),
+                                            dtype=np.uint8)).to(dev).float()
               for rows in (b, n)]
-    out, launched = ran(lambda: l2_distances(*ints))
-    want = l2dist_ref(*ints)
-    l2 = dict(launched=launched, bit_equal_on_integers=bool(torch.equal(
-        out, want)), max_abs_err_integers=float((out - want).abs().max()))
-    del out, want
-    out, _ = ran(lambda: l2_distances(*normal))
-    want = l2dist_ref(*normal)
-    l2["max_abs_err_normal"] = float((out - want).abs().max())
-    l2["within_tol_normal"] = bool(torch.allclose(
-        out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
-    del out, want
-    l2["ms"] = chip_smoke.gpu_ms(lambda: l2_distances(*ints), 20)
-    if yardsticks:
-        qi, vi = ints
-        norms = (qi * qi).sum(-1, keepdim=True) + (vi * vi).sum(-1)[None]
-        l2["addmm_ms"] = chip_smoke.gpu_ms(
-            lambda: torch.addmm(norms, qi, vi.T, alpha=-2), 20)
-    return {"adc_scan_batch": dense, "flash_attn[bf16]": flash,
-            "l2dist[f32]": l2}
+    normal32 = [torch.randn(rows, d, generator=gen, device=dev)
+                for rows in (b, n)]
+    l2 = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ints = [x.to(dtype) for x in ints32]
+        normal = [x.to(dtype) for x in normal32]
+        out, launched = ran(lambda: l2_distances(*ints))
+        want = l2dist_ref(*ints)
+        r = dict(launched=launched, bit_equal_on_integers=bool(torch.equal(
+            out, want)), max_abs_err_integers=float((out - want).abs().max()))
+        del out, want
+        out, _ = ran(lambda: l2_distances(*normal))
+        want = l2dist_ref(*normal)
+        r["max_abs_err_normal"] = float((out - want).abs().max())
+        r["within_tol_normal"] = bool(torch.allclose(
+            out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
+        del out, want, normal
+        r["ms"] = chip_smoke.gpu_ms(lambda: l2_distances(*ints), 20)
+        if yardsticks:
+            qi, vi = ints
+            qf, vf = qi.float(), vi.float()
+            norms = (qf * qf).sum(-1, keepdim=True) + (vf * vf).sum(-1)[None]
+            del qf, vf
+            kw = ({} if dtype == torch.float32
+                  else dict(out_dtype=torch.float32))
+            r["addmm_ms"] = chip_smoke.gpu_ms(
+                lambda: torch.addmm(norms, qi, vi.T, alpha=-2, **kw), 20)
+            del norms
+        l2[f"l2dist[{tag}]"] = r
+        del ints
+    return {"adc_scan_batch": dense, "pq_adc_topk": topk,
+            "flash_attn[bf16]": flash, **l2}
+
+
+def topk_readings(ops, ref, dev, gen, lut, gpu_ms) -> dict:
+    """``pq_adc_topk`` over ``TOPK["N"]`` random rows of M codes with one
+    query's LUT, rows in random order and sorted by descending distance:
+    exact against a stable argsort of ``pq_adc``, its time, and its time
+    with the wrapper's ``torch.sort`` calls stubbed out."""
+    n, topk = TOPK["N"], TOPK["topk"]
+    codes = torch.randint(0, K, (n, M), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    out = {}
+    for order in ("random", "descending"):
+        if order == "descending":
+            d = ref.pq_adc_ref(codes, lut)
+            codes = codes[torch.sort(d, descending=True, stable=True)[1]]
+            del d
+        before = dict(ops.LAUNCHES)
+        v, i = ops.pq_adc_topk(codes, lut, topk)
+        d = ops.pq_adc(codes, lut)
+        torch.cuda.synchronize()
+        sv, si = torch.sort(d, stable=True)
+        r = dict(launched=sorted(k for k, c in ops.LAUNCHES.items()
+                                 if c != before[k]),
+                 exact=bool(torch.equal(v, sv[:topk]) and torch.equal(
+                     i.long(), si[:topk])),
+                 ms=gpu_ms(lambda: ops.pq_adc_topk(codes, lut, topk), 20))
+        del d, sv, si
+        sort, kept = torch.sort, {}
+
+        def no_sort(x, *a, **kw):       # the input and a cached arange
+            if x.numel() not in kept:
+                kept[x.numel()] = torch.arange(x.numel(), device=x.device)
+            return x, kept[x.numel()]
+        torch.sort = no_sort
+        try:
+            r["kernel_ms"] = gpu_ms(
+                lambda: ops.pq_adc_topk(codes, lut, topk), 20)
+        finally:
+            torch.sort = sort
+        r["merge_ms"] = r["ms"] - r["kernel_ms"]
+        out[order] = r
+    return out
 
 
 def in_process(tree: Path, seed: int) -> dict:

@@ -29,9 +29,10 @@ and add are contracted unless the source writes ``__fmaf_rn``.
 * ``flash_attn_fwd_wgmma``: its products run on the tensor cores (bf16
   in, f32 sums, in the tensor cores' order); the softmax is written out
   step by step in base 2 (``ex2.approx``).
-* ``l2dist_wgmma``: its product runs on the tensor cores in 3xTF32 (f32
-  sums in the tensor cores' order); its norms are ``__fmaf_rn`` sums and
-  its epilogue rounds each step, as ``l2dist``'s does.
+* ``l2dist_wgmma``: its product runs on the tensor cores, in 3xTF32 for
+  f32 inputs and in one bf16 product for bf16 (f32 sums in the tensor
+  cores' order); its norms are ``__fmaf_rn`` sums and its epilogue rounds
+  each step, as ``l2dist``'s does.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ SOURCES = {
     "adc_scan": "pq_adc",
     "adc_scan_topk": "pq_adc",
     "l2dist": "l2dist",
-    "l2dist_wgmma": "l2dist",
+    "l2dist_wgmma": "l2dist",       # f32 and bf16 instantiations
     "flash_attn_fwd": "flash_attn",
     "flash_attn_fwd_wgmma": "flash_attn",
 }

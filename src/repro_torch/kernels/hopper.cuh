@@ -1,7 +1,7 @@
 // Hopper (sm_90a) helpers shared by the tensor-core kernels
 // (flash_attn/csrc/flash_attn_fwd_wgmma.cu, l2dist/csrc/l2dist_wgmma.cu):
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma fence / commit / wait, and the driver's cuTensorMapEncodeTiled
+// mbarriers, TMA tile loads and stores, wgmma shared-memory descriptors
+// and the wgmma fence / commit / wait, and the driver's cuTensorMapEncodeTiled
 // found through the runtime (so no library links -lcuda).  kernels/build.py
 // puts this directory on every source's include path and hashes this file
 // into every library's name, so an edit here rebuilds them all.
@@ -74,6 +74,29 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
         "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of shared memory into a tensor map's tile (rows and columns
+// past the tensor are not written); completion tracked by bulk groups
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's bulk groups still read their
+// shared memory (kRead) or are not yet complete
+template <int N, bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // shared-memory stores of this thread visible to the async proxy (wgmma

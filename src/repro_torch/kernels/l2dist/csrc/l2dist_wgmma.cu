@@ -1,45 +1,59 @@
-// Exact squared L2 distances on Hopper's tensor cores (sm_90a), f32.
+// Exact squared L2 distances on Hopper's tensor cores (sm_90a), f32 or
+// bf16 inputs, f32 output.
 //
 // Replaces the Pallas TPU kernel repro/kernels/l2dist/l2dist.py::l2dist
-// (_l2_kernel) for f32 inputs of width d % 4 == 0, d <= 128
-// (l2dist/ops.py::l2_kernel; bf16 and other widths run on l2dist.cu):
+// (_l2_kernel, which widens its inputs to f32) for f32 of width d % 4 == 0
+// and bf16 of width d % 8 == 0 (TMA's 16-byte row stride), d <= 128 (the
+// query tile kept in shared memory); l2dist/ops.py::l2_kernel states the
+// rule, every other case runs on l2dist.cu:
 //     out[b, n] = (|q_b|^2 - 2 q_b.v_n) + |v_n|^2        (B, N) f32.
 //
 // What bounds it on an H100 SXM: bytes.  At the ground-truth chunk
 // (B = 256, N = 2^20, D = 128) it must read q and v once and write the
-// output once, (256*128 + 2^20*128 + 256*2^20) * 4 B = 1.61 GB: 0.481 ms
-// at 3.35 TB/s; the 1.07 GB output is most of it.  Its product, in
-// 3xTF32, is 3 * 68.7 GFLOP: 0.417 ms at the dense TF32 tensor-core rate
-// (495 TFLOP/s).  The f32 CUDA cores alone could not go below 1.03 ms.
+// output once: in f32 (256*128 + 2^20*128)*4 + 256*2^20*4 B = 1.61 GB,
+// 0.481 ms at 3.35 TB/s; in bf16 the inputs take half, 1.34 GB, 0.401 ms.
+// The 1.07 GB output is most of either.  The products are 68.7 GFLOP:
+// three times that in 3xTF32 take 0.417 ms at the dense TF32 rate (495
+// TFLOP/s); once in bf16 (each product exact in f32) 0.069 ms at 989
+// TFLOP/s.  The f32 CUDA cores alone could not go below 1.03 ms.
 //
-// The product runs on wgmma m64n128k8 in TF32, three times per k-step:
-// each operand is split as hi = tf32(x) (round to nearest), lo = tf32(x -
-// hi), and hi*lo + lo*hi + hi*hi is summed into the f32 accumulator (the
-// lo*lo term is below f32's resolution of the sum).  On integer data
-// below 2^11 (SIFT's uint8) lo is 0, every product and partial sum is an
-// integer below 2^24, so the result equals the plain version's bit for
-// bit.  The norms are __fmaf_rn sums of squares taken from the tiles
-// the kernel reads; the epilogue rounds each step, as
-// ref.py::l2dist_ref does.
+// Products.  f32: wgmma m64n128k8 in TF32, three times per k-step; each
+// operand is split as hi = tf32(x) (round to nearest), lo = tf32(x - hi),
+// and hi*lo + lo*hi + hi*hi is summed into the f32 accumulator (the lo*lo
+// term is below f32's resolution of the sum).  bf16: one wgmma
+// m64n128k16 per k-step straight from the loaded tiles, no split.  On
+// integer data below 2^8 (SIFT's uint8, exact in both types) every
+// product and partial sum is an integer below 2^24, so the result equals
+// the plain version's bit for bit.  The norms are __fmaf_rn sums of the
+// (widened) squares taken from the tiles the kernel reads; the epilogue
+// rounds each step, as ref.py::l2dist_ref does.
 //
 // Design: a persistent grid, one block an SM (l2dist/ops.py::l2_plan):
 // block (x, y) owns the 128 queries of tile y and walks the 128-vector
 // tiles x, x + grid_x, ...; the blocks of one x walk the same vector
 // tiles at the same time, so each tile comes from HBM about once.  A
-// producer warp loads the query tile once (all of d: 32-column, 128-byte
-// swizzled k-slices) and streams the vector tiles' k-slices through a
-// three-stage ring, all by TMA behind full / empty mbarriers; TMA fills
-// rows and columns past B, N and d with zeros.  The two consumer
-// warpgroups split the query tile once and then take the block's vector
-// tiles in turns (ping-pong): one splits each slice of its tile that has
-// landed (hi in place, lo into a second buffer of the same layout),
-// fences the generic-proxy stores for the async proxy, synchronises on a
-// named barrier and issues the slice's 24 wgmmas (two 64-query halves),
-// splitting the next slice while they run, and hands a slice back to
-// the producer once its wgmmas are done; meanwhile the other writes its
-// finished 128 x 128 tile out as float2 pairs straight from the
-// accumulators' layout (a warp writes whole 32-byte row segments).  So
-// the output, most of the bound, leaves while the tensor cores work.
+// producer warp loads the query tile once (all of d in 128-byte-wide,
+// 128-byte swizzled k-slices: 32 f32 or 64 bf16 columns) and streams the
+// vector tiles' k-slices through a ring (3 stages in f32, whose slices
+// also need a lo buffer; 4 in bf16), all by TMA behind full / empty
+// mbarriers; TMA fills rows and columns past B, N and d with zeros.  The
+// two consumer warpgroups take the block's vector tiles in turns
+// (ping-pong).  In f32 they split the query tile once; then one splits
+// each slice of its tile that has landed (hi in place, lo into a second
+// buffer of the same layout), fences the generic-proxy stores for the
+// async proxy, synchronises on a named barrier and issues the slice's 24
+// wgmmas (two 64-query halves), splitting the next slice while they run.
+// In bf16 it only sums the slice's squares and issues its 8 wgmmas.  It
+// hands a slice back to the producer once its wgmmas are done; meanwhile
+// the other writes its finished 128 x 128 tile out, so the output, most
+// of the bound, leaves while the tensor cores work.  f32 writes it as
+// float2 pairs straight from the accumulators' layout (a warp writes
+// whole 32-byte row segments).  bf16, whose smaller tiles leave 128 KB of
+// shared memory free, stages the tile there in TMA's swizzled layout and
+// writes it with eight TMA stores of 64 rows x 128 bytes (whole cache
+// lines), where N % 4 == 0 lets TMA address the output's rows; on the
+// chunk that took 0.71 ms against 0.83 for the float2 stores (kernel_ab,
+// H100 80GB HBM3, 700 W).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -53,21 +67,33 @@ using namespace hopper;
 
 constexpr int kBM = 128;                   // queries per block
 constexpr int kBN = 128;                   // vectors per tile
-constexpr int kBK = 32;                    // floats of one 128-byte k-slice
 constexpr int kMaxD = 128;                 // the resident query tile's width
-constexpr int kSlices = kMaxD / kBK;
-constexpr int kSliceBytes = 128 * kBK * 4; // 128 rows x 128 B, q or v
-constexpr int kStages = 3;                 // depth of the vector-slice ring
+constexpr int kSliceBytes = 128 * 128;     // 128 rows x 128 B, q or v
 constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
-// dynamic shared memory: q hi | q lo (kSlices each) | v hi | v lo
-// (kStages each), 1024-byte aligned: 224 KB of the 227 KB
-constexpr int kSmemBytes =
-    (2 * kSlices + 2 * kStages) * kSliceBytes + 1024;
-// barriers: the q tile, full [stage], empty [stage] (a stage goes to one
-// warpgroup), turn [warpgroup] (whose products run next)
-constexpr int kBarQ = 0, kBarFull = 1, kBarEmpty = 1 + kStages,
-              kBarTurn = 1 + 2 * kStages, kNumBars = 3 + 2 * kStages;
+constexpr int kHalfBytes = 64 * kBN * 4;   // 64 rows of a finished tile
+
+// The shapes of one instantiation: f32 (3xTF32) or bf16 (one product).
+template <bool kBf16>
+struct Cfg {
+  static constexpr int kBK = kBf16 ? 64 : 32;  // columns of a k-slice
+  static constexpr int kSlices = kMaxD / kBK;
+  static constexpr int kBufs = kBf16 ? 1 : 2;  // hi, and lo in f32
+  static constexpr int kStages = kBf16 ? 4 : 3;  // depth of the ring
+  // bf16: each warpgroup stages its finished tile (two 64-row halves of
+  // 32 KB) for the TMA stores; f32 has no room left for it
+  static constexpr int kStageBytes = kBf16 ? 4 * kHalfBytes : 0;
+  // dynamic shared memory: q hi | q lo (kSlices each) | v hi | v lo
+  // (kStages each) | staging, 1024-byte aligned: 224 KB of the 227 in
+  // either
+  static constexpr int kSmemBytes =
+      kBufs * (kSlices + kStages) * kSliceBytes + kStageBytes + 1024;
+  // barriers: the q tile, full [stage], empty [stage] (a stage goes to
+  // one warpgroup), turn [warpgroup] (whose products run next)
+  static constexpr int kBarQ = 0, kBarFull = 1, kBarEmpty = 1 + kStages,
+                       kBarTurn = 1 + 2 * kStages,
+                       kNumBars = 3 + 2 * kStages;
+};
 
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
@@ -87,8 +113,20 @@ __device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Splits one landed 128-row k-slice (1024 chunks of 16 bytes) among kT
-// threads: x -> hi = tf32(x) in place and lo = tf32(x - hi) at the same
+// d (64 x 128, f32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T in
+// bf16, both K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_bf16(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Splits one landed 128-row f32 k-slice (1024 chunks of 16 bytes) among
+// kT threads: x -> hi = tf32(x) in place and lo = tf32(x - hi) at the same
 // offset of lo (the same swizzled layout).  Thread t takes chunks
 // t + kT i, of rows t / 8 + (kT / 8) i; sq[i] sums the squares of the
 // elements it saw of that row.
@@ -108,6 +146,39 @@ __device__ __forceinline__ void split_slice(float4* hi, float4* lo, int t,
     lo[t + kT * i] = make_float4(
         tf32_rna(__fsub_rn(x.x, h.x)), tf32_rna(__fsub_rn(x.y, h.y)),
         tf32_rna(__fsub_rn(x.z, h.z)), tf32_rna(__fsub_rn(x.w, h.w)));
+  }
+}
+
+// The same walk over a landed bf16 k-slice, which stays as it is: sq[i]
+// sums the squares of the eight values of each chunk, widened to f32.
+template <int kT>
+__device__ __forceinline__ void square_slice(const uint4* tile, int t,
+                                             float (&sq)[1024 / kT]) {
+#pragma unroll
+  for (int i = 0; i < 1024 / kT; ++i) {
+    const uint4 x = tile[t + kT * i];
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float lo = __uint_as_float(w[j] << 16);
+      const float hi = __uint_as_float(w[j] & 0xffff0000u);
+      sq[i] = __fmaf_rn(lo, lo, sq[i]);
+      sq[i] = __fmaf_rn(hi, hi, sq[i]);
+    }
+  }
+}
+
+// The squares of a landed slice into sq; in f32 also its split, fenced
+// for the wgmmas that read it.
+template <bool kBf16, int kT>
+__device__ __forceinline__ void take_slice(uint8_t* hi, uint8_t* lo, int t,
+                                           float (&sq)[1024 / kT]) {
+  if constexpr (kBf16) {
+    square_slice<kT>(reinterpret_cast<const uint4*>(hi), t, sq);
+  } else {
+    split_slice<kT>(reinterpret_cast<float4*>(hi),
+                    reinterpret_cast<float4*>(lo), t, sq);
+    fence_proxy_async();
   }
 }
 
@@ -163,29 +234,61 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
   }
 }
 
+// The same 64 x 128 block, rounded as store_tile does, into shared memory
+// as TMA stores it: four boxes of 64 rows x 32 columns (128 B a row, the
+// 16-byte chunk c of row r at c ^ (r % 8), the 128-byte swizzle), so a
+// warp's float2 writes meet no bank twice.  `ra` is the thread's first
+// row of the half.
+__device__ __forceinline__ void stage_tile(const float (&acc)[64],
+                                           uint8_t* stg, const float* vn,
+                                           const float (&qn)[2], int ra,
+                                           int quad) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ra + 8 * h;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      const float o0 = __fadd_rn(
+          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h])), vn[col]);
+      const float o1 = __fadd_rn(
+          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
+          vn[col + 1]);
+      const int chunk = 2 * (j % 4) + quad / 2;
+      *reinterpret_cast<float2*>(stg + (j / 4) * 8192 + r * 128 +
+                                 ((chunk ^ (r & 7)) << 4) + (quad & 1) * 8) =
+          make_float2(o0, o1);
+    }
+  }
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_v,
-                    float* __restrict__ out, int b, int n, int d) {
+                    const __grid_constant__ CUtensorMap map_out,
+                    float* __restrict__ out, int b, int n, int d,
+                    int tma_out) {
+  using C = Cfg<kBf16>;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[kNumBars];
+  __shared__ __align__(8) uint64_t bars[C::kNumBars];
   __shared__ float qn_s[kBM];
   __shared__ float vn_s[2][kBN];           // each warpgroup's current tile
   uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
                               smem_u32(smem_raw));
-  auto q_hi = [&](int s) {
-    return reinterpret_cast<float4*>(base + s * kSliceBytes);
-  };
-  auto q_lo = [&](int s) {
-    return reinterpret_cast<float4*>(base + (kSlices + s) * kSliceBytes);
-  };
+  // slice s of the query tile, stage st of the ring; lo parts in f32 only
+  auto q_hi = [&](int s) { return base + s * kSliceBytes; };
+  auto q_lo = [&](int s) { return base + (C::kSlices + s) * kSliceBytes; };
   auto v_hi = [&](int st) {
-    return reinterpret_cast<float4*>(base +
-                                     (2 * kSlices + st) * kSliceBytes);
+    return base + (C::kBufs * C::kSlices + st) * kSliceBytes;
   };
   auto v_lo = [&](int st) {
-    return reinterpret_cast<float4*>(
-        base + (2 * kSlices + kStages + st) * kSliceBytes);
+    return base + (2 * C::kSlices + C::kStages + st) * kSliceBytes;
+  };
+  // half h of warpgroup w's staged tile (bf16)
+  auto stg = [&](int w, int h) {
+    return base + C::kBufs * (C::kSlices + C::kStages) * kSliceBytes +
+           (2 * w + h) * kHalfBytes;
   };
   const uint32_t bar0 = smem_u32(bars);
   auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
@@ -193,53 +296,53 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int t = threadIdx.x;
   const int q0 = blockIdx.y * kBM;
   const int n_vt = (n + kBN - 1) / kBN;
-  const int ns = (d + kBK - 1) / kBK;
+  const int ns = (d + C::kBK - 1) / C::kBK;
   if (t == 0) {
-    mbar_init(bar(kBarQ), 1);
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(bar(kBarFull + st), 1);
-      mbar_init(bar(kBarEmpty + st), 4);    // the warps of one warpgroup
+    mbar_init(bar(C::kBarQ), 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(bar(C::kBarFull + st), 1);
+      mbar_init(bar(C::kBarEmpty + st), 4);    // the warps of one warpgroup
     }
-    mbar_init(bar(kBarTurn), 4);
-    mbar_init(bar(kBarTurn + 1), 4);
+    mbar_init(bar(C::kBarTurn), 4);
+    mbar_init(bar(C::kBarTurn + 1), 4);
     fence_mbar_init();
   }
   __syncthreads();
 
   if (t >= kConsumers) {                               // producer warp
     if (t == kConsumers) {
-      mbar_expect_tx(bar(kBarQ), ns * kSliceBytes);
+      mbar_expect_tx(bar(C::kBarQ), ns * kSliceBytes);
       for (int s = 0; s < ns; ++s)
-        tma_load_2d(smem_u32(q_hi(s)), &map_q, bar(kBarQ), s * kBK, q0);
+        tma_load_2d(smem_u32(q_hi(s)), &map_q, bar(C::kBarQ), s * C::kBK,
+                    q0);
       int g = 0;                                       // slices issued
       for (int vt = blockIdx.x; vt < n_vt; vt += gridDim.x) {
         for (int s = 0; s < ns; ++s, ++g) {
-          const int st = g % kStages;
-          if (g >= kStages)
-            mbar_wait(bar(kBarEmpty + st), ((g / kStages) - 1) & 1);
-          mbar_expect_tx(bar(kBarFull + st), kSliceBytes);
-          tma_load_2d(smem_u32(v_hi(st)), &map_v, bar(kBarFull + st),
-                      s * kBK, vt * kBN);
+          const int st = g % C::kStages;
+          if (g >= C::kStages)
+            mbar_wait(bar(C::kBarEmpty + st), ((g / C::kStages) - 1) & 1);
+          mbar_expect_tx(bar(C::kBarFull + st), kSliceBytes);
+          tma_load_2d(smem_u32(v_hi(st)), &map_v, bar(C::kBarFull + st),
+                      s * C::kBK, vt * kBN);
         }
       }
     }
     return;
   }
 
-  // ---- both warpgroups: the query tile, split once
-  mbar_wait(bar(kBarQ), 0);
+  // ---- both warpgroups: the query tile's norms (and split, in f32)
+  mbar_wait(bar(C::kBarQ), 0);
   {
     float sq[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < ns; ++s) split_slice<kConsumers>(q_hi(s), q_lo(s), t,
-                                                         sq);
+    for (int s = 0; s < ns; ++s)
+      take_slice<kBf16, kConsumers>(q_hi(s), q_lo(s), t, sq);
     store_norms<kConsumers>(sq, qn_s, t);
   }
-  fence_proxy_async();
   named_sync(1, kConsumers);
 
   // ---- warpgroup wg: the block's tiles wg, wg + 2, ... (vector tiles
   // blockIdx.x + i * gridDim.x), all 128 queries, in two 64-row halves.
-  // The warpgroups take turns: one splits and multiplies its tile's
+  // The warpgroups take turns: one takes and multiplies its tile's
   // slices while the other writes its finished tile out, so the slices
   // are taken from the ring in the order they were loaded (a wait on a
   // full barrier is never two phases ahead of it).
@@ -251,90 +354,153 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   float acc0[64], acc1[64];                   // query rows 0-63, 64-127
   for (int i = wg; (int)(blockIdx.x + i * gridDim.x) < n_vt; i += 2) {
     const int vt = blockIdx.x + i * gridDim.x;
-    if (i > 0) mbar_wait(bar(kBarTurn + wg), ((i - 1) / 2) & 1);
+    if (i > 0) mbar_wait(bar(C::kBarTurn + wg), ((i - 1) / 2) & 1);
     float vsq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int s = 0; s < ns; ++s) {
       const int g = i * ns + s;               // the slice's place in the ring
-      const int st = g % kStages;
-      mbar_wait(bar(kBarFull + st), (g / kStages) & 1);
-      split_slice<128>(v_hi(st), v_lo(st), wt, vsq);
-      fence_proxy_async();
-      named_sync(2 + wg, 128);
-      // after the barrier: the warpgroup is done with its last epilogue
+      const int st = g % C::kStages;
+      mbar_wait(bar(C::kBarFull + st), (g / C::kStages) & 1);
+      take_slice<kBf16, 128>(v_hi(st), v_lo(st), wt, vsq);
+      // f32: every split store is in before the wgmmas read the slice.
+      // Both: before the last slice's norms, the warpgroup is done with
+      // its last epilogue, which read vn.
+      if (!kBf16 || s == ns - 1) named_sync(2 + wg, 128);
       if (s == ns - 1) store_norms<128>(vsq, vn, wt);
-      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row; the
-      // second half of the queries starts 64 rows (8 KB) on
-      const uint32_t a_hi = smem_u32(q_hi(s)), a_lo = smem_u32(q_lo(s));
-      const uint32_t b_hi = smem_u32(v_hi(st)), b_lo = smem_u32(v_lo(st));
+      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row (8 f32
+      // or 16 bf16 columns); the second half of the queries starts 64
+      // rows (8 KB) on
+      const uint32_t a_hi = smem_u32(q_hi(s)), b_hi = smem_u32(v_hi(st));
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 8; ++kk) {
+      for (int kk = 0; kk < 4; ++kk) {
         const uint32_t off = kk * 32;
+        const int acc = s > 0 || kk > 0;
         const uint64_t bh = desc(b_hi + off, 16, 1024);
-        const uint64_t bl = desc(b_lo + off, 16, 1024);
-        mma_tf32(acc0, desc(a_hi + off, 16, 1024), bl, s > 0 || kk > 0);
-        mma_tf32(acc0, desc(a_lo + off, 16, 1024), bh, 1);
-        mma_tf32(acc0, desc(a_hi + off, 16, 1024), bh, 1);
-        mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bl,
-                 s > 0 || kk > 0);
-        mma_tf32(acc1, desc(a_lo + 8192 + off, 16, 1024), bh, 1);
-        mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, 1);
+        if constexpr (kBf16) {
+          mma_bf16(acc0, desc(a_hi + off, 16, 1024), bh, acc);
+          mma_bf16(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, acc);
+        } else {
+          const uint32_t a_lo = smem_u32(q_lo(s));
+          const uint64_t bl = desc(smem_u32(v_lo(st)) + off, 16, 1024);
+          mma_tf32(acc0, desc(a_hi + off, 16, 1024), bl, acc);
+          mma_tf32(acc0, desc(a_lo + off, 16, 1024), bh, 1);
+          mma_tf32(acc0, desc(a_hi + off, 16, 1024), bh, 1);
+          mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bl, acc);
+          mma_tf32(acc1, desc(a_lo + 8192 + off, 16, 1024), bh, 1);
+          mma_tf32(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, 1);
+        }
       }
       wgmma_commit();
       if (s > 0) {              // the previous slice's products are done
         wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(bar(kBarEmpty + (g - 1) % kStages));
+        if (lane == 0)
+          mbar_arrive(bar(C::kBarEmpty + (g - 1) % C::kStages));
       }
     }
-    if (lane == 0) mbar_arrive(bar(kBarTurn + (wg ^ 1)));   // its turn
+    if (lane == 0) mbar_arrive(bar(C::kBarTurn + (wg ^ 1)));   // its turn
     wgmma_wait<0>();
     fence_regs(acc0);
     fence_regs(acc1);
-    if (lane == 0) mbar_arrive(bar(kBarEmpty + (i * ns + ns - 1) % kStages));
+    if (lane == 0)
+      mbar_arrive(bar(C::kBarEmpty + (i * ns + ns - 1) % C::kStages));
+    const bool staged = kBf16 && tma_out;
+    // the staging is free once the last tile's stores have read it
+    if (staged && wt == 0) bulk_wait<0, true>();
     named_sync(2 + wg, 128);                  // the tile's norms are stored
-    store_tile(acc0, out, vn, qn[0], q0 + ra, vt * kBN, quad, b, n);
-    store_tile(acc1, out, vn, qn[1], q0 + 64 + ra, vt * kBN, quad, b, n);
+    if (staged) {
+      stage_tile(acc0, stg(wg, 0), vn, qn[0], ra, quad);
+      stage_tile(acc1, stg(wg, 1), vn, qn[1], ra, quad);
+      fence_proxy_async();
+      named_sync(2 + wg, 128);
+      if (wt == 0) {                          // TMA clips rows and columns
+        for (int h = 0; h < 2; ++h)           // past b and n
+          for (int box = 0; box < 4; ++box)
+            tma_store_2d(&map_out, smem_u32(stg(wg, h)) + box * 8192,
+                         vt * kBN + 32 * box, q0 + 64 * h);
+        bulk_commit();
+      }
+    } else {
+      store_tile(acc0, out, vn, qn[0], q0 + ra, vt * kBN, quad, b, n);
+      store_tile(acc1, out, vn, qn[1], q0 + 64 + ra, vt * kBN, quad, b, n);
+    }
   }
+  if (kBf16 && tma_out && wt == 0) bulk_wait<0, false>();
 }
 
-// (rows, d) f32, row-major, 32-column x 128-row boxes, 128-byte swizzle;
-// rows past `rows` and columns past d read as zeros
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int d) {
+// (rows, d) f32 or bf16, row-major, 128-byte-wide x 128-row boxes, 128-byte
+// swizzle; rows past `rows` and columns past d read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int bf16) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
+  const int elem_bytes = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, 128};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), 128};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// out (b, n) f32 as 32-column x 64-row boxes, 128-byte swizzle: the TMA
+// stores of the staged tiles; needs n % 4 == 0 (a 16-byte row stride)
+bool make_out_map(CUtensorMap* map, float* out, int b, int n) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)b};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};
+  const cuuint32_t box[2] = {32, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out, dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kBf16>
+cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mv,
+                   const CUtensorMap& mo, float* out, int b, int n, int d,
+                   int grid_x, int tma_out, cudaStream_t stream) {
+  constexpr int smem = Cfg<kBf16>::kSmemBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      l2dist_wgmma_kernel<kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(grid_x, (b + kBM - 1) / kBM);
+  l2dist_wgmma_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
+      mq, mv, mo, out, b, n, d, tma_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// queries (b, d) and vectors (n, d), f32, row-major, each 16-byte aligned,
-// d % 4 == 0 and d <= 128; out (b, n) f32; grid_x blocks for each
-// 128-query tile (l2dist/ops.py::l2_plan).  Returns a cudaError_t.
+// queries (b, d) and vectors (n, d), both f32 (bf16 = 0; d % 4 == 0) or
+// both bf16 (bf16 = 1; d % 8 == 0), row-major, each 16-byte aligned,
+// d <= 128; out (b, n) f32; grid_x blocks for each 128-query tile
+// (l2dist/ops.py::l2_plan).  Returns a cudaError_t.
 extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
                             float* out, int b, int n, int d, int grid_x,
-                            void* stream) {
-  if (b < 1 || n < 1 || d < 4 || d > kMaxD || d % 4 || grid_x < 1 ||
-      (b + kBM - 1) / kBM > 65535 ||
+                            int bf16, void* stream) {
+  if (b < 1 || n < 1 || d < 1 || d > kMaxD || d % (bf16 ? 8 : 4) ||
+      grid_x < 1 || (b + kBM - 1) / kBM > 65535 ||
       ((reinterpret_cast<uintptr_t>(queries) |
         reinterpret_cast<uintptr_t>(vectors)) & 15u))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mv;
-  if (!make_map(&mq, queries, b, d) || !make_map(&mv, vectors, n, d))
+  CUtensorMap mq, mv, mo = {};
+  if (!make_map(&mq, queries, b, d, bf16) ||
+      !make_map(&mv, vectors, n, d, bf16))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      l2dist_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(grid_x, (b + kBM - 1) / kBM);
-  l2dist_wgmma_kernel<<<grid, kThreads, kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(mq, mv, out, b,
-                                                             n, d);
-  return (int)cudaGetLastError();
+  // bf16 writes its tiles by TMA where out's rows start on 16 bytes
+  const int tma_out = bf16 && n % 4 == 0 &&
+                      (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
+  if (tma_out && !make_out_map(&mo, out, b, n))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch<true>(mq, mv, mo, out, b, n, d, grid_x,
+                                   tma_out, st)
+                    : launch<false>(mq, mv, mo, out, b, n, d, grid_x, 0,
+                                    st));
 }

@@ -3,21 +3,25 @@
 Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 ``l2dist``; plain version ``ref.l2dist_ref``:
 
-* ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): f32 on the tensor cores
-  (3xTF32 ``wgmma``, TMA), for widths d % 4 == 0 (TMA's 16-byte row
-  stride) up to 128 (the query tile it keeps in shared memory); q or v
-  that does not start on a 16-byte boundary is copied first; its
-  persistent grid comes from :func:`l2_plan`;
+* ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): on the tensor cores, one
+  source with two instantiations: f32 in 3xTF32 for widths d % 4 == 0,
+  and bf16 in one product (each product exact in f32) for d % 8 == 0
+  (TMA's 16-byte row stride in either), up to d = 128 (the query tile it
+  keeps in shared memory); q or v that does not start on a 16-byte
+  boundary is copied first; its persistent grid comes from
+  :func:`l2_plan`;
 * ``l2dist`` (``csrc/l2dist.cu``): f32 or bf16 on the CUDA cores, for
-  every other case: bf16, and f32 of another width.
+  every other width.
 
-:func:`l2_kernel` states that rule.  The wrapper runs the plain version
+:func:`l2_kernel` states that rule, :func:`l2_instance` the key a launch
+is counted under: the bf16 instantiation of the tensor-core kernel counts
+apart, as ``l2dist_wgmma[bf16]``.  The wrapper runs the plain version
 when its tensors lie on the CPU.  On CUDA tensors it launches the kernel
 the rule names, or raises: it checks device, dtype, shape and contiguity
 first and the ``cudaError_t`` after, allocates the output with
 ``torch.empty``, launches on the current stream and counts the launch in
-``LAUNCHES[<kernel name>]`` (``repro_torch.kernels.launch``).  Ragged B,
-N and d need no padding: the kernels mask their edge tiles.
+``LAUNCHES[l2_instance(dtype, d)]`` (``repro_torch.kernels.launch``).
+Ragged B, N and d need no padding: the kernels mask their edge tiles.
 """
 
 from __future__ import annotations
@@ -34,11 +38,21 @@ _WGMMA_TILE = 128               # l2dist_wgmma.cu: kBM = kBN
 
 def l2_kernel(dtype: torch.dtype, d: int) -> str:
     """The kernel that computes distances of inputs of ``dtype`` and width
-    ``d``: ``l2dist_wgmma`` for f32 with d % 4 == 0 and d <= 128,
-    ``l2dist`` for everything else."""
-    if dtype == torch.float32 and d % 4 == 0 and 0 < d <= _WGMMA_MAX_D:
+    ``d``: ``l2dist_wgmma`` for f32 with d % 4 == 0 and for bf16 with
+    d % 8 == 0, each up to d = 128; ``l2dist`` for everything else."""
+    row_step = 4 if dtype == torch.float32 else 8       # 16 bytes
+    if d % row_step == 0 and 0 < d <= _WGMMA_MAX_D:
         return "l2dist_wgmma"
     return "l2dist"
+
+
+def l2_instance(dtype: torch.dtype, d: int) -> str:
+    """The ``LAUNCHES`` key of the kernel :func:`l2_kernel` names:
+    ``l2dist_wgmma[bf16]`` for its bf16 instantiation, else its name."""
+    name = l2_kernel(dtype, d)
+    if name == "l2dist_wgmma" and dtype == torch.bfloat16:
+        return "l2dist_wgmma[bf16]"
+    return name
 
 
 def l2_plan(b: int, n: int, sms: int) -> int:
@@ -72,17 +86,17 @@ def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
     out = torch.empty(b, n, dtype=torch.float32, device=dev)
     if not (b and n):
         return out
-    name = l2_kernel(queries.dtype, d)
-    if name == "l2dist_wgmma":
+    bf16 = int(queries.dtype == torch.bfloat16)
+    name = l2_instance(queries.dtype, d)
+    if name != "l2dist":
         # its TMA loads start on 16-byte boundaries: a view that starts
         # elsewhere is copied into a fresh (aligned) buffer first
         queries, vectors = (x if x.data_ptr() % 16 == 0 else x.clone()
                             for x in (queries, vectors))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), b, n, d, l2_plan(b, n, sms))
+               out.data_ptr(), b, n, d, l2_plan(b, n, sms), bf16)
     else:
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), b, n, d,
-               int(queries.dtype == torch.bfloat16))
+               out.data_ptr(), b, n, d, bf16)
     return out

@@ -18,8 +18,11 @@ import torch
 
 from repro_torch.kernels.build import SOURCES, load
 
+# instantiations counted apart from the source's own name: "<source>[x]"
+# launches the library of <source> and counts under its own key
+INSTANCES = ("l2dist_wgmma[bf16]",)
 # kernel launches since the last reset_launches()
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point's arguments; the last is always the stream
@@ -27,9 +30,9 @@ _SIGNATURES = {
     "adc_scan_batch": (_P, _P, _P) + (_I,) * 8 + (_P,),
     "adc_fused_topk": (_P,) * 6 + (_I,) * 10 + (_P,),
     "adc_scan": (_P, _P, _P) + (_I,) * 4 + (_P,),
-    "adc_scan_topk": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
     "l2dist": (_P, _P, _P) + (_I,) * 4 + (_P,),
-    "l2dist_wgmma": (_P, _P, _P) + (_I,) * 4 + (_P,),
+    "l2dist_wgmma": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "flash_attn_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
     "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
 }
@@ -66,11 +69,12 @@ def check(name: str, t: torch.Tensor,
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream (appended as
-    the last argument) and count it."""
+    """Launch kernel ``name`` (a source, or one of its :data:`INSTANCES`)
+    on ``device``'s current stream (appended as the last argument) and
+    count it under ``name``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name)(*args, stream)
+        err = _kernel(name.split("[")[0])(*args, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1

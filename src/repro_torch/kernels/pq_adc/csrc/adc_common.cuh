@@ -3,7 +3,7 @@
 // adc_row:      one code row's ADC distance against a LUT in shared
 //               memory, sum_m lut[m, code_m] added in order m = 0, 1, ...
 //               from 0.0 (ref.py::pq_adc_batch_ref's order), one rounding
-//               per add.
+//               per add; add16 adds one 16-byte chunk of it.
 // bitonic_sort: an ascending sort of n (dist, pos) keys in shared memory
 //               by (dist, pos), so equal distances keep the lower
 //               position, as lax.top_k keeps the lower index.
@@ -15,6 +15,19 @@
 
 namespace adc {
 
+// Adds to acc the entries of 16 consecutive LUT rows (lut points at the
+// first) that the 16 code bytes of v select, in order, one rounding each.
+__device__ __forceinline__ float add16(float acc, uint4 v, const float* lut,
+                                       int k) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int code = (w[j >> 2] >> (8 * (j & 3))) & 0xff;
+    acc = __fadd_rn(acc, lut[j * k + code]);
+  }
+  return acc;
+}
+
 // row: the M code bytes of one row; vec16: M % 16 == 0 and row 16-byte
 // aligned, so the row is read as 16-byte vectors.
 __device__ __forceinline__ float adc_row(const uint8_t* __restrict__ row,
@@ -22,15 +35,9 @@ __device__ __forceinline__ float adc_row(const uint8_t* __restrict__ row,
                                          int vec16) {
   float acc = 0.f;
   if (vec16) {
-    for (int c = 0; c < m; c += 16) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + c));
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int code = (w[j >> 2] >> (8 * (j & 3))) & 0xff;
-        acc = __fadd_rn(acc, lut[(c + j) * k + code]);
-      }
-    }
+    for (int c = 0; c < m; c += 16)
+      acc = add16(acc, __ldg(reinterpret_cast<const uint4*>(row + c)),
+                  lut + c * k, k);
   } else {
     for (int c = 0; c < m; ++c) acc = __fadd_rn(acc, lut[c * k + __ldg(row + c)]);
   }

@@ -5,8 +5,9 @@ Four kernels, written in CUDA C++ for ``sm_90a`` (``csrc/``):
 * ``adc_scan`` (:func:`pq_adc`) — one query's distances, the port of the
   Pallas ``pq_adc_scan``; plain version ``ref.pq_adc_ref``.
 * ``adc_scan_topk`` (:func:`pq_adc_topk`) — one query's scan with a
-  block-local top-k, the port of the Pallas ``pq_adc_scan_topk``; plain
-  version :func:`pq_adc_topk_plain`.
+  running top-k in each block of a persistent grid (:func:`topk_plan`),
+  the port of the Pallas ``pq_adc_scan_topk``; plain version
+  :func:`pq_adc_topk_plain`.
 * ``adc_scan_batch`` (:func:`pq_adc_batch`) — the dense batch scan, the
   port of the Pallas ``pq_adc_scan_batch``; plain version
   ``ref.pq_adc_batch_ref``.
@@ -45,7 +46,10 @@ _DENSE_ROWS = 128               # adc_scan_batch.cu: rows a block's pass takes
 _DENSE_PAD = 4                  # adc_scan_batch.cu: floats after each LUT
 _BARRIER_BYTES = 16             # adc_scan_batch.cu: its static mbarrier
 _FUSED_BLOCK_S = 2048           # candidate slots per fused-kernel block
-_TOPK_BLOCK_N = 2048            # rows per adc_scan_topk block (the TPU's)
+_TOPK_ROUND = 2048              # adc_scan_topk.cu: kRound, rows a round
+_TOPK_MAX_TK = 2048             # adc_scan_topk.cu: kMaxTk, keys a block keeps
+_TOPK_BUF = 4096                # adc_scan_topk.cu: kBuf, candidate slots
+_TOPK_BLOCKS_PER_SM = 2         # adc_scan_topk.cu: __launch_bounds__
 _INV255 = 1.0 / 255.0           # rounds to the float32 XLA folds `/ 255.0`
 
 
@@ -88,16 +92,44 @@ def pq_adc_topk_plain(codes: torch.Tensor, lut: torch.Tensor, topk: int
     return vals[:tk], pos[:tk].to(torch.int32)
 
 
+class TopkPlan(NamedTuple):
+    """Launch shape of ``adc_scan_topk``: ``grid`` blocks, block i owning
+    rows ``[i * rows, (i + 1) * rows)`` (the last block fewer), each
+    keeping its best ``tk``."""
+    grid: int
+    rows: int
+    tk: int
+
+
+def topk_plan(n: int, topk: int, sms: int) -> TopkPlan:
+    """The persistent grid of ``adc_scan_topk`` for one query's top-k of
+    N rows on a card of ``sms`` SMs.
+
+    Two blocks an SM split the rows into contiguous ranges, ascending
+    from block to block (at least one round of 2,048 rows a block).  A
+    block keeps tk = min(topk, rows) keys, at most 2,048, and appends up
+    to one round of candidates behind them in its 4,096 slots.  A topk
+    above 2,048 cuts the ranges to 2,048 rows, each block's every row
+    kept: more blocks, not a wave, the same result."""
+    grid = max(1, min(sms * _TOPK_BLOCKS_PER_SM, -(-n // _TOPK_ROUND)))
+    rows = -(-n // grid)
+    if min(topk, rows) > _TOPK_MAX_TK:
+        rows = _TOPK_MAX_TK
+    grid = -(-n // rows)
+    return TopkPlan(grid, rows, min(topk, rows))
+
+
 def pq_adc_topk(codes: torch.Tensor, lut: torch.Tensor, topk: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One query's scan + top-k: codes (N, M) uint8, lut (M, K) f32 ->
     (dists (tk,) f32, row ids (tk,) int32) ascending, tk = min(topk, N) —
     real rows only, equal distances in ascending row order.
 
-    The kernel keeps each 2048-row block's best min(topk, block) pairs
-    (rows past N set to +inf first); the blocks, each sorted by
-    (dist, row) and in ascending row order, are merged here by a stable
-    sort, so the result is the (dist, row) order of all N rows."""
+    Each block of the kernel's grid (:func:`topk_plan`) scans one
+    contiguous range of rows and keeps its best ``plan.tk`` (dist, row)
+    pairs, sorted; the blocks, in ascending row order, are merged here by
+    a stable sort of ``grid * tk`` pairs, so the result is the
+    (dist, row) order of all N rows."""
     if codes.device.type == "cpu":
         return pq_adc_topk_plain(codes, lut, topk)
     n, m, k = _check_lut(codes, lut)
@@ -106,17 +138,15 @@ def pq_adc_topk(codes: torch.Tensor, lut: torch.Tensor, topk: int
     if tk_out <= 0:
         return (torch.empty(0, dtype=torch.float32, device=dev),
                 torch.empty(0, dtype=torch.int32, device=dev))
-    block_n = min(_TOPK_BLOCK_N, 1 << (n - 1).bit_length())
-    if m * k * 4 + block_n * 8 > _SMEM_MAX:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = topk_plan(n, topk, sms)
+    if m * k * 4 + _TOPK_BUF * 8 > _SMEM_MAX:
         raise ValueError(f"M={m}, K={k} leaves no shared memory for the "
                          f"top-k keys")
-    tk = min(topk, block_n)
-    nb = -(-n // block_n)
-    vals = torch.empty(nb * tk, dtype=torch.float32, device=dev)
-    ids = torch.empty(nb * tk, dtype=torch.int32, device=dev)
+    vals = torch.empty(plan.grid * plan.tk, dtype=torch.float32, device=dev)
+    ids = torch.empty(plan.grid * plan.tk, dtype=torch.int32, device=dev)
     launch("adc_scan_topk", dev, codes.data_ptr(), lut.data_ptr(),
-           vals.data_ptr(), ids.data_ptr(), n, m, k, block_n, tk,
-           _vec16(codes))
+           vals.data_ptr(), ids.data_ptr(), n, m, k, *plan, _vec16(codes))
     merged, pos = torch.sort(vals, stable=True)
     return merged[:tk_out], ids[pos[:tk_out]]
 

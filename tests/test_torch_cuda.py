@@ -10,8 +10,9 @@ Tolerances: the dense ADC scan bit for bit, other ADC distances to rtol
 operations in order and agree to the bit), ids exactly; exact L2 rtol
 1e-5 with atol 1e-3 (D products summed in another order than cuBLAS's, on
 values of size D; the tensor-core kernel's 3xTF32 product also drops the
-lo*lo term, about 2^-22 of each product) and bit for bit on integer data
-(every partial sum an integer below 2^24); flash attention 2e-5
+lo*lo term, about 2^-22 of each product; its bf16 products are exact in
+f32) and bit for bit on integer data below 256 in f32 and bf16 (every
+partial sum an integer below 2^24); flash attention 2e-5
 in f32 (an online softmax against a plain one) and, in bf16, 5e-2 for
 every element and 2^-6 for each (b, s, h) row's L2 error over the row's
 L2 norm (the output's one rounding to bf16 may fall on either side; the
@@ -28,7 +29,8 @@ import torch
 from repro_torch.core import pq
 from repro_torch.kernels import launch
 from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
-from repro_torch.kernels.l2dist import l2_distances, l2_kernel, l2dist_ref
+from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
+                                        l2_kernel, l2dist_ref)
 from repro_torch.kernels.pq_adc import ops, ref
 
 RTOL = 1e-5
@@ -129,17 +131,29 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [8, 32])
+@pytest.mark.parametrize("m", [8, 16, 32])
 def test_cuda_single_query_kernels_match_plain(cuda, m):
-    """pq_adc bit-equal to its plain version; pq_adc_topk ids equal to a
-    stable argsort: ragged N, N < topk, a mostly-padding last block, and
-    ties from repeated code rows."""
+    """pq_adc bit-equal to its plain version; pq_adc_topk values and ids
+    equal to a stable argsort: ragged N, N < topk, a short last block,
+    ties from repeated code rows, a topk that fills the candidate buffer
+    (2,048 + one round of 2,048 rows = 4,096: every round that finds a
+    candidate compacts), and rows in descending distance (every row
+    beats the running threshold, so the buffer fills and compacts again
+    and again); M = 8 (codes read a byte at a time), 16 and 32 (16-byte
+    code chunks loaded ahead)."""
     rng = np.random.default_rng(23)
-    for n, topk in ((1, 10), (5, 16), (777, 512), (2048 + 7, 32),
-                    (300_001, 512), (50_000, 4000)):
+    for n, topk, descending in (
+            (1, 10, False), (5, 16, False), (777, 512, False),
+            (2048 + 7, 32, False), (300_001, 512, False),
+            (50_000, 4000, False), (2_000_001, 2048, False),
+            (2_000_001, 512, True)):
         codes = _t(np.repeat(_codes(rng, -(-n // 3), m), 3, axis=0)[:n])
-        codes = codes.to(cuda)
-        lut = _t((rng.random((m, 256)) + 1.0).astype(np.float32)).to(cuda)
+        lut = _t((rng.random((m, 256)) + 1.0).astype(np.float32))
+        if descending:
+            order = torch.sort(ref.pq_adc_ref(codes, lut), descending=True,
+                               stable=True)[1]
+            codes = codes[order]
+        codes, lut = codes.to(cuda), lut.to(cuda)
         d = ops.pq_adc(codes, lut)
         v, i = ops.pq_adc_topk(codes, lut, topk)
         pv, pi = ops.pq_adc_topk_plain(codes, lut, topk)
@@ -150,12 +164,12 @@ def test_cuda_single_query_kernels_match_plain(cuda, m):
 
 def _l2_launched(q, v):
     """l2_distances(q, v) and the one kernel it launched, which must be
-    the one l2_kernel names."""
+    the one l2_kernel names, counted under l2_instance's key."""
     before = dict(launch.LAUNCHES)
     got = l2_distances(q, v)
     torch.cuda.synchronize()
     grew = {name for name, c in launch.LAUNCHES.items() if c != before[name]}
-    assert grew == {l2_kernel(q.dtype, q.shape[1])}
+    assert grew == {l2_instance(q.dtype, q.shape[1])}
     return got
 
 
@@ -173,10 +187,10 @@ def _aligned_or_not(x, offset):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_l2dist_matches_plain(cuda, dtype):
-    """Both kernels of l2_kernel's rule (f32 at d % 4 == 0 up to 128 runs
-    on the tensor cores; f32 at d 1, 102, 132 and 960 and all bf16 on the
-    CUDA cores, with ragged B and N, edge tiles and a k tail), and integer
-    data bit for bit on each f32 kernel."""
+    """Both kernels of l2_kernel's rule in either dtype (d 96 and 128 run
+    on the tensor cores, and f32 also at d 100; d 1, 102, 132 and 960,
+    and bf16 at d 100, on the CUDA cores), with ragged B and N, edge
+    tiles and a k tail; integer data bit for bit on each kernel."""
     rng = np.random.default_rng(24)
     ran = set()
     for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
@@ -189,16 +203,14 @@ def test_cuda_l2dist_matches_plain(cuda, dtype):
         ran.add(l2_kernel(dtype, d))
         torch.testing.assert_close(got, l2dist_ref(q, v), rtol=RTOL,
                                    atol=1e-3)
-    assert ran == ({"l2dist", "l2dist_wgmma"} if dtype == torch.float32
-                   else {"l2dist"})
-    # integers: every partial sum is exact in f32, so the two agree exactly
-    # (at d 132 still below 2^24: 132 * 255^2)
-    if dtype == torch.float32:
-        for d in (128, 132):
-            q = _t(rng.integers(0, 256, (37, d)).astype(np.float32))
-            v = _t(rng.integers(0, 256, (3001, d)).astype(np.float32))
-            q, v = q.to(cuda), v.to(cuda)
-            assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
+    assert ran == {"l2dist", "l2dist_wgmma"}
+    # integers below 256 (exact in bf16 too): every partial sum is exact in
+    # f32, so the two agree exactly (at d 132 still below 2^24: 132 * 255^2)
+    for d in (128, 132):
+        q = _t(rng.integers(0, 256, (37, d)).astype(np.float32))
+        v = _t(rng.integers(0, 256, (3001, d)).astype(np.float32))
+        q, v = q.to(cuda, dtype), v.to(cuda, dtype)
+        assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
 
 
 @pytest.mark.gpu
@@ -206,16 +218,23 @@ def test_cuda_l2dist_matches_plain(cuda, dtype):
 @pytest.mark.parametrize("n,d", [(777, 4), (5003, 96), (777, 100),
                                  (5003, 128)])
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
-def test_cuda_l2dist_wgmma_matches_plain(cuda, b, n, d, offset):
-    """The tensor-core kernel: ragged B and N, d off the 32-column
-    k-slice (4, 100), views that do not start on a 16-byte boundary
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_l2dist_wgmma_matches_plain(cuda, b, n, d, offset, dtype):
+    """The tensor-core kernel in both instantiations: ragged B and N, d
+    off the 128-byte k-slice (4 and 100 in f32; 8 and 104 in bf16, whose
+    rows need d % 8 == 0), views that do not start on a 16-byte boundary
     (copied first); normal values to the L2 tolerance, integers bit for
     bit."""
     rng = np.random.default_rng(29)
-    assert l2_kernel(torch.float32, d) == "l2dist_wgmma"
+    if dtype == torch.bfloat16 and d % 8:
+        assert l2_kernel(dtype, d) == "l2dist"
+        d += 4
+    assert l2_kernel(dtype, d) == "l2dist_wgmma"
     def make(shape, ints):
         x = rng.integers(0, 256, shape) if ints else rng.standard_normal(shape)
-        return _aligned_or_not(_t(x.astype(np.float32)).to(cuda), offset)
+        x = _t(x.astype(np.float32)).to(cuda, dtype)
+        return _aligned_or_not(x, offset)
 
     for ints in (False, True):
         q, v = make((b, d), ints), make((n, d), ints)

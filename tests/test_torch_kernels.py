@@ -36,8 +36,8 @@ from repro_torch.core.engine import ground_truth
 from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
                                             flash_kernel)
-from repro_torch.kernels.l2dist import (l2_distances, l2_kernel, l2_plan,
-                                        l2dist_ref)
+from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
+                                        l2_kernel, l2_plan, l2dist_ref)
 from repro_torch.kernels.pq_adc import ops, ref
 
 ADC_RTOL = 1e-5
@@ -266,15 +266,21 @@ def test_flash_kernel_rule(dtype, dh, kernel):
     (torch.float32, 102, "l2dist"),
     (torch.float32, 132, "l2dist"),           # wider than the q tile
     (torch.float32, 960, "l2dist"),
-    (torch.bfloat16, 128, "l2dist"),
-    (torch.bfloat16, 96, "l2dist"),
+    (torch.bfloat16, 128, "l2dist_wgmma"),    # the chunk in bf16
+    (torch.bfloat16, 96, "l2dist_wgmma"),
+    (torch.bfloat16, 100, "l2dist"),          # row stride off 16 bytes
+    (torch.bfloat16, 960, "l2dist"),          # wider than the q tile
 ])
 def test_l2_kernel_rule(dtype, d, kernel):
-    """f32 with d % 4 == 0 (TMA's 16-byte row stride) and d <= 128 (the
-    query tile kept in shared memory) goes to the tensor-core kernel;
-    bf16 and every other f32 width to the CUDA-core one."""
+    """f32 with d % 4 == 0 and bf16 with d % 8 == 0 (TMA's 16-byte row
+    stride), each with d <= 128 (the query tile kept in shared memory),
+    go to the tensor-core kernel; every other width to the CUDA-core one.
+    The bf16 instantiation counts its launches apart."""
     assert l2_kernel(dtype, d) == kernel
-    assert kernel in launch.LAUNCHES
+    key = l2_instance(dtype, d)
+    assert key == (kernel + "[bf16]" if kernel == "l2dist_wgmma"
+                   and dtype == torch.bfloat16 else kernel)
+    assert key in launch.LAUNCHES
 
 
 @pytest.mark.parametrize("b,n,sms", [
@@ -303,6 +309,58 @@ def test_l2_plan_of_the_ground_truth_chunk():
     """256 queries x 2^20 vectors on 132 SMs: 66 x 2 blocks, each pair of
     rows in step over 124 or 125 of the 8,192 vector tiles."""
     assert l2_plan(256, 1 << 20, 132) == 66
+
+
+@pytest.mark.parametrize("n,topk,sms", [
+    (10_000_000, 512, 132),     # the smoke's phase 5 on an H100
+    (1, 10, 132), (5, 512, 132), (777, 512, 132), (2048 + 7, 32, 132),
+    (2_000_001, 2048, 132), (2_000_001, 512, 132), (50_000, 4000, 132),
+    (50_000, 20_000, 132), (10_000_000, 100_000, 132), (1000, 7, 1),
+    (123_457, 2048, 4), (123_457, 2049, 4),
+])
+def test_topk_plan_covers_every_row_once(n, topk, sms):
+    """adc_scan_topk's grid: block i owns rows [i * rows, (i + 1) * rows),
+    so the ranges are ascending, none is empty and together they hold
+    every row once; each block keeps min(topk, rows) keys, at most 2,048
+    (its 4,096 slots leave room for one more round of 2,048 rows); two
+    blocks an SM where that keeps topk, more otherwise."""
+    plan = ops.topk_plan(n, topk, sms)
+    starts = [i * plan.rows for i in range(plan.grid)]
+    ends = [min(n, s + plan.rows) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(s < e for s, e in zip(starts, ends))
+    assert all(e == s for e, s in zip(ends, starts[1:]))
+    assert plan.tk == min(topk, plan.rows)
+    assert plan.tk <= 2048
+    assert plan.grid <= 2 * sms or plan.rows == plan.tk == 2048
+    if topk <= 2048:
+        assert plan.grid <= 2 * sms
+
+
+@pytest.mark.parametrize("n,topk", [(1, 10), (5, 3), (2048 + 7, 32),
+                                    (30_001, 512), (30_001, 9000)])
+def test_topk_plan_merge_is_the_stable_order(n, topk):
+    """What the kernel's blocks write (each range's best tk by
+    (dist, row), the last block padded with (+inf, INT_MAX)), merged as
+    the wrapper merges it, is the first min(topk, N) of a stable sort of
+    all N distances, ties from repeated code rows and +inf included."""
+    rng = np.random.default_rng(40)
+    d = torch.from_numpy(np.repeat(rng.integers(0, 50, -(-n // 3)), 3)[:n]
+                         .astype(np.float32))
+    d[::7] = torch.inf
+    plan = ops.topk_plan(n, topk, sms=4)
+    vals, ids = [], []
+    for i in range(plan.grid):
+        rows = torch.arange(i * plan.rows, min(n, (i + 1) * plan.rows))
+        order = torch.sort(d[rows], stable=True)[1][:plan.tk]
+        pad = plan.tk - len(order)
+        vals.append(torch.cat([d[rows][order], torch.full((pad,), torch.inf)]))
+        ids.append(torch.cat([rows[order], torch.full((pad,), 2**31 - 1)]))
+    merged, pos = torch.sort(torch.cat(vals), stable=True)
+    want_v, want_i = torch.sort(d, stable=True)
+    k = min(topk, n)
+    assert torch.equal(merged[:k], want_v[:k])
+    assert torch.equal(torch.cat(ids)[pos[:k]], want_i[:k])
 
 
 def test_library_path_hashes_every_header(tmp_path, monkeypatch):
