@@ -5,7 +5,7 @@
 
 From the root of a checkout, with one CUDA card:
 
-1. prints the card's name and power limit, builds the eight CUDA kernels
+1. prints the card's name and power limit, builds the nine CUDA kernels
    from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, in
    parallel), prints the build time and each ``ptxas`` register/spill line;
 2. holds each kernel against its plain PyTorch version on the card at
@@ -14,10 +14,15 @@ From the root of a checkout, with one CUDA card:
    constructed ties, M in {8, 32} (and 16 for the single-query scans),
    rows in descending distance and a topk that fills the top-k kernel's
    candidate buffer; exact L2 in f32 and bf16 (both kernels of
-   ``l2_kernel``'s rule, in both instantiations of the tensor-core one:
-   d in {1, 4, 8, 36, 96, 100, 102, 104, 128, 132, 960}, a view off a
-   16-byte boundary, integer data bit for bit); flash attention in f32
-   and bf16, ragged sizes, MQA (Hk = 1), causal and not, S != T;
+   ``l2_kernel``'s rule, in both instantiations of the tensor-core one,
+   f32 loading by TMA and bf16 by ``cp.async`` in 16-byte granules or, at
+   even widths off the 16-byte row stride, 8- or 4-byte ones: d in {1, 2,
+   4, 6, 8, 36, 96, 100, 101, 102,
+   104, 126, 128, 132, 960}, views off a 16-byte boundary, integer data
+   bit for bit at d 100, 102, 128 and 132); flash attention in f32 and
+   bf16 (all three kernels of ``flash_kernel``'s rule: dh 64 and 128 on
+   the tensor cores, in 3xTF32 for f32; dh 8, 16 and 96 on the CUDA
+   cores), ragged sizes, MQA (Hk = 1), causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
    ``FusionANNSIndex.build``, and prints the cuts of scale on a
@@ -36,21 +41,31 @@ From the root of a checkout, with one CUDA card:
 5. drives the kernel entry points at full width, counts set to 0 just
    before: ``pq_adc`` and ``pq_adc_topk(topk=top_n)`` over the index's
    codes with the LUTs of the first 8 queries (top-k ids must equal the
-   first top_n of a stable argsort of ``pq_adc``), ``l2_distances`` on the
+   first top_n of a stable argsort of ``pq_adc``); ``l2_distances`` on the
    first ground-truth chunk in f32, in bf16, and in bf16 cut to
-   SPACEV1B's width (d = 100), each bit-equal to its plain version on the
-   chunk's integers, then in f32 and bf16 on normal values of its shape,
-   and ``flash_attention`` at Qwen3-0.6B's attention widths (H = 16,
-   Hk = 8, dh = 128), B = 1, S = T = 4096, causal, in bf16 and once in
-   f32; each against its plain version; it fails unless the f32 L2 call
-   launched ``l2dist_wgmma``, the bf16 one at d = 128 its bf16
-   instantiation (counted as ``l2dist_wgmma[bf16]``) and the one at
-   d = 100 ``l2dist``, and the bf16 flash call ``flash_attn_fwd_wgmma``
-   (tensor cores) and the f32 one ``flash_attn_fwd`` (CUDA cores);
+   SPACEV1B's width (d = 100, rows of 200 bytes, off the 16-byte
+   stride), each bit-equal to its plain version on the chunk's integers,
+   then in f32 and bf16 on normal values of its shape, and once in f32
+   at GIST1M's width (d = 960, normal values, 2^20 rows: the CUDA-core
+   kernel's call); ``flash_attention`` at Qwen3-0.6B's attention widths
+   (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096, causal, in bf16 and
+   in f32, and in f32 at dh = 96 (a width no model of the repo has: the
+   CUDA-core kernel's call); each against its plain version.  It fails
+   unless the f32 L2 call launched ``l2dist_wgmma``, the bf16 one at
+   d = 128 its bf16 instantiation (``l2dist_wgmma[bf16]``), the one at
+   d = 100 that instantiation's narrower copies for rows off 16 bytes
+   (``l2dist_wgmma[bf16,off16]``) and the one at d = 960 ``l2dist``;
+   and the bf16 flash call ``flash_attn_fwd_wgmma``, the f32 one at
+   dh = 128 ``flash_attn_fwd_tf32`` (3xTF32 on the tensor cores) and the
+   one at dh = 96 ``flash_attn_fwd`` (CUDA cores);
 6. holds each kernel against its plain version on the inputs its path
    gave it, and times kernel, plain version and (where one exists) a
    single PyTorch call computing the same function, with CUDA events,
-   beside the least time the card could take.
+   beside the least time the card could take: the operations at the
+   fastest rate the card has for the function (``exact_products``: f32
+   products in 3xTF32, three at 495 TFLOP/s, bf16 in one at 989, on
+   whichever unit the kernel runs; the ADC scans' adds at the f32 rate of
+   67), or the bytes at 3.35 TB/s, whichever is larger.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 5e-2 in bf16) and, in bf16, row by row: each (b, s, h) row's L2 error
@@ -92,6 +107,8 @@ FLASH_ROW_RTOL = 2.0 ** -6
 WINDOW = 64
 QWEN3_ATTN = dict(H=16, Hk=8, dh=128)    # src/repro/configs/qwen3_0_6b.py
 SPACEV_DIM = 100                         # configs/anns_datasets.SPACEV1B.dim
+GIST_DIM = 960              # GIST1M's width (ann-benchmarks); no config here
+FLASH_CUDA_CORE_DH = 96     # a head width off the tensor cores; no model here
 ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
@@ -114,10 +131,16 @@ KERNELS = {
     "l2dist_wgmma[bf16]": dict(
         route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
         replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist_wgmma[bf16,off16]": dict(
+        route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+        replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "l2dist": dict(route="cuda", source=L2_SRC + "l2dist.cu",
                    replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "flash_attn_fwd_wgmma": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    "flash_attn_fwd_tf32": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
     "flash_attn_fwd": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd.cu",
@@ -287,22 +310,25 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             np.float32)).to(dev)
 
     for dtype in (torch.float32, torch.bfloat16):
-        # d 1, 102, 132 and 960 on l2dist.cu, and in bf16 also d 4, 36 and
-        # 100 (rows off 16 bytes); the rest on wgmma
+        # on l2dist.cu: d 1, 101, 132 and 960, and in f32 also d 2, 6, 102
+        # and 126 (rows off 16 bytes); the rest on wgmma, in bf16 by
+        # cp.async at d 2, 4, 6, 36, 100, 102 and 126 (rows off 16 bytes)
         for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
                         (256, 5003, 96), (1, 5003, 4), (130, 777, 36),
-                        (1, 5003, 8), (130, 777, 104),
+                        (1, 5003, 8), (130, 777, 104), (5, 777, 2),
+                        (130, 5003, 6), (129, 777, 126), (3, 777, 101),
                         (3, 777, 102), (129, 1000, 132), (5, 5003, 960)):
             run(f"l2dist {dtype} b{b} n{n} d{d}", normal(b, d).to(dtype),
                 normal(n, d).to(dtype))
-        # views off a 16-byte boundary, copied before the TMA loads
-        flat = normal(3 * 104 + 1).to(dtype)
-        run(f"l2dist {dtype} unaligned view", flat[1:].view(3, 104),
-            normal(777, 104).to(dtype))
+        # views off a 16-byte boundary, copied before the tensor-core loads
+        for d in (104, 100):
+            flat = normal(3 * d + 1).to(dtype)
+            run(f"l2dist {dtype} unaligned view d{d}", flat[1:].view(3, d),
+                normal(777, d).to(dtype))
         # integer data below 256 (exact in bf16): every partial sum is
         # exact, so equal bit for bit (at d 132, on l2dist.cu, still below
         # 2^24: 132 * 255^2)
-        for d in (128, 132):
+        for d in (100, 102, 128, 132):
             ints = [torch.from_numpy(rng.integers(0, 256, shape).astype(
                 np.float32)).to(dev, dtype) for shape in ((37, d), (3001, d))]
             run(f"l2dist {dtype} integers d{d}", *ints, exact=True)
@@ -351,7 +377,8 @@ def check_entry_kernels_small(dev: torch.device,
                 (2, 16, 16, 4, 2, 8, True), (1, 32, 32, 2, 2, 16, False),
                 (2, 100, 100, 6, 3, 64, True), (1, 24, 24, 4, 1, 8, True),
                 (1, 70, 130, 4, 2, 128, True), (1, 130, 70, 4, 4, 128, True),
-                (1, 257, 257, 8, 1, 128, False)):
+                (1, 257, 257, 8, 1, 128, False), (2, 97, 97, 4, 2, 96, True),
+                (1, 1, 65, 2, 1, 64, True)):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev, dtype) for shape in (
                     (bsz, s, h, dh), (bsz, t, hk, dh), (bsz, t, hk, dh)))
@@ -458,50 +485,58 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     chunk = torch.from_numpy(np.ascontiguousarray(data[:1 << 20])).to(
         dev).float()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    s = ATTN_LEN
-    attn = {dtype: tuple(torch.randn(shape, generator=gen, device=dev).to(
-        dtype) for shape in ((1, s, QWEN3_ATTN["H"], QWEN3_ATTN["dh"]),
-                             (1, s, QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"]),
-                             (1, s, QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"])))
-        for dtype in (torch.bfloat16, torch.float32)}
+    s, h, hk = ATTN_LEN, QWEN3_ATTN["H"], QWEN3_ATTN["Hk"]
+    # flash at Qwen3-0.6B's widths in bf16 and f32 (on the tensor cores),
+    # and in f32 at a head width off them (on the CUDA cores)
+    flash_calls = {
+        name: tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                    for shape in ((1, s, h, dh), (1, s, hk, dh),
+                                  (1, s, hk, dh)))
+        for name, dtype, dh in (
+            ("flash_attn_fwd_wgmma", torch.bfloat16, QWEN3_ATTN["dh"]),
+            ("flash_attn_fwd_tf32", torch.float32, QWEN3_ATTN["dh"]),
+            ("flash_attn_fwd", torch.float32, FLASH_CUDA_CORE_DH))}
     q16, chunk16 = q.bfloat16(), chunk.bfloat16()
-    # the chunk in f32 and in bf16 at SIFT1B's width (on the tensor cores),
-    # and in bf16 cut to SPACEV1B's width, d = 100 (rows of 200 bytes,
-    # off TMA's 16-byte stride: on the CUDA cores)
+    # the chunk in f32 (TMA loads) and in bf16 (16-byte cp.async copies)
+    # at SIFT1B's width, in bf16 cut to SPACEV1B's width, d = 100 (rows of
+    # 200 bytes, off the 16-byte stride: 8-byte copies), all on the tensor
+    # cores; and normal
+    # values at GIST1M's width, d = 960, over the chunk's rows (the CUDA
+    # cores)
     l2_calls = {"l2dist_wgmma": (q, chunk),
                 "l2dist_wgmma[bf16]": (q16, chunk16),
-                "l2dist": (q16[:, :SPACEV_DIM].contiguous(),
-                           chunk16[:, :SPACEV_DIM].contiguous())}
+                "l2dist_wgmma[bf16,off16]": (
+                    q16[:, :SPACEV_DIM].contiguous(),
+                    chunk16[:, :SPACEV_DIM].contiguous()),
+                "l2dist": (torch.randn(len(q), GIST_DIM, generator=gen,
+                                       device=dev),
+                           torch.randn(len(chunk), GIST_DIM, generator=gen,
+                                       device=dev))}
+    on_integers = ("l2dist_wgmma", "l2dist_wgmma[bf16]",
+                   "l2dist_wgmma[bf16,off16]")
     torch.cuda.synchronize()
 
     ops.reset_launches()
     dists = [ops.pq_adc(codes, luts[i]) for i in range(len(luts))]
     tops = [ops.pq_adc_topk(codes, luts[i], top_n) for i in range(len(luts))]
-    d2, l2_ran = {}, {}
+    d2, ran = {}, {}
     for key, qv in l2_calls.items():
         before = dict(ops.LAUNCHES)
         d2[key] = l2_distances(*qv)
-        l2_ran[key] = {name for name, c in ops.LAUNCHES.items()
-                       if c != before[name]}
-    outs, flash_ran = {}, {}
-    for dtype, qkv in attn.items():
+        ran[key] = {name for name, c in ops.LAUNCHES.items()
+                    if c != before[name]}
+    outs = {}
+    for key, qkv in flash_calls.items():
         before = dict(ops.LAUNCHES)
-        outs[dtype] = flash_attention(*qkv, causal=True)
-        flash_ran[dtype] = {name for name, c in ops.LAUNCHES.items()
-                            if c != before[name]}
+        outs[key] = flash_attention(*qkv, causal=True)
+        ran[key] = {name for name, c in ops.LAUNCHES.items()
+                    if c != before[name]}
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    for what, ran, key, want in (
-            ("l2_distances", l2_ran, "l2dist_wgmma", "l2dist_wgmma"),
-            ("l2_distances", l2_ran, "l2dist_wgmma[bf16]",
-             "l2dist_wgmma[bf16]"),
-            ("l2_distances", l2_ran, "l2dist", "l2dist"),
-            ("flash_attention", flash_ran, torch.bfloat16,
-             "flash_attn_fwd_wgmma"),
-            ("flash_attention", flash_ran, torch.float32, "flash_attn_fwd")):
-        if ran[key] != {want}:
-            raise AssertionError(f"{what} for {key} launched "
-                                 f"{sorted(ran[key])}, not {want}")
+    for key, got in ran.items():    # each call is keyed by its kernel
+        if got != {key}:
+            raise AssertionError(f"the call for {key} launched "
+                                 f"{sorted(got)}")
 
     for i, (d, (tv, ti)) in enumerate(zip(dists, tops)):
         check_close(f"adc_scan query {i} at N={len(codes)}", d,
@@ -511,14 +546,18 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
             raise AssertionError(f"pq_adc_topk query {i}: not the first "
                                  f"{top_n} of a stable argsort of pq_adc")
     for key, qv in l2_calls.items():
-        what = (f"l2_distances {qv[0].dtype} d={qv[0].shape[1]} on the first "
-                f"ground-truth chunk ({key})")
+        what = (f"l2_distances {qv[0].dtype} d={qv[0].shape[1]} "
+                + ("on the first ground-truth chunk" if key in on_integers
+                   else "on normal values over the chunk's rows")
+                + f" ({key})")
         want = l2dist_ref(*qv)
-        if not torch.equal(d2[key], want):    # integers: every sum exact
+        # integers: every sum exact
+        if key in on_integers and not torch.equal(d2[key], want):
             raise AssertionError(f"{what}: not bit-equal to the plain "
                                  f"version on integer data")
         err = check_tol(what, d2[key], want, RTOL, L2_ATOL)
-        log(f"{what}: bit-equal, max abs error {err}")
+        log(f"{what}: {'bit-equal, ' if key in on_integers else ''}"
+            f"max abs error {err}")
         del want
     del d2
     # the chunk's integers leave every lo part 0 and every sum exact, so
@@ -543,21 +582,20 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
             f"max abs error {err}")
         del qd, vd, got
     del qn, vn
-    for dtype, qkv in attn.items():
+    for key, qkv in flash_calls.items():
+        what = (f"flash_attention {qkv[0].dtype} dh={qkv[0].shape[3]} at "
+                f"Qwen3-0.6B's S, T, H, Hk ({key})")
         want = flash_attn_ref(*qkv, causal=True)
-        err = check_attn(f"flash_attention {dtype} at the Qwen3-0.6B shape",
-                         outs[dtype], want)
-        log(f"flash_attention {dtype} at the Qwen3-0.6B shape: max abs error "
-            f"{err}, largest row-relative L2 error "
-            f"{row_rel_err(outs[dtype], want)}")
+        err = check_attn(what, outs[key], want)
+        log(f"{what}: max abs error {err}, largest row-relative L2 error "
+            f"{row_rel_err(outs[key], want)}")
+        del want
     log(f"entry points at full width vs plain: ok; pq_adc_topk ids == "
         f"stable argsort of pq_adc for {len(luts)} queries; "
         f"launches={launches}")
     return launches, {"adc_scan": (codes, luts[0]),
                       "adc_scan_topk": (codes, luts[0], top_n),
-                      **l2_calls,
-                      "flash_attn_fwd_wgmma": attn[torch.bfloat16],
-                      "flash_attn_fwd": attn[torch.float32]}
+                      **l2_calls, **flash_calls}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -652,15 +690,12 @@ def measure_entry(calls) -> list:
         library_ms=None,
         **bound(n * m + m * k * 4 + min(topk, n) * 8, n * m)))
 
-    # the least time for either dtype is on the tensor cores: f32 in
-    # 3xTF32 (three products each), bf16 in one (its products are exact
-    # in f32), whichever kernel l2_kernel's rule picks; the output alone
-    # is B * N * 4 bytes.  The yardstick is one addmm, bf16 in and f32 out
-    # for bf16.
-    for name, peak, products in (("l2dist_wgmma", TF32_FLOPS, 3),
-                                 ("l2dist_wgmma[bf16]", BF16_FLOPS, 1),
-                                 ("l2dist", BF16_FLOPS, 1)):
+    # the output alone is B * N * 4 bytes.  The yardstick is one addmm,
+    # bf16 in and f32 out for bf16.
+    for name in ("l2dist_wgmma", "l2dist_wgmma[bf16]",
+                 "l2dist_wgmma[bf16,off16]", "l2dist"):
         q, v = calls[name]
+        peak, products = exact_products(q.dtype)
         (b, d), nv = q.shape, v.shape[0]
         plain = l2dist_ref(q, v)
         err = check_tol(f"{name} ({q.dtype})", l2_distances(q, v), plain,
@@ -686,10 +721,10 @@ def measure_entry(calls) -> list:
                     products * 2 * b * nv * d, peak=peak)))
         del norms, addmm
 
-    # bf16 on the tensor cores, f32 on the CUDA cores (flash_kernel's rule)
-    for name, peak in (("flash_attn_fwd_wgmma", BF16_FLOPS),
-                       ("flash_attn_fwd", F32_FLOPS)):
+    for name in ("flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
+                 "flash_attn_fwd"):
         q, k, v = calls[name]
+        peak, products = exact_products(q.dtype)
         bsz, s, h, dh = q.shape
         t = k.shape[1]
         plain = flash_attn_ref(q, k, v, causal=True)
@@ -714,9 +749,18 @@ def measure_entry(calls) -> list:
             plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=True), 3),
             library_ms=gpu_ms(sdpa, 10),
             **bound((2 * q.numel() + k.numel() + v.numel())
-                    * q.element_size(), 4 * bsz * h * dh * pairs,
+                    * q.element_size(), products * 4 * bsz * h * dh * pairs,
                     peak=peak)))
     return out
+
+
+def exact_products(dtype: torch.dtype) -> tuple[float, int]:
+    """The fastest rate the card has for products of ``dtype`` that are
+    exact in f32, and how many products each takes: bf16 in one on the
+    tensor cores, f32 in three (3xTF32), whichever unit the kernel runs
+    on, so a CUDA-core kernel is held to the same bound as a tensor-core
+    one for the same function."""
+    return (BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)
 
 
 def bound(nbytes: int, flops: int, peak: float = F32_FLOPS) -> dict:
@@ -850,7 +894,8 @@ def main() -> int:
     entry_launches, entry_calls = drive_entry_points(
         index, cfg.top_n, data, queries, args.seed)
     for name in ("adc_scan", "adc_scan_topk", "l2dist_wgmma",
-                 "l2dist_wgmma[bf16]", "l2dist", "flash_attn_fwd_wgmma",
+                 "l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]",
+                 "l2dist", "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
                  "flash_attn_fwd"):
         if entry_launches[name] < 1:
             raise AssertionError(f"the entry points never launched {name}")
@@ -863,11 +908,10 @@ def main() -> int:
                 "adc_scan": entry_launches["adc_scan"],
                 "adc_scan_topk": entry_launches["adc_scan_topk"],
                 "l2dist_wgmma": gt_launches["l2dist_wgmma"],
-                "l2dist_wgmma[bf16]": entry_launches["l2dist_wgmma[bf16]"],
-                "l2dist": entry_launches["l2dist"],
-                "flash_attn_fwd_wgmma":
-                    entry_launches["flash_attn_fwd_wgmma"],
-                "flash_attn_fwd": entry_launches["flash_attn_fwd"]}
+                **{name: entry_launches[name] for name in (
+                    "l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]",
+                    "l2dist", "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
+                    "flash_attn_fwd")}}
     kernels = []
     for r in rows:
         shape = r.pop("shape")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the dense ADC scan, the single-query ADC scan + top-k, bf16
-flash attention and exact L2 (f32 and bf16) of other source trees beside
-this one's on one card, and reads each output against its plain version.
+"""Times the dense ADC scan, the single-query ADC scan + top-k, flash
+attention (bf16 and f32) and exact L2 (f32 and bf16, and bf16 at
+SPACEV1B's d = 100) of other source trees beside this one's on one card,
+and reads each output against its plain version.
 
     python3 scripts/kernel_ab.py --against DIR [--against DIR ...]
                                  [--out FILE] [--seed 0]
@@ -22,17 +23,18 @@ B = 64 LUTs over a 32,768-row bucket of M = 32 codes; one query's LUT
 over 10M rows of M = 32 codes with topk 512 (the smoke's phase 5), once
 with the rows in random order and once sorted by descending distance,
 where every row beats each block's running threshold; flash attention at
-Qwen3-0.6B's widths (H 16, Hk 8, dh 128), B = 1, S = T = 4096, bf16,
-causal; and exact L2 at the ground-truth chunk, 256 queries x 2^20
-vectors x 128, in f32 and in bf16, once on integers in [0, 256) (SIFT's
-values) and once on normal values.  It reports the device time of each
+Qwen3-0.6B's widths (H 16, Hk 8, dh 128), B = 1, S = T = 4096, causal,
+in bf16 and in f32; and exact L2 at the ground-truth chunk, 256 queries
+x 2^20 vectors x 128, in f32 and in bf16, and in bf16 cut to SPACEV1B's
+d = 100 (rows off TMA's 16-byte stride), once on integers in [0, 256)
+(SIFT's values) and once on normal values.  It reports the device time of each
 call (``chip_smoke.gpu_ms``), the kernels the call launched, whether the
 dense output is bit-equal to ``pq_adc_batch_ref``, whether the top-k
 equals the first topk of a stable argsort of ``pq_adc`` (values and ids)
 and its time with every ``torch.sort`` of the wrapper stubbed out (the
 kernel without the merge; ``ms`` less that is the merge), the flash
 output's max abs error, its largest row-relative error and whether
-``chip_smoke``'s bf16 check accepts it against ``flash_attn_ref``, and
+``chip_smoke``'s check of its dtype accepts it against ``flash_attn_ref``, and
 the L2 output's max abs error against ``l2dist_ref``, whether it is
 bit-equal on the integers and within ``chip_smoke``'s L2 tolerance on the
 normal values.  This tree's processes also time the one PyTorch call for
@@ -58,6 +60,7 @@ B, N, M, K = 64, 32_768, 32, 256                 # the dense window
 TOPK = dict(N=10_000_000, topk=512)               # smoke phase 5's top-k
 ATTN = dict(S=4096, H=16, Hk=8, dh=128)          # Qwen3-0.6B's attention
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
+SPACEV_D = 100                                    # SPACEV1B's width
 
 
 def measure(tree: Path, seed: int) -> dict:
@@ -98,28 +101,31 @@ def measure(tree: Path, seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     topk = topk_readings(ops, ref, dev, gen, luts[0], chip_smoke.gpu_ms)
     s, h, hk, dh = ATTN["S"], ATTN["H"], ATTN["Hk"], ATTN["dh"]
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
-        torch.bfloat16) for shape in ((1, s, h, dh), (1, s, hk, dh),
-                                      (1, s, hk, dh)))
-    out, launched = ran(lambda: flash_attention(q, k, v, causal=True))
-    want = flash_attn_ref(q, k, v, causal=True)
-    try:
-        chip_smoke.check_attn("flash bf16", out, want)
-        accepted = True
-    except AssertionError:
-        accepted = False
-    flash = dict(launched=launched,
+    flash = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((1, s, h, dh), (1, s, hk, dh),
+                                 (1, s, hk, dh)))
+        out, launched = ran(lambda: flash_attention(q, k, v, causal=True))
+        want = flash_attn_ref(q, k, v, causal=True)
+        try:
+            chip_smoke.check_attn(f"flash {tag}", out, want)
+            accepted = True
+        except AssertionError:
+            accepted = False
+        r = dict(launched=launched,
                  max_abs_err=float((out.float() - want.float()).abs().max()),
                  row_rel_err=chip_smoke.row_rel_err(out, want),
                  smoke_check_accepts=accepted,
                  ms=chip_smoke.gpu_ms(
                      lambda: flash_attention(q, k, v, causal=True), 20))
-    if yardsticks:
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        flash["sdpa_ms"] = chip_smoke.gpu_ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    del q, k, v, out, want
+        if yardsticks:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            r["sdpa_ms"] = chip_smoke.gpu_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        flash[f"flash_attn[{tag}]"] = r
+        del q, k, v, out, want
 
     b, n, d = L2["B"], L2["N"], L2["D"]
     ints32 = [torch.from_numpy(rng.integers(0, 256, (rows, d),
@@ -128,9 +134,11 @@ def measure(tree: Path, seed: int) -> dict:
     normal32 = [torch.randn(rows, d, generator=gen, device=dev)
                 for rows in (b, n)]
     l2 = {}
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        ints = [x.to(dtype) for x in ints32]
-        normal = [x.to(dtype) for x in normal32]
+    for dtype, tag, width in ((torch.float32, "f32", d),
+                              (torch.bfloat16, "bf16", d),
+                              (torch.bfloat16, "bf16,d100", SPACEV_D)):
+        ints = [x[:, :width].contiguous().to(dtype) for x in ints32]
+        normal = [x[:, :width].contiguous().to(dtype) for x in normal32]
         out, launched = ran(lambda: l2_distances(*ints))
         want = l2dist_ref(*ints)
         r = dict(launched=launched, bit_equal_on_integers=bool(torch.equal(
@@ -155,8 +163,7 @@ def measure(tree: Path, seed: int) -> dict:
             del norms
         l2[f"l2dist[{tag}]"] = r
         del ints
-    return {"adc_scan_batch": dense, "pq_adc_topk": topk,
-            "flash_attn[bf16]": flash, **l2}
+    return {"adc_scan_batch": dense, "pq_adc_topk": topk, **flash, **l2}
 
 
 def topk_readings(ops, ref, dev, gen, lut, gpu_ms) -> dict:

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Shows that the GPU tests of the 3xTF32 flash kernel catch a dropped lo
+term: for each of its four lo parts, copies the tree with that part set
+to zero in ``flash_attn/csrc/flash_attn_fwd_tf32.cu`` and runs the
+kernel's tests on the copy, which must fail.
+
+    python3 scripts/plant_lo_faults.py [--dir build/plant] [--out FILE]
+
+Each copy (``src/``, ``tests/``, ``pytest.ini``) goes under ``--dir``, a
+directory ``.gitignore`` lists, and builds its own kernels there.  The
+four faults, one edit each:
+
+* ``no_Qhi_Klo``: K lo = 0, so Q hi * K lo drops out of S;
+* ``no_Qlo_Khi``: Q lo = 0 (Q lo * K hi);
+* ``no_Plo_Vhi``: P lo = 0 (P lo * V hi);
+* ``no_Phi_Vlo``: V lo = 0 (P hi * V lo).
+
+Runs ``pytest -m gpu -k flash_tf32 tests/test_torch_cuda.py`` on each
+copy and prints its exit code, its greatest differences and the tests
+that failed; ``--out`` also writes that log.  Exits non-zero unless every
+copy failed every one of those tests.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCE = "src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd_tf32.cu"
+FAULTS = {
+    "no_Qhi_Klo": (
+        "            tf32_rna(__fsub_rn(x.x, hi.x)), tf32_rna(__fsub_rn(x.y, hi.y)),\n"
+        "            tf32_rna(__fsub_rn(x.z, hi.z)), tf32_rna(__fsub_rn(x.w, hi.w)));",
+        "            0.f, 0.f, 0.f, 0.f);"),
+    "no_Qlo_Khi": (
+        "q_lo[4 * kk + i] = __float_as_uint(tf32_rna(__fsub_rn(x, tf32_rna(x))));",
+        "q_lo[4 * kk + i] = 0u;"),
+    "no_Plo_Vhi": (
+        "p_lo[slot] = __float_as_uint(tf32_rna(__fsub_rn(p, hi)));",
+        "p_lo[slot] = 0u;"),
+    "no_Phi_Vlo": (
+        "lv[e] = tf32_rna(__fsub_rn(x, hv[e]));",
+        "lv[e] = 0.f;"),
+}
+SELECT = "flash_tf32"
+
+
+def plant(dst: Path, old: str, new: str) -> None:
+    """A copy of the tree at ``dst`` with ``old`` (found once) replaced."""
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    ignore = shutil.ignore_patterns("__pycache__", "*.pyc")
+    for part in ("src", "tests"):
+        shutil.copytree(ROOT / part, dst / part, ignore=ignore)
+    shutil.copy2(ROOT / "pytest.ini", dst / "pytest.ini")
+    src = dst / SOURCE
+    text = src.read_text()
+    if text.count(old) != 1:
+        raise SystemExit(f"{SOURCE}: the edit's line occurs "
+                         f"{text.count(old)} times, not once")
+    src.write_text(text.replace(old, new))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dir", type=Path, default=ROOT / "build" / "plant")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log, caught = [], True
+    for name, (old, new) in FAULTS.items():
+        dst = args.dir / name
+        plant(dst, old, new)
+        run = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+             "-m", "gpu", "-k", SELECT, "tests/test_torch_cuda.py"],
+            cwd=dst, env=env, capture_output=True, text=True)
+        out = run.stdout + run.stderr
+        failed = re.findall(r"^FAILED (\S+)", out, re.M)
+        passed = re.search(r"(\d+) passed", out)
+        ok = run.returncode != 0 and failed and not passed
+        caught &= bool(ok)
+        log.append(f"== {name}: exit {run.returncode}, {len(failed)} failed,"
+                   f" {passed.group(1) if passed else 0} passed")
+        log += re.findall(r"^E\s+Greatest absolute difference.*$", out, re.M)
+        log += [f"FAILED {t}" for t in failed]
+        if not failed:
+            log.append(out[-3000:])
+    log.append(f"every planted fault caught: {caught}")
+    text = "\n".join(log)
+    print(text)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text + "\n")
+    return 0 if caught else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

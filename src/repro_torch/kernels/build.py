@@ -29,6 +29,10 @@ and add are contracted unless the source writes ``__fmaf_rn``.
 * ``flash_attn_fwd_wgmma``: its products run on the tensor cores (bf16
   in, f32 sums, in the tensor cores' order); the softmax is written out
   step by step in base 2 (``ex2.approx``).
+* ``flash_attn_fwd_tf32``: its products run on the tensor cores in
+  3xTF32 (f32 sums, in the tensor cores' order); the scaling, the
+  softmax in base 2 (``ex2.approx``), the rescaling and the final
+  division round each step (``__fmul_rn``, ``__fadd_rn``, ...).
 * ``l2dist_wgmma``: its product runs on the tensor cores, in 3xTF32 for
   f32 inputs and in one bf16 product for bf16 (f32 sums in the tensor
   cores' order); its norms are ``__fmaf_rn`` sums and its epilogue rounds
@@ -59,6 +63,7 @@ SOURCES = {
     "l2dist_wgmma": "l2dist",       # f32 and bf16 instantiations
     "flash_attn_fwd": "flash_attn",
     "flash_attn_fwd_wgmma": "flash_attn",
+    "flash_attn_fwd_tf32": "flash_attn",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

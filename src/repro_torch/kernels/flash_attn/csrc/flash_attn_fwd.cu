@@ -13,15 +13,16 @@
 // diagonal are skipped.  Keys past T (the ragged last tile) score -inf and
 // weigh exactly 0.
 //
-// What bounds it on an H100 SXM: operations.  At Qwen3-0.6B's attention
-// widths (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096, causal, the two
-// products are 4*S*T*dh*H/2 = 68.7 GFLOP: 0.07 ms at the dense bf16
-// tensor-core rate (989 TFLOP/s), 1.0 ms at the f32 CUDA-core rate this
-// form uses; its bytes (q, k, v, o: 50 MB in bf16) take 0.015 ms.  bf16
-// at dh 64 or 128 runs on the tensor cores instead
-// (flash_attn_fwd_wgmma.cu; flash_attn/ops.py::flash_kernel): this kernel
-// serves f32, where TF32 products would break the f32 tolerance, and bf16
-// of other head widths.
+// What bounds it on an H100 SXM: operations.  At Qwen3-0.6B's S, T, H
+// and Hk (H = 16, Hk = 8), B = 1, S = T = 4096, causal, at dh = 96 (a
+// width no model of the repo has; the smoke's full-width call) the two
+// products are 4*S*T*dh*H/2 = 51.5 GFLOP: 0.31 ms in 3xTF32 on the tensor
+// cores (three TF32 products at 495 TFLOP/s, the card's fastest form
+// exact in f32), 0.77 ms at the f32 CUDA-core rate (67 TFLOP/s) this form
+// uses; its bytes (q, k, v, o: 75 MB in f32) take 0.02 ms.  dh 64 and 128 run on the tensor cores instead
+// (flash_attn/ops.py::flash_kernel): bf16 on flash_attn_fwd_wgmma.cu, f32
+// in 3xTF32 on flash_attn_fwd_tf32.cu.  This kernel serves every other
+// head width (dh % 4 == 0, dh <= 128), in f32 and bf16.
 //
 // Design: the TPU grid (B, Hk, G, S/bq, T/bk) walks KV blocks in order on
 // one core and carries (m, l, acc) in VMEM between grid steps.  Hopper

@@ -1,0 +1,519 @@
+// GQA flash-attention forward on Hopper's tensor cores (sm_90a), f32 in
+// 3xTF32.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_attn/flash_attn.py::
+// flash_attention_fwd (_flash_kernel) for f32 inputs with dh in {64, 128}
+// (flash_attn/ops.py::flash_kernel routes other head widths to
+// flash_attn_fwd.cu and bf16 at these widths to flash_attn_fwd_wgmma.cu).
+// q (B, S, H, dh), k and v (B, T, Hk, dh) give o (B, S, H, dh) f32:
+//     o[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h / G]) v[b, t, h / G]
+// with G = H / Hk query heads per KV head (no KV copy per query head).
+// The TPU kernel's semantics, as flash_attn_fwd.cu states them: causal
+// masking aligned at the top left (key t kept for query s where t <= s,
+// also when S != T); masked scores and the running max start at -1e30; the
+// running (m, l, acc) are f32; the output is acc / max(l, 1e-30); KV tiles
+// wholly above the diagonal are skipped; keys past T (the ragged last
+// tile) score -inf and weigh exactly 0.  q is scaled in f32 before the
+// product, by scale * log2(e), so the softmax works in base 2 (ex2.approx)
+// on the same function, with the mask constant and the running-max start
+// at -1e30 there too.
+//
+// What bounds it on an H100 SXM: operations.  At Qwen3-0.6B's attention
+// widths (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096, causal, the two
+// products are 68.7 GFLOP; in 3xTF32 each is done three times, 206 GFLOP,
+// 0.4165 ms at the dense TF32 rate (495 TFLOP/s); its bytes (q, k, v, o:
+// 100 MB in f32) take 0.03 ms.  A single TF32 product (10-bit mantissa)
+// would move the scores by ~1e-3 and break the f32 tolerance (2e-5); the
+// f32 CUDA cores alone could not go below 1.03 ms.
+//
+// Products in 3xTF32: each operand is split as hi = tf32(x) (round to
+// nearest), lo = tf32(x - hi), and hi*lo + lo*hi + hi*hi is summed into
+// the f32 accumulators (hopper.cuh).  TF32 wgmma takes both operands
+// K-major and, unlike bf16, has no transpose bit, so:
+//   * S = Q K^T (m64n32k8): Q and K both run along dh.  Q hi is split in
+//     place in shared memory (A from shared memory), Q lo is kept in
+//     registers (A from registers: 64 a thread at dh 128, which saves the
+//     32 KB a second shared tile would take); K hi in place, K lo in a
+//     second buffer (B).
+//   * O += P V (m64nDk8): P's A operand comes from registers.  The f32
+//     accumulator of S holds keys 2q, 2q + 1 of each 8-key group (q = lane
+//     % 4), while a TF32 A fragment holds columns q and q + 4; since the
+//     product sums over keys in any order, the k-th column of a group is
+//     taken to be key pi(k) = 2k (k < 4), 2(k - 4) + 1 (k >= 4), so P's
+//     registers feed the wgmma as they are (no shuffle, no trip through
+//     shared memory).  V, whose rows run along dh, is MN-major for this
+//     product, so the pass that splits it writes it transposed (dh rows
+//     of 32 keys, key pi(k) at column k) in the 128-byte swizzle, hi over
+//     the landed tile and lo into a second buffer.  P is split in
+//     registers.
+//
+// Design: one block owns 64 query rows of one (batch, query head); two
+// consumer warpgroups each take every other 32-key KV tile of those rows
+// (tiles wg, wg + 2, ...) with their own running (m, l, acc), and merge
+// the two at the end (through shared memory), so one's softmax and splits
+// run under the other's products.  A producer warp issues TMA loads
+// (4-d tensor maps, 128-byte swizzle, 32-column boxes) of the q tile once
+// and of K and V tiles into a 3-stage ring (full barriers in transaction
+// bytes, empty barriers that the four warps of the consuming warpgroup
+// arrive on).  Before a warpgroup waits for tile j it waits for tile j -
+// 3, the last one in that stage, to have been released, so a full-barrier
+// wait is never two phases ahead.  Shared memory at dh 128: q 32 KB + 3
+// stages x (K hi, K lo, V^T hi, V^T lo) 64 KB = 224 KB; 64 KB at dh 64.
+// Blocks are ordered with the longest causal q tiles first.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kBQ = 64;               // query rows per block
+constexpr int kBKV = 32;              // keys per KV tile
+constexpr int kStages = 3;            // KV ring depth
+constexpr int kConsumerThreads = 256; // two warpgroups
+constexpr int kThreads = kConsumerThreads + 32;   // + one producer warp
+constexpr int kBox = 32;              // f32 columns per 128-byte TMA box
+constexpr float kNegInf = -1e30f;     // the TPU kernel's _NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+
+// barriers: q, full [stage], empty [stage]
+constexpr int kBarQ = 0, kBarFull = 1, kBarEmpty = 1 + kStages,
+              kNumBars = 1 + 2 * kStages;
+
+template <int kDh>
+struct Cfg {
+  static constexpr int kBoxes = kDh / kBox;               // boxes per row
+  static constexpr int kQBytes = kBoxes * kBQ * 128;      // the q tile
+  static constexpr int kKvBytes = kBoxes * kBKV * 128;    // a K or V tile
+  // a stage: K hi (landed, split in place) | K lo | V, then V^T hi (in
+  // place) | V^T lo; V^T is kDh rows x 128 B (32 keys), kKvBytes too
+  static constexpr int kStageBytes = 4 * kKvBytes;
+  static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes + 1024;
+  static constexpr int kDv = kDh / 2;        // O registers a thread
+  static constexpr int kQlo = kDh / 2;       // Q lo registers a thread
+  // V^T pass: thread t writes row t % kDh, keys kVKeys (t / kDh) ..
+  static constexpr int kVKeys = kBKV * kDh / 128;
+};
+
+// d (64 x 32) (+)= A (64 x 8, smem) * B (32 x 8, smem)^T in TF32, both
+// K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : D16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 32) += A (64 x 8, registers) * B (32 x 8, smem)^T in TF32
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x N) += A (64 x 8, registers) * B (N x 8, smem)^T in TF32, N = 128
+// or 64
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers (hopper.cuh named_sync): 1 for both consumer
+// warpgroups, 2 + w for warpgroup w
+
+// byte offset of element (r, c) of a tile of 32-column, 128-byte-swizzled
+// boxes of `rows` rows each (TMA's layout)
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+  return (c / kBox) * rows * 128 + r * 128 +
+         ((((c % kBox) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// the key (0..31 of a tile) at k-position k of V^T and of P's A
+// fragments: 2k for k % 8 < 4, 2(k - 4) + 1 for the rest of each group
+__device__ __forceinline__ int key_of(int k) {
+  return (k & ~7) + ((k & 7) < 4 ? 2 * (k & 7) : 2 * ((k & 7) - 4) + 1);
+}
+
+// ------------------------------------------------------------------ kernel
+template <int kDh>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      float* __restrict__ o, int s_len, int t_len, int h_q,
+                      int h_kv, float q_scale, int causal) {
+  using C = Cfg<kDh>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kNumBars];
+  uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
+                              smem_u32(smem_raw));
+  uint8_t* q_s = base;
+  auto k_hi = [&](int st) { return q_s + C::kQBytes + st * C::kStageBytes; };
+  auto k_lo = [&](int st) { return k_hi(st) + C::kKvBytes; };
+  auto v_hi = [&](int st) { return k_hi(st) + 2 * C::kKvBytes; };
+  auto v_lo = [&](int st) { return k_hi(st) + 3 * C::kKvBytes; };
+  const uint32_t bar0 = smem_u32(bars);
+  auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
+
+  const int tid = threadIdx.x;
+  const int n_qt = (s_len + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBQ;   // longest first
+  const int bb = blockIdx.x / h_q, h = blockIdx.x % h_q;
+  const int kh = h / (h_q / h_kv);
+  const int q_last = min(q0 + kBQ, s_len) - 1;
+  const int n_kv_all = (t_len + kBKV - 1) / kBKV;
+  const int n_kv = causal ? min(n_kv_all, q_last / kBKV + 1) : n_kv_all;
+
+  if (tid == 0) {
+    mbar_init(bar(kBarQ), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar(kBarFull + st), 1);
+      mbar_init(bar(kBarEmpty + st), 4);   // the warps of one warpgroup
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {                     // producer warp
+    if (tid == kConsumerThreads) {
+      mbar_expect_tx(bar(kBarQ), C::kQBytes);
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(smem_u32(q_s) + c * kBQ * 128, &map_q, bar(kBarQ),
+                    c * kBox, h, q0, bb);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages)
+          mbar_wait(bar(kBarEmpty + st), ((j / kStages) - 1) & 1);
+        mbar_expect_tx(bar(kBarFull + st), 2 * C::kKvBytes);
+        for (int c = 0; c < C::kBoxes; ++c) {
+          tma_load_4d(smem_u32(k_hi(st)) + c * kBKV * 128, &map_k,
+                      bar(kBarFull + st), c * kBox, kh, j * kBKV, bb);
+          tma_load_4d(smem_u32(v_hi(st)) + c * kBKV * 128, &map_v,
+                      bar(kBarFull + st), c * kBox, kh, j * kBKV, bb);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: KV tiles wg, wg + 2, ... of all 64 rows
+  const int wg = tid / 128, t = tid % 128;
+  const int lane = t % 32, quad = lane % 4;
+  const int ra = 16 * (t / 32) + lane / 4;      // tile rows ra, ra + 8
+
+  // Q lo into registers as TF32 A fragments: k-step kk holds (ra, 8 kk +
+  // quad), (ra + 8, ..), (ra, 8 kk + quad + 4), (ra + 8, ..); both
+  // warpgroups read the scaled q before it is split in place
+  uint32_t q_lo[C::kQlo];
+  mbar_wait(bar(kBarQ), 0);
+#pragma unroll
+  for (int kk = 0; kk < kDh / 8; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ra + 8 * (i & 1), c = 8 * kk + quad + 4 * (i >> 1);
+      const float x =
+          __fmul_rn(*reinterpret_cast<const float*>(q_s + swz(r, c, kBQ)),
+                    q_scale);
+      q_lo[4 * kk + i] = __float_as_uint(tf32_rna(__fsub_rn(x, tf32_rna(x))));
+    }
+  }
+  named_sync(1, kConsumerThreads);
+  for (int i = tid; i < C::kQBytes / 16; i += kConsumerThreads) {
+    float4* p = reinterpret_cast<float4*>(q_s) + i;
+    const float4 x = *p;
+    *p = make_float4(tf32_rna(__fmul_rn(x.x, q_scale)),
+                     tf32_rna(__fmul_rn(x.y, q_scale)),
+                     tf32_rna(__fmul_rn(x.z, q_scale)),
+                     tf32_rna(__fmul_rn(x.w, q_scale)));
+  }
+  fence_proxy_async();
+  named_sync(1, kConsumerThreads);
+
+  float o_acc[C::kDv];
+#pragma unroll
+  for (int i = 0; i < C::kDv; ++i) o_acc[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  const int row_a = q0 + ra;
+  const uint32_t qa = smem_u32(q_s);
+
+  for (int j = wg; j < n_kv; j += 2) {
+    const int st = j % kStages;
+    // tile j - 3, the stage's last, was released (by the other warpgroup)
+    // so its load had landed: the wait below is for tile j's phase
+    if (j >= kStages)
+      mbar_wait(bar(kBarEmpty + st), ((j / kStages) - 1) & 1);
+    mbar_wait(bar(kBarFull + st), (j / kStages) & 1);
+
+    // ---- split K in place (hi) and into K lo; V transposed into V^T
+    {
+      float4* kh4 = reinterpret_cast<float4*>(k_hi(st));
+      float4* kl4 = reinterpret_cast<float4*>(k_lo(st));
+#pragma unroll
+      for (int i = 0; i < C::kKvBytes / 16 / 128; ++i) {
+        const float4 x = kh4[t + 128 * i];
+        const float4 hi = make_float4(tf32_rna(x.x), tf32_rna(x.y),
+                                      tf32_rna(x.z), tf32_rna(x.w));
+        kh4[t + 128 * i] = hi;
+        kl4[t + 128 * i] = make_float4(
+            tf32_rna(__fsub_rn(x.x, hi.x)), tf32_rna(__fsub_rn(x.y, hi.y)),
+            tf32_rna(__fsub_rn(x.z, hi.z)), tf32_rna(__fsub_rn(x.w, hi.w)));
+      }
+      const int n = t % kDh, kb = (t / kDh) * C::kVKeys;
+      float vals[C::kVKeys];
+#pragma unroll
+      for (int e = 0; e < C::kVKeys; ++e)
+        vals[e] = *reinterpret_cast<const float*>(v_hi(st) +
+                                                  swz(kb + e, n, kBKV));
+      named_sync(2 + wg, 128);              // every V value is read
+#pragma unroll
+      for (int c = 0; c < C::kVKeys / 4; ++c) {
+        const int p0 = kb + 4 * c;          // k-positions p0 .. p0 + 3
+        float hv[4], lv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = vals[key_of(4 * c + e)];   // kb % 8 == 0
+          hv[e] = tf32_rna(x);
+          lv[e] = tf32_rna(__fsub_rn(x, hv[e]));
+        }
+        const uint32_t off = n * 128 + ((((p0 >> 2) ^ (n & 7))) << 4);
+        *reinterpret_cast<float4*>(v_hi(st) + off) =
+            make_float4(hv[0], hv[1], hv[2], hv[3]);
+        *reinterpret_cast<float4*>(v_lo(st) + off) =
+            make_float4(lv[0], lv[1], lv[2], lv[3]);
+      }
+      fence_proxy_async();
+      named_sync(2 + wg, 128);              // the split tiles are in
+    }
+
+    // ---- S = Q K^T: dh / 8 k-steps; step kk reads 32 bytes at (kk % 4)
+    // * 32 of the 128-byte rows of box kk / 4
+    float s[16];
+    const uint32_t kha = smem_u32(k_hi(st)), kla = smem_u32(k_lo(st));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDh / 8; ++kk) {
+      const uint32_t qoff = (kk / 4) * kBQ * 128 + (kk % 4) * 32;
+      const uint32_t koff = (kk / 4) * kBKV * 128 + (kk % 4) * 32;
+      const uint64_t dq = desc(qa + qoff, 16, 1024);
+      const uint64_t dkh = desc(kha + koff, 16, 1024);
+      mma_ss_n32(s, dq, desc(kla + koff, 16, 1024), kk > 0);
+      mma_rs_n32(s, &q_lo[4 * kk], dkh);
+      mma_ss_n32(s, dq, dkh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // ---- online softmax, base 2; element r: row ra (r & 2 == 0) or
+    // ra + 8, key j*kBKV + 8*(r/4) + 2*quad + (r & 1)
+    const int k0 = j * kBKV;
+    const bool edge = k0 + kBKV > t_len || (causal && k0 + kBKV - 1 > q0);
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      float x = s[r];
+      if (edge) {
+        const int kp = k0 + 8 * (r / 4) + 2 * quad + (r & 1);
+        const int qp = row_a + ((r & 2) ? 8 : 0);
+        if (kp >= t_len) x = -INFINITY;
+        else if (causal && kp > qp) x = kNegInf;
+      }
+      s[r] = x;
+      if (r & 2) mx_b = fmaxf(mx_b, x);
+      else mx_a = fmaxf(mx_a, x);
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = ex2(__fsub_rn(m_a, mn_a));
+    const float corr_b = ex2(__fsub_rn(m_b, mn_b));
+    m_a = mn_a;
+    m_b = mn_b;
+    // P as TF32 A fragments: k-step c holds elements 4c, 4c + 2 (rows ra,
+    // ra + 8 at key 2 quad: column quad) and 4c + 1, 4c + 3 (key 2 quad +
+    // 1: column quad + 4), split into hi and lo
+    float sum_a = 0.f, sum_b = 0.f;
+    uint32_t p_hi[16], p_lo[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float p = ex2(__fsub_rn(s[r], (r & 2) ? mn_b : mn_a));
+      if (r & 2) sum_b = __fadd_rn(sum_b, p);
+      else sum_a = __fadd_rn(sum_a, p);
+      const float hi = tf32_rna(p);
+      const int slot = 4 * (r / 4) + ((r & 2) ? 1 : 0) + ((r & 1) ? 2 : 0);
+      p_hi[slot] = __float_as_uint(hi);
+      p_lo[slot] = __float_as_uint(tf32_rna(__fsub_rn(p, hi)));
+    }
+    l_a = __fadd_rn(__fmul_rn(l_a, corr_a), sum_a);
+    l_b = __fadd_rn(__fmul_rn(l_b, corr_b), sum_b);
+#pragma unroll
+    for (int r = 0; r < C::kDv; ++r)
+      o_acc[r] = __fmul_rn(o_acc[r], (r & 2) ? corr_b : corr_a);
+
+    // ---- O += P V: four k-steps of 8 keys; step c reads 32 bytes at c *
+    // 32 of V^T's 128-byte rows
+    const uint32_t vha = smem_u32(v_hi(st)), vla = smem_u32(v_lo(st));
+    fence_regs(o_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBKV / 8; ++c) {
+      const uint64_t dvh = desc(vha + c * 32, 16, 1024);
+      const uint64_t dvl = desc(vla + c * 32, 16, 1024);
+      if constexpr (kDh == 128) {
+        mma_rs_n128(o_acc, &p_hi[4 * c], dvl);
+        mma_rs_n128(o_acc, &p_lo[4 * c], dvh);
+        mma_rs_n128(o_acc, &p_hi[4 * c], dvh);
+      } else {
+        mma_rs_n64(o_acc, &p_hi[4 * c], dvl);
+        mma_rs_n64(o_acc, &p_lo[4 * c], dvh);
+        mma_rs_n64(o_acc, &p_hi[4 * c], dvh);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    if (lane == 0) mbar_arrive(bar(kBarEmpty + st));  // stage free
+  }
+
+  // ---- merge: warpgroup 1 hands (m, l, acc) to warpgroup 0 through the
+  // q tile's space and stage 0's (no product reads them any more, no load
+  // is left), thread t to thread t
+  named_sync(1, kConsumerThreads);
+  float* xo = reinterpret_cast<float*>(q_s);
+  float (*ml_s)[128] = reinterpret_cast<float (*)[128]>(k_hi(0));
+  if (wg == 1) {
+#pragma unroll
+    for (int r = 0; r < C::kDv; ++r) xo[r * 128 + t] = o_acc[r];
+    ml_s[0][t] = m_a;
+    ml_s[1][t] = m_b;
+    ml_s[2][t] = l_a;
+    ml_s[3][t] = l_b;
+  }
+  named_sync(1, kConsumerThreads);
+  if (wg == 1) return;
+  const float m1a = ml_s[0][t], m1b = ml_s[1][t];
+  const float ma = fmaxf(m_a, m1a), mb = fmaxf(m_b, m1b);
+  const float c0a = ex2(__fsub_rn(m_a, ma)), c1a = ex2(__fsub_rn(m1a, ma));
+  const float c0b = ex2(__fsub_rn(m_b, mb)), c1b = ex2(__fsub_rn(m1b, mb));
+  l_a = __fadd_rn(__fmul_rn(l_a, c0a), __fmul_rn(ml_s[2][t], c1a));
+  l_b = __fadd_rn(__fmul_rn(l_b, c0b), __fmul_rn(ml_s[3][t], c1b));
+  // the quad's partial row sums, then acc / max(l, 1e-30)
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l_a = __fadd_rn(l_a, __shfl_xor_sync(0xffffffffu, l_a, sh));
+    l_b = __fadd_rn(l_b, __shfl_xor_sync(0xffffffffu, l_b, sh));
+  }
+  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+  const long long row_stride = (long long)h_q * kDh;
+  float* ob = o + ((long long)bb * s_len * h_q + h) * kDh;
+#pragma unroll
+  for (int r = 0; r < C::kDv; r += 2) {
+    const bool b_row = r & 2;
+    const int row = row_a + (b_row ? 8 : 0);
+    if (row >= s_len) continue;
+    const float c0 = b_row ? c0b : c0a, c1 = b_row ? c1b : c1a;
+    const float l = b_row ? lb : la;
+    const float v0 = __fadd_rn(__fmul_rn(o_acc[r], c0),
+                               __fmul_rn(xo[r * 128 + t], c1));
+    const float v1 = __fadd_rn(__fmul_rn(o_acc[r + 1], c0),
+                               __fmul_rn(xo[(r + 1) * 128 + t], c1));
+    const int col = 8 * (r / 4) + 2 * quad;
+    *reinterpret_cast<float2*>(ob + row * row_stride + col) =
+        make_float2(__fdiv_rn(v0, l), __fdiv_rn(v1, l));
+  }
+}
+
+// ------------------------------------------------------------------ host
+// (batch, len, heads, dh) f32, 32-column x rows boxes, 128-byte swizzle;
+// rows past len read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
+              int heads, int dh, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 4,
+                                 (cuuint64_t)heads * dh * 4,
+                                 (cuuint64_t)len * heads * dh * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kDh>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int s, int t, int h, int hk, float scale,
+                   int causal, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, b, s, h, kDh, kBQ) ||
+      !make_map(&mk, k, b, t, hk, kDh, kBKV) ||
+      !make_map(&mv, v, b, t, hk, kDh, kBKV))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Cfg<kDh>::kSmemBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<kDh>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
+  flash_fwd_tf32_kernel<kDh><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<float*>(o), s, t, h, hk,
+      scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (b, s, h, dh), k and v (b, t, hk, dh), o (b, s, h, dh), contiguous
+// f32, each 16-byte aligned; h % hk == 0, dh 64 or 128.  Returns a
+// cudaError_t.
+extern "C" int flash_attn_fwd_tf32(const void* q, const void* k,
+                                   const void* v, void* o, int b, int s,
+                                   int t, int h, int hk, int dh, float scale,
+                                   int causal, void* stream) {
+  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || (dh != 64 && dh != 128)
+      || (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535 ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15u))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(dh == 128 ? launch<128>(q, k, v, o, b, s, t, h, hk, scale,
+                                       causal, st)
+                         : launch<64>(q, k, v, o, b, s, t, h, hk, scale,
+                                      causal, st));
+}

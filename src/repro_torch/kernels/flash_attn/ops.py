@@ -1,14 +1,19 @@
 """Wrapper of the flash-attention forward kernels.
 
-Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
+Three kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 ``flash_attention_fwd``; plain version ``ref.flash_attn_ref``:
 
 * ``flash_attn_fwd_wgmma`` (``csrc/flash_attn_fwd_wgmma.cu``): bf16 on
-  the tensor cores (``wgmma``, TMA), for dh 64 or 128 (q, k or v that
-  does not start on a 16-byte boundary is copied first);
+  the tensor cores (``wgmma``, TMA), for dh 64 or 128;
+* ``flash_attn_fwd_tf32`` (``csrc/flash_attn_fwd_tf32.cu``): f32 on the
+  tensor cores in 3xTF32 (each operand split into a TF32 hi and lo part,
+  three products: one TF32 product would break the f32 tolerance, three
+  keep it), for dh 64 or 128;
 * ``flash_attn_fwd`` (``csrc/flash_attn_fwd.cu``): f32 or bf16 on the CUDA
-  cores, for every other case: f32 (TF32 products would break the f32
-  tolerance) and bf16 of another head width.
+  cores, for every other head width.
+
+For either tensor-core kernel, q, k or v that does not start on a
+16-byte boundary is copied first (its TMA loads need it).
 
 :func:`flash_kernel` states that rule.  The wrapper keeps the JAX
 package's layout — q (B, S, H, dh), k and v (B, T, Hk, dh) — and runs the
@@ -32,16 +37,19 @@ from repro_torch.kernels.launch import check, launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_DH = 128                   # flash_attn_fwd.cu: kMaxDh
-_WGMMA_DH = (64, 128)           # flash_attn_fwd_wgmma.cu: its head widths
+_WGMMA_DH = (64, 128)           # the tensor-core kernels' head widths
 
 
 def flash_kernel(dtype: torch.dtype, dh: int) -> str:
     """The kernel that computes attention for inputs of ``dtype`` and head
-    width ``dh``: ``flash_attn_fwd_wgmma`` for bf16 with dh 64 or 128,
-    ``flash_attn_fwd`` for everything else."""
-    if dtype == torch.bfloat16 and dh in _WGMMA_DH:
+    width ``dh``: at dh 64 or 128 ``flash_attn_fwd_wgmma`` for bf16 and
+    ``flash_attn_fwd_tf32`` for f32, ``flash_attn_fwd`` at every other
+    head width."""
+    if dh not in _WGMMA_DH:
+        return "flash_attn_fwd"
+    if dtype == torch.bfloat16:
         return "flash_attn_fwd_wgmma"
-    return "flash_attn_fwd"
+    return "flash_attn_fwd_tf32"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -72,15 +80,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     name = flash_kernel(q.dtype, dh)
-    if name == "flash_attn_fwd_wgmma":
-        # its TMA loads start on 16-byte boundaries: a view that starts
+    if name == "flash_attn_fwd":
+        launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), b, s, t, h, hk, dh,
+               int(q.dtype == torch.bfloat16), scale, int(causal))
+    else:
+        # their TMA loads start on 16-byte boundaries: a view that starts
         # elsewhere is copied into a fresh (aligned) buffer first
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
                    for x in (q, k, v))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if name == "flash_attn_fwd_wgmma":
-        launch(name, dev, *ptrs, b, s, t, h, hk, dh, scale, int(causal))
-    else:
-        launch(name, dev, *ptrs, b, s, t, h, hk, dh,
-               int(q.dtype == torch.bfloat16), scale, int(causal))
+        launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), b, s, t, h, hk, dh, scale, int(causal))
     return out

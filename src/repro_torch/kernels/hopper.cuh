@@ -1,10 +1,13 @@
 // Hopper (sm_90a) helpers shared by the tensor-core kernels
-// (flash_attn/csrc/flash_attn_fwd_wgmma.cu, l2dist/csrc/l2dist_wgmma.cu):
-// mbarriers, TMA tile loads and stores, wgmma shared-memory descriptors
-// and the wgmma fence / commit / wait, and the driver's cuTensorMapEncodeTiled
-// found through the runtime (so no library links -lcuda).  kernels/build.py
-// puts this directory on every source's include path and hashes this file
-// into every library's name, so an edit here rebuilds them all.
+// (flash_attn/csrc/flash_attn_fwd_wgmma.cu, flash_attn_fwd_tf32.cu,
+// l2dist/csrc/l2dist_wgmma.cu): mbarriers, TMA tile loads and stores,
+// cp.async granules that arrive on an mbarrier, wgmma shared-memory
+// descriptors, the wgmma fence / commit / wait, the TF32 split and the
+// shared-memory TF32 product of the 3xTF32 kernels, and the driver's
+// cuTensorMapEncodeTiled found through the runtime (so no library links
+// -lcuda).  kernels/build.py puts this directory on every source's include
+// path and hashes this file into the name of every library that includes
+// it, so an edit here rebuilds those.
 
 #pragma once
 
@@ -99,6 +102,29 @@ __device__ __forceinline__ void bulk_wait() {
     asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ------------------------------------------------------------- cp.async
+// one granule of kBytes (4, 8 or 16) from global into shared memory; the
+// bytes past src_bytes (kBytes or 0) are filled with zeros
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               ::"r"(dst), "l"(src), "n"(kBytes), "r"(src_bytes)
+               : "memory");
+}
+// one arrival on the mbarrier once this thread's earlier cp.async copies
+// have landed; it counts toward the arrivals the barrier was set up for
+// (noinc), so a barrier fed by a warp's copies is initialised with 32
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+// named barrier `id` (0 is __syncthreads') over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // shared-memory stores of this thread visible to the async proxy (wgmma
 // operand reads, TMA) once the threads that read next have synchronised
 __device__ __forceinline__ void fence_proxy_async() {
@@ -132,11 +158,24 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// ------------------------------------------------------------------ TF32
+// 3xTF32: x = hi + lo with hi = tf32(x) (round to nearest) and lo =
+// tf32(x - hi); a product is summed as hi*hi + hi*lo + lo*hi (lo*lo is
+// below f32's resolution of the sum)
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
 // operand lists of the accumulator registers d[0..N) for wgmma's inline asm
 #define D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
               "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define D32 D8(0), D8(8), D8(16), D8(24)
+#define D16 D8(0), D8(8)
+#define D32 D16, D8(16), D8(24)
 #define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define R32                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
@@ -147,6 +186,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
   "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, f32) (+)= A (64 x 8, smem) * B (128 x 8, smem)^T in TF32,
+// both K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // ------------------------------------------------------------------ host
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

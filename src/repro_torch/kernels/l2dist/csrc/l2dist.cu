@@ -6,12 +6,18 @@
 // with the inputs widened to f32 and every sum in f32 on the CUDA cores:
 // no TF32, no tensor-core product, no library call.  The dot product and
 // the norms are __fmaf_rn chains over d = 0, 1, ...; the epilogue rounds
-// each step, as ref.py::l2dist_ref does.
+// each step, as ref.py::l2dist_ref does.  It serves the widths the
+// tensor-core kernel (l2dist_wgmma.cu) does not take
+// (l2dist/ops.py::l2_kernel): f32 with d % 4 != 0, bf16 of odd width and
+// every d > 128.
 //
-// What bounds it on an H100 SXM: operations.  For the ground-truth chunk
-// (B = 256, N = 2^20, D = 128) it does 2*B*N*D = 68.7 GFLOP, 1.0 ms at the
-// card's 67 TFLOP/s f32 rate, against 1.6 GB of bytes (0.54 GB read as
-// f32, 1.07 GB written): 0.48 ms at 3.35 TB/s.
+// What bounds it on an H100 SXM: operations.  At GIST1M's width (B = 256,
+// N = 2^20, D = 960, f32, the smoke's full-width call) the function is
+// 2*B*N*D = 515 GFLOP of f32 products; the card's fastest form of them
+// exact in f32, 3xTF32 on the tensor cores (three TF32 products at 495
+// TFLOP/s), takes 3.1 ms, against 5.1 GB of bytes (4.03 GB read, 1.07 GB
+// written): 1.5 ms at 3.35 TB/s.  This form, on the CUDA cores at 67
+// TFLOP/s, cannot go below 7.7 ms.
 //
 // Design: the TPU kernel is one MXU product per (bq, bn) tile with D
 // whole.  Here a block of 256 threads owns a 128 x 128 output tile and

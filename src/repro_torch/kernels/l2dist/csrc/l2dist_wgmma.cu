@@ -3,16 +3,17 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/l2dist/l2dist.py::l2dist
 // (_l2_kernel, which widens its inputs to f32) for f32 of width d % 4 == 0
-// and bf16 of width d % 8 == 0 (TMA's 16-byte row stride), d <= 128 (the
-// query tile kept in shared memory); l2dist/ops.py::l2_kernel states the
-// rule, every other case runs on l2dist.cu:
+// and bf16 of even width, d <= 128 (the query tile kept in shared memory);
+// l2dist/ops.py::l2_kernel states the rule, every other case (f32 with
+// d % 4 != 0, odd bf16 widths, d > 128) runs on l2dist.cu:
 //     out[b, n] = (|q_b|^2 - 2 q_b.v_n) + |v_n|^2        (B, N) f32.
 //
 // What bounds it on an H100 SXM: bytes.  At the ground-truth chunk
 // (B = 256, N = 2^20, D = 128) it must read q and v once and write the
 // output once: in f32 (256*128 + 2^20*128)*4 + 256*2^20*4 B = 1.61 GB,
-// 0.481 ms at 3.35 TB/s; in bf16 the inputs take half, 1.34 GB, 0.401 ms.
-// The 1.07 GB output is most of either.  The products are 68.7 GFLOP:
+// 0.481 ms at 3.35 TB/s; in bf16 the inputs take half, 1.34 GB, 0.401 ms;
+// in bf16 at SPACEV1B's d = 100, 1.28 GB, 0.383 ms.  The 1.07 GB output
+// is most of each.  The products are 68.7 GFLOP:
 // three times that in 3xTF32 take 0.417 ms at the dense TF32 rate (495
 // TFLOP/s); once in bf16 (each product exact in f32) 0.069 ms at 989
 // TFLOP/s.  The f32 CUDA cores alone could not go below 1.03 ms.
@@ -35,9 +36,31 @@
 // producer warp loads the query tile once (all of d in 128-byte-wide,
 // 128-byte swizzled k-slices: 32 f32 or 64 bf16 columns) and streams the
 // vector tiles' k-slices through a ring (3 stages in f32, whose slices
-// also need a lo buffer; 4 in bf16), all by TMA behind full / empty
-// mbarriers; TMA fills rows and columns past B, N and d with zeros.  The
-// two consumer warpgroups take the block's vector tiles in turns
+// also need a lo buffer; 4 in bf16), behind full / empty mbarriers.  f32
+// (d % 4 == 0: rows on 16 bytes) loads by TMA, which fills rows and
+// columns past B, N and d with zeros.  bf16 loads by cp.async, which
+// takes any even width (SPACEV1B's d = 100: rows of 200 bytes, which no
+// tensor map takes): the producer warp's 32 lanes copy the slices in
+// granules of 16 bytes (d % 8 == 0), 8 (d % 8 == 4) or 4 (d % 4 == 2),
+// straight into the same swizzled layout, zero-filling rows past B and N,
+// and each lane's cp.async.mbarrier.arrive.noinc counts on the full
+// barrier; the q tile and ring are cleared once at the start, so the
+// columns past d, which no copy writes, stay zero.  At d = 128 the
+// 16-byte granules took 0.7099 / 0.7067 ms against TMA's 0.7183 / 0.7146
+// (kernel_ab, H100 80GB HBM3, 700 W), so bf16 has no TMA load path.
+// Launches off the 16-byte stride count as l2dist_wgmma[bf16,off16].
+//
+// cp.async writes shared memory through the generic proxy and wgmma reads
+// it through the async proxy, so the consumers execute
+// fence.proxy.async after the mbarrier wait that acquires the copies.
+// The writing lane cannot fence after its own copies (they land after it
+// arrives), so the fence is on the reading side, which the PTX memory
+// model allows: a write X is ordered before an async-proxy read Y when a
+// proxy fence lies anywhere on the base causality path from X to Y (PTX
+// ISA, Memory Consistency Model, "Causality Order": proxy-preserved base
+// causality order), and X -> (arrive, wait) -> fence -> Y is such a path.
+//
+// The two consumer warpgroups take the block's vector tiles in turns
 // (ping-pong).  In f32 they split the query tile once; then one splits
 // each slice of its tile that has landed (hi in place, lo into a second
 // buffer of the same layout), fences the generic-proxy stores for the
@@ -95,24 +118,6 @@ struct Cfg {
                        kNumBars = 3 + 2 * kStages;
 };
 
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// d (64 x 128, f32) (+)= A (64 x 8, smem) * B (128 x 8, smem)^T in TF32,
-// both K-major; accumulate = 0 overwrites d
-__device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
-      ", %64, %65, p, 1, 1;\n}\n"
-      : D64
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // d (64 x 128, f32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T in
 // bf16, both K-major; accumulate = 0 overwrites d
 __device__ __forceinline__ void mma_bf16(float (&d)[64], uint64_t da,
@@ -123,6 +128,38 @@ __device__ __forceinline__ void mma_bf16(float (&d)[64], uint64_t da,
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : D64
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The producer warp's copy of k-slice s (columns 64 s .. 64 s + 63) of
+// rows row0 .. row0 + 127 of a (rows, d) bf16 matrix into a 128-row slice
+// in TMA's 128-byte swizzle, by cp.async granules of kGran bytes (16, 8 or
+// 4):
+// a pass takes 32 / (128 / kGran) rows, a lane one granule; granules past d
+// are not copied (their bytes stay as cleared), rows past `rows` are
+// zero-filled.
+template <int kGran>
+__device__ __forceinline__ void copy_slice(uint32_t dst,
+                                           const uint8_t* __restrict__ src,
+                                           int rows, int row0, int d, int s,
+                                           int lane) {
+  constexpr int kSlots = 128 / kGran;        // granules of a 128-byte row
+  constexpr int kRowsPerPass = 32 / kSlots;
+  const int row_bytes = 2 * d;
+  const int granules = min(128, row_bytes - 128 * s) / kGran;
+  const int gi = lane % kSlots;
+  if (gi < granules) {
+    const int col = 128 * s + gi * kGran;    // byte in the source row
+    const int in_row = gi * kGran;           // byte in the slice's row
+#pragma unroll 4
+    for (int r = lane / kSlots; r < 128; r += kRowsPerPass) {
+      const int gr = row0 + r;
+      const bool ok = gr < rows;
+      cp_async<kGran>(
+          dst + r * 128 + ((((in_row >> 4) ^ (r & 7))) << 4) + (in_row & 15),
+          src + (long long)(ok ? gr : 0) * row_bytes + col,
+          ok ? kGran : 0);
+    }
+  }
 }
 
 // Splits one landed 128-row f32 k-slice (1024 chunks of 16 bytes) among
@@ -196,10 +233,8 @@ __device__ __forceinline__ void store_norms(const float (&sq)[1024 / kT],
   }
 }
 
-// named barriers: 1 for both consumer warpgroups, 2 + w for warpgroup w
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
+// named barriers (hopper.cuh named_sync): 1 for both consumer
+// warpgroups, 2 + w for warpgroup w
 
 // Writes the 64 x 128 block of a finished tile held in acc: element
 // 4j + 2h + e is (row + 8h, column 8j + 2 quad + e), `row` this thread's
@@ -262,13 +297,18 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[64],
   }
 }
 
-template <bool kBf16>
+// kGran: 0 loads f32 by TMA; 16, 8 or 4 loads bf16 by cp.async granules of
+// that many bytes, from qg and vg
+template <bool kBf16, int kGran>
 __global__ void __launch_bounds__(kThreads, 1)
 l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_v,
                     const __grid_constant__ CUtensorMap map_out,
+                    const uint8_t* __restrict__ qg,
+                    const uint8_t* __restrict__ vg,
                     float* __restrict__ out, int b, int n, int d,
                     int tma_out) {
+  static_assert((kGran != 0) == kBf16, "bf16 loads by cp.async, f32 by TMA");
   using C = Cfg<kBf16>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[C::kNumBars];
@@ -297,10 +337,22 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q0 = blockIdx.y * kBM;
   const int n_vt = (n + kBN - 1) / kBN;
   const int ns = (d + C::kBK - 1) / C::kBK;
+  // a TMA load arrives once with its bytes; cp.async, once a producer lane
+  constexpr int kLoadArrivals = kBf16 ? 32 : 1;
+  if constexpr (kBf16) {
+    // the columns past d, which no copy writes, read as zeros; a ring
+    // stage always takes the same k-slice (kStages = 4 is a multiple of
+    // ns <= 2), so a slice of another width never lands on its zeros
+    uint4* z = reinterpret_cast<uint4*>(base);
+    for (int i = t; i < (C::kSlices + C::kStages) * kSliceBytes / 16;
+         i += kThreads)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    fence_proxy_async();
+  }
   if (t == 0) {
-    mbar_init(bar(C::kBarQ), 1);
+    mbar_init(bar(C::kBarQ), kLoadArrivals);
     for (int st = 0; st < C::kStages; ++st) {
-      mbar_init(bar(C::kBarFull + st), 1);
+      mbar_init(bar(C::kBarFull + st), kLoadArrivals);
       mbar_init(bar(C::kBarEmpty + st), 4);    // the warps of one warpgroup
     }
     mbar_init(bar(C::kBarTurn), 4);
@@ -310,17 +362,30 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (t >= kConsumers) {                               // producer warp
-    if (t == kConsumers) {
+    // bf16: its 32 lanes copy by cp.async; f32: one lane issues TMA loads
+    const int lane = t - kConsumers;
+    if (!kBf16 && lane != 0) return;
+    if constexpr (kBf16) {
+      for (int s = 0; s < ns; ++s)
+        copy_slice<kGran>(smem_u32(q_hi(s)), qg, b, q0, d, s, lane);
+      cp_async_arrive(bar(C::kBarQ));     // once its copies have landed
+    } else {
       mbar_expect_tx(bar(C::kBarQ), ns * kSliceBytes);
       for (int s = 0; s < ns; ++s)
         tma_load_2d(smem_u32(q_hi(s)), &map_q, bar(C::kBarQ), s * C::kBK,
                     q0);
-      int g = 0;                                       // slices issued
-      for (int vt = blockIdx.x; vt < n_vt; vt += gridDim.x) {
-        for (int s = 0; s < ns; ++s, ++g) {
-          const int st = g % C::kStages;
-          if (g >= C::kStages)
-            mbar_wait(bar(C::kBarEmpty + st), ((g / C::kStages) - 1) & 1);
+    }
+    int g = 0;                                         // slices issued
+    for (int vt = blockIdx.x; vt < n_vt; vt += gridDim.x) {
+      for (int s = 0; s < ns; ++s, ++g) {
+        const int st = g % C::kStages;
+        if (g >= C::kStages)
+          mbar_wait(bar(C::kBarEmpty + st), ((g / C::kStages) - 1) & 1);
+        if constexpr (kBf16) {
+          copy_slice<kGran>(smem_u32(v_hi(st)), vg, n, vt * kBN, d, s,
+                            lane);
+          cp_async_arrive(bar(C::kBarFull + st));
+        } else {
           mbar_expect_tx(bar(C::kBarFull + st), kSliceBytes);
           tma_load_2d(smem_u32(v_hi(st)), &map_v, bar(C::kBarFull + st),
                       s * C::kBK, vt * kBN);
@@ -332,6 +397,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // ---- both warpgroups: the query tile's norms (and split, in f32)
   mbar_wait(bar(C::kBarQ), 0);
+  if constexpr (kBf16) fence_proxy_async();
   {
     float sq[4] = {0.f, 0.f, 0.f, 0.f};
     for (int s = 0; s < ns; ++s)
@@ -360,6 +426,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int g = i * ns + s;               // the slice's place in the ring
       const int st = g % C::kStages;
       mbar_wait(bar(C::kBarFull + st), (g / C::kStages) & 1);
+      if constexpr (kBf16) fence_proxy_async();
       take_slice<kBf16, 128>(v_hi(st), v_lo(st), wt, vsq);
       // f32: every split store is in before the wgmmas read the slice.
       // Both: before the last slice's norms, the warpgroup is done with
@@ -427,19 +494,17 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (kBf16 && tma_out && wt == 0) bulk_wait<0, false>();
 }
 
-// (rows, d) f32 or bf16, row-major, 128-byte-wide x 128-row boxes, 128-byte
-// swizzle; rows past `rows` and columns past d read as zeros
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int bf16) {
+// (rows, d) f32, row-major, 32-column x 128-row boxes (128 bytes wide),
+// 128-byte swizzle; rows past `rows` and columns past d read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int d) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
-  const int elem_bytes = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), 128};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+  const cuuint32_t box[2] = {32, 128};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-            2, const_cast<void*>(ptr), dims, strides, box, elem,
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -460,38 +525,41 @@ bool make_out_map(CUtensorMap* map, float* out, int b, int n) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kBf16>
+template <bool kBf16, int kGran>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mv,
-                   const CUtensorMap& mo, float* out, int b, int n, int d,
-                   int grid_x, int tma_out, cudaStream_t stream) {
+                   const CUtensorMap& mo, const void* q, const void* v,
+                   float* out, int b, int n, int d, int grid_x, int tma_out,
+                   cudaStream_t stream) {
   constexpr int smem = Cfg<kBf16>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      l2dist_wgmma_kernel<kBf16>,
+      l2dist_wgmma_kernel<kBf16, kGran>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(grid_x, (b + kBM - 1) / kBM);
-  l2dist_wgmma_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
-      mq, mv, mo, out, b, n, d, tma_out);
+  l2dist_wgmma_kernel<kBf16, kGran><<<grid, kThreads, smem, stream>>>(
+      mq, mv, mo, static_cast<const uint8_t*>(q),
+      static_cast<const uint8_t*>(v), out, b, n, d, tma_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// queries (b, d) and vectors (n, d), both f32 (bf16 = 0; d % 4 == 0) or
-// both bf16 (bf16 = 1; d % 8 == 0), row-major, each 16-byte aligned,
-// d <= 128; out (b, n) f32; grid_x blocks for each 128-query tile
-// (l2dist/ops.py::l2_plan).  Returns a cudaError_t.
+// queries (b, d) and vectors (n, d), both f32 (bf16 = 0; d % 4 == 0,
+// loaded by TMA) or both bf16 (bf16 = 1; d even, loaded by cp.async),
+// row-major, each 16-byte aligned, d <= 128; out (b, n) f32; grid_x blocks
+// for each 128-query tile (l2dist/ops.py::l2_plan).  Returns a
+// cudaError_t.
 extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
                             float* out, int b, int n, int d, int grid_x,
                             int bf16, void* stream) {
-  if (b < 1 || n < 1 || d < 1 || d > kMaxD || d % (bf16 ? 8 : 4) ||
+  if (b < 1 || n < 1 || d < 1 || d > kMaxD || d % (bf16 ? 2 : 4) ||
       grid_x < 1 || (b + kBM - 1) / kBM > 65535 ||
       ((reinterpret_cast<uintptr_t>(queries) |
         reinterpret_cast<uintptr_t>(vectors)) & 15u))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mv, mo = {};
-  if (!make_map(&mq, queries, b, d, bf16) ||
-      !make_map(&mv, vectors, n, d, bf16))
+  CUtensorMap mq = {}, mv = {}, mo = {};
+  if (!bf16 && (!make_map(&mq, queries, b, d) ||
+                !make_map(&mv, vectors, n, d)))
     return (int)cudaErrorInvalidValue;
   // bf16 writes its tiles by TMA where out's rows start on 16 bytes
   const int tma_out = bf16 && n % 4 == 0 &&
@@ -499,8 +567,17 @@ extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
   if (tma_out && !make_out_map(&mo, out, b, n))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch<true>(mq, mv, mo, out, b, n, d, grid_x,
-                                   tma_out, st)
-                    : launch<false>(mq, mv, mo, out, b, n, d, grid_x, 0,
-                                    st));
+  const void *q = queries, *v = vectors;
+  if (!bf16)
+    return (int)launch<false, 0>(mq, mv, mo, q, v, out, b, n, d, grid_x, 0,
+                                 st);
+  // the widest cp.async granule the row stride (2 d bytes) allows
+  if (d % 8 == 0)
+    return (int)launch<true, 16>(mq, mv, mo, q, v, out, b, n, d, grid_x,
+                                 tma_out, st);
+  if (d % 4 == 0)
+    return (int)launch<true, 8>(mq, mv, mo, q, v, out, b, n, d, grid_x,
+                                tma_out, st);
+  return (int)launch<true, 4>(mq, mv, mo, q, v, out, b, n, d, grid_x,
+                              tma_out, st);
 }

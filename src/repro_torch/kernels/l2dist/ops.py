@@ -3,20 +3,23 @@
 Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 ``l2dist``; plain version ``ref.l2dist_ref``:
 
-* ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): on the tensor cores, one
-  source with two instantiations: f32 in 3xTF32 for widths d % 4 == 0,
-  and bf16 in one product (each product exact in f32) for d % 8 == 0
-  (TMA's 16-byte row stride in either), up to d = 128 (the query tile it
-  keeps in shared memory); q or v that does not start on a 16-byte
-  boundary is copied first; its persistent grid comes from
-  :func:`l2_plan`;
+* ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): on the tensor cores, up
+  to d = 128 (the query tile it keeps in shared memory), f32 in 3xTF32
+  for widths d % 4 == 0, loaded by TMA (rows on its 16-byte stride), and
+  bf16 in one product (each product exact in f32) for even widths,
+  loaded by ``cp.async`` in the widest granule the row stride allows (16
+  bytes where d % 8 == 0, else 8 or 4: SPACEV1B's d = 100 has rows of
+  200 bytes); q or v that does not start on a 16-byte boundary is copied
+  first; its persistent grid comes from :func:`l2_plan`;
 * ``l2dist`` (``csrc/l2dist.cu``): f32 or bf16 on the CUDA cores, for
-  every other width.
+  every other width: f32 with d % 4 != 0, bf16 of odd width (rows on
+  2-byte boundaries), d > 128.
 
 :func:`l2_kernel` states that rule, :func:`l2_instance` the key a launch
 is counted under: the bf16 instantiation of the tensor-core kernel counts
-apart, as ``l2dist_wgmma[bf16]``.  The wrapper runs the plain version
-when its tensors lie on the CPU.  On CUDA tensors it launches the kernel
+apart, as ``l2dist_wgmma[bf16]`` (rows on the 16-byte stride) and
+``l2dist_wgmma[bf16,off16]`` (rows off it).  The wrapper runs the plain
+version when its tensors lie on the CPU.  On CUDA tensors it launches the kernel
 the rule names, or raises: it checks device, dtype, shape and contiguity
 first and the ``cudaError_t`` after, allocates the output with
 ``torch.empty``, launches on the current stream and counts the launch in
@@ -38,20 +41,23 @@ _WGMMA_TILE = 128               # l2dist_wgmma.cu: kBM = kBN
 
 def l2_kernel(dtype: torch.dtype, d: int) -> str:
     """The kernel that computes distances of inputs of ``dtype`` and width
-    ``d``: ``l2dist_wgmma`` for f32 with d % 4 == 0 and for bf16 with
-    d % 8 == 0, each up to d = 128; ``l2dist`` for everything else."""
-    row_step = 4 if dtype == torch.float32 else 8       # 16 bytes
-    if d % row_step == 0 and 0 < d <= _WGMMA_MAX_D:
+    ``d``: ``l2dist_wgmma`` for f32 with d % 4 == 0 and for bf16 of even
+    width, each up to d = 128; ``l2dist`` for everything else."""
+    step = 4 if dtype == torch.float32 else 2   # f32: a 16-byte row stride
+    if d % step == 0 and 0 < d <= _WGMMA_MAX_D:
         return "l2dist_wgmma"
     return "l2dist"
 
 
 def l2_instance(dtype: torch.dtype, d: int) -> str:
-    """The ``LAUNCHES`` key of the kernel :func:`l2_kernel` names:
-    ``l2dist_wgmma[bf16]`` for its bf16 instantiation, else its name."""
+    """The ``LAUNCHES`` key of the kernel :func:`l2_kernel` names: for its
+    bf16 instantiation ``l2dist_wgmma[bf16]`` where d % 8 == 0 (rows on
+    16 bytes, 16-byte copies) and ``l2dist_wgmma[bf16,off16]`` for other
+    even d (8- or 4-byte copies); else its name."""
     name = l2_kernel(dtype, d)
     if name == "l2dist_wgmma" and dtype == torch.bfloat16:
-        return "l2dist_wgmma[bf16]"
+        return "l2dist_wgmma[bf16]" if d % 8 == 0 else \
+            "l2dist_wgmma[bf16,off16]"
     return name
 
 
@@ -89,8 +95,8 @@ def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
     bf16 = int(queries.dtype == torch.bfloat16)
     name = l2_instance(queries.dtype, d)
     if name != "l2dist":
-        # its TMA loads start on 16-byte boundaries: a view that starts
-        # elsewhere is copied into a fresh (aligned) buffer first
+        # its loads (TMA, 16-byte copies) start on 16-byte boundaries: a
+        # view that starts elsewhere is copied into a fresh buffer first
         queries, vectors = (x if x.data_ptr() % 16 == 0 else x.clone()
                             for x in (queries, vectors))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count

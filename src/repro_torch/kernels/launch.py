@@ -20,7 +20,7 @@ from repro_torch.kernels.build import SOURCES, load
 
 # instantiations counted apart from the source's own name: "<source>[x]"
 # launches the library of <source> and counts under its own key
-INSTANCES = ("l2dist_wgmma[bf16]",)
+INSTANCES = ("l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]")
 # kernel launches since the last reset_launches()
 LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
@@ -35,6 +35,7 @@ _SIGNATURES = {
     "l2dist_wgmma": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "flash_attn_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
     "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
+    "flash_attn_fwd_tf32": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
 }
 
 

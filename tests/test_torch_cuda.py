@@ -13,7 +13,8 @@ values of size D; the tensor-core kernel's 3xTF32 product also drops the
 lo*lo term, about 2^-22 of each product; its bf16 products are exact in
 f32) and bit for bit on integer data below 256 in f32 and bf16 (every
 partial sum an integer below 2^24); flash attention 2e-5
-in f32 (an online softmax against a plain one) and, in bf16, 5e-2 for
+in f32 (an online softmax against a plain one; the 3xTF32 kernel at dh 64
+and 128 drops only the lo*lo terms) and, in bf16, 5e-2 for
 every element and 2^-6 for each (b, s, h) row's L2 error over the row's
 L2 norm (the output's one rounding to bf16 may fall on either side; the
 tensor-core kernel also rounds P to bf16 before the second product, at
@@ -187,9 +188,9 @@ def _aligned_or_not(x, offset):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_l2dist_matches_plain(cuda, dtype):
-    """Both kernels of l2_kernel's rule in either dtype (d 96 and 128 run
-    on the tensor cores, and f32 also at d 100; d 1, 102, 132 and 960,
-    and bf16 at d 100, on the CUDA cores), with ragged B and N, edge
+    """Both kernels of l2_kernel's rule in either dtype (d 96, 100 and
+    128 run on the tensor cores, and bf16 also at d 102; d 1, 132 and
+    960, and f32 at d 102, on the CUDA cores), with ragged B and N, edge
     tiles and a k tail; integer data bit for bit on each kernel."""
     rng = np.random.default_rng(24)
     ran = set()
@@ -215,22 +216,30 @@ def test_cuda_l2dist_matches_plain(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 3, 129, 256])
-@pytest.mark.parametrize("n,d", [(777, 4), (5003, 96), (777, 100),
-                                 (5003, 128)])
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype,n,d", [
+    *((torch.float32, n, d) for n, d in ((777, 4), (5003, 96), (777, 100),
+                                         (5003, 128))),
+    *((torch.bfloat16, n, d) for n, d in (
+        (777, 4), (5003, 96), (777, 100), (5003, 128), (777, 2), (5003, 6),
+        (777, 36), (5003, 102), (777, 126), (777, 8), (5003, 104))),
+], ids=lambda x: {torch.float32: "f32", torch.bfloat16: "bf16"}.get(x, x))
 def test_cuda_l2dist_wgmma_matches_plain(cuda, b, n, d, offset, dtype):
     """The tensor-core kernel in both instantiations: ragged B and N, d
-    off the 128-byte k-slice (4 and 100 in f32; 8 and 104 in bf16, whose
-    rows need d % 8 == 0), views that do not start on a 16-byte boundary
-    (copied first); normal values to the L2 tolerance, integers bit for
-    bit."""
+    off the 128-byte k-slice, views that do not start on a 16-byte
+    boundary (copied first); normal values to the L2 tolerance, integers
+    bit for bit.  f32 loads by TMA; bf16 by cp.async in 16-byte granules
+    where rows lie on the 16-byte stride (d 8, 96, 104, 128), else in
+    8-byte (d % 4 == 0) or 4-byte ones (2, 4, 6, 36, 100, 102, 126); the
+    columns past d (up to the 64-column k-slice) and the rows past B and N
+    read as zeros, a k tail in one slice (2, 4, 6, 8, 36) or in the second
+    (100, 102, 104, 126)."""
     rng = np.random.default_rng(29)
-    if dtype == torch.bfloat16 and d % 8:
-        assert l2_kernel(dtype, d) == "l2dist"
-        d += 4
     assert l2_kernel(dtype, d) == "l2dist_wgmma"
+    if dtype == torch.bfloat16:
+        assert l2_instance(dtype, d) == ("l2dist_wgmma[bf16]" if d % 8 == 0
+                                         else "l2dist_wgmma[bf16,off16]")
+
     def make(shape, ints):
         x = rng.integers(0, 256, shape) if ints else rng.standard_normal(shape)
         x = _t(x.astype(np.float32)).to(cuda, dtype)
@@ -306,19 +315,72 @@ def test_cuda_flash_wgmma_matches_plain(cuda, dh, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_tf32_matches_plain(cuda, dh, causal):
+    """The 3xTF32 tensor-core kernel (f32) on the shapes of the bf16 one:
+    S and T off the 64-row q tiles and 32-key KV tiles, S != T both ways,
+    MQA (Hk = 1), G = 2, B = 2, a single query row, an odd number of KV
+    tiles (the two warpgroups take unequal shares); f32's 2e-5."""
+    rng = np.random.default_rng(32)
+    for B, S, T, H, Hk in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
+                           (1, 300, 70, 2, 1), (2, 1, 129, 2, 2),
+                           (1, 513, 513, 8, 4), (1, 33, 33, 2, 2)):
+        q, k, v = (_t(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda) for shape in ((B, S, H, dh), (B, T, Hk, dh),
+                                (B, T, Hk, dh)))
+        before = dict(launch.LAUNCHES)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["flash_attn_fwd_tf32"] == \
+            before["flash_attn_fwd_tf32"] + 1
+        assert launch.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"]
+        _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("side", ["scores", "values"])
+def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
+    """Inputs on which every lo term of the 3xTF32 kernel moves the
+    output past f32's 2e-5: a TF32 hi part keeps 11 bits, so each lo part
+    is about 1.4e-4 of its value.  "scores": q and k twice as large, so a
+    score moves by ~8e-4 (base 2) when Q hi * K lo or Q lo * K hi is
+    dropped, a weight by ~5.6e-4 of itself; "values": v eight times as
+    large, so a dropped P hi * V lo or P lo * V hi moves the output by
+    ~1e-3 or ~5e-4 against a limit of ~1.8e-4.  Causal, so the first rows
+    of each head, over a few keys, carry the whole error."""
+    rng = np.random.default_rng(33)
+    B, S, H, Hk = 2, 80, 4, 2
+    gain = dict(scores=(2.0, 2.0, 1.0), values=(1.0, 1.0, 8.0))[side]
+    q, k, v = (_t((g * rng.standard_normal(shape)).astype(np.float32)).to(
+        cuda) for g, shape in zip(gain, ((B, S, H, dh), (B, S, Hk, dh),
+                                         (B, S, Hk, dh))))
+    before = dict(launch.LAUNCHES)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["flash_attn_fwd_tf32"] == \
+        before["flash_attn_fwd_tf32"] + 1
+    _assert_attn_close(got, flash_attn_ref(q, k, v, causal=True))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,dh,offset,kernel", [
     (torch.bfloat16, 128, 0, "flash_attn_fwd_wgmma"),
     (torch.bfloat16, 64, 0, "flash_attn_fwd_wgmma"),
     (torch.bfloat16, 96, 0, "flash_attn_fwd"),
     (torch.bfloat16, 128, 1, "flash_attn_fwd_wgmma"),   # copied to align
-    (torch.float32, 128, 0, "flash_attn_fwd"),
-    (torch.float32, 64, 0, "flash_attn_fwd"),
+    (torch.float32, 128, 0, "flash_attn_fwd_tf32"),
+    (torch.float32, 64, 0, "flash_attn_fwd_tf32"),
+    (torch.float32, 96, 0, "flash_attn_fwd"),
+    (torch.float32, 128, 1, "flash_attn_fwd_tf32"),     # copied to align
 ])
 def test_cuda_flash_dispatch_launches(cuda, dtype, dh, offset, kernel):
-    """f32 and bf16 of another head width run on the CUDA-core kernel,
-    bf16 at dh 64 or 128 on the tensor-core one, also from views that do
-    not start on a 16-byte boundary; the launch count of the kernel that
-    ran, and only it, goes up."""
+    """Other head widths run on the CUDA-core kernel, dh 64 or 128 on the
+    tensor-core ones (bf16 on flash_attn_fwd_wgmma, f32 in 3xTF32 on
+    flash_attn_fwd_tf32), also from views that do not start on a 16-byte
+    boundary; the launch count of the kernel that ran, and only it, goes
+    up."""
     rng = np.random.default_rng(28)
     shapes = ((1, 100, 4, dh), (1, 100, 2, dh), (1, 100, 2, dh))
     qkv = []

@@ -246,13 +246,16 @@ def test_new_wrappers_run_plain_versions_on_cpu_tensors():
     (torch.bfloat16, 96, "flash_attn_fwd"),
     (torch.bfloat16, 32, "flash_attn_fwd"),
     (torch.bfloat16, 8, "flash_attn_fwd"),
-    (torch.float32, 128, "flash_attn_fwd"),
-    (torch.float32, 64, "flash_attn_fwd"),
+    (torch.float32, 128, "flash_attn_fwd_tf32"),
+    (torch.float32, 64, "flash_attn_fwd_tf32"),
+    (torch.float32, 96, "flash_attn_fwd"),
+    (torch.float32, 32, "flash_attn_fwd"),
+    (torch.float32, 8, "flash_attn_fwd"),
 ])
 def test_flash_kernel_rule(dtype, dh, kernel):
-    """bf16 at dh 64 or 128 goes to the tensor-core kernel; f32 (TF32
-    would break its tolerance) and other head widths to the CUDA-core
-    one."""
+    """At dh 64 or 128, bf16 goes to the bf16 tensor-core kernel and f32
+    to the 3xTF32 one (three TF32 products keep f32's tolerance, one
+    would break it); other head widths to the CUDA-core one."""
     assert flash_kernel(dtype, dh) == kernel
     assert kernel in launch.LAUNCHES
 
@@ -268,18 +271,28 @@ def test_flash_kernel_rule(dtype, dh, kernel):
     (torch.float32, 960, "l2dist"),
     (torch.bfloat16, 128, "l2dist_wgmma"),    # the chunk in bf16
     (torch.bfloat16, 96, "l2dist_wgmma"),
-    (torch.bfloat16, 100, "l2dist"),          # row stride off 16 bytes
+    (torch.bfloat16, 100, "l2dist_wgmma"),    # SPACEV1B: cp.async loads
     (torch.bfloat16, 960, "l2dist"),          # wider than the q tile
+    (torch.bfloat16, 102, "l2dist_wgmma"),    # 4-byte granules
+    (torch.bfloat16, 2, "l2dist_wgmma"),
+    (torch.bfloat16, 126, "l2dist_wgmma"),
+    (torch.bfloat16, 101, "l2dist"),          # odd: rows on 2 bytes
+    (torch.bfloat16, 1, "l2dist"),
+    (torch.bfloat16, 130, "l2dist"),          # wider than the q tile
 ])
 def test_l2_kernel_rule(dtype, d, kernel):
-    """f32 with d % 4 == 0 and bf16 with d % 8 == 0 (TMA's 16-byte row
-    stride), each with d <= 128 (the query tile kept in shared memory),
-    go to the tensor-core kernel; every other width to the CUDA-core one.
-    The bf16 instantiation counts its launches apart."""
+    """f32 with d % 4 == 0 (TMA's 16-byte row stride) and bf16 of even
+    width, each with d <= 128 (the query tile kept in shared memory), go
+    to the tensor-core kernel; every other width to the CUDA-core one.
+    The bf16 instantiation counts its launches apart: rows on the 16-byte
+    stride (d % 8 == 0) and the other even widths."""
     assert l2_kernel(dtype, d) == kernel
     key = l2_instance(dtype, d)
-    assert key == (kernel + "[bf16]" if kernel == "l2dist_wgmma"
-                   and dtype == torch.bfloat16 else kernel)
+    if kernel == "l2dist_wgmma" and dtype == torch.bfloat16:
+        assert key == ("l2dist_wgmma[bf16]" if d % 8 == 0
+                       else "l2dist_wgmma[bf16,off16]")
+    else:
+        assert key == kernel
     assert key in launch.LAUNCHES
 
 
