@@ -11,7 +11,8 @@ From the root of a checkout, with one CUDA card:
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes: the ADC scans at ragged N, B = 1 and 64, S not a multiple
    of the block, all-pad rows, a mostly-padding last block, N < topk,
-   constructed ties, M in {8, 32} (and 16 for the single-query scans),
+   constructed ties, M in {8, 32} (and 16 for the single-query scans; the
+   fused scan bit for bit also at 24 and 25, S up to 8,192, rows >= N),
    rows in descending distance and a topk that fills the top-k kernel's
    candidate buffer; exact L2 in f32 and bf16 (both kernels of
    ``l2_kernel``'s rule, in both instantiations of the tensor-core one,
@@ -59,7 +60,9 @@ From the root of a checkout, with one CUDA card:
    dh = 128 ``flash_attn_fwd_tf32`` (3xTF32 on the tensor cores) and the
    one at dh = 96 ``flash_attn_fwd`` (CUDA cores);
 6. holds each kernel against its plain version on the inputs its path
-   gave it, and times kernel, plain version and (where one exists) a
+   gave it (the fused scan bit for bit, and once more at a multi-block
+   window of S = 8,192 slots, timed and logged on its own line), and times
+   kernel, plain version and (where one exists) a
    single PyTorch call computing the same function, with CUDA events,
    beside the least time the card could take: the operations at the
    fastest rate the card has for the function (``exact_products``: f32
@@ -105,6 +108,7 @@ FLASH_TOL = {torch.float32: 2e-5,    # online softmax against a plain one
 # K/V tile there, but it moves the row by a large share of its norm.
 FLASH_ROW_RTOL = 2.0 ** -6
 WINDOW = 64
+MULTI_S = 8192                  # phase 6's multi-block fused window
 QWEN3_ATTN = dict(H=16, Hk=8, dh=128)    # src/repro/configs/qwen3_0_6b.py
 SPACEV_DIM = 100                         # configs/anns_datasets.SPACEV1B.dim
 GIST_DIM = 960              # GIST1M's width (ann-benchmarks); no config here
@@ -260,29 +264,48 @@ def check_kernels_small(dev: torch.device, rng: np.random.Generator) -> None:
                     pv, pi = torch.sort(d, dim=1, stable=True)
                     check_close(f"masked top-k m{m} n{n} b{b}", kv,
                                 pv[:, :100], ki, pi[:, :100])
-        # fused: ragged S, all-pad rows, exact ties from duplicate code rows
-        n = 50_000
-        base = rng.integers(0, 256, (n // 4, m)).astype(np.uint8)
-        codes = torch.from_numpy(np.repeat(base, 4, axis=0)).to(dev)
-        for b, s, topk in ((1, 3000, 10), (64, 5000, 512), (64, 2048, 3000),
-                           (5, 37, 512)):
-            rows = np.full((b, s), -1, np.int32)
-            for i in range(b - 1 if b > 1 else b):   # last row all pads
-                c = int(rng.integers(1, s + 1))
-                rows[i, :c] = np.sort(rng.choice(n, c, replace=False))
-            rows_t = torch.from_numpy(rows).to(dev)
-            q = torch.from_numpy(rng.standard_normal((b, m * dsub)).astype(
-                np.float32)).to(dev)
-            for int8 in (False, True):
-                kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows_t, topk,
-                                               lut_int8=int8)
-                pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows_t,
-                                                     topk, lut_int8=int8)
-                check_close(f"adc_fused_topk m{m} b{b} s{s} k{topk} "
-                            f"int8={int8}", kv, pv, ki, pi)
-                if not torch.equal(ki, pi):
-                    raise AssertionError("fused ids differ on exact ties")
+    for m in (8, 24, 25, 32):
+        check_fused_small(dev, rng, m)
     torch.cuda.synchronize()
+
+
+def check_fused_small(dev: torch.device, rng: np.random.Generator,
+                      m: int) -> None:
+    """The fused kernel bit-equal to its plain version: B = 1 (a cluster
+    of eight CTAs), 5 (one CTA a query) and 64 (four) at S from 37 to
+    8,192, valid rows below and above tk, the last query all pads, query
+    1's last three rows >= N (pads on the card; -1 for the plain
+    version), exact ties from repeated code rows; M = 8, DEEP1B's 24 (8-byte
+    code loads), SPACEV1B's 25 (1-byte) and 32 (16-byte)."""
+    from repro_torch.kernels.pq_adc import ops
+    n, k, dsub = 50_000, 256, 4
+    cb = torch.from_numpy(rng.standard_normal((m, k, dsub)).astype(
+        np.float32)).to(dev)
+    base = rng.integers(0, 256, (n // 4, m)).astype(np.uint8)
+    codes = torch.from_numpy(np.repeat(base, 4, axis=0)).to(dev)
+    for b, s, topk in ((1, 3000, 10), (64, 5000, 512), (64, 2048, 3000),
+                       (64, 8192, 512), (5, 37, 512)):
+        rows = np.full((b, s), -1, np.int32)
+        for i in range(b - 1 if b > 1 else b):   # last row all pads
+            c = int(rng.integers(1, s + 1))
+            rows[i, :c] = np.sort(rng.choice(n, c, replace=False))
+        c1 = int((rows[min(1, b - 1)] >= 0).sum())
+        if b > 2 and c1 >= 3:
+            rows[1, c1 - 3:c1] = n + np.array([0, 7, 100])
+        rows_t = torch.from_numpy(rows).to(dev)
+        plain_rows = torch.from_numpy(np.where(rows >= n, -1, rows).astype(
+            np.int32)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, m * dsub)).astype(
+            np.float32)).to(dev)
+        for int8 in (False, True):
+            kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows_t, topk,
+                                           lut_int8=int8)
+            pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, plain_rows,
+                                                 topk, lut_int8=int8)
+            if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+                raise AssertionError(f"adc_fused_topk m{m} b{b} s{s} "
+                                     f"k{topk} int8={int8}: not bit-equal "
+                                     f"to its plain version")
 
 
 def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
@@ -626,30 +649,63 @@ def measure(calls) -> list:
     del lib, weight, flat_idx
     for key in ("adc_fused_topk", "adc_fused_topk[lut_int8]"):
         codes, q, cb, rows, topk = calls[key]
-        int8 = key.endswith("[lut_int8]")
-        kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows, topk,
-                                       lut_int8=int8)
-        pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows, topk,
-                                             lut_int8=int8)
-        err = check_close(f"{key} at main-path shape", kv, pv, ki, pi)
-        b, s = rows.shape
-        m, k, dsub = cb.shape
-        valid = int((rows >= 0).sum())
-        tk = min(topk, s)
-        nbytes = (b * s * 4 + valid * m + b * m * dsub * 4
-                  + m * k * dsub * 4 + b * tk * 8)
-        lut_ops = b * m * k * 3 * dsub + (b * m * k * 5 if int8 else 0)
-        flops = lut_ops + valid * m * (4 if int8 else 1)
-        out.append(dict(
-            name=key, shape=dict(B=b, S=s, valid_slots=valid, M=m, K=k,
-                                 topk=topk),
-            max_abs_err=err,
-            ms=gpu_ms(lambda: ops.pq_adc_fused_topk(
-                codes, q, cb, rows, topk, lut_int8=int8), 20),
-            plain_ms=gpu_ms(lambda: ops.pq_adc_fused_topk_plain(
-                codes, q, cb, rows, topk, lut_int8=int8), 3),
-            library_ms=None, **bound(nbytes, flops)))
+        out.append(measure_fused(key, codes, q, cb, rows, topk))
+        # and a window of several tiles a CTA: S = 8,192, each query's
+        # valid rows uniform in [S/4, 3S/4] (about 4,000), drawn ascending
+        # from the index's rows; logged, the row above stays the main path's
+        multi = measure_fused(key, codes, q, cb, window_rows(
+            rows.shape[0], MULTI_S, codes.shape[0], rows.device,
+            torch.Generator(device=rows.device).manual_seed(MULTI_S)), topk)
+        shape = multi.pop("shape")
+        log(f"timing {key} multi-block {shape}: ms={multi['ms']:.4f} "
+            f"plain_ms={multi['plain_ms']:.3f} "
+            f"bound_ms={multi['bound_ms']:.4f} ({multi['bound_by']}) "
+            f"max_abs_err={multi['max_abs_err']}")
     return out
+
+
+def window_rows(b: int, s: int, n: int, dev: torch.device,
+                gen: torch.Generator) -> torch.Tensor:
+    """A fused scan window's rows (B, S): each query's valid rows, uniform
+    in number in [S/4, 3S/4], drawn ascending from N, then pads."""
+    rows = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    counts = torch.randint(s // 4, 3 * s // 4 + 1, (b,), generator=gen,
+                           device=dev).tolist()
+    for i, c in enumerate(counts):
+        rows[i, :c] = torch.sort(torch.randperm(
+            n, generator=gen, device=dev)[:c])[0].int()
+    return rows
+
+
+def measure_fused(key: str, codes, q, cb, rows, topk: int) -> dict:
+    """The fused kernel bit-equal to its plain version (values and ids)
+    on these inputs, and its times."""
+    from repro_torch.kernels.pq_adc import ops
+    int8 = key.endswith("[lut_int8]")
+    kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows, topk, lut_int8=int8)
+    pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows, topk,
+                                         lut_int8=int8)
+    err = check_close(f"{key} at S={rows.shape[1]}", kv, pv, ki, pi)
+    if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+        raise AssertionError(f"{key} at S={rows.shape[1]}: not bit-equal "
+                             f"to its plain version")
+    b, s = rows.shape
+    m, k, dsub = cb.shape
+    valid = int((rows >= 0).sum())
+    tk = min(topk, s)
+    nbytes = (b * s * 4 + valid * m + b * m * dsub * 4
+              + m * k * dsub * 4 + b * tk * 8)
+    lut_ops = b * m * k * 3 * dsub + (b * m * k * 5 if int8 else 0)
+    flops = lut_ops + valid * m * (4 if int8 else 1)
+    return dict(
+        name=key, shape=dict(B=b, S=s, valid_slots=valid, M=m, K=k,
+                             topk=topk),
+        max_abs_err=err,
+        ms=gpu_ms(lambda: ops.pq_adc_fused_topk(
+            codes, q, cb, rows, topk, lut_int8=int8), 20),
+        plain_ms=gpu_ms(lambda: ops.pq_adc_fused_topk_plain(
+            codes, q, cb, rows, topk, lut_int8=int8), 3),
+        library_ms=None, **bound(nbytes, flops))
 
 
 def measure_entry(calls) -> list:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the dense ADC scan, the single-query ADC scan + top-k, flash
-attention (bf16 and f32) and exact L2 (f32 and bf16, and bf16 at
-SPACEV1B's d = 100) of other source trees beside this one's on one card,
-and reads each output against its plain version.
+"""Times the dense ADC scan, the fused LUT -> ADC -> top-k scan (f32 and
+int8), the single-query ADC scan + top-k, flash attention (bf16 and f32)
+and exact L2 (f32 and bf16, and bf16 at SPACEV1B's d = 100) of other
+source trees beside this one's on one card, and reads each output
+against its plain version.
 
     python3 scripts/kernel_ab.py --against DIR [--against DIR ...]
                                  [--out FILE] [--seed 0]
@@ -11,7 +12,8 @@ Each ``DIR`` is the root of another tree of this repo, or of its
 ``src/repro_torch`` at least: an earlier commit unpacked with
 ``git archive``, or a copy with one kernel source changed.  Its package
 is built and driven through its own public wrappers,
-``kernels.pq_adc.ops.pq_adc_batch``, ``kernels.pq_adc.ops.pq_adc_topk``,
+``kernels.pq_adc.ops.pq_adc_batch``,
+``kernels.pq_adc.ops.pq_adc_fused_topk``, ``kernels.pq_adc.ops.pq_adc_topk``,
 ``kernels.flash_attn.flash_attention`` and
 ``kernels.l2dist.l2_distances``, so the trees may
 differ in launch shapes, C entry points and which kernel a call reaches.  Both packages are named
@@ -19,7 +21,12 @@ differ in launch shapes, C entry points and which kernel a call reaches.  Both p
 ``DIR``, this tree, this tree, ``DIR``.
 
 Every process makes the same inputs from ``--seed``: the dense window's
-B = 64 LUTs over a 32,768-row bucket of M = 32 codes; one query's LUT
+B = 64 LUTs over a 32,768-row bucket of M = 32 codes; the fused scan over
+10M rows of M = 32 random codes (K = 256, dsub = 4, topk 512) at the main
+path's window, B = 64 queries of S = 1,024 slots, and at a multi-block
+window of S = 8,192, each query's valid rows (uniform in [S/4, 3S/4],
+about 500 and 4,000) drawn ascending from the 10M and followed by pads,
+in f32 and int8; one query's LUT
 over 10M rows of M = 32 codes with topk 512 (the smoke's phase 5), once
 with the rows in random order and once sorted by descending distance,
 where every row beats each block's running threshold; flash attention at
@@ -29,7 +36,10 @@ x 2^20 vectors x 128, in f32 and in bf16, and in bf16 cut to SPACEV1B's
 d = 100 (rows off TMA's 16-byte stride), once on integers in [0, 256)
 (SIFT's values) and once on normal values.  It reports the device time of each
 call (``chip_smoke.gpu_ms``), the kernels the call launched, whether the
-dense output is bit-equal to ``pq_adc_batch_ref``, whether the top-k
+dense output is bit-equal to ``pq_adc_batch_ref``, whether the fused
+output is bit-equal to ``pq_adc_fused_topk_plain`` (values and ids) and
+its time with the wrapper's ``torch.sort`` and ``torch.gather`` stubbed
+out (the kernel alone; a one-launch wrapper has neither), whether the top-k
 equals the first topk of a stable argsort of ``pq_adc`` (values and ids)
 and its time with every ``torch.sort`` of the wrapper stubbed out (the
 kernel without the merge; ``ms`` less that is the merge), the flash
@@ -57,6 +67,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 B, N, M, K = 64, 32_768, 32, 256                 # the dense window
+FUSED = dict(N=10_000_000, dsub=4, topk=512,      # the fused windows
+             S={"main": 1024, "multi": 8192})
 TOPK = dict(N=10_000_000, topk=512)               # smoke phase 5's top-k
 ATTN = dict(S=4096, H=16, Hk=8, dh=128)          # Qwen3-0.6B's attention
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
@@ -163,7 +175,77 @@ def measure(tree: Path, seed: int) -> dict:
             del norms
         l2[f"l2dist[{tag}]"] = r
         del ints
-    return {"adc_scan_batch": dense, "pq_adc_topk": topk, **flash, **l2}
+    # last, so the readings above keep the inputs of earlier runs
+    fused = fused_readings(ops, dev, gen, chip_smoke.window_rows,
+                           chip_smoke.gpu_ms)
+    return {"adc_scan_batch": dense, "pq_adc_fused_topk": fused,
+            "pq_adc_topk": topk, **flash, **l2}
+
+
+class _NoMerge:
+    """Within it, ``torch.sort`` returns its input and a cached index
+    tensor, and ``torch.gather`` a cached tensor of the index's shape: a
+    wrapper's merge costs nothing, its kernel runs as ever."""
+
+    def __enter__(self):
+        self.saved, kept = (torch.sort, torch.gather), {}
+
+        def no_sort(x, *a, **kw):
+            key = ("sort", tuple(x.shape), x.device)
+            if key not in kept:
+                kept[key] = torch.zeros(x.shape, dtype=torch.long,
+                                        device=x.device)
+            return x, kept[key]
+
+        def no_gather(x, dim, index, **kw):
+            key = ("gather", tuple(index.shape), x.dtype, x.device)
+            if key not in kept:
+                kept[key] = torch.empty(index.shape, dtype=x.dtype,
+                                        device=x.device)
+            return kept[key]
+        torch.sort, torch.gather = no_sort, no_gather
+        return self
+
+    def __exit__(self, *exc):
+        torch.sort, torch.gather = self.saved
+
+
+def fused_readings(ops, dev, gen, window_rows, gpu_ms) -> dict:
+    """``pq_adc_fused_topk`` at the main path's window and a multi-block
+    one (rows from ``chip_smoke.window_rows``), f32 and int8: bit-equal to
+    its plain version, the kernels it launched, its time, and its time
+    with the merge stubbed out."""
+    n, dsub, topk = FUSED["N"], FUSED["dsub"], FUSED["topk"]
+    codes = torch.randint(0, K, (n, M), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    cb = torch.randn(M, K, dsub, generator=gen, device=dev)
+    out = {}
+    for shape, s in FUSED["S"].items():
+        q = torch.randn(B, M * dsub, generator=gen, device=dev)
+        rows = window_rows(B, s, n, dev, gen)
+        for int8 in (False, True):
+            before = dict(ops.LAUNCHES)
+            v, i = ops.pq_adc_fused_topk(codes, q, cb, rows, topk,
+                                         lut_int8=int8)
+            torch.cuda.synchronize()
+            pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows, topk,
+                                                 lut_int8=int8)
+
+            def call():
+                return ops.pq_adc_fused_topk(codes, q, cb, rows, topk,
+                                             lut_int8=int8)
+            r = dict(S=s, valid_slots=int((rows >= 0).sum()),
+                     launched={k: c - before[k] for k, c in
+                               ops.LAUNCHES.items() if c != before[k]},
+                     bit_equal=bool(torch.equal(v, pv)
+                                    and torch.equal(i, pi)),
+                     ms=gpu_ms(call, 50))
+            with _NoMerge():
+                r["kernel_ms"] = gpu_ms(call, 50)
+            r["merge_ms"] = r["ms"] - r["kernel_ms"]
+            out[f"{shape}[{'int8' if int8 else 'f32'}]"] = r
+        del rows, q
+    return out
 
 
 def topk_readings(ops, ref, dev, gen, lut, gpu_ms) -> dict:
@@ -191,18 +273,9 @@ def topk_readings(ops, ref, dev, gen, lut, gpu_ms) -> dict:
                      i.long(), si[:topk])),
                  ms=gpu_ms(lambda: ops.pq_adc_topk(codes, lut, topk), 20))
         del d, sv, si
-        sort, kept = torch.sort, {}
-
-        def no_sort(x, *a, **kw):       # the input and a cached arange
-            if x.numel() not in kept:
-                kept[x.numel()] = torch.arange(x.numel(), device=x.device)
-            return x, kept[x.numel()]
-        torch.sort = no_sort
-        try:
+        with _NoMerge():
             r["kernel_ms"] = gpu_ms(
                 lambda: ops.pq_adc_topk(codes, lut, topk), 20)
-        finally:
-            torch.sort = sort
         r["merge_ms"] = r["ms"] - r["kernel_ms"]
         out[order] = r
     return out

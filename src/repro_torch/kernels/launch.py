@@ -28,7 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point's arguments; the last is always the stream
 _SIGNATURES = {
     "adc_scan_batch": (_P, _P, _P) + (_I,) * 8 + (_P,),
-    "adc_fused_topk": (_P,) * 6 + (_I,) * 10 + (_P,),
+    "adc_fused_topk": (_P,) * 6 + (_I,) * 12 + (_P,),
     "adc_scan": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
     "l2dist": (_P, _P, _P) + (_I,) * 4 + (_P,),

@@ -12,8 +12,10 @@ Four kernels, written in CUDA C++ for ``sm_90a`` (``csrc/``):
   port of the Pallas ``pq_adc_scan_batch``; plain version
   ``ref.pq_adc_batch_ref``.
 * ``adc_fused_topk`` (:func:`pq_adc_fused_topk`) — LUT build, ADC scan of
-  each query's candidate rows and block-local top-k in one launch, f32 or
-  int8 LUT, the port of the Pallas ``pq_adc_scan_fused``; plain version
+  each query's candidate rows and its top-k in one launch, one thread
+  block cluster a query (:func:`fused_plan`) merging its CTAs' lists
+  through distributed shared memory, f32 or int8 LUT, the port of the
+  Pallas ``pq_adc_scan_fused`` and of its merge; plain version
   :func:`pq_adc_fused_topk_plain`.
 
 A wrapper runs the plain version when its tensors lie on the CPU.  On a
@@ -45,7 +47,11 @@ _MAX_QUERIES_PER_BLOCK = 8      # adc_scan_batch.cu: kMaxQ
 _DENSE_ROWS = 128               # adc_scan_batch.cu: rows a block's pass takes
 _DENSE_PAD = 4                  # adc_scan_batch.cu: floats after each LUT
 _BARRIER_BYTES = 16             # adc_scan_batch.cu: its static mbarrier
-_FUSED_BLOCK_S = 2048           # candidate slots per fused-kernel block
+_FUSED_TILE = 1024              # adc_fused_topk.cu: kTile, slots a tile
+_FUSED_MAX_CLUSTER = 8          # adc_fused_topk.cu: kMaxCluster
+_FUSED_MAX_CAP = 4096           # adc_fused_topk.cu: kMaxCap, keys a CTA
+_FUSED_MIN_SLOTS = 64           # fewest slots a CTA of a cluster > 1 takes
+_FUSED_STATIC_SMEM = 2048       # adc_fused_topk.cu: room for its static Shared
 _TOPK_ROUND = 2048              # adc_scan_topk.cu: kRound, rows a round
 _TOPK_MAX_TK = 2048             # adc_scan_topk.cu: kMaxTk, keys a block keeps
 _TOPK_BUF = 4096                # adc_scan_topk.cu: kBuf, candidate slots
@@ -55,6 +61,13 @@ _INV255 = 1.0 / 255.0           # rounds to the float32 XLA folds `/ 255.0`
 
 def _vec16(codes: torch.Tensor) -> int:
     return int(codes.shape[1] % 16 == 0 and codes.data_ptr() % 16 == 0)
+
+
+def load_width(m: int, address: int) -> int:
+    """The widest load, in bytes (16, 8, 4, 2 or 1), that reads every
+    code row of M bytes from a table at ``address`` whole and aligned."""
+    return next(w for w in (16, 8, 4, 2, 1)
+                if m % w == 0 and address % w == 0)
 
 
 def _check_lut(codes: torch.Tensor, lut: torch.Tensor) -> Tuple[int, int, int]:
@@ -268,19 +281,84 @@ def pq_adc_fused_topk_plain(codes: torch.Tensor, queries: torch.Tensor,
     return vals[:, :tk], torch.gather(rows, 1, pos[:, :tk])
 
 
+class FusedPlan(NamedTuple):
+    """Launch shape of ``adc_fused_topk``: one thread block cluster of
+    ``cluster`` CTAs a query; the query's 32-slot chunks dealt to its CTAs
+    in turn (CTA r scans chunks r, r + cluster, ...), at most ``slots``
+    slots a CTA; each CTA keeps its best ``keep`` = min(tk, slots) keys
+    in a buffer of ``cap`` keys; ``smem`` dynamic shared-memory bytes a
+    CTA (the LUT, the key buffer, and an inbox for the other CTAs' kept
+    keys)."""
+    cluster: int
+    slots: int
+    keep: int
+    cap: int
+    smem: int
+
+
+def _pow2ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def fused_plan(b: int, s: int, tk: int, m: int, k: int,
+               sms: int) -> FusedPlan:
+    """The grid of ``adc_fused_topk`` for B queries of S slots each, their
+    top tk, M x K LUTs, on a card of ``sms`` SMs.
+
+    The cluster is the largest power of two up to 8 that keeps B *
+    cluster within two CTAs an SM and gives each CTA at least 64 slots
+    (B = 64 on 132 SMs: 4; B = 1: 8).  Chunks dealt in turn give each CTA
+    its share of a query's valid rows, which lead its pads.  A CTA's key
+    buffer holds all its slots, up to 4,096, and at least max(32,
+    pow2ceil(keep)) for its sort, in multiples of 32; a CTA of more slots
+    selects whenever the next tile of 1,024 might not fit, so keep must
+    leave a tile's room (tk <= 3,072), or a larger cluster, up to 8, takes
+    fewer slots a CTA.  Beyond that, and past the shared memory (the other
+    CTAs' (cluster - 1) * keep kept keys come to each CTA), it raises."""
+    c = 1
+    while (2 * c <= _FUSED_MAX_CLUSTER and b * 2 * c <= 2 * sms
+           and s >= 2 * c * _FUSED_MIN_SLOTS):
+        c *= 2
+    chunks = -(-s // 32)
+    while True:
+        slots = -(-chunks // c) * 32
+        keep = min(tk, slots)
+        cap = -(-max(32, _pow2ceil(keep), min(slots, _FUSED_MAX_CAP))
+                // 32) * 32
+        fits = cap <= _FUSED_MAX_CAP and (cap >= slots
+                                          or cap >= keep + _FUSED_TILE)
+        if fits or c == _FUSED_MAX_CLUSTER:
+            break
+        c *= 2
+    smem = -(-m * k // 4) * 16 + cap * 8 + (c - 1) * keep * 8
+    if not fits or smem > _SMEM_MAX - _FUSED_STATIC_SMEM:
+        raise ValueError(f"adc_fused_topk takes at most {_FUSED_MAX_CAP} keys "
+                         f"a CTA and {_SMEM_MAX - _FUSED_STATIC_SMEM} B of "
+                         f"shared memory: S={s}, tk={tk}, M={m}, K={k} "
+                         f"need {cap} and {smem}")
+    return FusedPlan(c, slots, keep, cap, smem)
+
+
 def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
                       codebooks: torch.Tensor, rows: torch.Tensor,
                       topk: int, *, lut_int8: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused query pipeline: LUT build -> ADC scan -> partial top-k
-    over each query's OWN candidate rows, one launch per scan window.
+    """The fused query pipeline: LUT build -> ADC scan -> top-k over each
+    query's OWN candidate rows, one launch per scan window, merge
+    included.
 
     codes (N, M) uint8 (the whole HBM tier — no per-window candidate
     gather); queries (B, M*dsub) f32 with any rotation already applied;
     codebooks (M, K, dsub) f32; rows (B, S) int32 row ids, -1 = pad, each
-    query's sorted ascending.  Returns (dists (B, tk), row ids (B, tk))
-    ascending, tk = min(topk, S); slots past a query's candidate count
-    come back as (+inf, -1)."""
+    query's sorted ascending, pads after its rows.  Returns (dists (B, tk),
+    row ids (B, tk)) ascending by (dist, slot), tk = min(topk, S); slots
+    past a query's candidate count come back as (+inf, -1).  On the card
+    a row >= N is a pad too.
+
+    On the card this is one launch of ``adc_fused_topk`` on the grid of
+    :func:`fused_plan`: each query's cluster builds its LUT, scans its
+    slots and writes the query's tk pairs itself (no sort or gather
+    after it)."""
     if codes.device.type == "cpu":
         return pq_adc_fused_topk_plain(codes, queries, codebooks, rows, topk,
                                        lut_int8=lut_int8)
@@ -301,19 +379,13 @@ def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
     if b == 0 or tk_out == 0:
         return (torch.empty(b, tk_out, dtype=torch.float32, device=dev),
                 torch.empty(b, tk_out, dtype=torch.int32, device=dev))
-    block_s = min(_FUSED_BLOCK_S, 1 << (s - 1).bit_length())
-    smem = m * k * 4 + block_s * 8 + (m * 8 + m * k if lut_int8 else 0)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"M={m}, K={k} needs {smem} B of shared memory")
-    tk = min(topk, block_s)
-    nb = -(-s // block_s)
-    vals = torch.empty(b, nb * tk, dtype=torch.float32, device=dev)
-    ids = torch.empty(b, nb * tk, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fused_plan(b, s, tk_out, m, k, sms)
+    vals = torch.empty(b, tk_out, dtype=torch.float32, device=dev)
+    ids = torch.empty(b, tk_out, dtype=torch.int32, device=dev)
     launch("adc_fused_topk", dev, rows.data_ptr(), codes.data_ptr(),
            queries.data_ptr(), codebooks.data_ptr(), vals.data_ptr(),
-           ids.data_ptr(), b, s, n, m, k, dsub, block_s, tk, int(lut_int8),
-           _vec16(codes))
-    # cross-block merge: blocks are in ascending slot order and each is
-    # sorted by (dist, slot), so a stable sort keeps (dist, slot) order
-    merged, pos = torch.sort(vals, dim=1, stable=True)
-    return merged[:, :tk_out], torch.gather(ids, 1, pos[:, :tk_out])
+           ids.data_ptr(), b, s, n, m, k, dsub, tk_out, plan.cluster,
+           plan.slots, plan.cap, load_width(m, codes.data_ptr()),
+           int(lut_int8))
+    return vals, ids

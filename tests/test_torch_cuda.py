@@ -5,9 +5,9 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerances: the dense ADC scan bit for bit, other ADC distances to rtol
-1e-5 (M f32 terms; in fact the kernels repeat the plain versions'
-operations in order and agree to the bit), ids exactly; exact L2 rtol
+Tolerances: the dense and fused ADC scans bit for bit, other ADC
+distances to rtol 1e-5 (M f32 terms; in fact the kernels repeat the plain
+versions' operations in order and agree to the bit), ids exactly; exact L2 rtol
 1e-5 with atol 1e-3 (D products summed in another order than cuBLAS's, on
 values of size D; the tensor-core kernel's 3xTF32 product also drops the
 lo*lo term, about 2^-22 of each product; its bf16 products are exact in
@@ -96,25 +96,89 @@ def test_cuda_dense_kernel_matches_plain(cuda, b, n, m, k):
     assert torch.equal(got, ref.pq_adc_batch_ref(codes, luts))
 
 
+def _fused_case(rng, cuda, n, m, b, s, dsub=4):
+    """Inputs of the fused scan: every code row four times (exact ties),
+    ascending rows of random length per query, pads after them, the last
+    query all pads; query 1's last three rows replaced by rows >= N (pads
+    on the card).  Returns the kernel's rows and the plain version's
+    (rows >= N as -1) with the queries and codebooks."""
+    cb = _t(rng.standard_normal((m, 256, dsub)).astype(np.float32)).to(cuda)
+    q = _t(rng.standard_normal((b, m * dsub)).astype(np.float32)).to(cuda)
+    rows = _rows(rng, b, s, n, all_pad_last=b > 1)
+    if b > 2:
+        cnt = int((rows[1] >= 0).sum())
+        if cnt >= 3:
+            rows[1, cnt - 3:cnt] = n + np.array([0, 7, 100])
+    plain_rows = np.where(rows >= n, -1, rows).astype(np.int32)
+    return q, cb, _t(rows).to(cuda), _t(plain_rows).to(cuda)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [8, 32])
+@pytest.mark.parametrize("m", [8, 24, 25, 32])
 @pytest.mark.parametrize("lut_int8", [False, True], ids=["f32", "int8"])
 def test_cuda_fused_kernel_matches_plain(cuda, m, lut_int8):
+    """The one-launch fused kernel against its plain version, values bit
+    for bit and ids equal: M = 8, DEEP1B's 24 (8-byte code loads),
+    SPACEV1B's 25 (a byte at a time), 32 (16-byte loads), and the codes
+    at a 1-byte offset (byte loads at every M); B = 1 (a cluster of 8
+    CTAs), B = 64 at S = 1,024 (four CTAs of one tile), 2,048 with topk
+    above S, and 8,192 (four CTAs of two tiles that select), valid slots
+    from none to all of S, so below and above tk; B = 5 at S = 37 (one
+    CTA); rows >= N; an all-pad query; exact ties from repeated code
+    rows."""
     rng = np.random.default_rng(22)
-    n, dsub = 40_000, 4
+    n = 40_000
     codes = _t(np.repeat(_codes(rng, n // 4, m), 4, axis=0)).to(cuda)
-    cb = _t(rng.standard_normal((m, 256, dsub)).astype(np.float32)).to(cuda)
-    for b, s, topk in ((1, 3000, 10), (64, 5000, 512), (5, 37, 512)):
-        q = _t(rng.standard_normal((b, m * dsub)).astype(np.float32)).to(cuda)
-        rows = _t(_rows(rng, b, s, n, all_pad_last=b > 1)).to(cuda)
+    flat = torch.empty(n * m + 1, dtype=torch.uint8, device=cuda)
+    flat[1:] = codes.reshape(-1)
+    for b, s, topk in ((1, 3000, 10), (64, 1024, 512), (64, 2048, 3000),
+                       (64, 8192, 512), (5, 37, 512)):
+        q, cb, rows, plain_rows = _fused_case(rng, cuda, n, m, b, s)
+        for cds in (codes, flat[1:].view(n, m)):
+            kv, ki = ops.pq_adc_fused_topk(cds, q, cb, rows, topk,
+                                           lut_int8=lut_int8)
+            pv, pi = ops.pq_adc_fused_topk_plain(cds, q, cb, plain_rows,
+                                                 topk, lut_int8=lut_int8)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv), (b, s, topk)
+            assert torch.equal(ki, pi), (b, s, topk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,cluster", [
+    (5, 37, 1),        # one CTA a query
+    (64, 1024, 4),     # the serving window: a cluster of four
+    (64, 8192, 4),     # CTAs of two tiles, each selecting before the merge
+])
+@pytest.mark.parametrize("lut_int8", [False, True], ids=["f32", "int8"])
+def test_cuda_fused_topk_one_launch(cuda, monkeypatch, b, s, cluster,
+                                    lut_int8):
+    """pq_adc_fused_topk on the card is one launch of adc_fused_topk and
+    nothing else: torch.sort and torch.gather raise while it runs, and the
+    launch counts rise by one, for that kernel only, whether a query's
+    CTAs are one or a cluster that merges in the launch."""
+    rng = np.random.default_rng(34)
+    n, m, topk = 40_000, 32, 512
+    codes = _t(_codes(rng, n, m)).to(cuda)
+    q, cb, rows, plain_rows = _fused_case(rng, cuda, n, m, b, s)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ops.fused_plan(b, s, min(topk, s), m, 256, sms).cluster == cluster
+
+    def refuse(*a, **kw):
+        raise AssertionError("the fused wrapper sorted or gathered")
+    before = dict(launch.LAUNCHES)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "sort", refuse)
+        mp.setattr(torch, "gather", refuse)
         kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows, topk,
                                        lut_int8=lut_int8)
-        pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows, topk,
-                                             lut_int8=lut_int8)
         torch.cuda.synchronize()
-        np.testing.assert_allclose(kv.cpu().numpy(), pv.cpu().numpy(),
-                                   rtol=RTOL)
-        np.testing.assert_array_equal(ki.cpu().numpy(), pi.cpu().numpy())
+    grew = {k: c - before[k] for k, c in launch.LAUNCHES.items()
+            if c != before[k]}
+    assert grew == {"adc_fused_topk": 1}
+    pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, plain_rows, topk,
+                                         lut_int8=lut_int8)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
 @pytest.mark.gpu

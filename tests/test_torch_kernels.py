@@ -16,8 +16,9 @@ those of ``tests/test_kernels.py``.  Tolerances:
 
 The launch planners that size the CUDA kernels (which flash kernel a
 dtype and head width go to, which L2 kernel a dtype and width go to; the
-dense scan's one-wave grid) and ``build.py``'s library names are pure
-Python and are held here too.  The CUDA kernels against their plain
+dense scan's one-wave grid; the fused scan's clusters, key buffers and
+code-load widths, and its merge in the launch, replayed in torch) and
+``build.py``'s library names are pure Python and are held here too.  The CUDA kernels against their plain
 versions are in ``test_torch_cuda.py``.
 """
 
@@ -452,3 +453,149 @@ def test_dense_plan_balances_the_serving_window():
     assert plan == ops.DensePlan(tiles=10, q_max=7, grid_x=13, grid_y=10)
     with pytest.raises(ValueError):
         ops.dense_plan(1, 10, 256, 256, 132)    # one LUT over 227 KB
+
+
+FUSED_SHAPES = [
+    (64, 1024, 512, 32, 256, 132),   # the smoke's first serving window
+    (64, 8192, 512, 32, 256, 132),   # a window of several tiles a CTA
+    (64, 2048, 2048, 32, 256, 132), (1, 3000, 10, 32, 256, 132),
+    (5, 37, 37, 8, 256, 132), (256, 1024, 512, 32, 256, 132),
+    (130, 64, 64, 25, 256, 132), (64, 1024, 512, 24, 256, 132),
+    (1, 1 << 16, 2048, 32, 256, 132),   # 8 CTAs of 8,192 slots
+    (1, 1 << 15, 2000, 32, 256, 132),   # 8 CTAs of 4,096; 7 x 2,000
+                                        # keys pushed to each
+    (3, 100, 1, 3, 255, 4), (1, 1, 1, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("b,s,tk,m,k,sms", FUSED_SHAPES)
+def test_fused_plan_covers_every_slot_once(b, s, tk, m, k, sms):
+    """adc_fused_topk's grid: a cluster of a power of two up to 8 CTAs a
+    query, within two CTAs an SM over the batch where it is more than
+    one; CTA r owns the 32-slot chunks r, r + cluster, ... (the kernel's
+    loop), at most ``slots`` slots, together every slot once; its key
+    buffer a multiple of 32 keys, at most 4,096, room for its sort (a
+    power of two >= keep, >= 32) and for what it appends before it must
+    select (all its slots, or keep + a tile of 1,024); its shared memory
+    the kernel's layout (the LUT, the key buffer, the other CTAs' kept
+    keys) within the card's 227 KB."""
+    plan = ops.fused_plan(b, s, tk, m, k, sms)
+    c = plan.cluster
+    assert c in (1, 2, 4, 8)
+    assert c == 1 or b * c <= 2 * sms
+    seen = np.zeros(s, np.int64)
+    chunks = -(-s // 32)
+    for r in range(c):
+        own = (chunks - r + c - 1) // c if r < chunks else 0
+        assert own * 32 <= plan.slots
+        for base in range(0, own, 32):              # a tile: 32 chunks
+            for u in range(4):
+                for warp in range(8):
+                    ch = base + u * 8 + warp
+                    if ch < own:
+                        p = (ch * c + r) * 32 + np.arange(32)
+                        seen[p[p < s]] += 1
+    assert (seen == 1).all()
+    assert plan.slots == -(-chunks // c) * 32
+    assert plan.keep == min(tk, plan.slots)
+    assert plan.cap % 32 == 0 and plan.cap <= 4096
+    pow2 = 32
+    while pow2 < plan.keep:
+        pow2 *= 2
+    assert plan.cap >= pow2
+    assert plan.cap >= min(plan.slots, plan.keep + 1024)
+    assert plan.smem == (-(-m * k // 4) * 16 + plan.cap * 8
+                         + (c - 1) * plan.keep * 8)
+    assert plan.smem + 2048 <= 232_448
+
+
+def test_fused_plan_fills_the_card_at_the_serving_window():
+    """B = 64 on 132 SMs: four CTAs a query, 256 CTAs (two an SM, about),
+    256 slots each, at the main path's S = 1,024; at S = 8,192 each CTA
+    takes two tiles into a 2,048-key buffer and selects once; each CTA
+    receives the other three CTAs' kept keys."""
+    assert ops.fused_plan(64, 1024, 512, 32, 256, 132) == ops.FusedPlan(
+        cluster=4, slots=256, keep=256, cap=256, smem=40960)
+    assert ops.fused_plan(64, 8192, 512, 32, 256, 132) == ops.FusedPlan(
+        cluster=4, slots=2048, keep=512, cap=2048, smem=61440)
+    assert ops.fused_plan(1, 3000, 512, 32, 256, 132).cluster == 8
+    assert ops.fused_plan(132, 1024, 512, 32, 256, 132).cluster == 2
+    assert ops.fused_plan(133, 1024, 512, 32, 256, 132).cluster == 1
+
+
+def test_fused_plan_raises_past_its_buffer():
+    """tk > 3,072 with more than 4,096 slots a CTA even at 8 CTAs has no
+    key buffer the kernel takes; 7 peers' 4,000 kept keys (224 KB) and a
+    LUT past shared memory neither."""
+    with pytest.raises(ValueError):
+        ops.fused_plan(1, 1 << 16, 4000, 32, 256, 132)
+    with pytest.raises(ValueError):
+        ops.fused_plan(1, 1 << 15, 4000, 32, 256, 132)
+    with pytest.raises(ValueError):
+        ops.fused_plan(64, 1024, 512, 256, 256, 132)
+
+
+@pytest.mark.parametrize("m,address,width", [
+    (32, 0, 16), (32, 256, 16), (16, 48, 16), (32, 8, 8), (24, 0, 8),
+    (25, 0, 1), (100, 0, 4), (32, 1, 1), (6, 2, 2), (8, 4, 4)])
+def test_load_width(m, address, width):
+    """The fused scan's code loads: the widest of 16, 8, 4, 2, 1 bytes
+    that divides both M and the table's address (DEEP1B's M = 24 in 8
+    bytes, SPACEV1B's M = 25 a byte at a time)."""
+    assert ops.load_width(m, address) == width
+
+
+def _fused_merge_replay(d, valid, tk, plan):
+    """What adc_fused_topk writes for one query of distances ``d`` (S,)
+    with ``valid`` (S,) slots, replayed in torch: each CTA (32-slot chunks
+    dealt in turn) keeps its best
+    ``plan.keep`` valid keys by (dist, slot), sorted; a key's output
+    position is its index in its list plus the count of keys below it in
+    each other CTA's list; positions below tk are written, those from the
+    cluster's key count to tk get (+inf, -1)."""
+    s, c = d.shape[0], plan.cluster
+    lists = []
+    for r in range(c):
+        slots = torch.arange(s)[(torch.arange(s) // 32) % c == r]
+        slots = slots[valid[slots]]
+        order = torch.sort(d[slots], stable=True)[1][:plan.keep]
+        lists.append(slots[order])
+    out_d = torch.full((tk,), torch.inf)
+    out_s = torch.full((tk,), -1, dtype=torch.int64)
+    written = torch.zeros(tk, dtype=torch.int64)
+    for r, own in enumerate(lists):
+        for i, x in enumerate(own.tolist()):
+            pos = i
+            for q, other in enumerate(lists):
+                if q != r:
+                    pos += int(((d[other] < d[x]) |
+                                ((d[other] == d[x]) & (other < x))).sum())
+            if pos < tk:
+                out_d[pos], out_s[pos] = d[x], x
+                written[pos] += 1
+    total = sum(len(x) for x in lists)
+    assert (written[:min(total, tk)] == 1).all()
+    return out_d, out_s
+
+
+@pytest.mark.parametrize("s,tk,valid_share", [
+    (1024, 512, 0.5), (1024, 512, 0.3), (8192, 512, 0.5), (3000, 10, 0.9),
+    (2048, 2048, 0.6), (300, 300, 1.0), (130, 512, 0.0)])
+def test_fused_merge_in_the_launch_is_the_stable_order(s, tk, valid_share):
+    """The merge by rank across a query's cluster, on its plan (64
+    queries on 132 SMs: four CTAs, or one where S is short), gives the
+    first tk of a stable sort of the query's distances with pads at
+    +inf: ties from repeated distances to the lowest slot, every position
+    written once, pads (and a query with none valid) as (+inf, -1)."""
+    rng = np.random.default_rng(41)
+    tk = min(tk, s)
+    plan = ops.fused_plan(64, s, tk, 32, 256, 132)
+    n_valid = int(s * valid_share)
+    d = torch.from_numpy(rng.integers(0, 40, s).astype(np.float32))
+    valid = torch.zeros(s, dtype=torch.bool)
+    valid[:n_valid] = True
+    got_d, got_s = _fused_merge_replay(d, valid, tk, plan)
+    want_d, want_s = torch.sort(d.masked_fill(~valid, torch.inf), stable=True)
+    want_s = torch.where(valid[want_s], want_s, -1)
+    assert torch.equal(got_d, want_d[:tk])
+    assert torch.equal(got_s, want_s[:tk])
