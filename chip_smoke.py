@@ -15,15 +15,18 @@ From the root of a checkout, with one CUDA card:
    fused scan bit for bit also at 24 and 25, S up to 8,192, rows >= N),
    rows in descending distance and a topk that fills the top-k kernel's
    candidate buffer; exact L2 in f32 and bf16 (both kernels of
-   ``l2_kernel``'s rule, in both instantiations of the tensor-core one,
-   f32 loading by TMA and bf16 by ``cp.async`` in 16-byte granules or, at
-   even widths off the 16-byte row stride, 8- or 4-byte ones: d in {1, 2,
-   4, 6, 8, 36, 96, 100, 101, 102,
-   104, 126, 128, 132, 960}, views off a 16-byte boundary, integer data
-   bit for bit at d 100, 102, 128 and 132); flash attention in f32 and
-   bf16 (all three kernels of ``flash_kernel``'s rule: dh 64 and 128 on
-   the tensor cores, in 3xTF32 for f32; dh 8, 16 and 96 on the CUDA
-   cores), ragged sizes, MQA (Hk = 1), causal and not, S != T;
+   ``l2_kernel``'s rule, every instantiation of the tensor-core one: f32
+   loading by TMA where d % 4 == 0 and by 4-byte ``cp.async`` copies
+   otherwise, bf16 by ``cp.async`` in 16-byte granules or, at even widths
+   off the 16-byte row stride, 8- or 4-byte ones, the query tile resident
+   up to d = 128 and streamed above; odd bf16 widths on the CUDA cores:
+   d in {1, 2, 4, 6, 8, 36, 96, 100, 101, 102, 104, 126, 128, 132, 960},
+   views off a 16-byte boundary, integer data bit for bit at d 100, 101,
+   102, 128, 132 and, below 128, 960); flash attention in f32 and bf16
+   (all three kernels of ``flash_kernel``'s rule: on the tensor cores,
+   in 3xTF32 for f32, at dh 8, 16, 64, 96 and 128, and f32 at 36; on the
+   CUDA cores at 6, bf16 36, 192 and 256), ragged sizes, MQA (Hk = 1),
+   causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
    ``FusionANNSIndex.build``, and prints the cuts of scale on a
@@ -43,22 +46,25 @@ From the root of a checkout, with one CUDA card:
    before: ``pq_adc`` and ``pq_adc_topk(topk=top_n)`` over the index's
    codes with the LUTs of the first 8 queries (top-k ids must equal the
    first top_n of a stable argsort of ``pq_adc``); ``l2_distances`` on the
-   first ground-truth chunk in f32, in bf16, and in bf16 cut to
-   SPACEV1B's width (d = 100, rows of 200 bytes, off the 16-byte
-   stride), each bit-equal to its plain version on the chunk's integers,
-   then in f32 and bf16 on normal values of its shape, and once in f32
-   at GIST1M's width (d = 960, normal values, 2^20 rows: the CUDA-core
-   kernel's call); ``flash_attention`` at Qwen3-0.6B's attention widths
-   (H = 16, Hk = 8, dh = 128), B = 1, S = T = 4096, causal, in bf16 and
-   in f32, and in f32 at dh = 96 (a width no model of the repo has: the
-   CUDA-core kernel's call); each against its plain version.  It fails
-   unless the f32 L2 call launched ``l2dist_wgmma``, the bf16 one at
-   d = 128 its bf16 instantiation (``l2dist_wgmma[bf16]``), the one at
-   d = 100 that instantiation's narrower copies for rows off 16 bytes
-   (``l2dist_wgmma[bf16,off16]``) and the one at d = 960 ``l2dist``;
-   and the bf16 flash call ``flash_attn_fwd_wgmma``, the f32 one at
-   dh = 128 ``flash_attn_fwd_tf32`` (3xTF32 on the tensor cores) and the
-   one at dh = 96 ``flash_attn_fwd`` (CUDA cores);
+   first ground-truth chunk in f32, in bf16, in bf16 cut to SPACEV1B's
+   width (d = 100, rows of 200 bytes, off the 16-byte stride) and in
+   bf16 cut to an odd d = 101 (rows on 2 bytes: the CUDA-core kernel's
+   call), each bit-equal to its plain version on the chunk's integers,
+   then in f32 and bf16 on normal values of its shape, and in f32 and
+   bf16 at GIST1M's width (d = 960, normal values, 2^20 rows: the query
+   tile streamed); ``flash_attention`` at Qwen3-0.6B's attention widths
+   (H = 16, Hk = 8), B = 1, S = T = 4096, causal, in bf16 and in f32 at
+   dh = 128 and at dh = 96 (a width no model of the repo has: the
+   tensor-core kernels' 128 instances, padded), and in f32 at dh = 256
+   (the CUDA-core kernel's call); each against its plain version.  It
+   fails unless each call launched the kernel its rule names, counted
+   under its key: ``l2dist_wgmma`` (f32, d = 128),
+   ``l2dist_wgmma[bf16]``, ``l2dist_wgmma[bf16,off16]`` (d = 100),
+   ``l2dist`` (d = 101), ``l2dist_wgmma[d>128]`` and
+   ``l2dist_wgmma[bf16,d>128]`` (d = 960); ``flash_attn_fwd_wgmma``
+   (bf16) and ``flash_attn_fwd_tf32`` (f32, 3xTF32 on the tensor cores)
+   at dh = 128, the same kernels as ``[padded]`` at dh = 96, and
+   ``flash_attn_fwd`` (CUDA cores) at dh = 256;
 6. holds each kernel against its plain version on the inputs its path
    gave it (the fused scan bit for bit, and once more at a multi-block
    window of S = 8,192 slots, timed and logged on its own line), and times
@@ -111,8 +117,10 @@ WINDOW = 64
 MULTI_S = 8192                  # phase 6's multi-block fused window
 QWEN3_ATTN = dict(H=16, Hk=8, dh=128)    # src/repro/configs/qwen3_0_6b.py
 SPACEV_DIM = 100                         # configs/anns_datasets.SPACEV1B.dim
+ODD_DIM = 101               # an odd bf16 width: rows on 2 bytes
 GIST_DIM = 960              # GIST1M's width (ann-benchmarks); no config here
-FLASH_CUDA_CORE_DH = 96     # a head width off the tensor cores; no model here
+FLASH_PADDED_DH = 96        # a head width padded to 128; no model here
+FLASH_CUDA_CORE_DH = 256    # a head width past the tensor-core kernels
 ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
@@ -138,12 +146,24 @@ KERNELS = {
     "l2dist_wgmma[bf16,off16]": dict(
         route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
         replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist_wgmma[d>128]": dict(
+        route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+        replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist_wgmma[bf16,d>128]": dict(
+        route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+        replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "l2dist": dict(route="cuda", source=L2_SRC + "l2dist.cu",
                    replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "flash_attn_fwd_wgmma": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
     "flash_attn_fwd_tf32": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    "flash_attn_fwd_wgmma[padded]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    "flash_attn_fwd_tf32[padded]": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
     "flash_attn_fwd": dict(
@@ -333,9 +353,10 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             np.float32)).to(dev)
 
     for dtype in (torch.float32, torch.bfloat16):
-        # on l2dist.cu: d 1, 101, 132 and 960, and in f32 also d 2, 6, 102
-        # and 126 (rows off 16 bytes); the rest on wgmma, in bf16 by
-        # cp.async at d 2, 4, 6, 36, 100, 102 and 126 (rows off 16 bytes)
+        # on l2dist.cu: bf16 at d 1 and 101; the rest on wgmma, the query
+        # tile streamed at 132 and 960, f32 by 4-byte cp.async copies at
+        # d 1, 2, 6, 101, 102 and 126, bf16 by cp.async at d 2, 4, 6, 36,
+        # 100, 102 and 126 (rows off 16 bytes)
         for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
                         (256, 5003, 96), (1, 5003, 4), (130, 777, 36),
                         (1, 5003, 8), (130, 777, 104), (5, 777, 2),
@@ -349,10 +370,11 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             run(f"l2dist {dtype} unaligned view d{d}", flat[1:].view(3, d),
                 normal(777, d).to(dtype))
         # integer data below 256 (exact in bf16): every partial sum is
-        # exact, so equal bit for bit (at d 132, on l2dist.cu, still below
-        # 2^24: 132 * 255^2)
-        for d in (100, 102, 128, 132):
-            ints = [torch.from_numpy(rng.integers(0, 256, shape).astype(
+        # exact, so equal bit for bit (at d 132 still below 2^24: 132 *
+        # 255^2; at d 960 below 128: 960 * 127^2)
+        for d, below in ((100, 256), (101, 256), (102, 256), (128, 256),
+                         (132, 256), (960, 128)):
+            ints = [torch.from_numpy(rng.integers(0, below, shape).astype(
                 np.float32)).to(dev, dtype) for shape in ((37, d), (3001, d))]
             run(f"l2dist {dtype} integers d{d}", *ints, exact=True)
 
@@ -401,7 +423,9 @@ def check_entry_kernels_small(dev: torch.device,
                 (2, 100, 100, 6, 3, 64, True), (1, 24, 24, 4, 1, 8, True),
                 (1, 70, 130, 4, 2, 128, True), (1, 130, 70, 4, 4, 128, True),
                 (1, 257, 257, 8, 1, 128, False), (2, 97, 97, 4, 2, 96, True),
-                (1, 1, 65, 2, 1, 64, True)):
+                (1, 1, 65, 2, 1, 64, True), (1, 40, 40, 2, 1, 6, True),
+                (1, 50, 70, 4, 2, 36, False), (1, 70, 50, 2, 2, 192, True),
+                (1, 65, 65, 2, 1, 256, False)):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev, dtype) for shape in (
                     (bsz, s, h, dh), (bsz, t, hk, dh), (bsz, t, hk, dh)))
@@ -510,7 +534,8 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     gen = torch.Generator(device=dev).manual_seed(seed)
     s, h, hk = ATTN_LEN, QWEN3_ATTN["H"], QWEN3_ATTN["Hk"]
     # flash at Qwen3-0.6B's widths in bf16 and f32 (on the tensor cores),
-    # and in f32 at a head width off them (on the CUDA cores)
+    # at a head width padded to their 128 instances, and in f32 at a head
+    # width past them (on the CUDA cores)
     flash_calls = {
         name: tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                     for shape in ((1, s, h, dh), (1, s, hk, dh),
@@ -518,25 +543,32 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         for name, dtype, dh in (
             ("flash_attn_fwd_wgmma", torch.bfloat16, QWEN3_ATTN["dh"]),
             ("flash_attn_fwd_tf32", torch.float32, QWEN3_ATTN["dh"]),
+            ("flash_attn_fwd_wgmma[padded]", torch.bfloat16,
+             FLASH_PADDED_DH),
+            ("flash_attn_fwd_tf32[padded]", torch.float32, FLASH_PADDED_DH),
             ("flash_attn_fwd", torch.float32, FLASH_CUDA_CORE_DH))}
     q16, chunk16 = q.bfloat16(), chunk.bfloat16()
     # the chunk in f32 (TMA loads) and in bf16 (16-byte cp.async copies)
     # at SIFT1B's width, in bf16 cut to SPACEV1B's width, d = 100 (rows of
     # 200 bytes, off the 16-byte stride: 8-byte copies), all on the tensor
-    # cores; and normal
-    # values at GIST1M's width, d = 960, over the chunk's rows (the CUDA
-    # cores)
+    # cores, and in bf16 cut to an odd width, d = 101 (the CUDA cores);
+    # and normal values at GIST1M's width, d = 960, over the chunk's rows
+    # in f32 and bf16 (the tensor cores, the query tile streamed)
+    gist = [torch.randn(rows, GIST_DIM, generator=gen, device=dev)
+            for rows in (len(q), len(chunk))]
     l2_calls = {"l2dist_wgmma": (q, chunk),
                 "l2dist_wgmma[bf16]": (q16, chunk16),
                 "l2dist_wgmma[bf16,off16]": (
                     q16[:, :SPACEV_DIM].contiguous(),
                     chunk16[:, :SPACEV_DIM].contiguous()),
-                "l2dist": (torch.randn(len(q), GIST_DIM, generator=gen,
-                                       device=dev),
-                           torch.randn(len(chunk), GIST_DIM, generator=gen,
-                                       device=dev))}
+                "l2dist": (q16[:, :ODD_DIM].contiguous(),
+                           chunk16[:, :ODD_DIM].contiguous()),
+                "l2dist_wgmma[d>128]": tuple(gist),
+                "l2dist_wgmma[bf16,d>128]": tuple(x.bfloat16()
+                                                  for x in gist)}
+    del gist
     on_integers = ("l2dist_wgmma", "l2dist_wgmma[bf16]",
-                   "l2dist_wgmma[bf16,off16]")
+                   "l2dist_wgmma[bf16,off16]", "l2dist")
     torch.cuda.synchronize()
 
     ops.reset_launches()
@@ -749,7 +781,8 @@ def measure_entry(calls) -> list:
     # the output alone is B * N * 4 bytes.  The yardstick is one addmm,
     # bf16 in and f32 out for bf16.
     for name in ("l2dist_wgmma", "l2dist_wgmma[bf16]",
-                 "l2dist_wgmma[bf16,off16]", "l2dist"):
+                 "l2dist_wgmma[bf16,off16]", "l2dist", "l2dist_wgmma[d>128]",
+                 "l2dist_wgmma[bf16,d>128]"):
         q, v = calls[name]
         peak, products = exact_products(q.dtype)
         (b, d), nv = q.shape, v.shape[0]
@@ -778,7 +811,8 @@ def measure_entry(calls) -> list:
         del norms, addmm
 
     for name in ("flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
-                 "flash_attn_fwd"):
+                 "flash_attn_fwd_wgmma[padded]",
+                 "flash_attn_fwd_tf32[padded]", "flash_attn_fwd"):
         q, k, v = calls[name]
         peak, products = exact_products(q.dtype)
         bsz, s, h, dh = q.shape
@@ -949,10 +983,13 @@ def main() -> int:
 
     entry_launches, entry_calls = drive_entry_points(
         index, cfg.top_n, data, queries, args.seed)
-    for name in ("adc_scan", "adc_scan_topk", "l2dist_wgmma",
-                 "l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]",
-                 "l2dist", "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
-                 "flash_attn_fwd"):
+    entry_names = ("adc_scan", "adc_scan_topk", "l2dist_wgmma",
+                   "l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]",
+                   "l2dist", "l2dist_wgmma[d>128]",
+                   "l2dist_wgmma[bf16,d>128]", "flash_attn_fwd_wgmma",
+                   "flash_attn_fwd_tf32", "flash_attn_fwd_wgmma[padded]",
+                   "flash_attn_fwd_tf32[padded]", "flash_attn_fwd")
+    for name in entry_names:
         if entry_launches[name] < 1:
             raise AssertionError(f"the entry points never launched {name}")
 
@@ -963,11 +1000,8 @@ def main() -> int:
                     launches["fused_int8"]["adc_fused_topk"],
                 "adc_scan": entry_launches["adc_scan"],
                 "adc_scan_topk": entry_launches["adc_scan_topk"],
-                "l2dist_wgmma": gt_launches["l2dist_wgmma"],
-                **{name: entry_launches[name] for name in (
-                    "l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]",
-                    "l2dist", "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
-                    "flash_attn_fwd")}}
+                **{name: entry_launches[name] for name in entry_names[3:]},
+                "l2dist_wgmma": gt_launches["l2dist_wgmma"]}
     kernels = []
     for r in rows:
         shape = r.pop("shape")

@@ -30,11 +30,15 @@ in f32 and int8; one query's LUT
 over 10M rows of M = 32 codes with topk 512 (the smoke's phase 5), once
 with the rows in random order and once sorted by descending distance,
 where every row beats each block's running threshold; flash attention at
-Qwen3-0.6B's widths (H 16, Hk 8, dh 128), B = 1, S = T = 4096, causal,
-in bf16 and in f32; and exact L2 at the ground-truth chunk, 256 queries
-x 2^20 vectors x 128, in f32 and in bf16, and in bf16 cut to SPACEV1B's
-d = 100 (rows off TMA's 16-byte stride), once on integers in [0, 256)
-(SIFT's values) and once on normal values.  It reports the device time of each
+Qwen3-0.6B's widths (H 16, Hk 8), B = 1, S = T = 4096, causal, in bf16
+and in f32 at dh 128 and 96, and in f32 at dh 256; and exact L2 at the
+ground-truth chunk, 256 queries x 2^20 vectors x 128, in f32 and in
+bf16, in bf16 cut to SPACEV1B's d = 100 (rows off TMA's 16-byte stride)
+and to an odd d = 101, and in f32 and bf16 at GIST1M's d = 960, once on
+integers (in [0, 256), SIFT's values; in [0, 128) at d = 960, where
+960 * 127^2 < 2^24 keeps every sum exact) and once on normal values.  A
+reading whose call raises (a width an older tree's kernels do not take)
+is reported with its error.  It reports the device time of each
 call (``chip_smoke.gpu_ms``), the kernels the call launched, whether the
 dense output is bit-equal to ``pq_adc_batch_ref``, whether the fused
 output is bit-equal to ``pq_adc_fused_topk_plain`` (values and ids) and
@@ -70,9 +74,20 @@ B, N, M, K = 64, 32_768, 32, 256                 # the dense window
 FUSED = dict(N=10_000_000, dsub=4, topk=512,      # the fused windows
              S={"main": 1024, "multi": 8192})
 TOPK = dict(N=10_000_000, topk=512)               # smoke phase 5's top-k
-ATTN = dict(S=4096, H=16, Hk=8, dh=128)          # Qwen3-0.6B's attention
+ATTN = dict(S=4096, H=16, Hk=8)                  # Qwen3-0.6B's attention
+ATTN_CASES = ((torch.bfloat16, "bf16", 128), (torch.float32, "f32", 128),
+              (torch.bfloat16, "bf16,dh96", 96),
+              (torch.float32, "f32,dh96", 96),
+              (torch.float32, "f32,dh256", 256))
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
-SPACEV_D = 100                                    # SPACEV1B's width
+# (dtype, tag, width, integers below): the chunk at SIFT1B's 128, cut to
+# SPACEV1B's 100 and to an odd 101, and at GIST1M's 960
+L2_CASES = ((torch.float32, "f32", 128, 256),
+            (torch.bfloat16, "bf16", 128, 256),
+            (torch.bfloat16, "bf16,d100", 100, 256),
+            (torch.bfloat16, "bf16,d101", 101, 256),
+            (torch.float32, "f32,d960", 960, 128),
+            (torch.bfloat16, "bf16,d960", 960, 128))
 
 
 def measure(tree: Path, seed: int) -> dict:
@@ -80,8 +95,6 @@ def measure(tree: Path, seed: int) -> dict:
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
     import chip_smoke
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
-    from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
     from repro_torch.kernels.pq_adc import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
@@ -112,74 +125,92 @@ def measure(tree: Path, seed: int) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     topk = topk_readings(ops, ref, dev, gen, luts[0], chip_smoke.gpu_ms)
-    s, h, hk, dh = ATTN["S"], ATTN["H"], ATTN["Hk"], ATTN["dh"]
     flash = {}
-    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for shape in ((1, s, h, dh), (1, s, hk, dh),
-                                 (1, s, hk, dh)))
-        out, launched = ran(lambda: flash_attention(q, k, v, causal=True))
-        want = flash_attn_ref(q, k, v, causal=True)
-        try:
-            chip_smoke.check_attn(f"flash {tag}", out, want)
-            accepted = True
-        except AssertionError:
-            accepted = False
-        r = dict(launched=launched,
-                 max_abs_err=float((out.float() - want.float()).abs().max()),
-                 row_rel_err=chip_smoke.row_rel_err(out, want),
-                 smoke_check_accepts=accepted,
-                 ms=chip_smoke.gpu_ms(
-                     lambda: flash_attention(q, k, v, causal=True), 20))
-        if yardsticks:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            r["sdpa_ms"] = chip_smoke.gpu_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-        flash[f"flash_attn[{tag}]"] = r
-        del q, k, v, out, want
-
-    b, n, d = L2["B"], L2["N"], L2["D"]
-    ints32 = [torch.from_numpy(rng.integers(0, 256, (rows, d),
-                                            dtype=np.uint8)).to(dev).float()
-              for rows in (b, n)]
-    normal32 = [torch.randn(rows, d, generator=gen, device=dev)
-                for rows in (b, n)]
+    for dtype, tag, dh in ATTN_CASES:
+        flash[f"flash_attn[{tag}]"] = reading(lambda: flash_reading(
+            dtype, dh, dev, gen, ran, yardsticks, chip_smoke))
     l2 = {}
-    for dtype, tag, width in ((torch.float32, "f32", d),
-                              (torch.bfloat16, "bf16", d),
-                              (torch.bfloat16, "bf16,d100", SPACEV_D)):
-        ints = [x[:, :width].contiguous().to(dtype) for x in ints32]
-        normal = [x[:, :width].contiguous().to(dtype) for x in normal32]
-        out, launched = ran(lambda: l2_distances(*ints))
-        want = l2dist_ref(*ints)
-        r = dict(launched=launched, bit_equal_on_integers=bool(torch.equal(
-            out, want)), max_abs_err_integers=float((out - want).abs().max()))
-        del out, want
-        out, _ = ran(lambda: l2_distances(*normal))
-        want = l2dist_ref(*normal)
-        r["max_abs_err_normal"] = float((out - want).abs().max())
-        r["within_tol_normal"] = bool(torch.allclose(
-            out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
-        del out, want, normal
-        r["ms"] = chip_smoke.gpu_ms(lambda: l2_distances(*ints), 20)
-        if yardsticks:
-            qi, vi = ints
-            qf, vf = qi.float(), vi.float()
-            norms = (qf * qf).sum(-1, keepdim=True) + (vf * vf).sum(-1)[None]
-            del qf, vf
-            kw = ({} if dtype == torch.float32
-                  else dict(out_dtype=torch.float32))
-            r["addmm_ms"] = chip_smoke.gpu_ms(
-                lambda: torch.addmm(norms, qi, vi.T, alpha=-2, **kw), 20)
-            del norms
-        l2[f"l2dist[{tag}]"] = r
-        del ints
+    for dtype, tag, width, below in L2_CASES:
+        l2[f"l2dist[{tag}]"] = reading(lambda: l2_reading(
+            dtype, width, below, dev, gen, ran, yardsticks, chip_smoke))
     # last, so the readings above keep the inputs of earlier runs
     fused = fused_readings(ops, dev, gen, chip_smoke.window_rows,
                            chip_smoke.gpu_ms)
     return {"adc_scan_batch": dense, "pq_adc_fused_topk": fused,
             "pq_adc_topk": topk, **flash, **l2}
+
+
+def reading(fn) -> dict:
+    """``fn()``, or the error it raised (a width an older tree's kernels
+    do not take)."""
+    try:
+        return fn()
+    except ValueError as e:
+        return {"error": str(e)[:300]}
+
+
+def flash_reading(dtype, dh, dev, gen, ran, yardsticks, chip_smoke) -> dict:
+    """Flash attention at Qwen3-0.6B's S, T, H, Hk and head width dh."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+    F = torch.nn.functional
+    s, h, hk = ATTN["S"], ATTN["H"], ATTN["Hk"]
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((1, s, h, dh), (1, s, hk, dh), (1, s, hk, dh)))
+    out, launched = ran(lambda: flash_attention(q, k, v, causal=True))
+    want = flash_attn_ref(q, k, v, causal=True)
+    try:
+        chip_smoke.check_attn(f"flash {dtype} dh={dh}", out, want)
+        accepted = True
+    except AssertionError:
+        accepted = False
+    r = dict(launched=launched,
+             max_abs_err=float((out.float() - want.float()).abs().max()),
+             row_rel_err=chip_smoke.row_rel_err(out, want),
+             smoke_check_accepts=accepted,
+             ms=chip_smoke.gpu_ms(
+                 lambda: flash_attention(q, k, v, causal=True), 20))
+    del out, want
+    if yardsticks:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        r["sdpa_ms"] = chip_smoke.gpu_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    return r
+
+
+def l2_reading(dtype, width, below, dev, gen, ran, yardsticks,
+               chip_smoke) -> dict:
+    """Exact L2 over the ground-truth chunk's shape at ``width``: on
+    integers in [0, below), bit-equal or not, and on normal values, within
+    the smoke's tolerance or not; the time on the integers."""
+    from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
+    b, n = L2["B"], L2["N"]
+    ints = [torch.randint(0, below, (rows, width), generator=gen,
+                          device=dev, dtype=torch.uint8).to(dtype)
+            for rows in (b, n)]
+    out, launched = ran(lambda: l2_distances(*ints))
+    want = l2dist_ref(*ints)
+    r = dict(launched=launched, bit_equal_on_integers=bool(torch.equal(
+        out, want)), max_abs_err_integers=float((out - want).abs().max()))
+    del out, want
+    normal = [torch.randn(rows, width, generator=gen, device=dev).to(dtype)
+              for rows in (b, n)]
+    out, _ = ran(lambda: l2_distances(*normal))
+    want = l2dist_ref(*normal)
+    r["max_abs_err_normal"] = float((out - want).abs().max())
+    r["within_tol_normal"] = bool(torch.allclose(
+        out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
+    del out, want, normal
+    r["ms"] = chip_smoke.gpu_ms(lambda: l2_distances(*ints), 20)
+    if yardsticks:
+        qi, vi = ints
+        qf, vf = qi.float(), vi.float()
+        norms = (qf * qf).sum(-1, keepdim=True) + (vf * vf).sum(-1)[None]
+        del qf, vf
+        kw = {} if dtype == torch.float32 else dict(out_dtype=torch.float32)
+        r["addmm_ms"] = chip_smoke.gpu_ms(
+            lambda: torch.addmm(norms, qi, vi.T, alpha=-2, **kw), 20)
+    return r
 
 
 class _NoMerge:

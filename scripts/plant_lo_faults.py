@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
-"""Shows that the GPU tests of the 3xTF32 flash kernel catch a dropped lo
-term: for each of its four lo parts, copies the tree with that part set
-to zero in ``flash_attn/csrc/flash_attn_fwd_tf32.cu`` and runs the
-kernel's tests on the copy, which must fail.
+"""Shows that the GPU tests of the 3xTF32 kernels catch a dropped lo
+term: for each of the flash kernel's four lo parts, and for the lo part of
+the exact-L2 kernel's streamed query slices, copies the tree with that
+part set to zero and runs the kernel's lo-term tests on the copy, which
+must fail.
 
     python3 scripts/plant_lo_faults.py [--dir build/plant] [--out FILE]
 
 Each copy (``src/``, ``tests/``, ``pytest.ini``) goes under ``--dir``, a
 directory ``.gitignore`` lists, and builds its own kernels there.  The
-four faults, one edit each:
+five faults, one edit each:
 
-* ``no_Qhi_Klo``: K lo = 0, so Q hi * K lo drops out of S;
+* ``no_Qhi_Klo`` (``flash_attn_fwd_tf32.cu``): K lo = 0, so Q hi * K lo
+  drops out of S;
 * ``no_Qlo_Khi``: Q lo = 0 (Q lo * K hi);
 * ``no_Plo_Vhi``: P lo = 0 (P lo * V hi);
-* ``no_Phi_Vlo``: V lo = 0 (P hi * V lo).
+* ``no_Phi_Vlo``: V lo = 0 (P hi * V lo);
+* ``l2_streamed_no_Qlo_Vhi`` (``l2dist_wgmma.cu``): the prologue that
+  splits the queries for the streamed path (d > 128) writes q lo = 0, so
+  Q lo * V hi drops out of the distances.
 
-Runs ``pytest -m gpu -k flash_tf32 tests/test_torch_cuda.py`` on each
-copy and prints its exit code, its greatest differences and the tests
-that failed; ``--out`` also writes that log.  Exits non-zero unless every
-copy failed every one of those tests.  Needs a CUDA card.
+Runs ``pytest -m gpu -k <selection> tests/test_torch_cuda.py`` on each
+copy (the flash faults: every ``flash_tf32`` test; the L2 fault: the
+cross-term tests whose queries carry lo parts and whose query tile is
+streamed) and prints its exit code, its greatest differences and the
+tests that failed; ``--out`` also writes that log.  Exits non-zero unless
+every copy failed every one of its tests.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,26 +39,32 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCE = "src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd_tf32.cu"
+FLASH = ("src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd_tf32.cu",
+         "flash_tf32")
+L2 = ("src/repro_torch/kernels/l2dist/csrc/l2dist_wgmma.cu",
+      "l2dist_wgmma_cross_terms and vectors and not 128")
+# name -> ((source, pytest -k selection), the line, its faulty form)
 FAULTS = {
-    "no_Qhi_Klo": (
+    "no_Qhi_Klo": FLASH + (
         "            tf32_rna(__fsub_rn(x.x, hi.x)), tf32_rna(__fsub_rn(x.y, hi.y)),\n"
         "            tf32_rna(__fsub_rn(x.z, hi.z)), tf32_rna(__fsub_rn(x.w, hi.w)));",
         "            0.f, 0.f, 0.f, 0.f);"),
-    "no_Qlo_Khi": (
+    "no_Qlo_Khi": FLASH + (
         "q_lo[4 * kk + i] = __float_as_uint(tf32_rna(__fsub_rn(x, tf32_rna(x))));",
         "q_lo[4 * kk + i] = 0u;"),
-    "no_Plo_Vhi": (
+    "no_Plo_Vhi": FLASH + (
         "p_lo[slot] = __float_as_uint(tf32_rna(__fsub_rn(p, hi)));",
         "p_lo[slot] = 0u;"),
-    "no_Phi_Vlo": (
+    "no_Phi_Vlo": FLASH + (
         "lv[e] = tf32_rna(__fsub_rn(x, hv[e]));",
         "lv[e] = 0.f;"),
+    "l2_streamed_no_Qlo_Vhi": L2 + (
+        "lo[i] = tf32_rna(__fsub_rn(x, h));",
+        "lo[i] = 0.f;"),
 }
-SELECT = "flash_tf32"
 
 
-def plant(dst: Path, old: str, new: str) -> None:
+def plant(dst: Path, source: str, old: str, new: str) -> None:
     """A copy of the tree at ``dst`` with ``old`` (found once) replaced."""
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
@@ -59,10 +72,10 @@ def plant(dst: Path, old: str, new: str) -> None:
     for part in ("src", "tests"):
         shutil.copytree(ROOT / part, dst / part, ignore=ignore)
     shutil.copy2(ROOT / "pytest.ini", dst / "pytest.ini")
-    src = dst / SOURCE
+    src = dst / source
     text = src.read_text()
     if text.count(old) != 1:
-        raise SystemExit(f"{SOURCE}: the edit's line occurs "
+        raise SystemExit(f"{source}: the edit's line occurs "
                          f"{text.count(old)} times, not once")
     src.write_text(text.replace(old, new))
 
@@ -74,12 +87,12 @@ def main() -> int:
     args = ap.parse_args()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     log, caught = [], True
-    for name, (old, new) in FAULTS.items():
+    for name, (source, select, old, new) in FAULTS.items():
         dst = args.dir / name
-        plant(dst, old, new)
+        plant(dst, source, old, new)
         run = subprocess.run(
             [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-             "-m", "gpu", "-k", SELECT, "tests/test_torch_cuda.py"],
+             "-m", "gpu", "-k", select, "tests/test_torch_cuda.py"],
             cwd=dst, env=env, capture_output=True, text=True)
         out = run.stdout + run.stderr
         failed = re.findall(r"^FAILED (\S+)", out, re.M)

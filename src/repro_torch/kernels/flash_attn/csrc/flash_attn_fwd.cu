@@ -14,15 +14,17 @@
 // weigh exactly 0.
 //
 // What bounds it on an H100 SXM: operations.  At Qwen3-0.6B's S, T, H
-// and Hk (H = 16, Hk = 8), B = 1, S = T = 4096, causal, at dh = 96 (a
+// and Hk (H = 16, Hk = 8), B = 1, S = T = 4096, causal, at dh = 256 (a
 // width no model of the repo has; the smoke's full-width call) the two
-// products are 4*S*T*dh*H/2 = 51.5 GFLOP: 0.31 ms in 3xTF32 on the tensor
-// cores (three TF32 products at 495 TFLOP/s, the card's fastest form
-// exact in f32), 0.77 ms at the f32 CUDA-core rate (67 TFLOP/s) this form
-// uses; its bytes (q, k, v, o: 75 MB in f32) take 0.02 ms.  dh 64 and 128 run on the tensor cores instead
+// products are 4*S*T*dh*H/2 = 137.4 GFLOP: 0.833 ms in 3xTF32 on the
+// tensor cores (three TF32 products at 495 TFLOP/s, the card's fastest
+// form exact in f32), 2.05 ms at the f32 CUDA-core rate (67 TFLOP/s) this
+// form uses; its bytes (q, k, v, o: 201 MB in f32) take 0.06 ms.  Head
+// widths up to 128 whose rows lie on TMA's 16-byte stride (f32 dh % 4 ==
+// 0, bf16 dh % 8 == 0) run on the tensor cores instead
 // (flash_attn/ops.py::flash_kernel): bf16 on flash_attn_fwd_wgmma.cu, f32
 // in 3xTF32 on flash_attn_fwd_tf32.cu.  This kernel serves every other
-// head width (dh % 4 == 0, dh <= 128), in f32 and bf16.
+// head width, 1 <= dh <= 256, in f32 and bf16.
 //
 // Design: the TPU grid (B, Hk, G, S/bq, T/bk) walks KV blocks in order on
 // one core and carries (m, l, acc) in VMEM between grid steps.  Hopper
@@ -31,13 +33,16 @@
 // registers.  Blocks are ordered with the longest causal q tiles first.
 // Tiles are 64 queries x 64 keys; 256 threads as a 16 x 16 grid (ty, tx).
 // Shared memory holds the scaled q tile, one KV tile (first K, then V
-// over the same space) and the P tile, all f32, rows padded by 4 floats:
-// 85 KB at dh = 128, two blocks an SM.  Thread (ty, tx) computes scores
-// for rows ty + 16i and keys tx + 16j (i, j < 4), so the 16 threads of a
-// row reduce its max and sum with warp shuffles, and the float4 reads of
-// K rows fall in distinct banks; it accumulates output rows ty + 16i,
-// columns 4tx + 64r .. + 3 (r < 2).  The inner products are __fmaf_rn
-// chains over the head dimension, softmax uses expf.
+// over the same space) and the P tile, all f32, rows of dh rounded up to a
+// multiple of 4 (the columns past dh zero, so float4 reads take any dh)
+// and padded by 4 floats: 85 KB at dh = 128, two blocks an SM; 147 KB at
+// dh = 256, one.  Thread (ty, tx) computes scores for rows ty + 16i and
+// keys tx + 16j (i, j < 4), so the 16 threads of a row reduce its max and
+// sum with warp shuffles, and the float4 reads of K rows fall in distinct
+// banks; it accumulates output rows ty + 16i, columns 4tx + 64r .. + 3
+// (r < kR: 2 up to dh = 128, 4 up to 256, 64 sums a thread, which is why
+// the wider instance asks for one block an SM).  The inner products are
+// __fmaf_rn chains over the head dimension, softmax uses expf.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,7 +54,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;           // queries per tile
 constexpr int kBKV = 64;          // keys per tile
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;
 constexpr int kLdp = kBKV + 4;    // padded row of the P tile
 constexpr float kNegInf = -1e30f; // the TPU kernel's _NEG_INF
 
@@ -80,26 +85,30 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // rows [t0, t0 + kBKV) of one head of a (B, T, Hk, dh) tensor into dst
-// (rows of ld floats); rows past t_len are zeros
+// (rows of ld floats), columns dh .. dh4 - 1 (dh rounded up to 4) and rows
+// past t_len as zeros
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
                                           long long row_stride, int t0,
-                                          int t_len, int dh) {
-  for (int e = threadIdx.x; e < kBKV * dh; e += kThreads) {
-    const int r = e / dh, c = e - r * dh;
+                                          int t_len, int dh, int dh4) {
+  for (int e = threadIdx.x; e < kBKV * dh4; e += kThreads) {
+    const int r = e / dh4, c = e - r * dh4;
     const int t = t0 + r;
-    dst[r * ld + c] = t < t_len ? to_f32(src[t * row_stride + c]) : 0.f;
+    dst[r * ld + c] =
+        t < t_len && c < dh ? to_f32(src[t * row_stride + c]) : 0.f;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// kR: 64-column groups of the output a thread accumulates (dh <= 64 kR)
+template <typename T, int kR>
+__global__ void __launch_bounds__(kThreads, kR <= 2 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int s_len,
                  int t_len, int h_q, int h_kv, int dh, float scale,
                  int causal) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = dh + 4;
+  const int dh4 = (dh + 3) & ~3;
+  const int ld = dh4 + 4;
   float* qs = smem;                 // kBQ x ld
   float* kvs = qs + kBQ * ld;       // kBKV x ld
   float* ps = kvs + kBKV * ld;      // kBQ x kLdp
@@ -120,27 +129,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ((long long)bb * t_len * h_kv + kh) * dh;
   T* ob = o + ((long long)bb * s_len * h_q + h) * dh;
 
-  for (int e = tid; e < kBQ * dh; e += kThreads) {
-    const int r = e / dh, c = e - r * dh;
+  for (int e = tid; e < kBQ * dh4; e += kThreads) {
+    const int r = e / dh4, c = e - r * dh4;
     const int sp = q0 + r;
-    qs[r * ld + c] =
-        sp < s_len ? __fmul_rn(to_f32(qb[sp * q_stride + c]), scale) : 0.f;
+    qs[r * ld + c] = sp < s_len && c < dh
+                         ? __fmul_rn(to_f32(qb[sp * q_stride + c]), scale)
+                         : 0.f;
   }
 
-  float m_r[4], l_r[4], acc[4][8];
+  float m_r[4], l_r[4], acc[4][4 * kR];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_r[i] = kNegInf;
     l_r[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * kR; ++c) acc[i][c] = 0.f;
   }
 
   // causal: keys past the tile's last query are masked for every row
   const int kv_end = causal ? min(t_len, q0 + kBQ) : t_len;
   for (int k0 = 0; k0 < kv_end; k0 += kBKV) {
     __syncthreads();                      // kvs and ps free again
-    load_tile(kvs, ld, kb, kv_stride, k0, t_len, dh);
+    load_tile(kvs, ld, kb, kv_stride, k0, t_len, dh, dh4);
     __syncthreads();
 
     float sc[4][4];
@@ -148,7 +158,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int c = 0; c < dh; c += 4) {
+    for (int c = 0; c < dh4; c += 4) {
       float4 qa[4], ka[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -190,10 +200,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_r[i] = __fadd_rn(__fmul_rn(l_r[i], corr), row_sum(sum));
       m_r[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = __fmul_rn(acc[i][c], corr);
+      for (int c = 0; c < 4 * kR; ++c)
+        acc[i][c] = __fmul_rn(acc[i][c], corr);
     }
     __syncthreads();                      // K done, P written
-    load_tile(kvs, ld, vb, kv_stride, k0, t_len, dh);
+    load_tile(kvs, ld, vb, kv_stride, k0, t_len, dh, dh4);
     __syncthreads();
 
     for (int j = 0; j < kBKV; j += 4) {
@@ -205,7 +216,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
         const float* vrow = &kvs[(j + u) * ld];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
+        for (int r = 0; r < kR; ++r) {
           const int c = 64 * r + 4 * tx;
           if (c >= dh) continue;
           const float4 vv = *reinterpret_cast<const float4*>(&vrow[c]);
@@ -230,47 +241,60 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l_r[i], 1e-30f);
     T* orow = ob + sp * q_stride;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < kR; ++r) {
       const int c = 64 * r + 4 * tx;
-      if (c >= dh) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        orow[c + e] = from_f32<T>(__fdiv_rn(acc[i][4 * r + e], denom));
+        if (c + e < dh)
+          orow[c + e] = from_f32<T>(__fdiv_rn(acc[i][4 * r + e], denom));
     }
   }
 }
 
-template <typename T>
+template <typename T, int kR>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int s, int t, int h, int hk, int dh, float scale,
                    int causal, cudaStream_t stream) {
-  const int smem = ((kBQ + kBKV) * (dh + 4) + kBQ * kLdp) * (int)sizeof(float);
+  const int ld = ((dh + 3) & ~3) + 4;
+  const int smem = ((kBQ + kBKV) * ld + kBQ * kLdp) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<T, kR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((s + kBQ - 1) / kBQ, h / hk, b * hk);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, kR><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s, t, h, hk, dh, scale,
       causal);
   return cudaGetLastError();
 }
 
+// the instance of 64-column groups kR that covers dh
+template <typename T>
+cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o,
+                      int b, int s, int t, int h, int hk, int dh, float scale,
+                      int causal, cudaStream_t stream) {
+  return dh <= 128 ? launch<T, 2>(q, k, v, o, b, s, t, h, hk, dh, scale,
+                                  causal, stream)
+                   : launch<T, 4>(q, k, v, o, b, s, t, h, hk, dh, scale,
+                                  causal, stream);
+}
+
 }  // namespace
 
 // q (b, s, h, dh), k and v (b, t, hk, dh), o (b, s, h, dh), contiguous,
-// all f32 (bf16 = 0) or all bf16 (bf16 = 1); h % hk == 0, dh % 4 == 0,
-// dh <= 128.  Returns a cudaError_t.
+// all f32 (bf16 = 0) or all bf16 (bf16 = 1); h % hk == 0, 1 <= dh <= 256.
+// Returns a cudaError_t.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int b, int s, int t, int h, int hk,
                               int dh, int bf16, float scale, int causal,
                               void* stream) {
-  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 4 || dh % 4 ||
+  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 1 ||
       dh > kMaxDh || b * hk > 65535 || h / hk > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch<__nv_bfloat16>(q, k, v, o, b, s, t, h, hk, dh,
-                                            scale, causal, st)
-                    : launch<float>(q, k, v, o, b, s, t, h, hk, dh, scale,
-                                    causal, st));
+  return (int)(bf16 ? launch_dh<__nv_bfloat16>(q, k, v, o, b, s, t, h, hk,
+                                               dh, scale, causal, st)
+                    : launch_dh<float>(q, k, v, o, b, s, t, h, hk, dh, scale,
+                                       causal, st));
 }

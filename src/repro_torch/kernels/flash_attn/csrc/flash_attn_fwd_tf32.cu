@@ -2,9 +2,9 @@
 // 3xTF32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/flash_attn.py::
-// flash_attention_fwd (_flash_kernel) for f32 inputs with dh in {64, 128}
-// (flash_attn/ops.py::flash_kernel routes other head widths to
-// flash_attn_fwd.cu and bf16 at these widths to flash_attn_fwd_wgmma.cu).
+// flash_attention_fwd (_flash_kernel) for f32 inputs with dh % 4 == 0,
+// dh <= 128 (flash_attn/ops.py::flash_kernel routes other head widths to
+// flash_attn_fwd.cu and bf16 to flash_attn_fwd_wgmma.cu).
 // q (B, S, H, dh), k and v (B, T, Hk, dh) give o (B, S, H, dh) f32:
 //     o[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h / G]) v[b, t, h / G]
 // with G = H / Hk query heads per KV head (no KV copy per query head).
@@ -60,6 +60,18 @@
 // wait is never two phases ahead.  Shared memory at dh 128: q 32 KB + 3
 // stages x (K hi, K lo, V^T hi, V^T lo) 64 KB = 224 KB; 64 KB at dh 64.
 // Blocks are ordered with the longest causal q tiles first.
+//
+// Head widths: two instances, kDh = 64 and 128; dh <= 64 runs on the
+// first, 64 < dh <= 128 on the second (dh = 96 at 4/3 of its own work).
+// The tensor maps take the true dh as their inner extent (TMA needs every
+// global stride on 16 bytes: dh % 4 == 0), so TMA fills the columns past
+// dh of a 32-column box with zeros.  A box that would lie wholly past dh
+// (the last one at dh <= 96, the second at dh <= 32) is never loaded:
+// its space in the q tile and in every stage's K and V is cleared once at
+// the start, and stays zero, because the splits turn zeros into zeros
+// (K hi and lo; the V^T rows past dh, which come from zero columns, land
+// in that same space).  Zero columns add nothing to a score, and the
+// output columns past dh are not stored.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -171,7 +183,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       float* __restrict__ o, int s_len, int t_len, int h_q,
-                      int h_kv, float q_scale, int causal) {
+                      int h_kv, int dh, float q_scale, int causal) {
   using C = Cfg<kDh>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
@@ -193,6 +205,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q_last = min(q0 + kBQ, s_len) - 1;
   const int n_kv_all = (t_len + kBKV - 1) / kBKV;
   const int n_kv = causal ? min(n_kv_all, q_last / kBKV + 1) : n_kv_all;
+  const int nb = (dh + kBox - 1) / kBox;            // boxes that TMA loads
 
   if (tid == 0) {
     mbar_init(bar(kBarQ), 1);
@@ -202,20 +215,33 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     fence_mbar_init();
   }
+  // the boxes past nb: zeros in the q tile and in each stage's K and V
+  for (int c = nb; c < C::kBoxes; ++c) {
+    float4* z = reinterpret_cast<float4*>(q_s + c * kBQ * 128);
+    for (int i = tid; i < kBQ * 8; i += kThreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int st = 0; st < kStages; ++st)
+      for (int i = tid; i < kBKV * 8; i += kThreads) {
+        reinterpret_cast<float4*>(k_hi(st) + c * kBKV * 128)[i] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+        reinterpret_cast<float4*>(v_hi(st) + c * kBKV * 128)[i] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+  }
   __syncthreads();
 
   if (tid >= kConsumerThreads) {                     // producer warp
     if (tid == kConsumerThreads) {
-      mbar_expect_tx(bar(kBarQ), C::kQBytes);
-      for (int c = 0; c < C::kBoxes; ++c)
+      mbar_expect_tx(bar(kBarQ), nb * kBQ * 128);
+      for (int c = 0; c < nb; ++c)
         tma_load_4d(smem_u32(q_s) + c * kBQ * 128, &map_q, bar(kBarQ),
                     c * kBox, h, q0, bb);
       for (int j = 0; j < n_kv; ++j) {
         const int st = j % kStages;
         if (j >= kStages)
           mbar_wait(bar(kBarEmpty + st), ((j / kStages) - 1) & 1);
-        mbar_expect_tx(bar(kBarFull + st), 2 * C::kKvBytes);
-        for (int c = 0; c < C::kBoxes; ++c) {
+        mbar_expect_tx(bar(kBarFull + st), 2 * nb * kBKV * 128);
+        for (int c = 0; c < nb; ++c) {
           tma_load_4d(smem_u32(k_hi(st)) + c * kBKV * 128, &map_k,
                       bar(kBarFull + st), c * kBox, kh, j * kBKV, bb);
           tma_load_4d(smem_u32(v_hi(st)) + c * kBKV * 128, &map_v,
@@ -437,20 +463,20 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
     l_b = __fadd_rn(l_b, __shfl_xor_sync(0xffffffffu, l_b, sh));
   }
   const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
-  const long long row_stride = (long long)h_q * kDh;
-  float* ob = o + ((long long)bb * s_len * h_q + h) * kDh;
+  const long long row_stride = (long long)h_q * dh;
+  float* ob = o + ((long long)bb * s_len * h_q + h) * dh;
 #pragma unroll
   for (int r = 0; r < C::kDv; r += 2) {
     const bool b_row = r & 2;
     const int row = row_a + (b_row ? 8 : 0);
-    if (row >= s_len) continue;
+    const int col = 8 * (r / 4) + 2 * quad;   // dh % 4 == 0: col + 1 < dh too
+    if (row >= s_len || col >= dh) continue;
     const float c0 = b_row ? c0b : c0a, c1 = b_row ? c1b : c1a;
     const float l = b_row ? lb : la;
     const float v0 = __fadd_rn(__fmul_rn(o_acc[r], c0),
                                __fmul_rn(xo[r * 128 + t], c1));
     const float v1 = __fadd_rn(__fmul_rn(o_acc[r + 1], c0),
                                __fmul_rn(xo[(r + 1) * 128 + t], c1));
-    const int col = 8 * (r / 4) + 2 * quad;
     *reinterpret_cast<float2*>(ob + row * row_stride + col) =
         make_float2(__fdiv_rn(v0, l), __fdiv_rn(v1, l));
   }
@@ -458,7 +484,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ------------------------------------------------------------------ host
 // (batch, len, heads, dh) f32, 32-column x rows boxes, 128-byte swizzle;
-// rows past len read as zeros
+// rows past len and columns past dh read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
               int heads, int dh, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -478,12 +504,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
 
 template <int kDh>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int t, int h, int hk, float scale,
+                   int b, int s, int t, int h, int hk, int dh, float scale,
                    int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, b, s, h, kDh, kBQ) ||
-      !make_map(&mk, k, b, t, hk, kDh, kBKV) ||
-      !make_map(&mv, v, b, t, hk, kDh, kBKV))
+  if (!make_map(&mq, q, b, s, h, dh, kBQ) ||
+      !make_map(&mk, k, b, t, hk, dh, kBKV) ||
+      !make_map(&mv, v, b, t, hk, dh, kBKV))
     return cudaErrorInvalidValue;
   constexpr int smem = Cfg<kDh>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
@@ -492,7 +518,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return e;
   const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
   flash_fwd_tf32_kernel<kDh><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<float*>(o), s, t, h, hk,
+      mq, mk, mv, static_cast<float*>(o), s, t, h, hk, dh,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -500,20 +526,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (b, s, h, dh), k and v (b, t, hk, dh), o (b, s, h, dh), contiguous
-// f32, each 16-byte aligned; h % hk == 0, dh 64 or 128.  Returns a
-// cudaError_t.
+// f32, each 16-byte aligned; h % hk == 0, dh % 4 == 0, dh <= 128.
+// Returns a cudaError_t.
 extern "C" int flash_attn_fwd_tf32(const void* q, const void* k,
                                    const void* v, void* o, int b, int s,
                                    int t, int h, int hk, int dh, float scale,
                                    int causal, void* stream) {
-  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || (dh != 64 && dh != 128)
-      || (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535 ||
+  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 4 || dh % 4 ||
+      dh > 128 || (long long)b * h > 0x7fffffffLL ||
+      (s + kBQ - 1) / kBQ > 65535 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(dh == 128 ? launch<128>(q, k, v, o, b, s, t, h, hk, scale,
-                                       causal, st)
-                         : launch<64>(q, k, v, o, b, s, t, h, hk, scale,
-                                      causal, st));
+  return (int)(dh > 64 ? launch<128>(q, k, v, o, b, s, t, h, hk, dh, scale,
+                                     causal, st)
+                       : launch<64>(q, k, v, o, b, s, t, h, hk, dh, scale,
+                                    causal, st));
 }

@@ -1,10 +1,10 @@
 // GQA flash-attention forward on Hopper's tensor cores (sm_90a), bf16.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/flash_attn.py::
-// flash_attention_fwd (_flash_kernel) for bf16 inputs with dh in {64, 128}
-// (flash_attn/ops.py::flash_kernel routes f32 and other head widths to
-// flash_attn_fwd.cu).  q (B, S, H, dh), k and v (B, T, Hk, dh) give
-// o (B, S, H, dh):
+// flash_attention_fwd (_flash_kernel) for bf16 inputs with dh % 8 == 0,
+// dh <= 128 (flash_attn/ops.py::flash_kernel routes f32 to
+// flash_attn_fwd_tf32.cu and other head widths to flash_attn_fwd.cu).
+// q (B, S, H, dh), k and v (B, T, Hk, dh) give o (B, S, H, dh):
 //     o[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h / G]) v[b, t, h / G]
 // with G = H / Hk query heads per KV head (no KV copy per query head).
 // The TPU kernel's semantics, as flash_attn_fwd.cu states them: causal
@@ -42,6 +42,15 @@
 // swizzled tiles.  P never touches shared memory.  While one warpgroup
 // runs its softmax the other's products keep the tensor cores busy.
 // Blocks are ordered with the longest causal q tiles first.
+//
+// Head widths: two instances, kDh = 64 and 128; dh <= 64 runs on the
+// first, 64 < dh <= 128 on the second.  The tensor maps take the true dh
+// as their inner extent (TMA needs every global stride on 16 bytes: dh %
+// 8 == 0), so TMA fills the columns dh .. kDh - 1 of every q, K and V
+// tile with zeros: they add nothing to a score, and the output columns
+// they give are not stored.  No box lies wholly past dh (64-column boxes,
+// dh > 64 on the 128 instance).  scale is the caller's, 1/sqrt(dh) by
+// default.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -119,7 +128,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        __nv_bfloat16* __restrict__ o, int s_len, int t_len,
-                       int h_q, int h_kv, float scale_log2, int causal) {
+                       int h_q, int h_kv, int dh, float scale_log2,
+                       int causal) {
   constexpr int kHalves = kDh / kBox;               // boxes per row
   constexpr int kTileBytes = kHalves * kBoxBytes;   // one q, K or V tile
   constexpr int kDv = kDh / 2;                      // O registers a thread
@@ -276,14 +286,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
-  const long long row_stride = (long long)h_q * kDh;
-  __nv_bfloat16* ob = o + ((long long)bb * s_len * h_q + h) * kDh;
+  const long long row_stride = (long long)h_q * dh;
+  __nv_bfloat16* ob = o + ((long long)bb * s_len * h_q + h) * dh;
 #pragma unroll
   for (int r = 0; r < kDv; r += 2) {
     const int row = row_a + ((r & 2) ? 8 : 0);
-    if (row >= s_len) continue;
+    const int col = 8 * (r / 4) + 2 * quad;   // dh % 8 == 0: col + 1 < dh too
+    if (row >= s_len || col >= dh) continue;
     const float inv = (r & 2) ? inv_b : inv_a;
-    const int col = 8 * (r / 4) + 2 * quad;
     *reinterpret_cast<__nv_bfloat162*>(ob + row * row_stride + col) =
         __floats2bfloat162_rn(o_acc[r] * inv, o_acc[r + 1] * inv);
   }
@@ -291,7 +301,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ------------------------------------------------------------------ host
 // (batch, len, heads, dh) bf16, 64-column x rows boxes, 128-byte swizzle;
-// rows past len read as zeros
+// rows past len and columns past dh read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
               int heads, int dh, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -311,12 +321,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
 
 template <int kDh>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int t, int h, int hk, float scale,
+                   int b, int s, int t, int h, int hk, int dh, float scale,
                    int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, b, s, h, kDh, kBQ) ||
-      !make_map(&mk, k, b, t, hk, kDh, kBKV) ||
-      !make_map(&mv, v, b, t, hk, kDh, kBKV))
+  if (!make_map(&mq, q, b, s, h, dh, kBQ) ||
+      !make_map(&mk, k, b, t, hk, dh, kBKV) ||
+      !make_map(&mv, v, b, t, hk, dh, kBKV))
     return cudaErrorInvalidValue;
   const int smem = (1 + 2 * kStages) * (kDh / kBox) * kBoxBytes + 1024;
   cudaError_t e = cudaFuncSetAttribute(
@@ -325,7 +335,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return e;
   const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
   flash_fwd_wgmma_kernel<kDh><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, t, h, hk,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, t, h, hk, dh,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -333,20 +343,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (b, s, h, dh), k and v (b, t, hk, dh), o (b, s, h, dh), contiguous
-// bf16, each 16-byte aligned; h % hk == 0, dh 64 or 128.  Returns a
-// cudaError_t.
+// bf16, each 16-byte aligned; h % hk == 0, dh % 8 == 0, dh <= 128.
+// Returns a cudaError_t.
 extern "C" int flash_attn_fwd_wgmma(const void* q, const void* k,
                                     const void* v, void* o, int b, int s,
                                     int t, int h, int hk, int dh, float scale,
                                     int causal, void* stream) {
-  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || (dh != 64 && dh != 128)
-      || (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535 ||
+  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 8 || dh % 8 ||
+      dh > 128 || (long long)b * h > 0x7fffffffLL ||
+      (s + kBQ - 1) / kBQ > 65535 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(dh == 128 ? launch<128>(q, k, v, o, b, s, t, h, hk, scale,
-                                       causal, st)
-                         : launch<64>(q, k, v, o, b, s, t, h, hk, scale,
-                                      causal, st));
+  return (int)(dh > 64 ? launch<128>(q, k, v, o, b, s, t, h, hk, dh, scale,
+                                     causal, st)
+                       : launch<64>(q, k, v, o, b, s, t, h, hk, dh, scale,
+                                    causal, st));
 }

@@ -1,23 +1,22 @@
 // Exact squared L2 distances for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/l2dist/l2dist.py::l2dist
-// (_l2_kernel): queries (B, D) and vectors (N, D), f32 or bf16, give
+// (_l2_kernel) for bf16 of odd width: queries (B, D) and vectors (N, D),
+// bf16, give
 //     out[b, n] = (|q_b|^2 - 2 q_b.v_n) + |v_n|^2        (B, N) f32,
 // with the inputs widened to f32 and every sum in f32 on the CUDA cores:
-// no TF32, no tensor-core product, no library call.  The dot product and
-// the norms are __fmaf_rn chains over d = 0, 1, ...; the epilogue rounds
-// each step, as ref.py::l2dist_ref does.  It serves the widths the
-// tensor-core kernel (l2dist_wgmma.cu) does not take
-// (l2dist/ops.py::l2_kernel): f32 with d % 4 != 0, bf16 of odd width and
-// every d > 128.
+// no tensor-core product, no library call.  The dot product and the norms
+// are __fmaf_rn chains over d = 0, 1, ...; the epilogue rounds each step,
+// as ref.py::l2dist_ref does.  It serves the widths the tensor-core kernel
+// (l2dist_wgmma.cu) does not take (l2dist/ops.py::l2_kernel): rows of an
+// odd bf16 width lie on 2-byte boundaries, which no cp.async granule
+// takes.
 //
-// What bounds it on an H100 SXM: operations.  At GIST1M's width (B = 256,
-// N = 2^20, D = 960, f32, the smoke's full-width call) the function is
-// 2*B*N*D = 515 GFLOP of f32 products; the card's fastest form of them
-// exact in f32, 3xTF32 on the tensor cores (three TF32 products at 495
-// TFLOP/s), takes 3.1 ms, against 5.1 GB of bytes (4.03 GB read, 1.07 GB
-// written): 1.5 ms at 3.35 TB/s.  This form, on the CUDA cores at 67
-// TFLOP/s, cannot go below 7.7 ms.
+// What bounds it on an H100 SXM: bytes.  At the ground-truth chunk cut to
+// d = 101 (B = 256, N = 2^20, the smoke's full-width call) it reads 212 MB
+// and writes 1.07 GB: 0.384 ms at 3.35 TB/s; its 54 GFLOP of products
+// take 0.055 ms once in bf16 on the tensor cores (each exact in f32).
+// This form, on the CUDA cores at 67 TFLOP/s, cannot go below 0.81 ms.
 //
 // Design: the TPU kernel is one MXU product per (bq, bn) tile with D
 // whole.  Here a block of 256 threads owns a 128 x 128 output tile and
@@ -42,15 +41,14 @@ constexpr int kBN = 128;          // vectors per block
 constexpr int kBK = 16;           // depth of one staged slice
 constexpr int kLd = kBM + 4;      // padded row of the staged slices
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-l2dist_kernel(const T* __restrict__ q, const T* __restrict__ v,
-              float* __restrict__ out, int b, int n, int d) {
+l2dist_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
+              int b, int n, int d) {
   __shared__ __align__(16) float qs[kBK][kLd];
   __shared__ __align__(16) float vs[kBK][kLd];
   __shared__ float qn_s[kBM];
@@ -131,24 +129,17 @@ l2dist_kernel(const T* __restrict__ q, const T* __restrict__ v,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* v, float* out, int b, int n,
-                   int d, cudaStream_t stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (b + kBM - 1) / kBM);
-  l2dist_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(v), out, b, n, d);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// queries (b, d) and vectors (n, d), both f32 (bf16 = 0) or both bf16
-// (bf16 = 1), row-major; out (b, n) f32.  Returns a cudaError_t.
+// queries (b, d) and vectors (n, d), both bf16, row-major; out (b, n)
+// f32.  Returns a cudaError_t.
 extern "C" int l2dist(const void* queries, const void* vectors, float* out,
-                      int b, int n, int d, int bf16, void* stream) {
+                      int b, int n, int d, void* stream) {
   if (b < 1 || n < 1 || d < 1 || (b + kBM - 1) / kBM > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch<__nv_bfloat16>(queries, vectors, out, b, n, d, st)
-                    : launch<float>(queries, vectors, out, b, n, d, st));
+  const dim3 grid((n + kBN - 1) / kBN, (b + kBM - 1) / kBM);
+  l2dist_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(queries),
+      static_cast<const __nv_bfloat16*>(vectors), out, b, n, d);
+  return (int)cudaGetLastError();
 }

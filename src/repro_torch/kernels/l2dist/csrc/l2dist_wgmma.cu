@@ -2,10 +2,10 @@
 // bf16 inputs, f32 output.
 //
 // Replaces the Pallas TPU kernel repro/kernels/l2dist/l2dist.py::l2dist
-// (_l2_kernel, which widens its inputs to f32) for f32 of width d % 4 == 0
-// and bf16 of even width, d <= 128 (the query tile kept in shared memory);
-// l2dist/ops.py::l2_kernel states the rule, every other case (f32 with
-// d % 4 != 0, odd bf16 widths, d > 128) runs on l2dist.cu:
+// (_l2_kernel, which widens its inputs to f32) for f32 of every width and
+// bf16 of even width; l2dist/ops.py::l2_kernel states the rule, odd bf16
+// widths (rows on 2-byte boundaries, which no cp.async granule takes) run
+// on l2dist.cu:
 //     out[b, n] = (|q_b|^2 - 2 q_b.v_n) + |v_n|^2        (B, N) f32.
 //
 // What bounds it on an H100 SXM: bytes.  At the ground-truth chunk
@@ -16,7 +16,10 @@
 // is most of each.  The products are 68.7 GFLOP:
 // three times that in 3xTF32 take 0.417 ms at the dense TF32 rate (495
 // TFLOP/s); once in bf16 (each product exact in f32) 0.069 ms at 989
-// TFLOP/s.  The f32 CUDA cores alone could not go below 1.03 ms.
+// TFLOP/s.  The f32 CUDA cores alone could not go below 1.03 ms.  At
+// GIST1M's d = 960 (the smoke's streamed call) f32 is bound by operations:
+// 515 GFLOP, in 3xTF32 3.12 ms against 1.52 ms for its 5.1 GB; bf16 by
+// bytes: 3.09 GB, 0.921 ms, against 0.52 ms for one bf16 product.
 //
 // Products.  f32: wgmma m64n128k8 in TF32, three times per k-step; each
 // operand is split as hi = tf32(x) (round to nearest), lo = tf32(x - hi),
@@ -32,40 +35,53 @@
 // Design: a persistent grid, one block an SM (l2dist/ops.py::l2_plan):
 // block (x, y) owns the 128 queries of tile y and walks the 128-vector
 // tiles x, x + grid_x, ...; the blocks of one x walk the same vector
-// tiles at the same time, so each tile comes from HBM about once.  A
-// producer warp loads the query tile once (all of d in 128-byte-wide,
-// 128-byte swizzled k-slices: 32 f32 or 64 bf16 columns) and streams the
-// vector tiles' k-slices through a ring (3 stages in f32, whose slices
-// also need a lo buffer; 4 in bf16), behind full / empty mbarriers.  f32
-// (d % 4 == 0: rows on 16 bytes) loads by TMA, which fills rows and
-// columns past B, N and d with zeros.  bf16 loads by cp.async, which
-// takes any even width (SPACEV1B's d = 100: rows of 200 bytes, which no
-// tensor map takes): the producer warp's 32 lanes copy the slices in
-// granules of 16 bytes (d % 8 == 0), 8 (d % 8 == 4) or 4 (d % 4 == 2),
-// straight into the same swizzled layout, zero-filling rows past B and N,
-// and each lane's cp.async.mbarrier.arrive.noinc counts on the full
-// barrier; the q tile and ring are cleared once at the start, so the
-// columns past d, which no copy writes, stay zero.  At d = 128 the
-// 16-byte granules took 0.7099 / 0.7067 ms against TMA's 0.7183 / 0.7146
-// (kernel_ab, H100 80GB HBM3, 700 W), so bf16 has no TMA load path.
-// Launches off the 16-byte stride count as l2dist_wgmma[bf16,off16].
+// tiles at the same time, so each tile comes from HBM about once.  Up to
+// d = 128 a producer warp loads the query tile once (all of d in
+// 128-byte-wide, 128-byte swizzled k-slices: 32 f32 or 64 bf16 columns)
+// and streams the vector tiles' k-slices through a ring (3 stages in f32,
+// whose slices also need a lo buffer; 4 in bf16), behind full / empty
+// mbarriers.  f32 with d % 4 == 0 (rows on 16 bytes) loads by TMA, which
+// fills rows and columns past B, N and d with zeros.  bf16, and f32 of
+// other widths, load by cp.async, which takes rows on 4 bytes (SPACEV1B's
+// d = 100 in bf16: rows of 200 bytes, which no tensor map takes): the
+// producer warp's 32 lanes copy the slices in granules of 16 bytes (row
+// stride % 16 == 0), 8 or 4 (bf16 by the widest its stride allows, f32
+// by 4), straight into the same swizzled layout, zero-filling the rows
+// past B and N and the granules past d (so a stage that held another
+// k-slice reads zeros there), and each lane's
+// cp.async.mbarrier.arrive.noinc counts on the full barrier.  At d = 128
+// the 16-byte granules took 0.7099 / 0.7067 ms against TMA's 0.7183 /
+// 0.7146 (kernel_ab, H100 80GB HBM3, 700 W), so bf16 has no TMA load
+// path.  Launches off the 16-byte stride count as
+// l2dist_wgmma[bf16,off16].
 //
-// cp.async writes shared memory through the generic proxy and wgmma reads
-// it through the async proxy, so the consumers execute
-// fence.proxy.async after the mbarrier wait that acquires the copies.
-// The writing lane cannot fence after its own copies (they land after it
-// arrives), so the fence is on the reading side, which the PTX memory
-// model allows: a write X is ordered before an async-proxy read Y when a
-// proxy fence lies anywhere on the base causality path from X to Y (PTX
-// ISA, Memory Consistency Model, "Causality Order": proxy-preserved base
-// causality order), and X -> (arrive, wait) -> fence -> Y is such a path.
+// Above d = 128 the query tile (983 KB at d = 960 in f32, hi and lo) does
+// not fit, so the query tile is streamed (kStream): each ring stage holds
+// one k-slice of the block's 128 queries and the same k-slice of the
+// vector tile, behind one full barrier (TMA: expect_tx of all the
+// stage's loads; cp.async: the lanes arrive after all their copies), and
+// the accumulators stay in registers across all d / kBK slices.  The q
+// slices are read again for every vector tile, from L2 (the whole query
+// set is under 1 MB).  A prologue kernel, launched first on the same
+// stream, writes the query norms and, in f32, q's TF32 hi and lo parts
+// once, so the main kernel loads q hi and lo as they are and splits only
+// the v slices: at d = 960 in f32 splitting each q slice as it landed
+// took 7.71 ms, the prologue's split 5.97 (kernel_ab, H100 80GB HBM3, 700
+// W).  bf16 rows on 16 bytes (d % 8 == 0) load by TMA here: the producer
+// warp's cp.async copies, as the resident path loads them, took 3.17 ms
+// at d = 960 against TMA's 1.41 (same call), the one warp's issue rate
+// the limit once the query slices come again for every tile.  Ring: f32
+// 3 stages x (q hi, q lo, v hi, v lo) 64 KB = 192 KB; bf16 6 x (q, v)
+// 32 KB = 192 KB, its finished tiles written as f32's are.  Launches
+// count as l2dist_wgmma[d>128] and l2dist_wgmma[bf16,d>128].
 //
 // The two consumer warpgroups take the block's vector tiles in turns
-// (ping-pong).  In f32 they split the query tile once; then one splits
-// each slice of its tile that has landed (hi in place, lo into a second
-// buffer of the same layout), fences the generic-proxy stores for the
-// async proxy, synchronises on a named barrier and issues the slice's 24
-// wgmmas (two 64-query halves), splitting the next slice while they run.
+// (ping-pong).  In f32 they split the resident query tile once; then one
+// splits each v slice of its tile that has landed (hi in place, lo into a
+// second buffer of the same layout), fences the generic-proxy stores for
+// the async proxy, synchronises on a named barrier and issues the slice's
+// 24 wgmmas (two 64-query halves), splitting the next slice while they
+// run.
 // In bf16 it only sums the slice's squares and issues its 8 wgmmas.  It
 // hands a slice back to the producer once its wgmmas are done; meanwhile
 // the other writes its finished 128 x 128 tile out, so the output, most
@@ -96,21 +112,29 @@ constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 constexpr int kHalfBytes = 64 * kBN * 4;   // 64 rows of a finished tile
 
-// The shapes of one instantiation: f32 (3xTF32) or bf16 (one product).
-template <bool kBf16>
+// The shapes of one instantiation: f32 (3xTF32) or bf16 (one product);
+// the query tile resident (d <= 128) or streamed with the vectors (kStream)
+template <bool kBf16, bool kStream>
 struct Cfg {
   static constexpr int kBK = kBf16 ? 64 : 32;  // columns of a k-slice
-  static constexpr int kSlices = kMaxD / kBK;
+  static constexpr int kSlices = kStream ? 0 : kMaxD / kBK;  // resident q
   static constexpr int kBufs = kBf16 ? 1 : 2;  // hi, and lo in f32
-  static constexpr int kStages = kBf16 ? 4 : 3;  // depth of the ring
-  // bf16: each warpgroup stages its finished tile (two 64-row halves of
-  // 32 KB) for the TMA stores; f32 has no room left for it
-  static constexpr int kStageBytes = kBf16 ? 4 * kHalfBytes : 0;
-  // dynamic shared memory: q hi | q lo (kSlices each) | v hi | v lo
-  // (kStages each) | staging, 1024-byte aligned: 224 KB of the 227 in
-  // either
+  // depth of the ring; a stage holds a v slice, streamed also a q slice
+  static constexpr int kStages = kBf16 ? (kStream ? 6 : 4) : 3;
+  static constexpr int kOps = kStream ? 2 : 1;
+  // the slices a stage's loads fill: v hi; streamed also q hi, and in f32
+  // q lo (split by the prologue); v lo is the consumer's
+  static constexpr int kLoads = kStream ? (kBf16 ? 2 : 3) : 1;
+  // resident bf16: each warpgroup stages its finished tile (two 64-row
+  // halves of 32 KB) for the TMA stores; f32 has no room left for it, and
+  // streamed bf16 spends it on a deeper ring
+  static constexpr int kStageBytes = kBf16 && !kStream ? 4 * kHalfBytes : 0;
+  // dynamic shared memory, 1024-byte aligned: resident, q hi | q lo
+  // (kSlices each) | v hi | v lo (kStages each); streamed, q hi | v hi |
+  // q lo | v lo (kStages each); then the staging.  224 KB of the 227
+  // resident, 192 KB streamed
   static constexpr int kSmemBytes =
-      kBufs * (kSlices + kStages) * kSliceBytes + kStageBytes + 1024;
+      kBufs * (kSlices + kOps * kStages) * kSliceBytes + kStageBytes + 1024;
   // barriers: the q tile, full [stage], empty [stage] (a stage goes to
   // one warpgroup), turn [warpgroup] (whose products run next)
   static constexpr int kBarQ = 0, kBarFull = 1, kBarEmpty = 1 + kStages,
@@ -130,35 +154,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// The producer warp's copy of k-slice s (columns 64 s .. 64 s + 63) of
-// rows row0 .. row0 + 127 of a (rows, d) bf16 matrix into a 128-row slice
-// in TMA's 128-byte swizzle, by cp.async granules of kGran bytes (16, 8 or
-// 4):
-// a pass takes 32 / (128 / kGran) rows, a lane one granule; granules past d
-// are not copied (their bytes stay as cleared), rows past `rows` are
-// zero-filled.
-template <int kGran>
+// The producer warp's copy of k-slice s (the 128 bytes at 128 s of each
+// row: 64 bf16 or 32 f32 columns) of rows row0 .. row0 + 127 of a (rows, d)
+// matrix of kElem-byte elements into a 128-row slice in TMA's 128-byte
+// swizzle, by cp.async granules of kGran bytes (16, 8 or 4): a pass takes
+// 32 / (128 / kGran) rows, a lane one granule.  Every byte of the slice is
+// written: granules past d and rows past `rows` are zero-filled, so a ring
+// stage that held another k-slice before reads zeros past d.
+template <int kGran, int kElem>
 __device__ __forceinline__ void copy_slice(uint32_t dst,
                                            const uint8_t* __restrict__ src,
                                            int rows, int row0, int d, int s,
                                            int lane) {
   constexpr int kSlots = 128 / kGran;        // granules of a 128-byte row
   constexpr int kRowsPerPass = 32 / kSlots;
-  const int row_bytes = 2 * d;
+  const int row_bytes = kElem * d;
   const int granules = min(128, row_bytes - 128 * s) / kGran;
   const int gi = lane % kSlots;
-  if (gi < granules) {
-    const int col = 128 * s + gi * kGran;    // byte in the source row
-    const int in_row = gi * kGran;           // byte in the slice's row
+  const bool in_d = gi < granules;
+  const int col = in_d ? 128 * s + gi * kGran : 0;   // byte in the source row
+  const int in_row = gi * kGran;                     // byte in the slice's row
 #pragma unroll 4
-    for (int r = lane / kSlots; r < 128; r += kRowsPerPass) {
-      const int gr = row0 + r;
-      const bool ok = gr < rows;
-      cp_async<kGran>(
-          dst + r * 128 + ((((in_row >> 4) ^ (r & 7))) << 4) + (in_row & 15),
-          src + (long long)(ok ? gr : 0) * row_bytes + col,
-          ok ? kGran : 0);
-    }
+  for (int r = lane / kSlots; r < 128; r += kRowsPerPass) {
+    const int gr = row0 + r;
+    const bool ok = in_d && gr < rows;
+    cp_async<kGran>(
+        dst + r * 128 + ((((in_row >> 4) ^ (r & 7))) << 4) + (in_row & 15),
+        src + (long long)(ok ? gr : 0) * row_bytes + col, ok ? kGran : 0);
   }
 }
 
@@ -297,37 +319,56 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[64],
   }
 }
 
-// kGran: 0 loads f32 by TMA; 16, 8 or 4 loads bf16 by cp.async granules of
-// that many bytes, from qg and vg
-template <bool kBf16, int kGran>
+// kGran: 0 loads by TMA (f32 where d % 4 == 0, streamed bf16 where
+// d % 8 == 0); 16, 8 or 4 by cp.async granules of that many bytes, from
+// qg (qlog: streamed f32's q lo) and vg.  kStream: d > 128, the query
+// tile's k-slices ride the ring with the vectors' instead of staying
+// resident; qn_g holds the prologue's query norms.
+template <bool kBf16, int kGran, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_qlo,
                     const __grid_constant__ CUtensorMap map_v,
                     const __grid_constant__ CUtensorMap map_out,
                     const uint8_t* __restrict__ qg,
+                    const uint8_t* __restrict__ qlog,
                     const uint8_t* __restrict__ vg,
+                    const float* __restrict__ qn_g,
                     float* __restrict__ out, int b, int n, int d,
                     int tma_out) {
-  static_assert((kGran != 0) == kBf16, "bf16 loads by cp.async, f32 by TMA");
-  using C = Cfg<kBf16>;
+  static_assert(kGran != 0 || !kBf16 || kStream,
+                "resident bf16 loads by cp.async");
+  using C = Cfg<kBf16, kStream>;
+  constexpr int kElem = kBf16 ? 2 : 4;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[C::kNumBars];
   __shared__ float qn_s[kBM];
   __shared__ float vn_s[2][kBN];           // each warpgroup's current tile
   uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
                               smem_u32(smem_raw));
-  // slice s of the query tile, stage st of the ring; lo parts in f32 only
-  auto q_hi = [&](int s) { return base + s * kSliceBytes; };
-  auto q_lo = [&](int s) { return base + (C::kSlices + s) * kSliceBytes; };
+  // the query k-slice s that the products of ring stage st read (resident:
+  // slice s of the tile; streamed: the stage's own), and the stage's
+  // vector slice; lo parts in f32 only
+  auto q_hi = [&](int s, int st) {
+    return base + (kStream ? st : s) * kSliceBytes;
+  };
+  auto q_lo = [&](int s, int st) {
+    return base + (kStream ? 2 * C::kStages + st : C::kSlices + s) *
+                      kSliceBytes;
+  };
   auto v_hi = [&](int st) {
-    return base + (C::kBufs * C::kSlices + st) * kSliceBytes;
+    return base + (C::kBufs * C::kSlices + (kStream ? C::kStages : 0) + st) *
+                      kSliceBytes;
   };
   auto v_lo = [&](int st) {
-    return base + (2 * C::kSlices + C::kStages + st) * kSliceBytes;
+    return base + (kStream ? 3 * C::kStages + st
+                           : 2 * C::kSlices + C::kStages + st) *
+                      kSliceBytes;
   };
-  // half h of warpgroup w's staged tile (bf16)
+  // half h of warpgroup w's staged tile (resident bf16)
   auto stg = [&](int w, int h) {
-    return base + C::kBufs * (C::kSlices + C::kStages) * kSliceBytes +
+    return base + C::kBufs * (C::kSlices + C::kOps * C::kStages) *
+                      kSliceBytes +
            (2 * w + h) * kHalfBytes;
   };
   const uint32_t bar0 = smem_u32(bars);
@@ -338,17 +379,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int n_vt = (n + kBN - 1) / kBN;
   const int ns = (d + C::kBK - 1) / C::kBK;
   // a TMA load arrives once with its bytes; cp.async, once a producer lane
-  constexpr int kLoadArrivals = kBf16 ? 32 : 1;
-  if constexpr (kBf16) {
-    // the columns past d, which no copy writes, read as zeros; a ring
-    // stage always takes the same k-slice (kStages = 4 is a multiple of
-    // ns <= 2), so a slice of another width never lands on its zeros
-    uint4* z = reinterpret_cast<uint4*>(base);
-    for (int i = t; i < (C::kSlices + C::kStages) * kSliceBytes / 16;
-         i += kThreads)
-      z[i] = make_uint4(0u, 0u, 0u, 0u);
-    fence_proxy_async();
-  }
+  constexpr int kLoadArrivals = kGran ? 32 : 1;
   if (t == 0) {
     mbar_init(bar(C::kBarQ), kLoadArrivals);
     for (int st = 0; st < C::kStages; ++st) {
@@ -362,18 +393,21 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (t >= kConsumers) {                               // producer warp
-    // bf16: its 32 lanes copy by cp.async; f32: one lane issues TMA loads
+    // cp.async: its 32 lanes copy; TMA: one lane issues the loads
     const int lane = t - kConsumers;
-    if (!kBf16 && lane != 0) return;
-    if constexpr (kBf16) {
-      for (int s = 0; s < ns; ++s)
-        copy_slice<kGran>(smem_u32(q_hi(s)), qg, b, q0, d, s, lane);
-      cp_async_arrive(bar(C::kBarQ));     // once its copies have landed
-    } else {
-      mbar_expect_tx(bar(C::kBarQ), ns * kSliceBytes);
-      for (int s = 0; s < ns; ++s)
-        tma_load_2d(smem_u32(q_hi(s)), &map_q, bar(C::kBarQ), s * C::kBK,
-                    q0);
+    if (!kGran && lane != 0) return;
+    if constexpr (!kStream) {                  // the resident query tile
+      if constexpr (kGran != 0) {
+        for (int s = 0; s < ns; ++s)
+          copy_slice<kGran, kElem>(smem_u32(q_hi(s, 0)), qg, b, q0, d, s,
+                                   lane);
+        cp_async_arrive(bar(C::kBarQ));   // once its copies have landed
+      } else {
+        mbar_expect_tx(bar(C::kBarQ), ns * kSliceBytes);
+        for (int s = 0; s < ns; ++s)
+          tma_load_2d(smem_u32(q_hi(s, 0)), &map_q, bar(C::kBarQ),
+                      s * C::kBK, q0);
+      }
     }
     int g = 0;                                         // slices issued
     for (int vt = blockIdx.x; vt < n_vt; vt += gridDim.x) {
@@ -381,27 +415,45 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const int st = g % C::kStages;
         if (g >= C::kStages)
           mbar_wait(bar(C::kBarEmpty + st), ((g / C::kStages) - 1) & 1);
-        if constexpr (kBf16) {
-          copy_slice<kGran>(smem_u32(v_hi(st)), vg, n, vt * kBN, d, s,
-                            lane);
+        // streamed: one full barrier covers the stage's q and v slices
+        if constexpr (kGran != 0) {
+          if constexpr (kStream) {
+            copy_slice<kGran, kElem>(smem_u32(q_hi(s, st)), qg, b, q0, d, s,
+                                     lane);
+            if constexpr (!kBf16)
+              copy_slice<kGran, kElem>(smem_u32(q_lo(s, st)), qlog, b, q0, d,
+                                       s, lane);
+          }
+          copy_slice<kGran, kElem>(smem_u32(v_hi(st)), vg, n, vt * kBN, d,
+                                   s, lane);
           cp_async_arrive(bar(C::kBarFull + st));
         } else {
-          mbar_expect_tx(bar(C::kBarFull + st), kSliceBytes);
-          tma_load_2d(smem_u32(v_hi(st)), &map_v, bar(C::kBarFull + st),
-                      s * C::kBK, vt * kBN);
+          const uint32_t full = bar(C::kBarFull + st);
+          mbar_expect_tx(full, C::kLoads * kSliceBytes);
+          if constexpr (kStream) {
+            tma_load_2d(smem_u32(q_hi(s, st)), &map_q, full, s * C::kBK, q0);
+            if constexpr (!kBf16)
+              tma_load_2d(smem_u32(q_lo(s, st)), &map_qlo, full, s * C::kBK,
+                          q0);
+          }
+          tma_load_2d(smem_u32(v_hi(st)), &map_v, full, s * C::kBK,
+                      vt * kBN);
         }
       }
     }
     return;
   }
 
-  // ---- both warpgroups: the query tile's norms (and split, in f32)
-  mbar_wait(bar(C::kBarQ), 0);
-  if constexpr (kBf16) fence_proxy_async();
-  {
+  // ---- the query tile's norms: resident, both warpgroups take them from
+  // the tile (and, in f32, split it); streamed, the prologue's
+  if constexpr (kStream) {
+    if (t < kBM) qn_s[t] = q0 + t < b ? qn_g[q0 + t] : 0.f;
+  } else {
+    mbar_wait(bar(C::kBarQ), 0);
+    if constexpr (kBf16) fence_proxy_async();
     float sq[4] = {0.f, 0.f, 0.f, 0.f};
     for (int s = 0; s < ns; ++s)
-      take_slice<kBf16, kConsumers>(q_hi(s), q_lo(s), t, sq);
+      take_slice<kBf16, kConsumers>(q_hi(s, 0), q_lo(s, 0), t, sq);
     store_norms<kConsumers>(sq, qn_s, t);
   }
   named_sync(1, kConsumers);
@@ -426,7 +478,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int g = i * ns + s;               // the slice's place in the ring
       const int st = g % C::kStages;
       mbar_wait(bar(C::kBarFull + st), (g / C::kStages) & 1);
-      if constexpr (kBf16) fence_proxy_async();
+      if constexpr (kGran != 0) fence_proxy_async();   // cp.async's copies
       take_slice<kBf16, 128>(v_hi(st), v_lo(st), wt, vsq);
       // f32: every split store is in before the wgmmas read the slice.
       // Both: before the last slice's norms, the warpgroup is done with
@@ -436,7 +488,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       // k-step kk reads 32 bytes at kk * 32 of every 128-byte row (8 f32
       // or 16 bf16 columns); the second half of the queries starts 64
       // rows (8 KB) on
-      const uint32_t a_hi = smem_u32(q_hi(s)), b_hi = smem_u32(v_hi(st));
+      const uint32_t a_hi = smem_u32(q_hi(s, st)), b_hi = smem_u32(v_hi(st));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -447,7 +499,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           mma_bf16(acc0, desc(a_hi + off, 16, 1024), bh, acc);
           mma_bf16(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, acc);
         } else {
-          const uint32_t a_lo = smem_u32(q_lo(s));
+          const uint32_t a_lo = smem_u32(q_lo(s, st));
           const uint64_t bl = desc(smem_u32(v_lo(st)) + off, 16, 1024);
           mma_tf32(acc0, desc(a_hi + off, 16, 1024), bl, acc);
           mma_tf32(acc0, desc(a_lo + off, 16, 1024), bh, 1);
@@ -470,7 +522,7 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_regs(acc1);
     if (lane == 0)
       mbar_arrive(bar(C::kBarEmpty + (i * ns + ns - 1) % C::kStages));
-    const bool staged = kBf16 && tma_out;
+    const bool staged = C::kStageBytes && tma_out;
     // the staging is free once the last tile's stores have read it
     if (staged && wt == 0) bulk_wait<0, true>();
     named_sync(2 + wg, 128);                  // the tile's norms are stored
@@ -491,20 +543,56 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       store_tile(acc1, out, vn, qn[1], q0 + 64 + ra, vt * kBN, quad, b, n);
     }
   }
-  if (kBf16 && tma_out && wt == 0) bulk_wait<0, false>();
+  if (C::kStageBytes && tma_out && wt == 0) bulk_wait<0, false>();
 }
 
-// (rows, d) f32, row-major, 32-column x 128-row boxes (128 bytes wide),
-// 128-byte swizzle; rows past `rows` and columns past d read as zeros
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int d) {
+// The streamed launches' prologue: the squared norm of each query row
+// (__fmaf_rn sums over the row's lanes, then across the warp) and, in f32,
+// its split into hi = tf32(x) and lo = tf32(x - hi), written once for the
+// main kernel to load with the vectors' slices.  One warp a row.
+template <bool kBf16>
+__global__ void __launch_bounds__(256)
+l2dist_prologue_kernel(const void* __restrict__ q, float* __restrict__ qn,
+                       float* __restrict__ hi, float* __restrict__ lo, int b,
+                       int d) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= b) return;
+  float sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const long long i = (long long)row * d + c;
+    float x;
+    if constexpr (kBf16)
+      x = __uint_as_float(
+          (uint32_t)static_cast<const uint16_t*>(q)[i] << 16);
+    else
+      x = static_cast<const float*>(q)[i];
+    sq = __fmaf_rn(x, x, sq);
+    if constexpr (!kBf16) {
+      const float h = tf32_rna(x);
+      hi[i] = h;
+      lo[i] = tf32_rna(__fsub_rn(x, h));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
+  if (lane == 0) qn[row] = sq;
+}
+
+// (rows, d) f32 or bf16, row-major, boxes of 128 rows x 128 bytes (32 f32
+// or 64 bf16 columns), 128-byte swizzle; rows past `rows` and columns
+// past d read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int bf16) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
+  const int elem_bytes = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
-  const cuuint32_t box[2] = {32, 128};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), 128};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem,
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            2, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -525,59 +613,108 @@ bool make_out_map(CUtensorMap* map, float* out, int b, int n) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kBf16, int kGran>
-cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mv,
-                   const CUtensorMap& mo, const void* q, const void* v,
-                   float* out, int b, int n, int d, int grid_x, int tma_out,
-                   cudaStream_t stream) {
-  constexpr int smem = Cfg<kBf16>::kSmemBytes;
+// one launch's tensor maps, pointers and sizes
+struct Launch {
+  CUtensorMap mq, mqlo, mv, mo;   // TMA loads: q (or its hi), q lo, v; out
+  const void *q, *qlo, *v;        // streamed f32: q's hi and lo parts
+  const float* qn;                // streamed: the query norms
+  float* out;
+  int b, n, d, grid_x, tma_out;
+};
+
+template <bool kBf16, int kGran, bool kStream>
+cudaError_t launch(const Launch& a, cudaStream_t stream) {
+  constexpr int smem = Cfg<kBf16, kStream>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      l2dist_wgmma_kernel<kBf16, kGran>,
+      l2dist_wgmma_kernel<kBf16, kGran, kStream>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(grid_x, (b + kBM - 1) / kBM);
-  l2dist_wgmma_kernel<kBf16, kGran><<<grid, kThreads, smem, stream>>>(
-      mq, mv, mo, static_cast<const uint8_t*>(q),
-      static_cast<const uint8_t*>(v), out, b, n, d, tma_out);
+  const dim3 grid(a.grid_x, (a.b + kBM - 1) / kBM);
+  l2dist_wgmma_kernel<kBf16, kGran, kStream>
+      <<<grid, kThreads, smem, stream>>>(
+          a.mq, a.mqlo, a.mv, a.mo, static_cast<const uint8_t*>(a.q),
+          static_cast<const uint8_t*>(a.qlo),
+          static_cast<const uint8_t*>(a.v), a.qn, a.out, a.b, a.n, a.d,
+          a.tma_out);
   return cudaGetLastError();
+}
+
+// the resident query tile up to d = 128, streamed above, for the cp.async
+// granule kGran
+template <bool kBf16, int kGran>
+cudaError_t launch_d(const Launch& a, cudaStream_t stream) {
+  return a.d > kMaxD ? launch<kBf16, kGran, true>(a, stream)
+                     : launch<kBf16, kGran, false>(a, stream);
 }
 
 }  // namespace
 
-// queries (b, d) and vectors (n, d), both f32 (bf16 = 0; d % 4 == 0,
-// loaded by TMA) or both bf16 (bf16 = 1; d even, loaded by cp.async),
-// row-major, each 16-byte aligned, d <= 128; out (b, n) f32; grid_x blocks
-// for each 128-query tile (l2dist/ops.py::l2_plan).  Returns a
+// queries (b, d) and vectors (n, d), both f32 (bf16 = 0; loaded by TMA
+// where d % 4 == 0, else by 4-byte cp.async granules) or both bf16
+// (bf16 = 1; d even, loaded by cp.async, streamed with d % 8 == 0 by
+// TMA), row-major, each 16-byte
+// aligned, any d (the query tile resident up to 128, streamed above); out
+// (b, n) f32; grid_x blocks for each 128-query tile (l2dist/ops.py::
+// l2_plan).  Above d = 128, scratch (16-byte aligned) takes the
+// prologue's output: the b query norms, padded to a multiple of 4, then
+// in f32 q's hi and lo parts (b x d each); null otherwise.  Returns a
 // cudaError_t.
 extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
-                            float* out, int b, int n, int d, int grid_x,
-                            int bf16, void* stream) {
-  if (b < 1 || n < 1 || d < 1 || d > kMaxD || d % (bf16 ? 2 : 4) ||
-      grid_x < 1 || (b + kBM - 1) / kBM > 65535 ||
+                            float* out, float* scratch, int b, int n, int d,
+                            int grid_x, int bf16, void* stream) {
+  const bool streamed = d > kMaxD;
+  if (b < 1 || n < 1 || d < 1 || (bf16 && d % 2) || grid_x < 1 ||
+      (b + kBM - 1) / kBM > 65535 || (streamed && !scratch) ||
       ((reinterpret_cast<uintptr_t>(queries) |
-        reinterpret_cast<uintptr_t>(vectors)) & 15u))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap mq = {}, mv = {}, mo = {};
-  if (!bf16 && (!make_map(&mq, queries, b, d) ||
-                !make_map(&mv, vectors, n, d)))
-    return (int)cudaErrorInvalidValue;
-  // bf16 writes its tiles by TMA where out's rows start on 16 bytes
-  const int tma_out = bf16 && n % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
-  if (tma_out && !make_out_map(&mo, out, b, n))
+        reinterpret_cast<uintptr_t>(vectors) |
+        reinterpret_cast<uintptr_t>(scratch)) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void *q = queries, *v = vectors;
+  Launch a = {};
+  a.q = queries;
+  a.v = vectors;
+  a.out = out;
+  a.b = b;
+  a.n = n;
+  a.d = d;
+  a.grid_x = grid_x;
+  if (streamed) {
+    float* hi = scratch + ((b + 3) & ~3);
+    float* lo = hi + (long long)b * d;
+    if (bf16)
+      l2dist_prologue_kernel<true><<<(b + 7) / 8, 256, 0, st>>>(
+          queries, scratch, hi, lo, b, d);
+    else
+      l2dist_prologue_kernel<false><<<(b + 7) / 8, 256, 0, st>>>(
+          queries, scratch, hi, lo, b, d);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    a.qn = scratch;
+    if (!bf16) {
+      a.q = hi;
+      a.qlo = lo;
+    }
+  }
+  // TMA loads where rows lie on 16 bytes: f32 with d % 4 == 0, streamed
+  // bf16 with d % 8 == 0 (resident bf16 loads by cp.async throughout)
+  const bool tma_in = bf16 ? streamed && d % 8 == 0 : d % 4 == 0;
+  if (tma_in && (!make_map(&a.mq, a.q, b, d, bf16) ||
+                 !make_map(&a.mv, vectors, n, d, bf16) ||
+                 (streamed && !bf16 &&
+                  !make_map(&a.mqlo, a.qlo, b, d, bf16))))
+    return (int)cudaErrorInvalidValue;
+  // resident bf16 writes its tiles by TMA where out's rows start on 16
+  // bytes
+  a.tma_out = bf16 && !streamed && n % 4 == 0 &&
+              (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
+  if (a.tma_out && !make_out_map(&a.mo, out, b, n))
+    return (int)cudaErrorInvalidValue;
   if (!bf16)
-    return (int)launch<false, 0>(mq, mv, mo, q, v, out, b, n, d, grid_x, 0,
-                                 st);
-  // the widest cp.async granule the row stride (2 d bytes) allows
-  if (d % 8 == 0)
-    return (int)launch<true, 16>(mq, mv, mo, q, v, out, b, n, d, grid_x,
-                                 tma_out, st);
-  if (d % 4 == 0)
-    return (int)launch<true, 8>(mq, mv, mo, q, v, out, b, n, d, grid_x,
-                                tma_out, st);
-  return (int)launch<true, 4>(mq, mv, mo, q, v, out, b, n, d, grid_x,
-                              tma_out, st);
+    return (int)(tma_in ? launch_d<false, 0>(a, st)
+                        : launch_d<false, 4>(a, st));
+  if (tma_in) return (int)launch<true, 0, true>(a, st);
+  // else the widest cp.async granule the row stride (2 d bytes) allows
+  if (d % 8 == 0) return (int)launch<true, 16, false>(a, st);
+  if (d % 4 == 0) return (int)launch_d<true, 8>(a, st);
+  return (int)launch_d<true, 4>(a, st);
 }

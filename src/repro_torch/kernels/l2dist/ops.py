@@ -3,22 +3,27 @@
 Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 ``l2dist``; plain version ``ref.l2dist_ref``:
 
-* ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): on the tensor cores, up
-  to d = 128 (the query tile it keeps in shared memory), f32 in 3xTF32
-  for widths d % 4 == 0, loaded by TMA (rows on its 16-byte stride), and
-  bf16 in one product (each product exact in f32) for even widths,
+* ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): on the tensor cores, f32
+  of every width in 3xTF32, loaded by TMA where d % 4 == 0 (rows on its
+  16-byte stride) and by 4-byte ``cp.async`` granules otherwise, and
+  bf16 of every even width in one product (each product exact in f32),
   loaded by ``cp.async`` in the widest granule the row stride allows (16
   bytes where d % 8 == 0, else 8 or 4: SPACEV1B's d = 100 has rows of
-  200 bytes); q or v that does not start on a 16-byte boundary is copied
-  first; its persistent grid comes from :func:`l2_plan`;
-* ``l2dist`` (``csrc/l2dist.cu``): f32 or bf16 on the CUDA cores, for
-  every other width: f32 with d % 4 != 0, bf16 of odd width (rows on
-  2-byte boundaries), d > 128.
+  200 bytes); the query tile stays in shared memory up to d = 128 and
+  rides the ring with the vectors above (GIST1M's d = 960; there bf16
+  with d % 8 == 0 loads by TMA, and a prologue kernel writes the query
+  norms and, in f32, q's TF32 hi and lo parts into a scratch buffer this
+  wrapper allocates); q or v that does not start on a 16-byte boundary
+  is copied first; its persistent grid comes from :func:`l2_plan`;
+* ``l2dist`` (``csrc/l2dist.cu``): bf16 of odd width (rows on 2-byte
+  boundaries, which no ``cp.async`` granule takes) on the CUDA cores.
 
 :func:`l2_kernel` states that rule, :func:`l2_instance` the key a launch
-is counted under: the bf16 instantiation of the tensor-core kernel counts
-apart, as ``l2dist_wgmma[bf16]`` (rows on the 16-byte stride) and
-``l2dist_wgmma[bf16,off16]`` (rows off it).  The wrapper runs the plain
+is counted under: the tensor-core kernel counts its launches apart as
+``l2dist_wgmma[d>128]`` (f32, streamed query tile),
+``l2dist_wgmma[bf16]`` (bf16 rows on the 16-byte stride, d <= 128),
+``l2dist_wgmma[bf16,off16]`` (other even d <= 128) and
+``l2dist_wgmma[bf16,d>128]``.  The wrapper runs the plain
 version when its tensors lie on the CPU.  On CUDA tensors it launches the kernel
 the rule names, or raises: it checks device, dtype, shape and contiguity
 first and the ``cudaError_t`` after, allocates the output with
@@ -35,30 +40,36 @@ from repro_torch.kernels.l2dist.ref import l2dist_ref
 from repro_torch.kernels.launch import check, launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_WGMMA_MAX_D = 128              # l2dist_wgmma.cu: kMaxD
+_RESIDENT_MAX_D = 128           # l2dist_wgmma.cu: kMaxD
 _WGMMA_TILE = 128               # l2dist_wgmma.cu: kBM = kBN
 
 
 def l2_kernel(dtype: torch.dtype, d: int) -> str:
     """The kernel that computes distances of inputs of ``dtype`` and width
-    ``d``: ``l2dist_wgmma`` for f32 with d % 4 == 0 and for bf16 of even
-    width, each up to d = 128; ``l2dist`` for everything else."""
-    step = 4 if dtype == torch.float32 else 2   # f32: a 16-byte row stride
-    if d % step == 0 and 0 < d <= _WGMMA_MAX_D:
-        return "l2dist_wgmma"
-    return "l2dist"
+    ``d``: ``l2dist_wgmma`` for f32 of every width and bf16 of even width;
+    ``l2dist`` for bf16 of odd width (rows on 2 bytes)."""
+    if dtype == torch.bfloat16 and d % 2:
+        return "l2dist"
+    return "l2dist_wgmma"
 
 
 def l2_instance(dtype: torch.dtype, d: int) -> str:
-    """The ``LAUNCHES`` key of the kernel :func:`l2_kernel` names: for its
-    bf16 instantiation ``l2dist_wgmma[bf16]`` where d % 8 == 0 (rows on
-    16 bytes, 16-byte copies) and ``l2dist_wgmma[bf16,off16]`` for other
-    even d (8- or 4-byte copies); else its name."""
+    """The ``LAUNCHES`` key of the kernel :func:`l2_kernel` names: for
+    ``l2dist_wgmma`` above d = 128 (the query tile streamed)
+    ``l2dist_wgmma[d>128]`` in f32 and ``l2dist_wgmma[bf16,d>128]`` in
+    bf16; up to 128, ``l2dist_wgmma`` in f32, and in bf16
+    ``l2dist_wgmma[bf16]`` where d % 8 == 0 (rows on 16 bytes, 16-byte
+    copies) and ``l2dist_wgmma[bf16,off16]`` for other even d (8- or
+    4-byte copies); else its name."""
     name = l2_kernel(dtype, d)
-    if name == "l2dist_wgmma" and dtype == torch.bfloat16:
-        return "l2dist_wgmma[bf16]" if d % 8 == 0 else \
-            "l2dist_wgmma[bf16,off16]"
-    return name
+    if name != "l2dist_wgmma":
+        return name
+    bf16 = dtype == torch.bfloat16
+    if d > _RESIDENT_MAX_D:
+        return "l2dist_wgmma[bf16,d>128]" if bf16 else "l2dist_wgmma[d>128]"
+    if not bf16:
+        return name
+    return "l2dist_wgmma[bf16]" if d % 8 == 0 else "l2dist_wgmma[bf16,off16]"
 
 
 def l2_plan(b: int, n: int, sms: int) -> int:
@@ -92,17 +103,23 @@ def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
     out = torch.empty(b, n, dtype=torch.float32, device=dev)
     if not (b and n):
         return out
-    bf16 = int(queries.dtype == torch.bfloat16)
     name = l2_instance(queries.dtype, d)
     if name != "l2dist":
-        # its loads (TMA, 16-byte copies) start on 16-byte boundaries: a
-        # view that starts elsewhere is copied into a fresh buffer first
+        # its loads (TMA, cp.async granules) start on 16-byte boundaries:
+        # a view that starts elsewhere is copied into a fresh buffer first
         queries, vectors = (x if x.data_ptr() % 16 == 0 else x.clone()
                             for x in (queries, vectors))
+        bf16 = queries.dtype == torch.bfloat16
+        # above d = 128 the kernel's prologue writes the query norms (b,
+        # padded to 4) and, in f32, q's TF32 hi and lo parts here
+        scratch = (torch.empty(-(-b // 4) * 4 + (0 if bf16 else 2 * b * d),
+                               dtype=torch.float32, device=dev)
+                   if d > _RESIDENT_MAX_D else None)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), b, n, d, l2_plan(b, n, sms), bf16)
+               out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+               b, n, d, l2_plan(b, n, sms), int(bf16))
     else:
         launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), b, n, d, bf16)
+               out.data_ptr(), b, n, d)
     return out

@@ -20,7 +20,9 @@ from repro_torch.kernels.build import SOURCES, load
 
 # instantiations counted apart from the source's own name: "<source>[x]"
 # launches the library of <source> and counts under its own key
-INSTANCES = ("l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]")
+INSTANCES = ("l2dist_wgmma[d>128]", "l2dist_wgmma[bf16]",
+             "l2dist_wgmma[bf16,off16]", "l2dist_wgmma[bf16,d>128]",
+             "flash_attn_fwd_wgmma[padded]", "flash_attn_fwd_tf32[padded]")
 # kernel launches since the last reset_launches()
 LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
@@ -31,8 +33,8 @@ _SIGNATURES = {
     "adc_fused_topk": (_P,) * 6 + (_I,) * 12 + (_P,),
     "adc_scan": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
-    "l2dist": (_P, _P, _P) + (_I,) * 4 + (_P,),
-    "l2dist_wgmma": (_P, _P, _P) + (_I,) * 5 + (_P,),
+    "l2dist": (_P, _P, _P) + (_I,) * 3 + (_P,),
+    "l2dist_wgmma": (_P,) * 4 + (_I,) * 5 + (_P,),
     "flash_attn_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
     "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
     "flash_attn_fwd_tf32": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),

@@ -12,7 +12,8 @@ versions' operations in order and agree to the bit), ids exactly; exact L2 rtol
 values of size D; the tensor-core kernel's 3xTF32 product also drops the
 lo*lo term, about 2^-22 of each product; its bf16 products are exact in
 f32) and bit for bit on integer data below 256 in f32 and bf16 (every
-partial sum an integer below 2^24); flash attention 2e-5
+partial sum an integer below 2^24; below 128 where d > 132, since
+960 * 127^2 < 2^24); flash attention 2e-5
 in f32 (an online softmax against a plain one; the 3xTF32 kernel at dh 64
 and 128 drops only the lo*lo terms) and, in bf16, 5e-2 for
 every element and 2^-6 for each (b, s, h) row's L2 error over the row's
@@ -29,7 +30,8 @@ import torch
 
 from repro_torch.core import pq
 from repro_torch.kernels import launch
-from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
+                                            flash_instance, flash_kernel)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                         l2_kernel, l2dist_ref)
 from repro_torch.kernels.pq_adc import ops, ref
@@ -252,9 +254,9 @@ def _aligned_or_not(x, offset):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_l2dist_matches_plain(cuda, dtype):
-    """Both kernels of l2_kernel's rule in either dtype (d 96, 100 and
-    128 run on the tensor cores, and bf16 also at d 102; d 1, 132 and
-    960, and f32 at d 102, on the CUDA cores), with ragged B and N, edge
+    """Both kernels of l2_kernel's rule (every f32 width and every even
+    bf16 width on the tensor cores, 132 and 960 with the query tile
+    streamed; bf16 at d 1 on the CUDA cores), with ragged B and N, edge
     tiles and a k tail; integer data bit for bit on each kernel."""
     rng = np.random.default_rng(24)
     ran = set()
@@ -268,7 +270,9 @@ def test_cuda_l2dist_matches_plain(cuda, dtype):
         ran.add(l2_kernel(dtype, d))
         torch.testing.assert_close(got, l2dist_ref(q, v), rtol=RTOL,
                                    atol=1e-3)
-    assert ran == {"l2dist", "l2dist_wgmma"}
+    # odd bf16 widths (d 1) are the CUDA-core kernel's
+    assert ran == ({"l2dist", "l2dist_wgmma"} if dtype == torch.bfloat16
+                   else {"l2dist_wgmma"})
     # integers below 256 (exact in bf16 too): every partial sum is exact in
     # f32, so the two agree exactly (at d 132 still below 2^24: 132 * 255^2)
     for d in (128, 132):
@@ -283,7 +287,8 @@ def test_cuda_l2dist_matches_plain(cuda, dtype):
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
 @pytest.mark.parametrize("dtype,n,d", [
     *((torch.float32, n, d) for n, d in ((777, 4), (5003, 96), (777, 100),
-                                         (5003, 128))),
+                                         (5003, 128), (777, 1), (5003, 6),
+                                         (777, 102))),
     *((torch.bfloat16, n, d) for n, d in (
         (777, 4), (5003, 96), (777, 100), (5003, 128), (777, 2), (5003, 6),
         (777, 36), (5003, 102), (777, 126), (777, 8), (5003, 104))),
@@ -292,7 +297,8 @@ def test_cuda_l2dist_wgmma_matches_plain(cuda, b, n, d, offset, dtype):
     """The tensor-core kernel in both instantiations: ragged B and N, d
     off the 128-byte k-slice, views that do not start on a 16-byte
     boundary (copied first); normal values to the L2 tolerance, integers
-    bit for bit.  f32 loads by TMA; bf16 by cp.async in 16-byte granules
+    bit for bit.  f32 loads by TMA where d % 4 == 0, by 4-byte cp.async
+    copies at d 1, 6 and 102; bf16 by cp.async in 16-byte granules
     where rows lie on the 16-byte stride (d 8, 96, 104, 128), else in
     8-byte (d % 4 == 0) or 4-byte ones (2, 4, 6, 36, 100, 102, 126); the
     columns past d (up to the 64-column k-slice) and the rows past B and N
@@ -319,15 +325,60 @@ def test_cuda_l2dist_wgmma_matches_plain(cuda, b, n, d, offset, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 129, 256])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("dtype,n,d", [
+    *((torch.float32, n, d) for n, d in (
+        (777, 129), (5003, 131), (777, 132), (5003, 200), (777, 256),
+        (5003, 384), (777, 960))),
+    *((torch.bfloat16, n, d) for n, d in (
+        (5003, 130), (777, 132), (5003, 200), (777, 256), (5003, 384),
+        (777, 960))),
+], ids=lambda x: {torch.float32: "f32", torch.bfloat16: "bf16"}.get(x, x))
+def test_cuda_l2dist_wgmma_streamed_matches_plain(cuda, b, n, d, offset,
+                                                  dtype):
+    """The tensor-core kernel above d = 128, where the query tile's
+    k-slices ride the ring beside the vectors': ragged B and N, views off
+    a 16-byte boundary (copied first), a k tail in the last slice (129,
+    130, 131, 132, 200, 384) or none (256, 960); f32 by TMA where
+    d % 4 == 0, by 4-byte cp.async copies at 129 and 131; bf16 by
+    cp.async granules of 16 bytes (d % 8 == 0) or 4 (130); normal values
+    to the L2 tolerance, integers in [0, 128) bit for bit (960 * 127^2 <
+    2^24, so every partial sum is exact)."""
+    rng = np.random.default_rng(35)
+    assert l2_kernel(dtype, d) == "l2dist_wgmma"
+    assert l2_instance(dtype, d) == ("l2dist_wgmma[bf16,d>128]"
+                                     if dtype == torch.bfloat16
+                                     else "l2dist_wgmma[d>128]")
+
+    def make(shape, ints):
+        x = rng.integers(0, 128, shape) if ints else rng.standard_normal(
+            shape)
+        x = _t(x.astype(np.float32)).to(cuda, dtype)
+        return _aligned_or_not(x, offset)
+
+    for ints in (False, True):
+        q, v = make((b, d), ints), make((n, d), ints)
+        got = _l2_launched(q, v)
+        want = l2dist_ref(q, v)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-3)
+        if ints:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 132, 256])
 @pytest.mark.parametrize("int_side", ["queries", "vectors"])
-def test_cuda_l2dist_wgmma_cross_terms(cuda, int_side):
+def test_cuda_l2dist_wgmma_cross_terms(cuda, int_side, d):
     """One operand small integers (its lo part is 0), the other normal,
-    so every distance is about 640 and its limit about 0.0074: a dropped
-    or doubled hi*lo or lo*hi product moves each distance by 2 * sum(int
-    * lo), about 0.006 RMS, and the largest of the 387k by several times
-    the limit."""
+    so every distance is about 5 d and its limit about 1e-3 + 5e-5 d: a
+    dropped or doubled hi*lo or lo*hi product moves each distance by
+    2 * sum(int * lo), about 0.006 RMS at d = 128 (limit 0.0074) and
+    0.008 at 256 (limit 0.014), and the largest of the 387k by several
+    times the limit; d = 128 keeps the query tile resident, 132 and 256
+    stream it (the q split of every landed slice)."""
     rng = np.random.default_rng(30)
-    b, n, d = 129, 3001, 128
+    b, n = 129, 3001
     ints = rng.integers(-3, 4, (b if int_side == "queries" else n, d))
     normal = rng.standard_normal((n if int_side == "queries" else b, d))
     q, v = ((ints, normal) if int_side == "queries" else (normal, ints))
@@ -403,7 +454,7 @@ def test_cuda_flash_tf32_matches_plain(cuda, dh, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("side", ["scores", "values"])
 def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
     """Inputs on which every lo term of the 3xTF32 kernel moves the
@@ -413,7 +464,8 @@ def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
     dropped, a weight by ~5.6e-4 of itself; "values": v eight times as
     large, so a dropped P hi * V lo or P lo * V hi moves the output by
     ~1e-3 or ~5e-4 against a limit of ~1.8e-4.  Causal, so the first rows
-    of each head, over a few keys, carry the whole error."""
+    of each head, over a few keys, carry the whole error.  dh = 96 runs on
+    the 128 instance, its last box never loaded."""
     rng = np.random.default_rng(33)
     B, S, H, Hk = 2, 80, 4, 2
     gain = dict(scores=(2.0, 2.0, 1.0), values=(1.0, 1.0, 8.0))[side]
@@ -423,28 +475,103 @@ def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
     before = dict(launch.LAUNCHES)
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert launch.LAUNCHES["flash_attn_fwd_tf32"] == \
-        before["flash_attn_fwd_tf32"] + 1
+    key = flash_instance(torch.float32, dh)
+    assert launch.LAUNCHES[key] == before[key] + 1
     _assert_attn_close(got, flash_attn_ref(q, k, v, causal=True))
+
+
+def _flash_case(rng, cuda, dtype, shape, dh, causal):
+    """One flash call on the card against its plain version: the one
+    launch it made must be the one flash_instance names."""
+    B, S, T, H, Hk = shape
+    q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)).to(
+        cuda, dtype) for sh in ((B, S, H, dh), (B, T, Hk, dh),
+                                (B, T, Hk, dh)))
+    before = dict(launch.LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    grew = {name: c - before[name] for name, c in launch.LAUNCHES.items()
+            if c != before[name]}
+    assert grew == {flash_instance(dtype, dh): 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [8, 16, 32, 48, 80, 96, 112])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_padded_heads_match_plain(cuda, dtype, dh, causal):
+    """The tensor-core kernels at head widths other than 64 and 128: the
+    64 instance up to dh = 64, the 128 one above, the tensor maps' inner
+    extent the true dh (TMA fills the columns past it with zeros; at f32
+    dh <= 32 and 68..96 a box lies wholly past dh and is never loaded),
+    stores masked to dh, scale 1/sqrt(dh); S and T off the tiles, S != T
+    both ways, MQA (Hk = 1), G = 2; f32's 2e-5 and the bf16 limits."""
+    rng = np.random.default_rng(36)
+    assert flash_instance(dtype, dh) == f"{flash_kernel(dtype, dh)}[padded]"
+    for shape in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
+                  (1, 300, 70, 2, 1), (1, 33, 33, 2, 2)):
+        _flash_case(rng, cuda, dtype, shape, dh, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,dh", [
+    (torch.float32, 6), (torch.float32, 132), (torch.float32, 192),
+    (torch.float32, 256), (torch.bfloat16, 6), (torch.bfloat16, 36),
+    (torch.bfloat16, 132), (torch.bfloat16, 192), (torch.bfloat16, 256),
+], ids=lambda x: {torch.float32: "f32", torch.bfloat16: "bf16"}.get(x, x))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_cuda_cores_match_plain(cuda, dtype, dh, causal):
+    """The CUDA-core kernel at the head widths the tensor-core ones do not
+    take: rows off 16 bytes (6; bf16 36), and above 128 (132, DeepSeek-V2's
+    192, 256: 64 sums a thread, one block an SM); S and T off the tiles,
+    S != T both ways, MQA, G = 2."""
+    rng = np.random.default_rng(37)
+    assert flash_kernel(dtype, dh) == "flash_attn_fwd"
+    for shape in ((2, 100, 100, 4, 2), (1, 70, 130, 4, 1),
+                  (1, 130, 70, 2, 1)):
+        _flash_case(rng, cuda, dtype, shape, dh, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_dh192_no_longer_raises(cuda, dtype):
+    """dh = 192 (DeepSeek-V2's qk width) raised on the card when the
+    CUDA-core kernel stopped at 128, while the JAX package and the CPU
+    path computed it; it now runs there, and dh = 257 raises, naming the
+    limit."""
+    rng = np.random.default_rng(38)
+    _flash_case(rng, cuda, dtype, (1, 64, 64, 2, 1), 192, True)
+    x = torch.zeros(1, 8, 2, 257, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="256"):
+        flash_attention(x, x, x)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,dh,offset,kernel", [
     (torch.bfloat16, 128, 0, "flash_attn_fwd_wgmma"),
     (torch.bfloat16, 64, 0, "flash_attn_fwd_wgmma"),
-    (torch.bfloat16, 96, 0, "flash_attn_fwd"),
+    (torch.bfloat16, 96, 0, "flash_attn_fwd_wgmma[padded]"),
+    (torch.bfloat16, 36, 0, "flash_attn_fwd"),
     (torch.bfloat16, 128, 1, "flash_attn_fwd_wgmma"),   # copied to align
+    (torch.bfloat16, 96, 1, "flash_attn_fwd_wgmma[padded]"),
     (torch.float32, 128, 0, "flash_attn_fwd_tf32"),
     (torch.float32, 64, 0, "flash_attn_fwd_tf32"),
-    (torch.float32, 96, 0, "flash_attn_fwd"),
+    (torch.float32, 96, 0, "flash_attn_fwd_tf32[padded]"),
+    (torch.float32, 6, 0, "flash_attn_fwd"),
     (torch.float32, 128, 1, "flash_attn_fwd_tf32"),     # copied to align
+    (torch.float32, 96, 1, "flash_attn_fwd_tf32[padded]"),
 ])
 def test_cuda_flash_dispatch_launches(cuda, dtype, dh, offset, kernel):
-    """Other head widths run on the CUDA-core kernel, dh 64 or 128 on the
-    tensor-core ones (bf16 on flash_attn_fwd_wgmma, f32 in 3xTF32 on
-    flash_attn_fwd_tf32), also from views that do not start on a 16-byte
-    boundary; the launch count of the kernel that ran, and only it, goes
-    up."""
+    """Head widths up to 128 on TMA's 16-byte row stride run on the
+    tensor-core kernels (bf16 on flash_attn_fwd_wgmma, f32 in 3xTF32 on
+    flash_attn_fwd_tf32; other than 64 and 128 counted as [padded]),
+    other head widths on the CUDA-core kernel, also from views that do
+    not start on a 16-byte boundary; the launch count of the kernel that
+    ran, and only it, goes up."""
     rng = np.random.default_rng(28)
     shapes = ((1, 100, 4, dh), (1, 100, 2, dh), (1, 100, 2, dh))
     qkv = []

@@ -36,7 +36,7 @@ from repro.kernels.pq_adc import pq_adc_topk as j_pq_adc_topk
 from repro_torch.core.engine import ground_truth
 from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
-                                            flash_kernel)
+                                            flash_instance, flash_kernel)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                         l2_kernel, l2_plan, l2dist_ref)
 from repro_torch.kernels.pq_adc import ops, ref
@@ -131,6 +131,12 @@ def _bf16(x: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("b,n,d,bf16", [
     (1, 64, 32, False), (8, 256, 96, False), (16, 100, 128, True),
     (128, 1000, 100, False),
+    # above the resident query tile (d > 128), the streamed widths of the
+    # tensor-core kernel: Text2Image-1B's 200, 384, GIST1M's 960; bf16 at
+    # an even width off 16 bytes; f32 at a width off 16 bytes (4-byte
+    # copies on the card)
+    (3, 200, 200, False), (5, 130, 384, False), (2, 128, 960, False),
+    (8, 100, 130, True), (7, 90, 102, False),
 ])
 @MODES
 def test_l2_distances_match_jax(b, n, d, bf16, use_kernel):
@@ -176,6 +182,13 @@ def test_ground_truth_matches_jax():
     (2, 64, 6, 3, 8, True, 16, 16),
     (1, 24, 4, 1, 8, True, 8, 8),       # MQA
     (1, 16, 2, 2, 8, True, 16, 16),     # single block
+    # head widths the card takes on padded tensor-core instances (96, 80)
+    # and on the CUDA cores (6, DeepSeek-V2's qk width 192, 256)
+    (1, 16, 2, 1, 96, True, 8, 8),
+    (1, 32, 4, 2, 80, False, 16, 16),
+    (2, 16, 2, 2, 6, True, 8, 8),
+    (1, 16, 2, 1, 192, True, 16, 8),
+    (1, 16, 2, 2, 256, False, 8, 16),
 ])
 @MODES
 def test_flash_attention_matches_jax(B, S, H, Hk, dh, causal, bq, bk,
@@ -244,21 +257,52 @@ def test_new_wrappers_run_plain_versions_on_cpu_tensors():
 @pytest.mark.parametrize("dtype,dh,kernel", [
     (torch.bfloat16, 128, "flash_attn_fwd_wgmma"),
     (torch.bfloat16, 64, "flash_attn_fwd_wgmma"),
-    (torch.bfloat16, 96, "flash_attn_fwd"),
-    (torch.bfloat16, 32, "flash_attn_fwd"),
-    (torch.bfloat16, 8, "flash_attn_fwd"),
+    (torch.bfloat16, 96, "flash_attn_fwd_wgmma"),   # padded to 128
+    (torch.bfloat16, 32, "flash_attn_fwd_wgmma"),   # padded to 64
+    (torch.bfloat16, 8, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 36, "flash_attn_fwd"),         # rows off 16 bytes
+    (torch.bfloat16, 6, "flash_attn_fwd"),
+    (torch.bfloat16, 136, "flash_attn_fwd"),        # wider than 128
+    (torch.bfloat16, 192, "flash_attn_fwd"),
+    (torch.bfloat16, 256, "flash_attn_fwd"),
     (torch.float32, 128, "flash_attn_fwd_tf32"),
     (torch.float32, 64, "flash_attn_fwd_tf32"),
-    (torch.float32, 96, "flash_attn_fwd"),
-    (torch.float32, 32, "flash_attn_fwd"),
-    (torch.float32, 8, "flash_attn_fwd"),
+    (torch.float32, 96, "flash_attn_fwd_tf32"),     # padded to 128
+    (torch.float32, 32, "flash_attn_fwd_tf32"),     # padded to 64
+    (torch.float32, 36, "flash_attn_fwd_tf32"),
+    (torch.float32, 8, "flash_attn_fwd_tf32"),
+    (torch.float32, 6, "flash_attn_fwd"),           # rows off 16 bytes
+    (torch.float32, 1, "flash_attn_fwd"),
+    (torch.float32, 132, "flash_attn_fwd"),         # wider than 128
+    (torch.float32, 192, "flash_attn_fwd"),
+    (torch.float32, 256, "flash_attn_fwd"),
 ])
 def test_flash_kernel_rule(dtype, dh, kernel):
-    """At dh 64 or 128, bf16 goes to the bf16 tensor-core kernel and f32
-    to the 3xTF32 one (three TF32 products keep f32's tolerance, one
-    would break it); other head widths to the CUDA-core one."""
+    """Up to dh = 128, bf16 with dh % 8 == 0 goes to the bf16 tensor-core
+    kernel and f32 with dh % 4 == 0 to the 3xTF32 one (three TF32
+    products keep f32's tolerance, one would break it): their rows lie on
+    TMA's 16-byte stride.  Every other head width up to 256 goes to the
+    CUDA-core one.  A tensor-core kernel at a width other than its
+    instance's 64 or 128 counts its launches apart."""
     assert flash_kernel(dtype, dh) == kernel
-    assert kernel in launch.LAUNCHES
+    key = flash_instance(dtype, dh)
+    if kernel != "flash_attn_fwd" and dh not in (64, 128):
+        assert key == f"{kernel}[padded]"
+    else:
+        assert key == kernel
+    assert key in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("dh", [0, 257, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_rule_limits(dtype, dh):
+    """The card's kernels take 1 <= dh <= 256: past that the rule raises,
+    naming the limit (the wrapper raises so on CUDA tensors; on the CPU it
+    runs the plain version, which takes any width, as the JAX package
+    does)."""
+    with pytest.raises(ValueError, match="256"):
+        flash_kernel(dtype, dh)
 
 
 @pytest.mark.parametrize("dtype,d,kernel", [
@@ -266,34 +310,42 @@ def test_flash_kernel_rule(dtype, dh, kernel):
     (torch.float32, 96, "l2dist_wgmma"),
     (torch.float32, 100, "l2dist_wgmma"),     # d off the 32-column slice
     (torch.float32, 4, "l2dist_wgmma"),
-    (torch.float32, 1, "l2dist"),             # row stride off 16 bytes
-    (torch.float32, 102, "l2dist"),
-    (torch.float32, 132, "l2dist"),           # wider than the q tile
-    (torch.float32, 960, "l2dist"),
+    (torch.float32, 1, "l2dist_wgmma"),       # row stride off 16 bytes:
+    (torch.float32, 102, "l2dist_wgmma"),     # 4-byte cp.async copies
+    (torch.float32, 132, "l2dist_wgmma"),     # the query tile streamed
+    (torch.float32, 960, "l2dist_wgmma"),     # GIST1M
+    (torch.float32, 131, "l2dist_wgmma"),
     (torch.bfloat16, 128, "l2dist_wgmma"),    # the chunk in bf16
     (torch.bfloat16, 96, "l2dist_wgmma"),
     (torch.bfloat16, 100, "l2dist_wgmma"),    # SPACEV1B: cp.async loads
-    (torch.bfloat16, 960, "l2dist"),          # wider than the q tile
+    (torch.bfloat16, 960, "l2dist_wgmma"),    # the query tile streamed
     (torch.bfloat16, 102, "l2dist_wgmma"),    # 4-byte granules
     (torch.bfloat16, 2, "l2dist_wgmma"),
     (torch.bfloat16, 126, "l2dist_wgmma"),
     (torch.bfloat16, 101, "l2dist"),          # odd: rows on 2 bytes
     (torch.bfloat16, 1, "l2dist"),
-    (torch.bfloat16, 130, "l2dist"),          # wider than the q tile
+    (torch.bfloat16, 129, "l2dist"),
+    (torch.bfloat16, 130, "l2dist_wgmma"),    # streamed, off 16 bytes
 ])
 def test_l2_kernel_rule(dtype, d, kernel):
-    """f32 with d % 4 == 0 (TMA's 16-byte row stride) and bf16 of even
-    width, each with d <= 128 (the query tile kept in shared memory), go
-    to the tensor-core kernel; every other width to the CUDA-core one.
-    The bf16 instantiation counts its launches apart: rows on the 16-byte
-    stride (d % 8 == 0) and the other even widths."""
+    """f32 of every width and bf16 of every even width go to the
+    tensor-core kernel (f32 loaded by TMA where d % 4 == 0, else by 4-byte
+    cp.async copies; the query tile resident up to d = 128, streamed
+    above); odd bf16 widths, whose rows lie on 2 bytes, to the CUDA-core
+    one.  The tensor-core kernel counts its launches apart: f32 above 128,
+    and in bf16 rows on the 16-byte stride (d % 8 == 0), the other even
+    widths, and widths above 128."""
     assert l2_kernel(dtype, d) == kernel
     key = l2_instance(dtype, d)
-    if kernel == "l2dist_wgmma" and dtype == torch.bfloat16:
+    if kernel == "l2dist":
+        assert key == kernel
+    elif dtype == torch.float32:
+        assert key == ("l2dist_wgmma[d>128]" if d > 128 else "l2dist_wgmma")
+    elif d > 128:
+        assert key == "l2dist_wgmma[bf16,d>128]"
+    else:
         assert key == ("l2dist_wgmma[bf16]" if d % 8 == 0
                        else "l2dist_wgmma[bf16,off16]")
-    else:
-        assert key == kernel
     assert key in launch.LAUNCHES
 
 
