@@ -5,28 +5,31 @@
 
 From the root of a checkout, with one CUDA card:
 
-1. prints the card's name and power limit, builds the nine CUDA kernels
-   from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, in
-   parallel), prints the build time and each ``ptxas`` register/spill line;
+1. prints the card's name and power limit, builds the seven CUDA kernel
+   sources from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per
+   source, in parallel), prints the build time and each ``ptxas``
+   register/spill line;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes: the ADC scans at ragged N, B = 1 and 64, S not a multiple
    of the block, all-pad rows, a mostly-padding last block, N < topk,
    constructed ties, M in {8, 32} (and 16 for the single-query scans; the
-   fused scan bit for bit also at 24 and 25, S up to 8,192, rows >= N),
-   rows in descending distance and a topk that fills the top-k kernel's
-   candidate buffer; exact L2 in f32 and bf16 (both kernels of
-   ``l2_kernel``'s rule, every instantiation of the tensor-core one: f32
-   loading by TMA where d % 4 == 0 and by 4-byte ``cp.async`` copies
+   fused scan bit for bit also at 24 and 25, S up to 8,192, rows >= N,
+   and on its spill route at S = 32,768 with tk = 4,096), rows in
+   descending distance and a topk that fills the top-k kernel's
+   candidate buffer; exact L2 (every instantiation of ``l2dist_wgmma``:
+   f32 loading by TMA where d % 4 == 0 and by 4-byte ``cp.async`` copies
    otherwise, bf16 by ``cp.async`` in 16-byte granules or, at even widths
-   off the 16-byte row stride, 8- or 4-byte ones, the query tile resident
-   up to d = 128 and streamed above; odd bf16 widths on the CUDA cores:
-   d in {1, 2, 4, 6, 8, 36, 96, 100, 101, 102, 104, 126, 128, 132, 960},
-   views off a 16-byte boundary, integer data bit for bit at d 100, 101,
-   102, 128, 132 and, below 128, 960); flash attention in f32 and bf16
-   (all three kernels of ``flash_kernel``'s rule: on the tensor cores,
-   in 3xTF32 for f32, at dh 8, 16, 64, 96 and 128, and f32 at 36; on the
-   CUDA cores at 6, bf16 36, 192 and 256), ragged sizes, MQA (Hk = 1),
-   causal and not, S != T;
+   off the 16-byte row stride, 8- or 4-byte ones, odd bf16 widths with
+   zero columns to a multiple of 8, the query tile resident up to d = 128
+   and streamed
+   above: d in {1, 2, 4, 6, 8, 36, 96, 100, 101, 102, 104, 126, 128, 132,
+   960}, views off a 16-byte boundary, integer data bit for bit at d 100,
+   101, 102, 128, 132 and, below 128, 960; uint8, int8, f16 and mixed
+   inputs and a strided view); flash attention in f32 and bf16 (both
+   kernels of ``flash_kernel``'s rule, on the tensor cores, in 3xTF32 for
+   f32, at dh 8, 16, 64, 96, 128, 192 and 256, f32 at 36, and off the
+   16-byte stride at 6, 100 and bf16 36, zero-padded), f16 and mixed
+   inputs, ragged sizes, MQA (Hk = 1), causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
    ``FusionANNSIndex.build``, and prints the cuts of scale on a
@@ -48,23 +51,28 @@ From the root of a checkout, with one CUDA card:
    first top_n of a stable argsort of ``pq_adc``); ``l2_distances`` on the
    first ground-truth chunk in f32, in bf16, in bf16 cut to SPACEV1B's
    width (d = 100, rows of 200 bytes, off the 16-byte stride) and in
-   bf16 cut to an odd d = 101 (rows on 2 bytes: the CUDA-core kernel's
-   call), each bit-equal to its plain version on the chunk's integers,
+   bf16 cut to an odd d = 101 (rows on 2 bytes: zero-padded to 104),
+   and the chunk's integers passed as uint8 (computed in bf16), each
+   bit-equal to its plain version on the chunk's integers,
    then in f32 and bf16 on normal values of its shape, and in f32 and
    bf16 at GIST1M's width (d = 960, normal values, 2^20 rows: the query
    tile streamed); ``flash_attention`` at Qwen3-0.6B's attention widths
    (H = 16, Hk = 8), B = 1, S = T = 4096, causal, in bf16 and in f32 at
-   dh = 128 and at dh = 96 (a width no model of the repo has: the
-   tensor-core kernels' 128 instances, padded), and in f32 at dh = 256
-   (the CUDA-core kernel's call); each against its plain version.  It
-   fails unless each call launched the kernel its rule names, counted
-   under its key: ``l2dist_wgmma`` (f32, d = 128),
-   ``l2dist_wgmma[bf16]``, ``l2dist_wgmma[bf16,off16]`` (d = 100),
-   ``l2dist`` (d = 101), ``l2dist_wgmma[d>128]`` and
-   ``l2dist_wgmma[bf16,d>128]`` (d = 960); ``flash_attn_fwd_wgmma``
-   (bf16) and ``flash_attn_fwd_tf32`` (f32, 3xTF32 on the tensor cores)
-   at dh = 128, the same kernels as ``[padded]`` at dh = 96, and
-   ``flash_attn_fwd`` (CUDA cores) at dh = 256;
+   dh = 128, at dh = 96 (a width no model of the repo has: the
+   tensor-core kernels' 128 instances, padded) and at dh = 256 (their 256
+   instances), and in bf16 at dh = 100 (off the 16-byte stride: copied
+   with zero columns); and the fused scan's spill route at a window of
+   B = 64, S = 32,768 (each query's valid rows uniform in [S/4, 3S/4]),
+   tk = 4,096, in f32 and int8, bit-equal to its plain version; each
+   against its plain version.  It fails unless each call launched the
+   kernel its rule names, counted under its key: ``l2dist_wgmma`` (f32,
+   d = 128), ``l2dist_wgmma[bf16]`` (bf16 and uint8),
+   ``l2dist_wgmma[bf16,off16]`` (d = 100), ``l2dist_wgmma[bf16,odd]``
+   (d = 101), ``l2dist_wgmma[d>128]`` and ``l2dist_wgmma[bf16,d>128]``
+   (d = 960); ``flash_attn_fwd_wgmma`` (bf16) and ``flash_attn_fwd_tf32``
+   (f32, 3xTF32) at dh = 128, the same kernels as ``[padded]`` at dh =
+   96 and ``[256]`` at dh = 256, ``flash_attn_fwd_wgmma[stride-pad]`` at
+   dh = 100; ``adc_fused_topk[spill]``;
 6. holds each kernel against its plain version on the inputs its path
    gave it (the fused scan bit for bit, and once more at a multi-block
    window of S = 8,192 slots, timed and logged on its own line), and times
@@ -77,8 +85,8 @@ From the root of a checkout, with one CUDA card:
    67), or the bytes at 3.35 TB/s, whichever is larger.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
-5e-2 in bf16) and, in bf16, row by row: each (b, s, h) row's L2 error
-within 2^-6 of its L2 norm (``check_attn``).
+2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
+row's L2 error within 2^-6 of its L2 norm (``check_attn``).
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -106,6 +114,7 @@ BF16_FLOPS = 989e12              # dense bf16 on the tensor cores
 RTOL = 1e-5                      # M f32 terms summed in another order
 L2_ATOL = 1e-3                   # D products summed in another order
 FLASH_TOL = {torch.float32: 2e-5,    # online softmax against a plain one
+             torch.float16: 2e-3,    # output rounded to f16 on each side
              torch.bfloat16: 5e-2}   # output rounded to bf16 on each side
 # bf16 flash, also: each (b, s, h) row's L2 error within 2^-6 of the row's
 # L2 norm.  A sound kernel differs by its P rounded to bf16 (at most 2^-8
@@ -120,7 +129,9 @@ SPACEV_DIM = 100                         # configs/anns_datasets.SPACEV1B.dim
 ODD_DIM = 101               # an odd bf16 width: rows on 2 bytes
 GIST_DIM = 960              # GIST1M's width (ann-benchmarks); no config here
 FLASH_PADDED_DH = 96        # a head width padded to 128; no model here
-FLASH_CUDA_CORE_DH = 256    # a head width past the tensor-core kernels
+FLASH_WIDE_DH = 256         # the tensor-core kernels' 256 instances
+FLASH_OFF_STRIDE_DH = 100   # bf16 rows off 16 bytes: zero-padded to 104
+SPILL = dict(S=32_768, topk=4096)   # a fused window past fused_plan
 ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
@@ -132,6 +143,12 @@ KERNELS = {
     "adc_fused_topk": dict(route="cuda", source=PQ_SRC + "adc_fused_topk.cu",
                            replaces=PQ_TPU + "239"),
     "adc_fused_topk[lut_int8]": dict(
+        route="cuda", source=PQ_SRC + "adc_fused_topk.cu",
+        replaces=PQ_TPU + "177"),
+    "adc_fused_topk[spill]": dict(
+        route="cuda", source=PQ_SRC + "adc_fused_topk.cu",
+        replaces=PQ_TPU + "239"),
+    "adc_fused_topk[spill,lut_int8]": dict(
         route="cuda", source=PQ_SRC + "adc_fused_topk.cu",
         replaces=PQ_TPU + "177"),
     "adc_scan": dict(route="cuda", source=PQ_SRC + "adc_scan.cu",
@@ -152,8 +169,12 @@ KERNELS = {
     "l2dist_wgmma[bf16,d>128]": dict(
         route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
         replaces="src/repro/kernels/l2dist/l2dist.py:38"),
-    "l2dist": dict(route="cuda", source=L2_SRC + "l2dist.cu",
-                   replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist_wgmma[bf16,odd]": dict(
+        route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+        replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist_wgmma[bf16]@uint8": dict(
+        route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+        replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "flash_attn_fwd_wgmma": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
@@ -166,8 +187,14 @@ KERNELS = {
     "flash_attn_fwd_tf32[padded]": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
-    "flash_attn_fwd": dict(
-        route="cuda", source=FLASH_SRC + "flash_attn_fwd.cu",
+    "flash_attn_fwd_wgmma[256]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    "flash_attn_fwd_tf32[256]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    "flash_attn_fwd_wgmma[stride-pad]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
 }
 
@@ -293,7 +320,9 @@ def check_fused_small(dev: torch.device, rng: np.random.Generator,
                       m: int) -> None:
     """The fused kernel bit-equal to its plain version: B = 1 (a cluster
     of eight CTAs), 5 (one CTA a query) and 64 (four) at S from 37 to
-    8,192, valid rows below and above tk, the last query all pads, query
+    8,192, and B = 8 at S = 32,768 with tk = 4,096 (the spill route:
+    sixteen CTAs a query, their lists merged by a second kernel), valid
+    rows below and above tk, the last query all pads, query
     1's last three rows >= N (pads on the card; -1 for the plain
     version), exact ties from repeated code rows; M = 8, DEEP1B's 24 (8-byte
     code loads), SPACEV1B's 25 (1-byte) and 32 (16-byte)."""
@@ -304,7 +333,8 @@ def check_fused_small(dev: torch.device, rng: np.random.Generator,
     base = rng.integers(0, 256, (n // 4, m)).astype(np.uint8)
     codes = torch.from_numpy(np.repeat(base, 4, axis=0)).to(dev)
     for b, s, topk in ((1, 3000, 10), (64, 5000, 512), (64, 2048, 3000),
-                       (64, 8192, 512), (5, 37, 512)):
+                       (64, 8192, 512), (5, 37, 512),
+                       (8, SPILL["S"], SPILL["topk"])):
         rows = np.full((b, s), -1, np.int32)
         for i in range(b - 1 if b > 1 else b):   # last row all pads
             c = int(rng.integers(1, s + 1))
@@ -329,11 +359,13 @@ def check_fused_small(dev: torch.device, rng: np.random.Generator,
 
 
 def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
-    """Both exact-L2 kernels, in f32 and bf16, against the plain version:
-    each call must launch the kernel ``l2_kernel`` names, and only it,
-    counted under ``l2_instance``'s key."""
+    """The exact-L2 kernel against the plain version, in f32, bf16 and
+    other dtypes: each call must launch the kernel ``l2_kernel`` names,
+    and only it, counted under ``l2_instance``'s key for the operand
+    dtype."""
     from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                             l2dist_ref)
+    from repro_torch.kernels.launch import operand_dtype
     from repro_torch.kernels.pq_adc import ops
 
     def run(name, q, v, exact=False):
@@ -341,7 +373,7 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
         got = l2_distances(q, v)
         torch.cuda.synchronize()
         ran = {k for k, c in ops.LAUNCHES.items() if c != before[k]}
-        want = l2_instance(q.dtype, q.shape[1])
+        want = l2_instance(operand_dtype(q.dtype, v.dtype), q.shape[1])
         if ran != {want}:
             raise AssertionError(f"{name} launched {sorted(ran)}, not {want}")
         if exact and not torch.equal(got, l2dist_ref(q, v)):
@@ -353,10 +385,10 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             np.float32)).to(dev)
 
     for dtype in (torch.float32, torch.bfloat16):
-        # on l2dist.cu: bf16 at d 1 and 101; the rest on wgmma, the query
-        # tile streamed at 132 and 960, f32 by 4-byte cp.async copies at
-        # d 1, 2, 6, 101, 102 and 126, bf16 by cp.async at d 2, 4, 6, 36,
-        # 100, 102 and 126 (rows off 16 bytes)
+        # bf16 at d 1 and 101 zero-padded to 8 and 104; the query tile
+        # streamed at 132 and 960, f32 by 4-byte cp.async copies at d 1,
+        # 2, 6, 101, 102 and 126, bf16 by cp.async at d 2, 4, 6, 36, 100,
+        # 102 and 126 (rows off 16 bytes)
         for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
                         (256, 5003, 96), (1, 5003, 4), (130, 777, 36),
                         (1, 5003, 8), (130, 777, 104), (5, 777, 2),
@@ -377,6 +409,18 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             ints = [torch.from_numpy(rng.integers(0, below, shape).astype(
                 np.float32)).to(dev, dtype) for shape in ((37, d), (3001, d))]
             run(f"l2dist {dtype} integers d{d}", *ints, exact=True)
+    # other dtypes, as the JAX wrapper takes them: uint8 and int8 in bf16
+    # (exact), f16 and mixed in f32; a transposed (strided) view
+    for qd, vd, d in ((torch.uint8, torch.uint8, 128),
+                      (torch.int8, torch.int8, 100),
+                      (torch.uint8, torch.uint8, 101),
+                      (torch.float16, torch.float16, 96),
+                      (torch.uint8, torch.float32, 64)):
+        q, v = (torch.from_numpy(rng.integers(0, 100, shape).astype(
+            np.float32)).to(dev, dt) for dt, shape in ((qd, (37, d)),
+                                                       (vd, (3001, d))))
+        run(f"l2dist {qd}/{vd} integers d{d}", q, v, exact=True)
+    run("l2dist strided view", normal(64, 40).T, normal(777, 64))
 
 
 def check_entry_kernels_small(dev: torch.device,
@@ -425,7 +469,9 @@ def check_entry_kernels_small(dev: torch.device,
                 (1, 257, 257, 8, 1, 128, False), (2, 97, 97, 4, 2, 96, True),
                 (1, 1, 65, 2, 1, 64, True), (1, 40, 40, 2, 1, 6, True),
                 (1, 50, 70, 4, 2, 36, False), (1, 70, 50, 2, 2, 192, True),
-                (1, 65, 65, 2, 1, 256, False)):
+                (1, 65, 65, 2, 1, 256, False), (2, 97, 97, 4, 2, 100, True),
+                (1, 130, 70, 4, 1, 130, True),
+                (1, 70, 130, 2, 2, 250, False)):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev, dtype) for shape in (
                     (bsz, s, h, dh), (bsz, t, hk, dh), (bsz, t, hk, dh)))
@@ -433,6 +479,17 @@ def check_entry_kernels_small(dev: torch.device,
                        f"causal={causal}",
                        flash_attention(q, k, v, causal=causal),
                        flash_attn_ref(q, k, v, causal=causal))
+    # f16 and mixed inputs (computed in f32, returned in q's dtype) and
+    # strided views of q, k and v
+    x = torch.from_numpy(rng.standard_normal((1, 90, 6, 64)).astype(
+        np.float32)).to(dev)
+    for q, k, v in ((x[:, :, :4].half(), x[:, :, 4:5].half(),
+                     x[:, :, 5:].half()),
+                    (x[:, :, :4], x[:, :, 4:5].bfloat16(),
+                     x[:, :, 5:].half()),
+                    (x[:, :, :4], x[:, :, 4:5], x[:, :, 5:])):
+        check_attn(f"flash_attention {q.dtype}/{k.dtype}/{v.dtype} views",
+                   flash_attention(q, k, v), flash_attn_ref(q, k, v))
     torch.cuda.synchronize()
 
 
@@ -534,8 +591,8 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     gen = torch.Generator(device=dev).manual_seed(seed)
     s, h, hk = ATTN_LEN, QWEN3_ATTN["H"], QWEN3_ATTN["Hk"]
     # flash at Qwen3-0.6B's widths in bf16 and f32 (on the tensor cores),
-    # at a head width padded to their 128 instances, and in f32 at a head
-    # width past them (on the CUDA cores)
+    # at a head width padded to their 128 instances, at dh = 256 (their
+    # 256 instances), and in bf16 at a width off the 16-byte row stride
     flash_calls = {
         name: tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                     for shape in ((1, s, h, dh), (1, s, hk, dh),
@@ -546,14 +603,18 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
             ("flash_attn_fwd_wgmma[padded]", torch.bfloat16,
              FLASH_PADDED_DH),
             ("flash_attn_fwd_tf32[padded]", torch.float32, FLASH_PADDED_DH),
-            ("flash_attn_fwd", torch.float32, FLASH_CUDA_CORE_DH))}
+            ("flash_attn_fwd_tf32[256]", torch.float32, FLASH_WIDE_DH),
+            ("flash_attn_fwd_wgmma[256]", torch.bfloat16, FLASH_WIDE_DH),
+            ("flash_attn_fwd_wgmma[stride-pad]", torch.bfloat16,
+             FLASH_OFF_STRIDE_DH))}
     q16, chunk16 = q.bfloat16(), chunk.bfloat16()
     # the chunk in f32 (TMA loads) and in bf16 (16-byte cp.async copies)
     # at SIFT1B's width, in bf16 cut to SPACEV1B's width, d = 100 (rows of
     # 200 bytes, off the 16-byte stride: 8-byte copies), all on the tensor
-    # cores, and in bf16 cut to an odd width, d = 101 (the CUDA cores);
-    # and normal values at GIST1M's width, d = 960, over the chunk's rows
-    # in f32 and bf16 (the tensor cores, the query tile streamed)
+    # cores, in bf16 cut to an odd width, d = 101 (zero-padded to 104),
+    # and as uint8, SIFT1B's own type (computed in bf16, exactly); and
+    # normal values at GIST1M's width, d = 960, over the chunk's rows in
+    # f32 and bf16 (the query tile streamed)
     gist = [torch.randn(rows, GIST_DIM, generator=gen, device=dev)
             for rows in (len(q), len(chunk))]
     l2_calls = {"l2dist_wgmma": (q, chunk),
@@ -561,23 +622,46 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
                 "l2dist_wgmma[bf16,off16]": (
                     q16[:, :SPACEV_DIM].contiguous(),
                     chunk16[:, :SPACEV_DIM].contiguous()),
-                "l2dist": (q16[:, :ODD_DIM].contiguous(),
-                           chunk16[:, :ODD_DIM].contiguous()),
+                "l2dist_wgmma[bf16,odd]": (
+                    q16[:, :ODD_DIM].contiguous(),
+                    chunk16[:, :ODD_DIM].contiguous()),
+                "l2dist_wgmma[bf16]@uint8": (
+                    q.to(torch.uint8),
+                    torch.from_numpy(np.ascontiguousarray(
+                        data[:1 << 20])).to(dev)),
                 "l2dist_wgmma[d>128]": tuple(gist),
                 "l2dist_wgmma[bf16,d>128]": tuple(x.bfloat16()
                                                   for x in gist)}
     del gist
     on_integers = ("l2dist_wgmma", "l2dist_wgmma[bf16]",
-                   "l2dist_wgmma[bf16,off16]", "l2dist")
+                   "l2dist_wgmma[bf16,off16]", "l2dist_wgmma[bf16,odd]",
+                   "l2dist_wgmma[bf16]@uint8")
+    # the fused scan's spill route: a window of B = 64 at S = 32,768 over
+    # the index's codes, tk = 4,096 (f32 and int8)
+    spill_rows = window_rows(WINDOW, SPILL["S"], codes.shape[0], dev,
+                             torch.Generator(device=dev).manual_seed(
+                                 SPILL["S"]))
+    spill_q = torch.from_numpy(queries[:WINDOW]).to(dev)
+    spill_calls = {
+        key: (codes, spill_q, index.codebook.codebooks,
+              spill_rows, SPILL["topk"])
+        for key in ("adc_fused_topk[spill]",
+                    "adc_fused_topk[spill,lut_int8]")}
     torch.cuda.synchronize()
 
     ops.reset_launches()
     dists = [ops.pq_adc(codes, luts[i]) for i in range(len(luts))]
     tops = [ops.pq_adc_topk(codes, luts[i], top_n) for i in range(len(luts))]
-    d2, ran = {}, {}
+    d2, ran, fused = {}, {}, {}
     for key, qv in l2_calls.items():
         before = dict(ops.LAUNCHES)
         d2[key] = l2_distances(*qv)
+        ran[key] = {name for name, c in ops.LAUNCHES.items()
+                    if c != before[name]}
+    for key, args in spill_calls.items():
+        before = dict(ops.LAUNCHES)
+        fused[key] = ops.pq_adc_fused_topk(
+            *args, lut_int8=key.endswith("lut_int8]"))
         ran[key] = {name for name, c in ops.LAUNCHES.items()
                     if c != before[name]}
     outs = {}
@@ -589,9 +673,21 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     for key, got in ran.items():    # each call is keyed by its kernel
-        if got != {key}:
+        if got != {launch_key(key)}:
             raise AssertionError(f"the call for {key} launched "
                                  f"{sorted(got)}")
+
+    for key, args in spill_calls.items():
+        int8 = key.endswith("lut_int8]")
+        pv, pi = ops.pq_adc_fused_topk_plain(*args, lut_int8=int8)
+        if not (torch.equal(fused[key][0], pv)
+                and torch.equal(fused[key][1], pi)):
+            raise AssertionError(f"{key} at B={WINDOW}, S={SPILL['S']}, "
+                                 f"tk={SPILL['topk']}: not bit-equal to "
+                                 f"its plain version")
+        log(f"{key} at B={WINDOW}, S={SPILL['S']}, tk={SPILL['topk']}: "
+            f"bit-equal to its plain version")
+    del fused
 
     for i, (d, (tv, ti)) in enumerate(zip(dists, tops)):
         check_close(f"adc_scan query {i} at N={len(codes)}", d,
@@ -650,7 +746,14 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         f"launches={launches}")
     return launches, {"adc_scan": (codes, luts[0]),
                       "adc_scan_topk": (codes, luts[0], top_n),
-                      **l2_calls, **flash_calls}
+                      **spill_calls, **l2_calls, **flash_calls}
+
+
+def launch_key(row: str) -> str:
+    """The ``LAUNCHES`` key a phase 5 row's call counts under: the row's
+    name, less what tells two rows of one key apart (``@uint8``, the
+    spill route's ``lut_int8``)."""
+    return row.split("@")[0].replace(",lut_int8]", "]")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -778,10 +881,16 @@ def measure_entry(calls) -> list:
         library_ms=None,
         **bound(n * m + m * k * 4 + min(topk, n) * 8, n * m)))
 
+    # the fused scan's spill route at phase 5's window (no library call)
+    for name in ("adc_fused_topk[spill]", "adc_fused_topk[spill,lut_int8]"):
+        codes_f, q_f, cb_f, rows_f, topk_f = calls[name]
+        out.append(measure_fused(name, codes_f, q_f, cb_f, rows_f, topk_f))
+
     # the output alone is B * N * 4 bytes.  The yardstick is one addmm,
-    # bf16 in and f32 out for bf16.
+    # bf16 in and f32 out for bf16 (none takes uint8: no library call).
     for name in ("l2dist_wgmma", "l2dist_wgmma[bf16]",
-                 "l2dist_wgmma[bf16,off16]", "l2dist", "l2dist_wgmma[d>128]",
+                 "l2dist_wgmma[bf16,off16]", "l2dist_wgmma[bf16,odd]",
+                 "l2dist_wgmma[bf16]@uint8", "l2dist_wgmma[d>128]",
                  "l2dist_wgmma[bf16,d>128]"):
         q, v = calls[name]
         peak, products = exact_products(q.dtype)
@@ -797,22 +906,26 @@ def measure_entry(calls) -> list:
 
         def addmm(q=q, v=v, norms=norms, kw=kw):
             return torch.addmm(norms, q, v.T, alpha=-2, **kw)
-        check_tol(f"addmm yardstick ({q.dtype})", addmm(), plain, RTOL,
-                  L2_ATOL)
+        library = q.is_floating_point()
+        if library:
+            check_tol(f"addmm yardstick ({q.dtype})", addmm(), plain, RTOL,
+                      L2_ATOL)
         del plain
         out.append(dict(
             name=name, shape=dict(B=b, N=nv, D=d, dtype=str(q.dtype)),
             max_abs_err=err,
             ms=gpu_ms(lambda: l2_distances(q, v), 10),
             plain_ms=gpu_ms(lambda: l2dist_ref(q, v), 3),
-            library_ms=gpu_ms(addmm, 10),
+            library_ms=gpu_ms(addmm, 10) if library else None,
             **bound((b * d + nv * d) * q.element_size() + b * nv * 4,
                     products * 2 * b * nv * d, peak=peak)))
         del norms, addmm
 
     for name in ("flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
                  "flash_attn_fwd_wgmma[padded]",
-                 "flash_attn_fwd_tf32[padded]", "flash_attn_fwd"):
+                 "flash_attn_fwd_tf32[padded]", "flash_attn_fwd_tf32[256]",
+                 "flash_attn_fwd_wgmma[256]",
+                 "flash_attn_fwd_wgmma[stride-pad]"):
         q, k, v = calls[name]
         peak, products = exact_products(q.dtype)
         bsz, s, h, dh = q.shape
@@ -845,12 +958,13 @@ def measure_entry(calls) -> list:
 
 
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
-    """The fastest rate the card has for products of ``dtype`` that are
-    exact in f32, and how many products each takes: bf16 in one on the
-    tensor cores, f32 in three (3xTF32), whichever unit the kernel runs
-    on, so a CUDA-core kernel is held to the same bound as a tensor-core
-    one for the same function."""
-    return (BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)
+    """The fastest rate the card has for products of inputs of ``dtype``
+    that are exact in f32, and how many products each takes: inputs exact
+    in bf16 (bf16, uint8, int8) in one on the tensor cores, others in
+    three (3xTF32), whichever unit the kernel runs on."""
+    from repro_torch.kernels.launch import operand_dtype
+    return ((BF16_FLOPS, 1) if operand_dtype(dtype) == torch.bfloat16
+            else (TF32_FLOPS, 3))
 
 
 def bound(nbytes: int, flops: int, peak: float = F32_FLOPS) -> dict:
@@ -983,15 +1097,20 @@ def main() -> int:
 
     entry_launches, entry_calls = drive_entry_points(
         index, cfg.top_n, data, queries, args.seed)
-    entry_names = ("adc_scan", "adc_scan_topk", "l2dist_wgmma",
+    entry_names = ("adc_scan", "adc_scan_topk", "adc_fused_topk[spill]",
+                   "adc_fused_topk[spill,lut_int8]", "l2dist_wgmma",
                    "l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]",
-                   "l2dist", "l2dist_wgmma[d>128]",
-                   "l2dist_wgmma[bf16,d>128]", "flash_attn_fwd_wgmma",
-                   "flash_attn_fwd_tf32", "flash_attn_fwd_wgmma[padded]",
-                   "flash_attn_fwd_tf32[padded]", "flash_attn_fwd")
+                   "l2dist_wgmma[bf16,odd]", "l2dist_wgmma[bf16]@uint8",
+                   "l2dist_wgmma[d>128]", "l2dist_wgmma[bf16,d>128]",
+                   "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
+                   "flash_attn_fwd_wgmma[padded]",
+                   "flash_attn_fwd_tf32[padded]",
+                   "flash_attn_fwd_tf32[256]", "flash_attn_fwd_wgmma[256]",
+                   "flash_attn_fwd_wgmma[stride-pad]")
     for name in entry_names:
-        if entry_launches[name] < 1:
-            raise AssertionError(f"the entry points never launched {name}")
+        if entry_launches[launch_key(name)] < 1:
+            raise AssertionError(f"the entry points never launched "
+                                 f"{launch_key(name)}")
 
     rows = measure(recorder.calls) + measure_entry(entry_calls)
     per_path = {"adc_scan_batch": launches["dense"]["adc_scan_batch"],
@@ -1000,7 +1119,8 @@ def main() -> int:
                     launches["fused_int8"]["adc_fused_topk"],
                 "adc_scan": entry_launches["adc_scan"],
                 "adc_scan_topk": entry_launches["adc_scan_topk"],
-                **{name: entry_launches[name] for name in entry_names[3:]},
+                **{name: entry_launches[launch_key(name)]
+                   for name in entry_names[2:]},
                 "l2dist_wgmma": gt_launches["l2dist_wgmma"]}
     kernels = []
     for r in rows:

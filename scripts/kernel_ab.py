@@ -31,14 +31,17 @@ over 10M rows of M = 32 codes with topk 512 (the smoke's phase 5), once
 with the rows in random order and once sorted by descending distance,
 where every row beats each block's running threshold; flash attention at
 Qwen3-0.6B's widths (H 16, Hk 8), B = 1, S = T = 4096, causal, in bf16
-and in f32 at dh 128 and 96, and in f32 at dh 256; and exact L2 at the
-ground-truth chunk, 256 queries x 2^20 vectors x 128, in f32 and in
-bf16, in bf16 cut to SPACEV1B's d = 100 (rows off TMA's 16-byte stride)
-and to an odd d = 101, and in f32 and bf16 at GIST1M's d = 960, once on
+and in f32 at dh 128, 96 and 256, and in bf16 at dh 256 and at dh 100
+(off the 16-byte row stride); exact L2 at the ground-truth chunk, 256
+queries x 2^20 vectors x 128, in f32, in bf16 and passed as uint8, in
+bf16 cut to SPACEV1B's d = 100 (rows off TMA's 16-byte stride) and to
+an odd d = 101, and in f32 and bf16 at GIST1M's d = 960, once on
 integers (in [0, 256), SIFT's values; in [0, 128) at d = 960, where
-960 * 127^2 < 2^24 keeps every sum exact) and once on normal values.  A
-reading whose call raises (a width an older tree's kernels do not take)
-is reported with its error.  It reports the device time of each
+960 * 127^2 < 2^24 keeps every sum exact) and once on normal values
+(not for uint8); and the fused scan at a window past ``fused_plan``'s
+one launch (B = 64, S = 32,768, tk = 4,096, f32 and int8: the spill
+route).  A reading whose call raises (a width, dtype or window an older
+tree's kernels do not take) is reported with its error.  It reports the device time of each
 call (``chip_smoke.gpu_ms``), the kernels the call launched, whether the
 dense output is bit-equal to ``pq_adc_batch_ref``, whether the fused
 output is bit-equal to ``pq_adc_fused_topk_plain`` (values and ids) and
@@ -78,7 +81,9 @@ ATTN = dict(S=4096, H=16, Hk=8)                  # Qwen3-0.6B's attention
 ATTN_CASES = ((torch.bfloat16, "bf16", 128), (torch.float32, "f32", 128),
               (torch.bfloat16, "bf16,dh96", 96),
               (torch.float32, "f32,dh96", 96),
-              (torch.float32, "f32,dh256", 256))
+              (torch.float32, "f32,dh256", 256),
+              (torch.bfloat16, "bf16,dh256", 256),
+              (torch.bfloat16, "bf16,dh100", 100))
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 # (dtype, tag, width, integers below): the chunk at SIFT1B's 128, cut to
 # SPACEV1B's 100 and to an odd 101, and at GIST1M's 960
@@ -86,6 +91,7 @@ L2_CASES = ((torch.float32, "f32", 128, 256),
             (torch.bfloat16, "bf16", 128, 256),
             (torch.bfloat16, "bf16,d100", 100, 256),
             (torch.bfloat16, "bf16,d101", 101, 256),
+            (torch.uint8, "u8", 128, 256),
             (torch.float32, "f32,d960", 960, 128),
             (torch.bfloat16, "bf16,d960", 960, 128))
 
@@ -137,6 +143,8 @@ def measure(tree: Path, seed: int) -> dict:
     fused = fused_readings(ops, dev, gen, chip_smoke.window_rows,
                            chip_smoke.gpu_ms)
     return {"adc_scan_batch": dense, "pq_adc_fused_topk": fused,
+            "pq_adc_fused_topk[spill]": spill_readings(
+                ops, dev, gen, chip_smoke.window_rows, chip_smoke.gpu_ms),
             "pq_adc_topk": topk, **flash, **l2}
 
 
@@ -145,7 +153,7 @@ def reading(fn) -> dict:
     do not take)."""
     try:
         return fn()
-    except ValueError as e:
+    except (ValueError, TypeError) as e:
         return {"error": str(e)[:300]}
 
 
@@ -193,16 +201,17 @@ def l2_reading(dtype, width, below, dev, gen, ran, yardsticks,
     r = dict(launched=launched, bit_equal_on_integers=bool(torch.equal(
         out, want)), max_abs_err_integers=float((out - want).abs().max()))
     del out, want
-    normal = [torch.randn(rows, width, generator=gen, device=dev).to(dtype)
-              for rows in (b, n)]
-    out, _ = ran(lambda: l2_distances(*normal))
-    want = l2dist_ref(*normal)
-    r["max_abs_err_normal"] = float((out - want).abs().max())
-    r["within_tol_normal"] = bool(torch.allclose(
-        out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
-    del out, want, normal
+    if dtype.is_floating_point:
+        normal = [torch.randn(rows, width, generator=gen,
+                              device=dev).to(dtype) for rows in (b, n)]
+        out, _ = ran(lambda: l2_distances(*normal))
+        want = l2dist_ref(*normal)
+        r["max_abs_err_normal"] = float((out - want).abs().max())
+        r["within_tol_normal"] = bool(torch.allclose(
+            out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
+        del out, want, normal
     r["ms"] = chip_smoke.gpu_ms(lambda: l2_distances(*ints), 20)
-    if yardsticks:
+    if yardsticks and dtype.is_floating_point:
         qi, vi = ints
         qf, vf = qi.float(), vi.float()
         norms = (qf * qf).sum(-1, keepdim=True) + (vf * vf).sum(-1)[None]
@@ -276,6 +285,39 @@ def fused_readings(ops, dev, gen, window_rows, gpu_ms) -> dict:
             r["merge_ms"] = r["ms"] - r["kernel_ms"]
             out[f"{shape}[{'int8' if int8 else 'f32'}]"] = r
         del rows, q
+    return out
+
+
+def spill_readings(ops, dev, gen, window_rows, gpu_ms) -> dict:
+    """``pq_adc_fused_topk`` at a window ``fused_plan`` refuses (B = 64,
+    S = 32,768, tk = 4,096; rows from ``chip_smoke.window_rows``), f32
+    and int8: bit-equal to its plain version, the kernels it launched
+    and its time, or the error an older tree raises."""
+    n, dsub, s, tk = FUSED["N"], FUSED["dsub"], 1 << 15, 4096
+    codes = torch.randint(0, K, (n, M), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    cb = torch.randn(M, K, dsub, generator=gen, device=dev)
+    q = torch.randn(B, M * dsub, generator=gen, device=dev)
+    rows = window_rows(B, s, n, dev, gen)
+    out = {}
+    for int8 in (False, True):
+        def call():
+            return ops.pq_adc_fused_topk(codes, q, cb, rows, tk,
+                                         lut_int8=int8)
+
+        def one() -> dict:
+            before = dict(ops.LAUNCHES)
+            v, i = call()
+            torch.cuda.synchronize()
+            pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows, tk,
+                                                 lut_int8=int8)
+            return dict(S=s, tk=tk, valid_slots=int((rows >= 0).sum()),
+                        launched={k: c - before[k] for k, c in
+                                  ops.LAUNCHES.items() if c != before[k]},
+                        bit_equal=bool(torch.equal(v, pv)
+                                       and torch.equal(i, pi)),
+                        ms=gpu_ms(call, 20))
+        out["int8" if int8 else "f32"] = reading(one)
     return out
 
 

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
 """Shows that the GPU tests of the 3xTF32 kernels catch a dropped lo
-term: for each of the flash kernel's four lo parts, and for the lo part of
-the exact-L2 kernel's streamed query slices, copies the tree with that
-part set to zero and runs the kernel's lo-term tests on the copy, which
-must fail.
+term: for each of the flash kernels' four lo parts (the kernel of dh <= 128
+and the one of 128 < dh <= 256, whose warpgroups split the head width),
+and for the lo part of the exact-L2 kernel's streamed query slices, copies
+the tree with that part set to zero and runs the kernel's lo-term tests
+on the copy, which must fail.
 
     python3 scripts/plant_lo_faults.py [--dir build/plant] [--out FILE]
 
 Each copy (``src/``, ``tests/``, ``pytest.ini``) goes under ``--dir``, a
 directory ``.gitignore`` lists, and builds its own kernels there.  The
-five faults, one edit each:
+nine faults, one edit each:
 
-* ``no_Qhi_Klo`` (``flash_attn_fwd_tf32.cu``): K lo = 0, so Q hi * K lo
-  drops out of S;
+* ``no_Qhi_Klo`` (``flash_attn_fwd_tf32.cu``, the kernel of dh <= 128):
+  K lo = 0, so Q hi * K lo drops out of S;
 * ``no_Qlo_Khi``: Q lo = 0 (Q lo * K hi);
 * ``no_Plo_Vhi``: P lo = 0 (P lo * V hi);
 * ``no_Phi_Vlo``: V lo = 0 (P hi * V lo);
+* ``wide_no_Qhi_Klo`` ... ``wide_no_Phi_Vlo``: the same four in the
+  kernel of 128 < dh <= 256 (the second occurrence of each line the two
+  share; its Q lo is the in-place split's ``lo``);
 * ``l2_streamed_no_Qlo_Vhi`` (``l2dist_wgmma.cu``): the prologue that
   splits the queries for the streamed path (d > 128) writes q lo = 0, so
   Q lo * V hi drops out of the distances.
 
 Runs ``pytest -m gpu -k <selection> tests/test_torch_cuda.py`` on each
-copy (the flash faults: every ``flash_tf32`` test; the L2 fault: the
+copy (the flash faults: every ``flash_tf32`` test at the widths of the
+kernel changed, dh <= 128 or dh 192 and 256; the L2 fault: the
 cross-term tests whose queries carry lo parts and whose query tile is
 streamed) and prints its exit code, its greatest differences and the
 tests that failed; ``--out`` also writes that log.  Exits non-zero unless
@@ -39,33 +44,44 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FLASH = ("src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd_tf32.cu",
-         "flash_tf32")
+FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd_tf32.cu"
+# (source, pytest -k selection, which occurrence of the line to change,
+# how many there are)
+FLASH = (FLASH_SRC, "flash_tf32 and not 192 and not 256")
+WIDE = (FLASH_SRC, "flash_tf32_lo_terms and (192 or 256)")
 L2 = ("src/repro_torch/kernels/l2dist/csrc/l2dist_wgmma.cu",
       "l2dist_wgmma_cross_terms and vectors and not 128")
-# name -> ((source, pytest -k selection), the line, its faulty form)
-FAULTS = {
-    "no_Qhi_Klo": FLASH + (
-        "            tf32_rna(__fsub_rn(x.x, hi.x)), tf32_rna(__fsub_rn(x.y, hi.y)),\n"
+# lines both flash kernels share (occurrence 0 in the kernel of dh <= 128,
+# 1 in the wide one) and their faulty forms
+K_LO = ("            tf32_rna(__fsub_rn(x.x, hi.x)), tf32_rna(__fsub_rn(x.y, hi.y)),\n"
         "            tf32_rna(__fsub_rn(x.z, hi.z)), tf32_rna(__fsub_rn(x.w, hi.w)));",
-        "            0.f, 0.f, 0.f, 0.f);"),
-    "no_Qlo_Khi": FLASH + (
+        "            0.f, 0.f, 0.f, 0.f);")
+P_LO = ("p_lo[slot] = __float_as_uint(tf32_rna(__fsub_rn(p, hi)));",
+        "p_lo[slot] = 0u;")
+V_LO = ("lv[e] = tf32_rna(__fsub_rn(x, hv[e]));", "lv[e] = 0.f;")
+# name -> (source, pytest -k selection, occurrence, count, line, faulty)
+FAULTS = {
+    "no_Qhi_Klo": FLASH + (0, 2) + K_LO,
+    "no_Qlo_Khi": FLASH + (0, 1) + (
         "q_lo[4 * kk + i] = __float_as_uint(tf32_rna(__fsub_rn(x, tf32_rna(x))));",
         "q_lo[4 * kk + i] = 0u;"),
-    "no_Plo_Vhi": FLASH + (
-        "p_lo[slot] = __float_as_uint(tf32_rna(__fsub_rn(p, hi)));",
-        "p_lo[slot] = 0u;"),
-    "no_Phi_Vlo": FLASH + (
-        "lv[e] = tf32_rna(__fsub_rn(x, hv[e]));",
-        "lv[e] = 0.f;"),
-    "l2_streamed_no_Qlo_Vhi": L2 + (
+    "no_Plo_Vhi": FLASH + (0, 2) + P_LO,
+    "no_Phi_Vlo": FLASH + (0, 2) + V_LO,
+    "wide_no_Qhi_Klo": WIDE + (1, 2) + K_LO,
+    "wide_no_Qlo_Khi": WIDE + (0, 1) + (
+        "return tf32_rna(__fsub_rn(y, tf32_rna(y)));", "return 0.f;"),
+    "wide_no_Plo_Vhi": WIDE + (1, 2) + P_LO,
+    "wide_no_Phi_Vlo": WIDE + (1, 2) + V_LO,
+    "l2_streamed_no_Qlo_Vhi": L2 + (0, 1) + (
         "lo[i] = tf32_rna(__fsub_rn(x, h));",
         "lo[i] = 0.f;"),
 }
 
 
-def plant(dst: Path, source: str, old: str, new: str) -> None:
-    """A copy of the tree at ``dst`` with ``old`` (found once) replaced."""
+def plant(dst: Path, source: str, at: int, count: int, old: str,
+          new: str) -> None:
+    """A copy of the tree at ``dst`` with occurrence ``at`` of ``old``
+    (found ``count`` times) replaced."""
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
     ignore = shutil.ignore_patterns("__pycache__", "*.pyc")
@@ -74,10 +90,12 @@ def plant(dst: Path, source: str, old: str, new: str) -> None:
     shutil.copy2(ROOT / "pytest.ini", dst / "pytest.ini")
     src = dst / source
     text = src.read_text()
-    if text.count(old) != 1:
+    if text.count(old) != count:
         raise SystemExit(f"{source}: the edit's line occurs "
-                         f"{text.count(old)} times, not once")
-    src.write_text(text.replace(old, new))
+                         f"{text.count(old)} times, not {count}")
+    parts = text.split(old)
+    src.write_text(old.join(parts[:at + 1]) + new
+                   + old.join(parts[at + 1:]))
 
 
 def main() -> int:
@@ -87,9 +105,9 @@ def main() -> int:
     args = ap.parse_args()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     log, caught = [], True
-    for name, (source, select, old, new) in FAULTS.items():
+    for name, (source, select, at, count, old, new) in FAULTS.items():
         dst = args.dir / name
-        plant(dst, source, old, new)
+        plant(dst, source, at, count, old, new)
         run = subprocess.run(
             [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
              "-m", "gpu", "-k", select, "tests/test_torch_cuda.py"],

@@ -6,8 +6,14 @@ gives the same posting lists from the same ``np.random.Generator``.  Only
 the distance blocks (``|x|² - 2x·cᵀ + |c|²``) and the polish step's
 per-centroid sums run in torch on ``device``: that is where a 10M-vector,
 50k-centroid build spends its operations.  On the card ``index_add_``
-accumulates with atomics, so the polish sums may differ in the last bit
-from run to run there.
+accumulates with atomics in no fixed order: f32 sums there changed the
+centroids' last bits from one seeded build to the next (measured on an
+H100), so on the card the polish sums its f32 rows in f64, whose
+rounding lies 29 bits below f32's, and rounds the mean to f32 once: the
+order no longer reaches the centroids, and two builds from one seed give
+the same posting lists (``tests/test_torch_cuda.py::
+test_cuda_posting_lists_are_reproducible``).  On the CPU the sums stay
+f32 in row order, numpy's ``np.add.at``, bit for bit.
 """
 
 from __future__ import annotations
@@ -132,18 +138,20 @@ def _kmeans_polish(data: np.ndarray, centers: np.ndarray,
                    device: torch.device, iters: int = 4,
                    chunk: int = _CHUNK) -> np.ndarray:
     cent = torch.from_numpy(centers).to(device)
+    # the card's index_add_ has no fixed order: sum in f64 there
+    acc = torch.float32 if cent.device.type == "cpu" else torch.float64
     for _ in range(iters):
-        sums = torch.zeros_like(cent)
+        sums = torch.zeros(cent.shape, dtype=acc, device=device)
         cnts = torch.zeros(len(cent), dtype=torch.float64, device=device)
         for s in range(0, len(data), chunk):
             blk = data[s:s + chunk]
             a = torch.argmin(sq_dists(blk, cent), -1)
             sums.index_add_(0, a, torch.from_numpy(
-                np.ascontiguousarray(blk, np.float32)).to(device))
+                np.ascontiguousarray(blk, np.float32)).to(device, acc))
             cnts.index_add_(0, a, torch.ones(len(a), dtype=torch.float64,
                                              device=device))
         nz = cnts > 0
-        # f32 sums over f64 counts, rounded back to f32: numpy's promotion
+        # sums over f64 counts, rounded back to f32: numpy's promotion
         cent[nz] = (sums[nz].double() / cnts[nz, None]).float()
     return cent.cpu().numpy()
 

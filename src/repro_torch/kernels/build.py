@@ -21,11 +21,6 @@ and add are contracted unless the source writes ``__fmaf_rn``.
   ``adc_fused_topk``): the LUT chain is written with ``__fmaf_rn`` where
   the plain version fuses, and every other step rounds on its own, so the
   kernels give the plain versions' bits.
-* ``l2dist`` and ``flash_attn_fwd``: their inner products and norms are
-  written as ``__fmaf_rn`` chains (one rounding per term, what contraction
-  would give); their epilogues (``|q|^2 - 2 q.v + |v|^2``, the softmax
-  rescaling, the final division) round each step, as the plain versions
-  do.
 * ``flash_attn_fwd_wgmma``: its products run on the tensor cores (bf16
   in, f32 sums, in the tensor cores' order); the softmax is written out
   step by step in base 2 (``ex2.approx``).
@@ -35,8 +30,9 @@ and add are contracted unless the source writes ``__fmaf_rn``.
   division round each step (``__fmul_rn``, ``__fadd_rn``, ...).
 * ``l2dist_wgmma``: its product runs on the tensor cores, in 3xTF32 for
   f32 inputs and in one bf16 product for bf16 (f32 sums in the tensor
-  cores' order); its norms are ``__fmaf_rn`` sums and its epilogue rounds
-  each step, as ``l2dist``'s does.
+  cores' order); its norms are ``__fmaf_rn`` sums (one rounding per
+  term) and its epilogue (``|q|^2 - 2 q.v + |v|^2``) rounds each step, as
+  the plain version does.
 """
 
 from __future__ import annotations
@@ -59,9 +55,7 @@ SOURCES = {
     "adc_fused_topk": "pq_adc",
     "adc_scan": "pq_adc",
     "adc_scan_topk": "pq_adc",
-    "l2dist": "l2dist",
     "l2dist_wgmma": "l2dist",       # f32 and bf16 instantiations
-    "flash_attn_fwd": "flash_attn",
     "flash_attn_fwd_wgmma": "flash_attn",
     "flash_attn_fwd_tf32": "flash_attn",
 }

@@ -3,12 +3,13 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/flash_attn.py::
 // flash_attention_fwd (_flash_kernel) for f32 inputs with dh % 4 == 0,
-// dh <= 128 (flash_attn/ops.py::flash_kernel routes other head widths to
-// flash_attn_fwd.cu and bf16 to flash_attn_fwd_wgmma.cu).
+// dh <= 256 (flash_attn/ops.py::flash_kernel routes bf16 to
+// flash_attn_fwd_wgmma.cu; its wrapper pads other head widths with zero
+// columns to a multiple of 4 and casts other dtypes first).
 // q (B, S, H, dh), k and v (B, T, Hk, dh) give o (B, S, H, dh) f32:
 //     o[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h / G]) v[b, t, h / G]
 // with G = H / Hk query heads per KV head (no KV copy per query head).
-// The TPU kernel's semantics, as flash_attn_fwd.cu states them: causal
+// The TPU kernel's semantics (its _flash_kernel): causal
 // masking aligned at the top left (key t kept for query s where t <= s,
 // also when S != T); masked scores and the running max start at -1e30; the
 // running (m, l, acc) are f32; the output is acc / max(l, 1e-30); KV tiles
@@ -72,6 +73,25 @@
 // (K hi and lo; the V^T rows past dh, which come from zero columns, land
 // in that same space).  Zero columns add nothing to a score, and the
 // output columns past dh are not stored.
+//
+// 128 < dh <= 256 (the kDh = 256 kernel, flash_fwd_tf32_wide_kernel).
+// The layout above does not fit: O alone is 128 floats a thread, Q lo
+// another 128, and a 32-key stage 128 KB beside a 64 KB q tile.  So the
+// two warpgroups split the head width instead of the keys: both take
+// every KV tile of the block's 64 rows, warpgroup w the columns [128 w,
+// 128 w + 128) of q, K and V.  Each computes its partial scores over its
+// 128 columns (its 64 Q hi registers, Q lo in place in shared memory, K
+// hi and lo of its half: m64n16k8 in 3xTF32), the two hand their partial
+// S to each other through shared memory (8 floats a thread, double
+// buffered by tile parity, one barrier of both warpgroups a tile), both
+// run the same online softmax on the sum, and each accumulates O for its
+// own 128 columns (64 registers, m64n128k8): no merge at the end, and no
+// product is done twice.  KV tiles hold 16 keys in a 2-stage ring: a
+// stage is K (16 KB, hi in place), K lo, V (landed, then V^T hi in place)
+// and V^T lo; V^T has rows of 16 keys (64 bytes), so it takes the 64-byte
+// swizzle (chunk ^ ((row >> 1) & 3), 512-byte atoms).  Each warpgroup
+// splits and transposes only its own half of a stage.  Shared memory: q
+// 64 KB + 2 x 64 KB + 16 KB for the exchange = 208 KB.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -482,6 +502,341 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+
+// ------------------------------------------------------- kernel, dh <= 256
+constexpr int kWideDh = 256;
+constexpr int kWideBKV = 16;                   // keys per KV tile
+constexpr int kWideStages = 2;
+constexpr int kWideBoxes = kWideDh / kBox;     // 8 boxes of 32 columns
+constexpr int kWideQBytes = kWideBoxes * kBQ * 128;          // 64 KB
+constexpr int kWideBoxBytes = kWideBKV * 128;                // 2 KB
+constexpr int kWideKvBytes = kWideBoxes * kWideBoxBytes;     // 16 KB
+constexpr int kWideStageBytes = 4 * kWideKvBytes;            // 64 KB
+constexpr int kWideXBytes = 2 * 2 * 8 * 128 * 4;             // 16 KB
+constexpr int kWideSmemBytes =
+    kWideQBytes + kWideStages * kWideStageBytes + kWideXBytes + 1024;
+
+// d (64 x 16) (+)= A (64 x 8, smem) * B (16 x 8, smem)^T in TF32, both
+// K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 16) += A (64 x 8, registers) * B (16 x 8, smem)^T in TF32
+__device__ __forceinline__ void mma_rs_n16(float (&d)[8], const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           float* __restrict__ o, int s_len, int t_len,
+                           int h_q, int h_kv, int dh, float q_scale,
+                           int causal) {
+  constexpr int kBKV = kWideBKV;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kNumBars];
+  uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
+                              smem_u32(smem_raw));
+  uint8_t* q_s = base;
+  auto k_hi = [&](int st) {
+    return q_s + kWideQBytes + st * kWideStageBytes;
+  };
+  auto k_lo = [&](int st) { return k_hi(st) + kWideKvBytes; };
+  auto v_hi = [&](int st) { return k_hi(st) + 2 * kWideKvBytes; };
+  auto v_lo = [&](int st) { return k_hi(st) + 3 * kWideKvBytes; };
+  // the partial scores: [tile parity][warpgroup][element][thread]
+  float* xs = reinterpret_cast<float*>(q_s + kWideQBytes +
+                                       kWideStages * kWideStageBytes);
+  const uint32_t bar0 = smem_u32(bars);
+  auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
+
+  const int tid = threadIdx.x;
+  const int n_qt = (s_len + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBQ;   // longest first
+  const int bb = blockIdx.x / h_q, h = blockIdx.x % h_q;
+  const int kh = h / (h_q / h_kv);
+  const int q_last = min(q0 + kBQ, s_len) - 1;
+  const int n_kv_all = (t_len + kBKV - 1) / kBKV;
+  const int n_kv = causal ? min(n_kv_all, q_last / kBKV + 1) : n_kv_all;
+  const int nb = (dh + kBox - 1) / kBox;            // boxes that TMA loads
+
+  if (tid == 0) {
+    mbar_init(bar(kBarQ), 1);
+    for (int st = 0; st < kWideStages; ++st) {
+      mbar_init(bar(kBarFull + st), 1);
+      mbar_init(bar(kBarEmpty + st), 8);   // the warps of both warpgroups
+    }
+    fence_mbar_init();
+  }
+  // the boxes past nb: zeros in the q tile and in each stage's K and V
+  for (int c = nb; c < kWideBoxes; ++c) {
+    float4* z = reinterpret_cast<float4*>(q_s + c * kBQ * 128);
+    for (int i = tid; i < kBQ * 8; i += kThreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int st = 0; st < kWideStages; ++st)
+      for (int i = tid; i < kBKV * 8; i += kThreads) {
+        reinterpret_cast<float4*>(k_hi(st) + c * kWideBoxBytes)[i] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+        reinterpret_cast<float4*>(v_hi(st) + c * kWideBoxBytes)[i] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+  }
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {                     // producer warp
+    if (tid == kConsumerThreads) {
+      mbar_expect_tx(bar(kBarQ), nb * kBQ * 128);
+      for (int c = 0; c < nb; ++c)
+        tma_load_4d(smem_u32(q_s) + c * kBQ * 128, &map_q, bar(kBarQ),
+                    c * kBox, h, q0, bb);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % kWideStages;
+        if (j >= kWideStages)
+          mbar_wait(bar(kBarEmpty + st), ((j / kWideStages) - 1) & 1);
+        mbar_expect_tx(bar(kBarFull + st), 2 * nb * kWideBoxBytes);
+        for (int c = 0; c < nb; ++c) {
+          tma_load_4d(smem_u32(k_hi(st)) + c * kWideBoxBytes, &map_k,
+                      bar(kBarFull + st), c * kBox, kh, j * kBKV, bb);
+          tma_load_4d(smem_u32(v_hi(st)) + c * kWideBoxBytes, &map_v,
+                      bar(kBarFull + st), c * kBox, kh, j * kBKV, bb);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: columns [128 wg, 128 wg + 128) of all 64
+  // rows and every KV tile
+  const int wg = tid / 128, t = tid % 128;
+  const int lane = t % 32, quad = lane % 4;
+  const int ra = 16 * (t / 32) + lane / 4;      // tile rows ra, ra + 8
+  const int c0 = 128 * wg;                      // the warpgroup's columns
+  const int box0 = 4 * wg;                      // and 32-column boxes
+
+  // Q hi of the warpgroup's columns into registers as TF32 A fragments
+  // (k-step kk: columns c0 + 8 kk ..), then its Q lo in place: hi takes
+  // part in two of the three score products, so from registers it halves
+  // the shared-memory A operand reads of the small m64n16k8 products
+  uint32_t q_hi[64];
+  mbar_wait(bar(kBarQ), 0);
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ra + 8 * (i & 1);
+      const int c = c0 + 8 * kk + quad + 4 * (i >> 1);
+      const float x =
+          __fmul_rn(*reinterpret_cast<const float*>(q_s + swz(r, c, kBQ)),
+                    q_scale);
+      q_hi[4 * kk + i] = __float_as_uint(tf32_rna(x));
+    }
+  }
+  named_sync(2 + wg, 128);
+  {
+    auto lo = [&](float v) {
+      const float y = __fmul_rn(v, q_scale);
+      return tf32_rna(__fsub_rn(y, tf32_rna(y)));
+    };
+    float4* half = reinterpret_cast<float4*>(q_s + box0 * kBQ * 128);
+    for (int i = t; i < 4 * kBQ * 8; i += 128) {
+      const float4 x = half[i];
+      half[i] = make_float4(lo(x.x), lo(x.y), lo(x.z), lo(x.w));
+    }
+  }
+  fence_proxy_async();
+  named_sync(2 + wg, 128);
+
+  float o_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o_acc[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  const int row_a = q0 + ra;
+  const uint32_t qa = smem_u32(q_s);
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % kWideStages;
+    mbar_wait(bar(kBarFull + st), (j / kWideStages) & 1);
+
+    // ---- this warpgroup's half of the stage: K split in place (hi) and
+    // into K lo; V (column c0 + t) transposed into V^T row t of the half
+    float4* kh4 = reinterpret_cast<float4*>(k_hi(st) +
+                                            box0 * kWideBoxBytes);
+    float4* kl4 = reinterpret_cast<float4*>(k_lo(st) +
+                                            box0 * kWideBoxBytes);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 x = kh4[t + 128 * i];
+      const float4 hi = make_float4(tf32_rna(x.x), tf32_rna(x.y),
+                                    tf32_rna(x.z), tf32_rna(x.w));
+      kh4[t + 128 * i] = hi;
+      kl4[t + 128 * i] = make_float4(
+            tf32_rna(__fsub_rn(x.x, hi.x)), tf32_rna(__fsub_rn(x.y, hi.y)),
+            tf32_rna(__fsub_rn(x.z, hi.z)), tf32_rna(__fsub_rn(x.w, hi.w)));
+    }
+    float vals[kBKV];
+#pragma unroll
+    for (int e = 0; e < kBKV; ++e)
+      vals[e] = *reinterpret_cast<const float*>(
+          v_hi(st) + swz(e, c0 + t, kBKV));
+    named_sync(2 + wg, 128);                // every V value of the half read
+    uint8_t* vh = v_hi(st) + box0 * kWideBoxBytes + t * 64;
+    uint8_t* vl = v_lo(st) + box0 * kWideBoxBytes + t * 64;
+#pragma unroll
+    for (int c = 0; c < kBKV / 4; ++c) {     // k-positions 4c .. 4c + 3
+      float hv[4], lv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = vals[key_of(4 * c + e)];
+        hv[e] = tf32_rna(x);
+        lv[e] = tf32_rna(__fsub_rn(x, hv[e]));
+      }
+      const int off = (c ^ ((t >> 1) & 3)) << 4;   // 64-byte swizzle
+      *reinterpret_cast<float4*>(vh + off) =
+          make_float4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<float4*>(vl + off) =
+          make_float4(lv[0], lv[1], lv[2], lv[3]);
+    }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);                // the split half is in
+
+    // ---- partial S = Q K^T over the warpgroup's 128 columns: 16
+    // k-steps; step kk reads 32 bytes at (kk % 4) * 32 of box box0 + kk / 4
+    // (Q lo there, Q hi from registers)
+    float s[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) s[r] = 0.f;
+    const uint32_t kha = smem_u32(k_hi(st)), kla = smem_u32(k_lo(st));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const int box = box0 + kk / 4;
+      const uint32_t qoff = box * kBQ * 128 + (kk % 4) * 32;
+      const uint32_t koff = box * kWideBoxBytes + (kk % 4) * 32;
+      const uint64_t dkh = desc(kha + koff, 16, 1024);
+      mma_rs_n16(s, &q_hi[4 * kk], desc(kla + koff, 16, 1024));
+      mma_ss_n16(s, desc(qa + qoff, 16, 1024), dkh, 1);
+      mma_rs_n16(s, &q_hi[4 * kk], dkh);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // ---- the two partial scores summed (a + b == b + a, so both
+    // warpgroups hold the same bits), through a buffer of the tile's
+    // parity: the other warpgroup read this tile's values before it
+    // reached the next tile's barrier
+    float* mine = xs + ((j & 1) * 2 + wg) * 8 * 128;
+    float* theirs = xs + ((j & 1) * 2 + (1 - wg)) * 8 * 128;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) mine[r * 128 + t] = s[r];
+    named_sync(1, kConsumerThreads);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) s[r] = __fadd_rn(s[r], theirs[r * 128 + t]);
+
+    // ---- online softmax, base 2; element r: row ra (r & 2 == 0) or
+    // ra + 8, key j*kBKV + 8*(r/4) + 2*quad + (r & 1)
+    const int k0 = j * kBKV;
+    const bool edge = k0 + kBKV > t_len || (causal && k0 + kBKV - 1 > q0);
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float x = s[r];
+      if (edge) {
+        const int kp = k0 + 8 * (r / 4) + 2 * quad + (r & 1);
+        const int qp = row_a + ((r & 2) ? 8 : 0);
+        if (kp >= t_len) x = -INFINITY;
+        else if (causal && kp > qp) x = kNegInf;
+      }
+      s[r] = x;
+      if (r & 2) mx_b = fmaxf(mx_b, x);
+      else mx_a = fmaxf(mx_a, x);
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = ex2(__fsub_rn(m_a, mn_a));
+    const float corr_b = ex2(__fsub_rn(m_b, mn_b));
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+    uint32_t p_hi[8], p_lo[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float p = ex2(__fsub_rn(s[r], (r & 2) ? mn_b : mn_a));
+      if (r & 2) sum_b = __fadd_rn(sum_b, p);
+      else sum_a = __fadd_rn(sum_a, p);
+      const float hi = tf32_rna(p);
+      const int slot = 4 * (r / 4) + ((r & 2) ? 1 : 0) + ((r & 1) ? 2 : 0);
+      p_hi[slot] = __float_as_uint(hi);
+      p_lo[slot] = __float_as_uint(tf32_rna(__fsub_rn(p, hi)));
+    }
+    l_a = __fadd_rn(__fmul_rn(l_a, corr_a), sum_a);
+    l_b = __fadd_rn(__fmul_rn(l_b, corr_b), sum_b);
+#pragma unroll
+    for (int r = 0; r < 64; ++r)
+      o_acc[r] = __fmul_rn(o_acc[r], (r & 2) ? corr_b : corr_a);
+
+    // ---- O += P V over the warpgroup's columns: two k-steps of 8 keys;
+    // step c reads 32 bytes at c * 32 of the half's 64-byte V^T rows
+    const uint32_t vha = smem_u32(v_hi(st)) + box0 * kWideBoxBytes;
+    const uint32_t vla = smem_u32(v_lo(st)) + box0 * kWideBoxBytes;
+    fence_regs(o_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBKV / 8; ++c) {
+      const uint64_t dvh = desc_sw64(vha + c * 32, 16, 512);
+      const uint64_t dvl = desc_sw64(vla + c * 32, 16, 512);
+      mma_rs_n128(o_acc, &p_hi[4 * c], dvl);
+      mma_rs_n128(o_acc, &p_lo[4 * c], dvh);
+      mma_rs_n128(o_acc, &p_hi[4 * c], dvh);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    if (lane == 0) mbar_arrive(bar(kBarEmpty + st));  // stage free
+  }
+
+  // ---- the quad's partial row sums, then acc / max(l, 1e-30) into the
+  // warpgroup's columns
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l_a = __fadd_rn(l_a, __shfl_xor_sync(0xffffffffu, l_a, sh));
+    l_b = __fadd_rn(l_b, __shfl_xor_sync(0xffffffffu, l_b, sh));
+  }
+  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+  const long long row_stride = (long long)h_q * dh;
+  float* ob = o + ((long long)bb * s_len * h_q + h) * dh;
+#pragma unroll
+  for (int r = 0; r < 64; r += 2) {
+    const bool b_row = r & 2;
+    const int row = row_a + (b_row ? 8 : 0);
+    const int col = c0 + 8 * (r / 4) + 2 * quad;  // dh % 4 == 0: col + 1 too
+    if (row >= s_len || col >= dh) continue;
+    const float l = b_row ? lb : la;
+    *reinterpret_cast<float2*>(ob + row * row_stride + col) =
+        make_float2(__fdiv_rn(o_acc[r], l), __fdiv_rn(o_acc[r + 1], l));
+  }
+}
+
 // ------------------------------------------------------------------ host
 // (batch, len, heads, dh) f32, 32-column x rows boxes, 128-byte swizzle;
 // rows past len and columns past dh read as zeros
@@ -506,39 +861,54 @@ template <int kDh>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int s, int t, int h, int hk, int dh, float scale,
                    int causal, cudaStream_t stream) {
+  constexpr bool kWide = kDh > 128;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, b, s, h, dh, kBQ) ||
-      !make_map(&mk, k, b, t, hk, dh, kBKV) ||
-      !make_map(&mv, v, b, t, hk, dh, kBKV))
+      !make_map(&mk, k, b, t, hk, dh, kWide ? kWideBKV : kBKV) ||
+      !make_map(&mv, v, b, t, hk, dh, kWide ? kWideBKV : kBKV))
     return cudaErrorInvalidValue;
-  constexpr int smem = Cfg<kDh>::kSmemBytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tf32_kernel<kDh>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
   const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
-  flash_fwd_tf32_kernel<kDh><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<float*>(o), s, t, h, hk, dh,
-      scale * kLog2e, causal);
+  cudaError_t e;
+  if constexpr (kWide) {
+    e = cudaFuncSetAttribute(flash_fwd_tf32_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWideSmemBytes);
+    if (e != cudaSuccess) return e;
+    flash_fwd_tf32_wide_kernel<<<grid, kThreads, kWideSmemBytes, stream>>>(
+        mq, mk, mv, static_cast<float*>(o), s, t, h, hk, dh,
+        scale * kLog2e, causal);
+  } else {
+    constexpr int smem = Cfg<kDh>::kSmemBytes;
+    e = cudaFuncSetAttribute(flash_fwd_tf32_kernel<kDh>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    flash_fwd_tf32_kernel<kDh><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, static_cast<float*>(o), s, t, h, hk, dh,
+        scale * kLog2e, causal);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (b, s, h, dh), k and v (b, t, hk, dh), o (b, s, h, dh), contiguous
-// f32, each 16-byte aligned; h % hk == 0, dh % 4 == 0, dh <= 128.
+// f32, each 16-byte aligned; h % hk == 0, dh % 4 == 0, dh <= 256.
 // Returns a cudaError_t.
 extern "C" int flash_attn_fwd_tf32(const void* q, const void* k,
                                    const void* v, void* o, int b, int s,
                                    int t, int h, int hk, int dh, float scale,
                                    int causal, void* stream) {
   if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 4 || dh % 4 ||
-      dh > 128 || (long long)b * h > 0x7fffffffLL ||
+      dh > 256 || (long long)b * h > 0x7fffffffLL ||
       (s + kBQ - 1) / kBQ > 65535 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh > 128)
+    return (int)launch<256>(q, k, v, o, b, s, t, h, hk, dh, scale, causal,
+                            st);
   return (int)(dh > 64 ? launch<128>(q, k, v, o, b, s, t, h, hk, dh, scale,
                                      causal, st)
                        : launch<64>(q, k, v, o, b, s, t, h, hk, dh, scale,

@@ -2,12 +2,13 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/flash_attn.py::
 // flash_attention_fwd (_flash_kernel) for bf16 inputs with dh % 8 == 0,
-// dh <= 128 (flash_attn/ops.py::flash_kernel routes f32 to
-// flash_attn_fwd_tf32.cu and other head widths to flash_attn_fwd.cu).
+// dh <= 256 (flash_attn/ops.py::flash_kernel routes f32 to
+// flash_attn_fwd_tf32.cu; its wrapper pads other head widths with zero
+// columns to a multiple of 8 and casts other dtypes first).
 // q (B, S, H, dh), k and v (B, T, Hk, dh) give o (B, S, H, dh):
 //     o[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h / G]) v[b, t, h / G]
 // with G = H / Hk query heads per KV head (no KV copy per query head).
-// The TPU kernel's semantics, as flash_attn_fwd.cu states them: causal
+// The TPU kernel's semantics (its _flash_kernel): causal
 // masking aligned at the top left (key t kept for query s where t <= s,
 // also when S != T); masked scores and the running max start at -1e30; the
 // running (m, l, acc) are f32 and rescaled for every KV tile; the output is
@@ -43,14 +44,21 @@
 // runs its softmax the other's products keep the tensor cores busy.
 // Blocks are ordered with the longest causal q tiles first.
 //
-// Head widths: two instances, kDh = 64 and 128; dh <= 64 runs on the
-// first, 64 < dh <= 128 on the second.  The tensor maps take the true dh
-// as their inner extent (TMA needs every global stride on 16 bytes: dh %
-// 8 == 0), so TMA fills the columns dh .. kDh - 1 of every q, K and V
-// tile with zeros: they add nothing to a score, and the output columns
-// they give are not stored.  No box lies wholly past dh (64-column boxes,
-// dh > 64 on the 128 instance).  scale is the caller's, 1/sqrt(dh) by
-// default.
+// Head widths: three instances, kDh = 64, 128 and 256; dh <= 64 runs on
+// the first, 64 < dh <= 128 on the second, 128 < dh <= 256 on the third.
+// The tensor maps take the true dh as their inner extent (TMA needs every
+// global stride on 16 bytes: dh % 8 == 0), so TMA fills the columns dh ..
+// kDh - 1 of every q, K and V tile with zeros: they add nothing to a
+// score, and the output columns they give are not stored.  A box wholly
+// past dh (the last at dh <= 192 on the 256 instance) is never loaded:
+// its space in the q tile and in every stage's K and V is cleared once at
+// the start and stays zero.  scale is the caller's, 1/sqrt(dh) by default.
+//
+// kDh = 256: O is 128 floats a thread, so the KV tiles hold 32 keys
+// (S 16 floats, P 8 registers, O += P V as m64n256k16; 64-key tiles
+// spilled more registers and ran slower, scripts/kernel_ab.py, PERF.md
+// section 6); shared memory q 64 KB + 2 stages x (K + V) 32 KB = 128 KB,
+// one block an SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -65,12 +73,11 @@ namespace {
 using namespace hopper;
 
 constexpr int kBQ = 128;              // query rows per block
-constexpr int kBKV = 128;             // keys per KV tile
 constexpr int kStages = 2;            // KV ring depth
 constexpr int kConsumerThreads = 256; // two warpgroups
 constexpr int kThreads = kConsumerThreads + 32;   // + one producer warp
 constexpr int kBox = 64;              // bf16 columns per 128-byte TMA box
-constexpr int kBoxBytes = 128 * kBox * 2;         // 128 rows x 128 B
+constexpr int kBoxBytes = kBQ * kBox * 2;         // 128 rows x 128 B of q
 constexpr float kNegInf = -1e30f;     // the TPU kernel's _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -78,10 +85,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBarQ = 0, kBarK = 1, kBarV = 1 + kStages,
               kBarEmpty = 1 + 2 * kStages, kNumBars = 1 + 3 * kStages;
 
-// d (64 x 128, f32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T, both
-// K-major; accumulate = 0 overwrites d
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
-                                            uint64_t db, int accumulate) {
+// keys per KV tile of the kDh instance
+template <int kDh>
+constexpr int kKvTile = kDh > 128 ? 32 : 128;
+
+// d (64 x N, f32) (+)= A (64 x 16, smem) * B (N x 16, smem)^T, both
+// K-major, N = 128 or 32; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
+                                       uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
@@ -89,10 +100,29 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
       : D64
       : "l"(da), "l"(db), "r"(accumulate));
 }
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " R16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : D16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-// d (64 x N, f32) += A (64 x 16, registers) * B (16 x N, smem, MN-major)
-__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a,
-                                            uint64_t db) {
+// d (64 x N, f32) += A (64 x 16, registers) * B (16 x N, smem, MN-major),
+// N = 256, 128 or 64
+__device__ __forceinline__ void mma_rs(float (&d)[128], const uint32_t* a,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t* a,
+                                       uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
@@ -100,8 +130,8 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a,
       : D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a,
-                                           uint64_t db) {
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
+                                       uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
@@ -130,8 +160,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        __nv_bfloat16* __restrict__ o, int s_len, int t_len,
                        int h_q, int h_kv, int dh, float scale_log2,
                        int causal) {
+  constexpr int kBKV = kKvTile<kDh>;              // keys per KV tile
   constexpr int kHalves = kDh / kBox;               // boxes per row
-  constexpr int kTileBytes = kHalves * kBoxBytes;   // one q, K or V tile
+  constexpr int kTileBytes = kHalves * kBoxBytes;   // the q tile
+  constexpr int kKvBoxBytes = kBKV * kBox * 2;      // a K or V box
+  constexpr int kKvBytes = kHalves * kKvBoxBytes;   // a K or V tile
   constexpr int kDv = kDh / 2;                      // O registers a thread
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
@@ -139,7 +172,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
   const uint32_t k_s = q_s + kTileBytes;
-  const uint32_t v_s = k_s + kStages * kTileBytes;
+  const uint32_t v_s = k_s + kStages * kKvBytes;
   const uint32_t bar0 = smem_u32(bars);
   auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
 
@@ -151,6 +184,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q_last = min(q0 + kBQ, s_len) - 1;
   const int n_kv_all = (t_len + kBKV - 1) / kBKV;
   const int n_kv = causal ? min(n_kv_all, q_last / kBKV + 1) : n_kv_all;
+  const int nb = (dh + kBox - 1) / kBox;            // boxes that TMA loads
 
   if (tid == 0) {
     mbar_init(bar(kBarQ), 1);
@@ -161,26 +195,42 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     fence_mbar_init();
   }
+  // the boxes past nb (only on the 256 instance): zeros in the q tile and
+  // in each stage's K and V, written before any wgmma reads them
+  for (int c = nb; c < kHalves; ++c) {
+    uint4* z = reinterpret_cast<uint4*>(smem_raw + (q_s - smem_u32(smem_raw))
+                                        + c * kBoxBytes);
+    for (int i = tid; i < kBoxBytes / 16; i += kThreads)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int st = 0; st < 2 * kStages; ++st) {     // K[0] K[1] V[0] V[1]
+      uint4* zk = reinterpret_cast<uint4*>(
+          smem_raw + (k_s - smem_u32(smem_raw)) + st * kKvBytes +
+          c * kKvBoxBytes);
+      for (int i = tid; i < kKvBoxBytes / 16; i += kThreads)
+        zk[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (nb < kHalves) fence_proxy_async();
   __syncthreads();
 
   if (tid >= kConsumerThreads) {                     // producer warp
     if (tid == kConsumerThreads) {
-      mbar_expect_tx(bar(kBarQ), kTileBytes);
-      for (int c = 0; c < kHalves; ++c)
+      mbar_expect_tx(bar(kBarQ), nb * kBoxBytes);
+      for (int c = 0; c < nb; ++c)
         tma_load_4d(q_s + c * kBoxBytes, &map_q, bar(kBarQ), c * kBox, h,
                     q0, bb);
       for (int j = 0; j < n_kv; ++j) {
         const int st = j % kStages;
         if (j >= kStages)
           mbar_wait(bar(kBarEmpty + st), ((j / kStages) - 1) & 1);
-        const uint32_t kd = k_s + st * kTileBytes, vd = v_s + st * kTileBytes;
-        mbar_expect_tx(bar(kBarK + st), kTileBytes);
-        for (int c = 0; c < kHalves; ++c)
-          tma_load_4d(kd + c * kBoxBytes, &map_k, bar(kBarK + st),
+        const uint32_t kd = k_s + st * kKvBytes, vd = v_s + st * kKvBytes;
+        mbar_expect_tx(bar(kBarK + st), nb * kKvBoxBytes);
+        for (int c = 0; c < nb; ++c)
+          tma_load_4d(kd + c * kKvBoxBytes, &map_k, bar(kBarK + st),
                       c * kBox, kh, j * kBKV, bb);
-        mbar_expect_tx(bar(kBarV + st), kTileBytes);
-        for (int c = 0; c < kHalves; ++c)
-          tma_load_4d(vd + c * kBoxBytes, &map_v, bar(kBarV + st),
+        mbar_expect_tx(bar(kBarV + st), nb * kKvBoxBytes);
+        for (int c = 0; c < nb; ++c)
+          tma_load_4d(vd + c * kKvBoxBytes, &map_v, bar(kBarV + st),
                       c * kBox, kh, j * kBKV, bb);
       }
     }
@@ -201,18 +251,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int j = 0; j < n_kv; ++j) {
     const int st = j % kStages;
     const uint32_t ph = (j / kStages) & 1;
-    const uint32_t kt = k_s + st * kTileBytes, vt = v_s + st * kTileBytes;
+    const uint32_t kt = k_s + st * kKvBytes, vt = v_s + st * kKvBytes;
 
     // S = Q K^T: dh / 16 steps of k16; step kk reads 32 bytes at
     // (kk % 4) * 32 of the 128-byte rows of box kk / 4
-    float s[64];
+    float s[kBKV / 2];
     mbar_wait(bar(kBarK + st), ph);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDh / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      mma_ss_n128(s, desc(q_s + off + wg * 64 * 128, 16, 1024),
-                  desc(kt + off, 16, 1024), kk > 0);
+      const uint32_t off = (kk % 4) * 32;
+      mma_ss(s, desc(q_s + (kk / 4) * kBoxBytes + off + wg * 64 * 128, 16,
+                     1024),
+             desc(kt + (kk / 4) * kKvBoxBytes + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -225,7 +276,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       (causal && k0 + kBKV - 1 > wg_row0);
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int r = 0; r < 64; ++r) {
+    for (int r = 0; r < kBKV / 2; ++r) {
       float x = s[r] * scale_log2;
       if (edge) {
         const int kp = k0 + 8 * (r / 4) + 2 * quad + (r & 1);
@@ -247,9 +298,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     m_a = mn_a;
     m_b = mn_b;
     float sum_a = 0.f, sum_b = 0.f;
-    uint32_t p[32];
+    uint32_t p[kBKV / 4];
 #pragma unroll
-    for (int r = 0; r < 64; r += 2) {
+    for (int r = 0; r < kBKV / 2; r += 2) {
       const float mr = (r & 2) ? mn_b : mn_a;
       const float p0 = ex2(s[r] - mr), p1 = ex2(s[r + 1] - mr);
       if (r & 2) sum_b += p0 + p1;
@@ -262,16 +313,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int r = 0; r < kDv; ++r) o_acc[r] *= (r & 2) ? corr_b : corr_a;
 
     // O += P V: kBKV / 16 steps; step kk takes the four registers of P
-    // that hold keys 16 kk .. 16 kk + 15 and V rows 16 kk .. (2 KB on)
+    // that hold keys 16 kk .. 16 kk + 15 and V rows 16 kk .. (2 KB on);
+    // N = kDh runs across the boxes, kKvBoxBytes apart
     mbar_wait(bar(kBarV + st), ph);
     fence_regs(o_acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-      const uint64_t dv = desc(vt + kk * 2048, kBoxBytes, 1024);
-      if constexpr (kDh == 128) mma_rs_n128(o_acc, &p[4 * kk], dv);
-      else mma_rs_n64(o_acc, &p[4 * kk], dv);
-    }
+    for (int kk = 0; kk < kBKV / 16; ++kk)
+      mma_rs(o_acc, &p[4 * kk], desc(vt + kk * 2048, kKvBoxBytes, 1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o_acc);
@@ -323,12 +372,14 @@ template <int kDh>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int s, int t, int h, int hk, int dh, float scale,
                    int causal, cudaStream_t stream) {
+  constexpr int kBKV = kKvTile<kDh>;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, b, s, h, dh, kBQ) ||
       !make_map(&mk, k, b, t, hk, dh, kBKV) ||
       !make_map(&mv, v, b, t, hk, dh, kBKV))
     return cudaErrorInvalidValue;
-  const int smem = (1 + 2 * kStages) * (kDh / kBox) * kBoxBytes + 1024;
+  const int smem =
+      (kBQ + 2 * kStages * kBKV) * (kDh / kBox) * kBox * 2 + 1024;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<kDh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -343,19 +394,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (b, s, h, dh), k and v (b, t, hk, dh), o (b, s, h, dh), contiguous
-// bf16, each 16-byte aligned; h % hk == 0, dh % 8 == 0, dh <= 128.
+// bf16, each 16-byte aligned; h % hk == 0, dh % 8 == 0, dh <= 256.
 // Returns a cudaError_t.
 extern "C" int flash_attn_fwd_wgmma(const void* q, const void* k,
                                     const void* v, void* o, int b, int s,
                                     int t, int h, int hk, int dh, float scale,
                                     int causal, void* stream) {
   if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 8 || dh % 8 ||
-      dh > 128 || (long long)b * h > 0x7fffffffLL ||
+      dh > 256 || (long long)b * h > 0x7fffffffLL ||
       (s + kBQ - 1) / kBQ > 65535 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh > 128)
+    return (int)launch<256>(q, k, v, o, b, s, t, h, hk, dh, scale, causal,
+                            st);
   return (int)(dh > 64 ? launch<128>(q, k, v, o, b, s, t, h, hk, dh, scale,
                                      causal, st)
                        : launch<64>(q, k, v, o, b, s, t, h, hk, dh, scale,

@@ -1,38 +1,43 @@
 """Wrapper of the flash-attention forward kernels.
 
-Three kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
+Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 ``flash_attention_fwd``; plain version ``ref.flash_attn_ref``:
 
 * ``flash_attn_fwd_wgmma`` (``csrc/flash_attn_fwd_wgmma.cu``): bf16 on
-  the tensor cores (``wgmma``, TMA), for dh % 8 == 0 up to 128;
+  the tensor cores (``wgmma``, TMA);
 * ``flash_attn_fwd_tf32`` (``csrc/flash_attn_fwd_tf32.cu``): f32 on the
   tensor cores in 3xTF32 (each operand split into a TF32 hi and lo part,
   three products: one TF32 product would break the f32 tolerance, three
-  keep it), for dh % 4 == 0 up to 128;
-* ``flash_attn_fwd`` (``csrc/flash_attn_fwd.cu``): f32 or bf16 on the CUDA
-  cores, for every other head width up to 256.
+  keep it).
 
-Each tensor-core kernel has two instances, at dh 64 and 128: a head
-width up to 64 runs on the first, up to 128 on the second, its tensor
-maps taking the true dh as their inner extent, so TMA reads the columns
-past dh as zeros (TMA needs every row stride on 16 bytes, hence the
-multiples of 4 and 8).  For either, q, k or v that does not start on a
-16-byte boundary is copied first (its TMA loads need it).  Above dh =
-256 the card has no kernel and the wrapper raises; the JAX package takes
-any width.
+Each has three instances, at dh 64, 128 and 256: a head width up to 64
+runs on the first, up to 128 on the second, up to 256 on the third, its
+tensor maps taking the true dh as their inner extent, so TMA reads the
+columns past dh as zeros.  TMA needs every row stride on 16 bytes: a head
+width off it (bf16 dh % 8 != 0, f32 dh % 4 != 0) is copied into buffers
+zero-padded to the next multiple of 8 or 4 (zero columns add nothing to
+a score and give zero output columns, which are cut off), with the scale
+of the true dh.  Above dh = 256 the card has no kernel and the wrapper
+raises; the JAX package takes any width.
+
+The wrapper takes what the JAX one takes: any real dtype for each of q,
+k and v, mixed, and views.  ``launch.operand_dtype`` names the dtype the
+kernel computes in (bf16 where all three are uint8, int8 or bf16; f32
+otherwise); an input of another dtype, not contiguous or off a 16-byte
+boundary is copied first.  It returns q's dtype, as the JAX kernel does.
 
 :func:`flash_kernel` states that rule, :func:`flash_instance` the key a
-launch is counted under: a tensor-core kernel at a head width other than
-its instance's (64 or 128) counts apart, as ``<kernel>[padded]``.  The
-wrapper keeps the JAX
-package's layout — q (B, S, H, dh), k and v (B, T, Hk, dh) — and runs the
-plain version when its tensors lie on the CPU.  On CUDA tensors it
-launches the kernel the rule names, or raises: it checks device, dtype,
-shape and contiguity first and the ``cudaError_t`` after, allocates the
-output with ``torch.empty``, launches on the current stream and counts
-the launch in ``LAUNCHES[flash_instance(dtype, dh)]``
-(``repro_torch.kernels.launch``).
-Ragged S and T need no padding: the kernels mask their edge tiles.
+launch is counted under: ``<kernel>`` at dh 64 and 128,
+``<kernel>[padded]`` at other widths up to 128 on the stride,
+``<kernel>[256]`` above 128 on the stride, ``<kernel>[stride-pad]`` off
+it.  The wrapper keeps the JAX package's layout — q (B, S, H, dh), k and
+v (B, T, Hk, dh) — and runs the plain version when its tensors lie on
+the CPU.  On CUDA tensors it launches the kernel the rule names, or
+raises: it checks device and shapes first and the ``cudaError_t`` after,
+allocates the output with ``torch.empty``, launches on the current
+stream and counts the launch in ``LAUNCHES[flash_instance(dtype, dh)]``
+(``repro_torch.kernels.launch``).  Ragged S and T need no padding: the
+kernels mask their edge tiles.
 """
 
 from __future__ import annotations
@@ -43,39 +48,51 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attn.ref import flash_attn_ref
-from repro_torch.kernels.launch import check, launch
+from repro_torch.kernels.launch import launch, operand, operand_dtype
 
-_DTYPES = (torch.float32, torch.bfloat16)
-_MAX_DH = 256                   # flash_attn_fwd.cu: kMaxDh
-_WGMMA_MAX_DH = 128             # the tensor-core kernels' wider instance
-_WGMMA_DH = (64, 128)           # their instances' head widths
+_MAX_DH = 256                   # the kernels' widest instance
+_INSTANCE_DH = (64, 128)        # instances taken without a [padded] key
+
+
+def _step(dtype: torch.dtype) -> int:
+    """Elements a 16-byte row stride holds a multiple of."""
+    return 8 if operand_dtype(dtype) == torch.bfloat16 else 4
 
 
 def flash_kernel(dtype: torch.dtype, dh: int) -> str:
     """The kernel that computes attention for inputs of ``dtype`` and head
-    width ``dh``: up to dh = 128, ``flash_attn_fwd_wgmma`` for bf16 with
-    dh % 8 == 0 and ``flash_attn_fwd_tf32`` for f32 with dh % 4 == 0 (rows
-    on TMA's 16-byte stride); ``flash_attn_fwd`` for every other head
-    width up to 256.  Raises ``ValueError`` outside 1 <= dh <= 256, where
-    the card has no kernel."""
+    width ``dh``: ``flash_attn_fwd_wgmma`` where they compute in bf16
+    (``launch.operand_dtype``), ``flash_attn_fwd_tf32`` in f32, at every
+    head width up to 256.  Raises ``ValueError`` outside 1 <= dh <= 256,
+    where the card has no kernel."""
     if not 1 <= dh <= _MAX_DH:
         raise ValueError(f"head width {dh}: the CUDA kernels take 1 <= dh "
                          f"<= {_MAX_DH}")
-    step = 8 if dtype == torch.bfloat16 else 4    # 16-byte row stride
-    if dh % step or dh > _WGMMA_MAX_DH:
-        return "flash_attn_fwd"
-    if dtype == torch.bfloat16:
+    if operand_dtype(dtype) == torch.bfloat16:
         return "flash_attn_fwd_wgmma"
     return "flash_attn_fwd_tf32"
 
 
+def flash_width(dtype: torch.dtype, dh: int) -> int:
+    """The head width the kernel sees: dh rounded up to the 16-byte row
+    stride (a multiple of 8 in bf16, of 4 in f32)."""
+    step = _step(dtype)
+    return -(-dh // step) * step
+
+
 def flash_instance(dtype: torch.dtype, dh: int) -> str:
-    """The ``LAUNCHES`` key of the kernel :func:`flash_kernel` names: a
-    tensor-core kernel at a head width other than 64 or 128 (its columns
-    padded with zeros up to the instance) counts as ``<kernel>[padded]``;
-    else the kernel's name."""
+    """The ``LAUNCHES`` key of the kernel :func:`flash_kernel` names:
+    ``<kernel>[stride-pad]`` for a head width off the 16-byte row stride
+    (copied with zero columns first); on it, ``<kernel>[256]`` above 128
+    (the 256 instance), ``<kernel>[padded]`` at other widths than 64 and
+    128 (its columns past dh read as zeros up to the instance), else the
+    kernel's name."""
     name = flash_kernel(dtype, dh)
-    if name != "flash_attn_fwd" and dh not in _WGMMA_DH:
+    if dh % _step(dtype):
+        return f"{name}[stride-pad]"
+    if dh > 128:
+        return f"{name}[256]"
+    if dh not in _INSTANCE_DH:
         return f"{name}[padded]"
     return name
 
@@ -83,16 +100,17 @@ def flash_instance(dtype: torch.dtype, dh: int) -> str:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None
                     ) -> torch.Tensor:
-    """GQA attention forward: q (B, S, H, dh), k/v (B, T, Hk, dh), f32 or
-    bf16 -> (B, S, H, dh) in q's dtype, accumulated in f32.  ``scale``
-    defaults to 1/sqrt(dh); ``causal`` keeps key t for query s where
-    s >= t, positions aligned at the top left."""
+    """GQA attention forward: q (B, S, H, dh), k/v (B, T, Hk, dh) of any
+    real dtypes -> (B, S, H, dh) in q's dtype, accumulated in f32.
+    ``scale`` defaults to 1/sqrt(dh); ``causal`` keeps key t for query s
+    where s >= t, positions aligned at the top left."""
     if q.device.type == "cpu":
         return flash_attn_ref(q, k, v, causal=causal, scale=scale)
     dev = q.device
-    check("q", q, _DTYPES, 4, dev)
-    check("k", k, q.dtype, 4, dev)
-    check("v", v, q.dtype, 4, dev)
+    dtype = operand_dtype(q.dtype, k.dtype, v.dtype)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must "
+                         f"be 4-d")
     b, s, h, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh
@@ -100,22 +118,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} (H % Hk == 0)")
-    name = flash_instance(q.dtype, dh)          # raises past dh = 256
+    name = flash_instance(dtype, dh)            # raises past dh = 256
     if t == 0:
         raise ValueError("attention over zero keys")
-    out = torch.empty_like(q)
-    if not (b and s and h):
-        return out
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    if name == "flash_attn_fwd":
+    dp = flash_width(dtype, dh)
+    q_dtype = q.dtype
+    q, k, v = (operand(nm, x, dtype, 4, dp, dev)
+               for nm, x in (("q", q), ("k", k), ("v", v)))
+    out = torch.empty(b, s, h, dp, dtype=dtype, device=dev)
+    if b and s and h:
+        scale = scale if scale is not None else 1.0 / math.sqrt(dh)
         launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), b, s, t, h, hk, dh,
-               int(q.dtype == torch.bfloat16), scale, int(causal))
-    else:
-        # their TMA loads start on 16-byte boundaries: a view that starts
-        # elsewhere is copied into a fresh (aligned) buffer first
-        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
-                   for x in (q, k, v))
-        launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), b, s, t, h, hk, dh, scale, int(causal))
-    return out
+               out.data_ptr(), b, s, t, h, hk, dp, scale, int(causal))
+    if dp != dh:
+        out = out[..., :dh]
+    return out.to(q_dtype).contiguous()

@@ -140,6 +140,12 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
+// the same with the 64-byte swizzle (rows of 64 bytes, 8-row atoms of 512)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (desc(addr, lbo, sbo) & ~(3ull << 62)) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -174,6 +180,8 @@ __device__ __forceinline__ float tf32_rna(float x) {
 #define D16 D8(0), D8(8)
 #define D32 D16, D8(16), D8(24)
 #define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define D128 D64, D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), \
+             D8(112), D8(120)
 #define R16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define R32                                                                \
@@ -186,6 +194,22 @@ __device__ __forceinline__ float tf32_rna(float x) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
   "%58, %59, %60, %61, %62, %63}"
+
+#define R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, " \
+  "%109, %110, %111, %112, %113, %114, %115, %116, %117, " \
+  "%118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127}"
 
 // d (64 x 128, f32) (+)= A (64 x 8, smem) * B (128 x 8, smem)^T in TF32,
 // both K-major; accumulate = 0 overwrites d

@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/l2dist/l2dist.py::l2dist
 // (_l2_kernel, which widens its inputs to f32) for f32 of every width and
-// bf16 of even width; l2dist/ops.py::l2_kernel states the rule, odd bf16
-// widths (rows on 2-byte boundaries, which no cp.async granule takes) run
-// on l2dist.cu:
+// bf16 of even width; l2dist/ops.py states the rule: its wrapper casts
+// other dtypes first (uint8 and int8 to bf16, exact there) and pads odd
+// bf16 widths (rows on 2-byte boundaries, which no cp.async granule
+// takes) with one zero column:
 //     out[b, n] = (|q_b|^2 - 2 q_b.v_n) + |v_n|^2        (B, N) f32.
 //
 // What bounds it on an H100 SXM: bytes.  At the ground-truth chunk
@@ -582,6 +583,39 @@ l2dist_prologue_kernel(const void* __restrict__ q, float* __restrict__ qn,
 // (rows, d) f32 or bf16, row-major, boxes of 128 rows x 128 bytes (32 f32
 // or 64 bf16 columns), 128-byte swizzle; rows past `rows` and columns
 // past d read as zeros
+// Rows of ws bf16 at src (any 2-byte boundary) copied into rows of wd >
+// ws (a multiple of 8) at dst, the columns past ws zero: the odd bf16
+// widths' route (l2dist_wgmma[bf16,odd]), whose rows lie on 2 bytes,
+// which no cp.async granule takes, padded to rows on 16 bytes, which the
+// widest granule takes.  A warp a row (as many warps as rows, up to 2^23),
+// each lane one 4-byte word of it at a time: both the reads and the
+// writes run along the row.
+__global__ void __launch_bounds__(256)
+l2dist_pad_rows_kernel(const uint16_t* __restrict__ src,
+                       uint32_t* __restrict__ dst, int rows, int ws,
+                       int wd) {
+  const int half = wd / 2, lane = threadIdx.x & 31;
+  for (long long r = blockIdx.x * 8LL + (threadIdx.x >> 5); r < rows;
+       r += gridDim.x * 8LL) {
+    const uint16_t* s = src + r * ws;
+    uint32_t* o = dst + r * half;
+    for (int c = lane; c < half; c += 32) {
+      const uint32_t lo = 2 * c < ws ? __ldg(s + 2 * c) : 0u;
+      const uint32_t hi = 2 * c + 1 < ws ? __ldg(s + 2 * c + 1) : 0u;
+      o[c] = lo | (hi << 16);
+    }
+  }
+}
+
+cudaError_t pad_rows(const void* src, const void* dst, int rows, int ws,
+                     int wd, cudaStream_t st) {
+  const int blocks = (rows + 7) / 8 < (1 << 20) ? (rows + 7) / 8 : 1 << 20;
+  l2dist_pad_rows_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const uint16_t*>(src),
+      static_cast<uint32_t*>(const_cast<void*>(dst)), rows, ws, wd);
+  return cudaGetLastError();
+}
+
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int bf16) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
@@ -657,19 +691,30 @@ cudaError_t launch_d(const Launch& a, cudaStream_t stream) {
 // (b, n) f32; grid_x blocks for each 128-query tile (l2dist/ops.py::
 // l2_plan).  Above d = 128, scratch (16-byte aligned) takes the
 // prologue's output: the b query norms, padded to a multiple of 4, then
-// in f32 q's hi and lo parts (b x d each); null otherwise.  Returns a
-// cudaError_t.
+// in f32 q's hi and lo parts (b x d each); null otherwise.  q_odd and
+// v_odd: null, or (the odd bf16 widths) rows of d_odd bf16 on any 2-byte
+// boundary, copied first into queries and vectors (rows of d, a multiple
+// of 8, the columns past d_odd zero, which add nothing to any sum).
+// Returns a cudaError_t.
 extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
+                            const void* q_odd, const void* v_odd,
                             float* out, float* scratch, int b, int n, int d,
-                            int grid_x, int bf16, void* stream) {
+                            int d_odd, int grid_x, int bf16, void* stream) {
   const bool streamed = d > kMaxD;
+  const bool odd = q_odd != nullptr;
   if (b < 1 || n < 1 || d < 1 || (bf16 && d % 2) || grid_x < 1 ||
       (b + kBM - 1) / kBM > 65535 || (streamed && !scratch) ||
+      (odd && (!bf16 || !v_odd || d % 8 || d_odd < 1 || d_odd >= d)) ||
       ((reinterpret_cast<uintptr_t>(queries) |
         reinterpret_cast<uintptr_t>(vectors) |
         reinterpret_cast<uintptr_t>(scratch)) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (odd) {                           // the padded copies first
+    cudaError_t e = pad_rows(q_odd, queries, b, d_odd, d, st);
+    if (e == cudaSuccess) e = pad_rows(v_odd, vectors, n, d_odd, d, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   Launch a = {};
   a.q = queries;
   a.v = vectors;

@@ -1,35 +1,42 @@
-"""Wrapper of the exact-L2 kernels.
+"""Wrapper of the exact-L2 kernel.
 
-Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
-``l2dist``; plain version ``ref.l2dist_ref``:
+One kernel, written in CUDA C++ for ``sm_90a``, ports the Pallas
+``l2dist``; plain version ``ref.l2dist_ref``: ``l2dist_wgmma``
+(``csrc/l2dist_wgmma.cu``), on the tensor cores, f32 of every width in
+3xTF32, loaded by TMA where d % 4 == 0 (rows on its 16-byte stride) and
+by 4-byte ``cp.async`` granules otherwise, and bf16 of every even width
+in one product (each product exact in f32), loaded by ``cp.async`` in the
+widest granule the row stride allows (16 bytes where d % 8 == 0, else 8
+or 4: SPACEV1B's d = 100 has rows of 200 bytes); the query tile stays in
+shared memory up to d = 128 and rides the ring with the vectors above
+(GIST1M's d = 960; there bf16 with d % 8 == 0 loads by TMA, and a
+prologue kernel writes the query norms and, in f32, q's TF32 hi and lo
+parts into a scratch buffer this wrapper allocates); its persistent grid
+comes from :func:`l2_plan`.
 
-* ``l2dist_wgmma`` (``csrc/l2dist_wgmma.cu``): on the tensor cores, f32
-  of every width in 3xTF32, loaded by TMA where d % 4 == 0 (rows on its
-  16-byte stride) and by 4-byte ``cp.async`` granules otherwise, and
-  bf16 of every even width in one product (each product exact in f32),
-  loaded by ``cp.async`` in the widest granule the row stride allows (16
-  bytes where d % 8 == 0, else 8 or 4: SPACEV1B's d = 100 has rows of
-  200 bytes); the query tile stays in shared memory up to d = 128 and
-  rides the ring with the vectors above (GIST1M's d = 960; there bf16
-  with d % 8 == 0 loads by TMA, and a prologue kernel writes the query
-  norms and, in f32, q's TF32 hi and lo parts into a scratch buffer this
-  wrapper allocates); q or v that does not start on a 16-byte boundary
-  is copied first; its persistent grid comes from :func:`l2_plan`;
-* ``l2dist`` (``csrc/l2dist.cu``): bf16 of odd width (rows on 2-byte
-  boundaries, which no ``cp.async`` granule takes) on the CUDA cores.
+The wrapper takes what the JAX one takes: any real dtype for each
+operand, mixed, and views.  ``launch.operand_dtype`` names the dtype the
+kernel computes in (bf16 where both are uint8, int8 or bf16, each value
+exact there; f32 otherwise, the JAX kernel's own type); an input of
+another dtype, not contiguous or off a 16-byte boundary is copied first;
+bf16 of odd width (rows on 2-byte boundaries, which no ``cp.async``
+granule takes) is copied by a kernel of the same source, in the same
+launch, into buffers this wrapper allocates with rows of the next
+multiple of 8 columns (on 16 bytes, the widest granule), the rest zero,
+which adds nothing to any sum.
 
-:func:`l2_kernel` states that rule, :func:`l2_instance` the key a launch
-is counted under: the tensor-core kernel counts its launches apart as
+:func:`l2_kernel` states the rule, :func:`l2_instance` the key a launch
+is counted under: ``l2dist_wgmma`` (f32, d <= 128),
 ``l2dist_wgmma[d>128]`` (f32, streamed query tile),
 ``l2dist_wgmma[bf16]`` (bf16 rows on the 16-byte stride, d <= 128),
-``l2dist_wgmma[bf16,off16]`` (other even d <= 128) and
-``l2dist_wgmma[bf16,d>128]``.  The wrapper runs the plain
-version when its tensors lie on the CPU.  On CUDA tensors it launches the kernel
-the rule names, or raises: it checks device, dtype, shape and contiguity
-first and the ``cudaError_t`` after, allocates the output with
-``torch.empty``, launches on the current stream and counts the launch in
-``LAUNCHES[l2_instance(dtype, d)]`` (``repro_torch.kernels.launch``).
-Ragged B, N and d need no padding: the kernels mask their edge tiles.
+``l2dist_wgmma[bf16,off16]`` (other even d <= 128),
+``l2dist_wgmma[bf16,d>128]`` and ``l2dist_wgmma[bf16,odd]`` (odd d, padded
+to a multiple of 8).  The wrapper runs the plain version when its tensors lie
+on the CPU.  On CUDA tensors it launches the kernel, or raises: it checks
+device and shape first and the ``cudaError_t`` after, allocates the output
+with ``torch.empty``, launches on the current stream and counts the launch
+in ``LAUNCHES[l2_instance(dtype, d)]`` (``repro_torch.kernels.launch``).
+Ragged B, N and d need no padding: the kernel masks its edge tiles.
 """
 
 from __future__ import annotations
@@ -37,34 +44,43 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.l2dist.ref import l2dist_ref
-from repro_torch.kernels.launch import check, launch
+from repro_torch.kernels.launch import launch, operand, operand_dtype
 
-_DTYPES = (torch.float32, torch.bfloat16)
 _RESIDENT_MAX_D = 128           # l2dist_wgmma.cu: kMaxD
 _WGMMA_TILE = 128               # l2dist_wgmma.cu: kBM = kBN
 
 
 def l2_kernel(dtype: torch.dtype, d: int) -> str:
     """The kernel that computes distances of inputs of ``dtype`` and width
-    ``d``: ``l2dist_wgmma`` for f32 of every width and bf16 of even width;
-    ``l2dist`` for bf16 of odd width (rows on 2 bytes)."""
-    if dtype == torch.bfloat16 and d % 2:
-        return "l2dist"
+    ``d``: ``l2dist_wgmma`` for every dtype and width (odd bf16 widths
+    padded with zero columns to a multiple of 8)."""
+    operand_dtype(dtype)
     return "l2dist_wgmma"
 
 
+def l2_width(dtype: torch.dtype, d: int) -> int:
+    """The width the kernel sees for inputs of ``dtype`` and width ``d``:
+    d, or for an odd width computed in bf16 the next multiple of 8 (rows
+    on 16 bytes, the widest ``cp.async`` granule; d + 1 would give rows
+    of 4-byte granules, e.g. 204 bytes at d = 101)."""
+    if operand_dtype(dtype) == torch.bfloat16 and d % 2:
+        return -(-d // 8) * 8
+    return d
+
+
 def l2_instance(dtype: torch.dtype, d: int) -> str:
-    """The ``LAUNCHES`` key of the kernel :func:`l2_kernel` names: for
-    ``l2dist_wgmma`` above d = 128 (the query tile streamed)
-    ``l2dist_wgmma[d>128]`` in f32 and ``l2dist_wgmma[bf16,d>128]`` in
-    bf16; up to 128, ``l2dist_wgmma`` in f32, and in bf16
-    ``l2dist_wgmma[bf16]`` where d % 8 == 0 (rows on 16 bytes, 16-byte
-    copies) and ``l2dist_wgmma[bf16,off16]`` for other even d (8- or
-    4-byte copies); else its name."""
+    """The ``LAUNCHES`` key of a launch for inputs computed in
+    ``operand_dtype(dtype)`` of width ``d``: above d = 128 (the query
+    tile streamed) ``l2dist_wgmma[d>128]`` in f32 and
+    ``l2dist_wgmma[bf16,d>128]`` in bf16; up to 128, ``l2dist_wgmma`` in
+    f32, and in bf16 ``l2dist_wgmma[bf16]`` where d % 8 == 0 (rows on 16
+    bytes, 16-byte copies) and ``l2dist_wgmma[bf16,off16]`` for other
+    even d (8- or 4-byte copies); odd bf16 widths, of any size,
+    ``l2dist_wgmma[bf16,odd]``."""
     name = l2_kernel(dtype, d)
-    if name != "l2dist_wgmma":
-        return name
-    bf16 = dtype == torch.bfloat16
+    bf16 = operand_dtype(dtype) == torch.bfloat16
+    if bf16 and d % 2:
+        return "l2dist_wgmma[bf16,odd]"
     if d > _RESIDENT_MAX_D:
         return "l2dist_wgmma[bf16,d>128]" if bf16 else "l2dist_wgmma[d>128]"
     if not bf16:
@@ -88,13 +104,15 @@ def l2_plan(b: int, n: int, sms: int) -> int:
 
 def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
                  ) -> torch.Tensor:
-    """queries (B, D), vectors (N, D), both f32 or both bf16 -> exact
-    squared L2 distances (B, N) f32, summed in f32."""
+    """queries (B, D), vectors (N, D) of any real dtypes -> exact squared
+    L2 distances (B, N) f32, summed in f32."""
     if queries.device.type == "cpu":
         return l2dist_ref(queries, vectors)
     dev = queries.device
-    check("queries", queries, _DTYPES, 2, dev)
-    check("vectors", vectors, queries.dtype, 2, dev)
+    dtype = operand_dtype(queries.dtype, vectors.dtype)
+    if queries.dim() != 2 or vectors.dim() != 2:
+        raise ValueError(f"queries {tuple(queries.shape)} and vectors "
+                         f"{tuple(vectors.shape)} must be 2-d")
     b, d = queries.shape
     n, dv = vectors.shape
     if dv != d:
@@ -103,23 +121,28 @@ def l2_distances(queries: torch.Tensor, vectors: torch.Tensor
     out = torch.empty(b, n, dtype=torch.float32, device=dev)
     if not (b and n):
         return out
-    name = l2_instance(queries.dtype, d)
-    if name != "l2dist":
-        # its loads (TMA, cp.async granules) start on 16-byte boundaries:
-        # a view that starts elsewhere is copied into a fresh buffer first
-        queries, vectors = (x if x.data_ptr() % 16 == 0 else x.clone()
-                            for x in (queries, vectors))
-        bf16 = queries.dtype == torch.bfloat16
-        # above d = 128 the kernel's prologue writes the query norms (b,
-        # padded to 4) and, in f32, q's TF32 hi and lo parts here
-        scratch = (torch.empty(-(-b // 4) * 4 + (0 if bf16 else 2 * b * d),
-                               dtype=torch.float32, device=dev)
-                   if d > _RESIDENT_MAX_D else None)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-               b, n, d, l2_plan(b, n, sms), int(bf16))
-    else:
-        launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
-               out.data_ptr(), b, n, d)
+    name = l2_instance(dtype, d)
+    dp = l2_width(dtype, d)
+    # the kernel's loads (TMA, cp.async granules) start on 16-byte
+    # boundaries: an input that is not a contiguous, aligned tensor of the
+    # operand dtype is copied into a fresh buffer first; at an odd bf16
+    # width the kernel's entry copies the rows into buffers of the next
+    # multiple of 8 columns (the rest zero) before its loads
+    queries = operand("queries", queries, dtype, 2, d, dev)
+    vectors = operand("vectors", vectors, dtype, 2, d, dev)
+    odd = (queries, vectors) if dp != d else (None, None)
+    if dp != d:
+        queries, vectors = (torch.empty(x.shape[0], dp, dtype=dtype,
+                                        device=dev) for x in odd)
+    bf16 = dtype == torch.bfloat16
+    # above d = 128 the kernel's prologue writes the query norms (b,
+    # padded to 4) and, in f32, q's TF32 hi and lo parts here
+    scratch = (torch.empty(-(-b // 4) * 4 + (0 if bf16 else 2 * b * dp),
+                           dtype=torch.float32, device=dev)
+               if dp > _RESIDENT_MAX_D else None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launch(name, dev, queries.data_ptr(), vectors.data_ptr(),
+           *(0 if x is None else x.data_ptr() for x in odd),
+           out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+           b, n, dp, d, l2_plan(b, n, sms), int(bf16))
     return out

@@ -70,6 +70,19 @@
 //     gets one writer; positions from the cluster's key count to tk get
 //     (+inf, -1).  No CTA touches another's shared memory after that
 //     barrier, so none waits for its peers to exit.
+// The spill route (ops.py::fused_route, where fused_plan's inbox or key
+// buffer does not fit: a large tk over a long window): `ctas` CTAs a
+// query, a multiple of the cluster (which still shares the LUT build),
+// each taking at most 4,096 slots, so its buffer holds all of them and
+// it never selects mid-scan; step 4 writes each CTA's sorted keys and
+// their count to a global scratch the wrapper allocates instead of the
+// peers' inboxes, and a second kernel on the same stream (grid (ctas, B),
+// one block a CTA's list) places each key by the same rank: its index
+// plus, for each other list of the query (read into shared memory one at
+// a time), the number of that list's keys below it (a binary search); a
+// key stops searching once its position passes tk.  Shared memory a CTA:
+// the LUT and the key buffer, no inbox.  The merge reads each list once
+// for every other list of the query: ctas^2 * keep keys, from L2.
 // The PR 12 form of this kernel took one block per 2,048 slots (64
 // blocks at the serving window, each rebuilding its query's whole LUT),
 // bitonic-sorted every slot behind a barrier per pass, and left the
@@ -434,14 +447,18 @@ __device__ __forceinline__ void sort_keys(uint64_t* buf, int n) {
   }
 }
 
-// W: the width of the code loads (M % W == 0, codes W-aligned).
-template <int W, bool kInt8>
+// W: the width of the code loads (M % W == 0, codes W-aligned).  kSpill:
+// the spill route, gridDim.x CTAs a query, each writing its sorted keys to
+// spill (keep a CTA) and their count to spill_cnt instead of merging.
+template <int W, bool kInt8, bool kSpill>
 __global__ void __launch_bounds__(kThreads, 3)
 adc_fused_topk_kernel(const int32_t* __restrict__ rows,
                       const uint8_t* __restrict__ codes,
                       const float* __restrict__ queries,
                       const float* __restrict__ codebooks,
                       float* __restrict__ vals, int32_t* __restrict__ ids,
+                      uint64_t* __restrict__ spill,
+                      int* __restrict__ spill_cnt,
                       int s, int n, int m, int k, int dsub, int tk,
                       int slots, int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -457,10 +474,14 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
   const int t = threadIdx.x, lane = t & 31;
   const int32_t* qrows = rows + (size_t)b * s;
   const int keep = min(tk, slots);
+  // the query's CTAs: its cluster, or on the spill route every CTA of
+  // the grid's row (a multiple of the cluster); qr: this one's place
+  const int g = kSpill ? (int)gridDim.x : c;
+  const int qr = kSpill ? (int)blockIdx.x : rank;
   // the query's 32-slot chunks are dealt to the CTAs in turn, so each
   // gets its share of the valid rows, which lead the pads
   const int chunks = (s + 31) / 32;
-  const int own = rank < chunks ? (chunks - rank + c - 1) / c : 0;
+  const int own = qr < chunks ? (chunks - qr + g - 1) / g : 0;
 
   // 1. this CTA's rows of the query's LUT, into every CTA's LUT (stores
   // to the others once the cluster's CTAs have all started)
@@ -474,7 +495,7 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
   cluster.sync();                      // every CTA's rows pushed
 
   // 2. the CTA's tiles of 32 chunks (chunk ch of the CTA is the query's
-  // chunk ch * c + rank): a thread's four row ids, then the first 32 bytes
+  // chunk ch * g + qr): a thread's four row ids, then the first 32 bytes
   // of their four code rows, all in flight before any is summed; then the
   // valid keys below tau appended
   const int warp = t >> 5;
@@ -486,7 +507,7 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
 #pragma unroll
     for (int u = 0; u < kSlotsPerThread; ++u) {
       const int ch = base + u * kWarps + warp;
-      p[u] = (ch * c + rank) * 32 + lane;
+      p[u] = (ch * g + qr) * 32 + lane;
       r[u] = ch < own && p[u] < s ? __ldg(qrows + p[u]) : -1;
     }
 #pragma unroll
@@ -545,6 +566,16 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
     sort_keys(buf, size);
   }
 
+  if constexpr (kSpill) {
+    // 4'. the sorted keys and their count to the scratch; the merge
+    // kernel places them.  No CTA reads another's shared memory after
+    // the LUT exchange's barrier, so none waits for its peers to exit.
+    const size_t at = (size_t)b * g + qr;
+    for (int i = t; i < cnt; i += kThreads) spill[at * keep + i] = buf[i];
+    if (t == 0) spill_cnt[at] = cnt;
+    return;
+  }
+
   // 4. the sorted keys pushed to the other CTAs of the cluster (slot
   // rank - (rank > q) of CTA q's inbox) and, after the barrier, each
   // key's place among all of them: its index plus, for each other CTA,
@@ -595,93 +626,169 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
   }
 }
 
-template <int W, bool kInt8>
-cudaError_t launch(const int32_t* rows, const uint8_t* codes,
-                   const float* queries, const float* codebooks, float* vals,
-                   int32_t* ids, int b, int s, int n, int m, int k, int dsub,
-                   int tk, int cluster, int slots, int cap,
-                   cudaStream_t stream) {
-  const size_t keep = tk < slots ? tk : slots;
-  const size_t smem = (size_t)((m * k + 3) & ~3) * 4 + (size_t)cap * 8 +
-                      (size_t)(cluster - 1) * keep * 8;
-  auto kernel = adc_fused_topk_kernel<W, kInt8>;
+
+// The spill route's merge: block (own, b) places the keys of CTA own's
+// sorted list of query b (lists: keep keys a CTA, counts: their number)
+// among the query's other lists by rank, as step 4 does in the launch,
+// and writes (dist, row) at each position below tk; positions from the
+// query's key count to tk get (+inf, -1), dealt over the query's blocks.
+__global__ void __launch_bounds__(kThreads)
+adc_fused_merge_kernel(const uint64_t* __restrict__ lists,
+                       const int* __restrict__ counts,
+                       const int32_t* __restrict__ rows,
+                       float* __restrict__ vals, int32_t* __restrict__ ids,
+                       int s, int tk, int keep) {
+  extern __shared__ uint64_t other[];  // one other list at a time
+  const int b = blockIdx.y, own = blockIdx.x, g = gridDim.x;
+  const int t = threadIdx.x;
+  const uint64_t* qlists = lists + (size_t)b * g * keep;
+  const int* qcounts = counts + (size_t)b * g;
+  const int cnt = qcounts[own];
+  uint64_t key[kKeysPerThread];
+  int pos[kKeysPerThread];
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    const int i = t + j * kThreads;
+    key[j] = i < cnt ? qlists[(size_t)own * keep + i] : ~0ull;
+    pos[j] = i;
+  }
+  int total = 0;
+  for (int h = 0; h < g; ++h) {
+    const int ch = qcounts[h];
+    total += ch;
+    if (h == own || ch == 0) continue;
+    __syncthreads();                   // the last list searched by all
+    for (int i = t; i < ch; i += kThreads)
+      other[i] = qlists[(size_t)h * keep + i];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) {
+      if (t + j * kThreads >= cnt || pos[j] >= tk) continue;
+      int lo = 0, hi = ch;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (other[mid] < key[j]) lo = mid + 1;
+        else hi = mid;
+      }
+      pos[j] += lo;
+    }
+  }
+  float* qvals = vals + (size_t)b * tk;
+  int32_t* qids = ids + (size_t)b * tk;
+  const int32_t* qrows = rows + (size_t)b * s;
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    if (t + j * kThreads >= cnt || pos[j] >= tk) continue;
+    qvals[pos[j]] = key_dist(key[j]);
+    qids[pos[j]] = __ldg(qrows + key_slot(key[j]));
+  }
+  for (int p = total + own * kThreads + t; p < tk; p += g * kThreads) {
+    qvals[p] = INFINITY;
+    qids[p] = -1;
+  }
+}
+
+// What every launch of the kernel shares.
+struct Args {
+  const int32_t* rows;
+  const uint8_t* codes;
+  const float* queries;
+  const float* codebooks;
+  float* vals;
+  int32_t* ids;
+  uint64_t* spill;                     // null: the one-launch route
+  int* spill_cnt;
+  int b, s, n, m, k, dsub, tk, cluster, ctas, slots, cap;
+};
+
+template <int W, bool kInt8, bool kSpill>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const size_t keep = a.tk < a.slots ? a.tk : a.slots;
+  const size_t smem = (size_t)((a.m * a.k + 3) & ~3) * 4 +
+                      (size_t)a.cap * 8 +
+                      (kSpill ? 0 : (size_t)(a.cluster - 1) * keep * 8);
+  auto kernel = adc_fused_topk_kernel<W, kInt8, kSpill>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.x = a.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, b);
+  cfg.gridDim = dim3(a.ctas, a.b);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, rows, codes, queries, codebooks, vals,
-                         ids, s, n, m, k, dsub, tk, slots, cap);
+  e = cudaLaunchKernelEx(&cfg, kernel, a.rows, a.codes, a.queries,
+                         a.codebooks, a.vals, a.ids, a.spill, a.spill_cnt,
+                         a.s, a.n, a.m, a.k, a.dsub, a.tk, a.slots, a.cap);
   if (e != cudaSuccess) return e;
+  if constexpr (kSpill) {
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    adc_fused_merge_kernel<<<dim3(a.ctas, a.b), kThreads, keep * 8,
+                             stream>>>(a.spill, a.spill_cnt, a.rows, a.vals,
+                                       a.ids, a.s, a.tk, (int)keep);
+  }
   return cudaGetLastError();
 }
 
-template <bool kInt8>
-cudaError_t dispatch(int width, const int32_t* rows, const uint8_t* codes,
-                     const float* queries, const float* codebooks,
-                     float* vals, int32_t* ids, int b, int s, int n, int m,
-                     int k, int dsub, int tk, int cluster, int slots,
-                     int cap, cudaStream_t st) {
+template <bool kInt8, bool kSpill>
+cudaError_t dispatch(int width, const Args& a, cudaStream_t st) {
   switch (width) {
-    case 16: return launch<16, kInt8>(rows, codes, queries, codebooks, vals,
-                                      ids, b, s, n, m, k, dsub, tk, cluster,
-                                      slots, cap, st);
-    case 8: return launch<8, kInt8>(rows, codes, queries, codebooks, vals,
-                                    ids, b, s, n, m, k, dsub, tk, cluster,
-                                    slots, cap, st);
-    case 4: return launch<4, kInt8>(rows, codes, queries, codebooks, vals,
-                                    ids, b, s, n, m, k, dsub, tk, cluster,
-                                    slots, cap, st);
-    case 2: return launch<2, kInt8>(rows, codes, queries, codebooks, vals,
-                                    ids, b, s, n, m, k, dsub, tk, cluster,
-                                    slots, cap, st);
-    default: return launch<1, kInt8>(rows, codes, queries, codebooks, vals,
-                                     ids, b, s, n, m, k, dsub, tk, cluster,
-                                     slots, cap, st);
+    case 16: return launch<16, kInt8, kSpill>(a, st);
+    case 8: return launch<8, kInt8, kSpill>(a, st);
+    case 4: return launch<4, kInt8, kSpill>(a, st);
+    case 2: return launch<2, kInt8, kSpill>(a, st);
+    default: return launch<1, kInt8, kSpill>(a, st);
   }
 }
 
 }  // namespace
 
-// One cluster of `cluster` CTAs a query (a power of two up to 8), the
-// query's 32-slot chunks dealt to them in turn, slots = ceil(ceil(S/32) /
-// cluster) * 32 the most a CTA takes; cap: the keys a CTA buffers, a
-// multiple of 32, at most 4,096, at least max(32, pow2ceil(keep)), and
-// at least slots or keep + 1,024, keep = min(tk, slots)
-// (ops.py::fused_plan); width: the code loads' bytes (M % width == 0,
-// codes width-aligned).  vals/ids hold (B, tk).  Returns a cudaError_t.
+// `ctas` CTAs a query in clusters of `cluster` (a power of two up to 8;
+// ctas == cluster on the one-launch route, a multiple of it on the spill
+// route), the query's 32-slot chunks dealt to them in turn, slots =
+// ceil(ceil(S/32) / ctas) * 32 the most a CTA takes; cap: the keys a CTA
+// buffers, a multiple of 32, at most 4,096, at least max(32,
+// pow2ceil(keep)), and at least slots or keep + 1,024, keep = min(tk,
+// slots) (ops.py::fused_plan, ops.py::fused_route); width: the code loads'
+// bytes (M % width == 0, codes width-aligned).  spill (ctas * B * keep
+// keys) and spill_cnt (ctas * B ints): the spill route's scratch, null on
+// the one-launch route.  vals/ids hold (B, tk).  Returns a cudaError_t.
 extern "C" int adc_fused_topk(const int32_t* rows, const uint8_t* codes,
                               const float* queries, const float* codebooks,
-                              float* vals, int32_t* ids, int b, int s, int n,
-                              int m, int k, int dsub, int tk, int cluster,
+                              float* vals, int32_t* ids, void* spill,
+                              void* spill_cnt, int b, int s, int n, int m,
+                              int k, int dsub, int tk, int cluster, int ctas,
                               int slots, int cap, int width, int lut_int8,
                               void* stream) {
   const int keep = tk < slots ? tk : slots;
   int pow2 = 32;
   while (pow2 < keep) pow2 <<= 1;
+  const bool spilled = spill != nullptr;
   if (b < 1 || b > 65535 || s < 1 || n < 0 || m < 1 || k < 1 || k > 256 ||
       dsub < 1 || tk < 1 || tk > s || cluster < 1 ||
-      cluster > kMaxCluster || (cluster & (cluster - 1)) ||
-      slots != ((s + 31) / 32 + cluster - 1) / cluster * 32 ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) || ctas < 1 ||
+      ctas % cluster || (!spilled && ctas != cluster) ||
+      (spilled && spill_cnt == nullptr) ||
+      slots != ((s + 31) / 32 + ctas - 1) / ctas * 32 ||
       cap % 32 || cap > kMaxCap ||
       cap < pow2 || (cap < slots && cap < keep + kTile) ||
       (width != 1 && width != 2 && width != 4 && width != 8 &&
        width != 16) || m % width)
     return (int)cudaErrorInvalidValue;
+  const Args a{rows, codes, queries, codebooks, vals, ids,
+               static_cast<uint64_t*>(spill), static_cast<int*>(spill_cnt),
+               b, s, n, m, k, dsub, tk, cluster, ctas, slots, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(lut_int8
-      ? dispatch<true>(width, rows, codes, queries, codebooks, vals, ids, b,
-                       s, n, m, k, dsub, tk, cluster, slots, cap, st)
-      : dispatch<false>(width, rows, codes, queries, codebooks, vals, ids, b,
-                        s, n, m, k, dsub, tk, cluster, slots, cap, st));
+  if (spilled)
+    return (int)(lut_int8 ? dispatch<true, true>(width, a, st)
+                          : dispatch<false, true>(width, a, st));
+  return (int)(lut_int8 ? dispatch<true, false>(width, a, st)
+                        : dispatch<false, false>(width, a, st));
 }

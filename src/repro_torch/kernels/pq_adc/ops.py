@@ -16,7 +16,10 @@ Four kernels, written in CUDA C++ for ``sm_90a`` (``csrc/``):
   block cluster a query (:func:`fused_plan`) merging its CTAs' lists
   through distributed shared memory, f32 or int8 LUT, the port of the
   Pallas ``pq_adc_scan_fused`` and of its merge; plain version
-  :func:`pq_adc_fused_topk_plain`.
+  :func:`pq_adc_fused_topk_plain`.  Where a large top-k over a long
+  window does not fit that plan, its spill route (:func:`fused_route`,
+  counted as ``adc_fused_topk[spill]``): more CTAs a query, their sorted
+  lists in a global scratch, merged by a second kernel of the source.
 
 A wrapper runs the plain version when its tensors lie on the CPU.  On a
 CUDA tensor it launches the kernel, or raises: it checks device, dtype,
@@ -300,10 +303,25 @@ def _pow2ceil(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
 
+def _fused_cluster(b: int, s: int, sms: int) -> int:
+    """The cluster of ``adc_fused_topk``: the largest power of two up to 8
+    that keeps B * cluster within two CTAs an SM and gives each CTA at
+    least 64 slots."""
+    c = 1
+    while (2 * c <= _FUSED_MAX_CLUSTER and b * 2 * c <= 2 * sms
+           and s >= 2 * c * _FUSED_MIN_SLOTS):
+        c *= 2
+    return c
+
+
+def _fused_cap(slots: int, keep: int) -> int:
+    return -(-max(32, _pow2ceil(keep), min(slots, _FUSED_MAX_CAP)) // 32) * 32
+
+
 def fused_plan(b: int, s: int, tk: int, m: int, k: int,
                sms: int) -> FusedPlan:
-    """The grid of ``adc_fused_topk`` for B queries of S slots each, their
-    top tk, M x K LUTs, on a card of ``sms`` SMs.
+    """The grid of ``adc_fused_topk``'s one-launch route for B queries of
+    S slots each, their top tk, M x K LUTs, on a card of ``sms`` SMs.
 
     The cluster is the largest power of two up to 8 that keeps B *
     cluster within two CTAs an SM and gives each CTA at least 64 slots
@@ -314,17 +332,14 @@ def fused_plan(b: int, s: int, tk: int, m: int, k: int,
     selects whenever the next tile of 1,024 might not fit, so keep must
     leave a tile's room (tk <= 3,072), or a larger cluster, up to 8, takes
     fewer slots a CTA.  Beyond that, and past the shared memory (the other
-    CTAs' (cluster - 1) * keep kept keys come to each CTA), it raises."""
-    c = 1
-    while (2 * c <= _FUSED_MAX_CLUSTER and b * 2 * c <= 2 * sms
-           and s >= 2 * c * _FUSED_MIN_SLOTS):
-        c *= 2
+    CTAs' (cluster - 1) * keep kept keys come to each CTA), it raises:
+    :func:`fused_route` then takes the spill route."""
+    c = _fused_cluster(b, s, sms)
     chunks = -(-s // 32)
     while True:
         slots = -(-chunks // c) * 32
         keep = min(tk, slots)
-        cap = -(-max(32, _pow2ceil(keep), min(slots, _FUSED_MAX_CAP))
-                // 32) * 32
+        cap = _fused_cap(slots, keep)
         fits = cap <= _FUSED_MAX_CAP and (cap >= slots
                                           or cap >= keep + _FUSED_TILE)
         if fits or c == _FUSED_MAX_CLUSTER:
@@ -337,6 +352,53 @@ def fused_plan(b: int, s: int, tk: int, m: int, k: int,
                          f"shared memory: S={s}, tk={tk}, M={m}, K={k} "
                          f"need {cap} and {smem}")
     return FusedPlan(c, slots, keep, cap, smem)
+
+
+class FusedRoute(NamedTuple):
+    """How ``adc_fused_topk`` serves a window: ``key`` is the launch key
+    (``adc_fused_topk``, one launch with its merge; or
+    ``adc_fused_topk[spill]``, the kernel and a merge kernel over a global
+    scratch); ``ctas`` CTAs a query, in clusters of ``plan.cluster``;
+    ``plan`` each CTA's slots, kept keys, key buffer and shared memory."""
+    key: str
+    ctas: int
+    plan: FusedPlan
+
+
+def fused_route(b: int, s: int, tk: int, m: int, k: int,
+                sms: int) -> FusedRoute:
+    """The route of ``adc_fused_topk`` for B queries of S slots each,
+    their top tk, M x K LUTs, on a card of ``sms`` SMs.
+
+    Where :func:`fused_plan` fits, its one launch, unchanged.  Elsewhere
+    (a large tk over a long window: the inbox of (cluster - 1) * keep
+    keys, or keep + a tile, past what a CTA holds) the spill route: the
+    same cluster, repeated until each CTA takes at most 4,096 slots
+    (``ctas`` a multiple of the cluster), so each CTA's buffer holds all
+    its slots and keeps min(tk, slots) <= 4,096 keys for any tk; the CTAs
+    write their sorted keys to a global scratch and a second kernel
+    merges them by rank.  Raises ``ValueError`` only where B passes the
+    grid's 65,535 rows or the LUT and a 4,096-key buffer pass shared
+    memory."""
+    try:
+        plan = fused_plan(b, s, tk, m, k, sms)
+        return FusedRoute("adc_fused_topk", plan.cluster, plan)
+    except ValueError:
+        pass
+    c = _fused_cluster(b, s, sms)
+    chunks = -(-s // 32)
+    per_cta = _FUSED_MAX_CAP // 32                  # chunks a CTA at most
+    ctas = c * -(-chunks // (c * per_cta))
+    slots = -(-chunks // ctas) * 32
+    keep = min(tk, slots)
+    cap = _fused_cap(slots, keep)
+    smem = -(-m * k // 4) * 16 + cap * 8
+    if b > 65535 or smem > _SMEM_MAX - _FUSED_STATIC_SMEM:
+        raise ValueError(f"adc_fused_topk takes at most 65535 queries a "
+                         f"window and {_SMEM_MAX - _FUSED_STATIC_SMEM} B of "
+                         f"shared memory: B={b}, M={m}, K={k} need {smem}")
+    return FusedRoute("adc_fused_topk[spill]", ctas,
+                      FusedPlan(c, slots, keep, cap, smem))
 
 
 def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
@@ -355,10 +417,13 @@ def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
     past a query's candidate count come back as (+inf, -1).  On the card
     a row >= N is a pad too.
 
-    On the card this is one launch of ``adc_fused_topk`` on the grid of
-    :func:`fused_plan`: each query's cluster builds its LUT, scans its
-    slots and writes the query's tk pairs itself (no sort or gather
-    after it)."""
+    On the card this is, where :func:`fused_plan` fits, one launch of
+    ``adc_fused_topk`` on its grid: each query's cluster builds its LUT,
+    scans its slots and writes the query's tk pairs itself (no sort or
+    gather after it).  Elsewhere (:func:`fused_route`: a large tk over a
+    long window) its spill route, counted as ``adc_fused_topk[spill]``:
+    the CTAs write their sorted keys to a scratch this wrapper allocates,
+    and a merge kernel in the same call places them."""
     if codes.device.type == "cpu":
         return pq_adc_fused_topk_plain(codes, queries, codebooks, rows, topk,
                                        lut_int8=lut_int8)
@@ -380,12 +445,21 @@ def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
         return (torch.empty(b, tk_out, dtype=torch.float32, device=dev),
                 torch.empty(b, tk_out, dtype=torch.int32, device=dev))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = fused_plan(b, s, tk_out, m, k, sms)
+    route = fused_route(b, s, tk_out, m, k, sms)
+    plan = route.plan
     vals = torch.empty(b, tk_out, dtype=torch.float32, device=dev)
     ids = torch.empty(b, tk_out, dtype=torch.int32, device=dev)
-    launch("adc_fused_topk", dev, rows.data_ptr(), codes.data_ptr(),
+    spill = spill_cnt = None
+    if route.key != "adc_fused_topk":
+        # each CTA's sorted keys (keep of them, 8 bytes each) and count
+        spill = torch.empty(b * route.ctas * plan.keep, dtype=torch.int64,
+                            device=dev)
+        spill_cnt = torch.empty(b * route.ctas, dtype=torch.int32,
+                                device=dev)
+    launch(route.key, dev, rows.data_ptr(), codes.data_ptr(),
            queries.data_ptr(), codebooks.data_ptr(), vals.data_ptr(),
-           ids.data_ptr(), b, s, n, m, k, dsub, tk_out, plan.cluster,
-           plan.slots, plan.cap, load_width(m, codes.data_ptr()),
-           int(lut_int8))
+           ids.data_ptr(), 0 if spill is None else spill.data_ptr(),
+           0 if spill_cnt is None else spill_cnt.data_ptr(), b, s, n, m, k,
+           dsub, tk_out, plan.cluster, route.ctas, plan.slots, plan.cap,
+           load_width(m, codes.data_ptr()), int(lut_int8))
     return vals, ids

@@ -21,19 +21,26 @@ L2 norm (the output's one rounding to bf16 may fall on either side; the
 tensor-core kernel also rounds P to bf16 before the second product, at
 most 2^-8 of a row's weight; an elementwise limit alone would miss a
 wrong K/V tile in a long row, whose outputs are small).  TF32 is off for
-the plain versions' products.
+the plain versions' products.  Both wrappers take any real dtype, mixed
+dtypes and views (the kernels compute in ``launch.operand_dtype``); each
+such case against the plain version on the same inputs, integer L2 bit
+for bit; f16 flash outputs to 2e-3 (each side rounds its f32 result to
+f16 once).  The fused scan's spill route (a large tk over a long window)
+is held bit for bit, as its one launch is; two posting-list builds from
+one seed must agree bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import pq
+from repro_torch.core import clustering, pq
 from repro_torch.kernels import launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
                                             flash_instance, flash_kernel)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                         l2_kernel, l2dist_ref)
+from repro_torch.kernels.launch import operand_dtype
 from repro_torch.kernels.pq_adc import ops, ref
 
 RTOL = 1e-5
@@ -59,7 +66,7 @@ def _t(x):
 def _assert_attn_close(got, want):
     """Flash attention against its plain version (tolerances above)."""
     g, w = got.float(), want.float()
-    tol = 2e-5 if want.dtype == torch.float32 else 5e-2
+    tol = {torch.float32: 2e-5, torch.float16: 2e-3}.get(want.dtype, 5e-2)
     torch.testing.assert_close(g, w, rtol=tol, atol=tol)
     if want.dtype == torch.bfloat16:
         row = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
@@ -236,7 +243,8 @@ def _l2_launched(q, v):
     got = l2_distances(q, v)
     torch.cuda.synchronize()
     grew = {name for name, c in launch.LAUNCHES.items() if c != before[name]}
-    assert grew == {l2_instance(q.dtype, q.shape[1])}
+    assert grew == {l2_instance(operand_dtype(q.dtype, v.dtype),
+                                q.shape[1])}
     return got
 
 
@@ -254,10 +262,9 @@ def _aligned_or_not(x, offset):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_l2dist_matches_plain(cuda, dtype):
-    """Both kernels of l2_kernel's rule (every f32 width and every even
-    bf16 width on the tensor cores, 132 and 960 with the query tile
-    streamed; bf16 at d 1 on the CUDA cores), with ragged B and N, edge
-    tiles and a k tail; integer data bit for bit on each kernel."""
+    """The kernel of l2_kernel's rule at every width (132 and 960 with the
+    query tile streamed; bf16 at d 1 copied with a zero column), with
+    ragged B and N, edge tiles and a k tail; integer data bit for bit."""
     rng = np.random.default_rng(24)
     ran = set()
     for b, n, d in ((1, 1, 1), (3, 777, 100), (129, 1000, 128),
@@ -270,9 +277,8 @@ def test_cuda_l2dist_matches_plain(cuda, dtype):
         ran.add(l2_kernel(dtype, d))
         torch.testing.assert_close(got, l2dist_ref(q, v), rtol=RTOL,
                                    atol=1e-3)
-    # odd bf16 widths (d 1) are the CUDA-core kernel's
-    assert ran == ({"l2dist", "l2dist_wgmma"} if dtype == torch.bfloat16
-                   else {"l2dist_wgmma"})
+    # odd bf16 widths (d 1) too, zero-padded to a multiple of 8
+    assert ran == {"l2dist_wgmma"}
     # integers below 256 (exact in bf16 too): every partial sum is exact in
     # f32, so the two agree exactly (at d 132 still below 2^24: 132 * 255^2)
     for d in (128, 132):
@@ -423,9 +429,9 @@ def test_cuda_flash_wgmma_matches_plain(cuda, dh, causal):
         before = dict(launch.LAUNCHES)
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert launch.LAUNCHES["flash_attn_fwd_wgmma"] == \
-            before["flash_attn_fwd_wgmma"] + 1
-        assert launch.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"]
+        grew = {name: c - before[name]
+                for name, c in launch.LAUNCHES.items() if c != before[name]}
+        assert grew == {"flash_attn_fwd_wgmma": 1}
         _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
 
 
@@ -447,14 +453,14 @@ def test_cuda_flash_tf32_matches_plain(cuda, dh, causal):
         before = dict(launch.LAUNCHES)
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert launch.LAUNCHES["flash_attn_fwd_tf32"] == \
-            before["flash_attn_fwd_tf32"] + 1
-        assert launch.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"]
+        grew = {name: c - before[name]
+                for name, c in launch.LAUNCHES.items() if c != before[name]}
+        assert grew == {"flash_attn_fwd_tf32": 1}
         _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 96, 128])
+@pytest.mark.parametrize("dh", [64, 96, 128, 192, 256])
 @pytest.mark.parametrize("side", ["scores", "values"])
 def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
     """Inputs on which every lo term of the 3xTF32 kernel moves the
@@ -465,7 +471,8 @@ def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
     large, so a dropped P hi * V lo or P lo * V hi moves the output by
     ~1e-3 or ~5e-4 against a limit of ~1.8e-4.  Causal, so the first rows
     of each head, over a few keys, carry the whole error.  dh = 96 runs on
-    the 128 instance, its last box never loaded."""
+    the 128 instance, its last box never loaded; 192 and 256 on the 256
+    instance, the two warpgroups each taking half the head width."""
     rng = np.random.default_rng(33)
     B, S, H, Hk = 2, 80, 4, 2
     gain = dict(scores=(2.0, 2.0, 1.0), values=(1.0, 1.0, 8.0))[side]
@@ -524,12 +531,15 @@ def test_cuda_flash_padded_heads_match_plain(cuda, dtype, dh, causal):
 ], ids=lambda x: {torch.float32: "f32", torch.bfloat16: "bf16"}.get(x, x))
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_cuda_flash_cuda_cores_match_plain(cuda, dtype, dh, causal):
-    """The CUDA-core kernel at the head widths the tensor-core ones do not
-    take: rows off 16 bytes (6; bf16 36), and above 128 (132, DeepSeek-V2's
-    192, 256: 64 sums a thread, one block an SM); S and T off the tiles,
-    S != T both ways, MQA, G = 2."""
+    """The head widths the retired CUDA-core kernel took, now on the
+    tensor cores: rows off 16 bytes (6; bf16 36), copied with zero columns
+    to the stride ([stride-pad]), and above 128 (132, DeepSeek-V2's 192,
+    256) on the 256 instances ([256]); S and T off the tiles, S != T both
+    ways, MQA, G = 2."""
     rng = np.random.default_rng(37)
-    assert flash_kernel(dtype, dh) == "flash_attn_fwd"
+    step = 8 if dtype == torch.bfloat16 else 4
+    assert flash_instance(dtype, dh) == flash_kernel(dtype, dh) + (
+        "[stride-pad]" if dh % step else "[256]")
     for shape in ((2, 100, 100, 4, 2), (1, 70, 130, 4, 1),
                   (1, 130, 70, 2, 1)):
         _flash_case(rng, cuda, dtype, shape, dh, causal)
@@ -541,9 +551,10 @@ def test_cuda_flash_cuda_cores_match_plain(cuda, dtype, dh, causal):
 def test_cuda_flash_dh192_no_longer_raises(cuda, dtype):
     """dh = 192 (DeepSeek-V2's qk width) raised on the card when the
     CUDA-core kernel stopped at 128, while the JAX package and the CPU
-    path computed it; it now runs there, and dh = 257 raises, naming the
-    limit."""
+    path computed it; it now runs on the tensor cores' 256 instance
+    (counted as [256]), and dh = 257 raises, naming the limit."""
     rng = np.random.default_rng(38)
+    assert flash_instance(dtype, 192) == f"{flash_kernel(dtype, 192)}[256]"
     _flash_case(rng, cuda, dtype, (1, 64, 64, 2, 1), 192, True)
     x = torch.zeros(1, 8, 2, 257, device=cuda, dtype=dtype)
     with pytest.raises(ValueError, match="256"):
@@ -555,23 +566,25 @@ def test_cuda_flash_dh192_no_longer_raises(cuda, dtype):
     (torch.bfloat16, 128, 0, "flash_attn_fwd_wgmma"),
     (torch.bfloat16, 64, 0, "flash_attn_fwd_wgmma"),
     (torch.bfloat16, 96, 0, "flash_attn_fwd_wgmma[padded]"),
-    (torch.bfloat16, 36, 0, "flash_attn_fwd"),
+    (torch.bfloat16, 36, 0, "flash_attn_fwd_wgmma[stride-pad]"),
     (torch.bfloat16, 128, 1, "flash_attn_fwd_wgmma"),   # copied to align
     (torch.bfloat16, 96, 1, "flash_attn_fwd_wgmma[padded]"),
     (torch.float32, 128, 0, "flash_attn_fwd_tf32"),
     (torch.float32, 64, 0, "flash_attn_fwd_tf32"),
     (torch.float32, 96, 0, "flash_attn_fwd_tf32[padded]"),
-    (torch.float32, 6, 0, "flash_attn_fwd"),
+    (torch.float32, 6, 0, "flash_attn_fwd_tf32[stride-pad]"),
+    (torch.bfloat16, 192, 1, "flash_attn_fwd_wgmma[256]"),
+    (torch.float32, 256, 1, "flash_attn_fwd_tf32[256]"),
     (torch.float32, 128, 1, "flash_attn_fwd_tf32"),     # copied to align
     (torch.float32, 96, 1, "flash_attn_fwd_tf32[padded]"),
 ])
 def test_cuda_flash_dispatch_launches(cuda, dtype, dh, offset, kernel):
-    """Head widths up to 128 on TMA's 16-byte row stride run on the
-    tensor-core kernels (bf16 on flash_attn_fwd_wgmma, f32 in 3xTF32 on
-    flash_attn_fwd_tf32; other than 64 and 128 counted as [padded]),
-    other head widths on the CUDA-core kernel, also from views that do
-    not start on a 16-byte boundary; the launch count of the kernel that
-    ran, and only it, goes up."""
+    """Every head width up to 256 runs on the tensor-core kernels (bf16 on
+    flash_attn_fwd_wgmma, f32 in 3xTF32 on flash_attn_fwd_tf32; other than
+    64 and 128 counted as [padded], above 128 as [256], off the 16-byte
+    row stride as [stride-pad]), also from views that do not start on a
+    16-byte boundary; the launch count of the kernel that ran, and only
+    it, goes up."""
     rng = np.random.default_rng(28)
     shapes = ((1, 100, 4, dh), (1, 100, 2, dh), (1, 100, 2, dh))
     qkv = []
@@ -591,15 +604,25 @@ def test_cuda_flash_dispatch_launches(cuda, dtype, dh, offset, kernel):
 
 @pytest.mark.gpu
 def test_cuda_new_wrappers_reject_bad_inputs(cuda):
-    x = torch.zeros(1, 8, 4, 16, device=cuda)
+    """Shapes that do not fit, tensors on another device and complex
+    dtypes raise; f16 and f64 operands, which raised before the wrappers
+    took any real dtype, now give the plain version's result."""
+    x = torch.randn(1, 8, 4, 16, device=cuda)
     with pytest.raises(ValueError):
         flash_attention(x, x[:, :, :3].contiguous(), x[:, :, :3].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention(x, x.cpu(), x.cpu())
     with pytest.raises(TypeError):
-        flash_attention(x, x.half(), x.half())
+        flash_attention(x, x.to(torch.complex64), x)
+    _assert_attn_close(flash_attention(x, x.half(), x.half()),
+                       flash_attn_ref(x, x.half(), x.half()))
     with pytest.raises(ValueError):
         l2_distances(x[0, 0], x[0, 0, :, :8].contiguous())
-    with pytest.raises(TypeError):
-        l2_distances(x[0, 0], x[0, 0].double())
+    with pytest.raises(ValueError):
+        l2_distances(x[0, 0], x[0, 0].cpu())
+    torch.testing.assert_close(l2_distances(x[0, 0], x[0, 0].double()),
+                               l2dist_ref(x[0, 0], x[0, 0].double()),
+                               rtol=RTOL, atol=1e-3)
     with pytest.raises(ValueError):
         ops.pq_adc(torch.zeros(4, 8, dtype=torch.uint8, device=cuda),
                    torch.zeros(4, 256, device=cuda))
@@ -616,3 +639,242 @@ def test_cuda_pq_training_is_reproducible(cuda):
     cbs = [pq.train_codebooks(torch.Generator().manual_seed(0), data, 2, 1,
                               device=cuda).codebooks for _ in range(2)]
     assert torch.equal(*cbs)
+
+
+# ------------------------------------------------- the fused spill route
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("s,tk", [(1 << 15, 3072), (1 << 15, 4096),
+                                  (1 << 16, 3072), (1 << 16, 4096)])
+@pytest.mark.parametrize("lut_int8", [False, True], ids=["f32", "int8"])
+def test_cuda_fused_spill_route_matches_plain(cuda, b, s, tk, lut_int8):
+    """A top_n of 3,072 or 4,096 over lists past 16,384 rows, on the route
+    fused_route names: the spill route (the kernel and its merge kernel,
+    one count under adc_fused_topk[spill]) wherever fused_plan's one
+    launch refuses, which is every case but B = 64 at tk = 3,072 (one
+    launch, a cluster of up to eight CTAs); values and ids bit-equal to
+    the plain version, with rows >= N, an all-pad query, exact ties from
+    repeated code rows and valid slots from none to S."""
+    rng = np.random.default_rng(43)
+    n, m = 200_000, 32
+    codes = _t(np.repeat(_codes(rng, n // 4, m), 4, axis=0)).to(cuda)
+    q, cb, rows, plain_rows = _fused_case(rng, cuda, n, m, b, s)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    key = ops.fused_route(b, s, tk, m, 256, sms).key
+    assert (key == "adc_fused_topk") == (b == 64 and tk == 3072)
+    before = dict(launch.LAUNCHES)
+    kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows, tk, lut_int8=lut_int8)
+    torch.cuda.synchronize()
+    grew = {k: c - before[k] for k, c in launch.LAUNCHES.items()
+            if c != before[k]}
+    assert grew == {key: 1}
+    pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, plain_rows, tk,
+                                         lut_int8=lut_int8)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("lut_int8", [False, True], ids=["f32", "int8"])
+def test_cuda_fused_spill_route_tk_equals_s(cuda, s, lut_int8):
+    """tk = S for one query: every CTA keeps all its slots (4,096) and the
+    merge places all S of them, valid rows first, pads as (+inf, -1)."""
+    rng = np.random.default_rng(44)
+    n, m = 100_000, 32
+    codes = _t(np.repeat(_codes(rng, n // 4, m), 4, axis=0)).to(cuda)
+    cb = _t(rng.standard_normal((m, 256, 4)).astype(np.float32)).to(cuda)
+    q = _t(rng.standard_normal((1, m * 4)).astype(np.float32)).to(cuda)
+    rows = np.full((1, s), -1, np.int32)
+    c = s - 777
+    rows[0, :c] = np.sort(rng.choice(n, c, replace=False))
+    rows = _t(rows).to(cuda)
+    kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows, s, lut_int8=lut_int8)
+    pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows, s,
+                                         lut_int8=lut_int8)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_query_plan_top_n_4096(cuda):
+    """QueryPlan(fused=True, top_n=4096) served on the card over lists past
+    16,384 rows: the spill route launched, and the fused ids equal the
+    dense window's for every query (the port's contract)."""
+    import dataclasses
+    from repro_torch.configs.anns_datasets import SIFT_SMALL
+    from repro_torch.core.engine import FusionANNSIndex
+    from repro_torch.data.synthetic import clustered_vectors
+    n, dim = 34_000, 16
+    cfg = dataclasses.replace(SIFT_SMALL, n_vectors=n, dim=dim, pq_m=4,
+                              n_posting_fraction=4 / n, top_m=2, top_n=4096)
+    rows = clustered_vectors(np.random.default_rng(5), n + 8, dim,
+                             n_clusters=4)
+    index = FusionANNSIndex.build(rows[:n], cfg, device=cuda)
+    queries = rows[n:]
+    assert max(len(index.view().collect_candidates(x, cfg.top_m)[0])
+               for x in queries) > 16_384
+    before = dict(launch.LAUNCHES)
+    fused = index.submit(queries, fused=True).results()
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["adc_fused_topk[spill]"] > \
+        before["adc_fused_topk[spill]"]
+    dense = index.submit(queries).results()
+    np.testing.assert_array_equal(np.stack([r.ids for r in fused]),
+                                  np.stack([r.ids for r in dense]))
+
+
+# ------------------------------------------ any dtype, views (L2, flash)
+def _values(rng, dtype, shape):
+    if dtype == torch.uint8:
+        return _t(rng.integers(0, 256, shape).astype(np.uint8))
+    if dtype == torch.int8:
+        return _t(rng.integers(-128, 128, shape).astype(np.int8))
+    return _t(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,v_dtype,d", [
+    (torch.uint8, torch.uint8, 128),      # SIFT1B: bf16, exactly
+    (torch.int8, torch.int8, 100),        # SPACEV1B
+    (torch.uint8, torch.uint8, 101),      # odd: zero-padded to 104
+    (torch.uint8, torch.uint8, 960),      # streamed, integers below 128
+    (torch.float16, torch.float16, 96),   # f32
+    (torch.float64, torch.float32, 132),
+    (torch.uint8, torch.float32, 64),     # mixed: f32
+    (torch.int8, torch.bfloat16, 36),     # mixed, both exact in bf16
+    (torch.int32, torch.int16, 20),       # f32, integers exact
+], ids=str)
+def test_cuda_l2_any_dtype_matches_plain(cuda, q_dtype, v_dtype, d):
+    """l2_distances on the card over any real dtypes, as the JAX wrapper
+    takes them: the kernel launched is the one l2_instance names for the
+    operand dtype; integers bit for bit (at d = 960 below 128, so every
+    sum stays below 2^24), floats to the L2 tolerance."""
+    rng = np.random.default_rng(45)
+    q, v = _values(rng, q_dtype, (37, d)), _values(rng, v_dtype, (3001, d))
+    if d == 960:                  # below 128: every sum below 2^24
+        q, v = q // 2, v // 2
+    q, v = q.to(cuda), v.to(cuda)
+    got = _l2_launched(q, v)
+    want = l2dist_ref(q, v)
+    if not (q.dtype.is_floating_point or v.dtype.is_floating_point):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8], ids=str)
+def test_cuda_l2_strided_views_match_plain(cuda, dtype):
+    """A transposed query block and a column-sliced vector table (views,
+    not contiguous) are copied before the loads and give the plain
+    version's distances (integers bit for bit)."""
+    rng = np.random.default_rng(46)
+    q, v = (_values(rng, dtype, shape).to(cuda)
+            for shape in ((64, 40), (2000, 80)))
+    if dtype != torch.uint8:                  # integers: exact sums
+        q, v = q.round(), v.round()
+    q, v = q.T, v[:, 8:72]                    # (40, 64), (2000, 64)
+    assert not (q.is_contiguous() or v.is_contiguous())
+    assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [3, 101, 257])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.uint8], ids=str)
+def test_cuda_l2_odd_bf16_widths_bit_equal(cuda, d, dtype):
+    """Odd widths computed in bf16 (bf16 and uint8 inputs) run on the
+    tensor-core kernel, zero-padded to a multiple of 8 by a kernel of the
+    same launch (l2dist_wgmma[bf16,odd]; 257 with the query tile
+    streamed): on integers below 256 bit-equal to the plain version, as
+    zero columns add nothing to any sum."""
+    rng = np.random.default_rng(47)
+    q, v = (_t(rng.integers(0, 256, shape).astype(np.float32)).to(
+        cuda, dtype) for shape in ((130, d), (5003, d)))
+    assert l2_instance(operand_dtype(dtype), d) == "l2dist_wgmma[bf16,odd]"
+    assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [
+    (torch.float16,) * 3, (torch.float16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.uint8, torch.int8),
+    (torch.bfloat16, torch.int8, torch.uint8), (torch.float64,) * 3,
+], ids=str)
+@pytest.mark.parametrize("dh", [64, 100])
+def test_cuda_flash_any_dtype_matches_plain(cuda, dtypes, dh):
+    """flash_attention on the card over any real dtypes, mixed, as the JAX
+    wrapper takes them: the launch is the one flash_instance names for
+    the operand dtype, the output in q's dtype, within q's tolerance of
+    the plain version (integers kept small, so scores stay in range)."""
+    rng = np.random.default_rng(48)
+    shapes = ((2, 70, 4, dh), (2, 90, 2, dh), (2, 90, 2, dh))
+    q, k, v = (_values(rng, dt, sh) for dt, sh in zip(dtypes, shapes))
+    q, k, v = (x // 16 if not x.dtype.is_floating_point else x
+               for x in (q, k, v))
+    q, k, v = (x.to(cuda) for x in (q, k, v))
+    before = dict(launch.LAUNCHES)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    grew = {name for name, c in launch.LAUNCHES.items() if c != before[name]}
+    assert grew == {flash_instance(operand_dtype(*dtypes), dh)}
+    assert got.dtype == dtypes[0] and got.shape == q.shape
+    want = flash_attn_ref(q, k, v, causal=True)
+    if dtypes[0] == torch.float64:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_attn_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_flash_strided_views_match_plain(cuda, dtype):
+    """q, k and v sliced out of one wider tensor (views, not contiguous)
+    are copied before the loads and give the plain version's output."""
+    rng = np.random.default_rng(49)
+    x = _values(rng, dtype, (1, 130, 7, 64)).to(cuda)
+    q, k, v = x[:, :, :4], x[:, :, 4:6], x[:, :, 5:7]
+    assert not q.is_contiguous()
+    _assert_attn_close(flash_attention(q, k, v, causal=True),
+                       flash_attn_ref(q, k, v, causal=True))
+
+
+# ------------------------------- flash above 128 and off the row stride
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,dh", [
+    (torch.bfloat16, 129), (torch.bfloat16, 192), (torch.bfloat16, 256),
+    (torch.bfloat16, 100), (torch.bfloat16, 250),
+    (torch.float32, 129), (torch.float32, 192), (torch.float32, 256),
+    (torch.float32, 66), (torch.float32, 200),
+], ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_wide_and_off_stride_match_plain(cuda, dtype, dh, causal):
+    """The 256 instances (bf16: 64-key tiles, O += P V as m64n256k16; f32:
+    the head width split between the two warpgroups, 16-key tiles) and
+    the widths off the 16-byte stride (zero-padded copies, the scale of
+    the true dh, the output cut back to dh): S and T off the tiles, S !=
+    T both ways, MQA (Hk = 1), G = 2, a single query row; held to
+    chip_smoke.check_attn's limits."""
+    rng = np.random.default_rng(50)
+    for shape in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
+                  (1, 300, 70, 2, 1), (1, 1, 33, 2, 2), (1, 129, 129, 2, 1)):
+        _flash_case(rng, cuda, dtype, shape, dh, causal)
+
+
+# ------------------------------------------------ posting-list builds
+@pytest.mark.gpu
+def test_cuda_posting_lists_are_reproducible(cuda):
+    """Two builds of the posting lists from one seed on float32 data (as
+    DEEP1B's) give the same centroids bit for bit and the same members.
+    Eight clusters of 60,000 rows hold about 7,500 rows each, so the
+    polish step's per-centroid sums add thousands of f32 rows, where an
+    unordered sum on the card would round differently from run to run."""
+    data = np.random.default_rng(51).standard_normal(
+        (60_000, 32)).astype(np.float32)
+    builds = [clustering.build_posting_lists(np.random.default_rng(0), data,
+                                             8, device=cuda)
+              for _ in range(2)]
+    assert max(len(m) for m in builds[0].members) > 2000
+    np.testing.assert_array_equal(builds[0].centroids, builds[1].centroids)
+    for a, b in zip(builds[0].members, builds[1].members):
+        np.testing.assert_array_equal(a, b)

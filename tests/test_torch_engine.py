@@ -129,3 +129,36 @@ def test_port_built_index_recall(anns_bundle):
     np.testing.assert_array_equal(
         np.stack([r.ids for r in fused]),
         np.stack([r.ids for r in port.query_batch_fused(b.queries)]))
+
+
+def test_fused_top_n_4096_over_lists_past_16384_rows(tmp_path):
+    """A fused window whose longest candidate list passes 16,384 rows at
+    top_n = 4,096 (S = 32,768, tk = 4,096): the card serves it on the
+    fused kernel's spill route, which fused_plan's one launch refuses; on
+    the CPU the plain version returns the reference's ids and distances
+    for every query."""
+    import dataclasses
+    from repro.configs.anns_datasets import SIFT_SMALL
+    from repro.data.synthetic import clustered_vectors
+    from repro_torch.kernels.pq_adc import ops
+
+    n, dim = 34_000, 16
+    cfg = dataclasses.replace(SIFT_SMALL, n_vectors=n, dim=dim, pq_m=4,
+                              n_posting_fraction=4 / n, top_m=2,
+                              top_n=4096)
+    rows = clustered_vectors(np.random.default_rng(5), n + 4, dim,
+                             n_clusters=4)
+    ref = RefIndex.build(rows[:n], cfg)
+    ref.save_snapshot(str(tmp_path))
+    port = FusionANNSIndex.load_snapshot(str(tmp_path), device="cpu")
+    queries = rows[n:]
+    longest = max(len(port.view().collect_candidates(q, cfg.top_m)[0])
+                  for q in queries)
+    assert longest > 16_384
+    s = 1 << (longest - 1).bit_length()
+    with pytest.raises(ValueError):
+        ops.fused_plan(len(queries), s, 4096, cfg.pq_m, 256, 132)
+    assert ops.fused_route(len(queries), s, 4096, cfg.pq_m, 256,
+                           132).key == "adc_fused_topk[spill]"
+    assert_same(ref.submit(queries, fused=True).results(),
+                port.submit(queries, fused=True).results())

@@ -14,11 +14,19 @@ those of ``tests/test_kernels.py``.  Tolerances:
 * flash attention 2e-5 in f32 (an online softmax against a plain one)
   and 5e-2 in bf16 (one rounding of the output to bf16 on each side).
 
-The launch planners that size the CUDA kernels (which flash kernel a
-dtype and head width go to, which L2 kernel a dtype and width go to; the
-dense scan's one-wave grid; the fused scan's clusters, key buffers and
-code-load widths, and its merge in the launch, replayed in torch) and
-``build.py``'s library names are pure Python and are held here too.  The CUDA kernels against their plain
+Both wrappers also take any real dtype, mixed dtypes and views, as the
+JAX ones do: uint8, int8, f16 and mixed inputs against the JAX ops, L2 on
+integers exactly (every sum an integer below 2^24 on both sides), f16
+flash outputs to 2e-3 (each side rounds its f32 result to f16 once, 2^-11
+of values below 4).
+
+The launch planners that size the CUDA kernels (which dtype the L2 and
+flash kernels compute inputs in, which flash kernel, instance and padded
+width a dtype and head width go to, which L2 instance and width a dtype
+and width go to; the dense scan's one-wave grid; the fused scan's
+clusters, key buffers and code-load widths, its route past them, and
+both of its merges, replayed in torch) and ``build.py``'s library names
+are pure Python and are held here too.  The CUDA kernels against their plain
 versions are in ``test_torch_cuda.py``.
 """
 
@@ -36,9 +44,12 @@ from repro.kernels.pq_adc import pq_adc_topk as j_pq_adc_topk
 from repro_torch.core.engine import ground_truth
 from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
-                                            flash_instance, flash_kernel)
+                                            flash_instance, flash_kernel,
+                                            flash_width)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
-                                        l2_kernel, l2_plan, l2dist_ref)
+                                        l2_kernel, l2_plan, l2_width,
+                                        l2dist_ref)
+from repro_torch.kernels.launch import operand_dtype
 from repro_torch.kernels.pq_adc import ops, ref
 
 ADC_RTOL = 1e-5
@@ -175,6 +186,67 @@ def test_ground_truth_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
+# (numpy dtype, jnp dtype, torch dtype) of each input kind
+_KINDS = {"u8": (np.uint8, jnp.uint8, torch.uint8),
+          "i8": (np.int8, jnp.int8, torch.int8),
+          "f16": (np.float16, jnp.float16, torch.float16),
+          "bf16": (np.float32, jnp.bfloat16, torch.bfloat16),
+          "f32": (np.float32, jnp.float32, torch.float32)}
+
+
+def _kind_values(rng, kind, shape):
+    """Values of ``kind`` made in numpy: integers across the type's range
+    (below 2^8 in magnitude), normal floats otherwise (bf16 ones rounded
+    to bf16 first)."""
+    if kind == "u8":
+        return rng.integers(0, 256, shape).astype(np.uint8)
+    if kind == "i8":
+        return rng.integers(-128, 128, shape).astype(np.int8)
+    x = rng.standard_normal(shape).astype(np.float32)
+    return _bf16(x) if kind == "bf16" else x.astype(_KINDS[kind][0])
+
+
+@pytest.mark.parametrize("q_kind,v_kind,d", [
+    ("u8", "u8", 128),      # SIFT1B's data: bf16 on the card, exactly
+    ("i8", "i8", 100),      # SPACEV1B's
+    ("u8", "u8", 101),      # an odd width: zero-padded to 104 on the card
+    ("f16", "f16", 96),     # f32 on the card
+    ("u8", "f32", 64),      # mixed: f32
+    ("i8", "bf16", 36),     # mixed, both exact in bf16: bf16
+])
+@MODES
+def test_l2_distances_any_dtype_match_jax(q_kind, v_kind, d, use_kernel):
+    """L2 over inputs of any real dtype, as the JAX op takes them (its
+    kernel widens both to f32): integers exactly, since every product and
+    sum is an integer below 2^24 on both sides; floats to f32's 1e-4."""
+    rng = np.random.default_rng(d)
+    q, v = (_kind_values(rng, kind, shape)
+            for kind, shape in ((q_kind, (5, d)), (v_kind, (300, d))))
+    want = np.asarray(j_l2(jnp.asarray(q, _KINDS[q_kind][1]),
+                           jnp.asarray(v, _KINDS[v_kind][1]), block_q=8,
+                           block_n=128, use_kernel=use_kernel))
+    got = l2_distances(_t(q).to(_KINDS[q_kind][2]),
+                       _t(v).to(_KINDS[v_kind][2]))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (5, 300)
+    if all(kind in ("u8", "i8") for kind in (q_kind, v_kind)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_l2_distances_take_strided_views():
+    """A transposed and a column-sliced view give the distances of their
+    contiguous copies (the card copies them before its loads), to f32's
+    1e-5 (the CPU's matrix product may sum a view in another order)."""
+    rng = np.random.default_rng(12)
+    q = _t(rng.standard_normal((40, 7)).astype(np.float32)).T   # (7, 40)
+    v = _t(rng.standard_normal((90, 50)).astype(np.float32))[:, 5:45]
+    assert not (q.is_contiguous() or v.is_contiguous())
+    torch.testing.assert_close(
+        l2_distances(q, v), l2_distances(q.contiguous(), v.contiguous()),
+        rtol=1e-5, atol=1e-4)
+
+
 # ---------------------------------------------------------------- flash
 @pytest.mark.parametrize("B,S,H,Hk,dh,causal,bq,bk", [
     (2, 16, 4, 2, 8, True, 8, 8),
@@ -220,6 +292,46 @@ def test_flash_attention_bf16_matches_jax(use_kernel):
                                atol=5e-2)
 
 
+@pytest.mark.parametrize("kinds,dh", [
+    (("f16", "f16", "f16"), 64),        # f32 on the card, f16 out
+    (("f16", "f32", "bf16"), 36),       # mixed: f32
+    (("f32", "u8", "i8"), 40),          # integer keys and values
+    (("bf16", "i8", "u8"), 24),         # all exact in bf16: bf16
+])
+@MODES
+def test_flash_attention_any_dtype_match_jax(kinds, dh, use_kernel):
+    """Attention over inputs of any real dtype, mixed, as the JAX op takes
+    them (its kernel widens each to f32 and returns q's dtype): f32
+    outputs to 2e-5, f16 to 2e-3, bf16 to 5e-2 (each side rounds its f32
+    result once to q's dtype)."""
+    rng = np.random.default_rng(dh)
+    shapes = ((1, 32, 4, dh), (1, 32, 2, dh), (1, 32, 2, dh))
+    vals = [_kind_values(rng, kind, shape)
+            for kind, shape in zip(kinds, shapes)]
+    # integer keys and values kept small, so scores stay in softmax range
+    vals = [x // 16 if x.dtype.kind in "ui" else x for x in vals]
+    want = np.asarray(j_flash(*(jnp.asarray(x, _KINDS[kd][1])
+                                for x, kd in zip(vals, kinds)),
+                              block_q=16, block_k=16, use_kernel=use_kernel))
+    got = flash_attention(*(_t(x).to(_KINDS[kd][2])
+                            for x, kd in zip(vals, kinds)))
+    assert got.dtype == _KINDS[kinds[0]][2]
+    tol = {"f32": 2e-5, "f16": 2e-3, "bf16": 5e-2}[kinds[0]]
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_strided_views():
+    """Views of q, k and v (heads sliced out of a wider tensor) give the
+    output of their contiguous copies."""
+    rng = np.random.default_rng(13)
+    x = _t(rng.standard_normal((1, 24, 6, 16)).astype(np.float32))
+    q, k, v = x[:, :, :4], x[:, :, 4:5], x[:, :, 5:6]
+    assert not q.is_contiguous()
+    assert torch.equal(flash_attention(q, k, v),
+                       flash_attention(*(y.contiguous() for y in (q, k, v))))
+
+
 def test_flash_attention_scale_and_ragged_kv():
     """An explicit scale and S != T: the plain version equals a direct
     softmax over the top-left-aligned causal mask."""
@@ -260,37 +372,95 @@ def test_new_wrappers_run_plain_versions_on_cpu_tensors():
     (torch.bfloat16, 96, "flash_attn_fwd_wgmma"),   # padded to 128
     (torch.bfloat16, 32, "flash_attn_fwd_wgmma"),   # padded to 64
     (torch.bfloat16, 8, "flash_attn_fwd_wgmma"),
-    (torch.bfloat16, 36, "flash_attn_fwd"),         # rows off 16 bytes
-    (torch.bfloat16, 6, "flash_attn_fwd"),
-    (torch.bfloat16, 136, "flash_attn_fwd"),        # wider than 128
-    (torch.bfloat16, 192, "flash_attn_fwd"),
-    (torch.bfloat16, 256, "flash_attn_fwd"),
+    (torch.bfloat16, 36, "flash_attn_fwd_wgmma"),   # rows off 16 bytes
+    (torch.bfloat16, 6, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 136, "flash_attn_fwd_wgmma"),  # the 256 instance
+    (torch.bfloat16, 192, "flash_attn_fwd_wgmma"),
+    (torch.bfloat16, 256, "flash_attn_fwd_wgmma"),
     (torch.float32, 128, "flash_attn_fwd_tf32"),
     (torch.float32, 64, "flash_attn_fwd_tf32"),
     (torch.float32, 96, "flash_attn_fwd_tf32"),     # padded to 128
     (torch.float32, 32, "flash_attn_fwd_tf32"),     # padded to 64
     (torch.float32, 36, "flash_attn_fwd_tf32"),
     (torch.float32, 8, "flash_attn_fwd_tf32"),
-    (torch.float32, 6, "flash_attn_fwd"),           # rows off 16 bytes
-    (torch.float32, 1, "flash_attn_fwd"),
-    (torch.float32, 132, "flash_attn_fwd"),         # wider than 128
-    (torch.float32, 192, "flash_attn_fwd"),
-    (torch.float32, 256, "flash_attn_fwd"),
+    (torch.float32, 6, "flash_attn_fwd_tf32"),      # rows off 16 bytes
+    (torch.float32, 1, "flash_attn_fwd_tf32"),
+    (torch.float32, 132, "flash_attn_fwd_tf32"),    # the 256 instance
+    (torch.float32, 192, "flash_attn_fwd_tf32"),
+    (torch.float32, 256, "flash_attn_fwd_tf32"),
 ])
 def test_flash_kernel_rule(dtype, dh, kernel):
-    """Up to dh = 128, bf16 with dh % 8 == 0 goes to the bf16 tensor-core
-    kernel and f32 with dh % 4 == 0 to the 3xTF32 one (three TF32
-    products keep f32's tolerance, one would break it): their rows lie on
-    TMA's 16-byte stride.  Every other head width up to 256 goes to the
-    CUDA-core one.  A tensor-core kernel at a width other than its
-    instance's 64 or 128 counts its launches apart."""
+    """bf16 goes to the bf16 tensor-core kernel and f32 to the 3xTF32 one
+    (three TF32 products keep f32's tolerance, one would break it) at
+    every head width up to 256.  A head width off TMA's 16-byte row
+    stride (bf16 dh % 8, f32 dh % 4) is padded with zero columns to it
+    and counts as [stride-pad]; on it, above 128 the 256 instance counts
+    as [256], and a width other than an instance's 64 or 128 as
+    [padded]."""
     assert flash_kernel(dtype, dh) == kernel
     key = flash_instance(dtype, dh)
-    if kernel != "flash_attn_fwd" and dh not in (64, 128):
+    step = 8 if dtype == torch.bfloat16 else 4
+    if dh % step:
+        assert key == f"{kernel}[stride-pad]"
+    elif dh > 128:
+        assert key == f"{kernel}[256]"
+    elif dh not in (64, 128):
         assert key == f"{kernel}[padded]"
     else:
         assert key == kernel
     assert key in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,dh,width,key", [
+    (torch.bfloat16, 129, 136, "flash_attn_fwd_wgmma[stride-pad]"),
+    (torch.bfloat16, 136, 136, "flash_attn_fwd_wgmma[256]"),
+    (torch.bfloat16, 200, 200, "flash_attn_fwd_wgmma[256]"),
+    (torch.bfloat16, 255, 256, "flash_attn_fwd_wgmma[stride-pad]"),
+    (torch.bfloat16, 100, 104, "flash_attn_fwd_wgmma[stride-pad]"),
+    (torch.bfloat16, 1, 8, "flash_attn_fwd_wgmma[stride-pad]"),
+    (torch.float32, 129, 132, "flash_attn_fwd_tf32[stride-pad]"),
+    (torch.float32, 132, 132, "flash_attn_fwd_tf32[256]"),
+    (torch.float32, 254, 256, "flash_attn_fwd_tf32[stride-pad]"),
+    (torch.float32, 66, 68, "flash_attn_fwd_tf32[stride-pad]"),
+    (torch.float32, 6, 8, "flash_attn_fwd_tf32[stride-pad]"),
+    (torch.uint8, 96, 96, "flash_attn_fwd_wgmma[padded]"),   # bf16
+    (torch.int8, 100, 104, "flash_attn_fwd_wgmma[stride-pad]"),
+    (torch.float16, 66, 68, "flash_attn_fwd_tf32[stride-pad]"),  # f32
+    (torch.float64, 256, 256, "flash_attn_fwd_tf32[256]"),
+])
+def test_flash_rule_wide_and_off_stride(dtype, dh, width, key):
+    """129..256 and the widths off the 16-byte stride: the head width the
+    kernel sees (the next multiple of 8 in bf16, of 4 in f32) and the key
+    a launch counts under, for inputs that compute in bf16 (uint8, int8,
+    bf16) or in f32 (every other dtype)."""
+    assert flash_width(dtype, dh) == width
+    assert flash_instance(dtype, dh) == key
+    assert key in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("dtypes,want", [
+    ((torch.uint8,), torch.bfloat16), ((torch.int8,), torch.bfloat16),
+    ((torch.bfloat16,), torch.bfloat16),
+    ((torch.uint8, torch.int8), torch.bfloat16),
+    ((torch.bfloat16, torch.uint8, torch.int8), torch.bfloat16),
+    ((torch.float16,), torch.float32), ((torch.float32,), torch.float32),
+    ((torch.float64,), torch.float32), ((torch.int16,), torch.float32),
+    ((torch.int32,), torch.float32), ((torch.int64,), torch.float32),
+    ((torch.bool,), torch.float32),
+    ((torch.uint8, torch.float32), torch.float32),
+    ((torch.bfloat16, torch.float16), torch.float32),
+    ((torch.bfloat16, torch.bfloat16, torch.float32), torch.float32),
+])
+def test_operand_dtype_rule(dtypes, want):
+    """The kernels compute in bf16 where every input is uint8, int8 or
+    bf16 (each value exact in bf16) and in f32, the JAX kernels' type,
+    for any other mix."""
+    assert operand_dtype(*dtypes) == want
+
+
+def test_operand_dtype_refuses_complex():
+    with pytest.raises(TypeError):
+        operand_dtype(torch.complex64)
 
 
 @pytest.mark.parametrize("dh", [0, 257, 512])
@@ -322,23 +492,25 @@ def test_flash_kernel_rule_limits(dtype, dh):
     (torch.bfloat16, 102, "l2dist_wgmma"),    # 4-byte granules
     (torch.bfloat16, 2, "l2dist_wgmma"),
     (torch.bfloat16, 126, "l2dist_wgmma"),
-    (torch.bfloat16, 101, "l2dist"),          # odd: rows on 2 bytes
-    (torch.bfloat16, 1, "l2dist"),
-    (torch.bfloat16, 129, "l2dist"),
+    (torch.bfloat16, 101, "l2dist_wgmma"),    # odd: zero-padded to 104
+    (torch.bfloat16, 1, "l2dist_wgmma"),
+    (torch.bfloat16, 129, "l2dist_wgmma"),
     (torch.bfloat16, 130, "l2dist_wgmma"),    # streamed, off 16 bytes
 ])
 def test_l2_kernel_rule(dtype, d, kernel):
-    """f32 of every width and bf16 of every even width go to the
-    tensor-core kernel (f32 loaded by TMA where d % 4 == 0, else by 4-byte
-    cp.async copies; the query tile resident up to d = 128, streamed
-    above); odd bf16 widths, whose rows lie on 2 bytes, to the CUDA-core
-    one.  The tensor-core kernel counts its launches apart: f32 above 128,
-    and in bf16 rows on the 16-byte stride (d % 8 == 0), the other even
-    widths, and widths above 128."""
+    """Every dtype and width go to the tensor-core kernel: f32 loaded by
+    TMA where d % 4 == 0, else by 4-byte cp.async copies; bf16 of even
+    width by cp.async; odd bf16 widths, whose rows lie on 2 bytes, copied
+    with zero columns to a multiple of 8 first; the query tile resident
+    up to d = 128,
+    streamed above.  It counts its launches apart: f32 above 128, and in
+    bf16 odd widths, rows on the 16-byte stride (d % 8 == 0), the other
+    even widths, and widths above 128."""
     assert l2_kernel(dtype, d) == kernel
     key = l2_instance(dtype, d)
-    if kernel == "l2dist":
-        assert key == kernel
+    if dtype == torch.bfloat16 and d % 2:
+        assert key == "l2dist_wgmma[bf16,odd]"
+        assert l2_width(dtype, d) == -(-d // 8) * 8
     elif dtype == torch.float32:
         assert key == ("l2dist_wgmma[d>128]" if d > 128 else "l2dist_wgmma")
     elif d > 128:
@@ -346,6 +518,27 @@ def test_l2_kernel_rule(dtype, d, kernel):
     else:
         assert key == ("l2dist_wgmma[bf16]" if d % 8 == 0
                        else "l2dist_wgmma[bf16,off16]")
+    assert key in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,d,width,key", [
+    (torch.uint8, 128, 128, "l2dist_wgmma[bf16]"),       # SIFT1B
+    (torch.int8, 100, 100, "l2dist_wgmma[bf16,off16]"),  # SPACEV1B
+    (torch.uint8, 101, 104, "l2dist_wgmma[bf16,odd]"),
+    (torch.int8, 3, 8, "l2dist_wgmma[bf16,odd]"),
+    (torch.uint8, 257, 264, "l2dist_wgmma[bf16,odd]"),
+    (torch.float16, 96, 96, "l2dist_wgmma"),             # f32
+    (torch.float16, 101, 101, "l2dist_wgmma"),
+    (torch.float64, 960, 960, "l2dist_wgmma[d>128]"),
+    (torch.int32, 128, 128, "l2dist_wgmma"),
+])
+def test_l2_rule_of_other_dtypes(dtype, d, width, key):
+    """Inputs that compute in bf16 (uint8, int8) take the bf16 instances,
+    odd widths zero-padded to a multiple of 8; every other dtype the f32
+    ones at
+    its own width."""
+    assert l2_width(dtype, d) == width
+    assert l2_instance(dtype, d) == key
     assert key in launch.LAUNCHES
 
 
@@ -587,6 +780,131 @@ def test_fused_plan_raises_past_its_buffer():
         ops.fused_plan(64, 1024, 512, 256, 256, 132)
 
 
+# (B, S, tk): the windows the executor makes for a large top_n (S the
+# next power of two of the longest candidate list, tk = min(top_n, S))
+ROUTE_SHAPES = [(b, s, tk) for b in (1, 8, 64) for s in (1 << 15, 1 << 16)
+                for tk in (3072, 4096)] + [
+    (1, 1 << 15, 1 << 15), (1, 1 << 16, 1 << 16), (64, 1 << 17, 4096),
+    (64, 1024, 512), (64, 8192, 512), (1, 3000, 10), (5, 37, 37),
+    (1, 1 << 16, 2048), (64, 1 << 15, 512)]
+
+
+@pytest.mark.parametrize("b,s,tk", ROUTE_SHAPES)
+def test_fused_route_serves_every_window(b, s, tk):
+    """fused_route keeps fused_plan's one launch wherever it fits (the
+    serving windows of rows 2 and 2b among them) and takes the spill
+    route elsewhere: the same cluster repeated until each CTA takes at
+    most 4,096 slots, every slot dealt to one CTA, each CTA's buffer
+    holding all its slots (so it never selects mid-scan) and room for its
+    sort, its shared memory the LUT and the buffer only, within the
+    card's 227 KB.  Every tk <= S is served, up to S = 2^17."""
+    m, k, sms = 32, 256, 132
+    route = ops.fused_route(b, s, tk, m, k, sms)
+    try:
+        want = ops.fused_plan(b, s, tk, m, k, sms)
+    except ValueError:
+        want = None
+    if want is not None:
+        assert route == ops.FusedRoute("adc_fused_topk", want.cluster, want)
+        return
+    plan, g = route.plan, route.ctas
+    assert route.key == "adc_fused_topk[spill]"
+    assert route.key in launch.LAUNCHES
+    assert plan.cluster in (1, 2, 4, 8) and g % plan.cluster == 0
+    chunks = -(-s // 32)
+    assert plan.slots == -(-chunks // g) * 32 <= 4096
+    assert g == plan.cluster or -(-chunks // (g - plan.cluster)) * 32 > 4096
+    seen = np.zeros(s, np.int64)
+    for r in range(g):
+        own = (chunks - r + g - 1) // g if r < chunks else 0
+        assert own * 32 <= plan.slots
+        for ch in range(own):
+            p = (ch * g + r) * 32 + np.arange(32)
+            seen[p[p < s]] += 1
+    assert (seen == 1).all()
+    assert plan.keep == min(tk, plan.slots)
+    assert plan.slots <= plan.cap <= 4096 and plan.cap % 32 == 0
+    assert plan.cap >= 1 << max(5, (plan.keep - 1).bit_length())
+    assert plan.smem == -(-m * k // 4) * 16 + plan.cap * 8
+    assert plan.smem + 2048 <= 232_448
+
+
+def test_fused_route_keeps_the_serving_windows_on_one_launch():
+    """The smoke's windows (S = 1,024 and 8,192 at topk 512) run the
+    one-launch code of rows 2 and 2b; a top_n of 4,096 over lists past
+    16,384 rows (S = 32,768), which fused_plan refuses, takes the spill
+    route with eight CTAs a query in clusters of four."""
+    for s in (1024, 8192):
+        assert ops.fused_route(64, s, 512, 32, 256, 132).key == \
+            "adc_fused_topk"
+    route = ops.fused_route(64, 1 << 15, 4096, 32, 256, 132)
+    assert route == ops.FusedRoute("adc_fused_topk[spill]", 8, ops.FusedPlan(
+        cluster=4, slots=4096, keep=4096, cap=4096, smem=65536))
+
+
+def test_fused_route_raises_past_the_grid_and_shared_memory():
+    """Past 65,535 queries a window (the grid's rows) or a LUT that leaves
+    no room for a 4,096-key buffer, no route serves: it raises."""
+    with pytest.raises(ValueError, match="65535"):
+        ops.fused_route(65536, 1 << 15, 4096, 32, 256, 132)
+    with pytest.raises(ValueError):
+        ops.fused_route(64, 1024, 512, 256, 256, 132)
+
+
+@pytest.mark.parametrize("s,tk,valid_share", [
+    (1 << 15, 4096, 0.6), (1 << 15, 3072, 0.3), (1 << 16, 4096, 0.55),
+    (1 << 15, 1 << 15, 0.8)])
+def test_fused_spill_merge_is_the_stable_order(s, tk, valid_share):
+    """The spill route's merge (each CTA's sorted list from the scratch,
+    placed by rank among the query's other lists, positions from the key
+    count to tk as (+inf, -1)), on its route at B = 1 (eight or sixteen
+    CTAs), gives the first tk of a stable sort of the query's distances:
+    ties to the lowest slot, every position written once."""
+    rng = np.random.default_rng(42)
+    route = ops.fused_route(1, s, tk, 32, 256, 132)
+    assert route.key == "adc_fused_topk[spill]"
+    n_valid = int(s * valid_share)
+    d = torch.from_numpy(rng.integers(0, 3000, s).astype(np.float32))
+    valid = torch.zeros(s, dtype=torch.bool)
+    valid[:n_valid] = True
+    got_d, got_s = _fused_merge_replay_fast(d, valid, tk, route)
+    want_d, want_s = torch.sort(d.masked_fill(~valid, torch.inf), stable=True)
+    want_s = torch.where(valid[want_s], want_s, -1)
+    assert torch.equal(got_d, want_d[:tk])
+    assert torch.equal(got_s, want_s[:tk])
+
+
+def _fused_merge_replay_fast(d, valid, tk, route):
+    """_fused_merge_replay for the spill route's long windows, the rank
+    counts taken with torch.searchsorted over each other CTA's sorted
+    keys (dist, slot) rather than key by key."""
+    s, g, keep = d.shape[0], route.ctas, route.plan.keep
+    slot = torch.arange(s)
+    lists = []
+    for r in range(g):
+        own = slot[((slot // 32) % g == r) & valid]
+        order = torch.sort(d[own], stable=True)[1][:keep]
+        lists.append(own[order])
+    # (dist, slot) as one ordered float64 key: slots below 2^17, distances
+    # integers below 3,000
+    key = [d[x].double() * (1 << 17) + x.double() for x in lists]
+    out_d = torch.full((tk,), torch.inf)
+    out_s = torch.full((tk,), -1, dtype=torch.int64)
+    written = torch.zeros(tk, dtype=torch.int64)
+    for r, own in enumerate(lists):
+        pos = torch.arange(len(own))
+        for q in range(g):
+            if q != r:
+                pos = pos + torch.searchsorted(key[q], key[r])
+        keep_it = pos < tk
+        out_d[pos[keep_it]] = d[own[keep_it]]
+        out_s[pos[keep_it]] = own[keep_it]
+        written.index_add_(0, pos[keep_it], torch.ones_like(pos[keep_it]))
+    total = sum(len(x) for x in lists)
+    assert (written[:min(total, tk)] == 1).all()
+    return out_d, out_s
+
+
 @pytest.mark.parametrize("m,address,width", [
     (32, 0, 16), (32, 256, 16), (16, 48, 16), (32, 8, 8), (24, 0, 8),
     (25, 0, 1), (100, 0, 4), (32, 1, 1), (6, 2, 2), (8, 4, 4)])
@@ -597,15 +915,16 @@ def test_load_width(m, address, width):
     assert ops.load_width(m, address) == width
 
 
-def _fused_merge_replay(d, valid, tk, plan):
+def _fused_merge_replay(d, valid, tk, plan, ctas=None):
     """What adc_fused_topk writes for one query of distances ``d`` (S,)
-    with ``valid`` (S,) slots, replayed in torch: each CTA (32-slot chunks
+    with ``valid`` (S,) slots, replayed in torch: each of the query's
+    CTAs (its cluster, or ``ctas`` on the spill route; 32-slot chunks
     dealt in turn) keeps its best
     ``plan.keep`` valid keys by (dist, slot), sorted; a key's output
     position is its index in its list plus the count of keys below it in
     each other CTA's list; positions below tk are written, those from the
-    cluster's key count to tk get (+inf, -1)."""
-    s, c = d.shape[0], plan.cluster
+    query's key count to tk get (+inf, -1)."""
+    s, c = d.shape[0], ctas or plan.cluster
     lists = []
     for r in range(c):
         slots = torch.arange(s)[(torch.arange(s) // 32) % c == r]
