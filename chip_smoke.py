@@ -82,7 +82,29 @@ From the root of a checkout, with one CUDA card:
    fastest rate the card has for the function (``exact_products``: f32
    products in 3xTF32, three at 495 TFLOP/s, bf16 in one at 989, on
    whichever unit the kernel runs; the ADC scans' adds at the f32 rate of
-   67), or the bytes at 3.35 TB/s, whichever is larger.
+   67), or the bytes at 3.35 TB/s, whichever is larger;
+7. mutates the index of phase 3 (``mutation_phase``): inserts 1% of N
+   (noisy copies, sigma 2, rounded and clipped to uint8, of rows picked
+   by ``--seed`` and of each query, so every query's exact neighbours
+   include inserted ids), deletes each query's ground-truth top-1 and a
+   tenth of the inserts, computes ground truth over the live set through
+   ``l2dist_wgmma``, serves the three paths with the delta scanned
+   exactly, runs ``compact()`` (it must seal every inserted row and grow
+   the physical rows by the live ones), serves them again on the
+   re-published codes and holds those kernel calls against their plain
+   versions; in both rounds no deleted id may come back, dense ids must
+   equal fused ids, f32 recall > 0.5 and int8 recall >= f32 - 0.05.  It
+   then saves a snapshot to a temporary directory, loads it onto the card
+   and requires equal ids and distances on the dense and fused paths;
+   runs the background compactor (``min_delta`` 4,096) while 20 batches
+   of 1,024 inserts alternate with serving windows, and requires every
+   inserted id sealed exactly once after ``stop_compactor(flush=True)``
+   (which re-raises a seal's error); and trains OPQ over the N rows on
+   the card, its k-means at the index codebook's 12 rounds from the same
+   seed (rotation orthonormal to 1e-4, reconstruction error below the
+   index's plain PQ), serving the dense and fused paths on an index that
+   shares the built posting lists, graph and SSD tier (equal ids, recall
+   > 0.5).
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -102,6 +124,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -132,6 +155,14 @@ FLASH_PADDED_DH = 96        # a head width padded to 128; no model here
 FLASH_WIDE_DH = 256         # the tensor-core kernels' 256 instances
 FLASH_OFF_STRIDE_DH = 100   # bf16 rows off 16 bytes: zero-padded to 104
 SPILL = dict(S=32_768, topk=4096)   # a fused window past fused_plan
+SERVE_PATHS = (("dense", "adc_scan_batch", {}),
+               ("fused", "adc_fused_topk", {"fused": True}),
+               ("fused_int8", "adc_fused_topk", {"fused": True,
+                                                 "lut_int8": True}))
+NOISE_SIGMA = 2.0           # phase 7: noise of an inserted copy of a row
+COMPACTOR_BATCHES, COMPACTOR_BATCH = 20, 1024
+COMPACTOR_MIN_DELTA = 4096
+PQ_ROUNDS = 12              # pq.train_codebooks' default: the index's
 ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
@@ -812,9 +843,9 @@ def window_rows(b: int, s: int, n: int, dev: torch.device,
     return rows
 
 
-def measure_fused(key: str, codes, q, cb, rows, topk: int) -> dict:
+def check_fused(key: str, codes, q, cb, rows, topk: int) -> float:
     """The fused kernel bit-equal to its plain version (values and ids)
-    on these inputs, and its times."""
+    on these inputs; returns the largest distance error."""
     from repro_torch.kernels.pq_adc import ops
     int8 = key.endswith("[lut_int8]")
     kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows, topk, lut_int8=int8)
@@ -824,6 +855,14 @@ def measure_fused(key: str, codes, q, cb, rows, topk: int) -> dict:
     if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
         raise AssertionError(f"{key} at S={rows.shape[1]}: not bit-equal "
                              f"to its plain version")
+    return err
+
+
+def measure_fused(key: str, codes, q, cb, rows, topk: int) -> dict:
+    """``check_fused`` on these inputs, and the kernel's times."""
+    from repro_torch.kernels.pq_adc import ops
+    int8 = key.endswith("[lut_int8]")
+    err = check_fused(key, codes, q, cb, rows, topk)
     b, s = rows.shape
     m, k, dsub = cb.shape
     valid = int((rows >= 0).sum())
@@ -957,6 +996,200 @@ def measure_entry(calls) -> list:
     return out
 
 
+# ---------------------------------------------------------------- phase 7
+def noisy(rng: np.random.Generator, rows: np.ndarray) -> np.ndarray:
+    """Rows plus Gaussian noise of sigma NOISE_SIGMA, rounded and clipped
+    to uint8's range (returned as float32 integers)."""
+    out = rows.astype(np.float32) + rng.normal(
+        0.0, NOISE_SIGMA, rows.shape).astype(np.float32)
+    return np.clip(np.rint(out), 0, 255)
+
+
+def serve_round(label: str, index, queries: np.ndarray, gt: np.ndarray,
+                deleted: np.ndarray) -> dict:
+    """The three serving paths, each with the counts set to 0 just before
+    it and read just after; fails unless each launched its kernel, no
+    deleted id comes back, dense ids equal fused ids, f32 recall > 0.5
+    and int8 recall >= f32 recall - 0.05."""
+    from repro_torch.kernels.pq_adc import ops
+    ids, metrics = {}, {}
+    for path, kernel, plan in SERVE_PATHS:
+        ops.reset_launches()
+        ids[path], metrics[path] = serve(index, queries, gt, **plan)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        log(f"mutation {label} {path}: " + json.dumps(metrics[path])
+            + f" launches={launches}")
+        if launches.get(kernel, 0) < 1:
+            raise AssertionError(f"mutation {label}: {path} never "
+                                 f"launched {kernel}")
+        back = np.intersect1d(ids[path], deleted)
+        if len(back):
+            raise AssertionError(f"mutation {label}: {path} returned "
+                                 f"deleted ids {back[:8].tolist()}")
+    if not np.array_equal(ids["dense"], ids["fused"]):
+        bad = int((ids["dense"] != ids["fused"]).any(1).sum())
+        raise AssertionError(f"mutation {label}: dense and fused ids "
+                             f"differ on {bad} queries")
+    r32, r8 = (metrics["fused"]["recall_at_10"],
+               metrics["fused_int8"]["recall_at_10"])
+    if not (r32 > 0.5 and r8 >= r32 - 0.05):
+        raise AssertionError(f"mutation {label}: recall@10 f32 {r32}, "
+                             f"int8 {r8}")
+    return metrics
+
+
+def same_answers(label: str, a, b, queries: np.ndarray) -> None:
+    """Dense and fused windows of ``a`` and ``b`` give equal ids and
+    distances for every query."""
+    for plan in ({}, {"fused": True}):
+        for ra, rb in zip(a.submit(queries, window=WINDOW, **plan).results(),
+                          b.submit(queries, window=WINDOW, **plan).results()):
+            if not (np.array_equal(ra.ids, rb.ids)
+                    and np.array_equal(ra.dists, rb.dists)):
+                raise AssertionError(f"{label}: answers differ ({plan})")
+
+
+def mutation_phase(index, data: np.ndarray, queries: np.ndarray,
+                   gt: np.ndarray, seed: int) -> dict:
+    """Phase 7: insert, delete, query, compact, query, snapshot round
+    trip, background compactor and OPQ, on the index of phase 3."""
+    from repro_torch.core import opq
+    from repro_torch.core.engine import FusionANNSIndex, ground_truth
+    from repro_torch.kernels.pq_adc import ops, ref
+    rng = np.random.default_rng(seed + 7)
+    n, nq = len(data), len(queries)
+    view0 = index.view()
+    out = {}
+    # 1. insert 1% of N: noisy copies of existing rows, and of each query
+    n_ins = n // 100
+    picks = np.sort(rng.choice(n, n_ins - nq, replace=False))
+    rows = np.concatenate([noisy(rng, data[picks]), noisy(rng, queries)])
+    t = time.perf_counter()
+    new_ids = index.insert(rows)
+    out["insert_s"] = time.perf_counter() - t
+    # 2. delete each query's pre-mutation top-1 and a tenth of the inserts
+    del_inserted = rng.choice(new_ids, n_ins // 10, replace=False)
+    deleted = np.concatenate([np.unique(gt[:, 0]), np.sort(del_inserted)])
+    t = time.perf_counter()
+    index.delete(deleted)
+    out["delete_s"] = time.perf_counter() - t
+    out.update(inserted=int(n_ins), deleted=int(len(deleted)))
+    # ground truth over the live set, through l2dist_wgmma
+    t = time.perf_counter()
+    all_rows = np.concatenate([data, rows.astype(data.dtype)])
+    live_ids = np.setdiff1d(np.arange(len(all_rows)), deleted)
+    ops.reset_launches()
+    gt_live = live_ids[ground_truth(all_rows[live_ids], queries, 10)]
+    if ops.LAUNCHES["l2dist_wgmma"] < 1:
+        raise AssertionError("mutation: the live-set ground truth never "
+                             "launched l2dist_wgmma")
+    out["ground_truth_s"] = time.perf_counter() - t
+    log(f"mutation: inserted {n_ins} rows in {out['insert_s']:.4f} s, "
+        f"deleted {len(deleted)} ids in {out['delete_s']:.4f} s, live-set "
+        f"ground truth {out['ground_truth_s']:.1f} s")
+    del all_rows
+    # the share of the live ground truth that the inserts hold
+    out["gt_share_inserted"] = float(np.isin(gt_live, new_ids).mean())
+    # 3. query with the delta scanned exactly
+    out["before_seal"] = serve_round("before seal", index, queries,
+                                     gt_live, deleted)
+    # 4. seal
+    rows0 = index.view().n_rows
+    t = time.perf_counter()
+    sealed = index.compact()
+    torch.cuda.synchronize()
+    out["seal_s"] = time.perf_counter() - t
+    grown = index.view().n_rows - rows0
+    log(f"mutation: compact() sealed {sealed} rows in {out['seal_s']:.3f} "
+        f"s, n_rows +{grown}, delta {index.delta_size}")
+    if sealed != n_ins or grown != n_ins - len(del_inserted):
+        raise AssertionError(f"mutation: compact sealed {sealed} rows "
+                             f"(want {n_ins}), n_rows grew by {grown}")
+    # 5. query the re-published codes; hold their kernels against plain
+    with Recorder() as recorder:
+        out["after_seal"] = serve_round("after seal", index, queries,
+                                        gt_live, deleted)
+    codes, luts = recorder.calls["adc_scan_batch"]
+    check_close("adc_scan_batch on the sealed codes",
+                ops.pq_adc_batch(codes, luts),
+                ref.pq_adc_batch_ref(codes, luts))
+    for key in ("adc_fused_topk", "adc_fused_topk[lut_int8]"):
+        check_fused(key, *recorder.calls[key])
+    # 6. snapshot round trip onto the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snapshot_") as tmp:
+        t = time.perf_counter()
+        index.save_snapshot(tmp)
+        out["snapshot_save_s"] = time.perf_counter() - t
+        out["snapshot_bytes"] = sum(
+            os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t = time.perf_counter()
+        loaded = FusionANNSIndex.load_snapshot(tmp, device="cuda")
+        out["snapshot_load_s"] = time.perf_counter() - t
+    same_answers("snapshot round trip", index, loaded, queries)
+    del loaded
+    log(f"mutation: snapshot {out['snapshot_bytes']} bytes, save "
+        f"{out['snapshot_save_s']:.1f} s, load onto the card "
+        f"{out['snapshot_load_s']:.1f} s; dense and fused answers equal")
+    # 7. the background compactor while windows run on the card
+    t = time.perf_counter()
+    index.start_compactor(min_delta=COMPACTOR_MIN_DELTA)
+    batches = []
+    epoch0 = index.epoch
+    for _ in range(COMPACTOR_BATCHES):
+        pick = rng.choice(n, COMPACTOR_BATCH, replace=False)
+        batches.append(index.insert(noisy(rng, data[pick])))
+        index.submit(queries[:WINDOW], window=WINDOW).results()
+    index.stop_compactor(flush=True)
+    out["compactor_s"] = time.perf_counter() - t
+    out["compactor_epochs"] = index.epoch - epoch0
+    id_of = index.view().id_of
+    added = np.concatenate(batches)
+    if index.delta_size or not (np.diff(id_of) > 0).all() \
+            or not np.isin(added, id_of).all():
+        raise AssertionError("mutation: the compactor left rows unsealed "
+                             "or sealed a row twice")
+    log(f"mutation: compactor sealed {len(added)} rows under serving in "
+        f"{out['compactor_s']:.1f} s ({out['compactor_epochs']} epochs)")
+    # 8. OPQ over the N rows, served on the built posting lists and graph;
+    # its k-means takes the index codebook's rounds from the same seed, so
+    # its first round IS that codebook and the comparison below isolates
+    # the rotation (as the JAX package's OPQ test holds equal rounds)
+    dev = index.device
+    t = time.perf_counter()
+    ocb, _ = opq.train_opq(torch.Generator().manual_seed(seed), data,
+                           index.cfg.pq_m, index.cfg.pq_nbits,
+                           kmeans_iters=PQ_ROUNDS, device=dev)
+    out["opq_train_s"] = time.perf_counter() - t
+    r = ocb.rotation.astype(np.float64)
+    out["opq_orthonormality"] = float(np.abs(r.T @ r - np.eye(len(r))).max())
+    out["opq_error"] = opq.reconstruction_error(ocb, data)
+    out["pq_error"] = opq.reconstruction_error(opq.OPQCodebook(
+        rotation=np.eye(len(r), dtype=np.float32), cb=index.codebook), data)
+    log(f"OPQ: trained in {out['opq_train_s']:.1f} s, |R^T R - I| = "
+        f"{out['opq_orthonormality']}, error {out['opq_error']} against "
+        f"plain PQ's {out['pq_error']}")
+    if not (out["opq_orthonormality"] <= 1e-4
+            and out["opq_error"] < out["pq_error"]):
+        raise AssertionError(f"OPQ: |R^T R - I| = "
+                             f"{out['opq_orthonormality']}, error "
+                             f"{out['opq_error']} vs PQ {out['pq_error']}")
+    oidx = FusionANNSIndex(cfg=index.cfg, codebook=ocb.cb,
+                           codes=opq.encode(ocb, data),
+                           posting=view0.posting, graph=view0.graph,
+                           ssd=index.ssd, rotation=ocb.rotation)
+    ids = {}
+    for path, kernel, plan in SERVE_PATHS[:2]:
+        ops.reset_launches()
+        ids[path], out[f"opq_{path}"] = serve(oidx, queries, gt, **plan)
+        if ops.LAUNCHES[kernel] < 1:
+            raise AssertionError(f"OPQ: {path} never launched {kernel}")
+    if not np.array_equal(ids["dense"], ids["fused"]) \
+            or not out["opq_fused"]["recall_at_10"] > 0.5:
+        raise AssertionError("OPQ: dense ids differ from fused or recall "
+                             f"{out['opq_fused']['recall_at_10']} <= 0.5")
+    return out
+
+
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
     that are exact in f32, and how many products each takes: inputs exact
@@ -1070,13 +1303,9 @@ def main() -> int:
         f"{time.perf_counter() - t:.1f} s; ids identical for all "
         f"{len(gt)} queries")
 
-    paths = (("dense", "adc_scan_batch", {}),
-             ("fused", "adc_fused_topk", {"fused": True}),
-             ("fused_int8", "adc_fused_topk", {"fused": True,
-                                               "lut_int8": True}))
     ids, metrics, launches = {}, {}, {}
     with Recorder() as recorder:
-        for path, kernel, plan in paths:
+        for path, kernel, plan in SERVE_PATHS:
             ops.reset_launches()
             ids[path], metrics[path] = serve(index, queries, gt, **plan)
             launches[path] = dict(ops.LAUNCHES)
@@ -1130,6 +1359,11 @@ def main() -> int:
             f"({r['bound_by']}) library_ms={r['library_ms']}")
         kernels.append({"name": r["name"], **KERNELS[r["name"]],
                         "launches": per_path[r["name"]], **r})
+    t = time.perf_counter()
+    mut = mutation_phase(index, data, queries, gt, args.seed)
+    log(f"mutation: ok, {time.perf_counter() - t:.1f} s; "
+        + json.dumps(mut) + "; plain PQ recall@10 (phase 4) "
+        + json.dumps({p: metrics[p]["recall_at_10"] for p in metrics}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ order no longer reaches the centroids, and two builds from one seed give
 the same posting lists (``tests/test_torch_cuda.py::
 test_cuda_posting_lists_are_reproducible``).  On the CPU the sums stay
 f32 in row order, numpy's ``np.add.at``, bit for bit.
+
+Every distance block here (and in ``core.pq``) is f32: its products run
+under :data:`full_f32`, which keeps cuBLAS off TF32 whatever the caller
+set, so a seal on the card assigns and encodes as the build did.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from repro_torch.analysis.concurrency.witness import make_lock
 
 # rows per distance block: (16384, 50k centroids) f32 is 3.3 GB; results
 # do not depend on it
@@ -42,6 +48,34 @@ class PostingLists:
     def replication_factor(self) -> float:
         total = sum(len(m) for m in self.members)
         return total / max(len(self.primary), 1)
+
+
+class _FullF32:
+    """Context manager: cuBLAS f32 products in full f32 (TF32 off) inside
+    it, the caller's setting restored when the last thread leaves.  The
+    setting is process-wide, so threads inside count themselves."""
+
+    def __init__(self):
+        # a leaf: held for two attribute writes, nothing acquired under it
+        self._lock = make_lock("future")
+        self._depth = 0                  # guarded-by: _lock
+        self._saved = False              # guarded-by: _lock
+
+    def __enter__(self) -> None:
+        with self._lock:  # acquires: future
+            if self._depth == 0:
+                self._saved = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self._depth += 1
+
+    def __exit__(self, *exc) -> None:
+        with self._lock:  # acquires: future
+            self._depth -= 1
+            if self._depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = self._saved
+
+
+full_f32 = _FullF32()
 
 
 def row_sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -79,8 +113,9 @@ def sq_dists(blk: np.ndarray, centers: torch.Tensor) -> torch.Tensor:
     ``|x|² - 2x·cᵀ + |c|²``."""
     b = torch.from_numpy(np.ascontiguousarray(blk, np.float32)).to(
         centers.device)
-    return (row_sq_norms(b)[:, None] - (2.0 * b) @ centers.T
-            + row_sq_norms(centers)[None])
+    with full_f32:
+        prod = (2.0 * b) @ centers.T
+    return row_sq_norms(b)[:, None] - prod + row_sq_norms(centers)[None]
 
 
 def _nearest(data: np.ndarray, centers: np.ndarray,

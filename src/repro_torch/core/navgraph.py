@@ -1,9 +1,14 @@
 """In-memory navigation graph over posting-list centroids (paper §4.1).
 
-Vertices are the posting-list centroids; each links to its exact
-top-``degree`` nearest.  Search is best-first beam search on the host (the
-CPU stage ② of the online pipeline), exactly as in the paper and the JAX
-package.  The graph build's distance blocks run in torch on ``device``.
+Vertices are the posting-list centroids.  Up to 50,000 of them each links
+to its exact top-``degree`` nearest, the distance blocks in torch on
+``device``; above that, the SPTAG-flavoured incremental build of the JAX
+package (vertices added one by one, linked to the top-R nearest that a
+search of the partial graph finds, neighbours back-updated under a
+max-degree cap), host numpy transcribed as it is, so its neighbours equal
+the reference's.  Search is best-first beam search on the host (the CPU
+stage ② of the online pipeline), exactly as in the paper and the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,8 +22,8 @@ import torch
 
 from repro_torch.core.clustering import _kmeans, _nearest, sq_dists
 
-# the exact kNN build is O(C²); it is the only build here, so centroid
-# counts stop at the size it handles
+# the exact kNN build is O(C²): above this many vertices the build is
+# incremental
 MAX_EXACT_VERTICES = 50_000
 
 
@@ -80,17 +85,75 @@ def knn_graph_exact(points: np.ndarray, device: torch.device,
                     entry=entry, super_centroids=supers, super_assign=assign)
 
 
-def build_navgraph(points: np.ndarray, degree: int = 32, *,
+def build_navgraph(points: np.ndarray, degree: int = 32,
+                   ef_build: int = 64, *,
                    device: torch.device) -> NavGraph:
-    """Navigation-graph construction: exact kNN adjacency (highest
-    quality, matmul-fast).  The JAX package's incremental SPTAG-style
-    insertion for more than 50k vertices is a per-vertex Python loop and
-    is not ported; larger centroid counts raise."""
-    if len(points) > MAX_EXACT_VERTICES:
-        raise ValueError(
-            f"{len(points)} centroids: the exact navigation-graph build "
-            f"takes at most {MAX_EXACT_VERTICES}; lower n_posting_fraction")
-    return knn_graph_exact(points.astype(np.float32), device, degree=degree)
+    """Navigation-graph construction.
+
+    <= 50k vertices: exact kNN adjacency on ``device`` — highest quality,
+    matmul-fast.  Beyond that, SPTAG-style incremental insertion where
+    each vertex links to its top-``degree`` nearest found by seeded graph
+    search over the partial graph (a per-vertex Python loop on the host;
+    the O(C²) exact build is out of reach there)."""
+    if len(points) <= MAX_EXACT_VERTICES:
+        return knn_graph_exact(points.astype(np.float32), device,
+                               degree=degree)
+    c, d = points.shape
+    r = min(degree, max(c - 1, 1))
+    nbrs: List[List[Tuple[float, int]]] = [[] for _ in range(c)]
+
+    def link(u: int, v: int, dist: float) -> None:
+        lst = nbrs[u]
+        heapq.heappush(lst, (-dist, v))
+        if len(lst) > r:
+            heapq.heappop(lst)             # drop farthest
+
+    bootstrap = min(c, 2 * r)
+    for i in range(1, c):
+        if i <= bootstrap:
+            cand = np.arange(i)
+        else:
+            cand = _search_ids(points, nbrs, points[i], ef_build, entry=0)
+        dd = np.sum((points[cand] - points[i]) ** 2, -1)
+        order = np.argsort(dd)[:r]
+        for j in order:
+            v, dist = int(cand[j]), float(dd[j])
+            link(i, v, dist)
+            link(v, i, dist)
+
+    neighbors = np.full((c, r), -1, np.int32)
+    for i, lst in enumerate(nbrs):
+        ids = [v for _, v in sorted(lst, reverse=True)]
+        neighbors[i, :len(ids)] = ids[:r]
+    entry = int(np.argmin(np.sum(
+        (points - points.mean(0, keepdims=True)) ** 2, -1)))
+    supers, assign = _seed_tree(points, device)
+    return NavGraph(points=points, neighbors=neighbors, entry=entry,
+                    super_centroids=supers, super_assign=assign)
+
+
+def _search_ids(points, nbrs_dyn, query, ef, entry=0) -> np.ndarray:
+    """Best-first search over the under-construction adjacency (build
+    helper)."""
+    visited = {entry}
+    d0 = float(np.sum((points[entry] - query) ** 2))
+    cand = [(d0, entry)]
+    best = [(-d0, entry)]
+    while cand:
+        dist, u = heapq.heappop(cand)
+        if dist > -best[0][0] and len(best) >= ef:
+            break
+        for _, v in nbrs_dyn[u]:
+            if v in visited:
+                continue
+            visited.add(v)
+            dv = float(np.sum((points[v] - query) ** 2))
+            if len(best) < ef or dv < -best[0][0]:
+                heapq.heappush(cand, (dv, v))
+                heapq.heappush(best, (-dv, v))
+                if len(best) > ef:
+                    heapq.heappop(best)
+    return np.array([v for _, v in best], np.int64)
 
 
 def search(graph: NavGraph, query: np.ndarray, top_m: int,

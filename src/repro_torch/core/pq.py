@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.clustering import full_f32
 from repro_torch.kernels.pq_adc.ref import build_luts_ref
 
 # rows per chunk: the (M, chunk, K) f32 distance block stays ~2 GB at
@@ -62,9 +63,10 @@ def _rows(data, s: int, e: int, device: torch.device) -> torch.Tensor:
 
 def _assign(sub: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """(M, n, dsub) x (M, K, dsub) -> (M, n) nearest centroid, ties to the
-    lowest index (as ``jnp.argmin``)."""
-    d2 = ((sub ** 2).sum(-1)[:, :, None]
-          - 2.0 * torch.bmm(sub, centers.transpose(1, 2))
+    lowest index (as ``jnp.argmin``); the products in full f32."""
+    with full_f32:
+        prod = torch.bmm(sub, centers.transpose(1, 2))
+    d2 = ((sub ** 2).sum(-1)[:, :, None] - 2.0 * prod
           + (centers ** 2).sum(-1)[:, None, :])
     return torch.argmin(d2, dim=-1)
 
@@ -118,6 +120,13 @@ def decode(cb: PQCodebook, codes: torch.Tensor) -> torch.Tensor:
     rows = torch.gather(cb.codebooks, 1, codes.T.long()[:, :, None].expand(
         m, n, cb.dsub))
     return rows.transpose(0, 1).reshape(n, -1)
+
+
+def adc_lut(cb: PQCodebook, query: torch.Tensor) -> torch.Tensor:
+    """Distance lookup table for one query: (M, K) squared-L2 per
+    sub-space, ``Σ (c - q)²`` as the JAX package's ``pq.adc_lut``."""
+    qs = query.float().reshape(cb.m, 1, cb.dsub)
+    return ((cb.codebooks - qs) ** 2).sum(-1)
 
 
 def adc_lut_batch(cb: PQCodebook, queries: torch.Tensor) -> torch.Tensor:

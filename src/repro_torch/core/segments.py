@@ -6,17 +6,24 @@
     pinned at the start of its window.  Views are frozen dataclasses
     published by a single atomic reference assignment, so a reader can
     never observe torn multi-tier state.
-  * The delta segment holds raw float32 rows, scanned exactly and merged
-    into the top-k after the PQ scan + re-rank.
-
-This slice of the port serves queries over views loaded from a snapshot
-or built in one go; inserts, deletes and the background compactor of the
-JAX package's ``core/segments.py`` come in a later slice.
+  * Inserts append to the small mutable *delta segment* — raw float32
+    rows scanned exactly (numpy, on the host) and merged into the top-k
+    after the PQ scan + re-rank.  No clustering, PQ encode, or SSD
+    traffic on the insert path.
+  * Deletes tombstone in the owning segment: a copy-on-write flip of the
+    sealed tombstone array, or a functional update of the delta's flags.
+  * A background :class:`SegmentCompactor` (its critical sections under
+    the ``compaction``-ranked witness lock) seals the delta into the
+    immutable PQ/posting/SSD tiers — assignment to the existing
+    centroids and PQ encode on the index's device, tombstoned delta rows
+    purged — while queries keep serving against the old view; the swap
+    is one epoch-bumped reference assignment.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import TYPE_CHECKING, Optional, Tuple
 
 import numpy as np
@@ -35,11 +42,14 @@ if TYPE_CHECKING:                                   # pragma: no cover
 
 @dataclasses.dataclass(frozen=True)
 class DeltaSegment:
-    """The unsealed tail of the index (as a snapshot restores it).
+    """The mutable tail of the index, snapshotted functionally.
 
-    Arrays are never written in place, so a published :class:`IndexView`
-    holds a delta that can never change under its readers.  Global ids
-    are positional: row ``i`` is vector ``base + i``."""
+    Every mutation returns a NEW ``DeltaSegment`` (arrays are never
+    written in place), so a published :class:`IndexView` holds a delta
+    that can never change under its readers.  Global ids are positional:
+    row ``i`` is vector ``base + i``; compaction seals a PREFIX of the
+    rows, so surviving rows keep their global ids with a higher base.
+    """
 
     base: int                   # global id of row 0
     vectors: np.ndarray         # (D, dim) float32, raw (un-rotated) space
@@ -61,6 +71,39 @@ class DeltaSegment:
 
     def __len__(self) -> int:
         return len(self.vectors)
+
+    @property
+    def ids(self) -> np.ndarray:
+        """Global ids of every row (including tombstoned ones)."""
+        return np.arange(self.base, self.base + len(self.vectors),
+                         dtype=np.int64)
+
+    def live_count(self) -> int:
+        return int(len(self.tombstoned) - np.count_nonzero(self.tombstoned))
+
+    def append(self, vectors: np.ndarray,
+               attributes=None) -> "DeltaSegment":
+        vecs = np.atleast_2d(vectors)
+        return DeltaSegment(
+            base=self.base,
+            vectors=np.concatenate([self.vectors, vecs]),
+            tombstoned=np.concatenate(
+                [self.tombstoned, np.zeros(len(vecs), bool)]),
+            attrs=self.attrs.append(len(vecs), attributes))
+
+    def tombstone(self, local_ids: np.ndarray) -> "DeltaSegment":
+        flags = self.tombstoned.copy()
+        flags[local_ids] = True
+        return DeltaSegment(base=self.base, vectors=self.vectors,
+                            tombstoned=flags, attrs=self.attrs)
+
+    def drop_prefix(self, n: int) -> "DeltaSegment":
+        """The segment left after sealing rows ``[0, n)`` — survivors keep
+        their global ids because the base advances by exactly ``n``."""
+        return DeltaSegment(base=self.base + int(n),
+                            vectors=self.vectors[n:],
+                            tombstoned=self.tombstoned[n:],
+                            attrs=self.attrs.drop_prefix(n))
 
     def scan(self, query: np.ndarray,
              filt: Optional[Predicate] = None
@@ -196,3 +239,77 @@ def row_of_from_id_of(id_of: np.ndarray, n_ids: int) -> np.ndarray:
     row_of = np.full(int(n_ids), -1, np.int64)
     row_of[id_of] = np.arange(len(id_of), dtype=np.int64)
     return row_of
+
+
+# ---------------------------------------------------------------------------
+# Background compaction
+# ---------------------------------------------------------------------------
+
+class SegmentCompactor:
+    """Background thread sealing the delta whenever it holds at least
+    ``min_delta`` rows.
+
+    Parks on the index's ``compaction``-ranked condition; inserts notify
+    it, so sealing starts within one wakeup of the threshold being
+    crossed (``poll_s`` bounds the latency when a notify is missed).
+    The heavy work — assignment, PQ encode (on the index's device), SSD
+    extension — runs in :meth:`FusionANNSIndex.compact` OUTSIDE the lock;
+    only the claim/publish critical sections hold it, so inserts,
+    deletes, and queries keep flowing mid-compaction.
+
+    A seal that raises ends the thread; the exception is kept and
+    re-raised by :meth:`stop`, so a seal that never happened cannot pass
+    unnoticed.
+    """
+
+    def __init__(self, index, *, min_delta: int = 64,
+                 poll_s: float = 0.05):
+        self.index = index
+        self.min_delta = int(min_delta)
+        self.poll_s = float(poll_s)
+        self._stop_requested = False    # written under index._mut_cond
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "SegmentCompactor":
+        if self._thread is not None:
+            return self
+        self._thread = threading.Thread(
+            target=self._loop, name="segment-compactor", daemon=True)
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        idx = self.index
+        try:
+            while True:
+                with idx._mut_cond:  # acquires: compaction
+                    while (not self._stop_requested
+                           and len(idx._view.delta) < self.min_delta):
+                        idx._mut_cond.wait(self.poll_s)
+                    if self._stop_requested:
+                        return
+                idx.compact()
+        except BaseException as exc:  # noqa: BLE001 — re-raised by stop()
+            self._error = exc
+
+    def stop(self, *, flush: bool = False) -> None:
+        """Stop the thread and re-raise the exception a seal raised in
+        it, if any; with ``flush=True`` then seal any remaining delta
+        rows (drain-to-sealed)."""
+        t = self._thread
+        if t is not None:
+            with self.index._mut_cond:  # acquires: compaction
+                self._stop_requested = True
+                self.index._mut_cond.notify_all()
+            t.join(timeout=300.0)
+            if t.is_alive():
+                raise RuntimeError("segment compactor did not stop within "
+                                   "300 s")
+            self._thread = None
+            self._stop_requested = False
+        if self._error is not None:
+            exc, self._error = self._error, None
+            raise exc
+        if flush:
+            self.index.compact()

@@ -27,8 +27,17 @@ such case against the plain version on the same inputs, integer L2 bit
 for bit; f16 flash outputs to 2e-3 (each side rounds its f32 result to
 f16 once).  The fused scan's spill route (a large tk over a long window)
 is held bit for bit, as its one launch is; two posting-list builds from
-one seed must agree bit for bit.
+one seed must agree bit for bit.  Index mutation on the card: a seal is
+reproducible (two copies seal the same rows to the same tiers, one of
+them with TF32 switched on by the caller), its codes are ``pq.encode`` of
+the live rows on the card, the background compactor under concurrent
+``submit()`` seals every row once and re-raises a planted seal error from
+``stop()``, and a snapshot round trip onto the card answers with equal
+ids and distances.
 """
+
+import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -878,3 +887,121 @@ def test_cuda_posting_lists_are_reproducible(cuda):
     np.testing.assert_array_equal(builds[0].centroids, builds[1].centroids)
     for a, b in zip(builds[0].members, builds[1].members):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------ index mutation
+@pytest.fixture
+def small_index(cuda):
+    """A small index built on the card, rows to insert, and queries."""
+    from repro_torch.configs.anns_datasets import SIFT_SMALL
+    from repro_torch.core.engine import FusionANNSIndex
+    from repro_torch.data.synthetic import clustered_vectors
+    rng = np.random.default_rng(61)
+    n = 8192
+    data = clustered_vectors(rng, n + 2048 + 64, 32, n_clusters=32)
+    cfg = dataclasses.replace(SIFT_SMALL, n_vectors=n, dim=32)
+    index = FusionANNSIndex.build(data[:n], cfg, device=cuda)
+    return index, data[n:n + 2048], data[n + 2048:]
+
+
+def _same_answers(a, b, queries):
+    for plan in ({}, {"fused": True}, {"fused": True, "lut_int8": True}):
+        for ra, rb in zip(a.submit(queries, window=16, **plan).results(),
+                          b.submit(queries, window=16, **plan).results(),
+                          strict=True):
+            np.testing.assert_array_equal(ra.ids, rb.ids)
+            np.testing.assert_array_equal(ra.dists, rb.dists)
+
+
+def _same_sealed_tiers(a, b):
+    av, bv = a.view(), b.view()
+    assert torch.equal(av.codes, bv.codes)
+    for x, y in zip(av.posting.members, bv.posting.members, strict=True):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(av.posting.primary, bv.posting.primary)
+    np.testing.assert_array_equal(av.id_of, bv.id_of)
+    np.testing.assert_array_equal(av.tombstones, bv.tombstones)
+
+
+@pytest.mark.gpu
+def test_cuda_seal_is_reproducible_and_encodes_as_pq(small_index):
+    index, rows, queries = small_index
+    twin = copy.deepcopy(index)
+    n_rows = index.view().n_rows
+    for ix in (index, twin):
+        ids = ix.insert(rows)
+        ix.delete(ids[::7])
+    index.compact()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True    # the caller's choice
+    try:
+        twin.compact()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    _same_sealed_tiers(index, twin)
+    live = np.delete(rows, np.arange(0, len(rows), 7), axis=0)
+    assert index.codes.is_cuda
+    assert torch.equal(index.codes[n_rows:],
+                       pq.encode(index.codebook, torch.from_numpy(
+                           live).to(index.device)))
+    _same_answers(index, twin, queries)
+
+
+@pytest.mark.gpu
+def test_cuda_compactor_under_submit_seals_every_row(small_index):
+    index, rows, queries = small_index
+    once = copy.deepcopy(index)
+    index.start_compactor(min_delta=256, poll_s=0.001)
+    tickets, ids = [], []
+    for s in range(0, len(rows), 128):
+        ids.append(index.insert(rows[s:s + 128]))
+        tickets.append(index.submit(queries, window=16))
+    for t in tickets:
+        t.results()
+    index.stop_compactor(flush=True)
+    once.insert(rows)
+    once.compact()
+    assert index.delta_size == 0
+    id_of = index.view().id_of
+    assert (np.diff(id_of) > 0).all()
+    assert np.isin(np.concatenate(ids), id_of).all()
+    _same_sealed_tiers(index, once)
+    _same_answers(index, once, queries)
+
+
+@pytest.mark.gpu
+def test_cuda_compactor_reraises_planted_seal_error(small_index):
+    import time
+    index, rows, queries = small_index
+
+    def broken_seal(view0, d0):
+        pq.encode(index.codebook, torch.from_numpy(rows).to(index.device))
+        raise RuntimeError("planted seal fault")
+
+    index._seal = broken_seal
+    index.start_compactor(min_delta=1, poll_s=0.001)
+    index.insert(rows[:4])
+    deadline = time.time() + 60
+    while index._compactor._thread.is_alive() and time.time() < deadline:
+        index.submit(queries, window=16).results()
+    with pytest.raises(RuntimeError, match="planted seal fault"):
+        index.stop_compactor(flush=True)
+    assert index.delta_size == 4
+
+
+@pytest.mark.gpu
+def test_cuda_snapshot_round_trip_answers_bit_identically(small_index,
+                                                          tmp_path):
+    from repro_torch.core.engine import FusionANNSIndex
+    index, rows, queries = small_index
+    ids = index.insert(rows[:1024])
+    index.compact()
+    tail = index.insert(rows[1024:])
+    index.delete(np.concatenate([ids[:5], tail[:5], [3]]))
+    index.save_snapshot(str(tmp_path / "snap"))
+    loaded = FusionANNSIndex.load_snapshot(str(tmp_path / "snap"),
+                                           device="cuda")
+    assert loaded.codes.is_cuda and torch.equal(loaded.codes, index.codes)
+    assert loaded.delta_size == index.delta_size
+    _same_answers(index, loaded, np.concatenate([queries, rows[::64]]))

@@ -132,9 +132,6 @@ def test_navgraph_build_and_search_equal(anns_bundle):
         for top_m in (1, 8, 30):
             np.testing.assert_array_equal(navgraph.search(p, q, top_m),
                                           rnav.search(r, q, top_m))
-    with pytest.raises(ValueError, match="n_posting_fraction"):
-        navgraph.build_navgraph(np.zeros((50_001, 2), np.float32),
-                                device=CPU)
 
 
 def test_pq_encode_equal_under_shared_codebooks(anns_bundle):
