@@ -104,7 +104,33 @@ From the root of a checkout, with one CUDA card:
    seed (rotation orthonormal to 1e-4, reconstruction error below the
    index's plain PQ), serving the dense and fused paths on an index that
    shares the built posting lists, graph and SSD tier (equal ids, recall
-   > 0.5).
+   > 0.5);
+8. serves the index as phase 7 leaves it through the serving stack
+   (``serving_phase``), with ground truth over its live rows through
+   ``l2dist_wgmma``: (a) ``make_serving_stack(index, n_replicas=2,
+   threaded=True)`` dense, ``fused=True`` and ``fused=True,
+   lut_int8=True``, each fed the queries as ``SearchRequest``s by
+   ``ANNSClient.search_many`` with the launch counts set to 0 just before
+   and read just after: every answer must equal ``batch_query`` (dense),
+   ``query_batch_fused`` (fused) or the int8 window's, the stack must
+   launch its kernel and count every query served, and after ``stop()``
+   (a window submitted just before it) no future may be pending; it
+   prints recall@10, QPS and p50/p99 of ``latency_percentiles()``; (b) an
+   ``AnnsEdge`` on 127.0.0.1 at an ephemeral port over the dense stack,
+   two tenants with API keys and a quota of 32 on one: 64 searches over
+   four keep-alive connections from an asyncio client in this process
+   return the dense ids, the next search past the quota gets 429,
+   ``/v1/stats`` and ``/healthz`` 200; (d) 64 ``adaptive=True``
+   requests, one at a time, with a deadline the planner (which observed
+   the served traffic) resolves to a reduced accuracy level: recall@10 >
+   0.5; (c) ``add_replica()`` hydrates a replica from a snapshot in a
+   temporary directory onto the card, which must answer as its donor;
+   1,024 inserts and the deletion of the first 64 queries' top-1 ids
+   through the router: no deleted id comes back, donor and hydrated
+   replica answer alike; ``remove_replica()`` under load loses no future;
+   (e) one ``ReplicaAutoscaler.tick()`` after a queued burst, its decision
+   and ``_model_cap`` printed.  The kernels line's serving rows count
+   these stacks' launches too.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -159,8 +185,18 @@ SERVE_PATHS = (("dense", "adc_scan_batch", {}),
                ("fused", "adc_fused_topk", {"fused": True}),
                ("fused_int8", "adc_fused_topk", {"fused": True,
                                                  "lut_int8": True}))
+# phase 8: the stack whose launches add to each serving kernel's row
+SERVING_KEYS = {"adc_scan_batch": "dense", "adc_fused_topk": "fused",
+                "adc_fused_topk[lut_int8]": "fused_int8"}
 NOISE_SIGMA = 2.0           # phase 7: noise of an inserted copy of a row
 COMPACTOR_BATCHES, COMPACTOR_BATCH = 20, 1024
+STACK_TIMEOUT_S = 300.0     # phase 8: the longest wait on any answer
+EDGE_BURST = 32             # phase 8: alice's quota (bob's is unlimited)
+EDGE_RATE_QPS = 1e-3        # alice's refill: no token comes back in a run
+HYDRATE_INSERTS = 1024      # phase 8: rows inserted through the router
+ADAPTIVE_N = 64             # phase 8: adaptive requests, one at a time
+ADAPTIVE_PROBES = 16        # plain single requests timed before them
+ADAPTIVE_SLACK = 4.0        # their deadline: this times the probes' p99
 COMPACTOR_MIN_DELTA = 4096
 PQ_ROUNDS = 12              # pq.train_codebooks' default: the index's
 ATTN_LEN = 4096                          # S = T of the full-width flash run
@@ -1190,6 +1226,306 @@ def mutation_phase(index, data: np.ndarray, queries: np.ndarray,
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+def live_ground_truth(index, queries: np.ndarray) -> np.ndarray:
+    """Exact top-10 ids over the index's live rows (sealed, untombstoned;
+    the delta must be empty), through ``ground_truth``."""
+    from repro_torch.core.engine import ground_truth
+    view = index.view()
+    if index.delta_size:
+        raise AssertionError("serving: the delta is not empty")
+    rows = np.flatnonzero(~view.tombstones[view.id_of])
+    return view.id_of[rows][ground_truth(index.ssd.vectors[rows], queries,
+                                         10)]
+
+
+def same_as(label: str, got, want) -> None:
+    """Responses ``got`` give the ids and distances of ``want``, query by
+    query."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} answers for "
+                             f"{len(want)} queries")
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not (np.array_equal(g.ids, w.ids)
+                   and np.array_equal(g.dists, w.dists))]
+    if bad:
+        raise AssertionError(f"{label}: answers differ on {len(bad)} "
+                             f"queries (first {bad[:8]})")
+
+
+def ids_of(responses) -> np.ndarray:
+    return np.stack([np.asarray(r.ids) for r in responses])
+
+
+def stop_drained(label: str, stack, client, reqs) -> list:
+    """Submit one more window of requests, ``stop()`` at once, and fail
+    unless every future resolved; returns their responses."""
+    futs = [client.submit(r) for r in reqs[:WINDOW]]
+    stack.stop()
+    if not all(f.done() for f in futs) or stack.live_load():
+        raise AssertionError(f"{label}: futures pending after stop()")
+    return [f.result(timeout=0) for f in futs]
+
+
+def serve_stack(label: str, stack, reqs, gt) -> tuple:
+    """The requests through ``ANNSClient.search_many``: (responses,
+    metrics), recall@10 against ``gt``, QPS, p50/p99 of the stack's
+    submit -> resolve latencies."""
+    from repro_torch.core.engine import recall_at_k
+    from repro_torch.serve.client import ANNSClient
+    t = time.perf_counter()
+    resps = ANNSClient(stack).search_many(reqs, timeout=STACK_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    served = stack.stats_rollup()["served"]
+    if served != len(reqs):
+        raise AssertionError(f"{label}: served {served} of {len(reqs)}")
+    pct = stack.latency_percentiles()
+    return resps, dict(recall_at_10=recall_at_k(ids_of(resps), gt, 10),
+                       qps=len(reqs) / wall, p50_ms=1e3 * pct["p50"],
+                       p99_ms=1e3 * pct["p99"], served=served)
+
+
+def edge_round(stack, queries: np.ndarray, want) -> dict:
+    """An ``AnnsEdge`` on 127.0.0.1 at an ephemeral port over ``stack``:
+    two tenants with API keys, alice's quota EDGE_BURST; 64 searches over
+    four keep-alive connections must return ``want``'s ids, alice's next
+    gets 429, ``/v1/stats`` and ``/healthz`` 200."""
+    import asyncio
+    from repro_torch.serve.edge import (AnnsEdge, EdgeConfig, HttpConn,
+                                        TenantConfig)
+    tenants = (TenantConfig("alice", "key-a", rate_qps=EDGE_RATE_QPS,
+                            burst=EDGE_BURST),
+               TenantConfig("bob", "key-b"))
+    keys = ("key-a", "key-b")
+    n = 2 * EDGE_BURST
+
+    async def drive():
+        edge = AnnsEdge(stack, EdgeConfig(tenants=tenants))
+        await edge.start()
+        try:
+            conns = [await HttpConn.open("127.0.0.1", edge.port)
+                     for _ in range(4)]
+
+            async def one(c, idxs):
+                out = {}
+                for i in idxs:
+                    out[i] = await c.request(
+                        "POST", "/v1/search",
+                        {"query": queries[i].tolist(), "tag": i},
+                        headers={"x-api-key": keys[i % 2]})
+                return out
+
+            t = time.perf_counter()
+            parts = await asyncio.wait_for(asyncio.gather(*[
+                one(c, range(j, n, 4)) for j, c in enumerate(conns)]),
+                STACK_TIMEOUT_S)
+            wall = time.perf_counter() - t
+            over = await conns[0].request(
+                "POST", "/v1/search", {"query": queries[0].tolist()},
+                headers={"x-api-key": keys[0]})
+            stats = await conns[1].request("GET", "/v1/stats")
+            health = await conns[2].request("GET", "/healthz")
+            for c in conns:
+                await c.aclose()
+            return ({k: v for p in parts for k, v in p.items()}, wall,
+                    over, stats, health, dict(edge.stats))
+        finally:
+            await asyncio.wait_for(edge.aclose(), STACK_TIMEOUT_S)
+
+    got, wall, over, stats, health, edge_stats = asyncio.run(drive())
+    for i in range(n):
+        status, payload = got[i]
+        if status != 200 or payload["tenant"] != ("alice", "bob")[i % 2] \
+                or not np.array_equal(payload["ids"], want[i].ids):
+            raise AssertionError(f"edge: search {i} answered {status} "
+                                 f"{str(payload)[:200]}")
+    if over[0] != 429 or stats[0] != 200 or health[0] != 200:
+        raise AssertionError(f"edge: past the quota {over[0]}, /v1/stats "
+                             f"{stats[0]}, /healthz {health[0]}")
+    return dict(searches=n, qps=n / wall, quota_status=over[0],
+                retry_after=over[1]["error"]["message"],
+                stats_status=stats[0], healthz_status=health[0],
+                edge=edge_stats)
+
+
+def adaptive_round(stack, queries: np.ndarray, gt: np.ndarray) -> dict:
+    """``adaptive=True`` requests, one at a time, with a deadline that the
+    first replica's planner (which has observed the served traffic)
+    resolves to a reduced accuracy level; recall@10 > 0.5.
+
+    The planner's device model is the paper's testbed: it prices a
+    request's SSD, link and scan work, not the host's Python stages, which
+    take most of a request here.  So the deadline is ADAPTIVE_SLACK times
+    the measured p99 of plain single requests, and the planner's
+    ``headroom`` (the share of a deadline its model may fill) is set so
+    that this deadline falls midway between the modelled latencies of
+    full accuracy and the next level."""
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.engine import recall_at_k
+    from repro_torch.serve.client import SearchRequest
+    lat = []
+    for q in queries[:ADAPTIVE_PROBES]:
+        t = time.perf_counter()
+        stack.submit(SearchRequest(query=q)).result(timeout=STACK_TIMEOUT_S)
+        lat.append(time.perf_counter() - t)
+    deadline = ADAPTIVE_SLACK * float(np.percentile(lat, 99))
+    pl = stack.replicas[0].executor.planner
+    if pl._n_observed < 1:
+        raise AssertionError("adaptive: the planner observed nothing")
+    lats = [pm.single_thread_latency(pm.scale_demand(pl._demand, lv),
+                                     pl.hw) for lv in pm.ACCURACY_LEVELS]
+    headroom = (lats[0] + lats[1]) / 2 / deadline
+    for r in stack.replicas:
+        r.executor.planner.headroom = headroom
+    sugs = [r.executor.planner.suggest(deadline) for r in stack.replicas]
+    resps = []
+    t = time.perf_counter()
+    for q in queries:
+        resps.append(stack.submit(SearchRequest(
+            query=q, deadline_s=deadline, adaptive=True)).result(
+                timeout=STACK_TIMEOUT_S))
+    wall = time.perf_counter() - t
+    recall = recall_at_k(ids_of(resps), gt, 10)
+    out = dict(single_request_p99_s=deadline / ADAPTIVE_SLACK,
+               deadline_s=deadline, headroom=headroom,
+               modelled_level_latency_s=lats, suggestions=sugs,
+               recall_at_10=recall, qps=len(queries) / wall,
+               candidates_scanned_mean=float(np.mean(
+                   [r.stats.candidates_scanned for r in resps])))
+    if sugs[0] is None or not recall > 0.5:
+        raise AssertionError(f"adaptive: suggestion {sugs[0]}, recall "
+                             f"{recall}")
+    return out
+
+
+def serving_phase(index, queries: np.ndarray, seed: int) -> dict:
+    """Phase 8: the serving stack on the card over the index as phase 7
+    leaves it."""
+    from repro_torch.kernels.pq_adc import ops
+    from repro_torch.serve.autoscaler import (AutoscalerConfig,
+                                              ReplicaAutoscaler)
+    from repro_torch.serve.client import ANNSClient, SearchRequest
+    from repro_torch.serve.stack import make_serving_stack
+    rng = np.random.default_rng(seed + 8)
+    out, launches = {}, {}
+    t = time.perf_counter()
+    gt = live_ground_truth(index, queries)
+    out["ground_truth_s"] = time.perf_counter() - t
+    reqs = [SearchRequest(query=q, tag=i) for i, q in enumerate(queries)]
+    want = {"dense": index.batch_query(queries),
+            "fused": index.query_batch_fused(queries),
+            "fused_int8": index.submit(queries, window=WINDOW, fused=True,
+                                       lut_int8=True).results()}
+    # (a) the fused stacks, each started and stopped with the counts set
+    # to 0 just before and read just after
+    for path, kernel, plan in SERVE_PATHS[1:]:
+        ops.reset_launches()
+        stack = make_serving_stack(index, n_replicas=2, threaded=True,
+                                   **plan)
+        try:
+            resps, out[path] = serve_stack(path, stack, reqs, gt)
+        finally:
+            tail = stop_drained(path, stack, ANNSClient(stack), reqs)
+        launches[path] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        same_as(f"stack {path}", resps + tail,
+                want[path] + want[path][:WINDOW])
+        if launches[path].get(kernel, 0) < 1:
+            raise AssertionError(f"stack {path} never launched {kernel}")
+        log(f"serving stack {path}: " + json.dumps(out[path])
+            + f" launches={launches[path]}")
+    # the dense stack serves (a), then the edge (b), adaptive requests
+    # (d), hydration and mutation (c) and the autoscaler (e)
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stack_") as tmp:
+        stack = make_serving_stack(index, n_replicas=2, threaded=True,
+                                   snapshot_dir=tmp)
+        client = ANNSClient(stack)
+        try:
+            for r in stack.replicas:         # observe from the first query
+                r.executor.planner           # noqa: B018
+            resps, out["dense"] = serve_stack("dense", stack, reqs, gt)
+            same_as("stack dense", resps, want["dense"])
+            log("serving stack dense: " + json.dumps(out["dense"]))
+            out["edge"] = edge_round(stack, queries, want["dense"])
+            log("edge: " + json.dumps(out["edge"]))
+            out["adaptive"] = adaptive_round(stack, queries[:ADAPTIVE_N],
+                                             gt[:ADAPTIVE_N])
+            log("adaptive: " + json.dumps(out["adaptive"]))
+            out["hydration"] = hydrate_and_mutate(stack, client, index,
+                                                  reqs, resps, want, rng)
+            log("hydration and mutation: " + json.dumps(out["hydration"]))
+            asc = ReplicaAutoscaler(stack, AutoscalerConfig(
+                min_replicas=1, max_replicas=3))
+            futs = [stack.submit(r) for r in reqs]
+            sig = stack.scaling_signals()
+            t = time.perf_counter()
+            decision = asc.tick()
+            out["autoscaler"] = dict(
+                decision=decision, model_cap=asc._model_cap(),
+                tick_s=time.perf_counter() - t,
+                live_load=sig["live_load"], n_replicas=stack.n_replicas,
+                stats=dict(asc.stats))
+            for f in futs:
+                f.result(timeout=STACK_TIMEOUT_S)
+            log("autoscaler: " + json.dumps(out["autoscaler"]))
+        finally:
+            tail = stop_drained("dense", stack, client, reqs)
+    launches["dense"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if launches["dense"].get("adc_scan_batch", 0) < 1:
+        raise AssertionError("stack dense never launched adc_scan_batch")
+    log(f"serving stack dense: launches={launches['dense']}")
+    out["launches"] = launches
+    out["tail_answers"] = len(tail)
+    return out
+
+
+def hydrate_and_mutate(stack, client, index, reqs, resps, want,
+                       rng: np.random.Generator) -> dict:
+    """Phase 8 (c): a replica hydrated from a snapshot onto the card
+    answers as its donor; 1,024 inserts and the deletion of the first 64
+    queries' top-1 ids fan out to both indexes (no deleted id back, the
+    replicas in lockstep); ``remove_replica()`` under load loses no
+    future."""
+    out = {}
+    t = time.perf_counter()
+    slot = stack.add_replica()
+    out["hydrate_s"] = time.perf_counter() - t
+    new, donor = stack.replicas[-1], stack.replicas[0]
+    if new.index is index or new.index.device != index.device:
+        raise AssertionError("hydration: the replica shares the donor or "
+                             f"sits on {new.index.device}")
+    hyd = [f.result(timeout=STACK_TIMEOUT_S) for f in
+           [new.submit(r) for r in reqs]]
+    same_as("hydrated replica", hyd, want["dense"])
+    n = len(index.ssd.vectors)
+    rows = noisy(rng, index.ssd.vectors[np.sort(rng.choice(
+        n, HYDRATE_INSERTS, replace=False))])
+    t = time.perf_counter()
+    new_ids = stack.insert(rows)
+    deleted = np.unique(ids_of(resps)[:64, 0])
+    stack.delete(deleted)
+    out["mutate_s"] = time.perf_counter() - t
+    after = client.search_many(reqs, timeout=STACK_TIMEOUT_S)
+    back = np.intersect1d(ids_of(after), deleted)
+    if len(back):
+        raise AssertionError(f"mutation: deleted ids came back "
+                             f"{back[:8].tolist()}")
+    pairs = [[f.result(timeout=STACK_TIMEOUT_S) for f in
+              [r.submit(q) for q in reqs[:WINDOW]]] for r in (donor, new)]
+    same_as("hydrated replica after mutation", pairs[1], pairs[0])
+    futs = [client.submit(r) for r in reqs]
+    t = time.perf_counter()
+    removed = stack.remove_replica()
+    out["remove_s"] = time.perf_counter() - t
+    done = [f.result(timeout=STACK_TIMEOUT_S) for f in futs]
+    if not all(f.done() and not f.cancelled() for f in futs):
+        raise AssertionError("remove_replica: a future was lost")
+    same_as("served while a replica was removed", done, after)
+    out.update(slot=slot, removed=removed, inserted=len(new_ids),
+               deleted=int(len(deleted)), n_replicas=stack.n_replicas)
+    return out
+
+
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
     that are exact in f32, and how many products each takes: inputs exact
@@ -1364,6 +1700,17 @@ def main() -> int:
     log(f"mutation: ok, {time.perf_counter() - t:.1f} s; "
         + json.dumps(mut) + "; plain PQ recall@10 (phase 4) "
         + json.dumps({p: metrics[p]["recall_at_10"] for p in metrics}))
+    del data
+    t = time.perf_counter()
+    srv = serving_phase(index, queries, args.seed)
+    log(f"serving: ok, {time.perf_counter() - t:.1f} s; "
+        + json.dumps({k: v for k, v in srv.items() if k != "launches"}))
+    # phase 8's stacks count under the serving kernels' keys too
+    for k in kernels:
+        path = SERVING_KEYS.get(k["name"])
+        if path is not None:
+            k["launches"] += srv["launches"][path].get(
+                k["name"].split("[")[0], 0)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

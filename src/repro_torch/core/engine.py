@@ -553,6 +553,16 @@ class FusionANNSIndex:
             self._executor = QueryExecutor(self)
         return self._executor
 
+    def make_executor(self, mesh=None) -> QueryExecutor:
+        """A FRESH executor over this index (multi-replica serving: each
+        replica owns its own executor and dispatch lock).  All executors
+        share the index's published view — an executor pins
+        ``index.view()`` per scan window, so every insert/delete/compaction
+        epoch reaches every replica at its next dispatch.  A ``mesh``
+        raises (``QueryExecutor.attach_mesh``): the multi-GPU scan is not
+        ported yet."""
+        return QueryExecutor(self, mesh=mesh)
+
     def plan(self, *, k: Optional[int] = None, top_m: Optional[int] = None,
              top_n: Optional[int] = None, **kw) -> QueryPlan:
         return QueryPlan.from_config(self.cfg, k=k, top_m=top_m,
@@ -570,6 +580,14 @@ class FusionANNSIndex:
         return self.executor.submit(
             queries, self.plan(k=k, top_m=top_m, top_n=top_n, **kw),
             overrides=overrides)
+
+    def search(self, request):
+        """Typed single-request serve (DESIGN.md §6): accepts a
+        :class:`~repro_torch.serve.client.SearchRequest` and returns its
+        :class:`~repro_torch.serve.client.SearchResponse` through the
+        shared executor's Backend-protocol path — same ids as
+        :meth:`query`."""
+        return self.executor.submit(request).result()
 
     def query(self, query: np.ndarray, *, k: Optional[int] = None,
               top_m: Optional[int] = None, top_n: Optional[int] = None,

@@ -43,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import TYPE_CHECKING, List, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,7 +62,15 @@ if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.engine import FusionANNSIndex
 
 
-# additive QueryStats counters accumulated per served response
+# what every mesh entry point raises (``attach_mesh``,
+# ``FusionANNSIndex.make_executor``, ``ReplicaRouter``,
+# ``ServingStackConfig``) until the multi-GPU scan is ported
+MESH_NOT_PORTED = ("the multi-GPU scan (a mesh) is ROADMAP queue 1 item 3 "
+                   "and is not ported yet")
+
+# additive QueryStats counters accumulated per served response — the single
+# source of truth for every backend's ``stats_rollup()`` (executor, batching
+# service, replica router)
 QUERY_STATS_FIELDS = ("ios", "pages_requested", "buffer_hits", "ssd_bytes",
                       "h2d_bytes", "candidates_scanned",
                       "candidates_prefilter", "rerank_batches",
@@ -261,18 +269,65 @@ class _InflightQueue:
 class QueryExecutor:
     """Runs the stage list against one index on its device."""
 
-    def __init__(self, index: "FusionANNSIndex"):
+    def __init__(self, index: "FusionANNSIndex", *, mesh=None):
         self.index = index
         # serializes stage ①-⑥ host work (traversal + LUT + launch) across
         # threads: a pump thread and a ticker may both refill depth slots
         self._dispatch_lock = make_lock("executor")
+        # Backend-protocol state (DESIGN.md §6): the executor is the
+        # queueless backend — submit dispatches immediately, retirement is
+        # caller-driven — but it reports through the same rollup schema as
+        # the service and the router
+        self._backend_lock = make_lock("executor")
+        if mesh is not None:
+            self.attach_mesh(mesh)
+        self._request_tickets: List[BatchTicket] = []   # guarded-by: _backend_lock
+        self._next_rid = 0                          # guarded-by: _backend_lock
+        # responses served since the last drain(); bounded like the
+        # latency window so a long-lived caller that only ever reads
+        # futures (never drains) stays O(1) memory
+        self._undrained: deque = deque(maxlen=8192)     # guarded-by: _backend_lock
+        self._latencies: deque = deque(maxlen=8192)     # guarded-by: _backend_lock
+        self.query_stats = dict.fromkeys(QUERY_STATS_FIELDS, 0)  # guarded-by: _backend_lock
+        self.query_stats["served"] = 0
+
+    # locks are not deepcopy/pickle-able; a copy gets its own locks and
+    # drops in-flight request tickets (their pump closures don't copy)
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_dispatch_lock", None)
+        state.pop("_backend_lock", None)
+        state.pop("_request_tickets", None)
+        state.pop("_planner", None)        # owns a lock; rebuilt lazily
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._dispatch_lock = make_lock("executor")
+        self._backend_lock = make_lock("executor")
+        self._request_tickets = []
+
+    # ----------------------------------------------------------- adaptive
+    @property
+    def planner(self):
+        """Lazy deadline-adaptive accuracy resolver (DESIGN.md §11):
+        observes served ``QueryStats`` and suggests per-request
+        ``top_m``/``top_n`` overrides that the perf model predicts meet a
+        deadline.  Created on first use so non-adaptive serving pays
+        nothing; its own lock is ``executor``-ranked, and ``observe()``
+        must never be called while holding another executor-rank lock."""
+        pl = getattr(self, "_planner", None)
+        if pl is None:
+            from repro_torch.core.perf_model import AdaptivePlanner
+            dim = int(self.index.ssd.vectors.shape[1])
+            pl = AdaptivePlanner(self.index.cfg, dim=dim)
+            self._planner = pl
+        return pl
 
     def attach_mesh(self, mesh) -> "QueryExecutor":
         """Row-sharding the codes over several GPUs is ROADMAP queue 1
-        item 5 (multi-GPU scan), not yet ported."""
-        raise NotImplementedError(
-            "QueryExecutor.attach_mesh: the multi-GPU scan is ROADMAP "
-            "queue 1 item 5 and is not ported yet")
+        item 3 (multi-GPU scan), not yet ported."""
+        raise NotImplementedError(MESH_NOT_PORTED)
 
     # --------------------------------------------------------------- stages
     def _lut_queries(self, queries: np.ndarray,
@@ -463,9 +518,9 @@ class QueryExecutor:
                                         stats=stats))
 
     # --------------------------------------------------------------- submit
-    def submit(self, queries: np.ndarray, plan: QueryPlan,
+    def submit(self, queries, plan: Optional[QueryPlan] = None,
                overrides: Optional[Sequence[Optional[PlanOverrides]]] = None
-               ) -> BatchTicket:
+               ):
         """Asynchronous entry point: host-traverse + device-dispatch up to
         ``plan.effective_depth()`` windows, then return a
         :class:`~repro_torch.core.futures.BatchTicket` whose per-query
@@ -474,8 +529,18 @@ class QueryExecutor:
         Remaining windows stay host-side and are dispatched as depth slots
         free up — the pump prefers dispatching window t+1 over blocking on
         window t's scan, which is exactly the paper's CPU/GPU overlap.
-        (The JAX package's Backend-protocol form, ``submit(SearchRequest)``,
-        comes with the serving stack in a later slice.)"""
+
+        Backend-protocol form (DESIGN.md §6): called with a single
+        :class:`~repro_torch.serve.client.SearchRequest` instead of a
+        query array, returns a :class:`~repro_torch.core.futures.
+        QueryFuture` resolving to a :class:`~repro_torch.serve.client.
+        SearchResponse`."""
+        from repro_torch.serve.client import SearchRequest
+        if isinstance(queries, SearchRequest):
+            return self._submit_request(queries)
+        if plan is None:
+            raise TypeError("submit(queries, plan) requires a QueryPlan "
+                            "(only the SearchRequest form may omit it)")
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         n = len(queries)
         if overrides is not None and len(overrides) != n:
@@ -614,3 +679,120 @@ class QueryExecutor:
 
     def run_one(self, query: np.ndarray, plan: QueryPlan) -> QueryResult:
         return self.run(np.asarray(query, np.float32)[None], plan)[0]
+
+    # ------------------------------------------------- Backend protocol
+    # (DESIGN.md §6) — the executor is the queueless backend: submit
+    # dispatches the request's scan window immediately (the kernels run
+    # on the CUDA stream); retirement is caller-driven (``result()``
+    # drives) or opportunistic via ``drain()``.
+
+    def _submit_request(self, request) -> QueryFuture:
+        from repro_torch.serve.client import response_from_result
+        plan = QueryPlan.from_config(self.index.cfg, k=request.k,
+                                     top_n=request.top_n,
+                                     deadline_s=request.deadline_s,
+                                     filter=request.filter)
+        if request.adaptive and request.deadline_s is not None:
+            sug = self.planner.suggest(request.deadline_s)
+            if sug is not None:
+                # the resolver's accuracy level shapes the scan; an
+                # EXPLICIT request top_n still wins over the adaptive one
+                plan = plan.override(
+                    top_m=sug["top_m"],
+                    top_n=None if request.top_n is not None
+                    else sug["top_n"])
+        t0 = time.perf_counter()
+        ticket = self.submit(request.query[None], plan)
+        inner = ticket.futures[0]
+        with self._backend_lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            self._request_tickets = [t for t in self._request_tickets
+                                     if not t.done()]
+            self._request_tickets.append(ticket)
+
+        def _drive() -> bool:
+            try:
+                inner.result()             # resolves ``out`` via callback
+            except BaseException:          # noqa: BLE001 — stays on inner
+                pass
+            return True
+
+        out = QueryFuture(tag=request.tag if request.tag is not None
+                          else rid, driver=_drive)
+
+        def _on_done(f: QueryFuture):
+            latency = time.perf_counter() - t0
+            try:
+                res = f.result()
+            except BaseException as exc:   # noqa: BLE001 — deadline/cancel
+                out._set_exception(exc)
+                return
+            resp = response_from_result(res, latency_s=latency, rid=rid,
+                                        tag=request.tag,
+                                        tenant=request.tenant)
+            with self._backend_lock:
+                self._undrained.append(resp)
+                self._latencies.append(latency)
+                for field in QUERY_STATS_FIELDS:
+                    self.query_stats[field] += getattr(res.stats, field)
+                self.query_stats["served"] += 1
+            # feed the adaptive resolver OUTSIDE _backend_lock: the
+            # planner's lock is executor-ranked too, and same-rank
+            # nesting is a witnessed lock-order violation
+            pl = getattr(self, "_planner", None)
+            if pl is not None:
+                pl.observe(res.stats)
+            out._set_result(resp)
+
+        inner.add_done_callback(_on_done)
+        # cancelling the client-facing future skips the query's re-rank
+        out.add_done_callback(
+            lambda f: inner.cancel() if f.cancelled() else None)
+        return out
+
+    def drain(self) -> List:
+        """Retire every outstanding request-path ticket and return the
+        responses served since the last drain (exceptions stay on their
+        futures, matching the service/router drain contract)."""
+        with self._backend_lock:
+            tickets = list(self._request_tickets)
+        for t in tickets:
+            t.wait()
+        with self._backend_lock:
+            self._request_tickets = [t for t in self._request_tickets
+                                     if not t.done()]
+            out = list(self._undrained)
+            self._undrained.clear()
+        return out
+
+    def stop(self) -> "QueryExecutor":
+        """No threads to stop; equivalent to a final ``drain()``."""
+        self.drain()
+        return self
+
+    def live_load(self) -> int:
+        """Pending request-path futures (the executor has no queue, so
+        this is exactly the in-flight count)."""
+        with self._backend_lock:
+            return sum(1 for t in self._request_tickets
+                       for f in t.futures if not f.done())
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        """p50/p99 of submit->resolve latency over request-path serves."""
+        with self._backend_lock:
+            snap = list(self._latencies)
+        lat = np.asarray(snap)       # materialise OUTSIDE the lock (PU01)
+        if not len(lat):
+            return {"p50": 0.0, "p99": 0.0, "n": 0}
+        return {"p50": float(np.percentile(lat, 50)),
+                "p99": float(np.percentile(lat, 99)), "n": len(lat)}
+
+    def stats_rollup(self) -> Dict[str, object]:
+        """The shared rollup shape: summed ``QueryStats`` counters of every
+        request-path response plus the served count."""
+        with self._backend_lock:
+            totals = {f: self.query_stats[f] for f in QUERY_STATS_FIELDS}
+            served = self.query_stats["served"]
+        return {"served": served, "requests": served,
+                "query_stats": totals}

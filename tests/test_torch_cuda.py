@@ -1005,3 +1005,42 @@ def test_cuda_snapshot_round_trip_answers_bit_identically(small_index,
     assert loaded.codes.is_cuda and torch.equal(loaded.codes, index.codes)
     assert loaded.delta_size == index.delta_size
     _same_answers(index, loaded, np.concatenate([queries, rows[::64]]))
+
+
+# ------------------------------------------------------ serving stack
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [{}, {"fused": True},
+                                  {"fused": True, "lut_int8": True}],
+                         ids=["dense", "fused", "fused_int8"])
+def test_cuda_threaded_stack_answers_as_batch_query(small_index, plan,
+                                                    tmp_path):
+    """A threaded two-replica stack on the card (pump and ticker threads
+    per replica, each window's CUDA event polled from the ticker) answers
+    every query as ``batch_query`` (dense) or ``query_batch_fused``
+    (fused) does, launches its kernel, hydrates a third replica onto the
+    card, and leaves no future pending after ``stop()``."""
+    from repro_torch.serve.client import ANNSClient, SearchRequest
+    from repro_torch.serve.stack import make_serving_stack
+    index, rows, queries = small_index
+    qs = np.concatenate([queries, rows[:192]])
+    want = (index.submit(qs, **plan).results() if plan
+            else index.batch_query(qs))
+    kernel = "adc_fused_topk" if plan else "adc_scan_batch"
+    launch.reset_launches()
+    stack = make_serving_stack(index, n_replicas=2, threaded=True,
+                               snapshot_dir=str(tmp_path / "snap"), **plan)
+    try:
+        futs = [ANNSClient(stack).submit(SearchRequest(query=q, tag=i))
+                for i, q in enumerate(qs)]
+        stack.add_replica()
+        assert stack.indexes[-1].codes.is_cuda
+        futs += [stack.submit(SearchRequest(query=q)) for q in qs[:64]]
+        got = [f.result(timeout=300) for f in futs]
+    finally:
+        stack.stop()
+    assert all(f.done() for f in futs)
+    assert launch.LAUNCHES[kernel] >= 1
+    for w, g in zip(want + want[:64], got, strict=True):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        np.testing.assert_array_equal(g.dists, w.dists)
+    assert stack.stats_rollup()["served"] == len(qs) + 64

@@ -31,6 +31,11 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.pq_adc.ops\n"
         "import repro_torch.kernels.l2dist.ops\n"
         "import repro_torch.kernels.flash_attn.ops\n"
+        "import repro_torch.core.perf_model\n"
+        "import repro_torch.serve.client, repro_torch.serve.anns_service\n"
+        "import repro_torch.serve.tenants, repro_torch.serve.router\n"
+        "import repro_torch.serve.stack, repro_torch.serve.autoscaler\n"
+        "import repro_torch.serve.edge\n"
         "assert not [m for m, v in sys.modules.items() if v is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print('ok')\n")
