@@ -130,7 +130,32 @@ From the root of a checkout, with one CUDA card:
    replica answer alike; ``remove_replica()`` under load loses no future;
    (e) one ``ReplicaAutoscaler.tick()`` after a queued burst, its decision
    and ``_model_cap`` printed.  The kernels line's serving rows count
-   these stacks' launches too.
+   these stacks' launches too;
+9. runs the mesh half over the index as phase 8 leaves it
+   (``mesh_phase``, no new index): ``make_test_mesh(4)``, four cards where
+   there are four, else four logical devices on ``cuda:0`` (printed),
+   whose shards then run one after another on one card: (a)
+   ``make_executor`` over the mesh and over one half of it
+   (``split_mesh``) serves the dense, fused and int8 paths, each answer
+   equal to a one-device executor's and each path's kernel launched
+   exactly shards x windows times (counts set to 0 just before each
+   sharded run and read just after), QPS of the sharded and one-device
+   runs printed side by side (no limit); (b) over the index's codes, cut
+   to whole blocks of 65,536 rows a shard, ``sharded_adc_topn`` (one LUT,
+   top-n 512) and ``sharded_adc_topn_batch`` (8 LUTs) equal
+   ``pq_adc_topk`` / ``pq_adc_topk_batch`` bit for bit with four
+   launches each, and ``sharded_topk`` on (64, 2^20) f32 scores with
+   ties planted at every shard boundary equals its plain version (a
+   stable sort); (c) two-replica stacks carved from the mesh (dense and
+   fused) answer as ``batch_query`` / ``query_batch_fused``,
+   ``add_replica()`` re-carves them to [2, 1, 1] shards with the answers
+   unchanged, ``remove_replica()`` under load loses no future; (d) the
+   paper's SPANN-like, HI+PQ and RUMMY-like baselines
+   (``core.baselines``) serve 16 queries over the sealed tiers with
+   recall@10 > 0.5, their mean I/Os printed (DiskANN-like is not run: its
+   graph build is a host loop).  The kernels line's rows of
+   ``adc_scan_batch``, ``adc_fused_topk`` (f32 and int8) and
+   ``adc_scan_topk`` count phase 9's sharded launches too.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -198,6 +223,10 @@ ADAPTIVE_N = 64             # phase 8: adaptive requests, one at a time
 ADAPTIVE_PROBES = 16        # plain single requests timed before them
 ADAPTIVE_SLACK = 4.0        # their deadline: this times the probes' p99
 COMPACTOR_MIN_DELTA = 4096
+MESH_TOP_N = 512            # phase 9 (b): the sharded scans' top-n
+MESH_LUTS = 8               # phase 9 (b): LUTs of the batched scan
+TOPK_SCORES = (64, 1 << 20)     # phase 9 (b): sharded_topk's scores
+BASELINE_QUERIES = 16       # phase 9 (d): queries a baseline serves
 PQ_ROUNDS = 12              # pq.train_codebooks' default: the index's
 ATTN_LEN = 4096                          # S = T of the full-width flash run
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
@@ -1227,12 +1256,14 @@ def mutation_phase(index, data: np.ndarray, queries: np.ndarray,
 
 
 # ---------------------------------------------------------------- phase 8
-def live_ground_truth(index, queries: np.ndarray) -> np.ndarray:
+def live_ground_truth(index, queries: np.ndarray, *,
+                      sealed_only: bool = False) -> np.ndarray:
     """Exact top-10 ids over the index's live rows (sealed, untombstoned;
-    the delta must be empty), through ``ground_truth``."""
+    the delta must be empty, or is left out with ``sealed_only``), through
+    ``ground_truth``."""
     from repro_torch.core.engine import ground_truth
     view = index.view()
-    if index.delta_size:
+    if index.delta_size and not sealed_only:
         raise AssertionError("serving: the delta is not empty")
     rows = np.flatnonzero(~view.tombstones[view.id_of])
     return view.id_of[rows][ground_truth(index.ssd.vectors[rows], queries,
@@ -1526,6 +1557,229 @@ def hydrate_and_mutate(stack, client, index, reqs, resps, want,
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+def timed_run(ex, queries: np.ndarray, plan) -> tuple:
+    """``ex.run`` over the queries: (results, QPS)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = ex.run(queries, plan)
+    return res, len(queries) / (time.perf_counter() - t)
+
+
+def timed_ms(fn) -> tuple:
+    """``fn()`` once, synchronised: (its result, milliseconds)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def equal_pairs(label: str, got, want) -> None:
+    """(dists, ids) pairs equal bit for bit."""
+    for g, w, what in zip(got, want, ("distances", "ids")):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{label}: {what} differ from the "
+                                 f"one-device kernel's")
+
+
+def mesh_executors(index, queries: np.ndarray, mesh4, launches) -> dict:
+    """Phase 9 (a): ``make_executor`` over the mesh of four and over one
+    half of it, each serving path's answers equal to a one-device
+    executor's, its kernel launched once a shard a window."""
+    from repro_torch.kernels.pq_adc import ops
+    from repro_torch.launch.mesh import split_mesh
+    out = {}
+    windows = -(-len(queries) // WINDOW)
+    one = index.make_executor()
+    meshes = (("mesh4", mesh4), ("half", split_mesh(mesh4, 2)[0]))
+    for path, kernel, plan in SERVE_PATHS:
+        p = index.plan(window=WINDOW, inflight_depth=2, **plan)
+        want, qps = timed_run(one, queries, p)
+        out[path] = {"qps_one_device": qps}
+        for label, mesh in meshes:
+            ex = index.make_executor(mesh)
+            shards = ex._n_shards()
+            ops.reset_launches()
+            got, qps = timed_run(ex, queries, p)
+            n = ops.LAUNCHES[kernel]
+            same_as(f"{label} executor {path}", got, want)
+            if n != shards * windows:
+                raise AssertionError(
+                    f"{label} executor {path}: {n} launches of {kernel}, "
+                    f"expected {shards} shards x {windows} windows")
+            out[path][f"qps_{label}"] = qps
+            out[path][f"launches_{label}"] = n
+            row = kernel + ("[lut_int8]" if plan.get("lut_int8") else "")
+            launches[row] = launches.get(row, 0) + n
+        log(f"mesh executor {path}: " + json.dumps(out[path]))
+    return out
+
+
+def mesh_functions(index, queries: np.ndarray, mesh4, launches,
+                   rng: np.random.Generator) -> dict:
+    """Phase 9 (b): the sharded scans over the index's codes (cut to an
+    equal share a shard, and above 65,536 rows to whole blocks of them,
+    as the reference's blocked batch scan needs) against the one-device
+    kernels, and ``sharded_topk`` on
+    (64, 2^20) scores with ties planted at every shard boundary against
+    its plain version."""
+    from repro_torch.core import distributed as dist, pq
+    from repro_torch.core.topk import sharded_topk
+    from repro_torch.kernels.pq_adc import ops
+    from repro_torch.sharding.spec import ShardCtx, rules_for_mesh
+    ctx = ShardCtx(mesh=mesh4, rules=rules_for_mesh(mesh4))
+    shards = 4
+    codes = index.codes
+    n_loc = codes.shape[0] // shards
+    if n_loc > dist.BLOCK_N:
+        n_loc -= n_loc % dist.BLOCK_N
+    codes = codes[:shards * n_loc]
+    dev = codes.device
+    luts = pq.adc_lut_batch(index.codebook, torch.from_numpy(np.stack(
+        [index._lut_query(q) for q in queries[:MESH_LUTS]])).to(dev))
+    out = {"rows": codes.shape[0]}
+    ops.reset_launches()
+    got, out["topn_ms"] = timed_ms(
+        lambda: dist.sharded_adc_topn(codes, luts[0], MESH_TOP_N, ctx))
+    n_topk = ops.LAUNCHES["adc_scan_topk"]
+    want, out["topn_one_device_ms"] = timed_ms(
+        lambda: ops.pq_adc_topk(codes, luts[0], MESH_TOP_N))
+    equal_pairs("sharded_adc_topn", got, want)
+    if n_topk != shards:
+        raise AssertionError(f"sharded_adc_topn: {n_topk} launches")
+    ops.reset_launches()
+    got, out["batch_ms"] = timed_ms(
+        lambda: dist.sharded_adc_topn_batch(codes, luts, MESH_TOP_N, ctx))
+    n_batch = ops.LAUNCHES["adc_scan_batch"]
+    want, out["batch_one_device_ms"] = timed_ms(
+        lambda: ops.pq_adc_topk_batch(codes, luts, MESH_TOP_N))
+    equal_pairs("sharded_adc_topn_batch", got, want)
+    if n_batch != shards:
+        raise AssertionError(f"sharded_adc_topn_batch: {n_batch} launches")
+    b, v = TOPK_SCORES
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    scores = torch.randn(b, v, generator=gen, device=dev)
+    for s in range(1, shards):
+        scores[:, s * v // shards - 1:s * v // shards + 1] = 8.0
+    got, out["topk_ms"] = timed_ms(lambda: sharded_topk(
+        scores, MESH_TOP_N, ctx, shard_axes=ctx.rules.corpus,
+        batch_axes=None))
+    pv, pi = torch.sort(scores, dim=1, descending=True, stable=True)
+    equal_pairs("sharded_topk", got, (pv[:, :MESH_TOP_N],
+                                      pi[:, :MESH_TOP_N]))
+    launches["adc_scan_topk"] = launches.get("adc_scan_topk", 0) + n_topk
+    launches["adc_scan_batch"] = launches.get("adc_scan_batch", 0) + n_batch
+    log("mesh functions: " + json.dumps(out))
+    return out
+
+
+def mesh_stacks(index, queries: np.ndarray, mesh4, launches) -> dict:
+    """Phase 9 (c): two-replica stacks carved from the mesh of four
+    (dense and fused) answer as ``batch_query`` / ``query_batch_fused``;
+    ``add_replica()`` re-carves to [2, 1, 1] with the answers unchanged;
+    ``remove_replica()`` under load loses no future."""
+    from repro_torch.kernels.pq_adc import ops
+    from repro_torch.serve.client import ANNSClient, SearchRequest
+    from repro_torch.serve.stack import make_serving_stack
+    reqs = [SearchRequest(query=q, tag=i) for i, q in enumerate(queries)]
+    out = {}
+    for path, kernel, plan in SERVE_PATHS[:2]:
+        want = (index.query_batch_fused(queries) if plan
+                else index.batch_query(queries))
+        ops.reset_launches()
+        stack = make_serving_stack(index, n_replicas=2, threaded=True,
+                                   mesh=mesh4, **plan)
+        client = ANNSClient(stack)
+        try:
+            shards = [r.executor._n_shards() for r in stack.replicas]
+            t = time.perf_counter()
+            resps = client.search_many(reqs, timeout=STACK_TIMEOUT_S)
+            qps = len(reqs) / (time.perf_counter() - t)
+            same_as(f"mesh stack {path}", resps, want)
+            stack.add_replica()
+            grown = [r.executor._n_shards() for r in stack.replicas]
+            if shards != [2, 2] or grown != [2, 1, 1]:
+                raise AssertionError(f"mesh stack {path}: shards {shards} "
+                                     f"then {grown}")
+            same_as(f"mesh stack {path} after add_replica",
+                    client.search_many(reqs, timeout=STACK_TIMEOUT_S), want)
+            futs = [client.submit(r) for r in reqs]
+            stack.remove_replica()
+            done = [f.result(timeout=STACK_TIMEOUT_S) for f in futs]
+            if not all(f.done() and not f.cancelled() for f in futs):
+                raise AssertionError(f"mesh stack {path}: a future was "
+                                     f"lost in remove_replica")
+            same_as(f"mesh stack {path} under remove_replica", done, want)
+            shrunk = [r.executor._n_shards() for r in stack.replicas]
+        finally:
+            stop_drained(f"mesh stack {path}", stack, client, reqs)
+        n = ops.LAUNCHES[kernel]
+        if n < 1 or shrunk != [2, 2]:
+            raise AssertionError(f"mesh stack {path}: {n} launches, "
+                                 f"shards {shrunk} after remove_replica")
+        launches[kernel] = launches.get(kernel, 0) + n
+        out[path] = dict(qps=qps, shards=[shards, grown, shrunk],
+                         launches=n, served=stack.stats_rollup()["served"])
+        log(f"mesh stack {path}: " + json.dumps(out[path]))
+    return out
+
+
+def baselines_round(index, queries: np.ndarray) -> dict:
+    """Phase 9 (d): the paper's SPANN-like, HI+PQ and RUMMY-like
+    baselines over the index's sealed tiers (rows; ``id_of`` maps them to
+    ids), recall@10 against the sealed live rows' exact neighbours, mean
+    I/Os a query.  DiskANN-like is not run: its graph build is a host
+    loop over every row."""
+    from repro_torch.core.baselines import HIPq, RummyLike, SpannLike
+    from repro_torch.core.engine import recall_at_k
+    cfg = index.cfg
+    qs = queries[:BASELINE_QUERIES]
+    gt = live_ground_truth(index, qs, sealed_only=True)
+    id_of = index.view().id_of
+    data = index.ssd.vectors
+    out = {}
+    t = time.perf_counter()
+    systems = {"spann": SpannLike(index, data), "hi_pq": HIPq(index, data),
+               "rummy": RummyLike(index, data)}
+    out["setup_s"] = time.perf_counter() - t
+    for name, system in systems.items():
+        t = time.perf_counter()
+        res = [system.query(q, 10, cfg.top_m, cfg.top_n) if name == "hi_pq"
+               else system.query(q, 10, cfg.top_m) for q in qs]
+        recall = recall_at_k(np.stack([id_of[r.ids] for r in res]), gt, 10)
+        out[name] = dict(
+            recall_at_10=recall, s=time.perf_counter() - t,
+            ios_mean=float(np.mean([r.io.ios for r in res])),
+            pages_mean=float(np.mean([r.demand.ssd_ios for r in res])),
+            h2d_bytes_mean=float(np.mean([r.demand.h2d_bytes for r in res])))
+        if not recall > 0.5:
+            raise AssertionError(f"baseline {name}: recall@10 {recall}")
+    log("baselines: " + json.dumps(out))
+    return out
+
+
+def mesh_phase(index, queries: np.ndarray, seed: int) -> dict:
+    """Phase 9: the mesh half on the card over the index as phase 8
+    leaves it (no new index is built)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh4 = make_test_mesh(4)
+    cards = len(set(mesh4.devices_of()))
+    log(f"mesh of four: {mesh4} — "
+        + ("one card a logical device" if cards == 4 else
+           f"four logical devices on {cards} card(s), run one after "
+           f"another"))
+    launches = {}
+    out = {"cards": cards}
+    out["executors"] = mesh_executors(index, queries, mesh4, launches)
+    out["functions"] = mesh_functions(index, queries, mesh4, launches,
+                                      np.random.default_rng(seed + 9))
+    out["stacks"] = mesh_stacks(index, queries, mesh4, launches)
+    out["baselines"] = baselines_round(index, queries)
+    out["launches"] = launches
+    return out
+
+
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
     that are exact in f32, and how many products each takes: inputs exact
@@ -1711,6 +1965,13 @@ def main() -> int:
         if path is not None:
             k["launches"] += srv["launches"][path].get(
                 k["name"].split("[")[0], 0)
+    t = time.perf_counter()
+    msh = mesh_phase(index, queries, args.seed)
+    log(f"mesh: ok, {time.perf_counter() - t:.1f} s; launches="
+        + json.dumps(msh["launches"]))
+    # and phase 9's sharded runs, each kernel's under its row
+    for k in kernels:
+        k["launches"] += msh["launches"].get(k["name"], 0)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -548,19 +548,19 @@ class FusionANNSIndex:
     @property
     def executor(self) -> QueryExecutor:
         """The unified QueryPlan -> QueryExecutor pipeline (core.executor),
-        shared by all the public query paths."""
+        shared by all the public query paths; call
+        ``.executor.attach_mesh(mesh)`` to row-shard the HBM tier."""
         if self._executor is None:
             self._executor = QueryExecutor(self)
         return self._executor
 
     def make_executor(self, mesh=None) -> QueryExecutor:
         """A FRESH executor over this index (multi-replica serving: each
-        replica owns its own executor and dispatch lock).  All executors
-        share the index's published view — an executor pins
+        replica owns its own executor and dispatch lock, optionally
+        attached to a disjoint sub-mesh from ``launch.mesh.split_mesh``).
+        All executors share the index's published view — an executor pins
         ``index.view()`` per scan window, so every insert/delete/compaction
-        epoch reaches every replica at its next dispatch.  A ``mesh``
-        raises (``QueryExecutor.attach_mesh``): the multi-GPU scan is not
-        ported yet."""
+        epoch reaches every replica at its next dispatch."""
         return QueryExecutor(self, mesh=mesh)
 
     def plan(self, *, k: Optional[int] = None, top_m: Optional[int] = None,

@@ -19,8 +19,10 @@ window:
   ⑦ heuristic rerank Algorithm 1 against the SSD tier (host)
 
 Tier placement: navigation graph + posting-list IDs in host numpy
-("DRAM"); PQ codes + codebooks in GPU memory ("HBM"); raw vectors behind
-the 4 KB-page SSD simulator.
+("DRAM"); PQ codes + codebooks in GPU memory ("HBM"), the codes
+row-sharded over a mesh's logical devices once one is attached
+(:meth:`QueryExecutor.attach_mesh`); raw vectors behind the 4 KB-page SSD
+simulator.
 
 Windows + pipelining: ``QueryPlan.window`` splits a batch into fixed-size
 scan windows, and an ``_InflightQueue`` keeps up to ``inflight_depth``
@@ -50,23 +52,21 @@ import torch
 
 from repro_torch.analysis.concurrency.witness import make_lock
 from repro_torch.core import pq
-from repro_torch.core.distributed import (sharded_adc_topn_rows,
+from repro_torch.core.distributed import (CodeShards, shard_codes,
+                                          shard_devices,
+                                          sharded_adc_topn_bucket,
+                                          sharded_adc_topn_rows,
                                           sharded_adc_topn_window, to_host,
                                           window_scan_ready)
 from repro_torch.core.filters import Predicate
 from repro_torch.core.futures import (BatchTicket, DeadlineExceeded,
                                       QueryFuture)
 from repro_torch.core.rerank import heuristic_rerank
+from repro_torch.sharding.spec import ShardCtx, rules_for_mesh
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.engine import FusionANNSIndex
 
-
-# what every mesh entry point raises (``attach_mesh``,
-# ``FusionANNSIndex.make_executor``, ``ReplicaRouter``,
-# ``ServingStackConfig``) until the multi-GPU scan is ported
-MESH_NOT_PORTED = ("the multi-GPU scan (a mesh) is ROADMAP queue 1 item 3 "
-                   "and is not ported yet")
 
 # additive QueryStats counters accumulated per served response — the single
 # source of truth for every backend's ``stats_rollup()`` (executor, batching
@@ -267,18 +267,23 @@ class _InflightQueue:
 
 
 class QueryExecutor:
-    """Runs the stage list against one index on its device."""
+    """Runs the stage list against one index, optionally mesh-sharded."""
 
     def __init__(self, index: "FusionANNSIndex", *, mesh=None):
         self.index = index
         # serializes stage ①-⑥ host work (traversal + LUT + launch) across
-        # threads: a pump thread and a ticker may both refill depth slots
+        # threads: a pump thread and a ticker may both refill depth
+        # slots, and the placement cache write must not race.  Created
+        # before attach_mesh below, which takes it.
         self._dispatch_lock = make_lock("executor")
         # Backend-protocol state (DESIGN.md §6): the executor is the
         # queueless backend — submit dispatches immediately, retirement is
         # caller-driven — but it reports through the same rollup schema as
         # the service and the router
         self._backend_lock = make_lock("executor")
+        self.ctx = ShardCtx()
+        self._placed: Optional[CodeShards] = None   # guarded-by: _dispatch_lock
+        self._placed_src = None                     # guarded-by: _dispatch_lock
         if mesh is not None:
             self.attach_mesh(mesh)
         self._request_tickets: List[BatchTicket] = []   # guarded-by: _backend_lock
@@ -324,10 +329,41 @@ class QueryExecutor:
             self._planner = pl
         return pl
 
+    # ------------------------------------------------------------- sharding
     def attach_mesh(self, mesh) -> "QueryExecutor":
-        """Row-sharding the codes over several GPUs is ROADMAP queue 1
-        item 3 (multi-GPU scan), not yet ported."""
-        raise NotImplementedError(MESH_NOT_PORTED)
+        """Row-shard the HBM tier (PQ codes) over ``mesh``'s corpus axes
+        (a ``launch.mesh.Mesh``).
+
+        ``mesh`` may be a SUB-mesh — a disjoint device group carved from a
+        larger mesh via ``launch.mesh.split_mesh`` (multi-replica serving:
+        each replica's executor scans its own group, so concurrent
+        replicas never contend for a device).  Each shard's kernel runs on
+        its own logical device's device; only (dist, id) pairs reach the
+        mesh's first device."""
+        rules = rules_for_mesh(mesh)
+        # a router recarve may retarget this executor while a pump thread
+        # is mid-dispatch: the ctx + placement-cache swap must not
+        # interleave with a _device_codes() read of the old placement
+        with self._dispatch_lock:
+            self.ctx = ShardCtx(mesh=mesh, rules=rules)
+            self._placed = None      # free the previous mesh's placement
+            self._placed_src = None
+        return self
+
+    def _n_shards(self) -> int:      # holds: _dispatch_lock
+        return 1 if self.ctx.mesh is None else len(shard_devices(self.ctx))
+
+    def _device_codes(self, codes: torch.Tensor) -> CodeShards:  # holds: _dispatch_lock
+        """HBM-tier placement of the pinned view's sealed codes, row-sharded
+        once per codes version: shard s takes rows [s*ceil(N/S),
+        (s+1)*ceil(N/S)) (the last fewer, so nothing is padded), a view
+        on the codes' own device and a copy on another card.  Only a seal
+        rebinds the code tensor — delta inserts keep it, so streaming
+        ingest never re-places the shards."""
+        if self._placed_src is not codes:
+            self._placed = shard_codes(codes, self.ctx, even=False)
+            self._placed_src = codes
+        return self._placed
 
     # --------------------------------------------------------------- stages
     def _lut_queries(self, queries: np.ndarray,
@@ -373,7 +409,9 @@ class QueryExecutor:
                                         view=view, t_graph=t1 - t0,
                                         prefilter=prefilter)
         u = len(union)
-        bucket = max(64, 1 << int(np.ceil(np.log2(max(u, 1)))))
+        shards = self._n_shards()
+        bucket = max(64, shards, 1 << int(np.ceil(np.log2(max(u, 1)))))
+        bucket += (-bucket) % shards
         # physical code rows for the gather: ids and rows diverge once a
         # seal-time purge has run (view.row_of maps id -> row; union never
         # contains a purged id because the tombstone filter ran first)
@@ -387,11 +425,18 @@ class QueryExecutor:
 
         dev = view.codes.device
         luts = pq.adc_lut_batch(idx.codebook, self._lut_queries(queries, dev))
-        cand = view.codes.index_select(0, torch.from_numpy(padded).to(dev))
         scan_top_n = max(p.top_n for p in plans)
-        vals, pos = sharded_adc_topn_window(
-            cand, luts, torch.from_numpy(mask).to(dev),
-            min(scan_top_n, bucket))
+        if self.ctx.mesh is None:
+            cand = view.codes.index_select(0, torch.from_numpy(padded).to(dev))
+            vals, pos = sharded_adc_topn_window(
+                cand, luts, torch.from_numpy(mask).to(dev),
+                min(scan_top_n, bucket))
+        else:
+            # each shard gathers ITS run of the ascending bucket from its
+            # own code shard: no code row crosses devices
+            vals, pos = sharded_adc_topn_bucket(
+                self._device_codes(view.codes), padded[:u], luts, mask,
+                min(scan_top_n, bucket), self.ctx)
         (vals, pos), ready = to_host(vals, pos)
         return _Window(queries=queries, plans=list(plans), per_q=per_q,
                        union=union, vals=vals, pos=pos, t_graph=t1 - t0,
@@ -422,10 +467,15 @@ class QueryExecutor:
             rows[qi, :len(ids_q)] = view.row_of[ids_q]
         dev = view.codes.device
         scan_top_n = max(p.top_n for p in plans)
+        if self.ctx.mesh is None:
+            codes, rows_t = view.codes, torch.from_numpy(rows).to(dev)
+        else:       # the shards' lists are cut from the host's rows
+            codes, rows_t = (self._device_codes(view.codes),
+                             torch.from_numpy(rows))
         vals, gids = sharded_adc_topn_rows(
-            view.codes, self._lut_queries(queries, dev),
-            idx.codebook.codebooks, torch.from_numpy(rows).to(dev),
-            min(scan_top_n, S), lut_int8=plans[0].lut_int8)
+            codes, self._lut_queries(queries, dev), idx.codebook.codebooks,
+            rows_t, min(scan_top_n, S), self.ctx,
+            lut_int8=plans[0].lut_int8)
         (vals, gids), ready = to_host(vals, gids)
         return _Window(queries=queries, plans=list(plans), per_q=per_q,
                        union=union, vals=vals, pos=gids, t_graph=t_graph,

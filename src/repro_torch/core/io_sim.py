@@ -16,7 +16,7 @@ mini-batches, so disabling ``intra_merge`` really does charge one I/O per
 same-page request inside a batch (insertions into the buffer are deferred
 to the end of the fetch).  Every mechanism can be disabled independently.
 I/O counts and byte volumes are exact; latency is modelled by the analytic
-device model of the reference package's ``core.baselines`` (DESIGN.md §7).
+device model over ``core.baselines``' demand numbers (DESIGN.md §7).
 
 Thread-safety: the per-query DRAM buffer is thread-local, so the threaded
 serving runtime can re-rank two queries concurrently — each
@@ -233,3 +233,28 @@ class SSDSim:
             for p in read_this_batch:
                 buf.insert(p)
         return self.vectors[vec_ids]
+
+
+@dataclasses.dataclass
+class PostingListStore:
+    """SPANN-style layout: whole posting lists stored contiguously on SSD;
+    a query reads each selected list in full (multi-page I/Os).  The
+    baselines' list tier (``core.baselines``)."""
+
+    list_pages: np.ndarray        # pages per posting list
+    page_bytes: int = 4096
+
+    @staticmethod
+    def build(member_counts: Sequence[int], entry_bytes: int,
+              page_bytes: int = 4096) -> "PostingListStore":
+        pages = np.array([max(1, int(np.ceil(c * entry_bytes / page_bytes)))
+                          for c in member_counts], np.int64)
+        return PostingListStore(pages, page_bytes)
+
+    def read_lists(self, list_ids: np.ndarray, stats: IOStats) -> None:
+        # one I/O per list (SPANN issues large sequential reads), but the
+        # byte volume spans all its pages
+        pages = self.list_pages[list_ids]
+        stats.ios += len(list_ids)
+        stats.pages_requested += int(pages.sum())
+        stats.bytes_read += int(pages.sum()) * self.page_bytes

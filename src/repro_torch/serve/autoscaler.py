@@ -7,12 +7,14 @@ control problem.  :class:`ReplicaAutoscaler` samples the router's
 ``scaling_signals()`` — live load, backpressure spills, queue-latency
 percentiles — and grows/shrinks the replica set within
 ``[min_replicas, max_replicas]`` by calling the router's
-``add_replica()`` / ``remove_replica(drain=True)`` actuators.  Without a
-mesh (the only form ported so far) every replica serves the one index on
-its device; a resize adds or drains a pump/ticker pair.
+``add_replica()`` / ``remove_replica(drain=True)`` actuators, each of
+which re-carves the parent mesh over the new set
+(``launch.mesh.recarve_mesh``) and re-attaches every survivor's executor;
+without a mesh a resize adds or drains a pump/ticker pair on the index's
+device.
 
 Scaling decisions are HYSTERETIC — a serving tier that flaps burns its
-win on replica start-up and drain churn:
+win on code-shard re-placement and drain churn:
 
 * **scale up** when the per-replica live load exceeds ``high_water``, or
   the spill/reject counters moved since the last tick (the current set
@@ -25,7 +27,8 @@ win on replica start-up and drain churn:
 * **scale down** only when per-replica load sat below ``low_water`` for
   ``down_ticks`` CONSECUTIVE samples with no spills in between, outside
   ``scale_down_cooldown_s`` of any resize.  The victim is the
-  least-loaded replica; its removal drains (zero leaked futures).
+  least-loaded replica; its removal drains (zero leaked futures) before
+  the devices are re-carved over the survivors.
 
 The control loop is a plain ``tick()`` method so tests drive it
 deterministically with a fake clock; ``start()`` wraps it in a daemon

@@ -1,5 +1,5 @@
-"""Multi-replica routing (the port's counterpart of
-``repro.serve.router``, without its mesh half).
+"""Multi-replica routing over one mesh (the port's counterpart of
+``repro.serve.router``).
 
 The threaded :class:`~repro_torch.serve.anns_service.BatchingANNSService`
 is the per-replica building block: one pump thread + one ticker per
@@ -7,13 +7,20 @@ replica keeps the device busy.  Serving heavy traffic from one box is
 then a ROUTING problem — many concurrent query streams over one index.
 :class:`ReplicaRouter` fronts N such replicas:
 
-* **no mesh** — every replica owns its executor (its own dispatch lock)
-  over the index on the index's device, and the router is a pure
-  concurrency layer.  Carving a mesh into per-replica device groups
-  waits for the multi-GPU scan: ``mesh=`` anything but ``None`` raises.
+* **one mesh, disjoint device groups** — ``launch.mesh.recarve_mesh``
+  carves the shared mesh into N sub-meshes; each replica's
+  :class:`~repro_torch.core.executor.QueryExecutor` row-shards the PQ
+  codes over ITS group only (``core.distributed`` launches each shard's
+  kernel on its logical device's device), so concurrent per-replica ADC
+  scans never contend for a card.  Without a mesh every replica runs
+  unsharded on the index's device and the router is a pure concurrency
+  layer.  On one card a mesh's logical devices share it.
 * **ELASTIC replica set** — ``add_replica()`` / ``remove_replica()`` grow
   and shrink the set at runtime (the autoscaler's actuators,
-  serve/autoscaler.py).  Removal drains: the victim is
+  serve/autoscaler.py).  On every resize the parent mesh is re-carved
+  into near-equal groups and each surviving replica's executor is
+  re-attached to its new group (``QueryExecutor.attach_mesh`` — the code
+  shards re-place on the next dispatch).  Removal drains: the victim is
   popped from the routing set first, then its pump serves every queued
   request, so zero futures leak.  Each replica ever created owns a stable
   SLOT id; ``stats["routed"]`` is indexed by slot and only grows, so the
@@ -70,8 +77,9 @@ import numpy as np
 
 from repro_torch.analysis.concurrency.witness import make_lock
 from repro_torch.core.engine import FusionANNSIndex
-from repro_torch.core.executor import MESH_NOT_PORTED, QUERY_STATS_FIELDS
+from repro_torch.core.executor import QUERY_STATS_FIELDS
 from repro_torch.core.futures import BackpressureError, QueryFuture
+from repro_torch.launch.mesh import recarve_mesh
 from repro_torch.serve.anns_service import BatchingANNSService
 from repro_torch.serve.client import SearchRequest, SearchResponse
 
@@ -95,14 +103,17 @@ class ReplicaRouter:
             raise ValueError(f"unknown policy {policy!r}; one of {POLICIES}")
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.index = index
+        self.parent_mesh = mesh
         # with a snapshot dir, scale-ups hydrate a PRIVATE index from disk
         # (save_snapshot -> load_snapshot) instead of sharing ``index``
         self.snapshot_dir = snapshot_dir
         self.policy = policy
         self._lock = make_lock("router")
+        if mesh is not None:
+            self.meshes = recarve_mesh(mesh, n_replicas)  # guarded-by: _lock
+        else:
+            self.meshes = [None] * n_replicas         # guarded-by: _lock
         # per-replica service knobs, kept so elastically added replicas are
         # configured identically to the founding set
         self._svc_kw = dict(svc_kw)
@@ -110,12 +121,12 @@ class ReplicaRouter:
         # change result ids, so the edge must fold them into the dedup key
         self.fused = bool(svc_kw.get("fused", False))
         self.lut_int8 = bool(svc_kw.get("lut_int8", False))
-        # each replica: own executor (own dispatch lock) wrapped by its own
-        # pump/ticker service, all launching on the index's device
+        # each replica: own executor (own sub-mesh, own dispatch lock, own
+        # code-shard placement) wrapped by its own pump/ticker service
         self.replicas: List[BatchingANNSService] = [
-            BatchingANNSService(index, executor=index.make_executor(),
+            BatchingANNSService(index, executor=index.make_executor(m),
                                 threaded=threaded, **svc_kw)
-            for _ in range(n_replicas)]        # guarded-by: _lock
+            for m in self.meshes]              # guarded-by: _lock
         # per-replica index binding, parallel to ``replicas`` (founding
         # replicas share ``index``; snapshot-hydrated ones own a private
         # copy that mutations fan out to)
@@ -177,10 +188,21 @@ class ReplicaRouter:
         with self._lock:
             return len(self.replicas)
 
+    def _recarve_locked(self) -> None:            # holds: _lock
+        """Re-attach every replica's executor to its share of a fresh carve
+        of the parent mesh (no-op without one).  Caller holds ``_lock``."""
+        if self.parent_mesh is None:
+            self.meshes = [None] * len(self.replicas)
+            return
+        self.meshes = recarve_mesh(self.parent_mesh, len(self.replicas))
+        for svc, m in zip(self.replicas, self.meshes):
+            svc.executor.attach_mesh(m)
+
     def add_replica(self) -> int:
-        """Grow the replica set by one: start a fresh replica (same
-        service knobs as the founding set, its own executor).  Returns the
-        new replica's stable slot id.
+        """Grow the replica set by one: re-carve the parent mesh over
+        ``n+1`` groups, re-attach the survivors, and start a fresh replica
+        (same service knobs as the founding set) on the last group.
+        Returns the new replica's stable slot id.
 
         With ``snapshot_dir`` set the newcomer HYDRATES from disk
         (DESIGN.md §10): the live index is checkpointed via
@@ -213,6 +235,7 @@ class ReplicaRouter:
             self.replica_ids.append(slot)
             self.stats["routed"].append(0)
             self.stats["scale_ups"] += 1
+            self._recarve_locked()
         if self.threaded:
             new.start()
         return slot
@@ -220,11 +243,11 @@ class ReplicaRouter:
     def remove_replica(self, slot: Optional[int] = None, *,
                        drain: bool = True) -> int:
         """Shrink by one: pop the victim from the routing set (new traffic
-        stops landing on it immediately), then stop the victim — its pump
-        drains every queued request before exiting, so zero futures leak.
-        ``slot`` picks the victim (default: the least-loaded replica).
-        Returns the removed slot id.  ``drain=False`` skips the stop (the
-        caller owns it)."""
+        stops landing on it immediately), re-carve the survivors over the
+        freed devices, then stop the victim — its pump drains every queued
+        request before exiting, so zero futures leak.  ``slot`` picks the
+        victim (default: the least-loaded replica).  Returns the removed
+        slot id.  ``drain=False`` skips the stop (the caller owns it)."""
         with self._lock:
             if len(self.replicas) <= 1:
                 raise ValueError("cannot remove the last replica")
@@ -244,6 +267,7 @@ class ReplicaRouter:
             self.stats["scale_downs"] += 1
             # keep the round-robin cursor in range after the shrink
             self._rr %= len(self.replicas)
+            self._recarve_locked()
         if drain:
             victim.stop()        # pump serves its remaining queue
         # fold the victim's history into the retired accumulators so

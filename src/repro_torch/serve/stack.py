@@ -15,7 +15,6 @@ import os
 from typing import Optional
 
 from repro_torch.core.engine import FusionANNSIndex
-from repro_torch.core.executor import MESH_NOT_PORTED
 from repro_torch.serve.router import ReplicaRouter
 
 __all__ = ["ServingStackConfig", "make_serving_stack"]
@@ -29,7 +28,7 @@ class ServingStackConfig:
 
     n_replicas: int = 2
     policy: str = "jsq"
-    mesh: object = None                 # a mesh raises: not ported yet
+    mesh: object = None                 # parent mesh to carve (None = one device)
     threaded: bool = True
     max_batch: int = 16
     max_wait_s: float = 0.0005
@@ -48,10 +47,6 @@ class ServingStackConfig:
     # and codebooks; None means the card (and raises without one).  A
     # given index keeps its own device, and so do replicas hydrated from it
     device: object = None
-
-    def __post_init__(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
 
 
 def make_serving_stack(index: Optional[FusionANNSIndex] = None,
@@ -76,7 +71,7 @@ def make_serving_stack(index: Optional[FusionANNSIndex] = None,
         index = FusionANNSIndex.load_snapshot(cfg.snapshot_dir,
                                               device=cfg.device)
     return ReplicaRouter(
-        index, n_replicas=cfg.n_replicas, policy=cfg.policy,
+        index, n_replicas=cfg.n_replicas, policy=cfg.policy, mesh=cfg.mesh,
         threaded=cfg.threaded, snapshot_dir=cfg.snapshot_dir,
         max_batch=cfg.max_batch,
         max_wait_s=cfg.max_wait_s, scan_window=cfg.scan_window,

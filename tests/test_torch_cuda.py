@@ -33,7 +33,11 @@ them with TF32 switched on by the caller), its codes are ``pq.encode`` of
 the live rows on the card, the background compactor under concurrent
 ``submit()`` seals every row once and re-raises a planted seal error from
 ``stop()``, and a snapshot round trip onto the card answers with equal
-ids and distances.
+ids and distances.  The mesh half on a mesh of four logical devices (four
+cards where there are four, else four sharing the card): the sharded
+scans and ``sharded_topk`` equal the one-device kernels bit for bit,
+with one launch a shard; sharded executors and stacks answer as the
+one-device path, each window launching its kernel once a shard.
 """
 
 import copy
@@ -1044,3 +1048,137 @@ def test_cuda_threaded_stack_answers_as_batch_query(small_index, plan,
         np.testing.assert_array_equal(g.ids, w.ids)
         np.testing.assert_array_equal(g.dists, w.dists)
     assert stack.stats_rollup()["served"] == len(qs) + 64
+
+
+# ------------------------------------------------------------- the mesh
+def _mesh_inputs(dev, rng, n, b, s):
+    codes = torch.from_numpy(_codes(rng, n, 32)).to(dev)
+    codes[n // 4 - 1] = codes[n // 4]          # a tie across a boundary
+    lut = torch.from_numpy(rng.random((32, 256), np.float32)).to(dev)
+    luts = torch.from_numpy(rng.random((b, 32, 256), np.float32)).to(dev)
+    rows = _rows(rng, b, s, n)
+    q = torch.from_numpy(rng.standard_normal((b, 128), np.float32)).to(dev)
+    cb = torch.from_numpy(rng.standard_normal((32, 256, 4),
+                                              np.float32)).to(dev)
+    return codes, lut, luts, rows, q, cb
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_functions_match_one_device_kernels(cuda):
+    """The four sharded scans and ``sharded_topk`` on a mesh of four
+    logical devices (four cards where there are four) against the
+    one-device kernels, bit for bit: each shard launches its kernel once
+    a call, and only (dist, id) pairs are merged."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.topk import sharded_topk
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding.spec import ShardCtx, rules_for_mesh
+    rng = np.random.default_rng(91)
+    mesh = make_test_mesh(4)
+    ctx = ShardCtx(mesh=mesh, rules=rules_for_mesh(mesh))
+    n, b, s = 4 * 65536, 8, 1024
+    codes, lut, luts, rows, q, cb = _mesh_inputs(cuda, rng, n, b, s)
+    launch.reset_launches()
+    got = dist.sharded_adc_topn(codes, lut, 512, ctx)
+    assert launch.LAUNCHES["adc_scan_topk"] == 4
+    want = ops.pq_adc_topk(codes, lut, 512)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for blocked in (True, False):
+        launch.reset_launches()
+        got = dist.sharded_adc_topn_batch(codes, luts, 512, ctx,
+                                          blocked=blocked)
+        assert launch.LAUNCHES["adc_scan_batch"] == 4
+        want = ops.pq_adc_topk_batch(codes, luts, 512)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    mask = torch.from_numpy(rng.random((b, n)) < 0.01).to(cuda)
+    got = dist.sharded_adc_topn_window(codes, luts, mask, 256, ctx)
+    want = ops.pq_adc_topk_batch(codes, luts, 256, mask=mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for int8 in (False, True):
+        for tk in (64, s):
+            launch.reset_launches()
+            got = dist.sharded_adc_topn_rows(codes, q, cb,
+                                             torch.from_numpy(rows), tk, ctx,
+                                             lut_int8=int8)
+            assert launch.LAUNCHES["adc_fused_topk"] == 4
+            want = ops.pq_adc_fused_topk(codes, q, cb,
+                                         torch.from_numpy(rows).to(cuda), tk,
+                                         lut_int8=int8)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    # the executor's dense window: each shard gathers its own run
+    sh = dist.shard_codes(codes[:n - 5], ctx, even=False)
+    union = np.unique(rng.choice(n - 5, 3000, replace=False))
+    bucket = 4096
+    m = np.zeros((b, bucket), bool)
+    m[:, :len(union)] = rng.random((b, len(union))) < 0.5
+    got = dist.sharded_adc_topn_bucket(sh, union, luts, m, 512, ctx)
+    cand = codes[torch.from_numpy(np.concatenate(
+        [union, np.zeros(bucket - len(union), np.int64)])).to(cuda)]
+    want = ops.pq_adc_topk_batch(cand, luts, 512,
+                                 mask=torch.from_numpy(m).to(cuda))
+    fin = torch.isfinite(want[0])
+    assert torch.equal(torch.isfinite(got[0]), fin)
+    assert torch.equal(got[0][fin], want[0][fin])
+    assert torch.equal(got[1][fin], want[1][fin])
+    scores = torch.randn(64, 1 << 16, device=cuda)
+    scores[:, 16383:16385] = 5.0
+    v, i = sharded_topk(scores, 32, ctx, shard_axes=ctx.rules.corpus,
+                        batch_axes=None)
+    pv, pi = torch.sort(scores, dim=1, descending=True, stable=True)
+    assert torch.equal(v, pv[:, :32]) and torch.equal(i, pi[:, :32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 2], ids=["mesh4", "half"])
+def test_cuda_mesh_executor_answers_as_one_device(small_index, groups):
+    """``make_executor(mesh)`` on the card, the mesh of four or one half
+    of it: dense, fused and int8 answers equal the one-device executor's,
+    and each window launches its path's kernel once a shard."""
+    from repro_torch.launch.mesh import make_test_mesh, split_mesh
+    index, rows, queries = small_index
+    qs = np.concatenate([queries, rows[:64]])
+    mesh = split_mesh(make_test_mesh(4), groups)[0]
+    ex = index.make_executor(mesh)
+    shards = ex._n_shards()
+    assert shards == 4 // groups
+    for plan, kernel in (({}, "adc_scan_batch"),
+                         ({"fused": True}, "adc_fused_topk"),
+                         ({"fused": True, "lut_int8": True},
+                          "adc_fused_topk")):
+        for window in (1, 32):
+            want = index.submit(qs, window=window, **plan).results()
+            launch.reset_launches()
+            got = ex.run(qs, index.plan(window=window, **plan))
+            windows = -(-len(qs) // window)
+            assert launch.LAUNCHES[kernel] == shards * windows, (plan, window)
+            for w, g in zip(want, got, strict=True):
+                np.testing.assert_array_equal(g.ids, w.ids)
+                np.testing.assert_array_equal(g.dists, w.dists)
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_stack_recarves(small_index):
+    """A two-replica stack over the mesh of four on the card answers as
+    ``batch_query``; ``add_replica`` re-carves to [2, 1, 1] and
+    ``remove_replica`` back, with every future served."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.client import SearchRequest
+    from repro_torch.serve.stack import make_serving_stack
+    index, rows, queries = small_index
+    qs = np.concatenate([queries, rows[:128]])
+    want = index.batch_query(qs)
+    stack = make_serving_stack(index, n_replicas=2, mesh=make_test_mesh(4))
+    try:
+        futs = [stack.submit(SearchRequest(query=q)) for q in qs]
+        stack.add_replica()
+        assert [r.executor._n_shards() for r in stack.replicas] == [2, 1, 1]
+        futs += [stack.submit(SearchRequest(query=q)) for q in qs]
+        stack.remove_replica()
+        assert [r.executor._n_shards() for r in stack.replicas] == [2, 2]
+        got = [f.result(timeout=300) for f in futs]
+    finally:
+        stack.stop()
+    for w, g in zip(want + want, got, strict=True):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        np.testing.assert_array_equal(g.dists, w.dists)

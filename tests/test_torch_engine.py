@@ -7,7 +7,17 @@ tier.  Every query path must return the reference's ids AND distances
 (both come from the numpy re-rank on raw vectors, so equality is exact)
 and the same ``QueryStats`` counters.  An index the port builds itself
 must reach the reference's recall.
+
+With a mesh of logical CPU devices attached (``attach_mesh``,
+``make_executor(mesh)``) the sharded executor — each shard scanning its
+own rows, only (dist, id) pairs merged — must give the JAX single-device
+executor's ids, distances and counters (the reference's own sharded
+executor raises on this JAX, ROADMAP queue 3 fault (a)), also after
+inserts, deletes and seals replayed on both packages; a seal re-places
+the code shards, an insert does not.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -19,6 +29,7 @@ from repro.core.engine import recall_at_k
 from repro_torch.core.engine import FusionANNSIndex
 from repro_torch.core.executor import PlanOverrides
 from repro_torch.core.filters import And, Eq, Range
+from repro_torch.launch.mesh import make_test_mesh, recarve_mesh
 
 COUNTERS = ("candidates_scanned", "candidates_prefilter", "ios",
             "buffer_hits", "rerank_batches")
@@ -85,6 +96,88 @@ def test_mixed_k_overrides(pair, fused):
                       fused=fused).results()
     assert_same(ref, got)
     assert [len(r.ids) for r in got] == [k or b.cfg.top_k for k in ks][:n]
+
+
+MESH_PATHS = {"dense": {}, "fused": dict(fused=True),
+              "int8": dict(fused=True, lut_int8=True)}
+
+
+def _mesh(name):
+    """(2, 1), (2, 2), and the last of three groups carved from 8: a
+    (1, 2) sub-mesh of ids 6 and 7."""
+    if name == "carved":
+        return recarve_mesh(make_test_mesh(8, device="cpu"), 3)[2]
+    return make_test_mesh(int(name), device="cpu")
+
+
+@pytest.mark.parametrize("mesh", ["2", "4", "carved"])
+@pytest.mark.parametrize("path", sorted(MESH_PATHS))
+@pytest.mark.parametrize("window", [1, 64])
+def test_mesh_executor_serves_reference(pair, mesh, path, window):
+    b, port = pair
+    ex = port.make_executor(_mesh(mesh))
+    assert ex._n_shards() == (4 if mesh == "4" else 2)
+    got = ex.run(b.queries, port.plan(window=window, **MESH_PATHS[path]))
+    want = b.index.submit(b.queries, window=window,
+                          **MESH_PATHS[path]).results()
+    assert_same(want, got)
+
+
+def test_attach_mesh_swaps_the_placement(pair):
+    b, port = pair
+    port = copy.deepcopy(port)
+    ex = port.executor.attach_mesh(make_test_mesh(4, device="cpu"))
+    assert_same(b.index.batch_query(b.queries), port.batch_query(b.queries))
+    placed = ex._placed
+    assert placed.starts == (0, 625, 1250, 1875, 2500)
+    assert all(p.data_ptr() == port.codes[s].data_ptr()
+               for p, s in zip(placed.parts, placed.starts))   # views
+    ex.attach_mesh(make_test_mesh(2, device="cpu"))
+    assert ex._placed is None and ex._n_shards() == 2
+    assert_same(b.index.query_batch_fused(b.queries),
+                port.query_batch_fused(b.queries))
+    assert ex._placed.starts == (0, 1250, 2500)
+
+
+def test_mesh_executor_after_mutation(anns_bundle, fresh_index, tmp_path):
+    """Inserts, deletes and two seals (the second purging deleted delta
+    rows) replayed on both packages; after each step the sharded port
+    answers as the reference's single-device executor.  An insert keeps
+    the placement; a seal re-places it over the new codes."""
+    b, ref = anns_bundle, fresh_index
+    ref.save_snapshot(str(tmp_path))
+    port = FusionANNSIndex.load_snapshot(str(tmp_path), device="cpu")
+    ex = port.make_executor(make_test_mesh(4, device="cpu"))
+    queries = np.concatenate([b.queries[:8], b.new_vecs[:8]])
+
+    def check():
+        for path, plan in MESH_PATHS.items():
+            for window in (1, 64):
+                assert_same(ref.submit(queries, window=window,
+                                       **plan).results(),
+                            ex.run(queries, port.plan(window=window,
+                                                      **plan)))
+
+    check()
+    placed = ex._placed
+    ids = ref.insert(b.new_vecs[:12])
+    np.testing.assert_array_equal(port.insert(b.new_vecs[:12]), ids)
+    for index in (ref, port):
+        index.delete(np.asarray([ids[0], 3]))
+    check()
+    assert ex._placed is placed                  # an insert: no re-place
+    ref.compact()
+    port.compact()
+    check()
+    assert ex._placed is not placed and ex._placed_src is port.codes
+    assert ex._placed.starts[-1] == port.codes.shape[0]
+    more = ref.insert(b.new_vecs[12:20])
+    port.insert(b.new_vecs[12:20])
+    for index in (ref, port):
+        index.delete(more[2:5])
+        index.compact()                          # purges the deleted rows
+    check()
+    assert ex._placed.starts[-1] == port.codes.shape[0]
 
 
 @pytest.fixture(scope="module")

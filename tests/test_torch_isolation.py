@@ -36,6 +36,8 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.serve.tenants, repro_torch.serve.router\n"
         "import repro_torch.serve.stack, repro_torch.serve.autoscaler\n"
         "import repro_torch.serve.edge\n"
+        "import repro_torch.core.baselines, repro_torch.core.topk\n"
+        "import repro_torch.launch.mesh, repro_torch.sharding.spec\n"
         "assert not [m for m, v in sys.modules.items() if v is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print('ok')\n")

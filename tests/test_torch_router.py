@@ -1,5 +1,5 @@
-"""The port's replica router (without a mesh), serving stack and
-autoscaler against the JAX package's.
+"""The port's replica router, serving stack and autoscaler against the
+JAX package's.
 
 * Every routing policy over two synchronous replicas: the reference
   router's ids, distances, counters and routing books; over two threaded
@@ -12,9 +12,14 @@ autoscaler against the JAX package's.
   bound equal; ``ReplicaAutoscaler.tick`` takes the reference's
   decisions on one scripted signal sequence.
 * ``make_serving_stack`` from an index and from a snapshot.
-* Every mesh entry point raises the one ``MESH_NOT_PORTED`` error.
+* Every mesh entry point (``attach_mesh``, ``make_executor(mesh)``,
+  ``ReplicaRouter(mesh=)``, ``ServingStackConfig(mesh=)``) serves the
+  reference's single-device answers on a mesh of logical CPU devices;
+  the router carves it into groups, re-carves on every resize (a
+  hydrated replica joins its group) and loses no future.
 """
 
+import copy
 import dataclasses
 import threading
 
@@ -30,7 +35,7 @@ from repro.serve.router import ReplicaRouter as RefRouter
 from repro.serve.stack import (ServingStackConfig as RefStackConfig,
                                make_serving_stack as ref_stack)
 from repro_torch.core import perf_model as port_pm
-from repro_torch.core.executor import MESH_NOT_PORTED
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.serve.autoscaler import AutoscalerConfig, ReplicaAutoscaler
 from repro_torch.serve.client import ANNSClient, SearchRequest
 from repro_torch.serve.router import POLICIES, ReplicaRouter
@@ -336,22 +341,107 @@ def test_make_serving_stack_matches_reference(pair, snapshot, source):
         make_serving_stack(None)
 
 
-def test_every_mesh_entry_point_raises_the_same_error(pair):
+def test_every_mesh_entry_point_serves_the_reference(pair):
+    """``attach_mesh``, ``make_executor(mesh)``, ``ReplicaRouter(mesh=)``
+    and ``ServingStackConfig(mesh=)`` each take a mesh of four logical
+    CPU devices and serve the JAX single-device reference's ids and
+    distances (its own sharded executor raises on this JAX: ROADMAP
+    queue 3, fault (a))."""
     b, idx = pair
-    mesh = object()
-    calls = (lambda: idx.make_executor(mesh),
-             lambda: idx.executor.attach_mesh(mesh),
-             lambda: ReplicaRouter(idx, mesh=mesh, threaded=False),
-             lambda: ServingStackConfig(mesh=mesh),
-             lambda: make_serving_stack(idx, mesh=mesh))
-    for call in calls:
-        with pytest.raises(NotImplementedError) as err:
-            call()
-        assert str(err.value) == MESH_NOT_PORTED
-    assert "queue 1 item 3" in MESH_NOT_PORTED
-    with pytest.raises(NotImplementedError):
-        from repro_torch.core.executor import QueryExecutor
-        QueryExecutor(idx, mesh=mesh)
+    want = b.index.batch_query(b.queries)
+    mesh = make_test_mesh(4, device="cpu")
+    own = copy.deepcopy(idx)
+    ex = own.executor.attach_mesh(mesh)
+    assert ex is own.executor and ex._n_shards() == 4
+    assert_same(want, own.batch_query(b.queries))
+    assert_same(b.index.executor.run(b.queries, b.index.plan()),
+                idx.make_executor(mesh).run(b.queries, idx.plan()))
+    reqs = [SearchRequest(query=q) for q in b.queries]
+    router = ReplicaRouter(idx, mesh=mesh, threaded=False, max_batch=4,
+                           max_wait_s=0.0)
+    assert [r.executor._n_shards() for r in router.replicas] == [2, 2]
+    assert_same(want, ANNSClient(router).search_many(reqs),
+                counters=PER_QUERY)
+    stack = make_serving_stack(idx, ServingStackConfig(mesh=mesh),
+                               threaded=False)
+    assert stack.parent_mesh is mesh
+    assert_same(want, ANNSClient(stack).search_many(reqs),
+                counters=PER_QUERY)
+    for r in (router, stack):
+        r.stop()
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_policy_parity_on_a_mesh(pair, policy):
+    """Two synchronous replicas carved from a mesh of four route, answer
+    and count as the reference router's two unsharded replicas."""
+    b, idx = pair
+    kw = dict(n_replicas=2, policy=policy, threaded=False, max_batch=4,
+              max_wait_s=0.0)
+    ref = RefRouter(b.index, **kw)
+    port = ReplicaRouter(idx, mesh=make_test_mesh(4, device="cpu"), **kw)
+    assert_same(_route_all(ref, RefRequest, b.queries),
+                _route_all(port, SearchRequest, b.queries))
+    rroll, proll = ref.stats_rollup(), port.stats_rollup()
+    for key in ("submitted", "routed", "requests", "batches", "served",
+                "query_stats"):
+        assert proll[key] == rroll[key], key
+    for r in (ref, port):
+        r.stop()
+
+
+def _groups(router):
+    return [m.ids.ravel().tolist() for m in router.meshes]
+
+
+def test_mesh_router_recarves_on_resize(pair):
+    """``ReplicaRouter(mesh=make_test_mesh(4))``: groups [0, 1] and
+    [2, 3]; ``add_replica`` re-carves to [0, 1], [2], [3] and re-attaches
+    the survivors; ``remove_replica`` under load carves back to two
+    groups and loses no future.  Every answer is the reference's."""
+    b, idx = pair
+    router = ReplicaRouter(idx, n_replicas=2, policy="jsq",
+                           mesh=make_test_mesh(4, device="cpu"),
+                           threaded=True, max_batch=4, max_wait_s=0.001)
+    try:
+        assert _groups(router) == [[0, 1], [2, 3]]
+        assert [r.executor._n_shards() for r in router.replicas] == [2, 2]
+        futs = [router.submit(SearchRequest(query=q)) for q in b.queries]
+        router.add_replica()
+        assert _groups(router) == [[0, 1], [2], [3]]
+        assert [r.executor.ctx.mesh.ids.ravel().tolist()
+                for r in router.replicas] == [[0, 1], [2], [3]]
+        futs += [router.submit(SearchRequest(query=q))
+                 for q in np.concatenate([b.queries] * 2)]
+        router.remove_replica()
+        assert _groups(router) == [[0, 1], [2, 3]]
+        assert [r.executor._n_shards() for r in router.replicas] == [2, 2]
+        futs += [router.submit(SearchRequest(query=q)) for q in b.queries]
+        got = [f.result(timeout=120) for f in futs]
+    finally:
+        router.stop()
+    assert all(f.done() and not f.cancelled() for f in futs)
+    want = b.index.batch_query(np.concatenate([b.queries] * 4))
+    assert_same(want, got, counters=PER_QUERY)
+    assert router.stats_rollup()["served"] == len(futs)
+
+
+def test_hydrated_replica_attaches_to_its_group(pair, tmp_path):
+    """A replica hydrated from a snapshot joins the carve: its own index,
+    the last group of the re-carved mesh, the donor's answers."""
+    b, idx = pair
+    router = ReplicaRouter(idx, n_replicas=1,
+                           mesh=make_test_mesh(2, device="cpu"),
+                           threaded=False, snapshot_dir=str(tmp_path),
+                           max_batch=4, max_wait_s=0.0)
+    router.add_replica()
+    new = router.replicas[1]
+    assert new.index is not idx and new.index.device.type == "cpu"
+    assert new.executor.ctx.mesh.ids.ravel().tolist() == [1]
+    assert router.replicas[0].executor.ctx.mesh.ids.ravel().tolist() == [0]
+    got = new.executor.run(b.queries, new.index.plan())
+    assert_same(b.index.executor.run(b.queries, b.index.plan()), got)
+    router.stop()
 
 
 def test_router_snapshot_loads_in_reference(anns_bundle, snapshot,
