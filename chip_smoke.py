@@ -155,7 +155,29 @@ From the root of a checkout, with one CUDA card:
    recall@10 > 0.5, their mean I/Os printed (DiskANN-like is not run: its
    graph build is a host loop).  The kernels line's rows of
    ``adc_scan_batch``, ``adc_fused_topk`` (f32 and int8) and
-   ``adc_scan_topk`` count phase 9's sharded launches too.
+   ``adc_scan_topk`` count phase 9's sharded launches too;
+10. serves Qwen3-0.6B at its full config (``configs/qwen3_0_6b.py``: 28
+   layers, d 1024, H 16, Hk 8, dh 128, vocabulary 151,936; random
+   weights from ``--seed``) beside the index as phase 9 leaves it
+   (``lm_phase``): (a) ``lm_prefill`` at B = 2, S = 4,096 in bf16 and in
+   f32, counts set to 0 just before and read just after: each forward
+   must launch ``flash_attn_fwd_wgmma`` (bf16) or ``flash_attn_fwd_tf32``
+   (f32) exactly 28 times and nothing else, and each batch row's
+   last-position logits must lie within ``LM_ROW_RTOL`` (L2 error over
+   L2 norm) of the same prefill on the plain attention (the CPU path's
+   scan, run on the card); it prints the forward's ms and the flash
+   kernel's share of it; (b) the f32 ``lm_decode_step`` over the first
+   64 positions of one sequence equals ``lm_forward(dtype=float32)``
+   within rtol = atol = 2e-3; (c) greedy ``LMServer.generate`` (B = 8,
+   prompt 64, 64 new tokens) twice gives the same tokens, in the
+   vocabulary, the first of them the argmax of the f32 prefill's logits
+   of the prompts (or within 2e-3 of it: a rounding tie), and prints
+   tokens/s; (d) ``RAGPipeline.answer_batch`` of 16 queries at k = 10,
+   through ``submit`` and through a two-replica ``make_serving_stack``
+   router: the retrieved ids equal ``batch_query``'s top-10, the dense
+   kernel launched on both routes, the same tokens on both.  The flash
+   rows and ``adc_scan_batch``'s of the kernels line count phase 10's
+   launches too.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -170,6 +192,7 @@ without the rest of the repository beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -229,6 +252,17 @@ TOPK_SCORES = (64, 1 << 20)     # phase 9 (b): sharded_topk's scores
 BASELINE_QUERIES = 16       # phase 9 (d): queries a baseline serves
 PQ_ROUNDS = 12              # pq.train_codebooks' default: the index's
 ATTN_LEN = 4096                          # S = T of the full-width flash run
+LM_ARCH = "qwen3-0.6b"      # phase 10: the LM, at its full CONFIG
+PREFILL = (2, 4096)         # phase 10 (a): B, S of the prefill
+# (a): each batch row's last-position logits, L2 error over L2 norm,
+# against the same prefill on the plain attention.  bf16: the kernel
+# rounds P to bf16 in each of 28 layers and the layers' outputs round to
+# bf16 on both sides; read 0.01453 on the H100 at this seed, so 2^-5
+LM_ROW_RTOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5}
+DECODE_LEN = 64             # (b): positions decoded against the forward
+DECODE_TOL = 2e-3           # (b): rtol = atol (tests/test_serve.py's)
+GEN = dict(batch=8, prompt=64, new=64)   # (c)
+RAG_QUERIES, RAG_K, RAG_PROMPT, RAG_NEW = 16, 10, 8, 8   # (d)
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -1780,6 +1814,235 @@ def mesh_phase(index, queries: np.ndarray, seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 10
+@contextlib.contextmanager
+def plain_attention():
+    """Inside it the models' attention runs its plain version (the CPU
+    path's scan) on the card, so a forward can be held against the same
+    forward without the flash kernel."""
+    from repro_torch.models import layers
+    kernel = layers.blockwise_attention
+
+    def plain(q, k, v, *, causal=True, q_offset=0, block_size=512,
+              scale=None):
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        return layers._attention_fwd_scan(q, k, v, causal, q_offset,
+                                          block_size, scale)[0]
+    layers.blockwise_attention = plain
+    try:
+        yield
+    finally:
+        layers.blockwise_attention = kernel
+
+
+def prefill_round(params, cfg, tokens: torch.Tensor, dtype: torch.dtype,
+                  kernel: str, launches: dict) -> dict:
+    """Phase 10 (a): ``lm_prefill`` in ``dtype``, counts set to 0 just
+    before and read just after (its launches must be one a layer a run),
+    held row by row against the same prefill on the plain attention;
+    its ms and the flash kernel's share of them (the kernel alone at the
+    prefill's shape, on normal values, held to its plain version)."""
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attn_ref)
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    reps = 3                 # timed runs, after the first and a warm-up
+    reset_launches()
+    got = tfm.lm_prefill(params, tokens, cfg, dtype=dtype)
+    ms = gpu_ms(lambda: tfm.lm_prefill(params, tokens, cfg, dtype=dtype),
+                reps)
+    torch.cuda.synchronize()
+    grew = {n: c for n, c in LAUNCHES.items() if c}
+    runs = 2 + reps
+    want_n = cfg.n_layers * runs
+    if grew != {kernel: want_n}:
+        raise AssertionError(f"prefill {dtype}: launches {grew}, expected "
+                             f"{{{kernel!r}: {want_n}}} ({cfg.n_layers} a "
+                             f"forward)")
+    launches[kernel] = launches.get(kernel, 0) + want_n
+    with plain_attention():
+        want = tfm.lm_prefill(params, tokens, cfg, dtype=dtype)
+    torch.cuda.synchronize()
+    if {n: c for n, c in LAUNCHES.items() if c} != grew:
+        raise AssertionError("the plain-attention prefill launched a kernel")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"prefill {dtype}: non-finite logits")
+    row = row_rel_err(got, want)
+    limit = LM_ROW_RTOL[dtype]
+    if not row <= limit:
+        raise AssertionError(f"prefill {dtype}: a row's relative L2 error "
+                             f"{row} beyond {limit}")
+    b, s = tokens.shape
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device=tokens.device).manual_seed(0)
+    q = torch.randn(b, s, H, dh, generator=gen, device=tokens.device)
+    k, v = (torch.randn(b, s, Hk, dh, generator=gen, device=tokens.device)
+            for _ in range(2))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    flash_err = check_attn(f"flash_attention {dtype} at the prefill's shape",
+                           flash_attention(q, k, v, causal=True),
+                           flash_attn_ref(q, k, v, causal=True))
+    flash = gpu_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+    return {"ms": ms, "flash_ms": flash, "flash_max_abs_err": flash_err,
+            "flash_share": cfg.n_layers * flash / ms, "row_rel_err": row,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "launches": want_n, "runs": runs}
+
+
+def decode_round(params, cfg, seq: torch.Tensor, launches: dict) -> dict:
+    """Phase 10 (b): the f32 decode step over the first DECODE_LEN
+    positions of one sequence against ``lm_forward(dtype=float32)``."""
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    seq = seq[None, :DECODE_LEN]
+    reset_launches()
+    full = tfm.lm_forward(params, seq, cfg, dtype=torch.float32)
+    torch.cuda.synchronize()
+    n = LAUNCHES["flash_attn_fwd_tf32"]
+    if n != cfg.n_layers:
+        raise AssertionError(f"f32 forward: {n} flash launches")
+    launches["flash_attn_fwd_tf32"] = (
+        launches.get("flash_attn_fwd_tf32", 0) + n)
+    cache = tfm.init_kv_cache(cfg, 1, DECODE_LEN, dtype=torch.float32,
+                              device=seq.device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dec = torch.cat([tfm.lm_decode_step(params, cache, seq[:, p:p + 1], p,
+                                        cfg, dtype=torch.float32)[0]
+                     for p in range(DECODE_LEN)], dim=1)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t) / DECODE_LEN
+    err = check_tol("decode vs forward", dec, full, DECODE_TOL, DECODE_TOL)
+    return {"positions": DECODE_LEN, "max_abs_err": err,
+            "step_ms": step_ms}
+
+
+def generate_round(params, cfg, rng: np.random.Generator,
+                   launches: dict) -> dict:
+    """Phase 10 (c): greedy ``LMServer.generate`` twice on the same
+    prompts (identical tokens, in the vocabulary); the first token is the
+    argmax of the f32 prefill's logits of the prompts, unless the two
+    logits lie within DECODE_TOL of each other (a rounding tie)."""
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import LMServer, ServeConfig
+    b, p, n = GEN["batch"], GEN["prompt"], GEN["new"]
+    server = LMServer(params, cfg, ServeConfig(max_len=p + n))
+    prompts = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+    runs = [server.generate(prompts, n) for _ in range(2)]
+    toks = runs[0]["tokens"]
+    if not np.array_equal(toks, runs[1]["tokens"]):
+        raise AssertionError("greedy generation differs between two runs")
+    if toks.shape != (b, n) or not ((toks >= 0)
+                                    & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"generated tokens {toks.shape} out of range")
+    reset_launches()
+    logits = tfm.lm_prefill(params, prompts, cfg, dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches["flash_attn_fwd_tf32"] = (
+        launches.get("flash_attn_fwd_tf32", 0)
+        + LAUNCHES["flash_attn_fwd_tf32"])
+    first = torch.from_numpy(toks[:, 0]).to(logits.device).long()
+    top = logits.argmax(dim=-1)
+    gap = (logits.gather(1, top[:, None])
+           - logits.gather(1, first[:, None]))[:, 0]
+    ties = int((top != first).sum())
+    if float(gap.max()) > DECODE_TOL:
+        raise AssertionError(f"first generated token is not the prefill's "
+                             f"argmax (logit gap {float(gap.max())})")
+    return {"batch": b, "prompt": p, "new": n,
+            "tokens_per_s": [r["tokens_per_s"] for r in runs],
+            "wall_s": [r["wall_s"] for r in runs],
+            "first_token_rounding_ties": ties,
+            "tokens_head": toks[0, :8].tolist()}
+
+
+def rag_round(index, params, cfg, queries: np.ndarray,
+              rng: np.random.Generator, launches: dict) -> dict:
+    """Phase 10 (d): ``RAGPipeline.answer_batch`` over the index through
+    ``submit`` and through a two-replica ``make_serving_stack`` router:
+    retrieved ids equal ``batch_query``'s top-k on both, the dense kernel
+    launched on both, the same tokens on both."""
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import LMServer, RAGPipeline, ServeConfig
+    from repro_torch.serve.stack import make_serving_stack
+    qs = queries[:RAG_QUERIES]
+    want = np.stack([r.ids for r in index.batch_query(qs, k=RAG_K)])
+    server = LMServer(params, cfg, ServeConfig(
+        max_len=RAG_K + RAG_PROMPT + RAG_NEW))
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (RAG_QUERIES, RAG_PROMPT)).astype(np.int32)
+    out, tokens = {}, {}
+    for route in ("submit", "router"):
+        stack = (make_serving_stack(index, n_replicas=2, threaded=True)
+                 if route == "router" else None)
+        try:
+            reset_launches()
+            t = time.perf_counter()
+            outs = RAGPipeline(index, server, router=stack).answer_batch(
+                qs, prompts, n_tokens=RAG_NEW, k=RAG_K)
+            secs = time.perf_counter() - t
+        finally:
+            if stack is not None:
+                stack.stop()
+        n = LAUNCHES["adc_scan_batch"]
+        got = np.stack([o["retrieved_ids"] for o in outs])
+        if not np.array_equal(got, want):
+            bad = int((got != want).any(1).sum())
+            raise AssertionError(f"RAG {route}: retrieved ids differ from "
+                                 f"batch_query's on {bad} queries")
+        if n < 1:
+            raise AssertionError(f"RAG {route}: adc_scan_batch never "
+                                 f"launched")
+        launches["adc_scan_batch"] = launches.get("adc_scan_batch", 0) + n
+        tokens[route] = np.stack([o["tokens"][0] for o in outs])
+        out[route] = {"s": secs, "answers_per_s": len(qs) / secs,
+                      "adc_scan_batch_launches": n}
+    if not np.array_equal(tokens["submit"], tokens["router"]):
+        raise AssertionError("RAG: the two routes generated other tokens")
+    out["tokens_head"] = tokens["submit"][:2].tolist()
+    return out
+
+
+def lm_phase(index, queries: np.ndarray, seed: int) -> dict:
+    """Phase 10: Qwen3-0.6B at its full config (random weights from
+    ``seed``) on the card, beside the index as phase 9 leaves it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(LM_ARCH)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(seed),
+                         cfg, device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t,
+           "params": sum(v.numel() for v in (params["embed"],
+                                              params["final_norm"],
+                                              *params["blocks"].values()))}
+    log(f"lm {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"H {cfg.n_heads}, Hk {cfg.n_kv_heads}, dh {cfg.d_head}, vocabulary "
+        f"{cfg.vocab_size}: " + json.dumps(out))
+    rng = np.random.default_rng(seed + 10)
+    launches = {}
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, PREFILL)).to(dev)
+    for dtype, kernel in ((torch.bfloat16, "flash_attn_fwd_wgmma"),
+                          (torch.float32, "flash_attn_fwd_tf32")):
+        res = prefill_round(params, cfg, tokens, dtype, kernel, launches)
+        out[f"prefill_{str(dtype).split('.')[1]}"] = res
+        log(f"lm prefill {dtype} B, S = {PREFILL}: " + json.dumps(res))
+    out["decode"] = decode_round(params, cfg, tokens[0], launches)
+    log("lm decode vs forward: " + json.dumps(out["decode"]))
+    out["generate"] = generate_round(params, cfg, rng, launches)
+    log("lm generate: " + json.dumps(out["generate"]))
+    out["rag"] = rag_round(index, params, cfg, queries, rng, launches)
+    log("rag: " + json.dumps(out["rag"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
+    return out
+
+
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
     that are exact in f32, and how many products each takes: inputs exact
@@ -1972,6 +2235,13 @@ def main() -> int:
     # and phase 9's sharded runs, each kernel's under its row
     for k in kernels:
         k["launches"] += msh["launches"].get(k["name"], 0)
+    t = time.perf_counter()
+    lm = lm_phase(index, queries, args.seed)
+    log(f"lm: ok, {time.perf_counter() - t:.1f} s; peak "
+        f"{lm['peak_gb']:.1f} GB; launches=" + json.dumps(lm["launches"]))
+    # and phase 10's model and RAG runs
+    for k in kernels:
+        k["launches"] += lm["launches"].get(k["name"], 0)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,12 @@ ids and distances.  The mesh half on a mesh of four logical devices (four
 cards where there are four, else four sharing the card): the sharded
 scans and ``sharded_topk`` equal the one-device kernels bit for bit,
 with one launch a shard; sharded executors and stacks answer as the
-one-device path, each window launching its kernel once a shard.
+one-device path, each window launching its kernel once a shard.  The
+dense LMs: ``models.layers.blockwise_attention`` on CUDA tensors is one
+launch of the flash kernel, held to the plain scan as above, and raises
+on the shapes that kernel lacks; a reduced LM's forward on the card
+equals its forward on the CPU (f32 logits to 1e-4, bf16 within 2^-6 of
+the largest logit), its f32 decode equals its forward at 2e-3.
 """
 
 import copy
@@ -1182,3 +1187,82 @@ def test_cuda_mesh_stack_recarves(small_index):
     for w, g in zip(want + want, got, strict=True):
         np.testing.assert_array_equal(g.ids, w.ids)
         np.testing.assert_array_equal(g.dists, w.dists)
+
+
+# ------------------------------------------------------------ LM serving
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_blockwise_attention_launches_flash(cuda, dtype, causal):
+    """The model's attention on CUDA tensors is one launch of the flash
+    kernel ``flash_kernel`` names, equal to the plain scan (the CPU path)
+    run on the same inputs."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, S, H, Hk, dh = 2, 1024, 16, 8, 128
+    q = torch.randn(B, S, H, dh, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, Hk, dh, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    launch.reset_launches()
+    got = layers.blockwise_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    grew = {n: c for n, c in launch.LAUNCHES.items() if c}
+    assert grew == {flash_kernel(dtype, dh): 1}
+    want = layers._attention_fwd_scan(q, k, v, causal, 0, 512,
+                                      dh ** -0.5)[0]
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_attn_close(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_blockwise_attention_raises_on_shapes_the_kernel_lacks(cuda):
+    from repro_torch.models import layers
+    x = torch.zeros(1, 16, 2, 64, device=cuda)
+    launch.reset_launches()
+    with pytest.raises(ValueError, match="q_offset"):
+        layers.blockwise_attention(x, x, x, q_offset=16)
+    with pytest.raises(ValueError, match="v width"):
+        layers.blockwise_attention(x, x, x[..., :32])
+    with pytest.raises(ValueError, match="dh <= 256"):
+        y = torch.zeros(1, 16, 2, 320, device=cuda)
+        layers.blockwise_attention(y, y, y)
+    assert not any(launch.LAUNCHES.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen1.5-4b", "chatglm3-6b"])
+def test_cuda_reduced_lm_forward_matches_cpu(cuda, arch):
+    """A reduced LM's forward on the card (a flash launch a layer) equals
+    its forward on the CPU on the same params: f32 logits to 1e-4 (3xTF32
+    attention within 2e-5, f32 products summed in another order), bf16
+    within 2^-6 of the largest logit; its f32 decode through the cache
+    equals its forward at 2e-3."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch, reduced=True)
+    cpu = tfm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(cuda))
+            for k, v in cpu.items()}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    for dtype in (torch.float32, torch.bfloat16):
+        launch.reset_launches()
+        got = tfm.lm_forward(card, toks, cfg, dtype=dtype)
+        torch.cuda.synchronize()
+        grew = {n: c for n, c in launch.LAUNCHES.items() if c}
+        assert grew == {flash_instance(dtype, cfg.d_head): cfg.n_layers}
+        want = tfm.lm_forward(cpu, toks, cfg, dtype=dtype).float()
+        got = got.float().cpu()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            tol = 2.0 ** -6 * float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    full = tfm.lm_forward(card, toks, cfg, dtype=torch.float32)
+    cache = tfm.init_kv_cache(cfg, 2, 64, dtype=torch.float32, device=cuda)
+    dec = torch.cat([tfm.lm_decode_step(card, cache, toks[:, p:p + 1], p,
+                                        cfg, dtype=torch.float32)[0]
+                     for p in range(64)], dim=1)
+    torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)

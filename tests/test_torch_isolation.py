@@ -38,6 +38,12 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.serve.edge\n"
         "import repro_torch.core.baselines, repro_torch.core.topk\n"
         "import repro_torch.launch.mesh, repro_torch.sharding.spec\n"
+        "import repro_torch.configs.registry, repro_torch.models.layers\n"
+        "import repro_torch.models.transformer, repro_torch.serve.engine\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
+        "assert all(get_config(a) and get_config(a, reduced=True) "
+        "for a in ARCH_IDS)\n"
         "assert not [m for m, v in sys.modules.items() if v is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print('ok')\n")
