@@ -28,8 +28,10 @@ From the root of a checkout, with one CUDA card:
    inputs and a strided view); flash attention in f32 and bf16 (both
    kernels of ``flash_kernel``'s rule, on the tensor cores, in 3xTF32 for
    f32, at dh 8, 16, 64, 96, 128, 192 and 256, f32 at 36, and off the
-   16-byte stride at 6, 100 and bf16 36, zero-padded), f16 and mixed
-   inputs, ragged sizes, MQA (Hk = 1), causal and not, S != T;
+   16-byte stride at 6, 100 and bf16 36, zero-padded; v narrower than q
+   and k on the ``[dv]`` instances: 192 x 128, 64 x 32, 96 x 32, 256 x
+   128 and 100 x 60), f16 and mixed inputs, ragged sizes, MQA (Hk = 1),
+   causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
    ``FusionANNSIndex.build``, and prints the cuts of scale on a
@@ -177,7 +179,30 @@ From the root of a checkout, with one CUDA card:
    router: the retrieved ids equal ``batch_query``'s top-10, the dense
    kernel launched on both routes, the same tokens on both.  The flash
    rows and ``adc_scan_batch``'s of the kernels line count phase 10's
-   launches too.
+   launches too;
+11. serves the MoE LMs beside the index as phase 10 leaves it
+   (``moe_phase``), their weights stored in bf16 from ``--seed``:
+   DeepSeek-V2-Lite at its full config (``configs/deepseek_v2_lite_16b
+   .py``: 27 layers, the first dense, d 2048, MLA with q/k 192 and v 128
+   wide, 64 routed experts top-6 and 2 shared, vocabulary 102,400; 15.7B
+   params, 31.4 GB): (a) ``lm_prefill`` at B = 2, S = 4,096 in bf16 and
+   f32 as phase 10 (a), each forward launching the dtype's ``[dv]``
+   flash instance exactly 27 times and nothing else, rows within
+   ``MOE_ROW_RTOL``; it prints the pairs dropped past the experts'
+   capacity (also layer by layer, beside the most pairs one expert got
+   and the mean cosine of the router's inputs) and the expert
+   assignments that differ between the kernel and the plain run; (b) as phase 10 (b) at capacity factor 16 (the
+   forward then drops no pair, as one-token decode steps never do); (c)
+   as phase 10 (c), the first token held to the f32 prefill at capacity
+   factor 16, the pairs the decode steps dropped printed; (d) as phase
+   10 (d) through ``submit``; then the ``[dv]`` instances alone at its
+   attention shape (B = 1, S = T = 4,096, H = Hk = 16, 192 x 128),
+   against their plain versions; and Qwen3-30B-A3B at full width (d
+   2048, 128 experts top-8, H 32, Hk 4, dh 128, qk-norm) with its depth
+   cut to ``MOE_LAYERS`` of 48, (a) with ``flash_attn_fwd_wgmma`` /
+   ``flash_attn_fwd_tf32`` once a layer, and (b).  The kernels line's
+   flash rows count phase 11's launches too, and its ``[dv]`` rows are
+   timed at DeepSeek-V2-Lite's attention shape.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -263,6 +288,17 @@ DECODE_LEN = 64             # (b): positions decoded against the forward
 DECODE_TOL = 2e-3           # (b): rtol = atol (tests/test_serve.py's)
 GEN = dict(batch=8, prompt=64, new=64)   # (c)
 RAG_QUERIES, RAG_K, RAG_PROMPT, RAG_NEW = 16, 10, 8, 8   # (d)
+MLA_ARCH = "deepseek-v2-lite-16b"   # phase 11 (a)-(d): at its full CONFIG
+MOE_ARCH = "qwen3-moe-30b-a3b"      # phase 11 (e): full width, depth cut
+MOE_LAYERS = 8              # (e): of 48; 61 GB of bf16 weights beside
+                            # the 15 GB index leave no room to run
+MOE_CAPACITY = 16.0         # (b), (c): no pair dropped by the forward
+# phase 11 (a): as LM_ROW_RTOL, per arch; bf16 set from the first reading
+# (read on the H100 at this seed: DeepSeek-V2-Lite 0.03244, where routing
+# follows each side's bf16 rounding, so some tokens take other experts;
+# Qwen3-30B-A3B at 8 layers 0.01694)
+MOE_ROW_RTOL = {MLA_ARCH: {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4},
+                MOE_ARCH: {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5}}
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -325,6 +361,12 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
     "flash_attn_fwd_wgmma[stride-pad]": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    "flash_attn_fwd_wgmma[dv]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    "flash_attn_fwd_tf32[dv]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
 }
 
@@ -607,6 +649,20 @@ def check_entry_kernels_small(dev: torch.device,
                     (bsz, s, h, dh), (bsz, t, hk, dh), (bsz, t, hk, dh)))
             check_attn(f"flash_attention {dtype} {(bsz, s, t, h, hk, dh)} "
                        f"causal={causal}",
+                       flash_attention(q, k, v, causal=causal),
+                       flash_attn_ref(q, k, v, causal=causal))
+        # v narrower than q and k (the [dv] instances; MLA's 192 x 128)
+        for bsz, s, t, h, hk, dh, dv, causal in (
+                (1, 70, 130, 4, 2, 192, 128, True),
+                (2, 97, 97, 4, 4, 64, 32, True),
+                (1, 130, 70, 2, 1, 96, 32, False),
+                (1, 65, 65, 4, 2, 256, 128, True),
+                (1, 50, 50, 2, 2, 100, 60, True)):
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev, dtype) for shape in (
+                    (bsz, s, h, dh), (bsz, t, hk, dh), (bsz, t, hk, dv)))
+            check_attn(f"flash_attention {dtype} "
+                       f"{(bsz, s, t, h, hk, dh, dv)} causal={causal}",
                        flash_attention(q, k, v, causal=causal),
                        flash_attn_ref(q, k, v, causal=causal))
     # f16 and mixed inputs (computed in f32, returned in q's dtype) and
@@ -983,7 +1039,6 @@ def measure_fused(key: str, codes, q, cb, rows, topk: int) -> dict:
 
 def measure_entry(calls) -> list:
     """Phase 6 for the entry-point kernels, on phase 5's inputs."""
-    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
     from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
     from repro_torch.kernels.pq_adc import ops, ref
     F = torch.nn.functional
@@ -1064,35 +1119,44 @@ def measure_entry(calls) -> list:
                  "flash_attn_fwd_tf32[padded]", "flash_attn_fwd_tf32[256]",
                  "flash_attn_fwd_wgmma[256]",
                  "flash_attn_fwd_wgmma[stride-pad]"):
-        q, k, v = calls[name]
-        peak, products = exact_products(q.dtype)
-        bsz, s, h, dh = q.shape
-        t = k.shape[1]
-        plain = flash_attn_ref(q, k, v, causal=True)
-        tol = FLASH_TOL[q.dtype]
-        err = check_attn(f"{name} ({q.dtype})",
-                         flash_attention(q, k, v, causal=True), plain)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-        def sdpa(qt=qt, kt=kt, vt=vt):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-        check_tol(f"scaled_dot_product_attention yardstick ({q.dtype})",
-                  sdpa().transpose(1, 2), plain, tol, tol)
-        del plain
-        pairs = sum(min(i + 1, t) for i in range(s))       # unmasked (s, t)
-        out.append(dict(
-            name=name,
-            shape=dict(B=bsz, S=s, T=t, H=h, Hk=k.shape[2], dh=dh,
-                       dtype=str(q.dtype), causal=True),
-            max_abs_err=err,
-            ms=gpu_ms(lambda: flash_attention(q, k, v, causal=True), 10),
-            plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=True), 3),
-            library_ms=gpu_ms(sdpa, 10),
-            **bound((2 * q.numel() + k.numel() + v.numel())
-                    * q.element_size(), products * 4 * bsz * h * dh * pairs,
-                    peak=peak)))
+        out.append(measure_flash(name, *calls[name]))
     return out
+
+
+def measure_flash(name: str, q, k, v) -> dict:
+    """Phase 6 for one flash call (causal): the kernel against its plain
+    version, its time, the plain version's and SDPA's, and the bound: (dh + dv) products a pair of (s, t) kept
+    by the mask, the bytes of q, k, v and the output."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
+    F = torch.nn.functional
+    peak, products = exact_products(q.dtype)
+    bsz, s, h, dh = q.shape
+    t, dv = k.shape[1], v.shape[3]
+    plain = flash_attn_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[q.dtype]
+    err = check_attn(f"{name} ({q.dtype})",
+                     flash_attention(q, k, v, causal=True), plain)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    check_tol(f"scaled_dot_product_attention yardstick ({q.dtype})",
+              sdpa().transpose(1, 2), plain, tol, tol)
+    library_ms = gpu_ms(sdpa, 10)
+    del plain
+    pairs = sum(min(i + 1, t) for i in range(s))       # unmasked (s, t)
+    return dict(
+        name=name,
+        shape=dict(B=bsz, S=s, T=t, H=h, Hk=k.shape[2], dh=dh, dv=dv,
+                   dtype=str(q.dtype), causal=True),
+        max_abs_err=err,
+        ms=gpu_ms(lambda: flash_attention(q, k, v, causal=True), 10),
+        plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=True), 3),
+        library_ms=library_ms,
+        **bound((q.numel() + k.numel() + v.numel() + bsz * s * h * dv)
+                * q.element_size(),
+                products * 2 * bsz * h * (dh + dv) * pairs, peak=peak))
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1835,20 +1899,91 @@ def plain_attention():
         layers.blockwise_attention = kernel
 
 
+def attn_widths(cfg) -> tuple:
+    """(H, Hk, q/k width, v width) of a model's prefill attention: MLA's
+    expanded heads (H = Hk, nope + rope, v_head_dim) or GQA's."""
+    if cfg.mla:
+        return (cfg.n_heads, cfg.n_heads,
+                cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_head
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Inside it each MoE layer's router call is kept, in call order, as
+    (expert ids (t, k), the layer's capacity, n_experts, the spread of
+    its inputs: the squared norm of the mean of the tokens' unit
+    vectors, the mean cosine of two tokens' inputs, 1 where all point
+    one way, ~1/t where they are independent)."""
+    from repro_torch.models import layers
+    router = layers._router
+    calls = []
+
+    def recording(x, router_w, cfg):
+        gates, eids = router(x, router_w, cfg)
+        unit = torch.nn.functional.normalize(x.float(), dim=-1)
+        calls.append((eids, layers._capacity(
+            x.shape[0], cfg.moe_top_k, cfg.n_experts, cfg.capacity_factor),
+            cfg.n_experts, unit.mean(0).square().sum()))
+        return gates, eids
+    layers._router = recording
+    try:
+        yield calls
+    finally:
+        layers._router = router
+
+
+def differing_assignments(a, b) -> int:
+    """(token, expert) assignments made in one of two recorded runs and
+    not in the other, layer by layer (an order swap within a token's
+    top-k is no difference)."""
+    n = 0
+    for (ea, _, n_experts, _), (eb, *_) in zip(a, b, strict=True):
+        ma, mb = (torch.nn.functional.one_hot(e, n_experts).sum(1)
+                  for e in (ea, eb))
+        n += int((ma != mb).sum()) // 2
+    return n
+
+
+def dropped_pairs(calls) -> int:
+    """(token, k) pairs past their expert's capacity in recorded calls."""
+    return sum(by_layer(calls)["dropped_by_layer"])
+
+
+def by_layer(calls) -> dict:
+    """Recorded router calls one by one: the pairs dropped, the most
+    pairs sent to one expert (against the capacity) and the mean cosine
+    of the tokens' router inputs."""
+    from repro_torch.models import layers
+    out = {"dropped_by_layer": [], "max_load_by_layer": [],
+           "input_mean_cos_by_layer": []}
+    for eids, cap, n_experts, cos in calls:
+        _, pos = layers._expert_slots(eids, n_experts)
+        out["dropped_by_layer"].append(int((pos >= cap).sum()))
+        out["max_load_by_layer"].append(int(torch.bincount(
+            eids.reshape(-1), minlength=n_experts).max()))
+        out["input_mean_cos_by_layer"].append(float(cos))
+    return out
+
+
 def prefill_round(params, cfg, tokens: torch.Tensor, dtype: torch.dtype,
-                  kernel: str, launches: dict) -> dict:
-    """Phase 10 (a): ``lm_prefill`` in ``dtype``, counts set to 0 just
-    before and read just after (its launches must be one a layer a run),
-    held row by row against the same prefill on the plain attention;
-    its ms and the flash kernel's share of them (the kernel alone at the
-    prefill's shape, on normal values, held to its plain version)."""
+                  kernel: str, launches: dict, limit: float) -> dict:
+    """Phase 10 and 11 (a): ``lm_prefill`` in ``dtype``, counts set to 0
+    just before and read just after (its launches must be one a layer a
+    run), held row by row against the same prefill on the plain
+    attention within ``limit``; its ms and the flash kernel's share of
+    them (the kernel alone at the prefill's shape, on normal values, held
+    to its plain version).  A MoE model's routing is recorded in the
+    first run and in the plain one: the pairs each dropped, and the
+    expert assignments that differ between them."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attn_ref)
     from repro_torch.kernels.launch import LAUNCHES, reset_launches
     from repro_torch.models import transformer as tfm
     reps = 3                 # timed runs, after the first and a warm-up
     reset_launches()
-    got = tfm.lm_prefill(params, tokens, cfg, dtype=dtype)
+    with record_routing() as routed:
+        got = tfm.lm_prefill(params, tokens, cfg, dtype=dtype)
     ms = gpu_ms(lambda: tfm.lm_prefill(params, tokens, cfg, dtype=dtype),
                 reps)
     torch.cuda.synchronize()
@@ -1860,7 +1995,7 @@ def prefill_round(params, cfg, tokens: torch.Tensor, dtype: torch.dtype,
                              f"{{{kernel!r}: {want_n}}} ({cfg.n_layers} a "
                              f"forward)")
     launches[kernel] = launches.get(kernel, 0) + want_n
-    with plain_attention():
+    with plain_attention(), record_routing() as routed_plain:
         want = tfm.lm_prefill(params, tokens, cfg, dtype=dtype)
     torch.cuda.synchronize()
     if {n: c for n, c in LAUNCHES.items() if c} != grew:
@@ -1868,16 +2003,24 @@ def prefill_round(params, cfg, tokens: torch.Tensor, dtype: torch.dtype,
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"prefill {dtype}: non-finite logits")
     row = row_rel_err(got, want)
-    limit = LM_ROW_RTOL[dtype]
     if not row <= limit:
         raise AssertionError(f"prefill {dtype}: a row's relative L2 error "
                              f"{row} beyond {limit}")
+    routing = {}
+    if cfg.moe:
+        routing = {"dropped_pairs": dropped_pairs(routed),
+                   "dropped_pairs_plain": dropped_pairs(routed_plain),
+                   "assignments": sum(c[0].numel() for c in routed),
+                   "assignments_differing": differing_assignments(
+                       routed, routed_plain),
+                   "capacity": routed[0][1], **by_layer(routed)}
+    del routed, routed_plain
     b, s = tokens.shape
-    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    H, Hk, dk, dv = attn_widths(cfg)
     gen = torch.Generator(device=tokens.device).manual_seed(0)
-    q = torch.randn(b, s, H, dh, generator=gen, device=tokens.device)
-    k, v = (torch.randn(b, s, Hk, dh, generator=gen, device=tokens.device)
-            for _ in range(2))
+    q, k = (torch.randn(b, s, h, dk, generator=gen, device=tokens.device)
+            for h in (H, Hk))
+    v = torch.randn(b, s, Hk, dv, generator=gen, device=tokens.device)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     flash_err = check_attn(f"flash_attention {dtype} at the prefill's shape",
                            flash_attention(q, k, v, causal=True),
@@ -1886,23 +2029,25 @@ def prefill_round(params, cfg, tokens: torch.Tensor, dtype: torch.dtype,
     return {"ms": ms, "flash_ms": flash, "flash_max_abs_err": flash_err,
             "flash_share": cfg.n_layers * flash / ms, "row_rel_err": row,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "launches": want_n, "runs": runs}
+            "launches": want_n, "runs": runs, **routing}
 
 
-def decode_round(params, cfg, seq: torch.Tensor, launches: dict) -> dict:
-    """Phase 10 (b): the f32 decode step over the first DECODE_LEN
-    positions of one sequence against ``lm_forward(dtype=float32)``."""
+def decode_round(params, cfg, seq: torch.Tensor, launches: dict,
+                 kernel: str = "flash_attn_fwd_tf32") -> dict:
+    """Phase 10 and 11 (b): the f32 decode step over the first
+    DECODE_LEN positions of one sequence against
+    ``lm_forward(dtype=float32)``, whose flash launches (of ``kernel``)
+    must be one a layer."""
     from repro_torch.kernels.launch import LAUNCHES, reset_launches
     from repro_torch.models import transformer as tfm
     seq = seq[None, :DECODE_LEN]
     reset_launches()
     full = tfm.lm_forward(params, seq, cfg, dtype=torch.float32)
     torch.cuda.synchronize()
-    n = LAUNCHES["flash_attn_fwd_tf32"]
+    n = LAUNCHES[kernel]
     if n != cfg.n_layers:
-        raise AssertionError(f"f32 forward: {n} flash launches")
-    launches["flash_attn_fwd_tf32"] = (
-        launches.get("flash_attn_fwd_tf32", 0) + n)
+        raise AssertionError(f"f32 forward: {n} launches of {kernel}")
+    launches[kernel] = launches.get(kernel, 0) + n
     cache = tfm.init_kv_cache(cfg, 1, DECODE_LEN, dtype=torch.float32,
                               device=seq.device)
     torch.cuda.synchronize()
@@ -1917,19 +2062,26 @@ def decode_round(params, cfg, seq: torch.Tensor, launches: dict) -> dict:
             "step_ms": step_ms}
 
 
-def generate_round(params, cfg, rng: np.random.Generator,
-                   launches: dict) -> dict:
-    """Phase 10 (c): greedy ``LMServer.generate`` twice on the same
-    prompts (identical tokens, in the vocabulary); the first token is the
-    argmax of the f32 prefill's logits of the prompts, unless the two
-    logits lie within DECODE_TOL of each other (a rounding tie)."""
+def generate_round(params, cfg, rng: np.random.Generator, launches: dict,
+                   kernel: str = "flash_attn_fwd_tf32",
+                   prefill_cfg=None) -> dict:
+    """Phase 10 and 11 (c): greedy ``LMServer.generate`` twice on the
+    same prompts (identical tokens, in the vocabulary); the first token
+    is the argmax of the f32 prefill's logits of the prompts (that
+    prefill under ``prefill_cfg``, default ``cfg``), unless the two
+    logits lie within DECODE_TOL of each other (a rounding tie).  A MoE
+    model's pairs dropped by the first run's decode steps are counted."""
     from repro_torch.kernels.launch import LAUNCHES, reset_launches
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import LMServer, ServeConfig
     b, p, n = GEN["batch"], GEN["prompt"], GEN["new"]
     server = LMServer(params, cfg, ServeConfig(max_len=p + n))
     prompts = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
-    runs = [server.generate(prompts, n) for _ in range(2)]
+    with record_routing() as routed:
+        runs = [server.generate(prompts, n)]
+    dropped = dropped_pairs(routed)
+    del routed
+    runs.append(server.generate(prompts, n))
     toks = runs[0]["tokens"]
     if not np.array_equal(toks, runs[1]["tokens"]):
         raise AssertionError("greedy generation differs between two runs")
@@ -1937,11 +2089,10 @@ def generate_round(params, cfg, rng: np.random.Generator,
                                     & (toks < cfg.vocab_size)).all():
         raise AssertionError(f"generated tokens {toks.shape} out of range")
     reset_launches()
-    logits = tfm.lm_prefill(params, prompts, cfg, dtype=torch.float32)
+    logits = tfm.lm_prefill(params, prompts, prefill_cfg or cfg,
+                            dtype=torch.float32)
     torch.cuda.synchronize()
-    launches["flash_attn_fwd_tf32"] = (
-        launches.get("flash_attn_fwd_tf32", 0)
-        + LAUNCHES["flash_attn_fwd_tf32"])
+    launches[kernel] = launches.get(kernel, 0) + LAUNCHES[kernel]
     first = torch.from_numpy(toks[:, 0]).to(logits.device).long()
     top = logits.argmax(dim=-1)
     gap = (logits.gather(1, top[:, None])
@@ -1954,15 +2105,18 @@ def generate_round(params, cfg, rng: np.random.Generator,
             "tokens_per_s": [r["tokens_per_s"] for r in runs],
             "wall_s": [r["wall_s"] for r in runs],
             "first_token_rounding_ties": ties,
+            **({"decode_dropped_pairs": dropped} if cfg.moe else {}),
             "tokens_head": toks[0, :8].tolist()}
 
 
 def rag_round(index, params, cfg, queries: np.ndarray,
-              rng: np.random.Generator, launches: dict) -> dict:
-    """Phase 10 (d): ``RAGPipeline.answer_batch`` over the index through
-    ``submit`` and through a two-replica ``make_serving_stack`` router:
-    retrieved ids equal ``batch_query``'s top-k on both, the dense kernel
-    launched on both, the same tokens on both."""
+              rng: np.random.Generator, launches: dict,
+              routes=("submit", "router")) -> dict:
+    """Phase 10 and 11 (d): ``RAGPipeline.answer_batch`` over the index
+    through each of ``routes``, ``submit`` and a two-replica
+    ``make_serving_stack`` router: retrieved ids equal ``batch_query``'s
+    top-k on each, the dense kernel launched on each, the same tokens on
+    each."""
     from repro_torch.kernels.launch import LAUNCHES, reset_launches
     from repro_torch.serve.engine import LMServer, RAGPipeline, ServeConfig
     from repro_torch.serve.stack import make_serving_stack
@@ -1973,7 +2127,7 @@ def rag_round(index, params, cfg, queries: np.ndarray,
     prompts = rng.integers(0, cfg.vocab_size,
                            (RAG_QUERIES, RAG_PROMPT)).astype(np.int32)
     out, tokens = {}, {}
-    for route in ("submit", "router"):
+    for route in routes:
         stack = (make_serving_stack(index, n_replicas=2, threaded=True)
                  if route == "router" else None)
         try:
@@ -1998,9 +2152,10 @@ def rag_round(index, params, cfg, queries: np.ndarray,
         tokens[route] = np.stack([o["tokens"][0] for o in outs])
         out[route] = {"s": secs, "answers_per_s": len(qs) / secs,
                       "adc_scan_batch_launches": n}
-    if not np.array_equal(tokens["submit"], tokens["router"]):
-        raise AssertionError("RAG: the two routes generated other tokens")
-    out["tokens_head"] = tokens["submit"][:2].tolist()
+    if any(not np.array_equal(tokens[routes[0]], tokens[r])
+           for r in routes):
+        raise AssertionError("RAG: the routes generated other tokens")
+    out["tokens_head"] = tokens[routes[0]][:2].tolist()
     return out
 
 
@@ -2029,7 +2184,8 @@ def lm_phase(index, queries: np.ndarray, seed: int) -> dict:
         0, cfg.vocab_size, PREFILL)).to(dev)
     for dtype, kernel in ((torch.bfloat16, "flash_attn_fwd_wgmma"),
                           (torch.float32, "flash_attn_fwd_tf32")):
-        res = prefill_round(params, cfg, tokens, dtype, kernel, launches)
+        res = prefill_round(params, cfg, tokens, dtype, kernel, launches,
+                            LM_ROW_RTOL[dtype])
         out[f"prefill_{str(dtype).split('.')[1]}"] = res
         log(f"lm prefill {dtype} B, S = {PREFILL}: " + json.dumps(res))
     out["decode"] = decode_round(params, cfg, tokens[0], launches)
@@ -2041,6 +2197,100 @@ def lm_phase(index, queries: np.ndarray, seed: int) -> dict:
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["launches"] = launches
     return out
+
+
+# --------------------------------------------------------------- phase 11
+def init_model(cfg, seed: int, dev: torch.device) -> tuple:
+    """A model's params from ``seed`` on the card, stored in bf16 (drawn
+    one layer at a time), and what they take."""
+    from repro_torch.models import transformer as tfm
+    t = time.perf_counter()
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for v in params.values()
+            for x in (v.values() if isinstance(v, dict) else (v,)))
+    info = {"init_s": time.perf_counter() - t, "params": n,
+            "n_params_config": cfg.n_params(), "weights_gb": 2 * n / 1e9}
+    log(f"lm {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, H "
+        f"{cfg.n_heads}, Hk {cfg.n_kv_heads}, {cfg.n_experts} experts top-"
+        f"{cfg.moe_top_k} (+{cfg.n_shared_experts} shared), first "
+        f"{cfg.first_k_dense} dense, MLA {cfg.mla}, attention widths "
+        f"{attn_widths(cfg)}, vocabulary {cfg.vocab_size}: "
+        + json.dumps(info))
+    return params, info
+
+
+def moe_phase(index, queries: np.ndarray, seed: int) -> tuple:
+    """Phase 11: DeepSeek-V2-Lite at its full config, bf16 weights from
+    ``seed``, beside the index as phase 10 leaves it: (a) prefill in
+    bf16 and f32, (b) decode vs forward, (c) greedy generation, (d) RAG
+    through ``submit``; the MLA flash instance alone at its shape; then
+    Qwen3-30B-A3B at full width, its depth cut to MOE_LAYERS, (a) and
+    (b).  Returns (results, the flash calls for phase 6's timing)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attn_ref,
+                                                flash_instance)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 11)
+    launches = {}
+    out = {}
+    for arch in (MLA_ARCH, MOE_ARCH):
+        cfg = get_config(arch)
+        if arch == MOE_ARCH:
+            log("reduced: " + json.dumps({
+                "model": arch, "n_layers": [cfg.n_layers, MOE_LAYERS]}))
+            cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+        params, out[arch] = init_model(cfg, seed, dev)
+        res = out[arch]
+        _, _, dk, dv = attn_widths(cfg)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, PREFILL)).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            kernel = flash_instance(dtype, dk, dv)
+            r = prefill_round(params, cfg, tokens, dtype, kernel, launches,
+                              MOE_ROW_RTOL[arch][dtype])
+            res[f"prefill_{str(dtype).split('.')[1]}"] = r
+            log(f"moe {arch} prefill {dtype} B, S = {PREFILL} ({kernel}): "
+                + json.dumps(r))
+        f32_key = flash_instance(torch.float32, dk, dv)
+        cf16 = dataclasses.replace(cfg, capacity_factor=MOE_CAPACITY)
+        res["decode"] = decode_round(params, cf16, tokens[0], launches,
+                                     f32_key)
+        log(f"moe {arch} decode vs forward (capacity factor "
+            f"{MOE_CAPACITY}): " + json.dumps(res["decode"]))
+        if arch == MLA_ARCH:
+            res["generate"] = generate_round(params, cfg, rng, launches,
+                                             f32_key, prefill_cfg=cf16)
+            log(f"moe {arch} generate: " + json.dumps(res["generate"]))
+            res["rag"] = rag_round(index, params, cfg, queries, rng,
+                                   launches, routes=("submit",))
+            log(f"moe {arch} rag: " + json.dumps(res["rag"]))
+        del params, tokens
+        torch.cuda.empty_cache()
+    # the MLA instance alone at DeepSeek-V2-Lite's prefill attention, B = 1
+    cfg = get_config(MLA_ARCH)
+    H, Hk, dk, dv = attn_widths(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flash_calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k = (torch.randn(1, ATTN_LEN, h, dk, generator=gen, device=dev)
+                for h in (H, Hk))
+        v = torch.randn(1, ATTN_LEN, Hk, dv, generator=gen, device=dev)
+        qkv = tuple(x.to(dtype) for x in (q, k, v))
+        key = flash_instance(dtype, dk, dv)
+        err = check_attn(f"flash_attention {dtype} at MLA's widths ({key})",
+                         flash_attention(*qkv, causal=True),
+                         flash_attn_ref(*qkv, causal=True))
+        log(f"flash_attention {dtype} dh={dk} dv={dv} at "
+            f"{MLA_ARCH}'s S, T, H, Hk ({key}): max abs error {err}")
+        flash_calls[key] = qkv
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
+    return out, flash_calls
 
 
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
@@ -2242,6 +2492,22 @@ def main() -> int:
     # and phase 10's model and RAG runs
     for k in kernels:
         k["launches"] += lm["launches"].get(k["name"], 0)
+    t = time.perf_counter()
+    moe, moe_flash = moe_phase(index, queries, args.seed)
+    log(f"moe: ok, {time.perf_counter() - t:.1f} s; peak "
+        f"{moe['peak_gb']:.1f} GB; launches=" + json.dumps(moe["launches"]))
+    # and phase 11's, with the rows of the MLA instance timed at its shape
+    for k in kernels:
+        k["launches"] += moe["launches"].get(k["name"], 0)
+    for name, qkv in moe_flash.items():
+        r = measure_flash(name, *qkv)
+        shape = r.pop("shape")
+        log(f"timing {name} {shape}: ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']}")
+        kernels.append({"name": name, **KERNELS[name],
+                        "launches": moe["launches"].get(name, 0), **r})
+    del moe_flash
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

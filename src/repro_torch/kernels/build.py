@@ -139,3 +139,35 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def main(argv: Sequence[str] = ()) -> int:
+    """``python -m repro_torch.kernels.build [name ...]``: build the named
+    sources (all by default) from nothing and print the seconds, all
+    together (as the first use builds them), then each alone."""
+    import argparse
+    import time
+    ap = argparse.ArgumentParser(
+        description="Build the port's CUDA sources from nothing and print "
+                    "the seconds: all together, then each alone.")
+    ap.add_argument("names", nargs="*", metavar="name",
+                    help=f"of {', '.join(SOURCES)} (default: all)")
+    names = ap.parse_args(list(argv) or None).names or list(SOURCES)
+    unknown = sorted(set(names) - set(SOURCES))
+    if unknown:
+        ap.error(f"unknown kernels {unknown}")
+
+    def fresh(names) -> float:
+        for name in names:
+            library_path(name).unlink(missing_ok=True)
+        t = time.perf_counter()
+        build(names)
+        return time.perf_counter() - t
+    print(f"together: {fresh(names):.1f} s")
+    for name in names:
+        print(f"{name}: {fresh([name]):.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -5,9 +5,12 @@
 // dh <= 256 (flash_attn/ops.py::flash_kernel routes f32 to
 // flash_attn_fwd_tf32.cu; its wrapper pads other head widths with zero
 // columns to a multiple of 8 and casts other dtypes first).
-// q (B, S, H, dh), k and v (B, T, Hk, dh) give o (B, S, H, dh):
+// q (B, S, H, dh), k (B, T, Hk, dh) and v (B, T, Hk, dv), dv <= dh, give
+// o (B, S, H, dv):
 //     o[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h / G]) v[b, t, h / G]
 // with G = H / Hk query heads per KV head (no KV copy per query head).
+// dv < dh is MLA's prefill (DeepSeek-V2: q and k 192 wide, v 128), which
+// the Pallas kernel's caller, the model's blockwise_attention, takes.
 // The TPU kernel's semantics (its _flash_kernel): causal
 // masking aligned at the top left (key t kept for query s where t <= s,
 // also when S != T); masked scores and the running max start at -1e30; the
@@ -44,8 +47,10 @@
 // runs its softmax the other's products keep the tensor cores busy.
 // Blocks are ordered with the longest causal q tiles first.
 //
-// Head widths: three instances, kDh = 64, 128 and 256; dh <= 64 runs on
-// the first, 64 < dh <= 128 on the second, 128 < dh <= 256 on the third.
+// Head widths: four instances, (kDh, kDv) = (64, 64), (128, 128),
+// (192, 128) and (256, 256); dh <= 64 runs on the first, 64 < dh <= 128 on
+// the second, 128 < dh <= 256 on the last, and dv < dh at 128 < dh <= 192,
+// dv <= 128, on (192, 128) (below).
 // The tensor maps take the true dh as their inner extent (TMA needs every
 // global stride on 16 bytes: dh % 8 == 0), so TMA fills the columns dh ..
 // kDh - 1 of every q, K and V tile with zeros: they add nothing to a
@@ -59,6 +64,20 @@
 // spilled more registers and ran slower, scripts/kernel_ab.py, PERF.md
 // section 6); shared memory q 64 KB + 2 stages x (K + V) 32 KB = 128 KB,
 // one block an SM.
+//
+// v narrower than q and k (dv < dh): a second template width kDv, the N of
+// the P V product and the width of the V tiles and of O, beside kDh, the
+// K of the Q K^T product and the width of the q and K tiles.  V's tensor
+// map takes the true dv, so TMA fills V's columns dv .. kDv - 1 with
+// zeros, and a V box wholly past dv is cleared once, as for q and K.  The
+// instance (kDh, kDv) = (192, 128) is DeepSeek-V2's MLA (Q K^T at K = 192
+// in 12 k16 steps, P V as m64n128k16: O 64 floats a thread, so 128-key
+// tiles as at kDh = 128; shared memory q 48 KB + 2 x (K 48 + V 32) KB =
+// 208 KB).  A narrower v runs on the 64 and 128 instances, and on the 256
+// one at dh > 192 or dv > 128.  At the MLA shape (B = 1, S = T = 4096,
+// H = Hk = 16, causal) the products are 85.9 GFLOP, 0.087 ms at the bf16
+// tensor-core rate; padding v to 192 and running the 256 instance would be
+// 137.4 GFLOP.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -85,9 +104,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBarQ = 0, kBarK = 1, kBarV = 1 + kStages,
               kBarEmpty = 1 + 2 * kStages, kNumBars = 1 + 3 * kStages;
 
-// keys per KV tile of the kDh instance
-template <int kDh>
-constexpr int kKvTile = kDh > 128 ? 32 : 128;
+// keys per KV tile of the (kDh, kDv) instance
+template <int kDh, int kDv>
+constexpr int kKvTile = kDv > 128 ? 32 : 128;
 
 // d (64 x N, f32) (+)= A (64 x 16, smem) * B (N x 16, smem)^T, both
 // K-major, N = 128 or 32; accumulate = 0 overwrites d
@@ -152,20 +171,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ------------------------------------------------------------------ kernel
-template <int kDh>
+template <int kDh, int kDv>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        __nv_bfloat16* __restrict__ o, int s_len, int t_len,
-                       int h_q, int h_kv, int dh, float scale_log2,
+                       int h_q, int h_kv, int dh, int dv, float scale_log2,
                        int causal) {
-  constexpr int kBKV = kKvTile<kDh>;              // keys per KV tile
-  constexpr int kHalves = kDh / kBox;               // boxes per row
+  constexpr int kBKV = kKvTile<kDh, kDv>;           // keys per KV tile
+  constexpr int kHalves = kDh / kBox;               // boxes per q or K row
+  constexpr int kVHalves = kDv / kBox;              // boxes per V row
   constexpr int kTileBytes = kHalves * kBoxBytes;   // the q tile
   constexpr int kKvBoxBytes = kBKV * kBox * 2;      // a K or V box
-  constexpr int kKvBytes = kHalves * kKvBoxBytes;   // a K or V tile
-  constexpr int kDv = kDh / 2;                      // O registers a thread
+  constexpr int kKvBytes = kHalves * kKvBoxBytes;   // a K tile
+  constexpr int kVBytes = kVHalves * kKvBoxBytes;   // a V tile
+  constexpr int kOr = kDv / 2;                      // O registers a thread
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
   // tiles: q | K[0] K[1] | V[0] V[1], each 1024-byte aligned
@@ -184,7 +205,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q_last = min(q0 + kBQ, s_len) - 1;
   const int n_kv_all = (t_len + kBKV - 1) / kBKV;
   const int n_kv = causal ? min(n_kv_all, q_last / kBKV + 1) : n_kv_all;
-  const int nb = (dh + kBox - 1) / kBox;            // boxes that TMA loads
+  const int nb = (dh + kBox - 1) / kBox;            // q/K boxes TMA loads
+  const int nbv = (dv + kBox - 1) / kBox;           // V boxes TMA loads
 
   if (tid == 0) {
     mbar_init(bar(kBarQ), 1);
@@ -195,22 +217,23 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     fence_mbar_init();
   }
-  // the boxes past nb (only on the 256 instance): zeros in the q tile and
+  // the boxes past nb (q and K) and past nbv (V): zeros in the q tile and
   // in each stage's K and V, written before any wgmma reads them
-  for (int c = nb; c < kHalves; ++c) {
-    uint4* z = reinterpret_cast<uint4*>(smem_raw + (q_s - smem_u32(smem_raw))
-                                        + c * kBoxBytes);
-    for (int i = tid; i < kBoxBytes / 16; i += kThreads)
+  const uint32_t raw = smem_u32(smem_raw);
+  auto clear = [&](uint32_t addr, int bytes) {
+    uint4* z = reinterpret_cast<uint4*>(smem_raw + (addr - raw));
+    for (int i = tid; i < bytes / 16; i += kThreads)
       z[i] = make_uint4(0u, 0u, 0u, 0u);
-    for (int st = 0; st < 2 * kStages; ++st) {     // K[0] K[1] V[0] V[1]
-      uint4* zk = reinterpret_cast<uint4*>(
-          smem_raw + (k_s - smem_u32(smem_raw)) + st * kKvBytes +
-          c * kKvBoxBytes);
-      for (int i = tid; i < kKvBoxBytes / 16; i += kThreads)
-        zk[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
+  };
+  for (int c = nb; c < kHalves; ++c) {
+    clear(q_s + c * kBoxBytes, kBoxBytes);
+    for (int st = 0; st < kStages; ++st)
+      clear(k_s + st * kKvBytes + c * kKvBoxBytes, kKvBoxBytes);
   }
-  if (nb < kHalves) fence_proxy_async();
+  for (int c = nbv; c < kVHalves; ++c)
+    for (int st = 0; st < kStages; ++st)
+      clear(v_s + st * kVBytes + c * kKvBoxBytes, kKvBoxBytes);
+  if (nb < kHalves || nbv < kVHalves) fence_proxy_async();
   __syncthreads();
 
   if (tid >= kConsumerThreads) {                     // producer warp
@@ -223,13 +246,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const int st = j % kStages;
         if (j >= kStages)
           mbar_wait(bar(kBarEmpty + st), ((j / kStages) - 1) & 1);
-        const uint32_t kd = k_s + st * kKvBytes, vd = v_s + st * kKvBytes;
+        const uint32_t kd = k_s + st * kKvBytes, vd = v_s + st * kVBytes;
         mbar_expect_tx(bar(kBarK + st), nb * kKvBoxBytes);
         for (int c = 0; c < nb; ++c)
           tma_load_4d(kd + c * kKvBoxBytes, &map_k, bar(kBarK + st),
                       c * kBox, kh, j * kBKV, bb);
-        mbar_expect_tx(bar(kBarV + st), nb * kKvBoxBytes);
-        for (int c = 0; c < nb; ++c)
+        mbar_expect_tx(bar(kBarV + st), nbv * kKvBoxBytes);
+        for (int c = 0; c < nbv; ++c)
           tma_load_4d(vd + c * kKvBoxBytes, &map_v, bar(kBarV + st),
                       c * kBox, kh, j * kBKV, bb);
       }
@@ -242,16 +265,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int lane = t % 32, quad = lane % 4;
   const int row_a = q0 + 64 * wg + 16 * (t / 32) + lane / 4;  // rows a, a + 8
   const int wg_row0 = q0 + 64 * wg;
-  float o_acc[kDv];
+  float o_acc[kOr];
 #pragma unroll
-  for (int i = 0; i < kDv; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < kOr; ++i) o_acc[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
 
   mbar_wait(bar(kBarQ), 0);
   for (int j = 0; j < n_kv; ++j) {
     const int st = j % kStages;
     const uint32_t ph = (j / kStages) & 1;
-    const uint32_t kt = k_s + st * kKvBytes, vt = v_s + st * kKvBytes;
+    const uint32_t kt = k_s + st * kKvBytes, vt = v_s + st * kVBytes;
 
     // S = Q K^T: dh / 16 steps of k16; step kk reads 32 bytes at
     // (kk % 4) * 32 of the 128-byte rows of box kk / 4
@@ -310,11 +333,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     l_a = l_a * corr_a + sum_a;
     l_b = l_b * corr_b + sum_b;
 #pragma unroll
-    for (int r = 0; r < kDv; ++r) o_acc[r] *= (r & 2) ? corr_b : corr_a;
+    for (int r = 0; r < kOr; ++r) o_acc[r] *= (r & 2) ? corr_b : corr_a;
 
     // O += P V: kBKV / 16 steps; step kk takes the four registers of P
     // that hold keys 16 kk .. 16 kk + 15 and V rows 16 kk .. (2 KB on);
-    // N = kDh runs across the boxes, kKvBoxBytes apart
+    // N = kDv runs across the boxes, kKvBoxBytes apart
     mbar_wait(bar(kBarV + st), ph);
     fence_regs(o_acc);
     wgmma_fence();
@@ -335,13 +358,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
-  const long long row_stride = (long long)h_q * dh;
-  __nv_bfloat16* ob = o + ((long long)bb * s_len * h_q + h) * dh;
+  const long long row_stride = (long long)h_q * dv;
+  __nv_bfloat16* ob = o + ((long long)bb * s_len * h_q + h) * dv;
 #pragma unroll
-  for (int r = 0; r < kDv; r += 2) {
+  for (int r = 0; r < kOr; r += 2) {
     const int row = row_a + ((r & 2) ? 8 : 0);
-    const int col = 8 * (r / 4) + 2 * quad;   // dh % 8 == 0: col + 1 < dh too
-    if (row >= s_len || col >= dh) continue;
+    const int col = 8 * (r / 4) + 2 * quad;   // dv % 8 == 0: col + 1 < dv too
+    if (row >= s_len || col >= dv) continue;
     const float inv = (r & 2) ? inv_b : inv_a;
     *reinterpret_cast<__nv_bfloat162*>(ob + row * row_stride + col) =
         __floats2bfloat162_rn(o_acc[r] * inv, o_acc[r + 1] * inv);
@@ -368,50 +391,53 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kDh>
+template <int kDh, int kDv>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int t, int h, int hk, int dh, float scale,
-                   int causal, cudaStream_t stream) {
-  constexpr int kBKV = kKvTile<kDh>;
+                   int b, int s, int t, int h, int hk, int dh, int dv,
+                   float scale, int causal, cudaStream_t stream) {
+  constexpr int kBKV = kKvTile<kDh, kDv>;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, b, s, h, dh, kBQ) ||
       !make_map(&mk, k, b, t, hk, dh, kBKV) ||
-      !make_map(&mv, v, b, t, hk, dh, kBKV))
+      !make_map(&mv, v, b, t, hk, dv, kBKV))
     return cudaErrorInvalidValue;
-  const int smem =
-      (kBQ + 2 * kStages * kBKV) * (kDh / kBox) * kBox * 2 + 1024;
+  const int smem = (kBQ * kDh + kStages * kBKV * (kDh + kDv)) * 2 + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<kDh>,
+      flash_fwd_wgmma_kernel<kDh, kDv>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
-  flash_fwd_wgmma_kernel<kDh><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, t, h, hk, dh,
+  flash_fwd_wgmma_kernel<kDh, kDv><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, t, h, hk, dh, dv,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (b, s, h, dh), k and v (b, t, hk, dh), o (b, s, h, dh), contiguous
-// bf16, each 16-byte aligned; h % hk == 0, dh % 8 == 0, dh <= 256.
-// Returns a cudaError_t.
+// q (b, s, h, dh), k (b, t, hk, dh), v (b, t, hk, dv), o (b, s, h, dv),
+// contiguous bf16, each 16-byte aligned; h % hk == 0, dh % 8 == 0,
+// dh <= 256, dv % 8 == 0, dv <= dh.  Returns a cudaError_t.
 extern "C" int flash_attn_fwd_wgmma(const void* q, const void* k,
                                     const void* v, void* o, int b, int s,
-                                    int t, int h, int hk, int dh, float scale,
-                                    int causal, void* stream) {
+                                    int t, int h, int hk, int dh, int dv,
+                                    float scale, int causal, void* stream) {
   if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 8 || dh % 8 ||
-      dh > 256 || (long long)b * h > 0x7fffffffLL ||
-      (s + kBQ - 1) / kBQ > 65535 ||
+      dh > 256 || dv < 8 || dv % 8 || dv > dh ||
+      (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // dv > 128 or dh > 192: the 256 instance
+  if (dv > 128 || dh > 192)
+    return (int)launch<256, 256>(q, k, v, o, b, s, t, h, hk, dh, dv, scale,
+                                 causal, st);
   if (dh > 128)
-    return (int)launch<256>(q, k, v, o, b, s, t, h, hk, dh, scale, causal,
-                            st);
-  return (int)(dh > 64 ? launch<128>(q, k, v, o, b, s, t, h, hk, dh, scale,
-                                     causal, st)
-                       : launch<64>(q, k, v, o, b, s, t, h, hk, dh, scale,
-                                    causal, st));
+    return (int)launch<192, 128>(q, k, v, o, b, s, t, h, hk, dh, dv, scale,
+                                 causal, st);
+  return (int)(dh > 64 ? launch<128, 128>(q, k, v, o, b, s, t, h, hk, dh, dv,
+                                          scale, causal, st)
+                       : launch<64, 64>(q, k, v, o, b, s, t, h, hk, dh, dv,
+                                        scale, causal, st));
 }

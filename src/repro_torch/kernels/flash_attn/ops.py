@@ -26,13 +26,22 @@ kernel computes in (bf16 where all three are uint8, int8 or bf16; f32
 otherwise); an input of another dtype, not contiguous or off a 16-byte
 boundary is copied first.  It returns q's dtype, as the JAX kernel does.
 
+v may be narrower than q and k (dv < dh: MLA's prefill, q and k 192
+wide, v 128), as the JAX model's attention takes it.  bf16 runs it on
+``flash_attn_fwd_wgmma``: MLA's widths on the instance whose V tile and
+O are 128 wide (``kDv`` beside ``kDh``: 192 x 128), others on the
+instance of q's width, V's columns past dv read as zeros; f32, which serves
+only the parity checks, zero-pads v to q's width on the f32 kernel (the
+zero columns add nothing) and cuts the output to dv.  Both count as
+``<kernel>[dv]``.
+
 :func:`flash_kernel` states that rule, :func:`flash_instance` the key a
-launch is counted under: ``<kernel>`` at dh 64 and 128,
-``<kernel>[padded]`` at other widths up to 128 on the stride,
-``<kernel>[256]`` above 128 on the stride, ``<kernel>[stride-pad]`` off
-it.  The wrapper keeps the JAX package's layout — q (B, S, H, dh), k and
-v (B, T, Hk, dh) — and runs the plain version when its tensors lie on
-the CPU.  On CUDA tensors it launches the kernel the rule names, or
+launch is counted under: ``<kernel>[dv]`` where v is narrower than q;
+else ``<kernel>`` at dh 64 and 128, ``<kernel>[padded]`` at other
+widths up to 128 on the stride, ``<kernel>[256]`` above 128 on the
+stride, ``<kernel>[stride-pad]`` off it.  The wrapper keeps the JAX
+package's layout — q (B, S, H, dh), k (B, T, Hk, dh), v (B, T, Hk, dv)
+— and runs the plain version when its tensors lie on the CPU.  On CUDA tensors it launches the kernel the rule names, or
 raises: it checks device and shapes first and the ``cudaError_t`` after,
 allocates the output with ``torch.empty``, launches on the current
 stream and counts the launch in ``LAUNCHES[flash_instance(dtype, dh)]``
@@ -80,14 +89,23 @@ def flash_width(dtype: torch.dtype, dh: int) -> int:
     return -(-dh // step) * step
 
 
-def flash_instance(dtype: torch.dtype, dh: int) -> str:
+def flash_instance(dtype: torch.dtype, dh: int,
+                   dv: Optional[int] = None) -> str:
     """The ``LAUNCHES`` key of the kernel :func:`flash_kernel` names:
-    ``<kernel>[stride-pad]`` for a head width off the 16-byte row stride
-    (copied with zero columns first); on it, ``<kernel>[256]`` above 128
-    (the 256 instance), ``<kernel>[padded]`` at other widths than 64 and
-    128 (its columns past dh read as zeros up to the instance), else the
-    kernel's name."""
+    ``<kernel>[dv]`` where v is ``dv`` wide, narrower than q and k (bf16:
+    the instance of that V width; f32: v zero-padded to dh), whatever the
+    strides; else ``<kernel>[stride-pad]`` for a head width off the
+    16-byte row stride (copied with zero columns first); on it,
+    ``<kernel>[256]`` above 128 (the 256 instance), ``<kernel>[padded]``
+    at other widths than 64 and 128 (its columns past dh read as zeros
+    up to the instance), else the kernel's name.  Raises ``ValueError``
+    where dv is not in 1 .. dh."""
     name = flash_kernel(dtype, dh)
+    if dv is not None and dv != dh:
+        if not 1 <= dv < dh:
+            raise ValueError(f"v width {dv}: the kernels take 1 <= dv <= "
+                             f"dh = {dh}")
+        return f"{name}[dv]"
     if dh % _step(dtype):
         return f"{name}[stride-pad]"
     if dh > 128:
@@ -100,36 +118,42 @@ def flash_instance(dtype: torch.dtype, dh: int) -> str:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None
                     ) -> torch.Tensor:
-    """GQA attention forward: q (B, S, H, dh), k/v (B, T, Hk, dh) of any
-    real dtypes -> (B, S, H, dh) in q's dtype, accumulated in f32.
-    ``scale`` defaults to 1/sqrt(dh); ``causal`` keeps key t for query s
-    where s >= t, positions aligned at the top left."""
+    """GQA attention forward: q (B, S, H, dh), k (B, T, Hk, dh), v (B, T,
+    Hk, dv) with dv <= dh, of any real dtypes -> (B, S, H, dv) in q's
+    dtype, accumulated in f32.  ``scale`` defaults to 1/sqrt(dh);
+    ``causal`` keeps key t for query s where s >= t, positions aligned at
+    the top left."""
     if q.device.type == "cpu":
         return flash_attn_ref(q, k, v, causal=causal, scale=scale)
     dev = q.device
     dtype = operand_dtype(q.dtype, k.dtype, v.dtype)
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must "
-                         f"be 4-d")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be 4-d")
     b, s, h, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh
+    dv = v.shape[3]
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != dh
             or hk < 1 or h % hk):
         raise ValueError(
             f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} (H % Hk == 0)")
-    name = flash_instance(dtype, dh)            # raises past dh = 256
+    name = flash_instance(dtype, dh, dv)    # raises past dh = 256, dv > dh
     if t == 0:
         raise ValueError("attention over zero keys")
     dp = flash_width(dtype, dh)
+    # bf16 loads v at its own width; f32 pads it with zeros to q's
+    dvp = flash_width(dtype, dv) if dtype == torch.bfloat16 else dp
     q_dtype = q.dtype
-    q, k, v = (operand(nm, x, dtype, 4, dp, dev)
-               for nm, x in (("q", q), ("k", k), ("v", v)))
-    out = torch.empty(b, s, h, dp, dtype=dtype, device=dev)
+    q, k = (operand(nm, x, dtype, 4, dp, dev) for nm, x in (("q", q),
+                                                            ("k", k)))
+    v = operand("v", v, dtype, 4, dvp, dev)
+    out = torch.empty(b, s, h, dvp, dtype=dtype, device=dev)
     if b and s and h:
         scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+        widths = (dp, dvp) if dtype == torch.bfloat16 else (dp,)
         launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), b, s, t, h, hk, dp, scale, int(causal))
-    if dp != dh:
-        out = out[..., :dh]
+               out.data_ptr(), b, s, t, h, hk, *widths, scale, int(causal))
+    if dvp != dv:
+        out = out[..., :dv]
     return out.to(q_dtype).contiguous()

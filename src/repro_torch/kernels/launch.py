@@ -31,7 +31,8 @@ INSTANCES = ("adc_fused_topk[spill]",
              "flash_attn_fwd_wgmma[padded]", "flash_attn_fwd_tf32[padded]",
              "flash_attn_fwd_wgmma[256]", "flash_attn_fwd_tf32[256]",
              "flash_attn_fwd_wgmma[stride-pad]",
-             "flash_attn_fwd_tf32[stride-pad]")
+             "flash_attn_fwd_tf32[stride-pad]",
+             "flash_attn_fwd_wgmma[dv]", "flash_attn_fwd_tf32[dv]")
 # kernel launches since the last reset_launches()
 LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
@@ -43,7 +44,7 @@ _SIGNATURES = {
     "adc_scan": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
     "l2dist_wgmma": (_P,) * 6 + (_I,) * 6 + (_P,),
-    "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
+    "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
     "flash_attn_fwd_tf32": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
 }
 

@@ -4,9 +4,11 @@
   python -m repro_torch.launch.serve --mode anns --n 20000 --queries 50
   python -m repro_torch.launch.serve --mode lm --arch qwen3-0.6b --reduced
   python -m repro_torch.launch.serve --mode lm --reduced --device cpu
+  python -m repro_torch.launch.serve --mode lm --arch deepseek-v2-lite-16b \
+      --reduced --device cpu
 
-``--mode lm`` with a MoE or MLA arch raises ``NotImplementedError``
-(ROADMAP queue 1).
+``--mode lm`` serves every LM arch of the registry: the dense ones, the
+MoE ones (qwen3-moe-30b-a3b) and MLA (deepseek-v2-lite-16b).
 """
 
 from __future__ import annotations

@@ -14,8 +14,21 @@ JAX package's ``models/layers.py``.
   reference's online-softmax scan over KV blocks, which is the plain
   version and never runs on the card's main path.
 
-MoE (``moe_block``) and MLA (``mla_qkv``, ``mla_decode_absorbed``) and
-the flash VJP are not ported yet (ROADMAP queue 1).  :class:`ShardCtx`
+* :func:`moe_block` is the reference's MoE on its local path (one shard):
+  capacity-bounded, cumsum-slotted dispatch, every expert's FFN as one
+  batched product, a gated combine; shared experts through
+  :func:`swiglu_ffn`.  Routing is deterministic on the card: ties go to
+  the lowest expert id, as ``lax.top_k`` sends them (a stable sort, not
+  ``torch.topk``), the router's product runs in full f32 (TF32 off:
+  ``core.clustering.full_f32``), each kept slot is written once and the
+  combine sums each token's k outputs in a fixed order (no atomics).  A
+  :class:`ShardCtx` with a mesh raises (ROADMAP queue 1 item 5).
+* :func:`mla_qkv` and :func:`mla_decode_absorbed` are DeepSeek-V2's MLA:
+  the prefill expands the compressed KV and runs
+  :func:`blockwise_attention` with v narrower than q and k; decode
+  absorbs ``W_UK`` and ``W_UV`` and attends over the compressed cache.
+
+The flash VJP is not ported yet (ROADMAP queue 1).  :class:`ShardCtx`
 and :data:`LOCAL_CTX` are ``sharding.spec``'s.
 """
 
@@ -27,6 +40,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import LMConfig
+from repro_torch.core.clustering import full_f32
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.sharding.spec import LOCAL_CTX, ShardCtx  # noqa: F401
 
@@ -146,8 +161,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T must be a multiple of ``min(block_size, T)``, as in the reference.
     CPU tensors run the plain scan.  CUDA tensors launch
     ``kernels.flash_attn.flash_attention``, which takes ``q_offset == 0``,
-    a v width equal to q's and dh <= 256; any other shape raises
-    ``ValueError`` naming it (ROADMAP queue 3)."""
+    dh <= 256 and a v width up to q's (MLA's 128 against 192); any other
+    shape raises ``ValueError`` naming it (ROADMAP queue 3)."""
     dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     T = k.shape[1]
@@ -159,9 +174,6 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset != 0:
         raise ValueError(f"q_offset={q_offset}: the flash kernel takes "
                          f"queries at offset 0 only")
-    if v.shape[-1] != dh:
-        raise ValueError(f"v width {v.shape[-1]} != q/k width {dh}: the "
-                         f"flash kernel takes k and v of one shape")
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 
@@ -203,3 +215,168 @@ def swiglu_ffn(x: torch.Tensor, wi: torch.Tensor,
     gu = x @ wi.to(x.dtype)
     gate, up = torch.chunk(gu, 2, dim=-1)
     return (F.silu(gate) * up) @ wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE, the local path (one shard) of the reference's expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+def _capacity(n_tokens: int, top_k: int, n_experts: int,
+              factor: float) -> int:
+    c = int(math.ceil(n_tokens * top_k / n_experts * factor))
+    return max(c, top_k)
+
+
+def _router(x: torch.Tensor, router_w: torch.Tensor, cfg: LMConfig):
+    """x (t, D) -> gates (t, k) f32 (renormalised, times
+    ``router_scale``) and expert ids (t, k), the most probable first and,
+    among equal probabilities, the lowest id first (``lax.top_k``'s
+    order).  The product is f32 with TF32 off, so a bf16 forward routes
+    on the card as it does on the CPU."""
+    with full_f32:
+        logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eids = gates[:, :cfg.moe_top_k], eids[:, :cfg.moe_top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates * cfg.router_scale, eids
+
+
+def _expert_slots(eids: torch.Tensor, n_experts: int):
+    """Rank of each (token, k) pair within its expert (cumsum-slotting
+    over the token-major flattened pairs).  The one-hot is laid out (E, t*k), so the cumsum runs
+    along its contiguous last axis: CUDA scans an outer axis with one
+    thread a column, serially (tens of ms a layer at t*k = 49,152)."""
+    eid_flat = eids.reshape(-1)                                 # (t*k,)
+    onehot = (eid_flat[None, :] == torch.arange(
+        n_experts, device=eids.device)[:, None]).long()
+    pos = torch.cumsum(onehot, dim=1) - onehot
+    pos_flat = pos.gather(0, eid_flat[None, :])[0]
+    return eid_flat, pos_flat
+
+
+def _expert_ffn(buf: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """buf (E, cap, D) through each expert's SwiGLU: w1 (E, D, 2F), w2
+    (E, F, D)."""
+    gu = torch.bmm(buf, w1.to(dtype))
+    gate, up = torch.chunk(gu, 2, dim=-1)
+    return torch.bmm(F.silu(gate) * up, w2.to(dtype))
+
+
+def _moe_local_a2a(x: torch.Tensor, router_w, w1, w2, *,
+                   cfg: LMConfig) -> torch.Tensor:
+    """The reference's ``_moe_local_a2a`` with one shard (no all-to-all):
+    x (t, D) -> (t, D).  A pair past its expert's capacity goes to the
+    bucket row ``E * cap`` and adds zero."""
+    t, D = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    cap = _capacity(t, k, E, cfg.capacity_factor)
+    gates, eids = _router(x, router_w, cfg)
+    eid_flat, pos_flat = _expert_slots(eids, E)
+    keep = pos_flat < cap
+    slot = torch.where(keep, eid_flat * cap + pos_flat, E * cap)
+    tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
+    # each kept slot is written once; only the discarded bucket row takes
+    # duplicates (the reference adds into zeros, the same buffer)
+    buf = x.new_zeros(E * cap + 1, D)
+    buf[slot] = x[tok_idx]
+    y = _expert_ffn(buf[:-1].reshape(E, cap, D), w1, w2, x.dtype)
+    y = torch.cat([y.reshape(E * cap, D), y.new_zeros(1, D)])
+    y_pair = (y[slot] * gates.reshape(-1, 1).to(y.dtype)).reshape(t, k, D)
+    # a token's k outputs summed in k's order, in y's dtype, as the
+    # reference's scatter-add into zeros sums them; no atomics
+    out = y_pair[:, 0]
+    for j in range(1, k):
+        out = out + y_pair[:, j]
+    return out
+
+
+def moe_block(x: torch.Tensor, router_w, w1, w2, shared_w1, shared_w2, *,
+              cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D), the reference's local path
+    (``ctx.mesh is None``; the same for prefill and decode).  Routed
+    experts, then the shared experts' SwiGLU (``shared_w1`` None:
+    none)."""
+    if ctx.mesh is not None:
+        raise NotImplementedError(
+            "MoE on a mesh is not ported yet (ROADMAP queue 1 item 5): "
+            "pass LOCAL_CTX")
+    B, S, D = x.shape
+    out = _moe_local_a2a(x.reshape(B * S, D), router_w, w1, w2,
+                         cfg=cfg).reshape(B, S, D)
+    if shared_w1 is not None:
+        out = out + swiglu_ffn(x, shared_w1.to(x.dtype),
+                               shared_w2.to(x.dtype))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): the prefill expands c_kv; decode uses the absorbed
+# form against the compressed cache (c_kv, k_pe)
+# ---------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, C) times w (C, H, n) -> (B, S, H, n) in x's dtype."""
+    return (x @ w.reshape(w.shape[0], -1).to(x.dtype)).reshape(
+        *x.shape[:2], w.shape[1], w.shape[2])
+
+
+def mla_qkv(x: torch.Tensor, p, cfg: LMConfig, positions: torch.Tensor):
+    """x (B, S, D), ``p["wq"]`` (D, H, qk), ``p["wuk"]`` (lora, H, nope),
+    ``p["wuv"]`` (lora, H, v) -> q (B,S,H,qk_dim), k (B,S,H,qk_dim), v
+    (B,S,H,v_dim) and the compressed (c_kv, k_pe) pair for the cache."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, lr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    q = _heads(x, p["wq"])
+    q_nope, q_pe = q[..., :nd], q[..., nd:]
+    ckr = x @ p["wdkv"].to(x.dtype)
+    c_kv, k_pe = ckr[..., :lr], ckr[..., lr:]
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    cos, sin = rope_tables(positions, rd, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)[:, :, 0]  # shared head
+    k_nope = _heads(c_kv, p["wuk"])
+    v = _heads(c_kv, p["wuv"])
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H, rd)], dim=-1)
+    qq = torch.cat([q_nope, q_pe], dim=-1)
+    return qq, k, v, (c_kv, k_pe)
+
+
+def mla_decode_absorbed(x: torch.Tensor, p, cfg: LMConfig,
+                        ckv_cache: torch.Tensor, kpe_cache: torch.Tensor,
+                        cache_len: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """x: (B,1,D); caches (B,T,lora) / (B,T,rd) -> (B,1,H,v_dim).
+
+    As in the reference: ``q`` absorbed through ``W_UK`` in f32, then
+    ``q_t``, ``q_pe`` and the normalised probabilities rounded to the
+    cache's dtype (to f32 on CPU tensors, where the reference also
+    computes in f32), every product accumulated in f32 (the cache read in
+    f32: a product of two bf16 values is exact there)."""
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = _heads(x, p["wq"])
+    q_nope, q_pe = q[..., :nd], q[..., nd:]
+    cos, sin = rope_tables(positions, rd, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, cos, sin)
+    cdt = (torch.float32 if ckv_cache.device.type == "cpu"
+           else ckv_cache.dtype)
+    q_t = torch.einsum("bshn,chn->bshc", q_nope.float(),
+                       p["wuk"].float()).to(cdt)
+    scale = 1.0 / math.sqrt(nd + rd)
+    ckv = ckv_cache.float()
+    s = (torch.einsum("bshc,btc->bhst", q_t.float(), ckv)
+         + torch.einsum("bshr,btr->bhst", q_pe.to(cdt).float(),
+                        kpe_cache.float())) * scale
+    T = ckv_cache.shape[1]
+    valid = (torch.arange(T, device=x.device)[None]
+             < cache_len[:, None])                           # (B, T)
+    s = torch.where(valid[:, None, None], s, _NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    pr = torch.exp(s - m)
+    l = torch.sum(pr, dim=-1, keepdim=True)
+    o_c = torch.einsum("bhst,btc->bshc",
+                       (pr / torch.clamp(l, min=1e-30)).to(cdt).float(), ckv)
+    o = torch.einsum("bshc,chv->bshv", o_c, p["wuv"].float())
+    return o.to(x.dtype)

@@ -1,19 +1,24 @@
-"""Decoder-only LM, the dense serving half: the port's counterpart of the
-JAX package's ``models/transformer.py``.
+"""Decoder-only LM, the serving half: the port's counterpart of the JAX
+package's ``models/transformer.py``.
 
-One code path parameterised by :class:`LMConfig`: MHA / GQA with optional
-QKV bias, per-head qk RMSNorm and partial RoPE, and a dense SwiGLU FFN —
-qwen3-0.6b, qwen1.5-4b and chatglm3-6b.  MoE and MLA configs raise
-``NotImplementedError`` (ROADMAP queue 1), as does a :class:`ShardCtx`
-with a mesh.
+One code path parameterised by :class:`LMConfig`, covering the repo's
+five LMs: MHA / GQA with optional QKV bias, per-head qk RMSNorm and
+partial RoPE, or MLA (DeepSeek-V2) with its compressed-KV absorbed
+decode; a dense SwiGLU FFN or the MoE (routed experts, shared experts,
+the first ``first_k_dense`` layers dense in their own stack,
+``dense_blocks``).  A :class:`ShardCtx` with a mesh raises
+``NotImplementedError`` (ROADMAP queue 1 item 5).
 
 Params are a dict of tensors with the reference's keys and its stacked
 ``(n_layers, ...)`` layout; a Python loop over layers takes the place of
-``lax.scan``.  :func:`lm_decode_step` writes the KV cache in place at
-``pos`` and returns it (the reference returns a new cache).  f32 products
-run with TF32 off (``core.clustering.full_f32``: the caller's setting is
-restored afterwards), so an f32 forward and decode step are f32 on the
-card as on the CPU.
+``lax.scan``.  :func:`init_lm` may store them in bf16 (``dtype``), drawn
+one layer at a time, so a model of 16B params fits the card; every
+product casts its weight to the compute dtype.  :func:`lm_decode_step`
+writes the KV cache in place at ``pos`` and returns it (the reference
+returns a new cache).  f32 products run with TF32 off
+(``core.clustering.full_f32``: the caller's setting is restored
+afterwards), so an f32 forward and decode step are f32 on the card as on
+the CPU.
 """
 
 from __future__ import annotations
@@ -32,15 +37,17 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import LOCAL_CTX, ShardCtx
 
 
-def _dense_only(cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX) -> None:
-    if cfg.moe or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA models are not ported yet (ROADMAP "
-            f"queue 1); the port serves the dense LMs")
+def _local_only(ctx: ShardCtx) -> None:
     if ctx.mesh is not None:
         raise NotImplementedError(
-            "models on a mesh are not ported yet (ROADMAP queue 1): pass "
-            "LOCAL_CTX")
+            "models on a mesh are not ported yet (ROADMAP queue 1 item 5): "
+            "pass LOCAL_CTX")
+
+
+def _n_main(cfg: LMConfig) -> int:
+    """Layers of the main stack, ``blocks``: all of them, or the MoE
+    layers after the ``first_k_dense`` dense ones."""
+    return cfg.n_layers - cfg.first_k_dense if cfg.moe else cfg.n_layers
 
 
 def _precision(dtype: torch.dtype):
@@ -52,64 +59,103 @@ def _precision(dtype: torch.dtype):
 # Init
 # ---------------------------------------------------------------------------
 
-def _block_shapes(cfg: LMConfig) -> Dict[str, Any]:
-    """A dense block's param shapes (the reference's ``_block_shapes``
-    without its MoE and MLA entries)."""
+def _block_shapes(cfg: LMConfig, moe: bool, d_ff: int) -> Dict[str, Any]:
+    """A block's param shapes: attention (GQA or MLA), then a dense FFN
+    of width ``d_ff`` or, where ``moe``, the router, the experts and the
+    shared experts."""
     D, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    s: Dict[str, Any] = {"ln1": (D,), "ln2": (D,),
-                         "wq": (D, H * dh), "wk": (D, Hk * dh),
-                         "wv": (D, Hk * dh), "wo": (H * dh, D),
-                         "wi": (D, 2 * cfg.d_ff), "wof": (cfg.d_ff, D)}
-    if cfg.qkv_bias:
-        s.update(bq=(H * dh,), bk=(Hk * dh,), bv=(Hk * dh,))
-    if cfg.qk_norm:
-        s.update(q_norm=(dh,), k_norm=(dh,))
+    s: Dict[str, Any] = {"ln1": (D,), "ln2": (D,)}
+    if cfg.mla:
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        s.update(
+            wq=(D, H * qk),
+            wdkv=(D, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+            kv_norm=(cfg.kv_lora_rank,),
+            wuk=(cfg.kv_lora_rank, H * cfg.qk_nope_head_dim),
+            wuv=(cfg.kv_lora_rank, H * cfg.v_head_dim),
+            wo=(H * cfg.v_head_dim, D),
+        )
+    else:
+        s.update(wq=(D, H * dh), wk=(D, Hk * dh), wv=(D, Hk * dh),
+                 wo=(H * dh, D))
+        if cfg.qkv_bias:
+            s.update(bq=(H * dh,), bk=(Hk * dh,), bv=(Hk * dh,))
+        if cfg.qk_norm:
+            s.update(q_norm=(dh,), k_norm=(dh,))
+    if moe:
+        F = cfg.moe_d_ff
+        s.update(router=(D, cfg.n_experts),
+                 w1=(cfg.n_experts, D, 2 * F),
+                 w2=(cfg.n_experts, F, D))
+        if cfg.n_shared_experts:
+            Fs = F * cfg.n_shared_experts
+            s.update(ws1=(D, 2 * Fs), ws2=(Fs, D))
+    else:
+        s.update(wi=(D, 2 * d_ff), wof=(d_ff, D))
     return s
 
 
-def _normal(gen: torch.Generator, shape, std: float,
-            device: torch.device) -> torch.Tensor:
-    """``std`` times standard normals drawn by ``gen`` on its own device,
-    f32, placed on ``device``."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x * std).to(device)
-
-
-def _init_stack(gen: torch.Generator, shapes: Dict[str, Any], n: int,
-                device: torch.device) -> Dict[str, torch.Tensor]:
-    out = {}
-    for name, shape in sorted(shapes.items()):
-        full = (n,) + tuple(shape)
-        if name.startswith(("ln", "q_norm", "k_norm")):
-            out[name] = torch.ones(full, dtype=torch.float32, device=device)
-        elif name.startswith("b"):
-            out[name] = torch.zeros(full, dtype=torch.float32, device=device)
-        else:
-            std = 0.02 if name not in ("wo", "wof") \
-                else 0.02 / math.sqrt(2 * max(n, 1))
-            out[name] = _normal(gen, full, std, device)
+def _normal(gen: torch.Generator, shape, std: float, device: torch.device,
+            dtype: torch.dtype = torch.float32,
+            per_layer: bool = False) -> torch.Tensor:
+    """``std`` times standard normals drawn by ``gen`` on its own device
+    in f32, stored in ``dtype`` on ``device``.  In f32, or where not
+    ``per_layer``, in one draw; else one draw per index of the leading
+    (layer) axis, so the f32 transient is one layer's."""
+    if dtype == torch.float32 or not per_layer:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (x * std).to(device=device, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        x = torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        out[i] = x * std
     return out
 
 
-def init_lm(gen: torch.Generator, cfg: LMConfig,
-            device=None) -> Dict[str, Any]:
-    """Random f32 params of the reference's shapes and stds, drawn by
-    ``gen`` (on its own device) and placed on ``device`` (None: the
-    card).  The numbers differ from ``jax.random``'s: carry the
-    reference's params across with :func:`params_from_numpy`."""
-    _dense_only(cfg)
+def _init_stack(gen: torch.Generator, shapes: Dict[str, Any], n: int,
+                device: torch.device,
+                dtype: torch.dtype = torch.float32
+                ) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, shape in sorted(shapes.items()):
+        full = (n,) + tuple(shape)
+        if name.startswith(("ln", "q_norm", "k_norm", "kv_norm")):
+            out[name] = torch.ones(full, dtype=dtype, device=device)
+        elif name.startswith("b"):
+            out[name] = torch.zeros(full, dtype=dtype, device=device)
+        else:
+            std = 0.02 if name not in ("wo", "wof", "w2") \
+                else 0.02 / math.sqrt(2 * max(n, 1))
+            out[name] = _normal(gen, full, std, device, dtype,
+                                per_layer=True)
+    return out
+
+
+def init_lm(gen: torch.Generator, cfg: LMConfig, device=None,
+            dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Random params of the reference's shapes and stds, drawn by ``gen``
+    (on its own device) in f32 and stored in ``dtype`` on ``device``
+    (None: the card).  bf16 storage draws each stacked param one layer at
+    a time (other numbers than the f32 default's single draws).  The
+    numbers differ from ``jax.random``'s: carry the reference's params
+    across with :func:`params_from_numpy`."""
     dev = resolve_device(device)
     params: Dict[str, Any] = {
-        "embed": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dev),
-        "blocks": _init_stack(gen, _block_shapes(cfg), cfg.n_layers,
-                              dev),
-        "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                 device=dev),
+        "embed": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dev,
+                         dtype),
+        "blocks": _init_stack(gen, _block_shapes(cfg, cfg.moe, cfg.d_ff),
+                              _n_main(cfg), dev, dtype),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
+    if cfg.moe and cfg.first_k_dense:
+        params["dense_blocks"] = _init_stack(
+            gen, _block_shapes(cfg, False, cfg.dense_d_ff or cfg.d_ff),
+            cfg.first_k_dense, dev, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
-                                    dev)
+                                    dev, dtype)
     return params
 
 
@@ -164,15 +210,53 @@ def _attn(x, p, cfg: LMConfig, rope):
     return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)
 
 
-def _ffn(x, p):
-    return L.swiglu_ffn(x, p["wi"].to(x.dtype), p["wof"].to(x.dtype))
+def _mla_weights(p, cfg: LMConfig) -> Dict[str, torch.Tensor]:
+    """A layer's MLA params with ``wq``, ``wuk`` and ``wuv`` per head, as
+    ``layers.mla_qkv`` takes them."""
+    H, lr = cfg.n_heads, cfg.kv_lora_rank
+    pr = dict(p)
+    pr["wq"] = p["wq"].reshape(cfg.d_model, H, -1)
+    pr["wuk"] = p["wuk"].reshape(lr, H, cfg.qk_nope_head_dim)
+    pr["wuv"] = p["wuv"].reshape(lr, H, cfg.v_head_dim)
+    return pr
 
 
-def _block(x, p, cfg: LMConfig, rope):
+def _mla_attn(x, p, cfg: LMConfig, positions):
+    """MLA's prefill: the expanded q, k (192 wide at DeepSeek-V2) and v
+    (128) through ``blockwise_attention``, scaled by 1/sqrt(nope + rope)."""
+    B, S, _ = x.shape
+    q, k, v, _ = L.mla_qkv(x, _mla_weights(p, cfg), cfg, positions)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    o = L.blockwise_attention(q, k, v, causal=True, scale=scale)
+    return (o.reshape(B, S, cfg.n_heads * cfg.v_head_dim)
+            @ p["wo"].to(x.dtype))
+
+
+def _ffn_or_moe(x, p, cfg: LMConfig, ctx: ShardCtx, moe: bool):
+    if not moe:
+        return L.swiglu_ffn(x, p["wi"].to(x.dtype), p["wof"].to(x.dtype))
+    return L.moe_block(x, p["router"], p["w1"], p["w2"], p.get("ws1"),
+                       p.get("ws2"), cfg=cfg, ctx=ctx)
+
+
+def _block(x, p, cfg: LMConfig, rope, positions, moe: bool):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attn(h, p, cfg, rope)
+    if cfg.mla:
+        x = x + _mla_attn(h, p, cfg, positions)
+    else:
+        x = x + _attn(h, p, cfg, rope)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(h, p)
+    return x + _ffn_or_moe(h, p, cfg, LOCAL_CTX, moe)
+
+
+def _stacks(params, cfg: LMConfig):
+    """(stack, its cache keys' suffix, moe) in the order the layers run:
+    the dense first layers, then the main stack."""
+    out = []
+    if cfg.moe and cfg.first_k_dense:
+        out.append((params["dense_blocks"], "_dense", False))
+    out.append((params["blocks"], "", cfg.moe))
+    return out
 
 
 def _rotary_dim(cfg: LMConfig) -> int:
@@ -199,9 +283,12 @@ def _trunk(params, tokens: torch.Tensor, cfg: LMConfig,
     S = tokens.shape[1]
     x = params["embed"][tokens].to(dtype)
     positions = torch.arange(S, device=x.device)
-    rope = L.rope_tables(positions, _rotary_dim(cfg), cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = _block(x, _layer(params["blocks"], i), cfg, rope)
+    # MLA computes its own tables over the rope sub-dims
+    rope = (None if cfg.mla else
+            L.rope_tables(positions, _rotary_dim(cfg), cfg.rope_theta))
+    for stack, _, moe in _stacks(params, cfg):
+        for i in range(stack["ln1"].shape[0]):
+            x = _block(x, _layer(stack, i), cfg, rope, positions, moe)
     return x
 
 
@@ -209,7 +296,7 @@ def lm_forward(params, tokens, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in ``dtype``, on the params'
     device."""
-    _dense_only(cfg, ctx)
+    _local_only(ctx)
     with _precision(dtype):
         tokens = _tokens(params, tokens)
         return _head(params, _trunk(params, tokens, cfg, dtype), cfg, dtype)
@@ -220,7 +307,7 @@ def lm_prefill(params, tokens, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
     """Prefill pass: last-position logits (B, V), as ``lm_forward(...)[:,
     -1]`` (the head is applied to the last position only).  Cache
     write-back is the decode path's job, as in the reference."""
-    _dense_only(cfg, ctx)
+    _local_only(ctx)
     with _precision(dtype):
         tokens = _tokens(params, tokens)
         x = _trunk(params, tokens, cfg, dtype)
@@ -235,12 +322,26 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device=None) -> Dict[str, torch.Tensor]:
     """Zeroed KV cache of the reference's keys and shapes on ``device``
-    (None: the card)."""
-    _dense_only(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    (None: the card): ``k``/``v`` (n_layers, B, T, Hk, dh), or under MLA
+    the compressed ``ckv`` (n, B, T, lora) and ``kpe`` (n, B, T, rope)
+    of the main stack, with ``ckv_dense``/``kpe_dense`` for the
+    ``first_k_dense`` layers."""
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.mla:
+        n = _n_main(cfg)
+        cache = {"ckv": zeros(n, batch, max_len, cfg.kv_lora_rank),
+                 "kpe": zeros(n, batch, max_len, cfg.qk_rope_head_dim)}
+        if cfg.first_k_dense:
+            n = cfg.first_k_dense
+            cache["ckv_dense"] = zeros(n, batch, max_len, cfg.kv_lora_rank)
+            cache["kpe_dense"] = zeros(n, batch, max_len,
+                                       cfg.qk_rope_head_dim)
+        return cache
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": zeros(*shape), "v": zeros(*shape)}
 
 
 def _decode_attn_gqa(x, p, cfg: LMConfig, kc, vc, pos: int):
@@ -259,20 +360,49 @@ def _decode_attn_gqa(x, p, cfg: LMConfig, kc, vc, pos: int):
     return o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)
 
 
+def _decode_attn_mla(x, p, cfg: LMConfig, ckv_c, kpe_c, pos: int):
+    """One layer's MLA decode; writes this step's compressed (c_kv, k_pe)
+    into the layer's cache views ``ckv_c`` (B, T, lora) / ``kpe_c`` (B,
+    T, rope) at ``pos``, then attends in the absorbed form."""
+    B = x.shape[0]
+    dt = x.dtype
+    lr, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    ckr = x @ p["wdkv"].to(dt)
+    c_kv, k_pe = ckr[..., :lr], ckr[..., lr:]
+    c_kv = L.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    positions = torch.full((B, 1), pos, device=x.device)
+    cos, sin = L.rope_tables(positions, rd, cfg.rope_theta)
+    k_pe = L.apply_rope(k_pe[:, :, None, :], cos, sin)[:, :, 0]
+    ckv_c[:, pos:pos + 1] = c_kv.to(ckv_c.dtype)
+    kpe_c[:, pos:pos + 1] = k_pe.to(kpe_c.dtype)
+    cache_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    o = L.mla_decode_absorbed(x, _mla_weights(p, cfg), cfg, ckv_c, kpe_c,
+                              cache_len, positions)
+    return (o.reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
+            @ p["wo"].to(dt))
+
+
 def lm_decode_step(params, cache: Dict[str, torch.Tensor], tokens, pos: int,
                    cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
                    dtype: torch.dtype = torch.bfloat16):
-    """One decode step: tokens (B, 1) at position ``pos``.
+    """One decode step: tokens (B, 1) at position ``pos``, through the
+    dense first layers and then the main stack.  The MoE takes the B
+    tokens through the reference's local path: its capacity holds at
+    least k pairs an expert, so B = 1 drops none, and a larger B may drop
+    a pair as the reference does.
 
     Returns (logits (B, 1, V), cache): the cache is written in place."""
-    _dense_only(cfg, ctx)
+    _local_only(ctx)
+    names = ("ckv", "kpe") if cfg.mla else ("k", "v")
+    attn = _decode_attn_mla if cfg.mla else _decode_attn_gqa
     with _precision(dtype):
         x = params["embed"][_tokens(params, tokens)].to(dtype)
-        for i in range(cfg.n_layers):
-            p = _layer(params["blocks"], i)
-            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            x = x + _decode_attn_gqa(h, p, cfg, cache["k"][i],
-                                     cache["v"][i], pos)
-            h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-            x = x + _ffn(h, p)
+        for stack, suffix, moe in _stacks(params, cfg):
+            c0, c1 = cache[names[0] + suffix], cache[names[1] + suffix]
+            for i in range(stack["ln1"].shape[0]):
+                p = _layer(stack, i)
+                h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+                x = x + attn(h, p, cfg, c0[i], c1[i], pos)
+                h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+                x = x + _ffn_or_moe(h, p, cfg, ctx, moe)
         return _head(params, x, cfg, dtype), cache

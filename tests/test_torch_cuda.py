@@ -38,11 +38,18 @@ cards where there are four, else four sharing the card): the sharded
 scans and ``sharded_topk`` equal the one-device kernels bit for bit,
 with one launch a shard; sharded executors and stacks answer as the
 one-device path, each window launching its kernel once a shard.  The
-dense LMs: ``models.layers.blockwise_attention`` on CUDA tensors is one
-launch of the flash kernel, held to the plain scan as above, and raises
-on the shapes that kernel lacks; a reduced LM's forward on the card
-equals its forward on the CPU (f32 logits to 1e-4, bf16 within 2^-6 of
-the largest logit), its f32 decode equals its forward at 2e-3.
+LMs: ``models.layers.blockwise_attention`` on CUDA tensors is one
+launch of the flash kernel, held to the plain scan as above, also with v
+narrower than q and k (MLA: the ``[dv]`` instances, flash's limits), and
+raises on the shapes that kernel lacks; a reduced dense LM's forward on
+the card equals its forward on the CPU (f32 logits to 1e-4, bf16 within
+2^-6 of the largest logit), its f32 decode equals its forward at 2e-3.
+MoE and MLA: ``moe_block`` on the card is bit-identical across two runs
+(no atomics, a stable routing order) and equals the CPU's in f32 to
+1e-5 (f32 products summed in another order); the MLA decode step on the
+card equals the CPU's in f32 to 1e-5; a reduced MoE LM's f32 forward on
+the card equals the CPU's to 1e-4 and its decode its forward at 2e-3
+(capacity factor 16: the forward drops no pair either).
 """
 
 import copy
@@ -1222,8 +1229,8 @@ def test_cuda_blockwise_attention_raises_on_shapes_the_kernel_lacks(cuda):
     launch.reset_launches()
     with pytest.raises(ValueError, match="q_offset"):
         layers.blockwise_attention(x, x, x, q_offset=16)
-    with pytest.raises(ValueError, match="v width"):
-        layers.blockwise_attention(x, x, x[..., :32])
+    with pytest.raises(ValueError, match="v width"):        # v wider
+        layers.blockwise_attention(x[..., :32], x[..., :32], x)
     with pytest.raises(ValueError, match="dh <= 256"):
         y = torch.zeros(1, 16, 2, 320, device=cuda)
         layers.blockwise_attention(y, y, y)
@@ -1261,6 +1268,173 @@ def test_cuda_reduced_lm_forward_matches_cpu(cuda, arch):
             tol = 2.0 ** -6 * float(want.abs().max())
             torch.testing.assert_close(got, want, rtol=0, atol=tol)
     full = tfm.lm_forward(card, toks, cfg, dtype=torch.float32)
+    cache = tfm.init_kv_cache(cfg, 2, 64, dtype=torch.float32, device=cuda)
+    dec = torch.cat([tfm.lm_decode_step(card, cache, toks[:, p:p + 1], p,
+                                        cfg, dtype=torch.float32)[0]
+                     for p in range(64)], dim=1)
+    torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------------------------- MoE and MLA
+@pytest.mark.gpu
+@pytest.mark.parametrize("dk,dv", [(192, 128), (64, 32), (96, 32),
+                                   (256, 128), (160, 64), (100, 60)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_narrow_v_matches_plain(cuda, dtype, dk, dv):
+    """v narrower than q and k (MLA's prefill: dk 192, dv 128) on the
+    ``[dv]`` instances: bf16 on the V-width template of
+    flash_attn_fwd_wgmma (192 x 128; 256 x 128 on the 256 instance, its
+    V boxes past dv cleared; a narrower v on the 64 and 128 instances, a
+    V box wholly past dv at 96 x 32 and 160 x 64),
+    f32 with v zero-padded to dk; an off-stride pair (100 x 60) copied to
+    104 x 64 first.  Causal and not, S and T off the tiles, S != T both
+    ways, MQA and H = Hk; one launch of flash_instance's key each."""
+    rng = np.random.default_rng(41)
+    assert flash_instance(dtype, dk, dv) == f"{flash_kernel(dtype, dk)}[dv]"
+    for B, S, T, H, Hk, causal in ((2, 200, 200, 4, 2, True),
+                                   (1, 70, 300, 4, 1, True),
+                                   (1, 300, 70, 2, 2, False),
+                                   (1, 257, 257, 4, 4, True)):
+        q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)).to(
+            cuda, dtype) for sh in ((B, S, H, dk), (B, T, Hk, dk),
+                                    (B, T, Hk, dv)))
+        before = dict(launch.LAUNCHES)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        grew = {name: c - before[name] for name, c in launch.LAUNCHES.items()
+                if c != before[name]}
+        assert grew == {flash_instance(dtype, dk, dv): 1}
+        assert got.shape == (B, S, H, dv) and got.dtype == dtype
+        _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_blockwise_attention_mla_widths(cuda, dtype):
+    """DeepSeek-V2's MLA prefill widths (q, k 192, v 128, H = Hk = 16,
+    scale 1/sqrt(192)) through the model's attention: one ``[dv]``
+    launch, equal to the plain scan."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B, S, H = 1, 512, 16
+    q, k = (torch.randn(B, S, H, 192, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    v = torch.randn(B, S, H, 128, generator=gen, device=cuda).to(dtype)
+    launch.reset_launches()
+    got = layers.blockwise_attention(q, k, v, causal=True,
+                                     scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
+        flash_instance(dtype, 192, 128): 1}
+    want = layers._attention_fwd_scan(q, k, v, True, 0, 512,
+                                      192 ** -0.5)[0]
+    _assert_attn_close(got, want)
+
+
+def _moe_case(arch, shared):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch, reduced=True)
+    rng = np.random.default_rng(5)
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    w = {"x": rng.standard_normal((4, 48, D)),
+         "router": 0.3 * rng.standard_normal((D, E)),
+         "w1": 0.1 * rng.standard_normal((E, D, 2 * F)),
+         "w2": 0.1 * rng.standard_normal((E, F, D)),
+         "ws1": 0.1 * rng.standard_normal((D, 2 * F)) if shared else None,
+         "ws2": 0.1 * rng.standard_normal((F, D)) if shared else None}
+    return cfg, {k: None if v is None else _t(v.astype(np.float32))
+                 for k, v in w.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shared", [("qwen3-moe-30b-a3b", False),
+                                         ("deepseek-v2-lite-16b", True)])
+def test_cuda_moe_block_deterministic_and_matches_cpu(cuda, arch, shared):
+    """moe_block on the card: bit-identical across two runs (each kept
+    slot written once, the combine summed in a fixed order, the routing
+    order stable) and, in f32, equal to the CPU's to 1e-5; the planted
+    drops at the config's capacity factor are the same pairs (the CPU
+    and card routings agree)."""
+    from repro_torch.models import layers
+    cfg, w = _moe_case(arch, shared)
+    args = [w[k] for k in ("x", "router", "w1", "w2", "ws1", "ws2")]
+    card = [None if a is None else a.to(cuda) for a in args]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = card[0].to(dtype)
+        runs = [layers.moe_block(x, *card[1:], cfg=cfg) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+    with clustering.full_f32:
+        got = layers.moe_block(*card, cfg=cfg)
+    want = layers.moe_block(*args, cfg=cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    t = args[0].shape[0] * args[0].shape[1]
+    _, eids_cpu = layers._router(args[0].reshape(t, -1), args[1], cfg)
+    _, eids_card = layers._router(card[0].reshape(t, -1), card[1], cfg)
+    assert torch.equal(eids_card.cpu(), eids_cpu)
+
+
+@pytest.mark.gpu
+def test_cuda_mla_decode_step_matches_cpu(cuda):
+    """The reduced DeepSeek-V2-Lite's f32 decode steps on the card (the
+    absorbed MLA over the compressed cache, the MoE at B = 2) equal the
+    CPU's to 1e-5, logits and caches, over 6 positions."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("deepseek-v2-lite-16b", reduced=True)
+    cpu = tfm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(cuda))
+            for k, v in cpu.items()}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 6)))
+    cc = tfm.init_kv_cache(cfg, 2, 6, dtype=torch.float32, device="cpu")
+    gc = tfm.init_kv_cache(cfg, 2, 6, dtype=torch.float32, device=cuda)
+    for p in range(6):
+        want, _ = tfm.lm_decode_step(cpu, cc, toks[:, p:p + 1], p, cfg,
+                                     dtype=torch.float32)
+        got, _ = tfm.lm_decode_step(card, gc, toks[:, p:p + 1], p, cfg,
+                                    dtype=torch.float32)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for key in cc:
+        torch.testing.assert_close(gc[key].cpu(), cc[key], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"])
+def test_cuda_reduced_moe_lm_matches_cpu(cuda, arch):
+    """A reduced MoE LM on the card: one flash launch a layer of the key
+    ``flash_instance`` names (``[dv]`` under MLA) in f32 and bf16, f32
+    logits equal to the CPU's to 1e-4, and at capacity factor 16 its f32
+    decode equals its forward at 2e-3."""
+    import dataclasses as dc
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = dc.replace(get_config(arch, reduced=True), capacity_factor=16.0)
+    cpu = tfm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(cuda))
+            for k, v in cpu.items()}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    if cfg.mla:
+        dk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        dv = cfg.v_head_dim
+    else:
+        dk = dv = cfg.d_head
+    for dtype in (torch.float32, torch.bfloat16):
+        launch.reset_launches()
+        got = tfm.lm_forward(card, toks, cfg, dtype=dtype)
+        torch.cuda.synchronize()
+        grew = {n: c for n, c in launch.LAUNCHES.items() if c}
+        assert grew == {flash_instance(dtype, dk, dv): cfg.n_layers}
+        assert bool(torch.isfinite(got).all())
+    want = tfm.lm_forward(cpu, toks, cfg, dtype=torch.float32)
+    full = tfm.lm_forward(card, toks, cfg, dtype=torch.float32)
+    torch.testing.assert_close(full.cpu(), want, rtol=1e-4, atol=1e-4)
     cache = tfm.init_kv_cache(cfg, 2, 64, dtype=torch.float32, device=cuda)
     dec = torch.cat([tfm.lm_decode_step(card, cache, toks[:, p:p + 1], p,
                                         cfg, dtype=torch.float32)[0]

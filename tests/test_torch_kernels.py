@@ -475,6 +475,42 @@ def test_flash_kernel_rule_limits(dtype, dh):
         flash_kernel(dtype, dh)
 
 
+@pytest.mark.parametrize("dtype,dh,dv,key", [
+    (torch.bfloat16, 192, 128, "flash_attn_fwd_wgmma[dv]"),   # MLA
+    (torch.float32, 192, 128, "flash_attn_fwd_tf32[dv]"),
+    (torch.bfloat16, 48, 32, "flash_attn_fwd_wgmma[dv]"),     # reduced MLA
+    (torch.bfloat16, 100, 60, "flash_attn_fwd_wgmma[dv]"),    # off stride
+    (torch.float32, 6, 2, "flash_attn_fwd_tf32[dv]"),
+    (torch.bfloat16, 128, 128, "flash_attn_fwd_wgmma"),       # dv == dh
+    (torch.float32, 192, 192, "flash_attn_fwd_tf32[256]"),
+    (torch.bfloat16, 100, 100, "flash_attn_fwd_wgmma[stride-pad]"),
+])
+def test_flash_instance_narrow_v(dtype, dh, dv, key):
+    """v narrower than q and k counts as ``<kernel>[dv]`` whatever the
+    strides (bf16: the V-width instances; f32: v zero-padded to dh); a v
+    as wide as q keeps the key of its head width; a v wider than q, or
+    of no width, raises."""
+    assert flash_instance(dtype, dh, dv) == key
+    assert key in launch.LAUNCHES
+    for bad in (dh + 1, 0):
+        with pytest.raises(ValueError, match="v width"):
+            flash_instance(dtype, dh, bad)
+
+
+def test_flash_attention_narrow_v_on_cpu_runs_the_plain_version():
+    """On CPU tensors the wrapper runs its plain version at dv < dh, as
+    at dv == dh, and launches nothing."""
+    rng = np.random.default_rng(11)
+    q, k = (_t(rng.standard_normal((2, 20, h, 48)).astype(np.float32))
+            for h in (4, 2))
+    v = _t(rng.standard_normal((2, 20, 2, 32)).astype(np.float32))
+    before = dict(launch.LAUNCHES)
+    got = flash_attention(q, k, v, causal=True)
+    assert got.shape == (2, 20, 4, 32)
+    assert torch.equal(got, flash_attn_ref(q, k, v, causal=True))
+    assert launch.LAUNCHES == before
+
+
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.float32, 128, "l2dist_wgmma"),     # the ground-truth chunk
     (torch.float32, 96, "l2dist_wgmma"),

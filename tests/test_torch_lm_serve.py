@@ -144,13 +144,3 @@ def test_launch_serve_anns_on_cpu():
     res = _launch("--mode", "anns", "--n", "2000", "--queries", "16")
     assert res["recall@10"] > 0.5 and res["mean_ios"] >= 0
 
-
-def test_launch_serve_lm_refuses_moe():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src")
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm",
-         "--arch", "qwen3-moe-30b-a3b", "--reduced", "--device", "cpu"],
-        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr

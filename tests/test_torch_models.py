@@ -13,7 +13,6 @@ decode against its forward 2e-3, the reference's limit
 (``tests/test_serve.py``).
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -271,28 +270,6 @@ def test_decode_matches_forward(arch):
                                       dtype=torch.float32)[0]
                      for p in range(S)], dim=1)
     np.testing.assert_allclose(_np(dec), _np(full), rtol=2e-3, atol=2e-3)
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"])
-def test_moe_and_mla_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        T.init_lm(gen, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        T.init_kv_cache(cfg, 1, 4, device="cpu")
-    dense = get_config("qwen3-0.6b", reduced=True)
-    _, pp = _params("qwen3-0.6b")
-    toks = _tokens(dense, 1, 4)
-    cache = T.init_kv_cache(dense, 1, 4, device="cpu")
-    # the dense params under a MoE/MLA config: refused before use
-    wide = dataclasses.replace(cfg, d_model=dense.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        T.lm_forward(pp, toks, wide)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        T.lm_prefill(pp, toks, wide)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        T.lm_decode_step(pp, cache, toks[:, :1], 0, wide)
 
 
 def test_mesh_ctx_raises():
