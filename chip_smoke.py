@@ -29,8 +29,9 @@ From the root of a checkout, with one CUDA card:
    kernels of ``flash_kernel``'s rule, on the tensor cores, in 3xTF32 for
    f32, at dh 8, 16, 64, 96, 128, 192 and 256, f32 at 36, and off the
    16-byte stride at 6, 100 and bf16 36, zero-padded; v narrower than q
-   and k on the ``[dv]`` instances: 192 x 128, 64 x 32, 96 x 32, 256 x
-   128 and 100 x 60), f16 and mixed inputs, ragged sizes, MQA (Hk = 1),
+   and k on the ``[dv]`` instances: 192 x 128, 160 x 64, 136 x 120, 64 x
+   32, 96 x 32, 256 x 128 and 100 x 60), f16 and mixed inputs, ragged
+   sizes, MQA (Hk = 1),
    causal and not, S != T;
 3. builds a SIFT1B-width index (dim 128 uint8, M = 32, K = 256) over
    ``--n`` clustered vectors drawn from ``--seed`` through the public
@@ -654,6 +655,8 @@ def check_entry_kernels_small(dev: torch.device,
         # v narrower than q and k (the [dv] instances; MLA's 192 x 128)
         for bsz, s, t, h, hk, dh, dv, causal in (
                 (1, 70, 130, 4, 2, 192, 128, True),
+                (1, 130, 70, 2, 1, 160, 64, False),
+                (2, 97, 97, 4, 4, 136, 120, True),
                 (2, 97, 97, 4, 4, 64, 32, True),
                 (1, 130, 70, 2, 1, 96, 32, False),
                 (1, 65, 65, 4, 2, 256, 128, True),

@@ -6,7 +6,7 @@ source trees beside this one's on one card, and reads each output
 against its plain version.
 
     python3 scripts/kernel_ab.py --against DIR [--against DIR ...]
-                                 [--out FILE] [--seed 0]
+                                 [--only GROUP ...] [--out FILE] [--seed 0]
 
 Each ``DIR`` is the root of another tree of this repo, or of its
 ``src/repro_torch`` at least: an earlier commit unpacked with
@@ -32,7 +32,9 @@ with the rows in random order and once sorted by descending distance,
 where every row beats each block's running threshold; flash attention at
 Qwen3-0.6B's widths (H 16, Hk 8), B = 1, S = T = 4096, causal, in bf16
 and in f32 at dh 128, 96 and 256, and in bf16 at dh 256 and at dh 100
-(off the 16-byte row stride); exact L2 at the ground-truth chunk, 256
+(off the 16-byte row stride), and at DeepSeek-V2-Lite's MLA prefill
+(H = Hk = 16, q and k 192 wide, v 128, B = 1, S = T = 4096, causal) in
+bf16 and f32; exact L2 at the ground-truth chunk, 256
 queries x 2^20 vectors x 128, in f32, in bf16 and passed as uint8, in
 bf16 cut to SPACEV1B's d = 100 (rows off TMA's 16-byte stride) and to
 an odd d = 101, and in f32 and bf16 at GIST1M's d = 960, once on
@@ -59,6 +61,8 @@ each function where there is one (``embedding_bag``,
 ``scaled_dot_product_attention``, ``addmm``).  A tree whose process fails is
 reported with its error, and the others still run.  Prints the card's
 name and power limit, and one JSON object, which ``--out`` also writes.
+``--only`` keeps the readings of the groups named (``adc``: the dense,
+top-k, fused and spill scans; ``flash``; ``l2``), all by default.
 """
 
 from __future__ import annotations
@@ -78,12 +82,19 @@ FUSED = dict(N=10_000_000, dsub=4, topk=512,      # the fused windows
              S={"main": 1024, "multi": 8192})
 TOPK = dict(N=10_000_000, topk=512)               # smoke phase 5's top-k
 ATTN = dict(S=4096, H=16, Hk=8)                  # Qwen3-0.6B's attention
-ATTN_CASES = ((torch.bfloat16, "bf16", 128), (torch.float32, "f32", 128),
-              (torch.bfloat16, "bf16,dh96", 96),
-              (torch.float32, "f32,dh96", 96),
-              (torch.float32, "f32,dh256", 256),
-              (torch.bfloat16, "bf16,dh256", 256),
-              (torch.bfloat16, "bf16,dh100", 100))
+MLA = dict(S=4096, H=16, Hk=16)                 # DeepSeek-V2-Lite's MLA
+# (dtype, tag, q/k width, v width, the shape: S = T, H, Hk)
+ATTN_CASES = ((torch.bfloat16, "bf16", 128, 128, ATTN),
+              (torch.float32, "f32", 128, 128, ATTN),
+              (torch.bfloat16, "bf16,dh96", 96, 96, ATTN),
+              (torch.float32, "f32,dh96", 96, 96, ATTN),
+              (torch.float32, "f32,dh256", 256, 256, ATTN),
+              (torch.bfloat16, "bf16,dh256", 256, 256, ATTN),
+              (torch.bfloat16, "bf16,dh100", 100, 100, ATTN),
+              (torch.bfloat16, "bf16,mla", 192, 128, MLA),
+              (torch.float32, "f32,mla", 192, 128, MLA))
+GROUPS = ("adc", "flash", "l2")
+PREFIX = {"adc": "adc_", "flash": "flash_", "l2": "l2dist"}   # sources
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 # (dtype, tag, width, integers below): the chunk at SIFT1B's 128, cut to
 # SPACEV1B's 100 and to an odd 101, and at GIST1M's 960
@@ -96,14 +107,15 @@ L2_CASES = ((torch.float32, "f32", 128, 256),
             (torch.bfloat16, "bf16,d960", 960, 128))
 
 
-def measure(tree: Path, seed: int) -> dict:
-    """One tree's readings, in this process."""
+def measure(tree: Path, seed: int, only=GROUPS) -> dict:
+    """One tree's readings of the groups ``only``, in this process."""
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
     import chip_smoke
     from repro_torch.kernels import build
     from repro_torch.kernels.pq_adc import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build()
+    build.build([n for n in build.SOURCES           # the groups' sources
+                 if any(n.startswith(PREFIX[g]) for g in only)])
     dev = torch.device("cuda")
     F = torch.nn.functional
     yardsticks = tree.resolve() == ROOT
@@ -115,37 +127,44 @@ def measure(tree: Path, seed: int) -> dict:
         return out, sorted(n for n, c in ops.LAUNCHES.items()
                            if c != before[n])
 
+    out = {}
     rng = np.random.default_rng(seed)
-    codes = torch.from_numpy(rng.integers(0, K, (N, M)).astype(
-        np.uint8)).to(dev)
-    luts = torch.from_numpy(rng.random((B, M, K)).astype(np.float32)).to(dev)
-    out, launched = ran(lambda: ops.pq_adc_batch(codes, luts))
-    dense = dict(launched=launched, bit_equal=bool(torch.equal(
-        out, ref.pq_adc_batch_ref(codes, luts))),
-        ms=chip_smoke.gpu_ms(lambda: ops.pq_adc_batch(codes, luts), 200))
-    if yardsticks:
-        weight = luts.permute(1, 2, 0).reshape(M * K, B).contiguous()
-        idx = codes.long() + torch.arange(M, device=dev) * K
-        dense["embedding_bag_ms"] = chip_smoke.gpu_ms(
-            lambda: F.embedding_bag(idx, weight, mode="sum"), 200)
-
     gen = torch.Generator(device=dev).manual_seed(seed)
-    topk = topk_readings(ops, ref, dev, gen, luts[0], chip_smoke.gpu_ms)
-    flash = {}
-    for dtype, tag, dh in ATTN_CASES:
-        flash[f"flash_attn[{tag}]"] = reading(lambda: flash_reading(
-            dtype, dh, dev, gen, ran, yardsticks, chip_smoke))
-    l2 = {}
-    for dtype, tag, width, below in L2_CASES:
-        l2[f"l2dist[{tag}]"] = reading(lambda: l2_reading(
-            dtype, width, below, dev, gen, ran, yardsticks, chip_smoke))
-    # last, so the readings above keep the inputs of earlier runs
-    fused = fused_readings(ops, dev, gen, chip_smoke.window_rows,
-                           chip_smoke.gpu_ms)
-    return {"adc_scan_batch": dense, "pq_adc_fused_topk": fused,
-            "pq_adc_fused_topk[spill]": spill_readings(
-                ops, dev, gen, chip_smoke.window_rows, chip_smoke.gpu_ms),
-            "pq_adc_topk": topk, **flash, **l2}
+    if "adc" in only:
+        codes = torch.from_numpy(rng.integers(0, K, (N, M)).astype(
+            np.uint8)).to(dev)
+        luts = torch.from_numpy(rng.random((B, M, K)).astype(
+            np.float32)).to(dev)
+        res, launched = ran(lambda: ops.pq_adc_batch(codes, luts))
+        dense = dict(launched=launched, bit_equal=bool(torch.equal(
+            res, ref.pq_adc_batch_ref(codes, luts))),
+            ms=chip_smoke.gpu_ms(lambda: ops.pq_adc_batch(codes, luts),
+                                 200))
+        if yardsticks:
+            weight = luts.permute(1, 2, 0).reshape(M * K, B).contiguous()
+            idx = codes.long() + torch.arange(M, device=dev) * K
+            dense["embedding_bag_ms"] = chip_smoke.gpu_ms(
+                lambda: F.embedding_bag(idx, weight, mode="sum"), 200)
+        out["adc_scan_batch"] = dense
+        out["pq_adc_topk"] = topk_readings(ops, ref, dev, gen, luts[0],
+                                           chip_smoke.gpu_ms)
+        del codes, luts, res
+    if "flash" in only:
+        for dtype, tag, dh, dv, shape in ATTN_CASES:
+            out[f"flash_attn[{tag}]"] = reading(lambda: flash_reading(
+                dtype, dh, dv, shape, dev, gen, ran, yardsticks,
+                chip_smoke))
+    if "l2" in only:
+        for dtype, tag, width, below in L2_CASES:
+            out[f"l2dist[{tag}]"] = reading(lambda: l2_reading(
+                dtype, width, below, dev, gen, ran, yardsticks, chip_smoke))
+    if "adc" in only:
+        # last, so the readings above keep the inputs of earlier runs
+        out["pq_adc_fused_topk"] = fused_readings(
+            ops, dev, gen, chip_smoke.window_rows, chip_smoke.gpu_ms)
+        out["pq_adc_fused_topk[spill]"] = spill_readings(
+            ops, dev, gen, chip_smoke.window_rows, chip_smoke.gpu_ms)
+    return out
 
 
 def reading(fn) -> dict:
@@ -157,17 +176,19 @@ def reading(fn) -> dict:
         return {"error": str(e)[:300]}
 
 
-def flash_reading(dtype, dh, dev, gen, ran, yardsticks, chip_smoke) -> dict:
-    """Flash attention at Qwen3-0.6B's S, T, H, Hk and head width dh."""
+def flash_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
+                  chip_smoke) -> dict:
+    """Flash attention at ``shape``'s S = T, H and Hk, q and k ``dh`` wide,
+    v ``dv`` wide."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
     F = torch.nn.functional
-    s, h, hk = ATTN["S"], ATTN["H"], ATTN["Hk"]
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-               for shape in ((1, s, h, dh), (1, s, hk, dh), (1, s, hk, dh)))
+    s, h, hk = shape["S"], shape["H"], shape["Hk"]
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+               for sh in ((1, s, h, dh), (1, s, hk, dh), (1, s, hk, dv)))
     out, launched = ran(lambda: flash_attention(q, k, v, causal=True))
     want = flash_attn_ref(q, k, v, causal=True)
     try:
-        chip_smoke.check_attn(f"flash {dtype} dh={dh}", out, want)
+        chip_smoke.check_attn(f"flash {dtype} dh={dh} dv={dv}", out, want)
         accepted = True
     except AssertionError:
         accepted = False
@@ -354,10 +375,10 @@ def topk_readings(ops, ref, dev, gen, lut, gpu_ms) -> dict:
     return out
 
 
-def in_process(tree: Path, seed: int) -> dict:
+def in_process(tree: Path, seed: int, only) -> dict:
     res = subprocess.run([sys.executable, __file__, "--tree", str(tree),
-                          "--seed", str(seed)], capture_output=True,
-                         text=True, timeout=900)
+                          "--seed", str(seed), "--only", *only],
+                         capture_output=True, text=True, timeout=900)
     if res.returncode:
         raise RuntimeError(f"{tree}: exit {res.returncode}\n"
                            f"{res.stderr[-4000:]}")
@@ -371,12 +392,13 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.tree is not None:           # one tree's process
-        print(json.dumps(measure(args.tree, args.seed)))
+        print(json.dumps(measure(args.tree, args.seed, args.only)))
         return 0
     if not args.against:
         ap.error("give at least one --against DIR")
@@ -388,7 +410,7 @@ def main() -> int:
               "runs": []}
     for other in args.against:
         try:
-            turns = [in_process(t, args.seed)
+            turns = [in_process(t, args.seed, args.only)
                      for t in (other, ROOT, ROOT, other)]
             run = {"against": str(other), "other": [turns[0], turns[3]],
                    "this": [turns[1], turns[2]]}

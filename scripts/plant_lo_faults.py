@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Shows that the GPU tests of the 3xTF32 kernels catch a dropped lo
-term: for each of the flash kernels' four lo parts (the kernel of dh <= 128
-and the one of 128 < dh <= 256, whose warpgroups split the head width),
+term: for each of the flash kernels' four lo parts (the keys-split kernel,
+of dh <= 128 and of MLA's 192 x 128, and the one of 128 < dh <= 256 whose
+warpgroups split the head width),
 and for the lo part of the exact-L2 kernel's streamed query slices, copies
 the tree with that part set to zero and runs the kernel's lo-term tests
 on the copy, which must fail.
@@ -12,21 +13,22 @@ Each copy (``src/``, ``tests/``, ``pytest.ini``) goes under ``--dir``, a
 directory ``.gitignore`` lists, and builds its own kernels there.  The
 nine faults, one edit each:
 
-* ``no_Qhi_Klo`` (``flash_attn_fwd_tf32.cu``, the kernel of dh <= 128):
+* ``no_Qhi_Klo`` (``flash_attn_fwd_tf32.cu``, the keys-split kernel):
   K lo = 0, so Q hi * K lo drops out of S;
 * ``no_Qlo_Khi``: Q lo = 0 (Q lo * K hi);
 * ``no_Plo_Vhi``: P lo = 0 (P lo * V hi);
 * ``no_Phi_Vlo``: V lo = 0 (P hi * V lo);
 * ``wide_no_Qhi_Klo`` ... ``wide_no_Phi_Vlo``: the same four in the
   kernel of 128 < dh <= 256 (the second occurrence of each line the two
-  share; its Q lo is the in-place split's ``lo``);
+  share);
 * ``l2_streamed_no_Qlo_Vhi`` (``l2dist_wgmma.cu``): the prologue that
   splits the queries for the streamed path (d > 128) writes q lo = 0, so
   Q lo * V hi drops out of the distances.
 
 Runs ``pytest -m gpu -k <selection> tests/test_torch_cuda.py`` on each
 copy (the flash faults: every ``flash_tf32`` test at the widths of the
-kernel changed, dh <= 128 or dh 192 and 256; the L2 fault: the
+kernel changed, dh <= 128 and the 192 x 128 ``[dv]`` instance, or dh 192
+and 256; the L2 fault: the
 cross-term tests whose queries carry lo parts and whose query tile is
 streamed) and prints its exit code, its greatest differences and the
 tests that failed; ``--out`` also writes that log.  Exits non-zero unless
@@ -53,23 +55,20 @@ L2 = ("src/repro_torch/kernels/l2dist/csrc/l2dist_wgmma.cu",
       "l2dist_wgmma_cross_terms and vectors and not 128")
 # lines both flash kernels share (occurrence 0 in the kernel of dh <= 128,
 # 1 in the wide one) and their faulty forms
-K_LO = ("            tf32_rna(__fsub_rn(x.x, hi.x)), tf32_rna(__fsub_rn(x.y, hi.y)),\n"
-        "            tf32_rna(__fsub_rn(x.z, hi.z)), tf32_rna(__fsub_rn(x.w, hi.w)));",
-        "            0.f, 0.f, 0.f, 0.f);")
+K_LO = ("kl4[t + 128 * i] = make_float4(",
+        "kl4[t + 128 * i] = make_float4(0.f, 0.f, 0.f, 0.f); (void)make_float4(")
+Q_LO = ("return tf32_rna(__fsub_rn(y, tf32_rna(y)));", "return 0.f;")
 P_LO = ("p_lo[slot] = __float_as_uint(tf32_rna(__fsub_rn(p, hi)));",
         "p_lo[slot] = 0u;")
 V_LO = ("lv[e] = tf32_rna(__fsub_rn(x, hv[e]));", "lv[e] = 0.f;")
 # name -> (source, pytest -k selection, occurrence, count, line, faulty)
 FAULTS = {
     "no_Qhi_Klo": FLASH + (0, 2) + K_LO,
-    "no_Qlo_Khi": FLASH + (0, 1) + (
-        "q_lo[4 * kk + i] = __float_as_uint(tf32_rna(__fsub_rn(x, tf32_rna(x))));",
-        "q_lo[4 * kk + i] = 0u;"),
+    "no_Qlo_Khi": FLASH + (0, 2) + Q_LO,
     "no_Plo_Vhi": FLASH + (0, 2) + P_LO,
     "no_Phi_Vlo": FLASH + (0, 2) + V_LO,
     "wide_no_Qhi_Klo": WIDE + (1, 2) + K_LO,
-    "wide_no_Qlo_Khi": WIDE + (0, 1) + (
-        "return tf32_rna(__fsub_rn(y, tf32_rna(y)));", "return 0.f;"),
+    "wide_no_Qlo_Khi": WIDE + (1, 2) + Q_LO,
     "wide_no_Plo_Vhi": WIDE + (1, 2) + P_LO,
     "wide_no_Phi_Vlo": WIDE + (1, 2) + V_LO,
     "l2_streamed_no_Qlo_Vhi": L2 + (0, 1) + (

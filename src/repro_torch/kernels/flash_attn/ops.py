@@ -10,11 +10,16 @@ Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
   three products: one TF32 product would break the f32 tolerance, three
   keep it).
 
-Each has three instances, at dh 64, 128 and 256: a head width up to 64
-runs on the first, up to 128 on the second, up to 256 on the third, its
-tensor maps taking the true dh as their inner extent, so TMA reads the
-columns past dh as zeros.  TMA needs every row stride on 16 bytes: a head
-width off it (bf16 dh % 8 != 0, f32 dh % 4 != 0) is copied into buffers
+Each kernel has four instances, named by the width of q and k (kDh, the
+K of the Q K^T product) and of v (kDv, the N of the P V product): (64,
+64), (128, 128), (192, 128) and (256, 256).  :func:`flash_plan` states
+the rule, the same for both dtypes: a head width up to 64 runs on the
+first, up to 128 on the second, up to 192 with v at most 128 wide on the
+third (DeepSeek-V2's MLA prefill: q and k 192 wide, v 128), the rest on
+the fourth.  The tensor maps take the true widths as their inner extent,
+so TMA reads the columns past dh (q, k) and dv (v) as zeros; the output
+is written at v's width.  TMA needs every row stride on 16 bytes: a
+width off it (bf16 % 8 != 0, f32 % 4 != 0) is copied into buffers
 zero-padded to the next multiple of 8 or 4 (zero columns add nothing to
 a score and give zero output columns, which are cut off), with the scale
 of the true dh.  Above dh = 256 the card has no kernel and the wrapper
@@ -25,26 +30,20 @@ k and v, mixed, and views.  ``launch.operand_dtype`` names the dtype the
 kernel computes in (bf16 where all three are uint8, int8 or bf16; f32
 otherwise); an input of another dtype, not contiguous or off a 16-byte
 boundary is copied first.  It returns q's dtype, as the JAX kernel does.
+v may be narrower than q and k (dv < dh), as the JAX model's attention
+takes it.
 
-v may be narrower than q and k (dv < dh: MLA's prefill, q and k 192
-wide, v 128), as the JAX model's attention takes it.  bf16 runs it on
-``flash_attn_fwd_wgmma``: MLA's widths on the instance whose V tile and
-O are 128 wide (``kDv`` beside ``kDh``: 192 x 128), others on the
-instance of q's width, V's columns past dv read as zeros; f32, which serves
-only the parity checks, zero-pads v to q's width on the f32 kernel (the
-zero columns add nothing) and cuts the output to dv.  Both count as
-``<kernel>[dv]``.
-
-:func:`flash_kernel` states that rule, :func:`flash_instance` the key a
+:func:`flash_kernel` names the kernel, :func:`flash_instance` the key a
 launch is counted under: ``<kernel>[dv]`` where v is narrower than q;
 else ``<kernel>`` at dh 64 and 128, ``<kernel>[padded]`` at other
 widths up to 128 on the stride, ``<kernel>[256]`` above 128 on the
 stride, ``<kernel>[stride-pad]`` off it.  The wrapper keeps the JAX
 package's layout — q (B, S, H, dh), k (B, T, Hk, dh), v (B, T, Hk, dv)
-— and runs the plain version when its tensors lie on the CPU.  On CUDA tensors it launches the kernel the rule names, or
-raises: it checks device and shapes first and the ``cudaError_t`` after,
-allocates the output with ``torch.empty``, launches on the current
-stream and counts the launch in ``LAUNCHES[flash_instance(dtype, dh)]``
+— and runs the plain version when its tensors lie on the CPU.  On CUDA
+tensors it launches the kernel the plan names, or raises: it checks
+device and shapes first and the ``cudaError_t`` after, allocates the
+output with ``torch.empty``, launches on the current stream and counts
+the launch in ``LAUNCHES[flash_instance(dtype, dh, dv)]``
 (``repro_torch.kernels.launch``).  Ragged S and T need no padding: the
 kernels mask their edge tiles.
 """
@@ -52,7 +51,7 @@ kernels mask their edge tiles.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,10 +91,9 @@ def flash_width(dtype: torch.dtype, dh: int) -> int:
 def flash_instance(dtype: torch.dtype, dh: int,
                    dv: Optional[int] = None) -> str:
     """The ``LAUNCHES`` key of the kernel :func:`flash_kernel` names:
-    ``<kernel>[dv]`` where v is ``dv`` wide, narrower than q and k (bf16:
-    the instance of that V width; f32: v zero-padded to dh), whatever the
-    strides; else ``<kernel>[stride-pad]`` for a head width off the
-    16-byte row stride (copied with zero columns first); on it,
+    ``<kernel>[dv]`` where v is ``dv`` wide, narrower than q and k,
+    whatever the strides; else ``<kernel>[stride-pad]`` for a head width
+    off the 16-byte row stride (copied with zero columns first); on it,
     ``<kernel>[256]`` above 128 (the 256 instance), ``<kernel>[padded]``
     at other widths than 64 and 128 (its columns past dh read as zeros
     up to the instance), else the kernel's name.  Raises ``ValueError``
@@ -113,6 +111,37 @@ def flash_instance(dtype: torch.dtype, dh: int,
     if dh not in _INSTANCE_DH:
         return f"{name}[padded]"
     return name
+
+
+class FlashPlan(NamedTuple):
+    """What :func:`flash_attention` launches: the kernel's instance (kDh,
+    kDv), the widths of q/k and of v the kernel is passed (each rounded up
+    to the 16-byte row stride), and the ``LAUNCHES`` key."""
+    instance: Tuple[int, int]
+    widths: Tuple[int, int]
+    key: str
+
+
+def flash_plan(dtype: torch.dtype, dh: int,
+               dv: Optional[int] = None) -> FlashPlan:
+    """The instance that computes attention over q and k ``dh`` wide and v
+    ``dv`` wide (``dh`` when None) for inputs of ``dtype``, by the rule of
+    both kernels' C entry points: q/k at most 64 wide -> (64, 64); at most
+    128 -> (128, 128); at most 192 with v at most 128 -> (192, 128); else
+    (256, 256), the widths taken after rounding to the row stride.  Raises
+    ``ValueError`` as :func:`flash_instance` does."""
+    dv = dh if dv is None else dv
+    key = flash_instance(dtype, dh, dv)
+    dp, dvp = flash_width(dtype, dh), flash_width(dtype, dv)
+    if dp <= 64:
+        instance = (64, 64)
+    elif dp <= 128:
+        instance = (128, 128)
+    elif dp <= 192 and dvp <= 128:
+        instance = (192, 128)
+    else:
+        instance = (256, 256)
+    return FlashPlan(instance, (dp, dvp), key)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -138,12 +167,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} (H % Hk == 0)")
-    name = flash_instance(dtype, dh, dv)    # raises past dh = 256, dv > dh
+    plan = flash_plan(dtype, dh, dv)        # raises past dh = 256, dv > dh
     if t == 0:
         raise ValueError("attention over zero keys")
-    dp = flash_width(dtype, dh)
-    # bf16 loads v at its own width; f32 pads it with zeros to q's
-    dvp = flash_width(dtype, dv) if dtype == torch.bfloat16 else dp
+    dp, dvp = plan.widths
     q_dtype = q.dtype
     q, k = (operand(nm, x, dtype, 4, dp, dev) for nm, x in (("q", q),
                                                             ("k", k)))
@@ -151,9 +178,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(b, s, h, dvp, dtype=dtype, device=dev)
     if b and s and h:
         scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-        widths = (dp, dvp) if dtype == torch.bfloat16 else (dp,)
-        launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), b, s, t, h, hk, *widths, scale, int(causal))
+        launch(plan.key, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), b, s, t, h, hk, dp, dvp, scale, int(causal))
     if dvp != dv:
         out = out[..., :dv]
     return out.to(q_dtype).contiguous()

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) helpers shared by the tensor-core kernels
 // (flash_attn/csrc/flash_attn_fwd_wgmma.cu, flash_attn_fwd_tf32.cu,
 // l2dist/csrc/l2dist_wgmma.cu): mbarriers, TMA tile loads and stores,
-// cp.async granules that arrive on an mbarrier, wgmma shared-memory
-// descriptors, the wgmma fence / commit / wait, the TF32 split and the
+// cp.async granules that arrive on an mbarrier, named barriers, register
+// reallocation (setmaxnreg), wgmma shared-memory descriptors, the wgmma
+// fence / commit / wait, the TF32 split and the
 // shared-memory TF32 product of the 3xTF32 kernels, and the driver's
 // cuTensorMapEncodeTiled found through the runtime (so no library links
 // -lcuda).  kernels/build.py puts this directory on every source's include
@@ -123,6 +124,23 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 // named barrier `id` (0 is __syncthreads') over `threads` threads
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// an arrival on named barrier `id` that does not wait (the other threads
+// of its `threads` wait there with named_sync)
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// the registers a thread of this warpgroup holds, lowered or raised to N
+// (a multiple of 8 in 24 .. 256; every thread of the warpgroup executes
+// it, and a raise waits until lowered registers free enough)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // shared-memory stores of this thread visible to the async proxy (wgmma

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
     "l2dist_wgmma": (_P,) * 6 + (_I,) * 6 + (_P,),
     "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attn_fwd_tf32": (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
+    "flash_attn_fwd_tf32": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
 }
 
 

@@ -62,7 +62,8 @@ import torch
 from repro_torch.core import clustering, pq
 from repro_torch.kernels import launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
-                                            flash_instance, flash_kernel)
+                                            flash_instance, flash_kernel,
+                                            flash_plan)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                         l2_kernel, l2dist_ref)
 from repro_torch.kernels.launch import operand_dtype
@@ -1278,24 +1279,30 @@ def test_cuda_reduced_lm_forward_matches_cpu(cuda, arch):
 # ------------------------------------------------------------- MoE and MLA
 @pytest.mark.gpu
 @pytest.mark.parametrize("dk,dv", [(192, 128), (64, 32), (96, 32),
-                                   (256, 128), (160, 64), (100, 60)])
+                                   (256, 128), (160, 64), (100, 60),
+                                   (136, 120)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_flash_narrow_v_matches_plain(cuda, dtype, dk, dv):
     """v narrower than q and k (MLA's prefill: dk 192, dv 128) on the
-    ``[dv]`` instances: bf16 on the V-width template of
-    flash_attn_fwd_wgmma (192 x 128; 256 x 128 on the 256 instance, its
-    V boxes past dv cleared; a narrower v on the 64 and 128 instances, a
-    V box wholly past dv at 96 x 32 and 160 x 64),
-    f32 with v zero-padded to dk; an off-stride pair (100 x 60) copied to
-    104 x 64 first.  Causal and not, S and T off the tiles, S != T both
-    ways, MQA and H = Hk; one launch of flash_instance's key each."""
+    ``[dv]`` instances, the same in both dtypes (``flash_plan``): the
+    (192, 128) instance at 192 x 128, 160 x 64 and 136 x 120 (V's tensor
+    map at the true dv; a V box wholly past dv at 160 x 64); 256 x 128 on
+    the 256 instance, its V boxes past dv cleared; a narrower v on the 64
+    and 128 instances (a V box wholly past dv at 96 x 32); an off-stride
+    pair (bf16 100 x 60) copied to 104 x 64 first.  Causal and not, S and
+    T off the tiles, S != T both ways, MQA and H = Hk; one launch of
+    flash_instance's key each."""
     rng = np.random.default_rng(41)
     assert flash_instance(dtype, dk, dv) == f"{flash_kernel(dtype, dk)}[dv]"
+    if 128 < dk <= 192:
+        assert flash_plan(dtype, dk, dv).instance == (192, 128)
     for B, S, T, H, Hk, causal in ((2, 200, 200, 4, 2, True),
                                    (1, 70, 300, 4, 1, True),
                                    (1, 300, 70, 2, 2, False),
-                                   (1, 257, 257, 4, 4, True)):
+                                   (1, 257, 257, 4, 4, True),
+                                   (1, 300, 70, 4, 1, True),
+                                   (2, 70, 300, 2, 2, False)):
         q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)).to(
             cuda, dtype) for sh in ((B, S, H, dk), (B, T, Hk, dk),
                                     (B, T, Hk, dv)))
@@ -1307,6 +1314,50 @@ def test_cuda_flash_narrow_v_matches_plain(cuda, dtype, dk, dv):
         assert grew == {flash_instance(dtype, dk, dv): 1}
         assert got.shape == (B, S, H, dv) and got.dtype == dtype
         _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_f32_narrow_v_allocates_no_wide_v(cuda):
+    """The f32 ``[dv]`` launch reads v at its own width and writes the
+    output at it: around one call at MLA's widths the allocator's peak
+    grows by the dv-wide output alone, with no v zero-padded to q's width
+    (the route before the (192, 128) instance copied v to 192 columns and
+    cut a 192-wide output)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, S, H = 1, 512, 4
+    q, k = (torch.randn(B, S, H, 192, generator=gen, device=cuda)
+            for _ in range(2))
+    v = torch.randn(B, S, H, 128, generator=gen, device=cuda)
+    flash_attention(q, k, v, causal=True)        # kernels built, warm
+    torch.cuda.synchronize()
+    out_bytes = B * S * H * 128 * 4
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - base
+    assert got.shape == (B, S, H, 128)
+    assert grown <= out_bytes + 512, (grown, out_bytes)   # one block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", ["scores", "values"])
+def test_cuda_flash_tf32_narrow_v_lo_terms(cuda, side):
+    """The inputs of test_cuda_flash_tf32_lo_terms on the f32 (192, 128)
+    instance (q and k 192 wide, v 128): every lo term of its 3xTF32
+    products moves the output past f32's 2e-5, so each must be there."""
+    rng = np.random.default_rng(34)
+    B, S, H, Hk = 2, 80, 4, 2
+    gain = dict(scores=(2.0, 2.0, 1.0), values=(1.0, 1.0, 8.0))[side]
+    q, k, v = (_t((g * rng.standard_normal(shape)).astype(np.float32)).to(
+        cuda) for g, shape in zip(gain, ((B, S, H, 192), (B, S, Hk, 192),
+                                         (B, S, Hk, 128))))
+    before = dict(launch.LAUNCHES)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    key = flash_instance(torch.float32, 192, 128)
+    assert launch.LAUNCHES[key] == before[key] + 1
+    _assert_attn_close(got, flash_attn_ref(q, k, v, causal=True))
 
 
 @pytest.mark.gpu

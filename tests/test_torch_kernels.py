@@ -45,7 +45,7 @@ from repro_torch.core.engine import ground_truth
 from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
                                             flash_instance, flash_kernel,
-                                            flash_width)
+                                            flash_plan, flash_width)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                         l2_kernel, l2_plan, l2_width,
                                         l2dist_ref)
@@ -487,7 +487,7 @@ def test_flash_kernel_rule_limits(dtype, dh):
 ])
 def test_flash_instance_narrow_v(dtype, dh, dv, key):
     """v narrower than q and k counts as ``<kernel>[dv]`` whatever the
-    strides (bf16: the V-width instances; f32: v zero-padded to dh); a v
+    strides (both dtypes: the instances with a V width of their own); a v
     as wide as q keeps the key of its head width; a v wider than q, or
     of no width, raises."""
     assert flash_instance(dtype, dh, dv) == key
@@ -495,6 +495,63 @@ def test_flash_instance_narrow_v(dtype, dh, dv, key):
     for bad in (dh + 1, 0):
         with pytest.raises(ValueError, match="v width"):
             flash_instance(dtype, dh, bad)
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+_WG, _TF = "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32"
+
+
+@pytest.mark.parametrize("dtype,dh,dv,instance,widths,key", [
+    (_BF, 192, 128, (192, 128), (192, 128), f"{_WG}[dv]"),      # MLA
+    (_F32, 192, 128, (192, 128), (192, 128), f"{_TF}[dv]"),
+    (_BF, 48, 32, (64, 64), (48, 32), f"{_WG}[dv]"),            # reduced
+    (_BF, 100, 60, (128, 128), (104, 64), f"{_WG}[dv]"),        # off stride
+    (_F32, 6, 2, (64, 64), (8, 4), f"{_TF}[dv]"),
+    (_BF, 128, 128, (128, 128), (128, 128), _WG),                # dv == dh
+    (_F32, 192, 192, (256, 256), (192, 192), f"{_TF}[256]"),
+    (_BF, 100, 100, (128, 128), (104, 104), f"{_WG}[stride-pad]"),
+    (_F32, 160, 64, (192, 128), (160, 64), f"{_TF}[dv]"),
+    (_BF, 160, 64, (192, 128), (160, 64), f"{_WG}[dv]"),
+    (_F32, 256, 128, (256, 256), (256, 128), f"{_TF}[dv]"),
+    (_BF, 256, 128, (256, 256), (256, 128), f"{_WG}[dv]"),
+    (_F32, 136, 120, (192, 128), (136, 120), f"{_TF}[dv]"),
+    (_BF, 136, 120, (192, 128), (136, 120), f"{_WG}[dv]"),
+    (_BF, 192, 136, (256, 256), (192, 136), f"{_WG}[dv]"),      # v > 128
+    (_F32, 190, 130, (256, 256), (192, 132), f"{_TF}[dv]"),
+    (_F32, 64, None, (64, 64), (64, 64), _TF),                   # dense
+    (_F32, 128, None, (128, 128), (128, 128), _TF),
+    (_BF, 64, None, (64, 64), (64, 64), _WG),
+    (_BF, 96, None, (128, 128), (96, 96), f"{_WG}[padded]"),
+    (_F32, 96, None, (128, 128), (96, 96), f"{_TF}[padded]"),
+    (_F32, 256, None, (256, 256), (256, 256), f"{_TF}[256]"),
+    (_BF, 256, None, (256, 256), (256, 256), f"{_WG}[256]"),
+], ids=str)
+def test_flash_plan(dtype, dh, dv, instance, widths, key):
+    """The instance both kernels' C entry points pick, the widths the
+    wrapper passes them (rounded to the 16-byte row stride) and the launch
+    key: (64, 64) up to 64, (128, 128) up to 128, (192, 128) up to 192
+    with v at most 128 wide (MLA's prefill, in f32 as in bf16: no v
+    padded to q's width), (256, 256) for the rest."""
+    plan = flash_plan(dtype, dh, dv)
+    assert plan == (instance, widths, key)
+    assert plan.key == flash_instance(dtype, dh, dv)
+    assert key in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF], ids=["f32", "bf16"])
+def test_flash_plan_takes_the_smallest_instance_that_holds(dtype):
+    """For every pair 1 <= dv <= dh <= 256 the plan's instance holds the
+    widths it passes (kDh >= q/k's, kDv >= v's), and no instance earlier in
+    (64, 64), (128, 128), (192, 128), (256, 256) does."""
+    order = ((64, 64), (128, 128), (192, 128), (256, 256))
+    for dh in range(1, 257, 3):
+        for dv in range(1, dh + 1, 5):
+            plan = flash_plan(dtype, dh, dv)
+            dp, dvp = plan.widths
+            assert (dp, dvp) == (flash_width(dtype, dh),
+                                 flash_width(dtype, dv))
+            holds = [i for i in order if i[0] >= dp and i[1] >= dvp]
+            assert plan.instance == holds[0]
 
 
 def test_flash_attention_narrow_v_on_cpu_runs_the_plain_version():
