@@ -5,7 +5,7 @@
 
 From the root of a checkout, with one CUDA card:
 
-1. prints the card's name and power limit, builds the seven CUDA kernel
+1. prints the card's name and power limit, builds the eight CUDA kernel
    sources from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per
    source, in parallel), prints the build time and each ``ptxas``
    register/spill line;
@@ -203,7 +203,33 @@ From the root of a checkout, with one CUDA card:
    cut to ``MOE_LAYERS`` of 48, (a) with ``flash_attn_fwd_wgmma`` /
    ``flash_attn_fwd_tf32`` once a layer, and (b).  The kernels line's
    flash rows count phase 11's launches too, and its ``[dv]`` rows are
-   timed at DeepSeek-V2-Lite's attention shape.
+   timed at DeepSeek-V2-Lite's attention shape;
+12. trains Qwen3-0.6B at its full config in f32 (random weights from
+   ``--seed``) after phase 11 has freed its weights (``train_phase``):
+   (a) the attention backward kernel ``flash_attn_bwd`` at row 6b's shape
+   (B = 1, S = T = 4,096, H 16, Hk 8, dh 128, causal) on f32 and on bf16
+   inputs, each gradient within ``BWD_RTOL`` relative L2 of
+   ``flash_attn_bwd_ref`` on the same residuals, bit-equal across two
+   runs, the forward kernel's lse within ``LSE_RTOL`` of the plain
+   forward's, timed beside its plain version, SDPA's backward alone and
+   its bound (five products); (b) the gradients of ``lm_loss`` on one
+   ``lm_batch`` at B = 2, S = 2,048 through the kernels, with TF32
+   allowed by the caller, each leaf within ``TRAIN_GRAD_RTOL`` relative
+   L2 of the same gradient on the plain attention (the CPU path's scan
+   and backward, on the card) with TF32 off; (c) every
+   train step launches exactly 56 ``flash_attn_fwd_tf32`` (full remat:
+   each block's forward twice) and 28 ``flash_attn_bwd`` and nothing else
+   of flash; (d) 25 steps on that batch at lr 1e-3 lower the loss by more
+   than 0.5 (the reference's ``test_loss_decreases``), a second run of
+   three gives the first three losses to 1e-6, and it prints the step's
+   ms and tokens/s; one bf16 gradient launches ``flash_attn_fwd_wgmma``
+   56 times and the backward 28 (on bf16 residuals); (e) ``supervise``
+   with ``FaultInjector([7])``, ``ckpt_every=5`` (checkpoints in a
+   temporary directory) resumes from step 5 and ends at step 10, at full
+   width with the depth cut to ``FAULT_LAYERS`` (a ``reduced`` line).
+   The kernels line's f32 and bf16 flash forward rows count phase 12's
+   launches too, and it gains the backward's rows (``flash_attn_bwd``,
+   ``flash_attn_bwd@bf16``).
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -300,6 +326,22 @@ MOE_CAPACITY = 16.0         # (b), (c): no pair dropped by the forward
 # Qwen3-30B-A3B at 8 layers 0.01694)
 MOE_ROW_RTOL = {MLA_ARCH: {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4},
                 MOE_ARCH: {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5}}
+# phase 12 (a): the backward kernel's dq, dk, dv, relative L2 against its
+# plain version in f32 on the same residuals: f32 1e-4 (the same f32
+# operations summed in another order); on bf16 inputs both sides round
+# their f32 gradients to bf16 once, so a rounding that falls the other way
+# moves an element by up to 2^-8 of it; the limit is set from the first
+# reading
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 6.7e-5}   # bf16: 2x
+# the first reading on the H100 at this seed (dq 3.36e-5, dk and dv 0)
+# (a): the forward's lse against the plain one's, relative to at least 1
+# (the first causal row's lse is its one scaled score, which may be ~0)
+LSE_RTOL = 1e-5
+TRAIN_BATCH = (2, 2048)     # (b)-(d): B, S of the lm_batch
+TRAIN_GRAD_RTOL = 1e-4      # (b): each gradient leaf's relative L2 error
+TRAIN_STEPS, TRAIN_LR = 25, 1e-3   # (d): tests/test_train.py's recipe
+FAULT_LAYERS = 2            # (e): of 28, at full width
+FAULT_BATCH = (2, 512)      # (e): B, S
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -369,6 +411,13 @@ KERNELS = {
     "flash_attn_fwd_tf32[dv]": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    # the reference's attention VJP (jnp, no pallas_call): _flash_bwd
+    "flash_attn_bwd": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
+        replaces="src/repro/models/layers.py:173"),
+    "flash_attn_bwd@bf16": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
+        replaces="src/repro/models/layers.py:173"),
 }
 
 
@@ -1884,22 +1933,26 @@ def mesh_phase(index, queries: np.ndarray, seed: int) -> dict:
 # --------------------------------------------------------------- phase 10
 @contextlib.contextmanager
 def plain_attention():
-    """Inside it the models' attention runs its plain version (the CPU
-    path's scan) on the card, so a forward can be held against the same
-    forward without the flash kernel."""
+    """Inside it the models' attention runs its plain versions on the
+    card (the CPU path's scan forward and ``flash_attn_bwd_ref``), so a
+    forward or a gradient can be held against the same one without the
+    flash kernels."""
+    from repro_torch.kernels.flash_attn import flash_attn_bwd_ref
     from repro_torch.models import layers
-    kernel = layers.blockwise_attention
+    fwd, bwd = layers.flash_attention, layers.flash_attention_bwd
 
-    def plain(q, k, v, *, causal=True, q_offset=0, block_size=512,
-              scale=None):
+    def plain_fwd(q, k, v, *, causal=True, scale=None, return_lse=False):
         scale = scale if scale is not None else q.shape[-1] ** -0.5
-        return layers._attention_fwd_scan(q, k, v, causal, q_offset,
-                                          block_size, scale)[0]
-    layers.blockwise_attention = plain
+        out, lse = layers._attention_fwd_scan(q, k, v, causal, 0, 512,
+                                              scale)
+        lse = lse.reshape(q.shape[0], q.shape[2], q.shape[1])
+        return (out, lse) if return_lse else out
+    layers.flash_attention = plain_fwd
+    layers.flash_attention_bwd = flash_attn_bwd_ref
     try:
         yield
     finally:
-        layers.blockwise_attention = kernel
+        layers.flash_attention, layers.flash_attention_bwd = fwd, bwd
 
 
 def attn_widths(cfg) -> tuple:
@@ -2296,6 +2349,291 @@ def moe_phase(index, queries: np.ndarray, seed: int) -> tuple:
     return out, flash_calls
 
 
+# --------------------------------------------------------------- phase 12
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """L2 error over L2 norm, in f32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def measure_bwd(name: str, dtype: torch.dtype, seed: int) -> dict:
+    """Phase 12 (a): the backward kernel at row 6b's shape (B = 1, S = T
+    = ATTN_LEN, Qwen3-0.6B's heads, causal) on inputs of ``dtype``,
+    against its plain version in f32 on the same residuals (the forward
+    kernel's output and lse), the forward's lse against the plain
+    forward's; its time, the plain version's, SDPA's backward alone, and
+    the bound: five products a (s, t) pair kept by the mask, the bytes of
+    q, k, v, o, dO and lse read and dq, dk, dv written."""
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd,
+                                                flash_attn_bwd_ref,
+                                                flash_attn_ref)
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    H, Hk, dh = QWEN3_ATTN["H"], QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(1, ATTN_LEN, H, dh, generator=gen, device=dev)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(1, ATTN_LEN, Hk, dh, generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    _, lse_plain = flash_attn_ref(q, k, v, causal=True, return_lse=True)
+    lse_err = float(((lse - lse_plain).abs()
+                     / lse_plain.abs().clamp_min(1)).max())
+    if not lse_err <= LSE_RTOL:
+        raise AssertionError(f"{name}: lse relative error {lse_err} > "
+                             f"{LSE_RTOL}")
+    del lse_plain
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=True)
+    limit = BWD_RTOL[dtype]
+    errs = {}
+    for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: non-finite {g_name}")
+        errs[g_name] = rel_l2(g, w)
+        if not errs[g_name] <= limit:
+            raise AssertionError(f"{name}: {g_name} relative L2 error "
+                                 f"{errs[g_name]} > {limit}")
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two runs differ")
+    max_abs = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    del got, want, again
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    do_t = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+    lib = sdpa_bwd()
+    lib_err = max(rel_l2(g.transpose(1, 2), w) for g, w in zip(
+        lib, flash_attention_bwd(q, k, v, out, lse, do, causal=True)))
+    del lib
+    library_ms = gpu_ms(sdpa_bwd, 5)
+    peak, products = exact_products(dtype)
+    pairs = ATTN_LEN * (ATTN_LEN + 1) // 2            # (s, t) kept
+    nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + out.numel()
+               + do.numel()) * q.element_size() + lse.numel() * 4)
+    row = dict(
+        name=name,
+        shape=dict(B=1, S=ATTN_LEN, T=ATTN_LEN, H=H, Hk=Hk, dh=dh,
+                   dtype=str(dtype), causal=True),
+        max_abs_err=max_abs, rel_l2=errs, lse_rel_err=lse_err,
+        sdpa_rel_l2=lib_err,
+        ms=gpu_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                              causal=True), 5),
+        plain_ms=gpu_ms(lambda: flash_attn_bwd_ref(q, k, v, out, lse, do,
+                                                   causal=True), 3),
+        library_ms=library_ms,
+        **bound(nbytes, products * 5 * 2 * H * dh * pairs, peak=peak))
+    del q, k, v, do, out, lse, o_sdpa, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_phase(seed: int) -> tuple:
+    """Phase 12: Qwen3-0.6B's training at its full config in f32 (random
+    weights from ``seed``): (a) the backward kernel at row 6b's shape;
+    (b) the gradients of ``lm_loss`` on one ``lm_batch`` through the
+    kernels against the same on the plain attention; (c) a train step's
+    launches; (d) TRAIN_STEPS steps on that batch (the reference's
+    ``test_loss_decreases``), a second run of three; (e) ``supervise``
+    through an injected failure, at full width cut to FAULT_LAYERS
+    layers.  Returns (results, the backward's kernels-line rows)."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attn import BWD_KEY
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import FaultInjector, supervise
+    from repro_torch.train.loop import (TrainConfig, init_state,
+                                        make_train_step, value_and_grad)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = {}, {}
+    rows = []
+    for name, dtype in (("flash_attn_bwd", torch.float32),
+                        ("flash_attn_bwd@bf16", torch.bfloat16)):
+        rows.append(measure_bwd(name, dtype, seed))
+        r = rows[-1]
+        log(f"{name} at row 6b's shape {r['shape']}: rel L2 {r['rel_l2']} "
+            f"(limit {BWD_RTOL[dtype]}), lse {r['lse_rel_err']}, SDPA's "
+            f"backward {r['sdpa_rel_l2']}; ms={r['ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f}")
+
+    cfg = get_config(LM_ARCH)
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    rng = np.random.default_rng(seed + 12)
+    batch = lm_batch(rng, *TRAIN_BATCH, cfg.vocab_size)
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+
+    def loss_fn(p, b, dtype=torch.float32):
+        return tfm.lm_loss(p, b, cfg, dtype=dtype)
+
+    # (b) gradients through the kernels, with TF32 allowed by the caller
+    # (the backward and its remat recompute run after lm_forward's full_f32
+    # has closed: value_and_grad must hold them in full f32), against the
+    # plain attention's with TF32 off
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        reset_launches()
+        grads, m = value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        if not torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("value_and_grad left TF32 off")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    grew = {n: c for n, c in LAUNCHES.items() if c}
+    want = {"flash_attn_fwd_tf32": 2 * cfg.n_layers, BWD_KEY: cfg.n_layers}
+    if grew != want:
+        raise AssertionError(f"lm_loss gradient: launches {grew}, expected "
+                             f"{want}")
+    with plain_attention():
+        plain, pm = value_and_grad(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    if {n: c for n, c in LAUNCHES.items() if c} != grew:
+        raise AssertionError("the plain-attention gradient launched a kernel")
+    worst = max((rel_l2(g, w), key) for (key, g), w in zip(
+        tree.keyed_leaves(grads), tree.leaves(plain)))
+    if not worst[0] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"lm_loss gradient {worst[1]}: relative L2 "
+                             f"error {worst[0]} > {TRAIN_GRAD_RTOL}")
+    out["grad"] = {"loss": float(m["loss"]), "loss_plain": float(pm["loss"]),
+                   "worst_rel_l2": worst[0], "worst_leaf": worst[1],
+                   "launches": grew}
+    launches["flash_attn_fwd_tf32"] = 2 * cfg.n_layers
+    launches["flash_attn_bwd"] = cfg.n_layers
+    del grads, plain
+    log("train (b) lm_loss gradients, kernels vs plain attention: "
+        + json.dumps(out["grad"]))
+
+    # (c), (d): steps on one batch; the first timed alone for its launches
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                                           total_steps=40))
+    step = make_train_step(loss_fn, tcfg)
+    state = init_state(params, tcfg)
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))            # synchronises
+        secs.append(time.perf_counter() - t)
+        grew = {n: c for n, c in LAUNCHES.items() if c}
+        if grew != want:
+            raise AssertionError(f"train step {i}: launches {grew}, "
+                                 f"expected {want}")
+    launches["flash_attn_fwd_tf32"] += TRAIN_STEPS * 2 * cfg.n_layers
+    launches["flash_attn_bwd"] += TRAIN_STEPS * cfg.n_layers
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train losses {losses}")
+    if not losses[-1] < losses[0] - 0.5:
+        raise AssertionError(f"loss {losses[0]} -> {losses[-1]} over "
+                             f"{TRAIN_STEPS} steps: not down by 0.5")
+    del state
+    state = init_state(params, tcfg)
+    again = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        again.append(float(m["loss"]))
+    launches["flash_attn_fwd_tf32"] += 3 * 2 * cfg.n_layers
+    launches["flash_attn_bwd"] += 3 * cfg.n_layers
+    if not np.allclose(again, losses[:3], rtol=1e-6, atol=0):
+        raise AssertionError(f"two runs of three steps: {again} vs "
+                             f"{losses[:3]}")
+    del state
+    step_s = float(np.median(secs[1:]))
+    out["steps"] = {"losses": losses, "rerun": again,
+                    "first_step_s": secs[0], "step_ms": 1e3 * step_s,
+                    "step_ms_min": 1e3 * min(secs[1:]),
+                    "tokens_per_s": tokens / step_s,
+                    "launches_per_step": want}
+    log(f"train (c), (d) {TRAIN_STEPS} steps at lr {TRAIN_LR}, B, S = "
+        f"{TRAIN_BATCH}: " + json.dumps(out["steps"]))
+
+    # one bf16 step's gradient: the backward kernel on bf16 residuals
+    reset_launches()
+    value_and_grad(lambda p, b: loss_fn(p, b, torch.bfloat16), params, batch)
+    torch.cuda.synchronize()
+    grew = {n: c for n, c in LAUNCHES.items() if c}
+    want16 = {"flash_attn_fwd_wgmma": 2 * cfg.n_layers, BWD_KEY: cfg.n_layers}
+    if grew != want16:
+        raise AssertionError(f"bf16 gradient: launches {grew}, expected "
+                             f"{want16}")
+    launches["flash_attn_fwd_wgmma"] = 2 * cfg.n_layers
+    launches["flash_attn_bwd@bf16"] = cfg.n_layers
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) the supervisor through an injected failure, depth cut
+    small = dataclasses.replace(cfg, n_layers=FAULT_LAYERS)
+    log("reduced: " + json.dumps({"model": f"{LM_ARCH} (phase 12 (e))",
+                                  "n_layers": [cfg.n_layers, FAULT_LAYERS]}))
+    fcfg = TrainConfig(opt=OptimizerConfig(lr=TRAIN_LR, warmup_steps=1,
+                                           total_steps=30),
+                       ckpt_every=5, keep_ckpts=2)
+    seen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        fcfg = dataclasses.replace(fcfg, ckpt_dir=tmp)
+        injector = FaultInjector([7])
+
+        def on_step(s):
+            seen.append(s)
+            injector(s)
+
+        def init_fn():
+            return init_state(tfm.init_lm(
+                torch.Generator(device=dev).manual_seed(seed), small,
+                device=dev), fcfg)
+
+        def batches(n):
+            r = np.random.default_rng(seed + 13)
+            for _ in range(n):
+                yield lm_batch(r, *FAULT_BATCH, small.vocab_size)
+        t = time.perf_counter()
+        reset_launches()
+        state, restarts, _ = supervise(
+            lambda: make_train_step(
+                lambda p, b: tfm.lm_loss(p, b, small, dtype=torch.float32),
+                fcfg), init_fn, batches, fcfg, total_steps=10,
+            max_restarts=2, on_step=on_step, device=dev)
+        torch.cuda.synchronize()
+        grew = {n: c for n, c in LAUNCHES.items() if c}
+        resumed = seen[seen.index(7) + 1]
+        final = int(state["opt"]["step"])
+        if (restarts, resumed, final, ckpt.latest_step(tmp)) != (1, 5, 10,
+                                                                 10):
+            raise AssertionError(f"supervise: restarts {restarts}, resumed "
+                                 f"at {resumed}, ended at {final}")
+        del state
+    out["fault"] = {"restarts": restarts, "resumed_at": resumed,
+                    "final_step": final, "steps_seen": seen,
+                    "s": time.perf_counter() - t, "launches": grew}
+    launches["flash_attn_fwd_tf32"] += grew.get("flash_attn_fwd_tf32", 0)
+    launches["flash_attn_bwd"] += grew.get(BWD_KEY, 0)
+    log("train (e) supervise, FaultInjector([7]), ckpt_every=5: "
+        + json.dumps(out["fault"]))
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    for r in rows:
+        r["launches"] = launches.get(r["name"], 0)
+    return out, rows
+
+
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
     that are exact in f32, and how many products each takes: inputs exact
@@ -2511,6 +2849,22 @@ def main() -> int:
         kernels.append({"name": name, **KERNELS[name],
                         "launches": moe["launches"].get(name, 0), **r})
     del moe_flash
+    t = time.perf_counter()
+    trn, bwd_rows = train_phase(args.seed)
+    log(f"train: ok, {time.perf_counter() - t:.1f} s; peak "
+        f"{trn['peak_gb']:.1f} GB; launches=" + json.dumps(trn["launches"]))
+    # and phase 12's training runs, with the backward's rows
+    for k in kernels:
+        if k["name"] in ("flash_attn_fwd_tf32", "flash_attn_fwd_wgmma"):
+            k["launches"] += trn["launches"].get(k["name"], 0)
+    for r in bwd_rows:
+        shape = r.pop("shape")
+        for extra in ("rel_l2", "lse_rel_err", "sdpa_rel_l2"):
+            r.pop(extra)
+        kernels.append({"name": r["name"], **KERNELS[r["name"]], **r})
+        log(f"timing {r['name']} {shape}: ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """Synthetic data (host-side numpy; deterministic by seed).
 
+``lm_batch`` draws the LM trainer's token batches.
+
 ``clustered_vectors`` draws from a Gaussian mixture so IVF clustering and
 the paper's "re-rank candidates are spatially close" locality claim (§4.3)
 are actually exercised rather than vacuous, as they would be on iid
@@ -8,9 +10,18 @@ uniform data.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+
+
+def lm_batch(rng: np.random.Generator, batch: int, seq: int,
+             vocab: int) -> Dict[str, np.ndarray]:
+    """Uniform token ids: ``tokens`` (batch, seq) int32 and ``labels``,
+    the same rows shifted by one (the reference's draw, number for
+    number)."""
+    tokens = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
 def clustered_vectors(rng: np.random.Generator, n: int, dim: int,

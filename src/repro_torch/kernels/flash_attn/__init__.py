@@ -1,4 +1,5 @@
 from repro_torch.kernels.flash_attn.ops import (  # noqa: F401
-    FlashPlan, flash_attention, flash_instance, flash_kernel, flash_plan,
-    flash_width)
-from repro_torch.kernels.flash_attn.ref import flash_attn_ref  # noqa: F401
+    BWD_KEY, FlashPlan, flash_attention, flash_attention_bwd,
+    flash_bwd_width, flash_instance, flash_kernel, flash_plan, flash_width)
+from repro_torch.kernels.flash_attn.ref import (  # noqa: F401
+    flash_attn_bwd_ref, flash_attn_ref)

@@ -122,6 +122,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_lse.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -298,8 +299,9 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
-                      float* __restrict__ o, int s_len, int t_len, int h_q,
-                      int h_kv, int dh, int dv, float q_scale, int causal) {
+                      float* __restrict__ o, float* __restrict__ lse,
+                      int s_len, int t_len, int h_q, int h_kv, int dh, int dv,
+                      float q_scale, int causal) {
   using C = Cfg<kDh, kDv>;
   constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -573,6 +575,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
       l_b = __fadd_rn(l_b, __shfl_xor_sync(0xffffffffu, l_b, sh));
     }
     const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+    flash_lse::store_rows(lse, ((long long)bb * h_q + h) * s_len, row_a,
+                          s_len, quad, ma, la, mb, lb);
     const long long row_stride = (long long)h_q * dv;
     float* ob = o + ((long long)bb * s_len * h_q + h) * dv;
 #pragma unroll
@@ -636,9 +640,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
-                           float* __restrict__ o, int s_len, int t_len,
-                           int h_q, int h_kv, int dh, int dv,
-                           float q_scale, int causal) {
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int s_len, int t_len, int h_q, int h_kv, int dh,
+                           int dv, float q_scale, int causal) {
   constexpr int kBKV = kWideBKV;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
@@ -916,6 +920,9 @@ flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap map_q,
     l_b = __fadd_rn(l_b, __shfl_xor_sync(0xffffffffu, l_b, sh));
   }
   const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+  if (wg == 0)       // both warpgroups hold the rows' (m, l)
+    flash_lse::store_rows(lse, ((long long)bb * h_q + h) * s_len, row_a,
+                          s_len, quad, m_a, la, m_b, lb);
   const long long row_stride = (long long)h_q * dv;
   float* ob = o + ((long long)bb * s_len * h_q + h) * dv;
 #pragma unroll
@@ -952,8 +959,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
 
 template <int kDh, int kDv>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int t, int h, int hk, int dh, int dv,
-                   float scale, int causal, cudaStream_t stream) {
+                   float* lse, int b, int s, int t, int h, int hk, int dh,
+                   int dv, float scale, int causal, cudaStream_t stream) {
   constexpr bool kWide = kDh > 192;
   constexpr int rows = kWide ? kWideBKV : kBKV;
   CUtensorMap mq, mk, mv;
@@ -969,7 +976,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                              kWideSmemBytes);
     if (e != cudaSuccess) return e;
     flash_fwd_tf32_wide_kernel<<<grid, kThreads, kWideSmemBytes, stream>>>(
-        mq, mk, mv, static_cast<float*>(o), s, t, h, hk, dh, dv,
+        mq, mk, mv, static_cast<float*>(o), lse, s, t, h, hk, dh, dv,
         scale * kLog2e, causal);
   } else {
     constexpr int smem = Cfg<kDh, kDv>::kSmemBytes;
@@ -978,7 +985,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                              smem);
     if (e != cudaSuccess) return e;
     flash_fwd_tf32_kernel<kDh, kDv><<<grid, kSplitThreads, smem, stream>>>(
-        mq, mk, mv, static_cast<float*>(o), s, t, h, hk, dh, dv,
+        mq, mk, mv, static_cast<float*>(o), lse, s, t, h, hk, dh, dv,
         scale * kLog2e, causal);
   }
   return cudaGetLastError();
@@ -988,11 +995,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q (b, s, h, dh), k (b, t, hk, dh), v (b, t, hk, dv), o (b, s, h, dv),
 // contiguous f32, each 16-byte aligned; h % hk == 0, dh % 4 == 0,
-// dh <= 256, dv % 4 == 0, dv <= dh.  Returns a cudaError_t.
+// dh <= 256, dv % 4 == 0, dv <= dh.  lse: null, or (b, h, s) f32 that
+// receives each row's natural-log logsumexp (flash_lse.cuh).  Returns a
+// cudaError_t.
 extern "C" int flash_attn_fwd_tf32(const void* q, const void* k,
-                                   const void* v, void* o, int b, int s,
-                                   int t, int h, int hk, int dh, int dv,
-                                   float scale, int causal, void* stream) {
+                                   const void* v, void* o, void* lse, int b,
+                                   int s, int t, int h, int hk, int dh,
+                                   int dv, float scale, int causal,
+                                   void* stream) {
+  float* ls = static_cast<float*>(lse);
   if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 4 || dh % 4 ||
       dh > 256 || dv < 4 || dv % 4 || dv > dh ||
       (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535 ||
@@ -1002,13 +1013,13 @@ extern "C" int flash_attn_fwd_tf32(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // dv > 128 or dh > 192: the 256 kernel
   if (dv > 128 || dh > 192)
-    return (int)launch<256, 256>(q, k, v, o, b, s, t, h, hk, dh, dv, scale,
-                                 causal, st);
+    return (int)launch<256, 256>(q, k, v, o, ls, b, s, t, h, hk, dh, dv,
+                                 scale, causal, st);
   if (dh > 128)
-    return (int)launch<192, 128>(q, k, v, o, b, s, t, h, hk, dh, dv, scale,
-                                 causal, st);
-  return (int)(dh > 64 ? launch<128, 128>(q, k, v, o, b, s, t, h, hk, dh, dv,
-                                          scale, causal, st)
-                       : launch<64, 64>(q, k, v, o, b, s, t, h, hk, dh, dv,
-                                        scale, causal, st));
+    return (int)launch<192, 128>(q, k, v, o, ls, b, s, t, h, hk, dh, dv,
+                                 scale, causal, st);
+  return (int)(dh > 64 ? launch<128, 128>(q, k, v, o, ls, b, s, t, h, hk, dh,
+                                          dv, scale, causal, st)
+                       : launch<64, 64>(q, k, v, o, ls, b, s, t, h, hk, dh,
+                                        dv, scale, causal, st));
 }

@@ -101,6 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_lse.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -206,7 +207,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
-                       __nv_bfloat16* __restrict__ o, int s_len, int t_len,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int s_len, int t_len,
                        int h_q, int h_kv, int dh, int dv, float scale_log2,
                        int causal) {
   constexpr int kBKV = kKvTile;                     // keys per KV tile
@@ -388,6 +390,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  flash_lse::store_rows(lse, ((long long)bb * h_q + h) * s_len, row_a, s_len,
+                        quad, m_a, l_a, m_b, l_b);
   const long long row_stride = (long long)h_q * dv;
   __nv_bfloat16* ob = o + ((long long)bb * s_len * h_q + h) * dv;
 #pragma unroll
@@ -526,7 +530,8 @@ __global__ void __launch_bounds__(kPpThreads, 1)
 flash_fwd_wgmma_pp_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
-                          __nv_bfloat16* __restrict__ o, int s_len,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int s_len,
                           int t_len, int h_q, int h_kv, int dh, int dv,
                           float scale_log2, int causal) {
   constexpr int kBKV = kPpKvTile<kDh, kDv>;         // keys per KV tile
@@ -686,6 +691,8 @@ flash_fwd_wgmma_pp_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
     const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    flash_lse::store_rows(lse, ((long long)bb * h_q + h) * s_len, row_a,
+                          s_len, quad, rows.m_a, l_a, rows.m_b, l_b);
     const long long row_stride = (long long)h_q * dv;
     __nv_bfloat16* ob = o + ((long long)bb * s_len * h_q + h) * dv;
 #pragma unroll
@@ -728,8 +735,8 @@ constexpr bool kPipelined = kDv <= 128;
 
 template <int kDh, int kDv>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int t, int h, int hk, int dh, int dv,
-                   float scale, int causal, cudaStream_t stream) {
+                   float* lse, int b, int s, int t, int h, int hk, int dh,
+                   int dv, float scale, int causal, cudaStream_t stream) {
   constexpr bool kPp = kPipelined<kDh, kDv>;
   constexpr int kBKV = kPp ? kPpKvTile<kDh, kDv> : kKvTile;
   constexpr int kRing = kPp ? kPpStages<kDh, kDv> : kStages;
@@ -748,7 +755,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return e;
   const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
   kernel<<<grid, kPp ? kPpThreads : kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, t, h, hk, dh, dv,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, s, t, h, hk, dh, dv,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -757,11 +764,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q (b, s, h, dh), k (b, t, hk, dh), v (b, t, hk, dv), o (b, s, h, dv),
 // contiguous bf16, each 16-byte aligned; h % hk == 0, dh % 8 == 0,
-// dh <= 256, dv % 8 == 0, dv <= dh.  Returns a cudaError_t.
+// dh <= 256, dv % 8 == 0, dv <= dh.  lse: null, or (b, h, s) f32 that
+// receives each row's natural-log logsumexp (flash_lse.cuh).  Returns a
+// cudaError_t.
 extern "C" int flash_attn_fwd_wgmma(const void* q, const void* k,
-                                    const void* v, void* o, int b, int s,
-                                    int t, int h, int hk, int dh, int dv,
-                                    float scale, int causal, void* stream) {
+                                    const void* v, void* o, void* lse, int b,
+                                    int s, int t, int h, int hk, int dh,
+                                    int dv, float scale, int causal,
+                                    void* stream) {
+  float* ls = static_cast<float*>(lse);
   if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || dh < 8 || dh % 8 ||
       dh > 256 || dv < 8 || dv % 8 || dv > dh ||
       (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535 ||
@@ -771,13 +782,13 @@ extern "C" int flash_attn_fwd_wgmma(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // dv > 128 or dh > 192: the 256 instance
   if (dv > 128 || dh > 192)
-    return (int)launch<256, 256>(q, k, v, o, b, s, t, h, hk, dh, dv, scale,
-                                 causal, st);
+    return (int)launch<256, 256>(q, k, v, o, ls, b, s, t, h, hk, dh, dv,
+                                 scale, causal, st);
   if (dh > 128)
-    return (int)launch<192, 128>(q, k, v, o, b, s, t, h, hk, dh, dv, scale,
-                                 causal, st);
-  return (int)(dh > 64 ? launch<128, 128>(q, k, v, o, b, s, t, h, hk, dh, dv,
-                                          scale, causal, st)
-                       : launch<64, 64>(q, k, v, o, b, s, t, h, hk, dh, dv,
-                                        scale, causal, st));
+    return (int)launch<192, 128>(q, k, v, o, ls, b, s, t, h, hk, dh, dv,
+                                 scale, causal, st);
+  return (int)(dh > 64 ? launch<128, 128>(q, k, v, o, ls, b, s, t, h, hk, dh,
+                                          dv, scale, causal, st)
+                       : launch<64, 64>(q, k, v, o, ls, b, s, t, h, hk, dh,
+                                        dv, scale, causal, st));
 }

@@ -1,4 +1,4 @@
-"""Wrapper of the flash-attention forward kernels.
+"""Wrappers of the flash-attention kernels: the forward and its backward.
 
 Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
 ``flash_attention_fwd``; plain version ``ref.flash_attn_ref``:
@@ -45,7 +45,20 @@ device and shapes first and the ``cudaError_t`` after, allocates the
 output with ``torch.empty``, launches on the current stream and counts
 the launch in ``LAUNCHES[flash_instance(dtype, dh, dv)]``
 (``repro_torch.kernels.launch``).  Ragged S and T need no padding: the
-kernels mask their edge tiles.
+kernels mask their edge tiles.  With ``return_lse`` the kernel also
+writes each row's natural-log logsumexp, (B, H, S) f32, the residual of
+the backward; without it the kernel is passed a null pointer and writes
+none.
+
+The backward, :func:`flash_attention_bwd`, has no Pallas counterpart
+(the reference's VJP is plain ``jnp``): ``flash_attn_bwd``
+(``csrc/flash_attn_bwd.cu``, CUDA cores, f32; plain version
+``ref.flash_attn_bwd_ref``) recomputes the scores from the saved lse.
+It takes q, k and v of one width up to 128 (:func:`flash_bwd_width`
+raises ``ValueError`` at a wider head or a v narrower than q, naming
+it), any real dtype (copied to f32 by ``launch.operand``, as the
+reference's backward computes in f32, the width padded to a multiple of
+4), and counts one launch under ``flash_attn_bwd`` a call.
 """
 
 from __future__ import annotations
@@ -55,7 +68,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+from repro_torch.kernels.flash_attn.ref import (flash_attn_bwd_ref,
+                                                flash_attn_ref)
 from repro_torch.kernels.launch import launch, operand, operand_dtype
 
 _MAX_DH = 256                   # the kernels' widest instance
@@ -144,42 +158,126 @@ def flash_plan(dtype: torch.dtype, dh: int,
     return FlashPlan(instance, (dp, dvp), key)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: Optional[float] = None
-                    ) -> torch.Tensor:
-    """GQA attention forward: q (B, S, H, dh), k (B, T, Hk, dh), v (B, T,
-    Hk, dv) with dv <= dh, of any real dtypes -> (B, S, H, dv) in q's
-    dtype, accumulated in f32.  ``scale`` defaults to 1/sqrt(dh);
-    ``causal`` keeps key t for query s where s >= t, positions aligned at
-    the top left."""
-    if q.device.type == "cpu":
-        return flash_attn_ref(q, k, v, causal=causal, scale=scale)
-    dev = q.device
-    dtype = operand_dtype(q.dtype, k.dtype, v.dtype)
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be 4-d")
-    b, s, h, dh = q.shape
-    t, hk = k.shape[1], k.shape[2]
-    dv = v.shape[3]
+    b, _, h, dh = q.shape
+    hk = k.shape[2]
     if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != dh
             or hk < 1 or h % hk):
         raise ValueError(
             f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} (H % Hk == 0)")
-    plan = flash_plan(dtype, dh, dv)        # raises past dh = 256, dv > dh
-    if t == 0:
+    if k.shape[1] == 0:
         raise ValueError("attention over zero keys")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    return_lse: bool = False):
+    """GQA attention forward: q (B, S, H, dh), k (B, T, Hk, dh), v (B, T,
+    Hk, dv) with dv <= dh, of any real dtypes -> (B, S, H, dv) in q's
+    dtype, accumulated in f32.  ``scale`` defaults to 1/sqrt(dh);
+    ``causal`` keeps key t for query s where s >= t, positions aligned at
+    the top left.  With ``return_lse``, (out, lse): lse (B, H, S) f32,
+    each row's natural-log logsumexp of its scaled scores."""
+    if q.device.type == "cpu":
+        return flash_attn_ref(q, k, v, causal=causal, scale=scale,
+                              return_lse=return_lse)
+    dev = q.device
+    dtype = operand_dtype(q.dtype, k.dtype, v.dtype)
+    _check_qkv(q, k, v)
+    b, s, h, dh = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    dv = v.shape[3]
+    plan = flash_plan(dtype, dh, dv)        # raises past dh = 256, dv > dh
     dp, dvp = plan.widths
     q_dtype = q.dtype
     q, k = (operand(nm, x, dtype, 4, dp, dev) for nm, x in (("q", q),
                                                             ("k", k)))
     v = operand("v", v, dtype, 4, dvp, dev)
     out = torch.empty(b, s, h, dvp, dtype=dtype, device=dev)
+    lse = (torch.empty(b, h, s, dtype=torch.float32, device=dev)
+           if return_lse else None)
     if b and s and h:
         scale = scale if scale is not None else 1.0 / math.sqrt(dh)
         launch(plan.key, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), b, s, t, h, hk, dp, dvp, scale, int(causal))
+               out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+               b, s, t, h, hk, dp, dvp, scale, int(causal))
     if dvp != dv:
         out = out[..., :dv]
-    return out.to(q_dtype).contiguous()
+    out = out.to(q_dtype).contiguous()
+    return (out, lse) if return_lse else out
+
+
+_BWD_MAX_DH = 128               # the backward kernel's widest instance
+BWD_KEY = "flash_attn_bwd"
+
+
+def flash_bwd_width(dh: int, dv: Optional[int] = None) -> int:
+    """The width the backward kernel is passed for q and k ``dh`` wide and
+    v ``dv`` wide (``dh`` when None): dh rounded up to a multiple of 4,
+    the f32 row stride of 16 bytes.  Raises ``ValueError`` where it has
+    no instance: dh outside 1 .. 128, or dv != dh (MLA's v narrower than
+    q; ROADMAP queue 1)."""
+    dv = dh if dv is None else dv
+    if not 1 <= dh <= _BWD_MAX_DH:
+        raise ValueError(f"head width {dh}: the backward kernel takes 1 <= "
+                         f"dh <= {_BWD_MAX_DH}")
+    if dv != dh:
+        raise ValueError(f"v width {dv} != q/k width {dh}: the backward "
+                         f"kernel takes dv == dh")
+    return flash_width(torch.float32, dh)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        scale: Optional[float] = None, q_offset: int = 0,
+                        block_size: int = 512):
+    """The attention VJP: from q (B, S, H, dh), k and v (B, T, Hk, dh[v]),
+    the forward's output ``out`` and ``lse`` (B, H, S) f32 (its
+    ``return_lse``) and the output's gradient ``dout`` (B, S, H, dv) ->
+    (dq, dk, dv), each in its input's dtype.  CPU tensors run
+    ``ref.flash_attn_bwd_ref`` (KV blocks of ``block_size``, queries at
+    ``q_offset``); CUDA tensors launch ``flash_attn_bwd``, which takes
+    ``q_offset == 0`` and the shapes :func:`flash_bwd_width` takes, and
+    raises ``ValueError`` on any other (it tiles the keys on its own:
+    ``block_size`` is not read)."""
+    if q.device.type == "cpu":
+        return flash_attn_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                  scale=scale, q_offset=q_offset,
+                                  block_size=block_size)
+    if q_offset != 0:
+        raise ValueError(f"q_offset={q_offset}: the backward kernel takes "
+                         f"queries at offset 0 only")
+    dev = q.device
+    _check_qkv(q, k, v)
+    b, s, h, dh = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    w = flash_bwd_width(dh, v.shape[3])
+    if tuple(out.shape) != (b, s, h, dh) or tuple(dout.shape) != (b, s, h,
+                                                                    dh):
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be {(b, s, h, dh)}")
+    if tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"lse {tuple(lse.shape)} must be {(b, h, s)}")
+    f32 = torch.float32
+    ops = [operand(nm, x, f32, 4, w, dev) for nm, x in
+           (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))]
+    lse = operand("lse", lse, f32, 3, s, dev)
+    dq = torch.empty(b, s, h, w, dtype=f32, device=dev)
+    dk = torch.empty(b, t, hk, w, dtype=f32, device=dev)
+    dvv = torch.empty(b, t, hk, w, dtype=f32, device=dev)
+    delta = torch.empty(b, h, s, dtype=f32, device=dev)
+    if b and s and h:
+        scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+        launch(BWD_KEY, dev, *(x.data_ptr() for x in ops), lse.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+               delta.data_ptr(), b, s, t, h, hk, w, scale, int(causal))
+    grads = []
+    for g, x in ((dq, q), (dk, k), (dvv, v)):
+        g = g[..., :dh] if w != dh else g
+        grads.append(g.to(x.dtype).contiguous())
+    return tuple(grads)

@@ -44,8 +44,9 @@ _SIGNATURES = {
     "adc_scan": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
     "l2dist_wgmma": (_P,) * 6 + (_I,) * 6 + (_P,),
-    "flash_attn_fwd_wgmma": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attn_fwd_tf32": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
+    "flash_attn_fwd_wgmma": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
+    "flash_attn_fwd_tf32": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
+    "flash_attn_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _I, _P),
 }
 
 

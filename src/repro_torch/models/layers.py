@@ -5,14 +5,22 @@ JAX package's ``models/layers.py``.
   and decode attention over a KV cache are plain PyTorch, as the JAX
   functions are plain ``jnp`` (their products go to cuBLAS, as the JAX
   ones went to XLA).
-* :func:`blockwise_attention` is the model's attention forward (train and
+* :func:`blockwise_attention` is the model's attention (train and
   prefill).  On CUDA tensors it launches the port's flash kernel
   (``kernels.flash_attn.flash_attention``: ``flash_attn_fwd_wgmma`` in
   bf16, ``flash_attn_fwd_tf32`` in f32), the Hopper counterpart of the
   Pallas ``flash_attention_fwd``; a shape that kernel lacks raises.  On
   CPU tensors it runs :func:`_attention_fwd_scan`, the torch port of the
   reference's online-softmax scan over KV blocks, which is the plain
-  version and never runs on the card's main path.
+  version and never runs on the card's main path.  Where a gradient is
+  wanted (grad enabled and an input requiring it) it runs
+  :class:`_FlashAttention`, the reference's custom VJP (``_flash_fwd`` /
+  ``_flash_bwd``): the forward also writes each row's logsumexp and
+  saves (q, k, v, out, lse), O(S) residuals, and the backward recomputes
+  the scores from them (``kernels.flash_attn.flash_attention_bwd``: the
+  ``flash_attn_bwd`` kernel on the card, ``flash_attn_bwd_ref`` on the
+  CPU).  The reference's ``REPRO_FLASH_VJP`` ablation switch (autograd
+  through the scan) is not ported: the port keeps its default.
 
 * :func:`moe_block` is the reference's MoE on its local path (one shard):
   capacity-bounded, cumsum-slotted dispatch, every expert's FFN as one
@@ -28,8 +36,7 @@ JAX package's ``models/layers.py``.
   :func:`blockwise_attention` with v narrower than q and k; decode
   absorbs ``W_UK`` and ``W_UV`` and attends over the compressed cache.
 
-The flash VJP is not ported yet (ROADMAP queue 1).  :class:`ShardCtx`
-and :data:`LOCAL_CTX` are ``sharding.spec``'s.
+:class:`ShardCtx` and :data:`LOCAL_CTX` are ``sharding.spec``'s.
 """
 
 from __future__ import annotations
@@ -42,7 +49,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.clustering import full_f32
-from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                flash_attention_bwd,
+                                                flash_bwd_width)
 from repro_torch.sharding.spec import LOCAL_CTX, ShardCtx  # noqa: F401
 
 _NEG_INF = -1e30  # finite mask value: avoids (-inf) - (-inf) = nan paths
@@ -152,6 +161,53 @@ def _attention_fwd_scan(q, k, v, causal: bool, q_offset: int,
     return out.reshape(B, S, H, dhv).to(q.dtype), lse
 
 
+def _offset_zero(q_offset: int) -> None:
+    if q_offset != 0:
+        raise ValueError(f"q_offset={q_offset}: the flash kernel takes "
+                         f"queries at offset 0 only")
+
+
+def _attention_fwd(q, k, v, causal: bool, q_offset: int, block_size: int,
+                   scale: float):
+    """The VJP's forward: (out, lse (B, H, S) f32).  CPU tensors run the
+    plain scan (its (B, Hk, G, S) lse is the same memory); CUDA tensors
+    launch the flash kernel with its lse, after checking that the
+    backward kernel takes the shape (``flash_bwd_width`` raises
+    ``ValueError`` naming it)."""
+    if q.device.type == "cpu":
+        out, lse = _attention_fwd_scan(q, k, v, causal, q_offset,
+                                       block_size, scale)
+        return out, lse.reshape(q.shape[0], q.shape[2], q.shape[1])
+    _offset_zero(q_offset)
+    flash_bwd_width(q.shape[-1], v.shape[-1])
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           return_lse=True)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_attention`` custom VJP: the forward saves
+    (q, k, v, out, lse), the backward recomputes the scores block by
+    block from lse, so no S x T tensor outlives the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, block_size, scale):
+        out, lse = _attention_fwd(q, k, v, causal, q_offset, block_size,
+                                  scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, block_size, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, block_size, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), causal=causal,
+                                         scale=scale, q_offset=q_offset,
+                                         block_size=block_size)
+        return dq, dk, dv, None, None, None, None
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
                         block_size: int = 512,
@@ -159,21 +215,26 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B,S,H,dh) k/v: (B,T,Hk,dh[v]) -> (B,S,H,dhv), in q's dtype.
 
     T must be a multiple of ``min(block_size, T)``, as in the reference.
-    CPU tensors run the plain scan.  CUDA tensors launch
+    Where grad is enabled and q, k or v requires it, the custom VJP
+    (:class:`_FlashAttention`); else the forward alone.  CPU tensors run
+    the plain scan (and the plain backward).  CUDA tensors launch
     ``kernels.flash_attn.flash_attention``, which takes ``q_offset == 0``,
-    dh <= 256 and a v width up to q's (MLA's 128 against 192); any other
-    shape raises ``ValueError`` naming it (ROADMAP queue 3)."""
+    dh <= 256 and a v width up to q's (MLA's 128 against 192), and for a
+    gradient ``flash_attention_bwd``, which takes dh = dv <= 128; any
+    other shape raises ``ValueError`` naming it (ROADMAP queue 3)."""
     dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     T = k.shape[1]
     bs = min(block_size, T)
     assert (T // bs) * bs == T, f"T={T} not divisible by block {bs}"
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset, block_size,
+                                     scale)
     if q.device.type == "cpu":
         return _attention_fwd_scan(q, k, v, causal, q_offset, block_size,
                                    scale)[0]
-    if q_offset != 0:
-        raise ValueError(f"q_offset={q_offset}: the flash kernel takes "
-                         f"queries at offset 0 only")
+    _offset_zero(q_offset)
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 

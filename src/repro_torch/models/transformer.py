@@ -1,5 +1,5 @@
-"""Decoder-only LM, the serving half: the port's counterpart of the JAX
-package's ``models/transformer.py``.
+"""Decoder-only LM: the port's counterpart of the JAX package's
+``models/transformer.py`` (forward, loss, prefill and decode).
 
 One code path parameterised by :class:`LMConfig`, covering the repo's
 five LMs: MHA / GQA with optional QKV bias, per-head qk RMSNorm and
@@ -19,6 +19,16 @@ returns a new cache).  f32 products run with TF32 off
 (``core.clustering.full_f32``: the caller's setting is restored
 afterwards), so an f32 forward and decode step are f32 on the card as on
 the CPU.
+
+:func:`lm_loss` is the reference's: masked next-token cross entropy, with
+accuracy and the token count.  Where grad is enabled, each block's
+forward is rematerialised in the backward (``torch.utils.checkpoint``,
+non-reentrant), as the reference's ``_scan_blocks`` wraps each block in
+``jax.checkpoint`` (full remat, its default): a block keeps only its
+input, and the attention's flash forward runs twice a step.  The
+backward runs after ``lm_forward``'s precision context has closed, so a
+caller that wants f32 gradients in full f32 holds its backward under
+``core.clustering.full_f32`` (``train.loop.make_train_step`` does).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.clustering import full_f32
@@ -287,8 +298,20 @@ def _trunk(params, tokens: torch.Tensor, cfg: LMConfig,
     rope = (None if cfg.mla else
             L.rope_tables(positions, _rotary_dim(cfg), cfg.rope_theta))
     for stack, _, moe in _stacks(params, cfg):
-        for i in range(stack["ln1"].shape[0]):
-            x = _block(x, _layer(stack, i), cfg, rope, positions, moe)
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in stack.values())
+        # each layer's params as views from one unbind per stacked param,
+        # whose backward writes each layer's gradient once into one
+        # stacked tensor (indexing each layer would give each a
+        # zero-filled gradient of the whole stack, summed over the layers)
+        names = list(stack)
+        for p in zip(*(stack[n].unbind(0) for n in names)):
+            p = dict(zip(names, p))
+            if grad:
+                x = checkpoint(_block, x, p, cfg, rope, positions, moe,
+                               use_reentrant=False)
+            else:
+                x = _block(x, p, cfg, rope, positions, moe)
     return x
 
 
@@ -300,6 +323,27 @@ def lm_forward(params, tokens, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
     with _precision(dtype):
         tokens = _tokens(params, tokens)
         return _head(params, _trunk(params, tokens, cfg, dtype), cfg, dtype)
+
+
+def lm_loss(params, batch, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
+            dtype: torch.dtype = torch.bfloat16):
+    """Next-token cross entropy of ``batch`` (``tokens`` and ``labels``
+    (B, S), an optional ``mask`` (B, S), numpy arrays or tensors):
+    (loss, {"loss", "accuracy", "tokens"}), each a 0-d f32 tensor on the
+    params' device, the mean over the mask's tokens (at least 1)."""
+    logits = lm_forward(params, batch["tokens"], cfg, ctx, dtype)
+    dev = logits.device
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
+            if mask is None else torch.as_tensor(mask, device=dev).float())
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum((lse - ll) * mask) / n
+    acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / n
+    return loss, {"loss": loss, "accuracy": acc, "tokens": n}
 
 
 def lm_prefill(params, tokens, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,

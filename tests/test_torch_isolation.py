@@ -40,7 +40,9 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.launch.mesh, repro_torch.sharding.spec\n"
         "import repro_torch.configs.registry, repro_torch.models.layers\n"
         "import repro_torch.models.transformer, repro_torch.serve.engine\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.train, repro_torch.tree\n"
+        "import repro_torch.data.synthetic\n"
         "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
         "assert all(get_config(a) and get_config(a, reduced=True) "
         "for a in ARCH_IDS)\n"
