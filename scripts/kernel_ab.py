@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Times the dense ADC scan, the fused LUT -> ADC -> top-k scan (f32 and
 int8), the single-query ADC scan + top-k, flash attention (bf16 and f32)
-and exact L2 (f32 and bf16, and bf16 at SPACEV1B's d = 100) of other
-source trees beside this one's on one card, and reads each output
-against its plain version.
+and its backward, and exact L2 (f32 and bf16, and bf16 at SPACEV1B's d =
+100) of other source trees beside this one's on one card, and reads each
+output against its plain version.
 
     python3 scripts/kernel_ab.py --against DIR [--against DIR ...]
                                  [--only GROUP ...] [--out FILE] [--seed 0]
@@ -42,13 +42,22 @@ integers (in [0, 256), SIFT's values; in [0, 128) at d = 960, where
 960 * 127^2 < 2^24 keeps every sum exact) and once on normal values
 (not for uint8); and the fused scan at a window past ``fused_plan``'s
 one launch (B = 64, S = 32,768, tk = 4,096, f32 and int8: the spill
-route).  A reading whose call raises (a width, dtype or window an older
-tree's kernels do not take) is reported with its error.  It reports the device time of each
-call (``chip_smoke.gpu_ms``), the kernels the call launched, whether the
-dense output is bit-equal to ``pq_adc_batch_ref``, whether the fused
-output is bit-equal to ``pq_adc_fused_topk_plain`` (values and ids) and
-its time with the wrapper's ``torch.sort`` and ``torch.gather`` stubbed
-out (the kernel alone; a one-launch wrapper has neither), whether the top-k
+route); the attention backward (``flash_attention_bwd``) at Qwen3-0.6B's
+widths, dh 128, B = 1, S = T = 4096, causal, on f32 and bf16 inputs
+(rows 7 and 7b of PERF.md section 6), from the forward kernel's output
+and lse, its gradients' relative L2 error against ``flash_attn_bwd_ref``
+(and, where the tree's plain version evaluates in f64, against that
+exact gradient, with the f32 plain version's own error beside it),
+whether two runs are bit-equal, SDPA's backward beside it (this tree's
+process), and the ``ptxas`` lines of the backward's kernels where the
+process compiled them.  A reading whose call raises (a width, dtype or
+window an older tree's kernels do not take) is reported with its error.
+It reports the device time of each call (``chip_smoke.gpu_ms``), the
+kernels the call launched, whether the dense output is bit-equal to
+``pq_adc_batch_ref``, whether the fused output is bit-equal to
+``pq_adc_fused_topk_plain`` (values and ids) and its time with the
+wrapper's ``torch.sort`` and ``torch.gather`` stubbed out (the kernel
+alone; a one-launch wrapper has neither), whether the top-k
 equals the first topk of a stable argsort of ``pq_adc`` (values and ids)
 and its time with every ``torch.sort`` of the wrapper stubbed out (the
 kernel without the merge; ``ms`` less that is the merge), the flash
@@ -62,7 +71,8 @@ each function where there is one (``embedding_bag``,
 reported with its error, and the others still run.  Prints the card's
 name and power limit, and one JSON object, which ``--out`` also writes.
 ``--only`` keeps the readings of the groups named (``adc``: the dense,
-top-k, fused and spill scans; ``flash``; ``l2``), all by default.
+top-k, fused and spill scans; ``flash``; ``l2``; ``bwd``: the attention
+backward), all by default.
 """
 
 from __future__ import annotations
@@ -93,8 +103,12 @@ ATTN_CASES = ((torch.bfloat16, "bf16", 128, 128, ATTN),
               (torch.bfloat16, "bf16,dh100", 100, 100, ATTN),
               (torch.bfloat16, "bf16,mla", 192, 128, MLA),
               (torch.float32, "f32,mla", 192, 128, MLA))
-GROUPS = ("adc", "flash", "l2")
-PREFIX = {"adc": "adc_", "flash": "flash_", "l2": "l2dist"}   # sources
+GROUPS = ("adc", "flash", "l2", "bwd")
+PREFIX = {"adc": "adc_", "flash": "flash_", "l2": "l2dist",   # sources
+          "bwd": "flash_"}
+# the attention backward at row 6b's shape (Qwen3-0.6B's heads, dh 128,
+# B = 1, S = T = 4096, causal): f32 (row 7) and bf16 inputs (row 7b)
+BWD_CASES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 # (dtype, tag, width, integers below): the chunk at SIFT1B's 128, cut to
 # SPACEV1B's 100 and to an odd 101, and at GIST1M's 960
@@ -114,8 +128,8 @@ def measure(tree: Path, seed: int, only=GROUPS) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.pq_adc import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build([n for n in build.SOURCES           # the groups' sources
-                 if any(n.startswith(PREFIX[g]) for g in only)])
+    reports = build.build([n for n in build.SOURCES   # the groups' sources
+                           if any(n.startswith(PREFIX[g]) for g in only)])
     dev = torch.device("cuda")
     F = torch.nn.functional
     yardsticks = tree.resolve() == ROOT
@@ -154,6 +168,13 @@ def measure(tree: Path, seed: int, only=GROUPS) -> dict:
             out[f"flash_attn[{tag}]"] = reading(lambda: flash_reading(
                 dtype, dh, dv, shape, dev, gen, ran, yardsticks,
                 chip_smoke))
+    if "bwd" in only:
+        for dtype, tag in BWD_CASES:
+            out[f"flash_attn_bwd[{tag}]"] = reading(lambda: bwd_reading(
+                dtype, dev, gen, ran, yardsticks, chip_smoke))
+        if "flash_attn_bwd" in reports:     # compiled by this process
+            out["flash_attn_bwd[ptxas]"] = ptxas_lines(
+                reports["flash_attn_bwd"])
     if "l2" in only:
         for dtype, tag, width, below in L2_CASES:
             out[f"l2dist[{tag}]"] = reading(lambda: l2_reading(
@@ -205,6 +226,71 @@ def flash_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     return r
+
+
+def bwd_reading(dtype, dev, gen, ran, yardsticks, chip_smoke) -> dict:
+    """The attention backward (``flash_attention_bwd``) at row 6b's shape
+    on inputs of ``dtype``, from the forward kernel's output and lse: the
+    kernels it launched, each gradient's relative L2 error against
+    ``flash_attn_bwd_ref`` on the same residuals, whether two runs are
+    bit-equal, and its time; this tree's process also times SDPA's
+    backward alone (``torch.autograd.grad`` of its output) and reads its
+    gradients' relative L2 error against the kernel's."""
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd,
+                                                flash_attn_bwd_ref)
+    F = torch.nn.functional
+    s, h, hk, dh = ATTN["S"], ATTN["H"], ATTN["Hk"], 128
+    q, do = (torch.randn(1, s, h, dh, generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(1, s, hk, dh, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+
+    def call():
+        return flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    got, launched = ran(call)
+    want = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=True)
+    names = ("dq", "dk", "dv")
+    r = dict(launched=launched,
+             rel_l2={n: chip_smoke.rel_l2(g, w) for n, g, w in
+                     zip(names, got, want)},
+             bit_equal_runs=all(torch.equal(a, b)
+                                for a, b in zip(got, call())),
+             ms=chip_smoke.gpu_ms(call, 10))
+    try:                # a plain version that evaluates in f64 too
+        exact = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=True,
+                                   compute=torch.float64)
+        r["exact_rel_l2"] = {n: chip_smoke.rel_l2(g, e) for n, g, e in
+                             zip(names, got, exact)}
+        r["plain_exact_rel_l2"] = {n: chip_smoke.rel_l2(w, e) for n, w, e
+                                   in zip(names, want, exact)}
+        del exact
+    except TypeError:
+        pass
+    del want
+    if yardsticks:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        do_t = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o, (qt, kt, vt), do_t,
+                                       retain_graph=True)
+        r["sdpa_rel_l2"] = max(chip_smoke.rel_l2(g.transpose(1, 2), w)
+                               for g, w in zip(sdpa_bwd(), got))
+        r["sdpa_ms"] = chip_smoke.gpu_ms(sdpa_bwd, 10)
+    return r
+
+
+def ptxas_lines(report: str) -> list:
+    """The lines of an ``nvcc -Xptxas -v`` report that name a function and
+    its registers, stack and spills."""
+    keep = ("Compiling entry function", "registers", "spill")
+    return [ln.strip() for ln in report.splitlines()
+            if any(k in ln for k in keep)]
 
 
 def l2_reading(dtype, width, below, dev, gen, ran, yardsticks,

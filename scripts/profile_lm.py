@@ -44,7 +44,7 @@ PREFILL = (2, 4096)         # B, S: the smoke's phases 10 and 11
 DECODE = (8, 2048)          # B, position of the decode step
 TRAIN = (2, 2048)           # B, S: the smoke's phase 12
 # kernel families of a train step, by a substring of the kernel's name
-FAMILIES = (("flash backward", ("bwd_delta", "bwd_dkdv", "bwd_dq")),
+FAMILIES = (("flash backward", ("bwd_prep", "bwd_dkdv", "bwd_dq")),
             ("flash forward", ("flash_fwd",)),
             ("GEMM", ("gemm", "sm90_xmma", "cutlass")))
 

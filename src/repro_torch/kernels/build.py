@@ -28,9 +28,11 @@ and add are contracted unless the source writes ``__fmaf_rn``.
   3xTF32 (f32 sums, in the tensor cores' order); the scaling, the
   softmax in base 2 (``ex2.approx``), the rescaling and the final
   division round each step (``__fmul_rn``, ``__fadd_rn``, ...).
-* ``flash_attn_bwd``: the attention backward on the CUDA cores, every
-  product a chain of ``__fmaf_rn`` in a fixed order, the exponentials
-  ``expf``; the forwards write the logsumexp it reads
+* ``flash_attn_bwd``: the attention backward on the tensor cores, every
+  product in bf16 ``wgmma`` on bf16 terms of its operands (three terms of
+  f32 inputs, P and dS; f32 sums, in the tensor cores' order); D a chain
+  of ``__fmaf_rn``, each element step rounded on its own, the
+  exponentials ``expf``; the forwards write the logsumexp it reads
   (``flash_lse.cuh``).
 * ``l2dist_wgmma``: its product runs on the tensor cores, in 3xTF32 for
   f32 inputs and in one bf16 product for bf16 (f32 sums in the tensor

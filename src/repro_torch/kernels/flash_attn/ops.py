@@ -52,13 +52,17 @@ none.
 
 The backward, :func:`flash_attention_bwd`, has no Pallas counterpart
 (the reference's VJP is plain ``jnp``): ``flash_attn_bwd``
-(``csrc/flash_attn_bwd.cu``, CUDA cores, f32; plain version
-``ref.flash_attn_bwd_ref``) recomputes the scores from the saved lse.
-It takes q, k and v of one width up to 128 (:func:`flash_bwd_width`
-raises ``ValueError`` at a wider head or a v narrower than q, naming
-it), any real dtype (copied to f32 by ``launch.operand``, as the
-reference's backward computes in f32, the width padded to a multiple of
-4), and counts one launch under ``flash_attn_bwd`` a call.
+(``csrc/flash_attn_bwd.cu``, bf16 ``wgmma`` on operands split into bf16
+terms, f32 sums; plain version ``ref.flash_attn_bwd_ref``) recomputes the
+scores from the saved lse.  :func:`flash_bwd_plan` names its instance:
+bf16 inputs (``launch.operand_dtype``) run the one-term instance, counted
+under ``flash_attn_bwd[bf16]``, which reads them as they are and writes
+bf16 gradients; every other dtype is copied to f32 (the reference's
+backward computes in f32) and runs the three-term instance, counted under
+``flash_attn_bwd``, with a scratch buffer for the terms.  It takes q, k
+and v of one width up to 128 (:func:`flash_bwd_width` raises
+``ValueError`` at a wider head or a v narrower than q, naming it), the
+width padded to a multiple of 8, and counts one launch a call.
 """
 
 from __future__ import annotations
@@ -213,14 +217,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 _BWD_MAX_DH = 128               # the backward kernel's widest instance
 BWD_KEY = "flash_attn_bwd"
+BWD_BF16_KEY = "flash_attn_bwd[bf16]"
 
 
 def flash_bwd_width(dh: int, dv: Optional[int] = None) -> int:
     """The width the backward kernel is passed for q and k ``dh`` wide and
-    v ``dv`` wide (``dh`` when None): dh rounded up to a multiple of 4,
-    the f32 row stride of 16 bytes.  Raises ``ValueError`` where it has
-    no instance: dh outside 1 .. 128, or dv != dh (MLA's v narrower than
-    q; ROADMAP queue 1)."""
+    v ``dv`` wide (``dh`` when None): dh rounded up to a multiple of 8,
+    the row stride of 16 bytes of its bf16 operands.  Raises
+    ``ValueError`` where it has no instance: dh outside 1 .. 128, or dv
+    != dh (MLA's v narrower than q; ROADMAP queue 1)."""
     dv = dh if dv is None else dv
     if not 1 <= dh <= _BWD_MAX_DH:
         raise ValueError(f"head width {dh}: the backward kernel takes 1 <= "
@@ -228,7 +233,35 @@ def flash_bwd_width(dh: int, dv: Optional[int] = None) -> int:
     if dv != dh:
         raise ValueError(f"v width {dv} != q/k width {dh}: the backward "
                          f"kernel takes dv == dh")
-    return flash_width(torch.float32, dh)
+    return -(-dh // 8) * 8
+
+
+class BwdPlan(NamedTuple):
+    """What :func:`flash_attention_bwd` launches: the ``LAUNCHES`` key, the
+    instance's width kD (64 or 128), the width the kernel is passed, and
+    the bf16 terms each of q, k, v and dO is split into (the kernel's
+    kTerms; P and dS always take three)."""
+    key: str
+    instance: int
+    width: int
+    terms: int
+
+
+def flash_bwd_plan(dtype: torch.dtype, dh: int,
+                   dv: Optional[int] = None) -> BwdPlan:
+    """The backward instance for inputs computing in ``dtype``
+    (``launch.operand_dtype``) with q and k ``dh`` wide and v ``dv``
+    wide: bf16 (inputs exact in bf16) -> one term, key
+    ``flash_attn_bwd[bf16]``; anything else -> f32 in three terms, key
+    ``flash_attn_bwd``; the width :func:`flash_bwd_width` gives, on the
+    64 instance up to 64, else on the 128.  Raises ``ValueError`` as
+    :func:`flash_bwd_width` does."""
+    w = flash_bwd_width(dh, dv)
+    if operand_dtype(dtype) == torch.bfloat16:
+        key, terms = BWD_BF16_KEY, 1
+    else:
+        key, terms = BWD_KEY, 3
+    return BwdPlan(key, 64 if w <= 64 else 128, w, terms)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -244,7 +277,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset``); CUDA tensors launch ``flash_attn_bwd``, which takes
     ``q_offset == 0`` and the shapes :func:`flash_bwd_width` takes, and
     raises ``ValueError`` on any other (it tiles the keys on its own:
-    ``block_size`` is not read)."""
+    ``block_size`` is not read); the instance is :func:`flash_bwd_plan`'s
+    for the dtype q, k, v, out and dout compute in."""
     if q.device.type == "cpu":
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                   scale=scale, q_offset=q_offset,
@@ -256,26 +290,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_qkv(q, k, v)
     b, s, h, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
-    w = flash_bwd_width(dh, v.shape[3])
+    dtype = operand_dtype(q.dtype, k.dtype, v.dtype, out.dtype, dout.dtype)
+    plan = flash_bwd_plan(dtype, dh, v.shape[3])
+    w = plan.width
     if tuple(out.shape) != (b, s, h, dh) or tuple(dout.shape) != (b, s, h,
                                                                     dh):
         raise ValueError(f"out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must be {(b, s, h, dh)}")
     if tuple(lse.shape) != (b, h, s):
         raise ValueError(f"lse {tuple(lse.shape)} must be {(b, h, s)}")
-    f32 = torch.float32
-    ops = [operand(nm, x, f32, 4, w, dev) for nm, x in
+    dt = torch.bfloat16 if plan.terms == 1 else torch.float32
+    ops = [operand(nm, x, dt, 4, w, dev) for nm, x in
            (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))]
-    lse = operand("lse", lse, f32, 3, s, dev)
-    dq = torch.empty(b, s, h, w, dtype=f32, device=dev)
-    dk = torch.empty(b, t, hk, w, dtype=f32, device=dev)
-    dvv = torch.empty(b, t, hk, w, dtype=f32, device=dev)
-    delta = torch.empty(b, h, s, dtype=f32, device=dev)
+    lse = operand("lse", lse, torch.float32, 3, s, dev)
+    dq = torch.empty(b, s, h, w, dtype=dt, device=dev)
+    dk = torch.empty(b, t, hk, w, dtype=dt, device=dev)
+    dvv = torch.empty(b, t, hk, w, dtype=dt, device=dev)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
+    # the three-term instance's planes: q, dO, k, v, three bf16 terms each
+    scratch = (torch.empty(3 * 2 * (b * s * h + b * t * hk) * w,
+                           dtype=torch.bfloat16, device=dev)
+               if plan.terms == 3 else None)
     if b and s and h:
         scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-        launch(BWD_KEY, dev, *(x.data_ptr() for x in ops), lse.data_ptr(),
+        launch(plan.key, dev, *(x.data_ptr() for x in ops), lse.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-               delta.data_ptr(), b, s, t, h, hk, w, scale, int(causal))
+               delta.data_ptr(),
+               0 if scratch is None else scratch.data_ptr(),
+               b, s, t, h, hk, w, scale, int(causal), plan.terms)
     grads = []
     for g, x in ((dq, q), (dk, k), (dvv, v)):
         g = g[..., :dh] if w != dh else g

@@ -48,15 +48,20 @@ def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor,
                        dout: torch.Tensor, *, causal: bool = True,
                        scale: Optional[float] = None, q_offset: int = 0,
-                       block_size: int = 512):
+                       block_size: int = 512,
+                       compute: torch.dtype = torch.float32):
     """The attention VJP from the forward's residuals: q (B, S, H, dh), k
     (B, T, Hk, dh), v (B, T, Hk, dv), dv <= dh, out and dout (B, S, H,
     dv), lse (B, H, S) or the reference's (B, Hk, G, S) f32 (the same
     memory, h = kh * G + g) -> (dq, dk, dv), each in its input's dtype,
-    computed in f32 a KV block of ``min(block_size, T)`` keys at a time
-    (T a multiple of it), queries at global positions ``q_offset + s``.
-    Scores are recomputed from ``lse``: nothing of size S x T outlives a
-    block."""
+    computed in ``compute`` (f32, the reference's) a KV block of
+    ``min(block_size, T)`` keys at a time (T a multiple of it), queries at
+    global positions ``q_offset + s``.  Scores are recomputed from
+    ``lse``: nothing of size S x T outlives a block.  ``compute=
+    torch.float64`` evaluates the same function almost exactly: the
+    yardstick of a kernel whose f32 sums run in another order than this
+    version's (each f32 order is off the exact gradient by its own
+    rounding)."""
     B, S, H, dh = q.shape
     T, Hk = k.shape[1], k.shape[2]
     dhv = v.shape[-1]
@@ -67,14 +72,14 @@ def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n_blocks * bs != T:
         raise ValueError(f"T={T} not divisible by block {bs}")
     dev = q.device
-    lse = lse.float().reshape(B, Hk, G, S)
-    qf = q.float().reshape(B, S, Hk, G, dh)
-    do = dout.float().reshape(B, S, Hk, G, dhv)
-    of = out.float().reshape(B, S, Hk, G, dhv)
+    lse = lse.to(compute).reshape(B, Hk, G, S)
+    qf = q.to(compute).reshape(B, S, Hk, G, dh)
+    do = dout.to(compute).reshape(B, S, Hk, G, dhv)
+    of = out.to(compute).reshape(B, S, Hk, G, dhv)
     delta = torch.sum(do * of, dim=-1).permute(0, 2, 3, 1)     # (B,Hk,G,S)
-    kf, vf = k.float(), v.float()
+    kf, vf = k.to(compute), v.to(compute)
     q_pos = q_offset + torch.arange(S, device=dev)
-    dq = torch.zeros((B, S, Hk, G, dh), dtype=torch.float32, device=dev)
+    dq = torch.zeros((B, S, Hk, G, dh), dtype=compute, device=dev)
     dk_blocks, dv_blocks = [], []
     for blk in range(n_blocks):
         kblk = kf[:, blk * bs:(blk + 1) * bs]

@@ -32,7 +32,8 @@ INSTANCES = ("adc_fused_topk[spill]",
              "flash_attn_fwd_wgmma[256]", "flash_attn_fwd_tf32[256]",
              "flash_attn_fwd_wgmma[stride-pad]",
              "flash_attn_fwd_tf32[stride-pad]",
-             "flash_attn_fwd_wgmma[dv]", "flash_attn_fwd_tf32[dv]")
+             "flash_attn_fwd_wgmma[dv]", "flash_attn_fwd_tf32[dv]",
+             "flash_attn_bwd[bf16]")
 # kernel launches since the last reset_launches()
 LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
@@ -46,7 +47,7 @@ _SIGNATURES = {
     "l2dist_wgmma": (_P,) * 6 + (_I,) * 6 + (_P,),
     "flash_attn_fwd_wgmma": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
     "flash_attn_fwd_tf32": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attn_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _I, _P),
+    "flash_attn_bwd": (_P,) * 11 + (_I,) * 6 + (_F, _I, _I, _P),
 }
 
 

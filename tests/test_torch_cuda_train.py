@@ -10,7 +10,8 @@ JAX:
 
 Tolerances: the backward's dQ, dK and dV within 1e-4 relative L2 (L2
 error over L2 norm) of the plain backward in f32 (the same f32 operations
-summed in another order, on the CUDA cores against cuBLAS with TF32 off)
+summed in another order, on bf16 terms of the operands on the tensor
+cores against cuBLAS with TF32 off)
 and, for bf16 inputs (both sides convert to f32, compute, and round the
 gradients to bf16 once), within 2^-7 (a rounding that falls on the other
 side moves an element by at most 2^-8 of it); two runs bit for bit (no
@@ -30,11 +31,12 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import launch
-from repro_torch.kernels.flash_attn import (BWD_KEY, flash_attention,
+from repro_torch.kernels.flash_attn import (BWD_BF16_KEY, BWD_KEY,
+                                            flash_attention,
                                             flash_attention_bwd,
                                             flash_attn_bwd_ref,
-                                            flash_attn_ref, flash_bwd_width,
-                                            flash_plan)
+                                            flash_attn_ref, flash_bwd_plan,
+                                            flash_bwd_width, flash_plan)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train.loop import value_and_grad
@@ -83,6 +85,9 @@ def _inputs(dev, b, s, t, h, hk, dh, dtype, seed=0):
     (1, 257, 257, 6, 1, 96),           # MQA, dh padded to the 128 tile
     (2, 70, 70, 2, 1, 36),             # dh 36 on the 64 tile
     (1, 64, 64, 2, 2, 6),              # dh off the f32 stride: padded to 8
+    (1, 150, 150, 4, 2, 100),          # dh off the bf16 stride: to 104
+    (1, 64, 64, 2, 1, 8),              # the narrowest width on the stride
+    (1, 1000, 1000, 8, 1, 128),        # G = 8: dK, dV over eight heads
 ])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -91,10 +96,12 @@ def test_cuda_flash_bwd_matches_plain(cuda, b, s, t, h, hk, dh, causal,
                                       dtype):
     q, k, v, do = _inputs(cuda, b, s, t, h, hk, dh, dtype)
     out, lse = flash_attn_ref(q, k, v, causal=causal, return_lse=True)
-    before = launch.LAUNCHES[BWD_KEY]
+    key = {torch.float32: BWD_KEY, torch.bfloat16: BWD_BF16_KEY}[dtype]
+    assert flash_bwd_plan(dtype, dh).key == key   # each dtype its instance
+    launch.reset_launches()
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    assert launch.LAUNCHES[BWD_KEY] == before + 1
+    assert {n: c for n, c in launch.LAUNCHES.items() if c} == {key: 1}
     want = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=causal,
                               block_size=t)
     for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
@@ -150,6 +157,11 @@ def test_cuda_flash_bwd_rejects_shapes_it_lacks(cuda):
     assert not any(launch.LAUNCHES.values())
     with pytest.raises(ValueError):
         flash_bwd_width(129)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head width 129"):
+            flash_bwd_plan(dtype, 129)
+        with pytest.raises(ValueError, match="dv == dh"):
+            flash_bwd_plan(dtype, 64, 32)
 
 
 @pytest.mark.gpu
@@ -193,7 +205,7 @@ def test_cuda_attention_vjp_matches_cpu(cuda, dtype):
             torch.cuda.synchronize()
             fwd = flash_plan(dtype, 64).key
             assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
-                fwd: 1, BWD_KEY: 1}
+                fwd: 1, flash_bwd_plan(dtype, 64).key: 1}
     for g, w in zip(grads["cuda"], grads["cpu"]):
         assert _rel(g, w) <= VJP_REL[dtype]
 
