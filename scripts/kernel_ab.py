@@ -49,8 +49,9 @@ and lse, its gradients' relative L2 error against ``flash_attn_bwd_ref``
 (and, where the tree's plain version evaluates in f64, against that
 exact gradient, with the f32 plain version's own error beside it),
 whether two runs are bit-equal, SDPA's backward beside it (this tree's
-process), and the ``ptxas`` lines of the backward's kernels where the
-process compiled them.  A reading whose call raises (a width, dtype or
+process), and the ``ptxas`` lines (registers, spills) of the bf16 flash
+forward's kernels (``--only flash``) and of the backward's (``bwd``)
+where the process compiled them.  A reading whose call raises (a width, dtype or
 window an older tree's kernels do not take) is reported with its error.
 It reports the device time of each call (``chip_smoke.gpu_ms``), the
 kernels the call launched, whether the dense output is bit-equal to
@@ -168,6 +169,9 @@ def measure(tree: Path, seed: int, only=GROUPS) -> dict:
             out[f"flash_attn[{tag}]"] = reading(lambda: flash_reading(
                 dtype, dh, dv, shape, dev, gen, ran, yardsticks,
                 chip_smoke))
+        if "flash_attn_fwd_wgmma" in reports:   # compiled by this process
+            out["flash_attn_fwd_wgmma[ptxas]"] = ptxas_lines(
+                reports["flash_attn_fwd_wgmma"])
     if "bwd" in only:
         for dtype, tag in BWD_CASES:
             out[f"flash_attn_bwd[{tag}]"] = reading(lambda: bwd_reading(

@@ -33,6 +33,19 @@ boundary is copied first.  It returns q's dtype, as the JAX kernel does.
 v may be narrower than q and k (dv < dh), as the JAX model's attention
 takes it.
 
+:func:`flash_schedule` gives each instance's launch on the bf16 kernel:
+the threads of a block, the keys of a KV tile, the stages of the ring and
+the dynamic shared memory.  Every block takes 128 query rows, 64 a
+consumer warpgroup, and runs a loop after FlashAttention-3's (P V of
+tile j - 1 issued with S of tile j; ping-pong turns of the two consumer
+warpgroups).  The instances with v at most 128 wide add a producer
+warpgroup (384 threads; ptxas then gives a thread 168 registers):
+128-key tiles at (64, 64), 96 at the others.  (256, 256), whose O takes
+128 registers a thread, runs the two consumer warpgroups alone (256
+threads, up to 255 registers; the warp that releases a stage last
+refills it) on 80-key tiles in a ring of two stages, 224 KB of shared
+memory.
+
 :func:`flash_kernel` names the kernel, :func:`flash_instance` the key a
 launch is counted under: ``<kernel>[dv]`` where v is narrower than q;
 else ``<kernel>`` at dh 64 and 128, ``<kernel>[padded]`` at other
@@ -160,6 +173,44 @@ def flash_plan(dtype: torch.dtype, dh: int,
     else:
         instance = (256, 256)
     return FlashPlan(instance, (dp, dvp), key)
+
+
+class FlashSchedule(NamedTuple):
+    """The launch of one instance of the bf16 kernel: threads a block, keys
+    a KV tile, stages of the KV ring, dynamic shared-memory bytes."""
+    threads: int
+    kv_tile: int
+    stages: int
+    smem: int
+
+
+_INSTANCES = ((64, 64), (128, 128), (192, 128), (256, 256))
+_BQ = 128                       # query rows a block
+_MAX_STAGES = 4
+SMEM_CAP = 227 * 1024           # shared memory a block may have on an H100
+
+
+def flash_schedule(instance: Tuple[int, int]) -> FlashSchedule:
+    """The launch of ``flash_attn_fwd_wgmma``'s (kDh, kDv) ``instance``
+    (one of :func:`flash_plan`'s four): a producer warpgroup beside the
+    two consumer warpgroups where kDv <= 128 (384 threads; 128-key tiles
+    at kDv = 64, 96-key at 128), the consumers alone at (256, 256) (256
+    threads, 80-key tiles); as many stages as ``SMEM_CAP`` holds beside
+    the 128-row q tile and 2 KB for the alignment and the barriers, at
+    most 4; the dynamic shared memory (q tile, the ring, 1 KB to align
+    it).  The kernel's ``Schedule`` computes the same numbers, and its
+    ``flash_attn_fwd_wgmma_schedule`` reports them.  Raises
+    ``ValueError`` for widths that name no instance."""
+    if tuple(instance) not in _INSTANCES:
+        raise ValueError(f"no instance {tuple(instance)}: the kernel has "
+                         f"{_INSTANCES}")
+    kdh, kdv = instance
+    wide = kdv > 128
+    tile = 80 if wide else 96 if kdv > 64 else 128
+    stages = min(_MAX_STAGES, (SMEM_CAP - 2048 - _BQ * kdh * 2)
+                 // (tile * (kdh + kdv) * 2))
+    return FlashSchedule(256 if wide else 384, tile, stages,
+                         (_BQ * kdh + stages * tile * (kdh + kdv)) * 2 + 1024)
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -53,6 +53,7 @@ the card equals the CPU's to 1e-4 and its decode its forward at 2e-3
 """
 
 import copy
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -60,10 +61,10 @@ import pytest
 import torch
 
 from repro_torch.core import clustering, pq
-from repro_torch.kernels import launch
+from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
                                             flash_instance, flash_kernel,
-                                            flash_plan)
+                                            flash_plan, flash_schedule)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                         l2_kernel, l2dist_ref)
 from repro_torch.kernels.launch import operand_dtype
@@ -885,6 +886,57 @@ def test_cuda_flash_wide_and_off_stride_match_plain(cuda, dtype, dh, causal):
     for shape in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
                   (1, 300, 70, 2, 1), (1, 1, 33, 2, 2), (1, 129, 129, 2, 1)):
         _flash_case(rng, cuda, dtype, shape, dh, causal)
+
+
+# ---------------------------------------------- the bf16 (256, 256) instance
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,dv", [(256, 256), (200, 200), (256, 128)],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_wide_instance_matches_plain(cuda, dh, dv, causal):
+    """The bf16 (256, 256) instance (two consumer warpgroups, 80-key
+    tiles; ``flash_schedule``) on the shapes of
+    test_cuda_flash_wgmma_matches_plain: S and T off the 128-row and
+    80-key tiles, S != T both ways, MQA (Hk = 1), G = 2, B = 2, a single
+    query row, T shorter than one KV tile, a block whose rows end on a
+    tile; q/k at 200 (a box past dh cleared) and v at 128 (``[dv]``: two
+    V boxes cleared).  Each call is one launch of the key
+    ``flash_instance`` names, and two runs are bit-equal."""
+    rng = np.random.default_rng(60)
+    assert flash_plan(torch.bfloat16, dh, dv).instance == (256, 256)
+    key = flash_instance(torch.bfloat16, dh, dv)
+    for B, S, T, H, Hk in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
+                           (1, 300, 70, 2, 1), (2, 1, 129, 2, 2),
+                           (1, 513, 513, 8, 4), (1, 33, 33, 2, 1),
+                           (1, 256, 240, 4, 2)):
+        q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)).to(
+            cuda, torch.bfloat16) for sh in ((B, S, H, dh), (B, T, Hk, dh),
+                                             (B, T, Hk, dv)))
+        before = dict(launch.LAUNCHES)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        grew = {name: c - before[name] for name, c in launch.LAUNCHES.items()
+                if c != before[name]}
+        assert grew == {key: 1}, (B, S, T, H, Hk)
+        assert got.shape == (B, S, H, dv) and got.dtype == torch.bfloat16
+        _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
+        assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_schedule_is_the_kernels(cuda):
+    """``flash_schedule`` states the launch each instance of the bf16
+    kernel makes: its ``flash_attn_fwd_wgmma_schedule`` reports the same
+    threads, KV tile, stages and shared memory, and refuses widths that
+    name no instance."""
+    fn = build.load("flash_attn_fwd_wgmma").flash_attn_fwd_wgmma_schedule
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    for inst in ((64, 64), (128, 128), (192, 128), (256, 256)):
+        assert fn(*inst, out) == 0
+        assert tuple(out) == tuple(flash_schedule(inst)), inst
+    assert fn(96, 96, out) != 0
 
 
 # ------------------------------------------------ posting-list builds
