@@ -232,7 +232,29 @@ From the root of a checkout, with one CUDA card:
    width with the depth cut to ``FAULT_LAYERS`` (a ``reduced`` line).
    The kernels line's f32 and bf16 flash forward rows count phase 12's
    launches too, and it gains the backward's rows (``flash_attn_bwd``, the
-   f32 instance, and ``flash_attn_bwd@bf16``, the bf16 one).
+   f32 instance, and ``flash_attn_bwd@bf16``, the bf16 one);
+13. trains the MoE archs after phase 12 has freed its state
+   (``moe_train_phase``): (a) the backward kernel's (192, 128) instance
+   at DeepSeek-V2-Lite's MLA shape (B = 1, S = T = 4,096, H = Hk = 16,
+   q/k 192, v 128, causal) in f32 and on bf16 inputs, with phase 12
+   (a)'s checks (``flash_attn_bwd[dv]``, ``flash_attn_bwd[bf16,dv]``);
+   then DeepSeek-V2-Lite and Qwen3-30B-A3B at full width in f32 (random
+   weights from ``--seed``), their depth cut to ``MOE_TRAIN_LAYERS`` (a
+   ``reduced`` line each): (b) the gradients of ``lm_loss`` on one
+   ``lm_batch`` at B = 2, S = 2,048 and capacity factor ``MOE_CAPACITY``
+   through the kernels, each leaf within ``TRAIN_GRAD_RTOL`` of the same
+   on the plain attention, which replays the kernel run's expert choices
+   (``replay_routing``: the (token, expert) choices it would have made
+   otherwise, and the dropped pairs, printed router call by router call);
+   (c) every train step launches exactly 2 x layers of the f32 forward
+   (``flash_attn_fwd_tf32[dv]`` for DeepSeek-V2-Lite, ``flash_attn_fwd_tf32``
+   for Qwen3-30B-A3B) and one backward a layer (``flash_attn_bwd[dv]``,
+   ``flash_attn_bwd``) and nothing else of flash; (d) 25 steps at lr 1e-3
+   lower each loss by more than 0.5, the step's ms and tokens/s printed
+   with the card's name and power limit; DeepSeek-V2-Lite's bf16 gradient
+   launches ``flash_attn_fwd_wgmma[dv]`` and ``flash_attn_bwd[bf16,dv]``.
+   The kernels line's flash rows count phase 13's launches too, and it
+   gains the rows ``flash_attn_bwd[dv]`` and ``flash_attn_bwd@bf16[dv]``.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -249,6 +271,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -349,6 +372,13 @@ TRAIN_GRAD_RTOL = 1e-4      # (b): each gradient leaf's relative L2 error
 TRAIN_STEPS, TRAIN_LR = 25, 1e-3   # (d): tests/test_train.py's recipe
 FAULT_LAYERS = 2            # (e): of 28, at full width
 FAULT_BATCH = (2, 512)      # (e): B, S
+# phase 13: the MoE archs trained at full width in f32, their depth cut
+# for memory: a train step holds the old and the new f32 params and AdamW
+# moments and the gradients, ~28 bytes a parameter (peak 61 GB on the
+# H100 with the index freed); DeepSeek-V2-Lite keeps its dense layer 0
+# and two MoE layers (1.66 B parameters), Qwen3-30B-A3B two layers (1.87
+# B), and a layer more of either (~0.6 B) would pass the card's 80 GB
+MOE_TRAIN_LAYERS = {MLA_ARCH: 3, MOE_ARCH: 2}
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -425,7 +455,18 @@ KERNELS = {
     "flash_attn_bwd@bf16": dict(
         route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
         replaces="src/repro/models/layers.py:173"),
+    "flash_attn_bwd[dv]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
+        replaces="src/repro/models/layers.py:173"),
+    "flash_attn_bwd@bf16[dv]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
+        replaces="src/repro/models/layers.py:173"),
 }
+# the kernels line's backward rows and the LAUNCHES keys they count
+BWD_ROWS = {"flash_attn_bwd": "flash_attn_bwd",
+            "flash_attn_bwd@bf16": "flash_attn_bwd[bf16]",
+            "flash_attn_bwd[dv]": "flash_attn_bwd[dv]",
+            "flash_attn_bwd@bf16[dv]": "flash_attn_bwd[bf16,dv]"}
 
 
 def log(*a) -> None:
@@ -1984,7 +2025,7 @@ def record_routing():
 
     def recording(x, router_w, cfg):
         gates, eids = router(x, router_w, cfg)
-        unit = torch.nn.functional.normalize(x.float(), dim=-1)
+        unit = torch.nn.functional.normalize(x.detach().float(), dim=-1)
         calls.append((eids, layers._capacity(
             x.shape[0], cfg.moe_top_k, cfg.n_experts, cfg.capacity_factor),
             cfg.n_experts, unit.mean(0).square().sum()))
@@ -2363,16 +2404,19 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
-def measure_bwd(name: str, dtype: torch.dtype, seed: int) -> dict:
-    """Phase 12 (a): the backward kernel at row 6b's shape (B = 1, S = T
-    = ATTN_LEN, Qwen3-0.6B's heads, causal) on inputs of ``dtype``,
-    against its plain version evaluated in f64 on the same residuals (the
-    forward kernel's output and lse; also read against it in f32), the
-    launch under the instance ``flash_bwd_plan`` names, the forward's lse
-    against the plain
+def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
+                dh: int, dv: int) -> dict:
+    """Phase 12 (a), 13 (a): the backward kernel at B = 1, S = T =
+    ATTN_LEN, causal, H query and Hk KV heads, q/k ``dh`` and v ``dv``
+    wide (row 6b's shape: Qwen3-0.6B's heads; 7c's: DeepSeek-V2-Lite's
+    MLA) on inputs of ``dtype``, against its plain version evaluated in
+    f64 on the same residuals (the forward kernel's output and lse; also
+    read against it in f32), the launch under the instance
+    ``flash_bwd_plan`` names, the forward's lse against the plain
     forward's; its time, the plain version's, SDPA's backward alone, and
-    the bound: five products a (s, t) pair kept by the mask, the bytes of
-    q, k, v, o, dO and lse read and dq, dk, dv written."""
+    the bound: five products a (s, t) pair kept by the mask (S, dK and dQ
+    over dh, dP and dV over dv), the bytes of q, k, v, o, dO and lse read
+    and dq, dk, dv written."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_bwd,
                                                 flash_attn_bwd_ref,
@@ -2381,12 +2425,11 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int) -> dict:
     from repro_torch.kernels.launch import LAUNCHES
     F = torch.nn.functional
     dev = torch.device("cuda")
-    H, Hk, dh = QWEN3_ATTN["H"], QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, do = (torch.randn(1, ATTN_LEN, H, dh, generator=gen, device=dev)
-             .to(dtype) for _ in range(2))
-    k, v = (torch.randn(1, ATTN_LEN, Hk, dh, generator=gen, device=dev)
-            .to(dtype) for _ in range(2))
+    q = torch.randn(1, ATTN_LEN, H, dh, generator=gen, device=dev).to(dtype)
+    do = torch.randn(1, ATTN_LEN, H, dv, generator=gen, device=dev).to(dtype)
+    k = torch.randn(1, ATTN_LEN, Hk, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(1, ATTN_LEN, Hk, dv, generator=gen, device=dev).to(dtype)
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     _, lse_plain = flash_attn_ref(q, k, v, causal=True, return_lse=True)
     lse_err = float(((lse - lse_plain).abs()
@@ -2395,7 +2438,7 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int) -> dict:
         raise AssertionError(f"{name}: lse relative error {lse_err} > "
                              f"{LSE_RTOL}")
     del lse_plain
-    key = flash_bwd_plan(dtype, dh).key
+    key = flash_bwd_plan(dtype, dh, dv).key
     before = LAUNCHES[key]
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     if LAUNCHES[key] != before + 1:
@@ -2440,7 +2483,7 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int) -> dict:
                + do.numel()) * q.element_size() + lse.numel() * 4)
     row = dict(
         name=name,
-        shape=dict(B=1, S=ATTN_LEN, T=ATTN_LEN, H=H, Hk=Hk, dh=dh,
+        shape=dict(B=1, S=ATTN_LEN, T=ATTN_LEN, H=H, Hk=Hk, dh=dh, dv=dv,
                    dtype=str(dtype), causal=True),
         max_abs_err=max_abs, rel_l2=errs, rel_l2_vs_f32_plain=plain_errs,
         f32_plain_rel_l2=plain_exact, lse_rel_err=lse_err,
@@ -2450,7 +2493,8 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int) -> dict:
         plain_ms=gpu_ms(lambda: flash_attn_bwd_ref(q, k, v, out, lse, do,
                                                    causal=True), 3),
         library_ms=library_ms,
-        **bound(nbytes, products * 5 * 2 * H * dh * pairs, peak=peak))
+        **bound(nbytes, products * 2 * H * (3 * dh + 2 * dv) * pairs,
+                peak=peak))
     del q, k, v, do, out, lse, o_sdpa, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -2483,7 +2527,9 @@ def train_phase(seed: int) -> tuple:
     rows = []
     for name, dtype in (("flash_attn_bwd", torch.float32),
                         ("flash_attn_bwd@bf16", torch.bfloat16)):
-        rows.append(measure_bwd(name, dtype, seed))
+        rows.append(measure_bwd(name, dtype, seed, QWEN3_ATTN["H"],
+                                QWEN3_ATTN["Hk"], QWEN3_ATTN["dh"],
+                                QWEN3_ATTN["dh"]))
         r = rows[-1]
         log(f"{name} at row 6b's shape {r['shape']}: rel L2 {r['rel_l2']} "
             f"(limit {BWD_RTOL[dtype]}; against the f32 plain version "
@@ -2654,6 +2700,210 @@ def train_phase(seed: int) -> tuple:
     out["launches"] = launches
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
+    return out, rows
+
+
+# --------------------------------------------------------------- phase 13
+@contextlib.contextmanager
+def replay_routing(calls):
+    """Inside it the i-th MoE router call takes the expert ids of the
+    i-th of ``calls`` (``record_routing``'s, from a run of the same
+    model on the same batch) with its own gates at them (its f32 softmax
+    at those experts, renormalised, times ``router_scale``, as
+    ``layers._router`` forms them), so a near-tie that the two runs round
+    apart moves no expert's rows.  Yields, call by call, the (token,
+    expert) choices it would have made otherwise."""
+    from repro_torch.models import layers
+    router = layers._router
+    it = iter(calls)
+    differ = []
+
+    def replaying(x, router_w, cfg):
+        _, eids = router(x, router_w, cfg)
+        want = next(it)[0]
+        own, kept = (torch.nn.functional.one_hot(e, cfg.n_experts).sum(1)
+                     for e in (eids, want))
+        differ.append(int((own != kept).sum()) // 2)
+        with layers.full_f32:
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        gates = probs.gather(1, want)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return gates * cfg.router_scale, want
+    layers._router = replaying
+    try:
+        yield differ
+    finally:
+        layers._router = router
+
+
+def moe_train_phase(seed: int, card: str) -> tuple:
+    """Phase 13: MoE and MLA training on the card, after phase 12 has freed
+    its state: (a) the backward kernel at DeepSeek-V2-Lite's MLA shape
+    (q/k 192, v 128) in f32 and on bf16 inputs, as phase 12 (a); then
+    DeepSeek-V2-Lite and Qwen3-30B-A3B at full width in f32, depth cut to
+    MOE_TRAIN_LAYERS, random weights from ``seed``: (b) ``lm_loss``
+    gradients on one ``lm_batch`` through the kernels against the plain
+    attention's at capacity factor MOE_CAPACITY, the plain run replaying
+    the kernel run's expert choices (``replay_routing``; the choices it
+    would have made otherwise printed call by call), each leaf within
+    TRAIN_GRAD_RTOL; (c) a train step's exact flash launches; (d)
+    TRAIN_STEPS steps at lr TRAIN_LR lower the loss by more than 0.5, the
+    step's ms and tokens/s printed; DeepSeek-V2-Lite's bf16 gradient
+    launches the bf16 instances.  Returns (results, the backward's
+    kernels-line rows)."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attn import flash_bwd_plan, flash_plan
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.loop import (TrainConfig, init_state,
+                                        make_train_step, value_and_grad)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    H, Hk, dh, dv = attn_widths(get_config(MLA_ARCH))
+    rows = []
+    for name, dtype in (("flash_attn_bwd[dv]", torch.float32),
+                        ("flash_attn_bwd@bf16[dv]", torch.bfloat16)):
+        rows.append(measure_bwd(name, dtype, seed, H, Hk, dh, dv))
+        r = rows[-1]
+        log(f"{name} at the MLA shape {r['shape']}: rel L2 {r['rel_l2']} "
+            f"(limit {BWD_RTOL[dtype]}; against the f32 plain version "
+            f"{r['rel_l2_vs_f32_plain']}, which is "
+            f"{r['f32_plain_rel_l2']} off), lse {r['lse_rel_err']}, SDPA's "
+            f"backward {r['sdpa_rel_l2']}; ms={r['ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f}"
+            f" ({card})")
+    out, launches = {}, {}
+    rng = np.random.default_rng(seed + 13)
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    for arch, depth in MOE_TRAIN_LAYERS.items():
+        full = get_config(arch)
+        log("reduced: " + json.dumps({
+            "model": f"{arch} (phase 13)",
+            "n_layers": [full.n_layers, depth],
+            "why": "memory: a step holds the old and new f32 params and "
+                   "AdamW moments and the gradients, ~28 bytes a parameter"}))
+        cfg = dataclasses.replace(full, n_layers=depth)
+        cf16 = dataclasses.replace(cfg, capacity_factor=MOE_CAPACITY)
+        t0 = time.perf_counter()
+        params = tfm.init_lm(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, device=dev)
+        res = out[arch] = {"params": sum(x.numel()
+                                         for x in tree.leaves(params))}
+        batch = lm_batch(rng, *TRAIN_BATCH, cfg.vocab_size)
+        _, _, wq, wv = attn_widths(cfg)
+        fwd = flash_plan(torch.float32, wq, wv).key
+        bwd = flash_bwd_plan(torch.float32, wq, wv).key
+        want = {fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
+
+        # (b) gradients at capacity factor 16, kernels vs plain attention
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            reset_launches()
+            with record_routing() as calls:
+                grads, m = value_and_grad(
+                    lambda p, b: tfm.lm_loss(p, b, cf16,
+                                             dtype=torch.float32),
+                    params, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        grew = {n: c for n, c in LAUNCHES.items() if c}
+        if grew != want:
+            raise AssertionError(f"{arch} lm_loss gradient: launches {grew},"
+                                 f" expected {want}")
+        with plain_attention(), replay_routing(calls) as differ:
+            plain, pm = value_and_grad(
+                lambda p, b: tfm.lm_loss(p, b, cf16, dtype=torch.float32),
+                params, batch)
+        torch.cuda.synchronize()
+        if {n: c for n, c in LAUNCHES.items() if c} != grew:
+            raise AssertionError(f"{arch}: the plain-attention gradient "
+                                 f"launched a kernel")
+        worst = max((rel_l2(g, w), key) for (key, g), w in zip(
+            tree.keyed_leaves(grads), tree.leaves(plain), strict=True))
+        res["grad"] = {"loss": float(m["loss"]),
+                       "loss_plain": float(pm["loss"]),
+                       "worst_rel_l2": worst[0], "worst_leaf": worst[1],
+                       "launches": grew,
+                       "assignments_differing_by_router_call": differ,
+                       **by_layer(calls)}
+        log(f"moe train (b) {arch} lm_loss gradients at capacity factor "
+            f"{MOE_CAPACITY}, kernels vs plain attention (replaying the "
+            f"kernel run's expert choices): " + json.dumps(res["grad"]))
+        if not worst[0] <= TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{arch} lm_loss gradient {worst[1]}: "
+                                 f"relative L2 error {worst[0]} > "
+                                 f"{TRAIN_GRAD_RTOL}")
+        for key, n in want.items():
+            launches[key] = launches.get(key, 0) + n
+        del grads, plain, calls
+        torch.cuda.empty_cache()
+
+        # (c), (d) steps on the batch at the config's capacity factor
+        tcfg = TrainConfig(opt=OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                                               total_steps=40))
+        step = make_train_step(
+            lambda p, b: tfm.lm_loss(p, b, cfg, dtype=torch.float32), tcfg)
+        state = init_state(params, tcfg)
+        losses, secs = [], []
+        for i in range(TRAIN_STEPS):
+            reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))            # synchronises
+            secs.append(time.perf_counter() - t)
+            grew = {n: c for n, c in LAUNCHES.items() if c}
+            if grew != want:
+                raise AssertionError(f"{arch} train step {i}: launches "
+                                     f"{grew}, expected {want}")
+        for key, n in want.items():
+            launches[key] = launches.get(key, 0) + TRAIN_STEPS * n
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{arch}: non-finite losses {losses}")
+        if not losses[-1] < losses[0] - 0.5:
+            raise AssertionError(f"{arch}: loss {losses[0]} -> "
+                                 f"{losses[-1]} over {TRAIN_STEPS} steps: "
+                                 f"not down by 0.5")
+        del state
+        step_s = float(np.median(secs[1:]))
+        res["steps"] = {"losses": losses, "first_step_s": secs[0],
+                        "step_ms": 1e3 * step_s,
+                        "step_ms_min": 1e3 * min(secs[1:]),
+                        "tokens_per_s": tokens / step_s,
+                        "launches_per_step": want, "card": card}
+        log(f"moe train (c), (d) {arch} {TRAIN_STEPS} steps at lr "
+            f"{TRAIN_LR}, B, S = {TRAIN_BATCH}: " + json.dumps(res["steps"]))
+
+        if cfg.mla:                 # one bf16 gradient: the bf16 instances
+            reset_launches()
+            value_and_grad(lambda p, b: tfm.lm_loss(p, b, cfg,
+                                                    dtype=torch.bfloat16),
+                           params, batch)
+            torch.cuda.synchronize()
+            grew = {n: c for n, c in LAUNCHES.items() if c}
+            want16 = {flash_plan(torch.bfloat16, wq, wv).key:
+                      2 * cfg.n_layers,
+                      flash_bwd_plan(torch.bfloat16, wq, wv).key:
+                      cfg.n_layers}
+            if grew != want16:
+                raise AssertionError(f"{arch} bf16 gradient: launches "
+                                     f"{grew}, expected {want16}")
+            for key, n in want16.items():
+                launches[key] = launches.get(key, 0) + n
+        res["s"] = time.perf_counter() - t0
+        del params, batch
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
+    for r in rows:
+        r["launches"] = launches.get(BWD_ROWS[r["name"]], 0)
     return out, rows
 
 
@@ -2880,7 +3130,24 @@ def main() -> int:
     for k in kernels:
         if k["name"] in ("flash_attn_fwd_tf32", "flash_attn_fwd_wgmma"):
             k["launches"] += trn["launches"].get(k["name"], 0)
+    # phase 13 wants the card's memory: the index and what holds its
+    # tensors (the serving paths' recorded calls, phase 5's inputs) go
+    del index, view, cents, recorder, entry_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before phase 13: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+    t = time.perf_counter()
+    mtr, mtr_rows = moe_train_phase(args.seed, card)
+    log(f"moe train: ok, {time.perf_counter() - t:.1f} s; peak "
+        f"{mtr['peak_gb']:.1f} GB; launches=" + json.dumps(mtr["launches"]))
+    # and phase 13's: its forward launches under the flash rows, its
+    # Qwen3-30B-A3B backward under phase 12's f32 backward row
+    for k in kernels:
+        k["launches"] += mtr["launches"].get(k["name"], 0)
     for r in bwd_rows:
+        r["launches"] += mtr["launches"].get(BWD_ROWS[r["name"]], 0)
+    for r in bwd_rows + mtr_rows:
         shape = r.pop("shape")
         for extra in ("rel_l2", "lse_rel_err", "sdpa_rel_l2"):
             r.pop(extra)

@@ -10,7 +10,7 @@
 // (B, Hk, G, S, 512) f32 score block per KV block and launches about ten
 // ops a block.  The semantics are _flash_bwd's, from the logsumexp the
 // forward saved (O(S) residuals; no score matrix in device memory):
-//     D[s]  = sum_d dO[s, d] O[s, d]
+//     D[s]  = sum_e dO[s, e] O[s, e]               (over v's width)
 //     P     = exp(scale * q . k - lse[s])        (0 where masked)
 //     dV[t] = sum_s P[s, t] dO[s]
 //     dP    = dO . v
@@ -18,24 +18,29 @@
 //     dQ[s] = scale sum_t dS[s, t] k[t],  dK[t] = scale sum_s dS[s, t] q[s]
 // with G = H / Hk query heads per KV head (dK and dV sum over the G heads),
 // causal masking aligned at the top left (key t kept for query s where
-// t <= s), q at offset 0, one width d = dh = dv <= 128, d % 8 == 0 (the
-// wrapper pads other widths with zero columns, which give zero gradient
-// columns, cut off after).
+// t <= s), q at offset 0, q and k d wide, v, O and dO d_v <= d wide, both
+// multiples of 8 (the wrapper pads other widths with zero columns, which
+// give zero gradient columns, cut off after).  Instances (kD, kDv): (64,
+// 64), (128, 128) and (192, 128), DeepSeek-V2's MLA (q/k 192, v 128); a
+// narrower width runs on the smallest instance that holds it, its tensor
+// maps at the true widths, so TMA reads the columns past them as zeros.
 //
 // What bounds it on an H100 SXM: operations.  At Qwen3-0.6B's attention
 // widths (H 16, Hk 8, dh 128), B = 1, S = T = 4096, causal, each product
 // over the kept (s, t) pairs is 34.4 GFLOP; the five of the semantics
 // (S, dP, dV, dK, dQ) are 171.9 GFLOP: 1.04 ms as 3xTF32 at 495 TFLOP/s,
 // 0.174 ms in bf16 at 989; its bytes (q, k, v, o, dO, lse read once, dq,
-// dk, dv written once: 168 MB in f32) take 0.05 ms.
+// dk, dv written once: 168 MB in f32) take 0.05 ms.  At the MLA shape (H =
+// Hk = 16, q/k 192, v 128) the five are 2 (3 * 192 + 2 * 128) FLOP a kept
+// pair, 223.4 GFLOP: 1.354 ms as 3xTF32, 0.226 ms in bf16.
 //
 // Precision.  The reference computes in f32, and the kernel keeps that on
 // bf16 tensor cores by splitting operands into bf16 terms, x = x0 + x1 +
 // x2 with x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) (24 bits
 // of mantissa, f32's), and forming each product only for the term pairs
 // (i, j) with i + j <= 2 (the dropped pairs are below f32's resolution of
-// the sum); the products are exact, the sums f32.  Two instances of one
-// template <kD, kTerms>, kTerms the terms of q, k, v and dO:
+// the sum); the products are exact, the sums f32.  Instances of one
+// template <kD, kDv, kTerms>, kTerms the terms of q, k, v and dO:
 //   * kTerms = 1, bf16 inputs: q, k, v and dO are bf16 already (exact), so
 //     S and dP take one pass each; P and dS are split into three terms in
 //     registers (one bf16 P, as SDPA's bf16 backward rounds it, gives
@@ -57,13 +62,14 @@
 //
 // Three kernels, no atomics, every sum in a fixed order, so a gradient is
 // the same bit for bit from run to run:
-//   * bwd_prep_kernel: D, one warp a (b, s, h) row, four elements a lane,
-//     in the inputs' dtype; with kTerms = 3 also the term planes of q, k,
-//     v and dO, a row of each a warp;
+//   * bwd_prep_kernel: D, one warp a (b, s, h) row, four elements a lane
+//     (a second pass past 128 columns), in the inputs' dtype; with kTerms =
+//     3 also the term planes of q, k (d wide), v and dO (d_v wide), a row
+//     of each a warp;
 //   * bwd_dkdv_kernel: one block a (b, kh, 64-key tile), one warpgroup
 //     (128 threads, so ptxas may give a thread 255 registers: the 288- and
 //     384-thread forwards sit at 168).  K and V stay in shared memory while
-//     Q and dO tiles of 32 rows stream through a ring filled by TMA (4-d
+//     Q and dO tiles of kBn rows stream through a ring filled by TMA (4-d
 //     tensor maps, 128-byte swizzle, kernels/hopper.cuh), the loads issued
 //     by thread 0 as stages free up, over the G query heads and the query
 //     tiles that reach its keys (causally: from the tile of its first key
@@ -72,11 +78,11 @@
 //     in the accumulator layout, which is the A-operand layout from
 //     registers of dV += P^T dO and dK += dS^T Q; there dO and Q are the B
 //     operand read MN-major (the bf16 transpose bit) from the same tiles.
-//     dK and dV (64 + 64 f32 a thread) stay in registers over the loop;
+//     dK and dV (kD / 2 + kDv / 2 f32 a thread) stay in registers;
 //   * bwd_dq_kernel: one block a (b, h, 64-query tile), one warpgroup; Q
-//     and dO resident, K and V tiles of 32 keys streamed as above; S = Q K^T
-//     and dP = dO V^T, then dQ += dS K with dS's terms from registers as A
-//     and K read MN-major.
+//     and dO resident, K and V tiles of kBn keys streamed as above; S = Q
+//     K^T and dP = dO V^T, then dQ += dS K with dS's terms from registers as
+//     A and K read MN-major.
 // Both passes recompute S and dP (seven products where five would do).
 // Blocks run longest first (the key tiles nearest the top, the query tiles
 // nearest the bottom).  P is exp(scale S - lse) by expf, masked elements 0;
@@ -89,16 +95,25 @@
 // steps starts from zero and stays short, and the kernel adds its result
 // to a running sum in registers with __fadd_rn (promote): a tile's dV, dK
 // or dQ (6 steps in bf16, 12 in f32), and S and dP each in two chains
-// (the small term pairs and the large one; in bf16 the two halves of d).
-// That leaves the f32 rounding of the running sums, about 5e-7 off the
-// exact gradient in f32, below the plain f32 version's own 1.9e-6
-// (chip_smoke.py phase 12, PERF.md).  dK/dV keeps one tile's product (64
-// floats a thread) beside its two running sums, so it issues dV's chain
-// and dK's one after the other.
+// (the small term pairs and the large one; in bf16 the two halves of the
+// width).  That leaves the f32 rounding of the running sums, about 5e-7
+// off the exact gradient in f32, below the plain f32 version's own 1.9e-6
+// (chip_smoke.py phase 12, PERF.md).  dK/dV keeps one tile's product
+// beside its two running sums, so it issues dV's chain and dK's one after
+// the other.
 //
-// Shared memory at kD = 128: 193 KB in f32 (one block an SM); in bf16 97 KB
-// for dK/dV (four stages, two blocks an SM: 252 registers) and 65 KB for
-// dQ (two stages and at most 168 registers: three blocks an SM).
+// Shared memory and registers.  (128, 128): 193 KB in f32 (one block an
+// SM); in bf16 97 KB for dK/dV (four stages, two blocks an SM: 252
+// registers) and 65 KB for dQ (two stages and at most 168 registers: three
+// blocks an SM).  (192, 128) in f32: the resident K and V (or Q and dO)
+// take 72 + 48 KB in three terms, so a 32-row stage of the other two (60
+// KB) fits once; the instance streams 16-row tiles (30 KB, m64n16k16 score
+// products) in three stages, 211 KB.  There dK and dV take 96 + 64 floats
+// a thread, and a whole tile's dK product 96 more, past the 255 registers
+// a thread may have: the (192, 128) instance issues each gradient product
+// in 64-column slices (N = 64, 32 floats), each promoted into its columns
+// of the running sum before the next is issued.  In bf16 it streams 32-row
+// tiles in three stages (101 KB: two blocks an SM).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -119,32 +134,58 @@ constexpr int kRows = 64;              // keys (dK/dV) or queries (dQ) a block
 constexpr int kBox = 64;               // bf16 columns of a 128-byte TMA box
 constexpr int kMaxStages = 4;
 constexpr int kSmemCap = 227 * 1024;   // shared memory a block may have
+constexpr int kSmemHalf = 113 * 1024;  // a block's share where two fit an SM
 constexpr int kPrepThreads = 256;
 
-// Sizes of the <kD, kTerms> instance.  A tensor's tile is kTerms term
-// planes, each kD / 64 boxes of rows x 128 bytes, each box 1024-byte
-// aligned for the 128-byte swizzle.
-template <int kD, int kTerms>
+// Sizes of the <kD, kDv, kTerms> instance.  A tensor's tile is kTerms term
+// planes, each width / 64 boxes of rows x 128 bytes, each box 1024-byte
+// aligned for the 128-byte swizzle: q and k kD wide (kBoxes boxes), v and
+// dO kDv wide (kBoxesV).  Each kernel keeps one of each width resident (K
+// and V, or Q and dO) and streams the other two, a stage holding both.
+template <int kD, int kDv, int kTerms>
 struct Cfg {
   static constexpr int kBoxes = kD / kBox;
-  static constexpr int kBn = 32;                     // rows of a streamed tile
+  static constexpr int kBoxesV = kDv / kBox;
   static constexpr int kResBox = kRows * 128;        // bytes of a resident box
   static constexpr int kResTerm = kBoxes * kResBox;
-  static constexpr int kRes = kTerms * kResTerm;     // one resident tensor
+  static constexpr int kResTermV = kBoxesV * kResBox;
+  static constexpr int kRes = kTerms * kResTerm;     // resident K or Q
+  static constexpr int kResV = kTerms * kResTermV;   // resident V or dO
+  static constexpr int kResAll = kRes + kResV;
+  // rows of a streamed tile: 32 where two stages of them fit beside the
+  // resident tiles, else 16
+  static constexpr int kStage32 = kTerms * (kBoxes + kBoxesV) * 32 * 128;
+  static constexpr int kBn =
+      kSmemCap - 2048 - kResAll >= 2 * kStage32 ? 32 : 16;
   static constexpr int kStrBox = kBn * 128;
   static constexpr int kStrTerm = kBoxes * kStrBox;
-  static constexpr int kStr = kTerms * kStrTerm;     // one streamed tensor
-  static constexpr int kFit = (kSmemCap - 2048 - 2 * kRes) / (2 * kStr);
+  static constexpr int kStrTermV = kBoxesV * kStrBox;
+  static constexpr int kStr = kTerms * kStrTerm;     // streamed Q or K
+  static constexpr int kStrV = kTerms * kStrTermV;   // streamed dO or V
+  static constexpr int kStage = kStr + kStrV;
+  // f32: as many stages as one block an SM holds; bf16: as many as leave
+  // room for two blocks an SM
+  static constexpr int kFit =
+      ((kTerms == 1 ? kSmemHalf : kSmemCap) - 2048 - kResAll) / kStage;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
-  static constexpr int kSmem = 2 * kRes + kStages * 2 * kStr + 1024;
-  // the dQ pass in bf16: two stages (65 KB) and at most 168 registers, so
-  // three blocks share an SM (its element steps wait on latency, and more
-  // warps hide more of it: 10% faster than two blocks of four stages)
-  static constexpr int kStagesQ = kTerms == 1 ? 2 : kStages;
-  static constexpr int kSmemQ = 2 * kRes + kStagesQ * 2 * kStr + 1024;
-  static constexpr int kMinBlocksQ = kTerms == 1 ? 3 : 1;
+  static constexpr int kSmem = kResAll + kStages * kStage + 1024;
+  // the dQ pass in bf16 up to kD = 128: two stages (65 KB) and at most 168
+  // registers, so three blocks share an SM (its element steps wait on
+  // latency, and more warps hide more of it: 10% faster than two blocks of
+  // four stages); (192, 128)'s sums do not fit 168 registers
+  static constexpr bool kThreeQ = kTerms == 1 && kD <= 128;
+  static constexpr int kStagesQ = kThreeQ ? 2 : kStages;
+  static constexpr int kSmemQ = kResAll + kStagesQ * kStage + 1024;
+  static constexpr int kMinBlocksQ = kThreeQ ? 3 : 1;
   static constexpr int kAcc = kD / 2;     // f32 of a 64 x kD sum a thread
+  static constexpr int kAccV = kDv / 2;   // f32 of a 64 x kDv sum
   static constexpr int kSc = kBn / 2;     // f32 of a 64 x kBn score tile
+  // N of a gradient product's wgmma: the whole width up to 128, else
+  // 64-column slices (registers: see the header)
+  static constexpr int kSlice = kD <= 128 ? kD : 64;
+  static_assert(kDv <= kD && kD % kBox == 0 && kDv % kBox == 0, "widths");
+  static_assert(kStages >= 2 && kSmem <= kSmemCap && kSmemQ <= kSmemCap,
+                "shared memory");
 };
 
 // the gradients' type: bf16 for bf16 inputs, f32 for f32
@@ -155,8 +196,8 @@ using Out = std::conditional_t<kTerms == 1, __nv_bfloat16, float>;
 constexpr int kBarRes = 0, kBarFull = 1, kBarEmpty = 1 + kMaxStages,
               kNumBars = 1 + 2 * kMaxStages;
 
-// d (64 x 32, f32) (+)= A (64 x 16, smem) * B (32 x 16, smem)^T, both
-// K-major; accumulate = 0 overwrites d
+// d (64 x N, f32) (+)= A (64 x 16, smem) * B (N x 16, smem)^T, both
+// K-major, N = 32 or 16; accumulate = 0 overwrites d
 __device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t da,
                                        uint64_t db, int accumulate) {
   asm volatile(
@@ -164,6 +205,15 @@ __device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " R16
       ", %16, %17, p, 1, 1, 0, 0;\n}\n"
       : D16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void mma_ss(float (&d)[8], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : D8(0)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -190,27 +240,30 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
         "r"(accumulate));
 }
 
-// sum += d, each element rounded on its own (f32, round to nearest)
-template <int kN>
-__device__ __forceinline__ void promote(float (&sum)[kN],
-                                        const float (&d)[kN]) {
+// sum[off + i] += d[i], each element rounded on its own (f32, round to
+// nearest); off a constant once the caller's loop is unrolled
+template <int kS, int kN>
+__device__ __forceinline__ void promote(float (&sum)[kS],
+                                        const float (&d)[kN], int off = 0) {
 #pragma unroll
-  for (int i = 0; i < kN; ++i) sum[i] = __fadd_rn(sum[i], d[i]);
+  for (int i = 0; i < kN; ++i) sum[off + i] = __fadd_rn(sum[off + i], d[i]);
 }
 
 // s = sum over the term pairs (a, b), a + b <= 2, of A_a B_b^T, smallest
-// terms first: A the 64-row resident tile (term planes kResTerm apart), B a
-// streamed tile (kStrTerm apart), both K-major; kD / 16 k-steps a pair,
-// step kk reading 32 bytes at (kk % 4) * 32 of the 128-byte rows of box
-// kk / 4.  In two chains, each from zero, which the caller adds (the
-// tensor cores' f32 sum loses more the longer a chain runs): sa the small
-// pairs (three terms) or the first half of the k-steps (one term), sb the
-// rest.  Issued, not committed.
-template <int kD, int kTerms, int kN>
+// terms first, over a width of kW columns: A the 64-row resident tile
+// (term planes kW / 64 boxes of 8 KB apart), B a streamed tile of kBn rows
+// (kW / 64 boxes of kBn x 128 bytes a term), both K-major; kW / 16 k-steps
+// a pair, step kk reading 32 bytes at (kk % 4) * 32 of the 128-byte rows
+// of box kk / 4.  In two chains, each from zero, which the caller adds
+// (the tensor cores' f32 sum loses more the longer a chain runs): sa the
+// small pairs (three terms) or the first half of the k-steps (one term),
+// sb the rest.  Issued, not committed.
+template <int kW, int kTerms, int kBn, int kN>
 __device__ __forceinline__ void issue_scores(float (&sa)[kN],
                                              float (&sb)[kN], uint32_t a,
                                              uint32_t b) {
-  using C = Cfg<kD, kTerms>;
+  constexpr int kATerm = kW / kBox * kRows * 128;
+  constexpr int kBBox = kBn * 128, kBTerm = kW / kBox * kBBox;
   int acc_a = 0, acc_b = 0;
 #pragma unroll
   for (int o = 2; o >= 0; --o)
@@ -219,13 +272,13 @@ __device__ __forceinline__ void issue_scores(float (&sa)[kN],
       const int tb = o - ta;
       if (tb < 0 || tb >= kTerms) continue;
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
+      for (int kk = 0; kk < kW / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        const uint64_t da = desc(
-            a + ta * C::kResTerm + (kk / 4) * C::kResBox + off, 16, 1024);
-        const uint64_t db = desc(
-            b + tb * C::kStrTerm + (kk / 4) * C::kStrBox + off, 16, 1024);
-        if (kTerms == 3 ? o == 0 : kk >= kD / 32) {
+        const uint64_t da =
+            desc(a + ta * kATerm + (kk / 4) * (kRows * 128) + off, 16, 1024);
+        const uint64_t db =
+            desc(b + tb * kBTerm + (kk / 4) * kBBox + off, 16, 1024);
+        if (kTerms == 3 ? o == 0 : kk >= kW / 32) {
           mma_ss(sb, da, db, acc_b);
           acc_b = 1;
         } else {
@@ -236,33 +289,47 @@ __device__ __forceinline__ void issue_scores(float (&sa)[kN],
     }
 }
 
-// d = sum over the term pairs (a, b), a + b <= 2, of X_a B_b, smallest
-// terms first: X's three terms in registers as A (x[a][4 kk ..] the 16
-// columns of k-step kk), B a streamed tile of kBn rows read MN-major (step
-// kk: rows 16 kk .., 2 KB on; N = kD across the boxes, kStrBox apart).
-// Issued, not committed.  The caller adds d to its running sum (promote):
-// the tensor cores' own f32 accumulation over thousands of steps lost 4.7e-5
-// relative in dK and dV at row 6b's shape, a short chain a tile does not.
-template <int kD, int kTerms, int kN>
-__device__ __forceinline__ void issue_grad(
-    float (&d)[kN], const uint32_t (&x)[3][Cfg<kD, kTerms>::kSc / 2],
-    uint32_t b) {
-  using C = Cfg<kD, kTerms>;
-  int acc = 0;
+// sum += the product X B over a width of kW columns, X (64 x kBn) in three
+// terms in registers as A (x[a][4 kk ..] the 16 columns of k-step kk), B
+// a streamed tile of kBn rows, kW wide, read MN-major (step kk: rows 16 kk
+// .., 2 KB on; its columns in boxes kBn x 128 bytes apart, term planes kW
+// / 64 boxes apart): sum over the term pairs (a, b), a + b <= 2, smallest
+// first.  In slices of kSlice columns: each slice's product is one chain
+// from zero, committed, waited for and added to its columns of the running
+// sum (promote) before the next is issued.  (The tensor cores' own f32
+// accumulation over thousands of steps lost 4.7e-5 relative in dK and dV
+// at row 6b's shape; a short chain a tile does not.)
+template <int kW, int kSlice, int kTerms, int kBn>
+__device__ __forceinline__ void grad_into(float (&sum)[kW / 2],
+                                          const uint32_t (&x)[3][kBn / 4],
+                                          uint32_t b) {
+  constexpr int kBBox = kBn * 128, kBTerm = kW / kBox * kBBox;
 #pragma unroll
-  for (int o = 2; o >= 0; --o)
+  for (int c = 0; c < kW / kSlice; ++c) {
+    float part[kSlice / 2];
+    wgmma_fence();
+    int acc = 0;
 #pragma unroll
-    for (int ta = 0; ta < 3; ++ta) {
-      const int tb = o - ta;
-      if (tb < 0 || tb >= kTerms) continue;
+    for (int o = 2; o >= 0; --o)
 #pragma unroll
-      for (int kk = 0; kk < C::kBn / 16; ++kk) {
-        mma_rs(d, &x[ta][4 * kk],
-               desc(b + tb * C::kStrTerm + kk * 2048, C::kStrBox, 1024),
-               acc);
-        acc = 1;
+      for (int ta = 0; ta < 3; ++ta) {
+        const int tb = o - ta;
+        if (tb < 0 || tb >= kTerms) continue;
+#pragma unroll
+        for (int kk = 0; kk < kBn / 16; ++kk) {
+          mma_rs(part, &x[ta][4 * kk],
+                 desc(b + tb * kBTerm + c * (kSlice / kBox) * kBBox +
+                          kk * 2048,
+                      kBBox, 1024),
+                 acc);
+          acc = 1;
+        }
       }
-    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    promote(sum, part, c * (kSlice / 2));
+  }
 }
 
 // x[t][r / 2] = term t of (v[r], v[r + 1]), packed as an A-fragment
@@ -316,7 +383,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// scale * acc, the warpgroup's 64 x kD sum, to rows row_a (+ 8) (those <
+// scale * acc, the warpgroup's 64 x w sum, to rows row_a (+ 8) (those <
 // n_rows) of one head of a (b, len, heads, d) tensor whose row row0 is at
 // dst: element r at column 8 (r / 4) + 2 quad + (r & 1), columns < d
 template <int kAcc, typename T>
@@ -359,8 +426,9 @@ __device__ __forceinline__ void split_store(float4 x,
     *reinterpret_cast<uint2*>(dst + t * plane) = make_uint2(w[t][0], w[t][1]);
 }
 
-// D = rowsum(dO * O), a warp a (b, s, h) row; with kTerms = 3 also the
-// term planes of q and dO (that row) and of k and v (row `row` of theirs)
+// D = rowsum(dO * O) over d_v, a warp a (b, s, h) row; with kTerms = 3 also
+// the term planes of q (d wide) and dO (d_v wide) of that row and of k and
+// v (row `row` of theirs); a lane takes columns 4 lane + 128 i
 template <typename T, int kTerms>
 __global__ void __launch_bounds__(kPrepThreads)
 bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -370,24 +438,25 @@ bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 __nv_bfloat16* __restrict__ do3,
                 __nv_bfloat16* __restrict__ k3,
                 __nv_bfloat16* __restrict__ v3, long long rows_q,
-                long long rows_kv, int s_len, int h_q, int d) {
+                long long rows_kv, int s_len, int h_q, int d, int d_v) {
   const long long row = (long long)blockIdx.x * (kPrepThreads / 32) +
                         threadIdx.x / 32;
-  const int lane = threadIdx.x % 32, c = 4 * lane;
+  const int lane = threadIdx.x % 32;
   if (row < rows_q) {                              // (b, s, h)
     float acc = 0.f;
-    if (c < d) {
-      const float4 a = load4(o + row * d + c);
-      const float4 g = load4(dout + row * d + c);
+    for (int c = 4 * lane; c < d_v; c += 128) {
+      const float4 a = load4(o + row * d_v + c);
+      const float4 g = load4(dout + row * d_v + c);
       acc = __fmaf_rn(a.x, g.x, acc);
       acc = __fmaf_rn(a.y, g.y, acc);
       acc = __fmaf_rn(a.z, g.z, acc);
       acc = __fmaf_rn(a.w, g.w, acc);
-      if constexpr (kTerms == 3) {
-        split_store(g, do3 + row * d + c, rows_q * d);
-        split_store(load4(q + row * d + c), q3 + row * d + c, rows_q * d);
-      }
+      if constexpr (kTerms == 3)
+        split_store(g, do3 + row * d_v + c, rows_q * d_v);
     }
+    if constexpr (kTerms == 3)
+      for (int c = 4 * lane; c < d; c += 128)
+        split_store(load4(q + row * d + c), q3 + row * d + c, rows_q * d);
 #pragma unroll
     for (int sh = 16; sh >= 1; sh >>= 1)
       acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, sh));
@@ -398,9 +467,12 @@ bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if constexpr (kTerms == 3) {
-    if (row < rows_kv && c < d) {                  // (b, t, hk)
-      split_store(load4(k + row * d + c), k3 + row * d + c, rows_kv * d);
-      split_store(load4(v + row * d + c), v3 + row * d + c, rows_kv * d);
+    if (row < rows_kv) {                           // (b, t, hk)
+      for (int c = 4 * lane; c < d; c += 128)
+        split_store(load4(k + row * d + c), k3 + row * d + c, rows_kv * d);
+      for (int c = 4 * lane; c < d_v; c += 128)
+        split_store(load4(v + row * d_v + c), v3 + row * d_v + c,
+                    rows_kv * d_v);
     }
   }
 }
@@ -408,7 +480,7 @@ bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // One block a (b, kh, 64-key tile): dK and dV of those keys (header).
 // Maps: K and V in 64-row boxes, Q and dO in kBn-row boxes, the term
 // planes as the outer coordinate (term a of batch bb at a * b + bb).
-template <int kD, int kTerms>
+template <int kD, int kDv, int kTerms>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
@@ -417,13 +489,13 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, Out<kTerms>* __restrict__ dk,
                 Out<kTerms>* __restrict__ dv, int b, int s_len, int t_len,
-                int h_q, int h_kv, int d, float scale, int causal) {
-  using C = Cfg<kD, kTerms>;
+                int h_q, int h_kv, int d, int d_v, float scale, int causal) {
+  using C = Cfg<kD, kDv, kTerms>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
   // K | V | stage 0: Q, dO | stage 1 ..., each 1024-byte aligned
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t k_s = base, v_s = base + C::kRes, str_s = base + 2 * C::kRes;
+  const uint32_t k_s = base, v_s = base + C::kRes, str_s = base + C::kResAll;
   const uint32_t bar0 = smem_u32(bars);
   auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
 
@@ -441,16 +513,16 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
   auto load_tiles = [&](int i) {
     const int st = i % C::kStages;
     const int h = kh * g_n + i / n_it, q0 = (it0 + i % n_it) * C::kBn;
-    const uint32_t dst = str_s + st * 2 * C::kStr;
-    mbar_expect_tx(bar(kBarFull + st), 2 * C::kStr);
-    for (int a = 0; a < kTerms; ++a)
-      for (int c = 0; c < C::kBoxes; ++c) {
-        const uint32_t off = a * C::kStrTerm + c * C::kStrBox;
-        tma_load_4d(dst + off, &map_q, bar(kBarFull + st), c * kBox, h, q0,
-                    a * b + bb);
-        tma_load_4d(dst + C::kStr + off, &map_do, bar(kBarFull + st),
-                    c * kBox, h, q0, a * b + bb);
-      }
+    const uint32_t dst = str_s + st * C::kStage;
+    mbar_expect_tx(bar(kBarFull + st), C::kStage);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(dst + a * C::kStrTerm + c * C::kStrBox, &map_q,
+                    bar(kBarFull + st), c * kBox, h, q0, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(dst + C::kStr + a * C::kStrTermV + c * C::kStrBox,
+                    &map_do, bar(kBarFull + st), c * kBox, h, q0, a * b + bb);
+    }
   };
   if (tid == 0) {
     mbar_init(bar(kBarRes), 1);
@@ -462,35 +534,37 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar(kBarRes), 2 * C::kRes);
-    for (int a = 0; a < kTerms; ++a)
-      for (int c = 0; c < C::kBoxes; ++c) {
-        const uint32_t off = a * C::kResTerm + c * C::kResBox;
-        tma_load_4d(k_s + off, &map_k, bar(kBarRes), c * kBox, kh, k0,
-                    a * b + bb);
-        tma_load_4d(v_s + off, &map_v, bar(kBarRes), c * kBox, kh, k0,
-                    a * b + bb);
-      }
+    mbar_expect_tx(bar(kBarRes), C::kResAll);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(k_s + a * C::kResTerm + c * C::kResBox, &map_k,
+                    bar(kBarRes), c * kBox, kh, k0, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(v_s + a * C::kResTermV + c * C::kResBox, &map_v,
+                    bar(kBarRes), c * kBox, kh, k0, a * b + bb);
+    }
     for (int i = 0; i < min(C::kStages, n_iter); ++i) load_tiles(i);
   }
 
-  float dk_acc[C::kAcc], dv_acc[C::kAcc];
+  float dk_acc[C::kAcc], dv_acc[C::kAccV];
 #pragma unroll
-  for (int i = 0; i < C::kAcc; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < C::kAcc; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < C::kAccV; ++i) dv_acc[i] = 0.f;
   const int row_a = k0 + 16 * warp + lane / 4;      // keys row_a, row_a + 8
   mbar_wait(bar(kBarRes), 0);
   for (int i = 0; i < n_iter; ++i) {
     const int st = i % C::kStages;
     const uint32_t ph = (i / C::kStages) & 1;
     const int h = kh * g_n + i / n_it, q0 = (it0 + i % n_it) * C::kBn;
-    const uint32_t q_t = str_s + st * 2 * C::kStr, do_t = q_t + C::kStr;
+    const uint32_t q_t = str_s + st * C::kStage, do_t = q_t + C::kStr;
 
     // S^T = K Q^T, dP^T = V dO^T (64 keys x kBn queries)
     float s[C::kSc], dp[C::kSc], s2[C::kSc], dp2[C::kSc];
     mbar_wait(bar(kBarFull + st), ph);
     wgmma_fence();
-    issue_scores<kD, kTerms>(s, s2, k_s, q_t);
-    issue_scores<kD, kTerms>(dp, dp2, v_s, do_t);
+    issue_scores<kD, kTerms, C::kBn>(s, s2, k_s, q_t);
+    issue_scores<kDv, kTerms, C::kBn>(dp, dp2, v_s, do_t);
     wgmma_commit();
     // lse and D of the thread's columns (queries q0 + 8 j' + 2 quad + e)
     // while the products run
@@ -512,40 +586,31 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
     probs<C::kSc, true>(s, dp, lse_v, dl_v, row_a, q0, s_len, t_len, causal,
                         scale, quad);
 
-    // dV += P^T dO, then dK += dS^T Q: P^T, then dS^T, in three terms as
-    // A, each tile's product in `part`, promoted into the running sum
+    // dV += P^T dO, then dK += dS^T Q: P^T, then dS^T, in three terms as A
     uint32_t xt[3][C::kSc / 2];
-    float part[C::kAcc];
     split_pack(s, xt);
-    wgmma_fence();
-    issue_grad<kD, kTerms>(part, xt, do_t);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(part);
-    promote(dv_acc, part);
+    grad_into<kDv, (C::kSlice < kDv ? C::kSlice : kDv), kTerms, C::kBn>(
+        dv_acc, xt, do_t);
     split_pack(dp, xt);
-    wgmma_fence();
-    issue_grad<kD, kTerms>(part, xt, q_t);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(part);
-    promote(dk_acc, part);
+    grad_into<kD, C::kSlice, kTerms, C::kBn>(dk_acc, xt, q_t);
     if (lane == 0) mbar_arrive(bar(kBarEmpty + st));   // stage free
     if (tid == 0 && i + C::kStages < n_iter) {
       mbar_wait(bar(kBarEmpty + st), ph);
       load_tiles(i + C::kStages);
     }
   }
-  const long long row_stride = (long long)h_kv * d;
-  const long long out = ((long long)bb * t_len * h_kv + kh) * d;
-  store_rows(dk + out, row_stride, row_a, t_len, d, quad, scale, dk_acc);
-  store_rows(dv + out, row_stride, row_a, t_len, d, quad, 1.f, dv_acc);
+  const long long out = (long long)bb * t_len * h_kv + kh;   // row of (bb, 0, kh)
+  store_rows(dk + out * d, (long long)h_kv * d, row_a, t_len, d, quad, scale,
+             dk_acc);
+  store_rows(dv + out * d_v, (long long)h_kv * d_v, row_a, t_len, d_v, quad,
+             1.f, dv_acc);
 }
 
 // One block a (b, h, 64-query tile): dQ of those queries (header).  Maps:
 // Q and dO in 64-row boxes, K and V in kBn-row boxes.
-template <int kD, int kTerms>
-__global__ void __launch_bounds__(kThreads, Cfg<kD, kTerms>::kMinBlocksQ)
+template <int kD, int kDv, int kTerms>
+__global__ void __launch_bounds__(kThreads,
+                                  Cfg<kD, kDv, kTerms>::kMinBlocksQ)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_do,
               const __grid_constant__ CUtensorMap map_k,
@@ -553,12 +618,12 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const float* __restrict__ lse, const float* __restrict__ delta,
               Out<kTerms>* __restrict__ dq, int b, int s_len, int t_len,
               int h_q, int h_kv, int d, float scale, int causal) {
-  using C = Cfg<kD, kTerms>;
+  using C = Cfg<kD, kDv, kTerms>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kNumBars];
   // Q | dO | stage 0: K, V | stage 1 ..., each 1024-byte aligned
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base, do_s = base + C::kRes, str_s = base + 2 * C::kRes;
+  const uint32_t q_s = base, do_s = base + C::kRes, str_s = base + C::kResAll;
   const uint32_t bar0 = smem_u32(bars);
   auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
 
@@ -572,19 +637,20 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int n_kt = (t_len + C::kBn - 1) / C::kBn;
   const int n_iter = causal ? min(n_kt, q_last / C::kBn + 1) : n_kt;
 
-  // thread 0: K and V of key tile j into stage j % kStages
+  // thread 0: K and V of key tile j into stage j % kStagesQ
   auto load_tiles = [&](int j) {
     const int st = j % C::kStagesQ;
-    const uint32_t dst = str_s + st * 2 * C::kStr;
-    mbar_expect_tx(bar(kBarFull + st), 2 * C::kStr);
-    for (int a = 0; a < kTerms; ++a)
-      for (int c = 0; c < C::kBoxes; ++c) {
-        const uint32_t off = a * C::kStrTerm + c * C::kStrBox;
-        tma_load_4d(dst + off, &map_k, bar(kBarFull + st), c * kBox, kh,
-                    j * C::kBn, a * b + bb);
-        tma_load_4d(dst + C::kStr + off, &map_v, bar(kBarFull + st),
-                    c * kBox, kh, j * C::kBn, a * b + bb);
-      }
+    const uint32_t dst = str_s + st * C::kStage;
+    mbar_expect_tx(bar(kBarFull + st), C::kStage);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(dst + a * C::kStrTerm + c * C::kStrBox, &map_k,
+                    bar(kBarFull + st), c * kBox, kh, j * C::kBn, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(dst + C::kStr + a * C::kStrTermV + c * C::kStrBox,
+                    &map_v, bar(kBarFull + st), c * kBox, kh, j * C::kBn,
+                    a * b + bb);
+    }
   };
   if (tid == 0) {
     mbar_init(bar(kBarRes), 1);
@@ -596,15 +662,15 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar(kBarRes), 2 * C::kRes);
-    for (int a = 0; a < kTerms; ++a)
-      for (int c = 0; c < C::kBoxes; ++c) {
-        const uint32_t off = a * C::kResTerm + c * C::kResBox;
-        tma_load_4d(q_s + off, &map_q, bar(kBarRes), c * kBox, h, q0,
-                    a * b + bb);
-        tma_load_4d(do_s + off, &map_do, bar(kBarRes), c * kBox, h, q0,
-                    a * b + bb);
-      }
+    mbar_expect_tx(bar(kBarRes), C::kResAll);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(q_s + a * C::kResTerm + c * C::kResBox, &map_q,
+                    bar(kBarRes), c * kBox, h, q0, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(do_s + a * C::kResTermV + c * C::kResBox, &map_do,
+                    bar(kBarRes), c * kBox, h, q0, a * b + bb);
+    }
     for (int j = 0; j < min(C::kStagesQ, n_iter); ++j) load_tiles(j);
   }
 
@@ -624,14 +690,14 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int j = 0; j < n_iter; ++j) {
     const int st = j % C::kStagesQ;
     const uint32_t ph = (j / C::kStagesQ) & 1;
-    const uint32_t k_t = str_s + st * 2 * C::kStr, v_t = k_t + C::kStr;
+    const uint32_t k_t = str_s + st * C::kStage, v_t = k_t + C::kStr;
 
     // S = Q K^T, dP = dO V^T (64 queries x kBn keys)
     float s[C::kSc], dp[C::kSc], s2[C::kSc], dp2[C::kSc];
     mbar_wait(bar(kBarFull + st), ph);
     wgmma_fence();
-    issue_scores<kD, kTerms>(s, s2, q_s, k_t);
-    issue_scores<kD, kTerms>(dp, dp2, do_s, v_t);
+    issue_scores<kD, kTerms, C::kBn>(s, s2, q_s, k_t);
+    issue_scores<kDv, kTerms, C::kBn>(dp, dp2, do_s, v_t);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -643,17 +709,10 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     probs<C::kSc, false>(s, dp, lse_v, dl_v, row_a, j * C::kBn, s_len,
                          t_len, causal, scale, quad);
 
-    // dQ += dS K: dS in three terms as A, K read MN-major, the tile's
-    // product in `part`, promoted into the running sum
+    // dQ += dS K: dS in three terms as A, K read MN-major
     uint32_t xt[3][C::kSc / 2];
-    float part[C::kAcc];
     split_pack(dp, xt);
-    wgmma_fence();
-    issue_grad<kD, kTerms>(part, xt, k_t);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(part);
-    promote(dq_acc, part);
+    grad_into<kD, C::kSlice, kTerms, C::kBn>(dq_acc, xt, k_t);
     if (lane == 0) mbar_arrive(bar(kBarEmpty + st));   // stage free
     if (tid == 0 && j + C::kStagesQ < n_iter) {
       mbar_wait(bar(kBarEmpty + st), ph);
@@ -684,14 +743,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kD, int kTerms>
+template <int kD, int kDv, int kTerms>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    void* dq, void* dk, void* dv, float* delta,
                    __nv_bfloat16* scratch, int b, int s, int t, int h,
-                   int hk, int d, float scale, int causal,
+                   int hk, int d, int d_v, float scale, int causal,
                    cudaStream_t stream) {
-  using C = Cfg<kD, kTerms>;
+  using C = Cfg<kD, kDv, kTerms>;
   using In = std::conditional_t<kTerms == 1, __nv_bfloat16, float>;
   using O = Out<kTerms>;
   const long long rows_q = (long long)b * s * h;
@@ -703,7 +762,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if constexpr (kTerms == 3) {
     q3 = scratch;
     do3 = q3 + 3 * rows_q * d;
-    k3 = do3 + 3 * rows_q * d;
+    k3 = do3 + 3 * rows_q * d_v;
     v3 = k3 + 3 * rows_kv * d;
     qp = q3, dop = do3, kp = k3, vp = v3;
   }
@@ -713,38 +772,38 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const In*>(q), static_cast<const In*>(k),
       static_cast<const In*>(v), static_cast<const In*>(o),
       static_cast<const In*>(dout), delta, q3, do3, k3, v3, rows_q, rows_kv,
-      s, h, d);
+      s, h, d, d_v);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const int nb = b * kTerms;                // term a of batch bb: a * b + bb
   CUtensorMap mk_r, mv_r, mq_s, mdo_s, mq_r, mdo_r, mk_s, mv_s;
   if (!make_map(&mk_r, kp, nb, t, hk, d, kRows) ||
-      !make_map(&mv_r, vp, nb, t, hk, d, kRows) ||
+      !make_map(&mv_r, vp, nb, t, hk, d_v, kRows) ||
       !make_map(&mq_s, qp, nb, s, h, d, C::kBn) ||
-      !make_map(&mdo_s, dop, nb, s, h, d, C::kBn) ||
+      !make_map(&mdo_s, dop, nb, s, h, d_v, C::kBn) ||
       !make_map(&mq_r, qp, nb, s, h, d, kRows) ||
-      !make_map(&mdo_r, dop, nb, s, h, d, kRows) ||
+      !make_map(&mdo_r, dop, nb, s, h, d_v, kRows) ||
       !make_map(&mk_s, kp, nb, t, hk, d, C::kBn) ||
-      !make_map(&mv_s, vp, nb, t, hk, d, C::kBn))
+      !make_map(&mv_s, vp, nb, t, hk, d_v, C::kBn))
     return cudaErrorInvalidValue;
 
-  e = cudaFuncSetAttribute(bwd_dkdv_kernel<kD, kTerms>,
+  e = cudaFuncSetAttribute(bwd_dkdv_kernel<kD, kDv, kTerms>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kSmem);
   if (e != cudaSuccess) return e;
-  bwd_dkdv_kernel<kD, kTerms><<<dim3(b * hk, (t + kRows - 1) / kRows),
-                                kThreads, C::kSmem, stream>>>(
+  bwd_dkdv_kernel<kD, kDv, kTerms><<<dim3(b * hk, (t + kRows - 1) / kRows),
+                                     kThreads, C::kSmem, stream>>>(
       mk_r, mv_r, mq_s, mdo_s, lse, delta, static_cast<O*>(dk),
-      static_cast<O*>(dv), b, s, t, h, hk, d, scale, causal);
+      static_cast<O*>(dv), b, s, t, h, hk, d, d_v, scale, causal);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  e = cudaFuncSetAttribute(bwd_dq_kernel<kD, kTerms>,
+  e = cudaFuncSetAttribute(bwd_dq_kernel<kD, kDv, kTerms>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kSmemQ);
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<kD, kTerms><<<dim3(b * h, (s + kRows - 1) / kRows), kThreads,
-                              C::kSmemQ, stream>>>(
+  bwd_dq_kernel<kD, kDv, kTerms><<<dim3(b * h, (s + kRows - 1) / kRows),
+                                   kThreads, C::kSmemQ, stream>>>(
       mq_r, mdo_r, mk_s, mv_s, lse, delta, static_cast<O*>(dq), b, s, t, h,
       hk, d, scale, causal);
   return cudaGetLastError();
@@ -752,21 +811,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o, dout, dq (b, s, h, d); k, v, dk, dv (b, t, hk, d); lse and delta
-// (b, h, s) f32: contiguous, each 16-byte aligned; lse the forward's
-// natural-log logsumexp, delta scratch the call overwrites.  terms = 1:
-// q, k, v, o, dout bf16, dq, dk, dv written in bf16, scratch unused;
-// terms = 3: all f32, scratch 6 (b s h + b t hk) d bf16 for the term
-// planes.  h % hk == 0, 8 <= d <= 128, d % 8 == 0.  Returns a cudaError_t.
+// q, dq (b, s, h, d); o, dout (b, s, h, d_v); k, dk (b, t, hk, d); v, dv
+// (b, t, hk, d_v); lse and delta (b, h, s) f32: contiguous, each 16-byte
+// aligned; lse the forward's natural-log logsumexp, delta scratch the call
+// overwrites.  terms = 1: q, k, v, o, dout bf16, dq, dk, dv written in
+// bf16, scratch unused; terms = 3: all f32, scratch 3 (b s h + b t hk) (d
+// + d_v) bf16 for the term planes.  h % hk == 0; d and d_v multiples of 8,
+// 8 <= d_v <= d, and (d, d_v) within an instance: d <= 128, or d <= 192
+// with d_v <= 128.  The instance: (64, 64) where both are at most 64, else
+// (128, 128) where both are at most 128, else (192, 128).  Returns a
+// cudaError_t.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* dq, void* dk, void* dv,
                               void* delta, void* scratch, int b, int s, int t,
-                              int h, int hk, int d, float scale, int causal,
-                              int terms, void* stream) {
-  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || d < 8 || d % 8 ||
-      d > 128 || (terms != 1 && terms != 3) ||
-      (terms == 3 && scratch == nullptr) ||
+                              int h, int hk, int d, int d_v, float scale,
+                              int causal, int terms, void* stream) {
+  if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || d_v < 8 || d % 8 ||
+      d_v % 8 || d_v > d || d > 192 || (d > 128 && d_v > 128) ||
+      (terms != 1 && terms != 3) || (terms == 3 && scratch == nullptr) ||
       (long long)b * h > 0x7fffffffLL || (long long)b * terms > 0x7fffffffLL ||
       (s + kRows - 1) / kRows > 65535 || (t + kRows - 1) / kRows > 65535 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -780,11 +843,16 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   __nv_bfloat16* sc = static_cast<__nv_bfloat16*>(scratch);
-#define FLASH_BWD_LAUNCH(D, TERMS)                                          \
-  launch<D, TERMS>(q, k, v, o, dout, ls, dq, dk, dv, dl, sc, b, s, t, h, hk, \
-                   d, scale, causal, st)
+#define FLASH_BWD_LAUNCH(D, DV, TERMS)                                       \
+  launch<D, DV, TERMS>(q, k, v, o, dout, ls, dq, dk, dv, dl, sc, b, s, t, h, \
+                       hk, d, d_v, scale, causal, st)
+  const int inst = d <= 64 ? 0 : d <= 128 ? 1 : 2;
   if (terms == 1)
-    return (int)(d > 64 ? FLASH_BWD_LAUNCH(128, 1) : FLASH_BWD_LAUNCH(64, 1));
-  return (int)(d > 64 ? FLASH_BWD_LAUNCH(128, 3) : FLASH_BWD_LAUNCH(64, 3));
+    return (int)(inst == 0   ? FLASH_BWD_LAUNCH(64, 64, 1)
+                 : inst == 1 ? FLASH_BWD_LAUNCH(128, 128, 1)
+                             : FLASH_BWD_LAUNCH(192, 128, 1));
+  return (int)(inst == 0   ? FLASH_BWD_LAUNCH(64, 64, 3)
+               : inst == 1 ? FLASH_BWD_LAUNCH(128, 128, 3)
+                           : FLASH_BWD_LAUNCH(192, 128, 3));
 #undef FLASH_BWD_LAUNCH
 }

@@ -67,15 +67,20 @@ The backward, :func:`flash_attention_bwd`, has no Pallas counterpart
 (the reference's VJP is plain ``jnp``): ``flash_attn_bwd``
 (``csrc/flash_attn_bwd.cu``, bf16 ``wgmma`` on operands split into bf16
 terms, f32 sums; plain version ``ref.flash_attn_bwd_ref``) recomputes the
-scores from the saved lse.  :func:`flash_bwd_plan` names its instance:
-bf16 inputs (``launch.operand_dtype``) run the one-term instance, counted
-under ``flash_attn_bwd[bf16]``, which reads them as they are and writes
-bf16 gradients; every other dtype is copied to f32 (the reference's
-backward computes in f32) and runs the three-term instance, counted under
-``flash_attn_bwd``, with a scratch buffer for the terms.  It takes q, k
-and v of one width up to 128 (:func:`flash_bwd_width` raises
-``ValueError`` at a wider head or a v narrower than q, naming it), the
-width padded to a multiple of 8, and counts one launch a call.
+scores from the saved lse.  Its instances are named (kD, kDv) as the
+forward's: (64, 64), (128, 128) and (192, 128), the last for MLA's
+training (q/k 192, v 128).  :func:`flash_bwd_plan` names the instance by
+the forward's rule (q/k up to 64, up to 128, up to 192 with v up to 128;
+:func:`flash_bwd_width` raises ``ValueError`` past it, naming the shape:
+(192, 192), (256, 256), a v wider than q), the widths padded to
+multiples of 8, and the term count: bf16 inputs
+(``launch.operand_dtype``) run the one-term instance, counted under
+``flash_attn_bwd[bf16]``, which reads them as they are and writes bf16
+gradients; every other dtype is copied to f32 (the reference's backward
+computes in f32) and runs the three-term instance, counted under
+``flash_attn_bwd``, with a scratch buffer for the terms; ``[dv]`` is
+added to either key where v is narrower than q (``flash_attn_bwd[dv]``,
+``flash_attn_bwd[bf16,dv]``).  One launch a call.
 """
 
 from __future__ import annotations
@@ -266,53 +271,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
-_BWD_MAX_DH = 128               # the backward kernel's widest instance
+_BWD_INSTANCES = ((64, 64), (128, 128), (192, 128))   # (kD, kDv)
+_BWD_MAX_DH = 192
 BWD_KEY = "flash_attn_bwd"
 BWD_BF16_KEY = "flash_attn_bwd[bf16]"
+BWD_DV_KEY = "flash_attn_bwd[dv]"
+BWD_BF16_DV_KEY = "flash_attn_bwd[bf16,dv]"
 
 
-def flash_bwd_width(dh: int, dv: Optional[int] = None) -> int:
-    """The width the backward kernel is passed for q and k ``dh`` wide and
-    v ``dv`` wide (``dh`` when None): dh rounded up to a multiple of 8,
+def flash_bwd_width(dh: int, dv: Optional[int] = None) -> Tuple[int, int]:
+    """The widths the backward kernel is passed for q and k ``dh`` wide and
+    v ``dv`` wide (``dh`` when None): each rounded up to a multiple of 8,
     the row stride of 16 bytes of its bf16 operands.  Raises
-    ``ValueError`` where it has no instance: dh outside 1 .. 128, or dv
-    != dh (MLA's v narrower than q; ROADMAP queue 1)."""
+    ``ValueError`` where it has no instance, naming the shape: q/k outside
+    1 .. 192, v outside 1 .. dh, or q/k past 128 with v past 128 (e.g.
+    (192, 192), (256, 256))."""
     dv = dh if dv is None else dv
     if not 1 <= dh <= _BWD_MAX_DH:
         raise ValueError(f"head width {dh}: the backward kernel takes 1 <= "
                          f"dh <= {_BWD_MAX_DH}")
-    if dv != dh:
-        raise ValueError(f"v width {dv} != q/k width {dh}: the backward "
-                         f"kernel takes dv == dh")
-    return -(-dh // 8) * 8
+    if not 1 <= dv <= dh:
+        raise ValueError(f"v width {dv} with q/k width {dh}: the backward "
+                         f"kernel takes 1 <= dv <= dh")
+    w, wv = -(-dh // 8) * 8, -(-dv // 8) * 8
+    if not any(w <= a and wv <= b for a, b in _BWD_INSTANCES):
+        raise ValueError(f"(dh, dv) = ({dh}, {dv}): no backward instance "
+                         f"(kD, kDv) in {_BWD_INSTANCES} holds it")
+    return w, wv
 
 
 class BwdPlan(NamedTuple):
     """What :func:`flash_attention_bwd` launches: the ``LAUNCHES`` key, the
-    instance's width kD (64 or 128), the width the kernel is passed, and
-    the bf16 terms each of q, k, v and dO is split into (the kernel's
+    instance (kD, kDv), the widths of q/k and of v the kernel is passed,
+    and the bf16 terms each of q, k, v and dO is split into (the kernel's
     kTerms; P and dS always take three)."""
     key: str
-    instance: int
-    width: int
+    instance: Tuple[int, int]
+    widths: Tuple[int, int]
     terms: int
 
 
 def flash_bwd_plan(dtype: torch.dtype, dh: int,
                    dv: Optional[int] = None) -> BwdPlan:
     """The backward instance for inputs computing in ``dtype``
-    (``launch.operand_dtype``) with q and k ``dh`` wide and v ``dv``
-    wide: bf16 (inputs exact in bf16) -> one term, key
+    (``launch.operand_dtype``) with q and k ``dh`` wide and v ``dv`` wide
+    (``dh`` when None), by the rule of the kernel's C entry point, which
+    mirrors :func:`flash_plan`'s: q/k at most 64 wide -> (64, 64); at most
+    128 -> (128, 128); at most 192 with v at most 128 -> (192, 128), the
+    widths :func:`flash_bwd_width` gives (a v narrower than the instance
+    read as zero columns).  bf16 (inputs exact in bf16) -> one term, key
     ``flash_attn_bwd[bf16]``; anything else -> f32 in three terms, key
-    ``flash_attn_bwd``; the width :func:`flash_bwd_width` gives, on the
-    64 instance up to 64, else on the 128.  Raises ``ValueError`` as
+    ``flash_attn_bwd``; ``[dv]`` added (``flash_attn_bwd[dv]``,
+    ``flash_attn_bwd[bf16,dv]``) where v is narrower than q, as
+    :func:`flash_instance` names the forward's.  Raises ``ValueError`` as
     :func:`flash_bwd_width` does."""
-    w = flash_bwd_width(dh, dv)
-    if operand_dtype(dtype) == torch.bfloat16:
-        key, terms = BWD_BF16_KEY, 1
+    dv = dh if dv is None else dv
+    w, wv = flash_bwd_width(dh, dv)
+    bf16 = operand_dtype(dtype) == torch.bfloat16
+    if dv != dh:
+        key = BWD_BF16_DV_KEY if bf16 else BWD_DV_KEY
     else:
-        key, terms = BWD_KEY, 3
-    return BwdPlan(key, 64 if w <= 64 else 128, w, terms)
+        key = BWD_BF16_KEY if bf16 else BWD_KEY
+    instance = next(i for i in _BWD_INSTANCES if w <= i[0] and wv <= i[1])
+    return BwdPlan(key, instance, (w, wv), 1 if bf16 else 3)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -320,8 +341,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         scale: Optional[float] = None, q_offset: int = 0,
                         block_size: int = 512):
-    """The attention VJP: from q (B, S, H, dh), k and v (B, T, Hk, dh[v]),
-    the forward's output ``out`` and ``lse`` (B, H, S) f32 (its
+    """The attention VJP: from q (B, S, H, dh), k (B, T, Hk, dh) and v (B,
+    T, Hk, dv), the forward's output ``out`` and ``lse`` (B, H, S) f32 (its
     ``return_lse``) and the output's gradient ``dout`` (B, S, H, dv) ->
     (dq, dk, dv), each in its input's dtype.  CPU tensors run
     ``ref.flash_attn_bwd_ref`` (KV blocks of ``block_size``, queries at
@@ -340,26 +361,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     _check_qkv(q, k, v)
     b, s, h, dh = q.shape
-    t, hk = k.shape[1], k.shape[2]
+    t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     dtype = operand_dtype(q.dtype, k.dtype, v.dtype, out.dtype, dout.dtype)
-    plan = flash_bwd_plan(dtype, dh, v.shape[3])
-    w = plan.width
-    if tuple(out.shape) != (b, s, h, dh) or tuple(dout.shape) != (b, s, h,
-                                                                    dh):
+    plan = flash_bwd_plan(dtype, dh, dv)
+    w, wv = plan.widths
+    if tuple(out.shape) != (b, s, h, dv) or tuple(dout.shape) != (b, s, h,
+                                                                    dv):
         raise ValueError(f"out {tuple(out.shape)} and dout "
-                         f"{tuple(dout.shape)} must be {(b, s, h, dh)}")
+                         f"{tuple(dout.shape)} must be {(b, s, h, dv)}")
     if tuple(lse.shape) != (b, h, s):
         raise ValueError(f"lse {tuple(lse.shape)} must be {(b, h, s)}")
     dt = torch.bfloat16 if plan.terms == 1 else torch.float32
-    ops = [operand(nm, x, dt, 4, w, dev) for nm, x in
-           (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))]
+    ops = [operand(nm, x, dt, 4, wd, dev) for nm, x, wd in
+           (("q", q, w), ("k", k, w), ("v", v, wv), ("out", out, wv),
+            ("dout", dout, wv))]
     lse = operand("lse", lse, torch.float32, 3, s, dev)
     dq = torch.empty(b, s, h, w, dtype=dt, device=dev)
     dk = torch.empty(b, t, hk, w, dtype=dt, device=dev)
-    dvv = torch.empty(b, t, hk, w, dtype=dt, device=dev)
+    dvv = torch.empty(b, t, hk, wv, dtype=dt, device=dev)
     delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
-    # the three-term instance's planes: q, dO, k, v, three bf16 terms each
-    scratch = (torch.empty(3 * 2 * (b * s * h + b * t * hk) * w,
+    # the three-term instance's planes: q, k at w, dO, v at wv, three bf16
+    # terms each
+    scratch = (torch.empty(3 * (b * s * h + b * t * hk) * (w + wv),
                            dtype=torch.bfloat16, device=dev)
                if plan.terms == 3 else None)
     if b and s and h:
@@ -368,9 +391,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
                delta.data_ptr(),
                0 if scratch is None else scratch.data_ptr(),
-               b, s, t, h, hk, w, scale, int(causal), plan.terms)
+               b, s, t, h, hk, w, wv, scale, int(causal), plan.terms)
     grads = []
     for g, x in ((dq, q), (dk, k), (dvv, v)):
-        g = g[..., :dh] if w != dh else g
+        g = g[..., :x.shape[-1]] if g.shape[-1] != x.shape[-1] else g
         grads.append(g.to(x.dtype).contiguous())
     return tuple(grads)

@@ -33,7 +33,8 @@ INSTANCES = ("adc_fused_topk[spill]",
              "flash_attn_fwd_wgmma[stride-pad]",
              "flash_attn_fwd_tf32[stride-pad]",
              "flash_attn_fwd_wgmma[dv]", "flash_attn_fwd_tf32[dv]",
-             "flash_attn_bwd[bf16]")
+             "flash_attn_bwd[bf16]", "flash_attn_bwd[dv]",
+             "flash_attn_bwd[bf16,dv]")
 # kernel launches since the last reset_launches()
 LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
@@ -47,7 +48,7 @@ _SIGNATURES = {
     "l2dist_wgmma": (_P,) * 6 + (_I,) * 6 + (_P,),
     "flash_attn_fwd_wgmma": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
     "flash_attn_fwd_tf32": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attn_bwd": (_P,) * 11 + (_I,) * 6 + (_F, _I, _I, _P),
+    "flash_attn_bwd": (_P,) * 11 + (_I,) * 7 + (_F, _I, _I, _P),
 }
 
 

@@ -220,8 +220,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain scan (and the plain backward).  CUDA tensors launch
     ``kernels.flash_attn.flash_attention``, which takes ``q_offset == 0``,
     dh <= 256 and a v width up to q's (MLA's 128 against 192), and for a
-    gradient ``flash_attention_bwd``, which takes dh = dv <= 128; any
-    other shape raises ``ValueError`` naming it (ROADMAP queue 3)."""
+    gradient ``flash_attention_bwd``, which takes q/k up to 128 wide with
+    v up to q's width, or up to 192 with v up to 128 (MLA's training);
+    any other shape raises ``ValueError`` naming it, a gradient's in the
+    forward before any launch (ROADMAP queue 3)."""
     dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     T = k.shape[1]

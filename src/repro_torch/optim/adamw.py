@@ -81,15 +81,19 @@ def adamw_update(grads, state, params, cfg: OptimizerConfig):
     b1c = 1.0 - torch.pow(cfg.b1, step.float())
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
 
+    # the reference's expression, each step in place on a tensor this
+    # update made (the same f32 operations in the same order), so no more
+    # than about four temporaries of a leaf's size are live at once: at
+    # full width a leaf of stacked experts' weights is gigabytes
     def upd(g, m, v, p):
         g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mhat = m / b1c
-        vhat = v / b2c
-        delta = (mhat / (torch.sqrt(vhat) + cfg.eps)
-                 + cfg.weight_decay * p.float())
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        m = (cfg.b1 * m).add_((1 - cfg.b1) * g)
+        v = (cfg.b2 * v).add_(torch.square(g).mul_(1 - cfg.b2))
+        del g
+        delta = torch.div(m, b1c).div_(
+            torch.div(v, b2c).sqrt_().add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.float())
+        return (p.float() - delta.mul_(lr)).to(p.dtype), m, v
 
     new = [upd(g, m, v, p) for g, m, v, p in zip(
         tree.leaves(grads), tree.leaves(state["m"]),

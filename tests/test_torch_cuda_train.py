@@ -21,7 +21,9 @@ near 0 and has no relative scale); the models'
 attention VJP on the card within 1e-4 (f32) and 2^-5 (bf16: the card's
 forward rounds P to bf16) of the CPU's; a reduced
 LM's gradients on the card within 1e-4 relative L2 of the CPU's (f32,
-full f32 products on both).
+full f32 products on both), the dense arch's and both MoE archs' (the
+same expert choices on both sides; DeepSeek-V2-Lite's MLA through the
+backward's ``[dv]`` keys, v narrower than q and k).
 """
 
 import numpy as np
@@ -31,7 +33,8 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import launch
-from repro_torch.kernels.flash_attn import (BWD_BF16_KEY, BWD_KEY,
+from repro_torch.kernels.flash_attn import (BWD_BF16_DV_KEY, BWD_BF16_KEY,
+                                            BWD_DV_KEY, BWD_KEY,
                                             flash_attention,
                                             flash_attention_bwd,
                                             flash_attn_bwd_ref,
@@ -68,36 +71,45 @@ def _rel(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def _inputs(dev, b, s, t, h, hk, dh, dtype, seed=0):
+def _inputs(dev, b, s, t, h, hk, dh, dtype, seed=0, dv=None):
+    """q, k (dh wide), v and dO (dv wide, dh when None) from ``seed``."""
+    dv = dh if dv is None else dv
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, s, h, dh, generator=g, device=dev)
     k = torch.randn(b, t, hk, dh, generator=g, device=dev)
-    v = torch.randn(b, t, hk, dh, generator=g, device=dev)
-    do = torch.randn(b, s, h, dh, generator=g, device=dev)
+    v = torch.randn(b, t, hk, dv, generator=g, device=dev)
+    do = torch.randn(b, s, h, dv, generator=g, device=dev)
     return tuple(x.to(dtype) for x in (q, k, v, do))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,t,h,hk,dh", [
-    (1, 128, 128, 4, 2, 64),
-    (2, 200, 200, 4, 4, 128),          # ragged tiles, MHA
-    (1, 96, 320, 8, 2, 128),           # S != T
-    (1, 257, 257, 6, 1, 96),           # MQA, dh padded to the 128 tile
-    (2, 70, 70, 2, 1, 36),             # dh 36 on the 64 tile
-    (1, 64, 64, 2, 2, 6),              # dh off the f32 stride: padded to 8
-    (1, 150, 150, 4, 2, 100),          # dh off the bf16 stride: to 104
-    (1, 64, 64, 2, 1, 8),              # the narrowest width on the stride
-    (1, 1000, 1000, 8, 1, 128),        # G = 8: dK, dV over eight heads
+@pytest.mark.parametrize("b,s,t,h,hk,dh,dv", [
+    (1, 128, 128, 4, 2, 64, 64),
+    (2, 200, 200, 4, 4, 128, 128),     # ragged tiles, MHA
+    (1, 96, 320, 8, 2, 128, 128),      # S != T
+    (1, 257, 257, 6, 1, 96, 96),       # MQA, dh padded to the 128 tile
+    (2, 70, 70, 2, 1, 36, 36),         # dh 36 on the 64 tile
+    (1, 64, 64, 2, 2, 6, 6),           # dh off the f32 stride: padded to 8
+    (1, 150, 150, 4, 2, 100, 100),     # dh off the bf16 stride: to 104
+    (1, 64, 64, 2, 1, 8, 8),           # the narrowest width on the stride
+    (1, 1000, 1000, 8, 1, 128, 128),   # G = 8: dK, dV over eight heads
+    (1, 300, 200, 4, 4, 192, 128),     # MLA's (192, 128), G = 1, S != T
+    (1, 200, 330, 2, 2, 192, 128),     # the same, T > S, ragged
+    (2, 130, 130, 4, 4, 48, 32),       # the reduced DeepSeek's, on 64
+    (1, 150, 150, 4, 2, 136, 96),      # padded within (192, 128)
 ])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_cuda_flash_bwd_matches_plain(cuda, b, s, t, h, hk, dh, causal,
+def test_cuda_flash_bwd_matches_plain(cuda, b, s, t, h, hk, dh, dv, causal,
                                       dtype):
-    q, k, v, do = _inputs(cuda, b, s, t, h, hk, dh, dtype)
+    q, k, v, do = _inputs(cuda, b, s, t, h, hk, dh, dtype, dv=dv)
     out, lse = flash_attn_ref(q, k, v, causal=causal, return_lse=True)
-    key = {torch.float32: BWD_KEY, torch.bfloat16: BWD_BF16_KEY}[dtype]
-    assert flash_bwd_plan(dtype, dh).key == key   # each dtype its instance
+    key = {(torch.float32, True): BWD_KEY,
+           (torch.bfloat16, True): BWD_BF16_KEY,
+           (torch.float32, False): BWD_DV_KEY,
+           (torch.bfloat16, False): BWD_BF16_DV_KEY}[dtype, dv == dh]
+    assert flash_bwd_plan(dtype, dh, dv).key == key   # its instance
     launch.reset_launches()
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
@@ -140,28 +152,37 @@ def test_cuda_forward_lse_matches_plain(cuda, dtype, dh, dv, causal):
 
 @pytest.mark.gpu
 def test_cuda_flash_bwd_rejects_shapes_it_lacks(cuda):
+    """The backward takes q/k up to 192 wide with v up to 128 (or v up to
+    q/k's width up to 128): (192, 192), (256, 256), a v wider than q and
+    a query offset raise ``ValueError`` naming the shape, the models'
+    attention in its forward, before any launch."""
     q, k, v, do = _inputs(cuda, 1, 64, 64, 2, 2, 192, torch.float32)
     out, lse = flash_attn_ref(q, k, v, return_lse=True)
-    with pytest.raises(ValueError, match="head width 192"):
+    with pytest.raises(ValueError, match=r"\(192, 192\)"):
         flash_attention_bwd(q, k, v, out, lse, do)
-    q, k, v = q[..., :64], k[..., :64], v[..., :32]     # v narrower
-    out, lse = flash_attn_ref(q, k, v, return_lse=True)
-    with pytest.raises(ValueError, match="dv == dh"):
-        flash_attention_bwd(q, k, v, out, lse, do[..., :32])
+    q2, k2, v2, do2 = _inputs(cuda, 1, 64, 64, 2, 2, 256, torch.float32)
+    out2, lse2 = flash_attn_ref(q2, k2, v2, return_lse=True)
+    with pytest.raises(ValueError, match="head width 256"):
+        flash_attention_bwd(q2, k2, v2, out2, lse2, do2)
+    qn, kn = q[..., :64], k[..., :64]                    # v wider than q
+    out3, lse3 = flash_attn_ref(qn, kn, v[..., :96], return_lse=True)
+    with pytest.raises(ValueError, match="v width 96"):
+        flash_attention_bwd(qn, kn, v[..., :96], out3, lse3, do[..., :96])
     with pytest.raises(ValueError, match="q_offset"):
-        flash_attention_bwd(q, k, k, out, lse, do[..., :64], q_offset=8)
+        flash_attention_bwd(qn, kn, kn, out3[..., :64], lse3, do[..., :64],
+                            q_offset=8)
     # the models' attention raises in the forward, before any launch
     launch.reset_launches()
-    with pytest.raises(ValueError, match="dv == dh"):
-        L.blockwise_attention(q.clone().requires_grad_(), k, v)
+    for a, b, c in ((q, k, v), (q2, k2, v2)):
+        with pytest.raises(ValueError, match="head width 256|192, 192"):
+            L.blockwise_attention(a.clone().requires_grad_(), b, c)
     assert not any(launch.LAUNCHES.values())
-    with pytest.raises(ValueError):
-        flash_bwd_width(129)
     for dtype in (torch.float32, torch.bfloat16):
-        with pytest.raises(ValueError, match="head width 129"):
-            flash_bwd_plan(dtype, 129)
-        with pytest.raises(ValueError, match="dv == dh"):
-            flash_bwd_plan(dtype, 64, 32)
+        for dh, dv in ((192, 192), (256, 256), (64, 96)):
+            with pytest.raises(ValueError):
+                flash_bwd_plan(dtype, dh, dv)
+        with pytest.raises(ValueError):
+            flash_bwd_width(193, 128)
 
 
 @pytest.mark.gpu
@@ -243,3 +264,54 @@ def test_cuda_lm_loss_grads_match_cpu(cuda, caller_tf32):
     for (key, g), w in zip(tree.keyed_leaves(got), tree.leaves(want)):
         assert _rel(g.cpu(), w) <= 1e-4, key
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-30b-a3b"])
+def test_cuda_moe_lm_loss_grads_match_cpu(cuda, arch):
+    """The MoE archs at their reduced configs: f32 loss gradients on the
+    card (flash forward with lse, the backward kernel, the MoE dispatch
+    under grad, full remat) against the CPU's, each leaf within 1e-4
+    relative L2; the same expert assignments on both; two forward
+    launches and one backward a layer, under the ``[dv]`` keys where v
+    is narrower than q (DeepSeek-V2-Lite's MLA: 48 x 32)."""
+    cfg = get_config(arch, reduced=True)
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (2, 129)).astype(np.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    def loss_fn(p, b):
+        return T.lm_loss(p, b, cfg, dtype=torch.float32)
+    routes = {}
+    router = L._router
+
+    def recording(x, w, c):
+        gates, eids = router(x, w, c)
+        routes.setdefault(str(x.device.type), []).append(eids.cpu())
+        return gates, eids
+    L._router = recording
+    try:
+        want, wm = value_and_grad(loss_fn, params, batch)
+        on_card = T.params_from_numpy(
+            tree.tree_map(lambda t: t.numpy(), params), cuda)
+        launch.reset_launches()
+        got, m = value_and_grad(loss_fn, on_card, batch)
+        torch.cuda.synchronize()
+    finally:
+        L._router = router
+    for a, b in zip(routes["cpu"], routes["cuda"], strict=True):
+        assert torch.equal(a, b)
+    if cfg.mla:
+        dh, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    else:
+        dh = dv = cfg.d_head
+    fwd = flash_plan(torch.float32, dh, dv).key
+    bwd = flash_bwd_plan(torch.float32, dh, dv).key
+    assert bwd == (BWD_DV_KEY if cfg.mla else BWD_KEY)
+    assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
+        fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
+    assert float(m["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)
+    for (key, g), w in zip(tree.keyed_leaves(got), tree.leaves(want)):
+        assert _rel(g.cpu(), w) <= 1e-4, key

@@ -1,7 +1,9 @@
 """The attention backward kernel's design on the CPU: its planner
-(``flash_bwd_plan``: instance, width, term count) and a plain-torch
-emulation of its arithmetic held against the reference's ``_flash_bwd``
-(``repro/models/layers.py``).
+(``flash_bwd_plan``: key, instance (kD, kDv), widths, term count; v
+narrower than q and k on the ``[dv]`` keys, MLA's (192, 128) on its own
+instance) and a plain-torch emulation of its arithmetic held against the
+reference's ``_flash_bwd`` (``repro/models/layers.py``), also where v is
+narrower than q and k.
 
 The kernel (``csrc/flash_attn_bwd.cu``) runs every product on bf16
 tensor cores: each f32 operand is split into bf16 terms, x = x0 + x1 +
@@ -27,36 +29,55 @@ import pytest
 import torch
 
 from repro.models import layers as RL
-from repro_torch.kernels.flash_attn import (BWD_BF16_KEY, BWD_KEY,
+from repro_torch.kernels.flash_attn import (BWD_BF16_DV_KEY, BWD_BF16_KEY,
+                                            BWD_DV_KEY, BWD_KEY,
                                             flash_bwd_plan, flash_bwd_width)
 
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 6.7e-5}
 P_TERMS = 3                     # terms of P and dS in the kernel
 
 
-@pytest.mark.parametrize("dh", [1, 6, 36, 64, 96, 100, 128])
+# (dh, dv): one width (dv None), and v narrower than q and k: the reduced
+# DeepSeek config's MLA (48, 32) on the 64 instance, DeepSeek-V2's (192,
+# 128), and (136, 96) padded within the (192, 128) instance
+WIDTHS = [(dh, None) for dh in (1, 6, 36, 64, 96, 100, 128)] + [
+    (48, 32), (192, 128), (136, 96)]
+
+
+@pytest.mark.parametrize("dh,dv", WIDTHS,
+                         ids=[str(dh) if dv is None else f"{dh}x{dv}"
+                              for dh, dv in WIDTHS])
 @pytest.mark.parametrize("dtype,key,terms", [
     (torch.float32, BWD_KEY, 3), (torch.bfloat16, BWD_BF16_KEY, 1),
     (torch.float16, BWD_KEY, 3), (torch.uint8, BWD_BF16_KEY, 1)])
-def test_bwd_plan(dtype, key, terms, dh):
-    plan = flash_bwd_plan(dtype, dh)
+def test_bwd_plan(dtype, key, terms, dh, dv):
+    plan = flash_bwd_plan(dtype, dh, dv)
     w = -(-dh // 8) * 8                     # bf16 operands: 16-byte rows
-    assert plan == (key, 64 if w <= 64 else 128, w, terms)
-    assert plan.width == flash_bwd_width(dh) and plan.width >= dh
-    assert flash_bwd_plan(dtype, dh, dh) == plan
+    wv = w if dv is None else -(-dv // 8) * 8
+    if dv is not None:                      # v narrower: the [dv] keys
+        key = {BWD_KEY: BWD_DV_KEY, BWD_BF16_KEY: BWD_BF16_DV_KEY}[key]
+    instance = (64, 64) if w <= 64 else (128, 128) if w <= 128 else (192,
+                                                                     128)
+    assert plan == (key, instance, (w, wv), terms)
+    assert plan.widths == flash_bwd_width(dh, dv) and plan.widths[0] >= dh
+    assert plan.widths[1] <= instance[1]
+    if dv is None:
+        assert flash_bwd_plan(dtype, dh, dh) == plan
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_plan_rejects_what_it_lacks(dtype):
-    for dh in (0, 129, 192, 256):
-        with pytest.raises(ValueError, match="head width"):
+    for dh in (0, 193, 256):
+        with pytest.raises(ValueError, match=f"head width {dh}"):
             flash_bwd_plan(dtype, dh)
-    with pytest.raises(ValueError, match="head width 192"):
-        flash_bwd_plan(dtype, 192, 128)                 # MLA's widths
-    with pytest.raises(ValueError, match="dv == dh"):
-        flash_bwd_plan(dtype, 64, 32)
-    with pytest.raises(ValueError, match="dv == dh"):
-        flash_bwd_plan(dtype, 128, 64)
+    with pytest.raises(ValueError, match="head width 256"):
+        flash_bwd_plan(dtype, 256, 256)
+    for dh, dv in ((192, 192), (129, 129), (192, 136)):   # both past 128
+        with pytest.raises(ValueError, match=rf"\({dh}, {dv}\)"):
+            flash_bwd_plan(dtype, dh, dv)
+    for dh, dv in ((64, 96), (128, 192), (32, 48), (64, 0)):  # v past q
+        with pytest.raises(ValueError, match=f"v width {dv}"):
+            flash_bwd_plan(dtype, dh, dv)
 
 
 # ------------------------------------------------------------- emulation
@@ -96,10 +117,10 @@ def emulate_bwd(q, k, v, out, lse, do, *, causal, scale, terms_in,
     if terms_in is None:
         terms_p = None
     B, S, H, dh = q.shape
-    T, Hk = k.shape[1], k.shape[2]
+    T, Hk, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hk
     qt = _terms(q.float().reshape(B, S, Hk, G, dh), terms_in)
-    dot = _terms(do.float().reshape(B, S, Hk, G, dh), terms_in)
+    dot = _terms(do.float().reshape(B, S, Hk, G, dv), terms_in)
     kt, vt = _terms(k.float(), terms_in), _terms(v.float(), terms_in)
     delta = (do.float() * out.float()).sum(-1).reshape(B, S, Hk, G).permute(0, 2, 3, 1)[..., None]
     lse = lse.reshape(B, Hk, G, S)[..., None]               # (B,Hk,G,S,1)
@@ -124,18 +145,20 @@ def _rel(got: torch.Tensor, want) -> float:
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
-def _case(dtype, S, H, Hk, dh, causal, seed):
-    """Inputs from a seed rounded to ``dtype``, the reference's forward
+def _case(dtype, S, H, Hk, dh, causal, seed, dv=None):
+    """Inputs from a seed rounded to ``dtype`` (v and dO ``dv`` wide, dh
+    when None), the reference's forward
     residuals (out in ``dtype``, lse f32) and its ``_flash_bwd`` on them,
     run on the values in f32 (its arithmetic; on bf16 inputs the f32
     gradients before its final cast to bf16); the residuals as torch
     tensors of ``dtype`` (lse f32)."""
     rng = np.random.default_rng(seed)
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    dv = dh if dv is None else dv
     q, k, v, do = (jnp.asarray(rng.standard_normal(sh).astype(np.float32),
                                jdt)
-                   for sh in ((1, S, H, dh), (1, S, Hk, dh), (1, S, Hk, dh),
-                              (1, S, H, dh)))
+                   for sh in ((1, S, H, dh), (1, S, Hk, dh), (1, S, Hk, dv),
+                              (1, S, H, dv)))
     scale = 1 / math.sqrt(dh)
     out, lse = RL._attention_fwd_scan(q, k, v, causal, 0, 128, scale)
     f32 = [x.astype(jnp.float32) for x in (q, k, v, out, lse, do)]
@@ -152,12 +175,20 @@ CASES = [(256, 4, 4), (512, 4, 2)]
 CASE_IDS = ["S256-G1", "S512-G2"]
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+# q/k and v widths: one width on each instance up to 128; v narrower on
+# the 64 instance (the reduced DeepSeek config) and on the (192, 128)
+WIDTHS_EMU = [(64, None), (128, None), (48, 32), (192, 128)]
+
+
+@pytest.mark.parametrize("dh,dv", WIDTHS_EMU,
+                         ids=[str(dh) if dv is None else f"{dh}x{dv}"
+                              for dh, dv in WIDTHS_EMU])
 @pytest.mark.parametrize("S,H,Hk", CASES, ids=CASE_IDS)
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_emulated_kernel_matches_reference_bwd(dtype, causal, S, H, Hk, dh):
+def test_emulated_kernel_matches_reference_bwd(dtype, causal, S, H, Hk, dh,
+                                               dv):
     """The planner's terms for q, k, v and dO, three for P and dS: the
     f32 gradients within the smoke's f32 limit of the reference's
     ``_flash_bwd`` (on bf16 inputs, before either side rounds them to
@@ -168,8 +199,9 @@ def test_emulated_kernel_matches_reference_bwd(dtype, causal, S, H, Hk, dh):
     up to 1e-4 after the rounding at these sizes: a few flipped roundings
     of large elements dominate the relative L2.)"""
     (q, k, v, out, lse, do), want, scale = _case(dtype, S, H, Hk, dh,
-                                                 causal, seed=S + H + Hk)
-    plan = flash_bwd_plan(dtype, dh)
+                                                 causal, seed=S + H + Hk,
+                                                 dv=dv)
+    plan = flash_bwd_plan(dtype, dh, dv)
     got = emulate_bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
                       terms_in=plan.terms)
     unsplit = emulate_bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
