@@ -42,11 +42,12 @@ integers (in [0, 256), SIFT's values; in [0, 128) at d = 960, where
 960 * 127^2 < 2^24 keeps every sum exact) and once on normal values
 (not for uint8); and the fused scan at a window past ``fused_plan``'s
 one launch (B = 64, S = 32,768, tk = 4,096, f32 and int8: the spill
-route); the attention backward (``flash_attention_bwd``) at Qwen3-0.6B's
-widths, dh 128, B = 1, S = T = 4096, causal, on f32 and bf16 inputs
-(rows 7 and 7b of PERF.md section 6), from the forward kernel's output
-and lse, its gradients' relative L2 error against ``flash_attn_bwd_ref``
-(and, where the tree's plain version evaluates in f64, against that
+route); the attention backward (``flash_attention_bwd``), B = 1, S = T
+= 4096, causal, at Qwen3-0.6B's widths, dh 128, and at DeepSeek-V2-Lite's
+MLA shape (q/k 192, v 128, H = Hk = 16), each on f32 and bf16 inputs
+(rows 7, 7b, 7c and 7d of PERF.md section 6), from the forward
+kernel's output and lse, its gradients' relative L2 error against
+``flash_attn_bwd_ref`` (and, where the tree's plain version evaluates in f64, against that
 exact gradient, with the f32 plain version's own error beside it),
 whether two runs are bit-equal, SDPA's backward beside it (this tree's
 process), and the ``ptxas`` lines (registers, spills) of the bf16 flash
@@ -107,9 +108,15 @@ ATTN_CASES = ((torch.bfloat16, "bf16", 128, 128, ATTN),
 GROUPS = ("adc", "flash", "l2", "bwd")
 PREFIX = {"adc": "adc_", "flash": "flash_", "l2": "l2dist",   # sources
           "bwd": "flash_"}
-# the attention backward at row 6b's shape (Qwen3-0.6B's heads, dh 128,
-# B = 1, S = T = 4096, causal): f32 (row 7) and bf16 inputs (row 7b)
-BWD_CASES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+# the attention backward, B = 1, S = T = 4096, causal, (dtype, tag, q/k
+# width, v width, the shape): at row 6b's shape (Qwen3-0.6B's heads, dh
+# 128) in f32 (row 7) and on bf16 inputs (row 7b), and at DeepSeek-V2's
+# MLA shape (H = Hk = 16, q/k 192, v 128) in f32 (row 7c) and on bf16
+# inputs (row 7d)
+BWD_CASES = ((torch.float32, "f32", 128, 128, ATTN),
+             (torch.bfloat16, "bf16", 128, 128, ATTN),
+             (torch.float32, "f32,mla", 192, 128, MLA),
+             (torch.bfloat16, "bf16,mla", 192, 128, MLA))
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 # (dtype, tag, width, integers below): the chunk at SIFT1B's 128, cut to
 # SPACEV1B's 100 and to an odd 101, and at GIST1M's 960
@@ -173,9 +180,9 @@ def measure(tree: Path, seed: int, only=GROUPS) -> dict:
             out["flash_attn_fwd_wgmma[ptxas]"] = ptxas_lines(
                 reports["flash_attn_fwd_wgmma"])
     if "bwd" in only:
-        for dtype, tag in BWD_CASES:
+        for dtype, tag, dh, dv, shape in BWD_CASES:
             out[f"flash_attn_bwd[{tag}]"] = reading(lambda: bwd_reading(
-                dtype, dev, gen, ran, yardsticks, chip_smoke))
+                dtype, dh, dv, shape, dev, gen, ran, yardsticks, chip_smoke))
         if "flash_attn_bwd" in reports:     # compiled by this process
             out["flash_attn_bwd[ptxas]"] = ptxas_lines(
                 reports["flash_attn_bwd"])
@@ -232,9 +239,11 @@ def flash_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
     return r
 
 
-def bwd_reading(dtype, dev, gen, ran, yardsticks, chip_smoke) -> dict:
-    """The attention backward (``flash_attention_bwd``) at row 6b's shape
-    on inputs of ``dtype``, from the forward kernel's output and lse: the
+def bwd_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
+                chip_smoke) -> dict:
+    """The attention backward (``flash_attention_bwd``) at ``shape``'s S =
+    T, H and Hk, q and k ``dh`` wide, v ``dv`` wide, on inputs of
+    ``dtype``, from the forward kernel's output and lse: the
     kernels it launched, each gradient's relative L2 error against
     ``flash_attn_bwd_ref`` on the same residuals, whether two runs are
     bit-equal, and its time; this tree's process also times SDPA's
@@ -244,11 +253,10 @@ def bwd_reading(dtype, dev, gen, ran, yardsticks, chip_smoke) -> dict:
                                                 flash_attention_bwd,
                                                 flash_attn_bwd_ref)
     F = torch.nn.functional
-    s, h, hk, dh = ATTN["S"], ATTN["H"], ATTN["Hk"], 128
-    q, do = (torch.randn(1, s, h, dh, generator=gen, device=dev).to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn(1, s, hk, dh, generator=gen, device=dev).to(dtype)
-            for _ in range(2))
+    s, h, hk = shape["S"], shape["H"], shape["Hk"]
+    q, do, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                   for sh in ((1, s, h, dh), (1, s, h, dv), (1, s, hk, dh),
+                              (1, s, hk, dv)))
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
 
     def call():

@@ -10,10 +10,14 @@ at its full config, random bf16 weights from seed 0, under
     python3 scripts/profile_lm.py --arch qwen3-0.6b --train
 
 ``--train`` profiles one f32 train step instead (``train.loop.
-make_train_step`` over ``lm_loss``, f32 weights, smoke phase 12's batch B
-= 2, S = 2,048; the step before it warms up), and also sums the device
-time by kernel family (``flash_attn_bwd``'s three kernels, the flash
-forward, GEMMs, the rest).
+make_train_step`` over ``lm_loss``, f32 weights, smoke phases 12 and
+13's batch B = 2, S = 2,048; an MoE arch at phase 13's capacity factor
+16, so that no (token, expert) pair is dropped; the step before it warms
+up), and also sums the device time by kernel family (``flash_attn_bwd``'s
+three kernels, the flash forward, GEMMs, the rest):
+
+    python3 scripts/profile_lm.py --arch deepseek-v2-lite-16b --layers 3 \
+                                  --train
 
 Prints the card's name and power limit, then for each run: the host's
 wall time around a synchronised run, the device time the profiler's
@@ -42,7 +46,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PREFILL = (2, 4096)         # B, S: the smoke's phases 10 and 11
 DECODE = (8, 2048)          # B, position of the decode step
-TRAIN = (2, 2048)           # B, S: the smoke's phase 12
+TRAIN = (2, 2048)           # B, S: the smoke's phases 12 and 13
+TRAIN_CAPACITY = 16.0       # an MoE's capacity factor: phase 13's
 # kernel families of a train step, by a substring of the kernel's name
 FAMILIES = (("flash backward", ("bwd_prep", "bwd_dkdv", "bwd_dq")),
             ("flash forward", ("flash_fwd",)),
@@ -78,13 +83,15 @@ def profiled(fn, top: int) -> dict:
 
 
 def train_profile(cfg, dev: torch.device, top: int) -> dict:
-    """One f32 train step of ``cfg`` at TRAIN under the profiler, with
-    the device time summed by kernel family (every kernel, not only the
-    top ones)."""
+    """One f32 train step of ``cfg`` at TRAIN (an MoE at TRAIN_CAPACITY)
+    under the profiler, with the device time summed by kernel family
+    (every kernel, not only the top ones)."""
     import numpy as np
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.models import transformer as tfm
     from repro_torch.train.loop import TrainConfig, init_state, make_train_step
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=TRAIN_CAPACITY)
     params = tfm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
                          device=dev)
     batch = lm_batch(np.random.default_rng(0), *TRAIN, cfg.vocab_size)
@@ -93,7 +100,8 @@ def train_profile(cfg, dev: torch.device, top: int) -> dict:
         lambda p, b: tfm.lm_loss(p, b, cfg, dtype=torch.float32), tcfg)
     state = init_state(params, tcfg)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
-           "train": dict(batch=TRAIN[0], seq=TRAIN[1], dtype="f32")}
+           "train": dict(batch=TRAIN[0], seq=TRAIN[1], dtype="f32",
+                         capacity_factor=cfg.capacity_factor)}
     out["train"].update(profiled(lambda: step(state, batch), 10 ** 6))
     kernels = out["train"].pop("top")
     fam = {name: 0.0 for name, _ in FAMILIES}

@@ -32,7 +32,8 @@ and add are contracted unless the source writes ``__fmaf_rn``.
   product in bf16 ``wgmma`` on bf16 terms of its operands (three terms of
   f32 inputs, P and dS; f32 sums, in the tensor cores' order); D a chain
   of ``__fmaf_rn``, each element step rounded on its own, the
-  exponentials ``expf``; the forwards write the logsumexp it reads
+  exponentials ``expf`` (in base 2 by ``ex2.approx`` in the (192, 128)
+  instance's kernels); the forwards write the logsumexp it reads
   (``flash_lse.cuh``).
 * ``l2dist_wgmma``: its product runs on the tensor cores, in 3xTF32 for
   f32 inputs and in one bf16 product for bf16 (f32 sums in the tensor

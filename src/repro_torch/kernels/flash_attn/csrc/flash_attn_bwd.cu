@@ -82,11 +82,14 @@
 //   * bwd_dq_kernel: one block a (b, h, 64-query tile), one warpgroup; Q
 //     and dO resident, K and V tiles of kBn keys streamed as above; S = Q
 //     K^T and dP = dO V^T, then dQ += dS K with dS's terms from registers as
-//     A and K read MN-major.
+//     A and K read MN-major;
+//   * bwd_dkdv_duo_kernel, bwd_dq_duo_kernel: the same two passes for the
+//     (192, 128) instance on two warpgroups a block (below).
 // Both passes recompute S and dP (seven products where five would do).
 // Blocks run longest first (the key tiles nearest the top, the query tiles
-// nearest the bottom).  P is exp(scale S - lse) by expf, masked elements 0;
-// every element step rounds on its own (the build passes -fmad=false).
+// nearest the bottom).  P is exp(scale S - lse) by expf (in base 2 by
+// ex2.approx in the (192, 128) instance, below), masked elements 0; every
+// element step rounds on its own (the build passes -fmad=false).
 //
 // Sums.  The tensor cores' f32 accumulation is not f32's round to nearest:
 // summed over all of a key tile's queries (thousands of wgmma steps) dK
@@ -94,26 +97,61 @@
 // 6b's shape (dQ, over fewer steps, 8.3e-6).  So every chain of wgmma
 // steps starts from zero and stays short, and the kernel adds its result
 // to a running sum in registers with __fadd_rn (promote): a tile's dV, dK
-// or dQ (6 steps in bf16, 12 in f32), and S and dP each in two chains
+// or dQ (3 N / 16 steps in bf16, 6 N / 16 in f32, N the streamed rows of
+// a tile), and S and dP each in two chains
 // (the small term pairs and the large one; in bf16 the two halves of the
 // width).  That leaves the f32 rounding of the running sums, about 5e-7
 // off the exact gradient in f32, below the plain f32 version's own 1.9e-6
-// (chip_smoke.py phase 12, PERF.md).  dK/dV keeps one tile's product
-// beside its two running sums, so it issues dV's chain and dK's one after
-// the other.
+// (chip_smoke.py phase 12, PERF.md).  The one-warpgroup dK/dV keeps one
+// tile's product beside its two running sums, so it issues dV's chain and
+// dK's one after the other.
 //
 // Shared memory and registers.  (128, 128): 193 KB in f32 (one block an
 // SM); in bf16 97 KB for dK/dV (four stages, two blocks an SM: 252
 // registers) and 65 KB for dQ (two stages and at most 168 registers: three
-// blocks an SM).  (192, 128) in f32: the resident K and V (or Q and dO)
-// take 72 + 48 KB in three terms, so a 32-row stage of the other two (60
-// KB) fits once; the instance streams 16-row tiles (30 KB, m64n16k16 score
-// products) in three stages, 211 KB.  There dK and dV take 96 + 64 floats
-// a thread, and a whole tile's dK product 96 more, past the 255 registers
-// a thread may have: the (192, 128) instance issues each gradient product
-// in 64-column slices (N = 64, 32 floats), each promoted into its columns
-// of the running sum before the next is issued.  In bf16 it streams 32-row
-// tiles in three stages (101 KB: two blocks an SM).
+// blocks an SM).  (64, 64) and (128, 128) stream 32-row tiles.
+//
+// The (192, 128) instance, DeepSeek-V2's MLA (q/k 192, v 128), runs two
+// consumer warpgroups a block (256 threads, so ptxas may still give a
+// thread 255 registers), parted by product, not by rows: at 64 rows a
+// warpgroup, one that held both of dK/dV's sums would hold dK's 96 floats
+// and dV's 64 a thread beside a tile's products (the one-warpgroup kernel
+// that ran it spilled at 255).  In both passes warpgroup 0 forms S (K Q^T
+// in dK/dV, Q K^T in dQ) and P, and warpgroup 1 dP and then dS, P handed
+// to it through shared memory in f32 (both hold a tile in the same
+// accumulator layout, so thread t of one writes what thread t of the other
+// reads: 64 x N x 4 bytes, no bank conflict).  In dK/dV warpgroup 0 then
+// sums dV (64 floats a thread) and warpgroup 1 dK (96): 192 + 128 columns
+// of products a tile each.  In dQ warpgroup 1 sums all of dQ (96 floats)
+// and warpgroup 0, which holds no sum, issues the next tile's S as soon as
+// P is formed, so that S runs under warpgroup 1's dS and dQ (192 and 128 +
+// 192 columns: handing dS back to split dQ's columns between the two read
+// slower).
+// The two run apart, one's element steps (the exponentials, dS, the
+// splits) under the other's products, ordered by named barriers 1 (P in)
+// and 2 (P read, before the hand-off is written again).  A 192-column sum
+// takes its product in slices, two in flight, one promoted while the next
+// runs (grad192_into).  No thread waits for a stage to free: each of the
+// eight warps counts its release of a stage in shared memory, and the warp
+// whose release is the last refills it at once (flash_attn_fwd_wgmma.cu's
+// scheme; the one-warpgroup kernels' loading thread waits on the stage's
+// empty barrier and holds its warp).  Blocks run in groups of two (b,
+// head) pairs, each group longest first (block_pos).
+//   Streamed rows: the widest of 64, 32 and 16 at which two stages fit
+// beside the resident tiles and the hand-off (64 at most: a 64 x 64 tile's
+// two score chains take 64 floats a thread).  bf16: K and V (or Q and dO)
+// 40 KB, a 64-row stage 40 KB, the hand-off 16 KB: 64 rows (m64n64k16
+// score products), four stages, 217 KB.  f32: the three-term residency
+// takes 120 KB and a 32-row stage 60 KB, so two of them do not fit: 16
+// rows (m64n16k16), three stages, 215 KB.  One block an SM.
+//   Element steps, which on bf16 inputs took as long as the products: P is
+// 2^(scale log2(e) S - lse log2(e)) by ex2.approx, each factor and step
+// rounded once (the forward's base 2; expf's range reduction was a large
+// share of the element steps); on bf16 inputs the terms of P and dS are
+// cut by truncation (split_cut: as exact as rounding, without the
+// conversions) and S^T reads K from registers (its A fragments loaded once
+// a block), not shared memory.  The one-warpgroup instances keep expf and
+// rounded terms.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -130,6 +168,7 @@ namespace {
 using namespace hopper;
 
 constexpr int kThreads = 128;          // one consumer warpgroup a block
+constexpr int kDuoThreads = 256;       // (192, 128): two
 constexpr int kRows = 64;              // keys (dK/dV) or queries (dQ) a block
 constexpr int kBox = 64;               // bf16 columns of a 128-byte TMA box
 constexpr int kMaxStages = 4;
@@ -137,11 +176,12 @@ constexpr int kSmemCap = 227 * 1024;   // shared memory a block may have
 constexpr int kSmemHalf = 113 * 1024;  // a block's share where two fit an SM
 constexpr int kPrepThreads = 256;
 
-// Sizes of the <kD, kDv, kTerms> instance.  A tensor's tile is kTerms term
-// planes, each width / 64 boxes of rows x 128 bytes, each box 1024-byte
-// aligned for the 128-byte swizzle: q and k kD wide (kBoxes boxes), v and
-// dO kDv wide (kBoxesV).  Each kernel keeps one of each width resident (K
-// and V, or Q and dO) and streams the other two, a stage holding both.
+// Sizes of the <kD, kDv, kTerms> instance up to kD = 128.  A tensor's tile
+// is kTerms term planes, each width / 64 boxes of rows x 128 bytes, each
+// box 1024-byte aligned for the 128-byte swizzle: q and k kD wide (kBoxes
+// boxes), v and dO kDv wide (kBoxesV).  Each kernel keeps one of each
+// width resident (K and V, or Q and dO) and streams the other two, a stage
+// holding both, in 32-row tiles.
 template <int kD, int kDv, int kTerms>
 struct Cfg {
   static constexpr int kBoxes = kD / kBox;
@@ -152,11 +192,7 @@ struct Cfg {
   static constexpr int kRes = kTerms * kResTerm;     // resident K or Q
   static constexpr int kResV = kTerms * kResTermV;   // resident V or dO
   static constexpr int kResAll = kRes + kResV;
-  // rows of a streamed tile: 32 where two stages of them fit beside the
-  // resident tiles, else 16
-  static constexpr int kStage32 = kTerms * (kBoxes + kBoxesV) * 32 * 128;
-  static constexpr int kBn =
-      kSmemCap - 2048 - kResAll >= 2 * kStage32 ? 32 : 16;
+  static constexpr int kBn = 32;                     // rows of a streamed tile
   static constexpr int kStrBox = kBn * 128;
   static constexpr int kStrTerm = kBoxes * kStrBox;
   static constexpr int kStrTermV = kBoxesV * kStrBox;
@@ -169,23 +205,85 @@ struct Cfg {
       ((kTerms == 1 ? kSmemHalf : kSmemCap) - 2048 - kResAll) / kStage;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kSmem = kResAll + kStages * kStage + 1024;
-  // the dQ pass in bf16 up to kD = 128: two stages (65 KB) and at most 168
+  // the dQ pass in bf16: two stages (65 KB at kD = 128) and at most 168
   // registers, so three blocks share an SM (its element steps wait on
   // latency, and more warps hide more of it: 10% faster than two blocks of
-  // four stages); (192, 128)'s sums do not fit 168 registers
-  static constexpr bool kThreeQ = kTerms == 1 && kD <= 128;
+  // four stages)
+  static constexpr bool kThreeQ = kTerms == 1;
   static constexpr int kStagesQ = kThreeQ ? 2 : kStages;
   static constexpr int kSmemQ = kResAll + kStagesQ * kStage + 1024;
   static constexpr int kMinBlocksQ = kThreeQ ? 3 : 1;
   static constexpr int kAcc = kD / 2;     // f32 of a 64 x kD sum a thread
   static constexpr int kAccV = kDv / 2;   // f32 of a 64 x kDv sum
   static constexpr int kSc = kBn / 2;     // f32 of a 64 x kBn score tile
-  // N of a gradient product's wgmma: the whole width up to 128, else
-  // 64-column slices (registers: see the header)
-  static constexpr int kSlice = kD <= 128 ? kD : 64;
-  static_assert(kDv <= kD && kD % kBox == 0 && kDv % kBox == 0, "widths");
+  static_assert(kDv <= kD && kD <= 128 && kD % kBox == 0 && kDv % kBox == 0,
+                "widths");
   static_assert(kStages >= 2 && kSmem <= kSmemCap && kSmemQ <= kSmemCap,
                 "shared memory");
+};
+
+// Sizes of the (192, 128) instance's two-warpgroup kernels (the header),
+// laid out as Cfg's, and the 64 x kBn f32 hand-off after the ring.
+// Bytes of its resident tiles, of a stage of n streamed rows (q/k three
+// boxes a term, v/dO two) and of the hand-off of a 64 x n tile:
+constexpr int duo_res(int terms) { return terms * 5 * kRows * 128; }
+constexpr int duo_stage(int terms, int n) { return terms * 5 * n * 128; }
+constexpr int duo_hand(int n) { return kRows * n * 4; }
+// two stages of n rows fit beside them, the 1 KB of alignment and 2 KB
+// for the static barriers
+constexpr bool duo_fits(int terms, int n) {
+  return duo_res(terms) + 2 * duo_stage(terms, n) + duo_hand(n) + 1024 +
+             2048 <= kSmemCap;
+}
+template <int kTerms>
+struct Duo {
+  static constexpr int kD = 192, kDv = 128;
+  static constexpr int kBoxes = kD / kBox, kBoxesV = kDv / kBox;
+  static constexpr int kResBox = kRows * 128;
+  static constexpr int kResTerm = kBoxes * kResBox;
+  static constexpr int kResTermV = kBoxesV * kResBox;
+  static constexpr int kRes = kTerms * kResTerm;     // resident K or Q
+  static constexpr int kResAll = duo_res(kTerms);
+  // streamed rows: the widest that fits two stages (the header)
+  static constexpr int kBn = duo_fits(kTerms, 64)   ? 64
+                             : duo_fits(kTerms, 32) ? 32
+                                                    : 16;
+  static constexpr int kStrBox = kBn * 128;
+  static constexpr int kStrTerm = kBoxes * kStrBox;
+  static constexpr int kStrTermV = kBoxesV * kStrBox;
+  static constexpr int kStr = kTerms * kStrTerm;     // streamed Q or K
+  static constexpr int kStage = duo_stage(kTerms, kBn);
+  static constexpr int kHand = duo_hand(kBn);
+  static constexpr int kFit =
+      (kSmemCap - 2048 - kResAll - kHand - 1024) / kStage;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmem = kResAll + kStages * kStage + kHand + 1024;
+  static constexpr int kSc = kBn / 2;     // f32 of a 64 x kBn score tile
+  static_assert(kResAll == kRes + kTerms * kResTermV &&
+                    kStage == kStr + kTerms * kStrTermV,
+                "layout");
+  static_assert(kStages >= 2 && kSmem <= kSmemCap - 2048, "shared memory");
+};
+
+// The launch of the <kD, kDv, kTerms> instance, both passes: threads a
+// block, streamed rows, and the stages and dynamic shared memory of the
+// dK/dV and the dQ kernels (every block takes kRows rows).
+// flash_attn/ops.py::flash_bwd_schedule states the same numbers, and
+// flash_attn_bwd_schedule below reports these.
+template <int kD, int kDv, int kTerms, bool kTwo = (kD > 128)>
+struct Schedule {
+  using C = Cfg<kD, kDv, kTerms>;
+  static constexpr int kBlock = kThreads, kBn = C::kBn;
+  static constexpr int kStages = C::kStages, kSmem = C::kSmem;
+  static constexpr int kStagesQ = C::kStagesQ, kSmemQ = C::kSmemQ;
+};
+template <int kD, int kDv, int kTerms>
+struct Schedule<kD, kDv, kTerms, true> {
+  using C = Duo<kTerms>;
+  static_assert(kD == C::kD && kDv == C::kDv, "widths");
+  static constexpr int kBlock = kDuoThreads, kBn = C::kBn;
+  static constexpr int kStages = C::kStages, kSmem = C::kSmem;
+  static constexpr int kStagesQ = C::kStages, kSmemQ = C::kSmem;
 };
 
 // the gradients' type: bf16 for bf16 inputs, f32 for f32
@@ -197,7 +295,16 @@ constexpr int kBarRes = 0, kBarFull = 1, kBarEmpty = 1 + kMaxStages,
               kNumBars = 1 + 2 * kMaxStages;
 
 // d (64 x N, f32) (+)= A (64 x 16, smem) * B (N x 16, smem)^T, both
-// K-major, N = 32 or 16; accumulate = 0 overwrites d
+// K-major, N = 64, 32 or 16; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 __device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t da,
                                        uint64_t db, int accumulate) {
   asm volatile(
@@ -289,47 +396,49 @@ __device__ __forceinline__ void issue_scores(float (&sa)[kN],
     }
 }
 
-// sum += the product X B over a width of kW columns, X (64 x kBn) in three
-// terms in registers as A (x[a][4 kk ..] the 16 columns of k-step kk), B
-// a streamed tile of kBn rows, kW wide, read MN-major (step kk: rows 16 kk
-// .., 2 KB on; its columns in boxes kBn x 128 bytes apart, term planes kW
-// / 64 boxes apart): sum over the term pairs (a, b), a + b <= 2, smallest
-// first.  In slices of kSlice columns: each slice's product is one chain
-// from zero, committed, waited for and added to its columns of the running
-// sum (promote) before the next is issued.  (The tensor cores' own f32
-// accumulation over thousands of steps lost 4.7e-5 relative in dK and dV
-// at row 6b's shape; a short chain a tile does not.)
-template <int kW, int kSlice, int kTerms, int kBn>
+// part = the product X B over kN columns, X (64 x kBn) in three terms in
+// registers as A (x[a][4 kk ..] the 16 columns of k-step kk), B the
+// columns of a streamed tile of kBn rows from its box at b on, read
+// MN-major (step kk: rows 16 kk .., 2 KB on; its columns in boxes kBn x
+// 128 bytes apart, term planes term_bytes apart): over the term pairs (a,
+// b), a + b <= 2, smallest first, one chain from zero (the tensor cores'
+// own f32 accumulation over thousands of steps lost 4.7e-5 relative in dK
+// and dV at row 6b's shape; a short chain a tile does not).  Issued, not
+// committed.
+template <int kN, int kTerms, int kBn>
+__device__ __forceinline__ void issue_grad(float (&part)[kN / 2],
+                                           const uint32_t (&x)[3][kBn / 4],
+                                           uint32_t b, uint32_t term_bytes) {
+  int acc = 0;
+#pragma unroll
+  for (int o = 2; o >= 0; --o)
+#pragma unroll
+    for (int ta = 0; ta < 3; ++ta) {
+      const int tb = o - ta;
+      if (tb < 0 || tb >= kTerms) continue;
+#pragma unroll
+      for (int kk = 0; kk < kBn / 16; ++kk) {
+        mma_rs(part, &x[ta][4 * kk],
+               desc(b + tb * term_bytes + kk * 2048, kBn * 128, 1024), acc);
+        acc = 1;
+      }
+    }
+}
+
+// sum += the product X B over a width of kW columns (issue_grad over the
+// tile's first kW / 64 boxes), committed, waited for and added to the
+// running sum (promote)
+template <int kW, int kTerms, int kBn>
 __device__ __forceinline__ void grad_into(float (&sum)[kW / 2],
                                           const uint32_t (&x)[3][kBn / 4],
                                           uint32_t b) {
-  constexpr int kBBox = kBn * 128, kBTerm = kW / kBox * kBBox;
-#pragma unroll
-  for (int c = 0; c < kW / kSlice; ++c) {
-    float part[kSlice / 2];
-    wgmma_fence();
-    int acc = 0;
-#pragma unroll
-    for (int o = 2; o >= 0; --o)
-#pragma unroll
-      for (int ta = 0; ta < 3; ++ta) {
-        const int tb = o - ta;
-        if (tb < 0 || tb >= kTerms) continue;
-#pragma unroll
-        for (int kk = 0; kk < kBn / 16; ++kk) {
-          mma_rs(part, &x[ta][4 * kk],
-                 desc(b + tb * kBTerm + c * (kSlice / kBox) * kBBox +
-                          kk * 2048,
-                      kBBox, 1024),
-                 acc);
-          acc = 1;
-        }
-      }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(part);
-    promote(sum, part, c * (kSlice / 2));
-  }
+  float part[kW / 2];
+  wgmma_fence();
+  issue_grad<kW, kTerms, kBn>(part, x, b, kW / kBox * kBn * 128);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+  promote(sum, part);
 }
 
 // x[t][r / 2] = term t of (v[r], v[r + 1]), packed as an A-fragment
@@ -374,6 +483,197 @@ __device__ __forceinline__ void probs(float (&s)[kN], float (&dp)[kN],
     s[r] = p;
     dp[r] = __fmul_rn(p, __fsub_rn(dp[r], dl_v[li]));
   }
+}
+
+// ------------------------------------- helpers of the (192, 128) instance
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P in place of the scores s of a 64 x kN tile, elements as probs, in base
+// 2: P = 2^(s scale2 - lse2), scale2 = scale log2(e) and lse2 = lse log2(e)
+// (each rounded once), masked elements 0; the mask is read only where the
+// tile is on an edge (a ragged end or the causal diagonal)
+template <int kN, bool kKeysRows>
+__device__ __forceinline__ void p_tile(float (&s)[kN], const float* lse2_v,
+                                       int row_a, int col0, int s_len,
+                                       int t_len, int causal, float scale2,
+                                       int quad, bool edge) {
+#pragma unroll
+  for (int r = 0; r < kN; ++r) {
+    const int li = kKeysRows ? 2 * (r / 4) + (r & 1) : (r & 2) / 2;
+    const float p = ex2(__fsub_rn(__fmul_rn(s[r], scale2), lse2_v[li]));
+    bool keep = true;
+    if (edge) {
+      const int row = row_a + ((r & 2) ? 8 : 0);
+      const int col = col0 + 8 * (r / 4) + 2 * quad + (r & 1);
+      const int key = kKeysRows ? row : col, qry = kKeysRows ? col : row;
+      keep = qry < s_len && key < t_len && (!causal || key <= qry);
+    }
+    s[r] = keep ? p : 0.f;
+  }
+}
+
+// split_pack's terms cut by truncation: x0 = x with its low 16 bits
+// cleared, x1 the same of x - x0, x2 of x - x0 - x1 (each subtraction
+// exact), so x = x0 + x1 + x2 exactly, as with rounding, in full-rate
+// integer steps where split_pack takes three conversions a pair (a
+// quarter-rate unit): the terms of P and dS on bf16 inputs, whose products
+// take every term pair
+template <int kN>
+__device__ __forceinline__ void split_cut(const float (&v)[kN],
+                                          uint32_t (&x)[3][kN / 2]) {
+#pragma unroll
+  for (int r = 0; r < kN; r += 2) {
+    float a = v[r], b = v[r + 1];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const uint32_t ua = __float_as_uint(a) & 0xffff0000u;
+      const uint32_t ub = __float_as_uint(b) & 0xffff0000u;
+      x[t][r / 2] = __byte_perm(ua, ub, 0x7632);   // (a hi, b hi)
+      if (t < 2) {
+        a = __fsub_rn(a, __uint_as_float(ua));
+        b = __fsub_rn(b, __uint_as_float(ub));
+      }
+    }
+  }
+}
+
+// the terms of P or dS: cut on bf16 inputs (kTerms = 1), rounded on f32
+// ones, whose three-term products drop the pairs i + j > 2 (split_pack's
+// terms, as the prep kernel's)
+template <int kTerms, int kN>
+__device__ __forceinline__ void split_terms(const float (&v)[kN],
+                                            uint32_t (&x)[3][kN / 2]) {
+  if constexpr (kTerms == 1) split_cut(v, x);
+  else split_pack(v, x);
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, registers) * B (64 x 16, smem)^T, B
+// K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_rs_k(float (&d)[32], const uint32_t* a,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// the A fragments of a resident 64 x kW bf16 tile (boxes of 64 rows x 128
+// bytes, 128-byte swizzle) in the wgmma A-operand layout: k-step kk in
+// f[4 kk ..], (row, col) then (row + 8, col), (row, col + 8), (row + 8, col
+// + 8), row 16 warp + lane / 4, col 16 kk + 2 (lane % 4)
+template <int kW>
+__device__ __forceinline__ void load_afrag(uint32_t (&f)[kW / 4],
+                                           const uint8_t* tile, int warp,
+                                           int lane) {
+  const int r0 = 16 * warp + lane / 4, q = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < kW / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + (i & 1) * 8;
+      const int col = (kk % 4) * 16 + (i >> 1) * 8 + 2 * q;
+      const int off = (kk / 4) * (kRows * 128) + row * 128 +
+                      (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+      f[4 * kk + i] = *reinterpret_cast<const uint32_t*>(tile + off);
+    }
+}
+
+// issue_scores for one term with A from registers (f, load_afrag's) and N
+// = 64: the same two chains (the halves of the k-steps), A not read from
+// shared memory again each tile.  Issued, not committed.
+template <int kW, int kBn>
+__device__ __forceinline__ void issue_scores_rs(float (&sa)[32],
+                                                float (&sb)[32],
+                                                const uint32_t (&f)[kW / 4],
+                                                uint32_t b) {
+  static_assert(kBn == 64, "N = 64");
+#pragma unroll
+  for (int kk = 0; kk < kW / 16; ++kk) {
+    const uint64_t db = desc(b + (kk / 4) * (kBn * 128) + (kk % 4) * 32, 16,
+                             1024);
+    if (kk >= kW / 32) mma_rs_k(sb, &f[4 * kk], db, kk > kW / 32);
+    else mma_rs_k(sa, &f[4 * kk], db, kk > 0);
+  }
+}
+
+// sum (64 x 192) += X B over the three boxes of a streamed tile at b,
+// issue_grad's product in slices, two in flight, one promoted while the
+// next runs: in bf16 three of 64 columns, in f32 128 + 64 (each read the
+// faster of the two there)
+template <int kTerms, int kBn>
+__device__ __forceinline__ void grad192_into(float (&sum)[96],
+                                             const uint32_t (&x)[3][kBn / 4],
+                                             uint32_t b, uint32_t term_bytes) {
+  constexpr uint32_t kB = kBn * 128;                 // a box
+  if constexpr (kTerms == 1) {
+    float pa[32], pb[32];
+    wgmma_fence();
+    issue_grad<64, kTerms, kBn>(pa, x, b, term_bytes);
+    wgmma_commit();
+    issue_grad<64, kTerms, kBn>(pb, x, b + kB, term_bytes);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(pa);
+    promote(sum, pa, 0);
+    wgmma_fence();
+    issue_grad<64, kTerms, kBn>(pa, x, b + 2 * kB, term_bytes);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(pb);
+    promote(sum, pb, 32);
+    wgmma_wait<0>();
+    fence_regs(pa);
+    promote(sum, pa, 64);
+  } else {
+    float pa[64], pb[32];
+    wgmma_fence();
+    issue_grad<128, kTerms, kBn>(pa, x, b, term_bytes);
+    wgmma_commit();
+    issue_grad<64, kTerms, kBn>(pb, x, b + 2 * kB, term_bytes);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(pa);
+    promote(sum, pa, 0);
+    wgmma_wait<0>();
+    fence_regs(pb);
+    promote(sum, pb, 64);
+  }
+}
+
+// This block's (batch, head) pair and row tile: the blocks of a 1-d grid
+// run in groups of kGroup pairs, each group's tiles longest first, so the
+// blocks in flight stream the tiles of few heads (more of them found in
+// L2: two pairs a group read faster than all pairs at once)
+constexpr int kGroup = 2;
+struct BlockPos {
+  int bh, tile;
+};
+__device__ __forceinline__ BlockPos block_pos(int n_bh, int n_tiles) {
+  const int l = blockIdx.x;
+  const int grp = l / (kGroup * n_tiles), within = l % (kGroup * n_tiles);
+  const int n = min(kGroup, n_bh - grp * kGroup);
+  return {grp * kGroup + within % n, within / n};
+}
+
+// one of the eight warps' release of a stage it has read (its wgmma_wait
+// has returned), counted in shared memory: true for the last release of
+// the tile, whose warp then refills the stage (the fences order every
+// warp's reads before the count and the count before the refill)
+__device__ __forceinline__ bool last_release(uint32_t* count) {
+  constexpr uint32_t kWarps = kDuoThreads / 32;
+  __threadfence_block();
+  const bool last = atomicAdd(count, 1u) % kWarps == kWarps - 1;
+  if (last) __threadfence_block();
+  return last;
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -589,10 +889,9 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
     // dV += P^T dO, then dK += dS^T Q: P^T, then dS^T, in three terms as A
     uint32_t xt[3][C::kSc / 2];
     split_pack(s, xt);
-    grad_into<kDv, (C::kSlice < kDv ? C::kSlice : kDv), kTerms, C::kBn>(
-        dv_acc, xt, do_t);
+    grad_into<kDv, kTerms, C::kBn>(dv_acc, xt, do_t);
     split_pack(dp, xt);
-    grad_into<kD, C::kSlice, kTerms, C::kBn>(dk_acc, xt, q_t);
+    grad_into<kD, kTerms, C::kBn>(dk_acc, xt, q_t);
     if (lane == 0) mbar_arrive(bar(kBarEmpty + st));   // stage free
     if (tid == 0 && i + C::kStages < n_iter) {
       mbar_wait(bar(kBarEmpty + st), ph);
@@ -712,7 +1011,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     // dQ += dS K: dS in three terms as A, K read MN-major
     uint32_t xt[3][C::kSc / 2];
     split_pack(dp, xt);
-    grad_into<kD, C::kSlice, kTerms, C::kBn>(dq_acc, xt, k_t);
+    grad_into<kD, kTerms, C::kBn>(dq_acc, xt, k_t);
     if (lane == 0) mbar_arrive(bar(kBarEmpty + st));   // stage free
     if (tid == 0 && j + C::kStagesQ < n_iter) {
       mbar_wait(bar(kBarEmpty + st), ph);
@@ -722,6 +1021,351 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const long long row_stride = (long long)h_q * d;
   Out<kTerms>* out = dq + ((long long)bb * s_len * h_q + h) * d;
   store_rows(out, row_stride, row_a, s_len, d, quad, scale, dq_acc);
+}
+
+// The (192, 128) instance's dK/dV pass (the header): one block a (b, kh,
+// 64-key tile), warpgroup 0 S^T = K Q^T, P^T and dV += P^T dO, warpgroup
+// 1 dP^T = V dO^T, dS^T and dK += dS^T Q.  Maps as bwd_dkdv_kernel's; a
+// 1-d grid (block_pos).
+template <int kTerms>
+__global__ void __launch_bounds__(kDuoThreads, 1)
+bwd_dkdv_duo_kernel(const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    Out<kTerms>* __restrict__ dk, Out<kTerms>* __restrict__ dv,
+                    int b, int s_len, int t_len, int h_q, int h_kv, int d,
+                    int d_v, float scale, int causal) {
+  using C = Duo<kTerms>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kNumBars];
+  __shared__ uint32_t released[kMaxStages];
+  // K | V | stage 0: Q, dO | stage 1 ... | the hand-off
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base, v_s = base + C::kRes, str_s = base + C::kResAll;
+  float* hand = reinterpret_cast<float*>(
+      smem_raw + (str_s + C::kStages * C::kStage - raw));
+  const uint32_t bar0 = smem_u32(bars);
+  auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);   // warp-uniform
+  const int t = tid % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
+  const BlockPos pos = block_pos(b * h_kv, (t_len + kRows - 1) / kRows);
+  const int bb = pos.bh / h_kv, kh = pos.bh % h_kv;
+  const int g_n = h_q / h_kv;
+  const int k0 = pos.tile * kRows;                 // key tiles, longest first
+  const int n_qt = (s_len + C::kBn - 1) / C::kBn;
+  const int it0 = causal ? min(k0 / C::kBn, n_qt) : 0;  // tiles reaching k0
+  const int n_it = n_qt - it0;
+  const int n_iter = g_n * n_it;                    // (head, query tile)
+
+  // Q and dO of iteration i into stage i % kStages
+  auto load_tiles = [&](int i) {
+    const int st = i % C::kStages;
+    const int h = kh * g_n + i / n_it, q0 = (it0 + i % n_it) * C::kBn;
+    const uint32_t dst = str_s + st * C::kStage;
+    mbar_expect_tx(bar(kBarFull + st), C::kStage);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(dst + a * C::kStrTerm + c * C::kStrBox, &map_q,
+                    bar(kBarFull + st), c * kBox, h, q0, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(dst + C::kStr + a * C::kStrTermV + c * C::kStrBox,
+                    &map_do, bar(kBarFull + st), c * kBox, h, q0, a * b + bb);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar(kBarRes), 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(bar(kBarFull + st), 1);
+      released[st] = 0;
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar(kBarRes), C::kResAll);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(k_s + a * C::kResTerm + c * C::kResBox, &map_k,
+                    bar(kBarRes), c * kBox, kh, k0, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(v_s + a * C::kResTermV + c * C::kResBox, &map_v,
+                    bar(kBarRes), c * kBox, kh, k0, a * b + bb);
+    }
+    for (int i = 0; i < min(C::kStages, n_iter); ++i) load_tiles(i);
+  }
+  // this warp has read iteration i's stage: the last of the eight warps'
+  // releases refills it with iteration i + kStages
+  auto release = [&](int i) {
+    if (lane == 0 && last_release(&released[i % C::kStages]) &&
+        i + C::kStages < n_iter)
+      load_tiles(i + C::kStages);
+  };
+
+  const int row_a = k0 + 16 * warp + lane / 4;      // keys row_a, row_a + 8
+  const long long out = (long long)bb * t_len * h_kv + kh;  // (bb, 0, kh)
+  mbar_wait(bar(kBarRes), 0);
+  if (wg == 0) {
+    // S^T, P^T (handed over), dV += P^T dO; on bf16 inputs K's A
+    // fragments stay in registers, so S^T reads only Q from shared memory
+    uint32_t kf[kTerms == 1 ? C::kD / 4 : 1];
+    if constexpr (kTerms == 1)
+      load_afrag<C::kD>(kf, smem_raw + (k_s - raw), warp, lane);
+    const float scale2 = __fmul_rn(scale, kLog2e);
+    float dv_acc[C::kDv / 2];
+#pragma unroll
+    for (int i = 0; i < C::kDv / 2; ++i) dv_acc[i] = 0.f;
+    for (int i = 0; i < n_iter; ++i) {
+      const int st = i % C::kStages;
+      const int h = kh * g_n + i / n_it, q0 = (it0 + i % n_it) * C::kBn;
+      const uint32_t q_t = str_s + st * C::kStage, do_t = q_t + C::kStr;
+      float s[C::kSc], s2[C::kSc];
+      mbar_wait(bar(kBarFull + st), (i / C::kStages) & 1);
+      wgmma_fence();
+      if constexpr (kTerms == 1)
+        issue_scores_rs<C::kD, C::kBn>(s, s2, kf, q_t);
+      else
+        issue_scores<C::kD, kTerms, C::kBn>(s, s2, k_s, q_t);
+      wgmma_commit();
+      // lse of the thread's columns (queries q0 + 8 j' + 2 quad + e), in
+      // base 2, while the products run
+      float lse2_v[C::kBn / 4];
+      const long long lrow = ((long long)bb * h_q + h) * s_len;
+#pragma unroll
+      for (int j = 0; j < C::kBn / 4; ++j) {
+        const int qs = q0 + 8 * (j / 2) + 2 * quad + (j & 1);
+        lse2_v[j] = qs < s_len ? __fmul_rn(lse[lrow + qs], kLog2e) : 0.f;
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(s2);
+      promote(s, s2);
+      const bool edge = q0 + C::kBn > s_len || k0 + kRows > t_len ||
+                        (causal && k0 + kRows - 1 > q0);
+      p_tile<C::kSc, true>(s, lse2_v, row_a, q0, s_len, t_len, causal,
+                           scale2, quad, edge);
+      if (i > 0) named_sync(2, kDuoThreads);       // P of i - 1 read
+#pragma unroll
+      for (int r = 0; r < C::kSc; ++r) hand[r * 128 + t] = s[r];
+      named_arrive(1, kDuoThreads);                // P in
+      uint32_t xt[3][C::kSc / 2];
+      split_terms<kTerms>(s, xt);
+      float part[C::kDv / 2];
+      wgmma_fence();
+      issue_grad<C::kDv, kTerms, C::kBn>(part, xt, do_t, C::kStrTermV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+      promote(dv_acc, part);
+      release(i);
+    }
+    store_rows(dv + out * d_v, (long long)h_kv * d_v, row_a, t_len, d_v, quad,
+               1.f, dv_acc);
+  } else {
+    // dP^T, dS^T, dK += dS^T Q
+    float dk_acc[C::kD / 2];
+#pragma unroll
+    for (int i = 0; i < C::kD / 2; ++i) dk_acc[i] = 0.f;
+    for (int i = 0; i < n_iter; ++i) {
+      const int st = i % C::kStages;
+      const int h = kh * g_n + i / n_it, q0 = (it0 + i % n_it) * C::kBn;
+      const uint32_t q_t = str_s + st * C::kStage, do_t = q_t + C::kStr;
+      float dp[C::kSc], dp2[C::kSc];
+      mbar_wait(bar(kBarFull + st), (i / C::kStages) & 1);
+      wgmma_fence();
+      issue_scores<C::kDv, kTerms, C::kBn>(dp, dp2, v_s, do_t);
+      wgmma_commit();
+      float dl_v[C::kBn / 4];
+      const long long lrow = ((long long)bb * h_q + h) * s_len;
+#pragma unroll
+      for (int j = 0; j < C::kBn / 4; ++j) {
+        const int qs = q0 + 8 * (j / 2) + 2 * quad + (j & 1);
+        dl_v[j] = qs < s_len ? delta[lrow + qs] : 0.f;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      fence_regs(dp2);
+      promote(dp, dp2);
+      named_sync(1, kDuoThreads);                  // P in
+#pragma unroll
+      for (int r = 0; r < C::kSc; ++r)
+        dp[r] = __fmul_rn(hand[r * 128 + t],
+                          __fsub_rn(dp[r], dl_v[2 * (r / 4) + (r & 1)]));
+      if (i + 1 < n_iter) named_arrive(2, kDuoThreads);   // P read
+      uint32_t xt[3][C::kSc / 2];
+      split_terms<kTerms>(dp, xt);
+      grad192_into<kTerms, C::kBn>(dk_acc, xt, q_t, C::kStrTerm);
+      release(i);
+    }
+    store_rows(dk + out * d, (long long)h_kv * d, row_a, t_len, d, quad,
+               scale, dk_acc);
+  }
+}
+
+// The (192, 128) instance's dQ pass (the header): one block a (b, h,
+// 64-query tile), warpgroup 0 S = Q K^T and P (handed over), issuing the
+// next tile's S as soon as P is formed; warpgroup 1 dP = dO V^T, dS and
+// dQ += dS K.  Maps as bwd_dq_kernel's; a 1-d grid (block_pos).
+template <int kTerms>
+__global__ void __launch_bounds__(kDuoThreads, 1)
+bwd_dq_duo_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_do,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  Out<kTerms>* __restrict__ dq, int b, int s_len, int t_len,
+                  int h_q, int h_kv, int d, float scale, int causal) {
+  using C = Duo<kTerms>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kNumBars];
+  __shared__ uint32_t released[kMaxStages];
+  // Q | dO | stage 0: K, V | stage 1 ... | the hand-off
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base, do_s = base + C::kRes, str_s = base + C::kResAll;
+  float* hand = reinterpret_cast<float*>(
+      smem_raw + (str_s + C::kStages * C::kStage - raw));
+  const uint32_t bar0 = smem_u32(bars);
+  auto bar = [&](int i) { return bar0 + 8u * (uint32_t)i; };
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);   // warp-uniform
+  const int t = tid % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
+  const int n_qt = (s_len + kRows - 1) / kRows;
+  const BlockPos pos = block_pos(b * h_q, n_qt);
+  const int bb = pos.bh / h_q, h = pos.bh % h_q;
+  const int kh = h / (h_q / h_kv);
+  const int q0 = (n_qt - 1 - pos.tile) * kRows;     // longest first
+  const int q_last = min(q0 + kRows, s_len) - 1;
+  const int n_kt = (t_len + C::kBn - 1) / C::kBn;
+  const int n_iter = causal ? min(n_kt, q_last / C::kBn + 1) : n_kt;
+
+  // K and V of key tile j into stage j % kStages
+  auto load_tiles = [&](int j) {
+    const int st = j % C::kStages;
+    const uint32_t dst = str_s + st * C::kStage;
+    mbar_expect_tx(bar(kBarFull + st), C::kStage);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(dst + a * C::kStrTerm + c * C::kStrBox, &map_k,
+                    bar(kBarFull + st), c * kBox, kh, j * C::kBn, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(dst + C::kStr + a * C::kStrTermV + c * C::kStrBox,
+                    &map_v, bar(kBarFull + st), c * kBox, kh, j * C::kBn,
+                    a * b + bb);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar(kBarRes), 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(bar(kBarFull + st), 1);
+      released[st] = 0;
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar(kBarRes), C::kResAll);
+    for (int a = 0; a < kTerms; ++a) {
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load_4d(q_s + a * C::kResTerm + c * C::kResBox, &map_q,
+                    bar(kBarRes), c * kBox, h, q0, a * b + bb);
+      for (int c = 0; c < C::kBoxesV; ++c)
+        tma_load_4d(do_s + a * C::kResTermV + c * C::kResBox, &map_do,
+                    bar(kBarRes), c * kBox, h, q0, a * b + bb);
+    }
+    for (int j = 0; j < min(C::kStages, n_iter); ++j) load_tiles(j);
+  }
+  auto release = [&](int j) {
+    if (lane == 0 && last_release(&released[j % C::kStages]) &&
+        j + C::kStages < n_iter)
+      load_tiles(j + C::kStages);
+  };
+
+  const int row_a = q0 + 16 * warp + lane / 4;      // queries row_a, + 8
+  const long long lrow = ((long long)bb * h_q + h) * s_len;
+  mbar_wait(bar(kBarRes), 0);
+  if (wg == 0) {
+    // S and P (handed over); the next tile's S issued once P is formed
+    float lse2_v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qs = row_a + 8 * e;
+      lse2_v[e] = qs < s_len ? __fmul_rn(lse[lrow + qs], kLog2e) : 0.f;
+    }
+    const float scale2 = __fmul_rn(scale, kLog2e);
+    float s[C::kSc], s2[C::kSc];
+    mbar_wait(bar(kBarFull), 0);
+    wgmma_fence();
+    issue_scores<C::kD, kTerms, C::kBn>(s, s2, q_s, str_s);
+    wgmma_commit();
+    for (int j = 0; j < n_iter; ++j) {
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(s2);
+      release(j);
+      promote(s, s2);
+      const int c0 = j * C::kBn;
+      const bool edge = q0 + kRows > s_len || c0 + C::kBn > t_len ||
+                        (causal && c0 + C::kBn - 1 > q0);
+      p_tile<C::kSc, false>(s, lse2_v, row_a, c0, s_len, t_len, causal,
+                            scale2, quad, edge);
+      if (j > 0) named_sync(2, kDuoThreads);       // P of j - 1 read
+#pragma unroll
+      for (int r = 0; r < C::kSc; ++r) hand[r * 128 + t] = s[r];
+      named_arrive(1, kDuoThreads);                // P in
+      if (j + 1 < n_iter) {
+        const int sn = (j + 1) % C::kStages;
+        mbar_wait(bar(kBarFull + sn), ((j + 1) / C::kStages) & 1);
+        wgmma_fence();
+        issue_scores<C::kD, kTerms, C::kBn>(s, s2, q_s,
+                                            str_s + sn * C::kStage);
+        wgmma_commit();
+      }
+    }
+  } else {
+    // dP, dS, dQ += dS K
+    float dl_v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qs = row_a + 8 * e;
+      dl_v[e] = qs < s_len ? delta[lrow + qs] : 0.f;
+    }
+    float dq_acc[C::kD / 2];
+#pragma unroll
+    for (int i = 0; i < C::kD / 2; ++i) dq_acc[i] = 0.f;
+    for (int j = 0; j < n_iter; ++j) {
+      const int st = j % C::kStages;
+      const uint32_t k_t = str_s + st * C::kStage, v_t = k_t + C::kStr;
+      float dp[C::kSc], dp2[C::kSc];
+      mbar_wait(bar(kBarFull + st), (j / C::kStages) & 1);
+      wgmma_fence();
+      issue_scores<C::kDv, kTerms, C::kBn>(dp, dp2, do_s, v_t);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dp);
+      fence_regs(dp2);
+      promote(dp, dp2);
+      named_sync(1, kDuoThreads);                  // P in
+#pragma unroll
+      for (int r = 0; r < C::kSc; ++r)
+        dp[r] = __fmul_rn(hand[r * 128 + t],
+                          __fsub_rn(dp[r], dl_v[(r & 2) / 2]));
+      if (j + 1 < n_iter) named_arrive(2, kDuoThreads);   // P read
+      uint32_t xt[3][C::kSc / 2];
+      split_terms<kTerms>(dp, xt);
+      grad192_into<kTerms, C::kBn>(dq_acc, xt, k_t, C::kStrTerm);
+      release(j);
+    }
+    store_rows(dq + ((long long)bb * s_len * h_q + h) * d, (long long)h_q * d,
+               row_a, s_len, d, quad, scale, dq_acc);
+  }
 }
 
 // ------------------------------------------------------------------ host
@@ -750,7 +1394,6 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    __nv_bfloat16* scratch, int b, int s, int t, int h,
                    int hk, int d, int d_v, float scale, int causal,
                    cudaStream_t stream) {
-  using C = Cfg<kD, kDv, kTerms>;
   using In = std::conditional_t<kTerms == 1, __nv_bfloat16, float>;
   using O = Out<kTerms>;
   const long long rows_q = (long long)b * s * h;
@@ -777,36 +1420,56 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return e;
 
   const int nb = b * kTerms;                // term a of batch bb: a * b + bb
+  using P = Schedule<kD, kDv, kTerms>;
   CUtensorMap mk_r, mv_r, mq_s, mdo_s, mq_r, mdo_r, mk_s, mv_s;
   if (!make_map(&mk_r, kp, nb, t, hk, d, kRows) ||
       !make_map(&mv_r, vp, nb, t, hk, d_v, kRows) ||
-      !make_map(&mq_s, qp, nb, s, h, d, C::kBn) ||
-      !make_map(&mdo_s, dop, nb, s, h, d_v, C::kBn) ||
+      !make_map(&mq_s, qp, nb, s, h, d, P::kBn) ||
+      !make_map(&mdo_s, dop, nb, s, h, d_v, P::kBn) ||
       !make_map(&mq_r, qp, nb, s, h, d, kRows) ||
       !make_map(&mdo_r, dop, nb, s, h, d_v, kRows) ||
-      !make_map(&mk_s, kp, nb, t, hk, d, C::kBn) ||
-      !make_map(&mv_s, vp, nb, t, hk, d_v, C::kBn))
+      !make_map(&mk_s, kp, nb, t, hk, d, P::kBn) ||
+      !make_map(&mv_s, vp, nb, t, hk, d_v, P::kBn))
     return cudaErrorInvalidValue;
 
-  e = cudaFuncSetAttribute(bwd_dkdv_kernel<kD, kDv, kTerms>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           C::kSmem);
+  // the (192, 128) instance on its two-warpgroup kernels, the others on
+  // the one-warpgroup ones
+  const auto dkdv = [] {
+    if constexpr (kD > 128) return bwd_dkdv_duo_kernel<kTerms>;
+    else return bwd_dkdv_kernel<kD, kDv, kTerms>;
+  }();
+  const auto dqk = [] {
+    if constexpr (kD > 128) return bwd_dq_duo_kernel<kTerms>;
+    else return bwd_dq_kernel<kD, kDv, kTerms>;
+  }();
+  // grids: (pairs, tiles), or one dimension for the two-warpgroup kernels
+  // (block_pos)
+  const int tk = (t + kRows - 1) / kRows, tq = (s + kRows - 1) / kRows;
+  const dim3 g_kv = kD > 128 ? dim3(b * hk * tk) : dim3(b * hk, tk);
+  const dim3 g_q = kD > 128 ? dim3(b * h * tq) : dim3(b * h, tq);
+  e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           P::kSmem);
   if (e != cudaSuccess) return e;
-  bwd_dkdv_kernel<kD, kDv, kTerms><<<dim3(b * hk, (t + kRows - 1) / kRows),
-                                     kThreads, C::kSmem, stream>>>(
+  dkdv<<<g_kv, P::kBlock, P::kSmem, stream>>>(
       mk_r, mv_r, mq_s, mdo_s, lse, delta, static_cast<O*>(dk),
       static_cast<O*>(dv), b, s, t, h, hk, d, d_v, scale, causal);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  e = cudaFuncSetAttribute(bwd_dq_kernel<kD, kDv, kTerms>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           C::kSmemQ);
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           P::kSmemQ);
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<kD, kDv, kTerms><<<dim3(b * h, (s + kRows - 1) / kRows),
-                                   kThreads, C::kSmemQ, stream>>>(
+  dqk<<<g_q, P::kBlock, P::kSmemQ, stream>>>(
       mq_r, mdo_r, mk_s, mv_s, lse, delta, static_cast<O*>(dq), b, s, t, h,
       hk, d, scale, causal);
   return cudaGetLastError();
+}
+
+template <int kD, int kDv, int kTerms>
+void schedule(int* out) {
+  using P = Schedule<kD, kDv, kTerms>;
+  const int v[10] = {P::kBlock, kRows, P::kBn, P::kStages,  P::kSmem,
+                     P::kBlock, kRows, P::kBn, P::kStagesQ, P::kSmemQ};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
 }
 
 }  // namespace
@@ -832,6 +1495,8 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
       (terms != 1 && terms != 3) || (terms == 3 && scratch == nullptr) ||
       (long long)b * h > 0x7fffffffLL || (long long)b * terms > 0x7fffffffLL ||
       (s + kRows - 1) / kRows > 65535 || (t + kRows - 1) / kRows > 65535 ||
+      (long long)b * h * ((s + kRows - 1) / kRows) > 0x7fffffffLL ||
+      (long long)b * hk * ((t + kRows - 1) / kRows) > 0x7fffffffLL ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
         reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
@@ -855,4 +1520,24 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                : inst == 1 ? FLASH_BWD_LAUNCH(128, 128, 3)
                            : FLASH_BWD_LAUNCH(192, 128, 3));
 #undef FLASH_BWD_LAUNCH
+}
+
+// The launch of instance (kd, kdv) with `terms` terms into out[0..10):
+// for the dK/dV kernel, then the dQ kernel, threads a block, rows a
+// block, streamed rows, stages, dynamic shared-memory bytes (what
+// ops.py::flash_bwd_schedule states).  Returns a cudaError_t: invalid for
+// an instance or a term count the kernel does not have.
+extern "C" int flash_attn_bwd_schedule(int kd, int kdv, int terms,
+                                       int* out) {
+  if (terms != 1 && terms != 3) return (int)cudaErrorInvalidValue;
+  const bool one = terms == 1;
+  if (kd == 64 && kdv == 64)
+    one ? schedule<64, 64, 1>(out) : schedule<64, 64, 3>(out);
+  else if (kd == 128 && kdv == 128)
+    one ? schedule<128, 128, 1>(out) : schedule<128, 128, 3>(out);
+  else if (kd == 192 && kdv == 128)
+    one ? schedule<192, 128, 1>(out) : schedule<192, 128, 3>(out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
 }

@@ -81,6 +81,10 @@ computes in f32) and runs the three-term instance, counted under
 ``flash_attn_bwd``, with a scratch buffer for the terms; ``[dv]`` is
 added to either key where v is narrower than q (``flash_attn_bwd[dv]``,
 ``flash_attn_bwd[bf16,dv]``).  One launch a call.
+:func:`flash_bwd_schedule` gives each instance's launches: one
+warpgroup a block at (64, 64) and (128, 128); at (192, 128) two, parted
+by product (one forms S and P, the other dP and dS, P handed over in
+shared memory), on 64-row streamed tiles in bf16 and 16-row in f32.
 """
 
 from __future__ import annotations
@@ -334,6 +338,76 @@ def flash_bwd_plan(dtype: torch.dtype, dh: int,
         key = BWD_BF16_KEY if bf16 else BWD_KEY
     instance = next(i for i in _BWD_INSTANCES if w <= i[0] and wv <= i[1])
     return BwdPlan(key, instance, (w, wv), 1 if bf16 else 3)
+
+
+class BwdSchedule(NamedTuple):
+    """The launch of one kernel of the backward: threads a block, rows a
+    block (keys in the dK/dV pass, queries in the dQ pass), rows of a
+    streamed tile, stages of the ring, dynamic shared-memory bytes."""
+    threads: int
+    rows: int
+    streamed: int
+    stages: int
+    smem: int
+
+
+class BwdLaunch(NamedTuple):
+    """The launches of a backward instance: its dK/dV and its dQ kernel."""
+    dkdv: BwdSchedule
+    dq: BwdSchedule
+
+
+_BWD_ROWS = 64                  # keys or queries a block
+SMEM_HALF = 113 * 1024          # a block's share where two fit an SM
+
+
+def flash_bwd_schedule(instance: Tuple[int, int], terms: int) -> BwdLaunch:
+    """The launches of ``flash_attn_bwd``'s (kD, kDv) ``instance`` with
+    ``terms`` bf16 terms of q, k, v and dO (:func:`flash_bwd_plan`'s).
+    Each block keeps 64 rows of one pair of tensors resident (K and V, or
+    Q and dO, ``terms`` planes each) and streams the other pair through a
+    ring.  (64, 64) and (128, 128): one warpgroup (128 threads), 32-row
+    tiles; in f32 as many stages as ``SMEM_CAP`` holds beside the
+    resident tiles and 2 KB, in bf16 as many as ``SMEM_HALF`` holds (two
+    blocks an SM), and the bf16 dQ pass two stages (three blocks an SM);
+    at most 4.  (192, 128): two warpgroups (256 threads), the widest of
+    64, 32 and 16 streamed rows at which two stages fit beside the
+    resident tiles, the 64 x n f32 hand-off between the warpgroups, 1 KB
+    of alignment and 2 KB (64 in bf16, 16 in f32), and as many stages as
+    then fit, at most 4, for both passes.  Dynamic shared memory: the
+    resident tiles, the ring, the hand-off, 1 KB to align them.  The
+    kernel's ``Schedule`` computes the same numbers, and its
+    ``flash_attn_bwd_schedule`` reports them.  Raises ``ValueError`` for
+    an instance or a term count the kernel does not have."""
+    if tuple(instance) not in _BWD_INSTANCES:
+        raise ValueError(f"no backward instance {tuple(instance)}: the "
+                         f"kernel has {_BWD_INSTANCES}")
+    if terms not in (1, 3):
+        raise ValueError(f"{terms} terms: the backward takes 1 or 3")
+    kd, kdv = instance
+    res = terms * (kd + kdv) * _BWD_ROWS * 2       # bf16 terms
+
+    def stage(n):
+        return terms * (kd + kdv) * n * 2
+
+    if kd > 128:
+        def hand(n):
+            return _BWD_ROWS * n * 4
+
+        n = next(n for n in (64, 32, 16) if res + 2 * stage(n) + hand(n)
+                 + 1024 + 2048 <= SMEM_CAP)
+        stages = min(_MAX_STAGES, (SMEM_CAP - 2048 - res - hand(n) - 1024)
+                     // stage(n))
+        one = BwdSchedule(256, _BWD_ROWS, n, stages,
+                          res + stages * stage(n) + hand(n) + 1024)
+        return BwdLaunch(one, one)
+    n = 32
+    cap = SMEM_HALF if terms == 1 else SMEM_CAP
+    stages = min(_MAX_STAGES, (cap - 2048 - res) // stage(n))
+    stages_q = 2 if terms == 1 else stages
+    return BwdLaunch(*(BwdSchedule(128, _BWD_ROWS, n, st,
+                                   res + st * stage(n) + 1024)
+                       for st in (stages, stages_q)))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -64,7 +64,8 @@ from repro_torch.core import clustering, pq
 from repro_torch.kernels import build, launch
 from repro_torch.kernels.flash_attn import (flash_attention, flash_attn_ref,
                                             flash_instance, flash_kernel,
-                                            flash_plan, flash_schedule)
+                                            flash_bwd_schedule, flash_plan,
+                                            flash_schedule)
 from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                         l2_kernel, l2dist_ref)
 from repro_torch.kernels.launch import operand_dtype
@@ -937,6 +938,26 @@ def test_cuda_flash_schedule_is_the_kernels(cuda):
         assert fn(*inst, out) == 0
         assert tuple(out) == tuple(flash_schedule(inst)), inst
     assert fn(96, 96, out) != 0
+
+
+@pytest.mark.gpu
+def test_cuda_flash_bwd_schedule_is_the_kernels(cuda):
+    """``flash_bwd_schedule`` states the launches of each instance of the
+    backward, in one and in three terms: its ``flash_attn_bwd_schedule``
+    reports the same threads, rows, streamed rows, stages and shared
+    memory for the dK/dV and the dQ kernel, and refuses an instance or a
+    term count it does not have."""
+    fn = build.load("flash_attn_bwd").flash_attn_bwd_schedule
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 10)()
+    for inst in ((64, 64), (128, 128), (192, 128)):
+        for terms in (1, 3):
+            assert fn(*inst, terms, out) == 0
+            sch = flash_bwd_schedule(inst, terms)
+            assert tuple(out) == tuple(sch.dkdv) + tuple(sch.dq), (inst,
+                                                                   terms)
+    assert fn(96, 96, 3, out) != 0 and fn(64, 64, 2, out) != 0
 
 
 # ------------------------------------------------ posting-list builds

@@ -12,7 +12,8 @@ product is summed over the term pairs (i, j) with i + j <= 2.  q, k, v and
 dO take the planner's terms (one for bf16 inputs, which are exact in
 bf16; three for f32); P and dS always three.  The emulation forms the
 same products exactly (bf16 terms held in f64) and rounds each sum to f32
-where the kernel's f32 accumulators hold it.  Tolerances are the smoke's
+where the kernel's f32 accumulators hold it; at (192, 128) it forms P in
+base 2, as that instance does.  Tolerances are the smoke's
 (``chip_smoke.BWD_RTOL``): relative L2 1e-4 for f32 gradients, against
 the reference; 6.7e-5 for gradients rounded to bf16 (on bf16 inputs),
 against the same f32 arithmetic on unsplit operands rounded alike, so
@@ -31,7 +32,10 @@ import torch
 from repro.models import layers as RL
 from repro_torch.kernels.flash_attn import (BWD_BF16_DV_KEY, BWD_BF16_KEY,
                                             BWD_DV_KEY, BWD_KEY,
-                                            flash_bwd_plan, flash_bwd_width)
+                                            flash_bwd_plan,
+                                            flash_bwd_schedule,
+                                            flash_bwd_width)
+from repro_torch.kernels.flash_attn.ops import SMEM_CAP
 
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 6.7e-5}
 P_TERMS = 3                     # terms of P and dS in the kernel
@@ -80,6 +84,47 @@ def test_bwd_plan_rejects_what_it_lacks(dtype):
             flash_bwd_plan(dtype, dh, dv)
 
 
+# (instance, terms) -> the (dK/dV, dQ) launches: threads, rows a block,
+# streamed rows, stages, dynamic shared memory.  (64, 64) and (128, 128)
+# as the one-warpgroup kernels have run them since their redesign; (192,
+# 128) on two warpgroups, 64 streamed rows in bf16, 16 in f32 (its
+# three-term residency leaves no room for two 32-row stages)
+SCHEDULES = {
+    ((64, 64), 3): ((128, 64, 32, 4, 148480), (128, 64, 32, 4, 148480)),
+    ((64, 64), 1): ((128, 64, 32, 4, 50176), (128, 64, 32, 2, 33792)),
+    ((128, 128), 3): ((128, 64, 32, 2, 197632), (128, 64, 32, 2, 197632)),
+    ((128, 128), 1): ((128, 64, 32, 4, 99328), (128, 64, 32, 2, 66560)),
+    ((192, 128), 3): ((256, 64, 16, 3, 220160), (256, 64, 16, 3, 220160)),
+    ((192, 128), 1): ((256, 64, 64, 4, 222208), (256, 64, 64, 4, 222208)),
+}
+
+
+@pytest.mark.parametrize("instance,terms", list(SCHEDULES),
+                         ids=[f"{a}x{b}-t{t}" for (a, b), t in SCHEDULES])
+def test_bwd_schedule(instance, terms):
+    """Each kernel's shared memory, with 2 KB for its static barriers,
+    is within ``SMEM_CAP``, and its ring holds two stages or more; the
+    launches are the ones stated (the kernel's ``Schedule`` reports the
+    same, ``test_torch_cuda.py``)."""
+    sch = flash_bwd_schedule(instance, terms)
+    assert tuple(tuple(k) for k in sch) == SCHEDULES[instance, terms]
+    kd, kdv = instance
+    for k in sch:
+        assert k.smem + 2048 <= SMEM_CAP and k.stages >= 2
+        assert k.smem >= terms * (kd + kdv) * 2 * (k.rows + k.stages
+                                                   * k.streamed)
+    if kd > 128:                # two warpgroups: 64 rows each, two stages
+        assert sch.dkdv.threads == 256 and sch.dkdv.streamed <= 64
+
+
+def test_bwd_schedule_rejects_what_it_lacks():
+    for inst in ((96, 96), (192, 192), (256, 256)):
+        with pytest.raises(ValueError, match="no backward instance"):
+            flash_bwd_schedule(inst, 3)
+    with pytest.raises(ValueError, match="2 terms"):
+        flash_bwd_schedule((64, 64), 2)
+
+
 # ------------------------------------------------------------- emulation
 def _terms(x: torch.Tensor, n) -> list:
     """x (f32) as n bf16 terms, each held exactly in f64; ``None``: x
@@ -107,13 +152,15 @@ def _product(eq: str, a: list, b: list) -> torch.Tensor:
 
 
 def emulate_bwd(q, k, v, out, lse, do, *, causal, scale, terms_in,
-                terms_p=P_TERMS):
+                terms_p=P_TERMS, base2=False):
     """The kernel's arithmetic in plain torch: q, k, v and dO split into
     ``terms_in`` bf16 terms, P and dS into ``terms_p``, every sum rounded
     to f32 where the kernel holds it in f32; with ``terms_in=None`` the
     same f32 arithmetic with nothing split (each product of f32 operands
-    exact, rounded once).  Returns (dq, dk, dv) in f32, unrounded to the
-    inputs' dtype."""
+    exact, rounded once).  ``base2``: P as the (192, 128) instance forms
+    it, 2^(S scale2 - lse2) with scale2 = scale log2(e) and lse2 = lse
+    log2(e) each rounded to f32 (else exp(S scale - lse)).  Returns (dq,
+    dk, dv) in f32, unrounded to the inputs' dtype."""
     if terms_in is None:
         terms_p = None
     B, S, H, dh = q.shape
@@ -125,7 +172,12 @@ def emulate_bwd(q, k, v, out, lse, do, *, causal, scale, terms_in,
     delta = (do.float() * out.float()).sum(-1).reshape(B, S, Hk, G).permute(0, 2, 3, 1)[..., None]
     lse = lse.reshape(B, Hk, G, S)[..., None]               # (B,Hk,G,S,1)
     s = _product("bskgd,btkd->bkgst", qt, kt)
-    p = torch.exp(s * scale - lse)
+    if base2:
+        log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+        scale2 = torch.tensor(scale, dtype=torch.float32) * log2e
+        p = torch.exp2(s * scale2 - lse.float() * log2e)
+    else:
+        p = torch.exp(s * scale - lse)
     if causal:
         keep = torch.arange(S)[:, None] >= torch.arange(T)[None, :]
         p = torch.where(keep, p, 0.0)
@@ -202,10 +254,11 @@ def test_emulated_kernel_matches_reference_bwd(dtype, causal, S, H, Hk, dh,
                                                  causal, seed=S + H + Hk,
                                                  dv=dv)
     plan = flash_bwd_plan(dtype, dh, dv)
+    base2 = plan.instance == (192, 128)
     got = emulate_bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
-                      terms_in=plan.terms)
+                      terms_in=plan.terms, base2=base2)
     unsplit = emulate_bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
-                        terms_in=None)
+                          terms_in=None, base2=base2)
     for name, g, w, e, x in zip(("dq", "dk", "dv"), got, want, unsplit,
                                 (q, k, v)):
         assert g.dtype == torch.float32 and g.shape == x.shape, name
