@@ -24,8 +24,10 @@ From the root of a checkout, with one CUDA card:
    and streamed
    above: d in {1, 2, 4, 6, 8, 36, 96, 100, 101, 102, 104, 126, 128, 132,
    960}, views off a 16-byte boundary, integer data bit for bit at d 100,
-   101, 102, 128, 132 and, below 128, 960; uint8, int8, f16 and mixed
-   inputs and a strided view); flash attention in f32 and bf16 (both
+   101, 102, 128, 132 and, below 128, 960; uint8 and int8 on the 8-bit
+   instances (integer ``wgmma``) at d 128, 100, 64 and 36, mixed u8 and
+   s8 among them, and at d 101 on bf16's; f16 and mixed inputs and a
+   strided view); flash attention in f32 and bf16 (both
    kernels of ``flash_kernel``'s rule, on the tensor cores, in 3xTF32 for
    f32, at dh 8, 16, 64, 96, 128, 192 and 256, f32 at 36, and off the
    16-byte stride at 6, 100 and bf16 36, zero-padded; v narrower than q
@@ -55,8 +57,10 @@ From the root of a checkout, with one CUDA card:
    first ground-truth chunk in f32, in bf16, in bf16 cut to SPACEV1B's
    width (d = 100, rows of 200 bytes, off the 16-byte stride) and in
    bf16 cut to an odd d = 101 (rows on 2 bytes: zero-padded to 104),
-   and the chunk's integers passed as uint8 (computed in bf16), each
-   bit-equal to its plain version on the chunk's integers,
+   the chunk's integers passed as uint8 (SIFT1B's own type) and, shifted
+   by -128 to int8 and cut to d = 100, as SPACEV1B's int8 (both on the
+   8-bit instances, no copy), each bit-equal to its plain version on the
+   chunk's integers,
    then in f32 and bf16 on normal values of its shape, and in f32 and
    bf16 at GIST1M's width (d = 960, normal values, 2^20 rows: the query
    tile streamed); ``flash_attention`` at Qwen3-0.6B's attention widths
@@ -69,7 +73,8 @@ From the root of a checkout, with one CUDA card:
    tk = 4,096, in f32 and int8, bit-equal to its plain version; each
    against its plain version.  It fails unless each call launched the
    kernel its rule names, counted under its key: ``l2dist_wgmma`` (f32,
-   d = 128), ``l2dist_wgmma[bf16]`` (bf16 and uint8),
+   d = 128), ``l2dist_wgmma[bf16]`` (bf16), ``l2dist_wgmma[int8]``
+   (uint8), ``l2dist_wgmma[int8,off16]`` (int8 at d = 100),
    ``l2dist_wgmma[bf16,off16]`` (d = 100), ``l2dist_wgmma[bf16,odd]``
    (d = 101), ``l2dist_wgmma[d>128]`` and ``l2dist_wgmma[bf16,d>128]``
    (d = 960); ``flash_attn_fwd_wgmma`` (bf16) and ``flash_attn_fwd_tf32``
@@ -286,6 +291,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 TF32_FLOPS = 495e12              # dense TF32 on the tensor cores
 BF16_FLOPS = 989e12              # dense bf16 on the tensor cores
+INT8_OPS = 1979e12               # dense int8 on the tensor cores
 RTOL = 1e-5                      # M f32 terms summed in another order
 L2_ATOL = 1e-3                   # D products summed in another order
 FLASH_TOL = {torch.float32: 2e-5,    # online softmax against a plain one
@@ -418,7 +424,10 @@ KERNELS = {
     "l2dist_wgmma[bf16,odd]": dict(
         route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
         replaces="src/repro/kernels/l2dist/l2dist.py:38"),
-    "l2dist_wgmma[bf16]@uint8": dict(
+    "l2dist_wgmma[int8]": dict(
+        route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
+        replaces="src/repro/kernels/l2dist/l2dist.py:38"),
+    "l2dist_wgmma[int8,off16]": dict(
         route="cuda", source=L2_SRC + "l2dist_wgmma.cu",
         replaces="src/repro/kernels/l2dist/l2dist.py:38"),
     "flash_attn_fwd_wgmma": dict(
@@ -635,7 +644,6 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
     dtype."""
     from repro_torch.kernels.l2dist import (l2_distances, l2_instance,
                                             l2dist_ref)
-    from repro_torch.kernels.launch import operand_dtype
     from repro_torch.kernels.pq_adc import ops
 
     def run(name, q, v, exact=False):
@@ -643,7 +651,7 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
         got = l2_distances(q, v)
         torch.cuda.synchronize()
         ran = {k for k, c in ops.LAUNCHES.items() if c != before[k]}
-        want = l2_instance(operand_dtype(q.dtype, v.dtype), q.shape[1])
+        want = l2_instance(q.dtype, q.shape[1], v.dtype)
         if ran != {want}:
             raise AssertionError(f"{name} launched {sorted(ran)}, not {want}")
         if exact and not torch.equal(got, l2dist_ref(q, v)):
@@ -679,10 +687,13 @@ def check_l2_small(dev: torch.device, rng: np.random.Generator) -> None:
             ints = [torch.from_numpy(rng.integers(0, below, shape).astype(
                 np.float32)).to(dev, dtype) for shape in ((37, d), (3001, d))]
             run(f"l2dist {dtype} integers d{d}", *ints, exact=True)
-    # other dtypes, as the JAX wrapper takes them: uint8 and int8 in bf16
-    # (exact), f16 and mixed in f32; a transposed (strided) view
+    # other dtypes, as the JAX wrapper takes them: uint8 and int8 on the
+    # 8-bit instances (mixed too), at d 101 in bf16 (exact), f16 and mixed
+    # in f32; a transposed (strided) view
     for qd, vd, d in ((torch.uint8, torch.uint8, 128),
                       (torch.int8, torch.int8, 100),
+                      (torch.uint8, torch.int8, 64),
+                      (torch.int8, torch.uint8, 36),
                       (torch.uint8, torch.uint8, 101),
                       (torch.float16, torch.float16, 96),
                       (torch.uint8, torch.float32, 64)):
@@ -894,11 +905,13 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
             ("flash_attn_fwd_wgmma[stride-pad]", torch.bfloat16,
              FLASH_OFF_STRIDE_DH))}
     q16, chunk16 = q.bfloat16(), chunk.bfloat16()
+    chunk8 = torch.from_numpy(np.ascontiguousarray(data[:1 << 20])).to(dev)
     # the chunk in f32 (TMA loads) and in bf16 (16-byte cp.async copies)
     # at SIFT1B's width, in bf16 cut to SPACEV1B's width, d = 100 (rows of
     # 200 bytes, off the 16-byte stride: 8-byte copies), all on the tensor
     # cores, in bf16 cut to an odd width, d = 101 (zero-padded to 104),
-    # and as uint8, SIFT1B's own type (computed in bf16, exactly); and
+    # as uint8, SIFT1B's own type, and shifted to int8 at SPACEV1B's d =
+    # 100, both on the 8-bit instances (integer products, no copy); and
     # normal values at GIST1M's width, d = 960, over the chunk's rows in
     # f32 and bf16 (the query tile streamed)
     gist = [torch.randn(rows, GIST_DIM, generator=gen, device=dev)
@@ -911,17 +924,18 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
                 "l2dist_wgmma[bf16,odd]": (
                     q16[:, :ODD_DIM].contiguous(),
                     chunk16[:, :ODD_DIM].contiguous()),
-                "l2dist_wgmma[bf16]@uint8": (
-                    q.to(torch.uint8),
-                    torch.from_numpy(np.ascontiguousarray(
-                        data[:1 << 20])).to(dev)),
+                "l2dist_wgmma[int8]": (q.to(torch.uint8), chunk8),
+                "l2dist_wgmma[int8,off16]": tuple(
+                    (x[:, :SPACEV_DIM].short() - 128).to(
+                        torch.int8).contiguous()
+                    for x in (q.to(torch.uint8), chunk8)),
                 "l2dist_wgmma[d>128]": tuple(gist),
                 "l2dist_wgmma[bf16,d>128]": tuple(x.bfloat16()
                                                   for x in gist)}
     del gist
     on_integers = ("l2dist_wgmma", "l2dist_wgmma[bf16]",
                    "l2dist_wgmma[bf16,off16]", "l2dist_wgmma[bf16,odd]",
-                   "l2dist_wgmma[bf16]@uint8")
+                   "l2dist_wgmma[int8]", "l2dist_wgmma[int8,off16]")
     # the fused scan's spill route: a window of B = 64 at S = 32,768 over
     # the index's codes, tk = 4,096 (f32 and int8)
     spill_rows = window_rows(WINDOW, SPILL["S"], codes.shape[0], dev,
@@ -1037,9 +1051,9 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
 
 def launch_key(row: str) -> str:
     """The ``LAUNCHES`` key a phase 5 row's call counts under: the row's
-    name, less what tells two rows of one key apart (``@uint8``, the
-    spill route's ``lut_int8``)."""
-    return row.split("@")[0].replace(",lut_int8]", "]")
+    name, less what tells two rows of one key apart (the spill route's
+    ``lut_int8``)."""
+    return row.replace(",lut_int8]", "]")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1180,11 +1194,12 @@ def measure_entry(calls) -> list:
         out.append(measure_fused(name, codes_f, q_f, cb_f, rows_f, topk_f))
 
     # the output alone is B * N * 4 bytes.  The yardstick is one addmm,
-    # bf16 in and f32 out for bf16 (none takes uint8: no library call).
+    # bf16 in and f32 out for bf16 (none takes 8-bit integers on the card:
+    # no library call).
     for name in ("l2dist_wgmma", "l2dist_wgmma[bf16]",
                  "l2dist_wgmma[bf16,off16]", "l2dist_wgmma[bf16,odd]",
-                 "l2dist_wgmma[bf16]@uint8", "l2dist_wgmma[d>128]",
-                 "l2dist_wgmma[bf16,d>128]"):
+                 "l2dist_wgmma[int8]", "l2dist_wgmma[int8,off16]",
+                 "l2dist_wgmma[d>128]", "l2dist_wgmma[bf16,d>128]"):
         q, v = calls[name]
         peak, products = exact_products(q.dtype)
         (b, d), nv = q.shape, v.shape[0]
@@ -2909,11 +2924,12 @@ def moe_train_phase(seed: int, card: str) -> tuple:
 
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
-    that are exact in f32, and how many products each takes: inputs exact
-    in bf16 (bf16, uint8, int8) in one on the tensor cores, others in
-    three (3xTF32), whichever unit the kernel runs on."""
-    from repro_torch.kernels.launch import operand_dtype
-    return ((BF16_FLOPS, 1) if operand_dtype(dtype) == torch.bfloat16
+    that are exact, and how many products each takes: 8-bit integers in
+    one at the int8 rate, bf16 in one at the bf16 rate, others in three
+    (3xTF32), whichever unit the kernel runs on."""
+    if dtype in (torch.uint8, torch.int8):
+        return INT8_OPS, 1
+    return ((BF16_FLOPS, 1) if dtype == torch.bfloat16
             else (TF32_FLOPS, 3))
 
 
@@ -3046,8 +3062,9 @@ def main() -> int:
     entry_names = ("adc_scan", "adc_scan_topk", "adc_fused_topk[spill]",
                    "adc_fused_topk[spill,lut_int8]", "l2dist_wgmma",
                    "l2dist_wgmma[bf16]", "l2dist_wgmma[bf16,off16]",
-                   "l2dist_wgmma[bf16,odd]", "l2dist_wgmma[bf16]@uint8",
-                   "l2dist_wgmma[d>128]", "l2dist_wgmma[bf16,d>128]",
+                   "l2dist_wgmma[bf16,odd]", "l2dist_wgmma[int8]",
+                   "l2dist_wgmma[int8,off16]", "l2dist_wgmma[d>128]",
+                   "l2dist_wgmma[bf16,d>128]",
                    "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32",
                    "flash_attn_fwd_wgmma[padded]",
                    "flash_attn_fwd_tf32[padded]",

@@ -37,12 +37,16 @@ and in f32 at dh 128, 96 and 256, and in bf16 at dh 256 and at dh 100
 bf16 and f32; exact L2 at the ground-truth chunk, 256
 queries x 2^20 vectors x 128, in f32, in bf16 and passed as uint8, in
 bf16 cut to SPACEV1B's d = 100 (rows off TMA's 16-byte stride) and to
-an odd d = 101, and in f32 and bf16 at GIST1M's d = 960, once on
+an odd d = 101, as int8 at d = 100, and in f32 and bf16 at GIST1M's d =
+960, once on
 integers (in [0, 256), SIFT's values; in [0, 128) at d = 960, where
 960 * 127^2 < 2^24 keeps every sum exact) and once on normal values
-(not for uint8); and the fused scan at a window past ``fused_plan``'s
+(not for 8-bit); and the fused scan at a window past ``fused_plan``'s
 one launch (B = 64, S = 32,768, tk = 4,096, f32 and int8: the spill
-route); the attention backward (``flash_attention_bwd``), B = 1, S = T
+route, with the device time of each CUDA kernel of the call from
+``torch.profiler``: the spill reading's phase split between launches; the
+split within a launch is ``scripts/fused_phases.py --spill``); the
+attention backward (``flash_attention_bwd``), B = 1, S = T
 = 4096, causal, at Qwen3-0.6B's widths, dh 128, and at DeepSeek-V2-Lite's
 MLA shape (q/k 192, v 128, H = Hk = 16), each on f32 and bf16 inputs
 (rows 7, 7b, 7c and 7d of PERF.md section 6), from the forward
@@ -51,8 +55,9 @@ kernel's output and lse, its gradients' relative L2 error against
 exact gradient, with the f32 plain version's own error beside it),
 whether two runs are bit-equal, SDPA's backward beside it (this tree's
 process), and the ``ptxas`` lines (registers, spills) of the bf16 flash
-forward's kernels (``--only flash``) and of the backward's (``bwd``)
-where the process compiled them.  A reading whose call raises (a width, dtype or
+forward's kernels (``--only flash``), of the backward's (``bwd``), of
+the exact L2's (``l2``) and of the fused scan's (``adc``) where the
+process compiled them.  A reading whose call raises (a width, dtype or
 window an older tree's kernels do not take) is reported with its error.
 It reports the device time of each call (``chip_smoke.gpu_ms``), the
 kernels the call launched, whether the dense output is bit-equal to
@@ -119,12 +124,15 @@ BWD_CASES = ((torch.float32, "f32", 128, 128, ATTN),
              (torch.bfloat16, "bf16,mla", 192, 128, MLA))
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 # (dtype, tag, width, integers below): the chunk at SIFT1B's 128, cut to
-# SPACEV1B's 100 and to an odd 101, and at GIST1M's 960
+# SPACEV1B's 100 and to an odd 101, and at GIST1M's 960; 8-bit: SIFT1B's
+# uint8 at 128 (row 5g) and SPACEV1B's int8 at 100 (row 5h: the draws
+# in [0, 256) as int8 wrap to [-128, 128))
 L2_CASES = ((torch.float32, "f32", 128, 256),
             (torch.bfloat16, "bf16", 128, 256),
             (torch.bfloat16, "bf16,d100", 100, 256),
             (torch.bfloat16, "bf16,d101", 101, 256),
             (torch.uint8, "u8", 128, 256),
+            (torch.int8, "s8,d100", 100, 256),
             (torch.float32, "f32,d960", 960, 128),
             (torch.bfloat16, "bf16,d960", 960, 128))
 
@@ -190,6 +198,9 @@ def measure(tree: Path, seed: int, only=GROUPS) -> dict:
         for dtype, tag, width, below in L2_CASES:
             out[f"l2dist[{tag}]"] = reading(lambda: l2_reading(
                 dtype, width, below, dev, gen, ran, yardsticks, chip_smoke))
+    for group, source in (("l2", "l2dist_wgmma"), ("adc", "adc_fused_topk")):
+        if group in only and source in reports:   # compiled here
+            out[f"{source}[ptxas]"] = ptxas_lines(reports[source])
     if "adc" in only:
         # last, so the readings above keep the inputs of earlier runs
         out["pq_adc_fused_topk"] = fused_readings(
@@ -309,7 +320,9 @@ def l2_reading(dtype, width, below, dev, gen, ran, yardsticks,
                chip_smoke) -> dict:
     """Exact L2 over the ground-truth chunk's shape at ``width``: on
     integers in [0, below), bit-equal or not, and on normal values, within
-    the smoke's tolerance or not; the time on the integers."""
+    the smoke's tolerance or not; the time on the integers; this tree's
+    process also times ``fill_`` of a (B, N) f32 tensor, the output's
+    stores alone."""
     from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
     b, n = L2["B"], L2["N"]
     ints = [torch.randint(0, below, (rows, width), generator=gen,
@@ -330,6 +343,10 @@ def l2_reading(dtype, width, below, dev, gen, ran, yardsticks,
             out, want, rtol=chip_smoke.RTOL, atol=chip_smoke.L2_ATOL))
         del out, want, normal
     r["ms"] = chip_smoke.gpu_ms(lambda: l2_distances(*ints), 20)
+    if yardsticks:      # the output's stores alone: the card's floor
+        full = torch.empty(b, n, device=dev)
+        r["fill_ms"] = chip_smoke.gpu_ms(lambda: full.fill_(1.0), 20)
+        del full
     if yardsticks and dtype.is_floating_point:
         qi, vi = ints
         qf, vf = qi.float(), vi.float()
@@ -410,8 +427,9 @@ def fused_readings(ops, dev, gen, window_rows, gpu_ms) -> dict:
 def spill_readings(ops, dev, gen, window_rows, gpu_ms) -> dict:
     """``pq_adc_fused_topk`` at a window ``fused_plan`` refuses (B = 64,
     S = 32,768, tk = 4,096; rows from ``chip_smoke.window_rows``), f32
-    and int8: bit-equal to its plain version, the kernels it launched
-    and its time, or the error an older tree raises."""
+    and int8: bit-equal to its plain version, the kernels it launched,
+    its time and the device time of each CUDA kernel of the call
+    (:func:`kernel_split`), or the error an older tree raises."""
     n, dsub, s, tk = FUSED["N"], FUSED["dsub"], 1 << 15, 4096
     codes = torch.randint(0, K, (n, M), generator=gen, device=dev,
                           dtype=torch.uint8)
@@ -435,9 +453,30 @@ def spill_readings(ops, dev, gen, window_rows, gpu_ms) -> dict:
                                   ops.LAUNCHES.items() if c != before[k]},
                         bit_equal=bool(torch.equal(v, pv)
                                        and torch.equal(i, pi)),
-                        ms=gpu_ms(call, 20))
+                        ms=gpu_ms(call, 20), kernels_ms=kernel_split(call))
         out["int8" if int8 else "f32"] = reading(one)
     return out
+
+
+def kernel_split(fn, reps: int = 20) -> dict:
+    """The device ms of each CUDA kernel a call of ``fn`` launches (the
+    mean of ``reps`` calls under ``torch.profiler``), by kernel name: the
+    spill reading's split between the launches of one call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            split[ev.key[:100]] = dev / 1e3 / reps
+    return split
 
 
 def topk_readings(ops, ref, dev, gen, lut, gpu_ms) -> dict:

@@ -191,6 +191,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // ------------------------------------------------------------------ TF32
 // 3xTF32: x = hi + lo with hi = tf32(x) (round to nearest) and lo =
@@ -210,6 +215,11 @@ __device__ __forceinline__ float tf32_rna(float x) {
 #define D64 D32, D8(32), D8(40), D8(48), D8(56)
 #define D128 D64, D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), \
              D8(112), D8(120)
+// the same for the int32 accumulators of integer wgmma
+#define D8I(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
+               "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define D64I D8I(0), D8I(8), D8I(16), D8I(24), D8I(32), D8I(40), D8I(48), \
+             D8I(56)
 #define R16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define R32                                                                \

@@ -1,12 +1,13 @@
-// Exact squared L2 distances on Hopper's tensor cores (sm_90a), f32 or
-// bf16 inputs, f32 output.
+// Exact squared L2 distances on Hopper's tensor cores (sm_90a), f32,
+// bf16 or 8-bit integer inputs, f32 output.
 //
 // Replaces the Pallas TPU kernel repro/kernels/l2dist/l2dist.py::l2dist
-// (_l2_kernel, which widens its inputs to f32) for f32 of every width and
-// bf16 of even width; l2dist/ops.py states the rule: its wrapper casts
-// other dtypes first (uint8 and int8 to bf16, exact there) and pads odd
-// bf16 widths (rows on 2-byte boundaries, which no cp.async granule
-// takes) with one zero column:
+// (_l2_kernel, which widens its inputs to f32) for f32 of every width,
+// bf16 of every width (odd ones copied by a kernel of the same launch
+// into rows zero-padded to a multiple of 8) and 8-bit integers (uint8 or
+// int8 each, d <= 128 with d % 4 == 0: SIFT1B's uint8 at 128, SPACEV1B's
+// int8 at 100) as they are; l2dist/ops.py states the rule, its wrapper
+// casting other dtypes first (other 8-bit widths to bf16, exact there):
 //     out[b, n] = (|q_b|^2 - 2 q_b.v_n) + |v_n|^2        (B, N) f32.
 //
 // What bounds it on an H100 SXM: bytes.  At the ground-truth chunk
@@ -17,7 +18,9 @@
 // is most of each.  The products are 68.7 GFLOP:
 // three times that in 3xTF32 take 0.417 ms at the dense TF32 rate (495
 // TFLOP/s); once in bf16 (each product exact in f32) 0.069 ms at 989
-// TFLOP/s.  The f32 CUDA cores alone could not go below 1.03 ms.  At
+// TFLOP/s.  SIFT1B's uint8 takes a quarter of f32's input bytes: 1.21
+// GB, 0.361 ms (the products 0.035 ms at int8's 1,979 TOPS); SPACEV1B's
+// int8 at d = 100, 1.18 GB, 0.352 ms.  The f32 CUDA cores alone could not go below 1.03 ms.  At
 // GIST1M's d = 960 (the smoke's streamed call) f32 is bound by operations:
 // 515 GFLOP, in 3xTF32 3.12 ms against 1.52 ms for its 5.1 GB; bf16 by
 // bytes: 3.09 GB, 0.921 ms, against 0.52 ms for one bf16 product.
@@ -27,34 +30,45 @@
 // and hi*lo + lo*hi + hi*hi is summed into the f32 accumulator (the lo*lo
 // term is below f32's resolution of the sum).  bf16: one wgmma
 // m64n128k16 per k-step straight from the loaded tiles, no split.  On
-// integer data below 2^8 (SIFT's uint8, exact in both types) every
-// product and partial sum is an integer below 2^24, so the result equals
-// the plain version's bit for bit.  The norms are __fmaf_rn sums of the
-// (widened) squares taken from the tiles the kernel reads; the epilogue
-// rounds each step, as ref.py::l2dist_ref does.
+// integer data below 2^8 (exact in both types) every product and partial
+// sum is an integer below 2^24, so the result equals the plain version's
+// bit for bit.  The norms are __fmaf_rn sums of the (widened) squares
+// taken from the tiles the kernel reads; the epilogue rounds each step,
+// as ref.py::l2dist_ref does.  8-bit: one wgmma m64n128k32.s32 per
+// k-step on u8 or s8 operands as loaded (wgmma takes all four mixes,
+// CUTLASS's cute/arch/mma_sm90_gmma.hpp lists them; the toolkit ships no
+// PTX ISA document), int32 sums, norms by dp4a, and the epilogue's
+// |q|^2 - 2 q.v + |v|^2 in int32, converted to f32 once.  For d <= 128
+// every value of u8 or s8 alone is below 128 * 255^2 = 8,323,200 < 2^24,
+// so exact in f32 and equal to the plain version's bit for bit; a mix
+// (|q - v| up to 383) reaches 18.8M, where |q|^2 - 2 q.v is still below
+// 2^24, so the plain version rounds once, at its last add, as the one
+// conversion does: bit for bit too.
 //
 // Design: a persistent grid, one block an SM (l2dist/ops.py::l2_plan):
 // block (x, y) owns the 128 queries of tile y and walks the 128-vector
 // tiles x, x + grid_x, ...; the blocks of one x walk the same vector
 // tiles at the same time, so each tile comes from HBM about once.  Up to
 // d = 128 a producer warp loads the query tile once (all of d in
-// 128-byte-wide, 128-byte swizzled k-slices: 32 f32 or 64 bf16 columns)
-// and streams the vector tiles' k-slices through a ring (3 stages in f32,
-// whose slices also need a lo buffer; 4 in bf16), behind full / empty
-// mbarriers.  f32 with d % 4 == 0 (rows on 16 bytes) loads by TMA, which
-// fills rows and columns past B, N and d with zeros.  bf16, and f32 of
-// other widths, load by cp.async, which takes rows on 4 bytes (SPACEV1B's
+// 128-byte-wide, 128-byte swizzled k-slices: 32 f32, 64 bf16 or 128 8-bit
+// columns, so an 8-bit tile is one slice) and streams the vector tiles'
+// k-slices through a ring (3 stages in f32, whose slices also need a lo
+// buffer; 4 in bf16 and 8-bit), behind full / empty mbarriers.  f32 with
+// d % 4 == 0 and 8-bit with d % 16 == 0 (rows on 16 bytes) load by TMA,
+// which fills rows and columns past B, N and d with zeros.  bf16, and
+// f32 and 8-bit of other widths, load by cp.async, which takes rows on 4 bytes (SPACEV1B's
 // d = 100 in bf16: rows of 200 bytes, which no tensor map takes): the
 // producer warp's 32 lanes copy the slices in granules of 16 bytes (row
 // stride % 16 == 0), 8 or 4 (bf16 by the widest its stride allows, f32
-// by 4), straight into the same swizzled layout, zero-filling the rows
+// by 4, 8-bit by 8 or 4), straight into the same swizzled layout, zero-filling the rows
 // past B and N and the granules past d (so a stage that held another
 // k-slice reads zeros there), and each lane's
 // cp.async.mbarrier.arrive.noinc counts on the full barrier.  At d = 128
 // the 16-byte granules took 0.7099 / 0.7067 ms against TMA's 0.7183 /
 // 0.7146 (kernel_ab, H100 80GB HBM3, 700 W), so bf16 has no TMA load
 // path.  Launches off the 16-byte stride count as
-// l2dist_wgmma[bf16,off16].
+// l2dist_wgmma[bf16,off16] and l2dist_wgmma[int8,off16], 8-bit ones on it
+// as l2dist_wgmma[int8].
 //
 // Above d = 128 the query tile (983 KB at d = 960 in f32, hi and lo) does
 // not fit, so the query tile is streamed (kStream): each ring stage holds
@@ -83,14 +97,15 @@
 // the async proxy, synchronises on a named barrier and issues the slice's
 // 24 wgmmas (two 64-query halves), splitting the next slice while they
 // run.
-// In bf16 it only sums the slice's squares and issues its 8 wgmmas.  It
+// In bf16 it only sums the slice's squares and issues its 8 wgmmas (8-bit:
+// the same, its squares by dp4a).  It
 // hands a slice back to the producer once its wgmmas are done; meanwhile
 // the other writes its finished 128 x 128 tile out, so the output, most
 // of the bound, leaves while the tensor cores work.  f32 writes it as
 // float2 pairs straight from the accumulators' layout (a warp writes
-// whole 32-byte row segments).  bf16, whose smaller tiles leave 128 KB of
-// shared memory free, stages the tile there in TMA's swizzled layout and
-// writes it with eight TMA stores of 64 rows x 128 bytes (whole cache
+// whole 32-byte row segments).  bf16 and 8-bit, whose smaller tiles leave
+// 128 KB of shared memory free, stage the tile there in TMA's swizzled layout and
+// write it with eight TMA stores of 64 rows x 128 bytes (whole cache
 // lines), where N % 4 == 0 lets TMA address the output's rows; on the
 // chunk that took 0.71 ms against 0.83 for the float2 stores (kernel_ab,
 // H100 80GB HBM3, 700 W).
@@ -113,27 +128,31 @@ constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 constexpr int kHalfBytes = 64 * kBN * 4;   // 64 rows of a finished tile
 
-// The shapes of one instantiation: f32 (3xTF32) or bf16 (one product);
-// the query tile resident (d <= 128) or streamed with the vectors (kStream)
-template <bool kBf16, bool kStream>
+// The shapes of one instantiation of kElem-byte elements: f32 (4, 3xTF32),
+// bf16 (2, one product) or 8-bit integers (1, one integer product); the
+// query tile resident (d <= 128) or streamed with the vectors (kStream;
+// f32 and bf16 only)
+template <int kElem, bool kStream>
 struct Cfg {
-  static constexpr int kBK = kBf16 ? 64 : 32;  // columns of a k-slice
+  static constexpr bool kF32 = kElem == 4;
+  static constexpr int kBK = 128 / kElem;      // columns of a k-slice
   static constexpr int kSlices = kStream ? 0 : kMaxD / kBK;  // resident q
-  static constexpr int kBufs = kBf16 ? 1 : 2;  // hi, and lo in f32
+  static constexpr int kBufs = kF32 ? 2 : 1;   // hi, and lo in f32
   // depth of the ring; a stage holds a v slice, streamed also a q slice
-  static constexpr int kStages = kBf16 ? (kStream ? 6 : 4) : 3;
+  static constexpr int kStages = kF32 ? 3 : (kStream ? 6 : 4);
   static constexpr int kOps = kStream ? 2 : 1;
   // the slices a stage's loads fill: v hi; streamed also q hi, and in f32
   // q lo (split by the prologue); v lo is the consumer's
-  static constexpr int kLoads = kStream ? (kBf16 ? 2 : 3) : 1;
-  // resident bf16: each warpgroup stages its finished tile (two 64-row
-  // halves of 32 KB) for the TMA stores; f32 has no room left for it, and
-  // streamed bf16 spends it on a deeper ring
-  static constexpr int kStageBytes = kBf16 && !kStream ? 4 * kHalfBytes : 0;
+  static constexpr int kLoads = kStream ? (kF32 ? 3 : 2) : 1;
+  // resident bf16 and 8-bit: each warpgroup stages its finished tile (two
+  // 64-row halves of 32 KB) for the TMA stores; f32 has no room left for
+  // it, and streamed bf16 spends it on a deeper ring
+  static constexpr int kStageBytes = !kF32 && !kStream ? 4 * kHalfBytes : 0;
   // dynamic shared memory, 1024-byte aligned: resident, q hi | q lo
   // (kSlices each) | v hi | v lo (kStages each); streamed, q hi | v hi |
   // q lo | v lo (kStages each); then the staging.  224 KB of the 227
-  // resident, 192 KB streamed
+  // resident (8-bit: 208 KB, its query tile and a vector tile one slice
+  // each), 192 KB streamed
   static constexpr int kSmemBytes =
       kBufs * (kSlices + kOps * kStages) * kSliceBytes + kStageBytes + 1024;
   // barriers: the q tile, full [stage], empty [stage] (a stage goes to
@@ -153,6 +172,43 @@ __device__ __forceinline__ void mma_bf16(float (&d)[64], uint64_t da,
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : D64
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, s32) (+)= A (64 x 32, smem) * B (128 x 32, smem)^T on
+// 8-bit integers, both K-major, exact; kMix: bit 1 set where A is s8
+// (else u8), bit 0 where B is; accumulate = 0 overwrites d
+#define L2_MMA_I8(A, B)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n128k32.s32." A "." B    \
+               " " R64 ", %64, %65, p;\n}\n"                              \
+               : D64I                                                    \
+               : "l"(da), "l"(db), "r"(accumulate))
+template <int kMix>
+__device__ __forceinline__ void mma_i8(int (&d)[64], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  if constexpr (kMix == 0) L2_MMA_I8("u8", "u8");
+  else if constexpr (kMix == 1) L2_MMA_I8("u8", "s8");
+  else if constexpr (kMix == 2) L2_MMA_I8("s8", "u8");
+  else L2_MMA_I8("s8", "s8");
+}
+#undef L2_MMA_I8
+
+// the accumulators, norms and their sums: int32 for 8-bit integers (exact),
+// f32 otherwise
+template <int kElem> struct Acc { using T = float; };
+template <> struct Acc<1> { using T = int; };
+__device__ __forceinline__ float add2(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ int add2(int a, int b) { return a + b; }
+// a distance from its terms, rounded at each step in f32 as
+// ref.py::l2dist_ref does; in int32 exact, then converted once (below
+// 2^24 for d <= 128, so the same value)
+__device__ __forceinline__ float dist_of(float qn, float dot, float vn) {
+  return __fadd_rn(__fsub_rn(qn, __fmul_rn(2.f, dot)), vn);
+}
+__device__ __forceinline__ float dist_of(int qn, int dot, int vn) {
+  return __int2float_rn(qn - 2 * dot + vn);
 }
 
 // The producer warp's copy of k-slice s (the 128 bytes at 128 s of each
@@ -228,12 +284,32 @@ __device__ __forceinline__ void square_slice(const uint4* tile, int t,
   }
 }
 
+// The same walk over a landed 8-bit k-slice: sq[i] sums the squares of
+// the sixteen values of each chunk in int32 (exact), four at a time by
+// dp4a; kSigned: s8, else u8.
+template <int kT, bool kSigned>
+__device__ __forceinline__ void square_slice_i8(const uint4* tile, int t,
+                                                int (&sq)[1024 / kT]) {
+#pragma unroll
+  for (int i = 0; i < 1024 / kT; ++i) {
+    const uint4 x = tile[t + kT * i];
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sq[i] = kSigned ? __dp4a((int)w[j], (int)w[j], sq[i])
+                      : (int)__dp4a(w[j], w[j], (unsigned)sq[i]);
+  }
+}
+
 // The squares of a landed slice into sq; in f32 also its split, fenced
-// for the wgmmas that read it.
-template <bool kBf16, int kT>
-__device__ __forceinline__ void take_slice(uint8_t* hi, uint8_t* lo, int t,
-                                           float (&sq)[1024 / kT]) {
-  if constexpr (kBf16) {
+// for the wgmmas that read it.  kSigned: 8-bit values are s8.
+template <int kElem, bool kSigned, int kT>
+__device__ __forceinline__ void take_slice(
+    uint8_t* hi, uint8_t* lo, int t,
+    typename Acc<kElem>::T (&sq)[1024 / kT]) {
+  if constexpr (kElem == 1) {
+    square_slice_i8<kT, kSigned>(reinterpret_cast<const uint4*>(hi), t, sq);
+  } else if constexpr (kElem == 2) {
     square_slice<kT>(reinterpret_cast<const uint4*>(hi), t, sq);
   } else {
     split_slice<kT>(reinterpret_cast<float4*>(hi),
@@ -243,15 +319,15 @@ __device__ __forceinline__ void take_slice(uint8_t* hi, uint8_t* lo, int t,
 }
 
 // the eight threads of a row add their sums; the first stores the norm
-template <int kT>
-__device__ __forceinline__ void store_norms(const float (&sq)[1024 / kT],
-                                            float* norm, int t) {
+template <int kT, class T>
+__device__ __forceinline__ void store_norms(const T (&sq)[1024 / kT],
+                                            T* norm, int t) {
 #pragma unroll
   for (int i = 0; i < 1024 / kT; ++i) {
-    float s = sq[i];
-    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
-    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
-    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
+    T s = sq[i];
+    s = add2(s, __shfl_xor_sync(0xffffffffu, s, 1));
+    s = add2(s, __shfl_xor_sync(0xffffffffu, s, 2));
+    s = add2(s, __shfl_xor_sync(0xffffffffu, s, 4));
     if ((t & 7) == 0) norm[t / 8 + (kT / 8) * i] = s;
   }
 }
@@ -262,13 +338,14 @@ __device__ __forceinline__ void store_norms(const float (&sq)[1024 / kT],
 // Writes the 64 x 128 block of a finished tile held in acc: element
 // 4j + 2h + e is (row + 8h, column 8j + 2 quad + e), `row` this thread's
 // first global row, `v0` the tile's first vector: out = (|q|^2 - 2 q.v) +
-// |v|^2, each step rounded.  A warp writes whole 32-byte row segments,
-// as float2 pairs where n is even.
-__device__ __forceinline__ void store_tile(const float (&acc)[64],
+// |v|^2 (dist_of).  A warp writes whole 32-byte row segments, as float2
+// pairs where n is even.
+template <class T>
+__device__ __forceinline__ void store_tile(const T (&acc)[64],
                                            float* __restrict__ out,
-                                           const float* vn,
-                                           const float (&qn)[2], int row,
-                                           int v0, int quad, int b, int n) {
+                                           const T* vn, const T (&qn)[2],
+                                           int row, int v0, int quad, int b,
+                                           int n) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row + 8 * h >= b) continue;
@@ -277,11 +354,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
     for (int j = 0; j < kBN / 8; ++j) {
       const int col = 8 * j + 2 * quad;
       const int gc = v0 + col;
-      const float o0 = __fadd_rn(
-          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h])), vn[col]);
-      const float o1 = __fadd_rn(
-          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
-          vn[col + 1]);
+      const float o0 = dist_of(qn[h], acc[4 * j + 2 * h], vn[col]);
+      const float o1 = dist_of(qn[h], acc[4 * j + 2 * h + 1], vn[col + 1]);
       if ((n & 1) == 0 && gc + 1 < n) {
         *reinterpret_cast<float2*>(orow + gc) = make_float2(o0, o1);
       } else {
@@ -292,26 +366,23 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
   }
 }
 
-// The same 64 x 128 block, rounded as store_tile does, into shared memory
-// as TMA stores it: four boxes of 64 rows x 32 columns (128 B a row, the
-// 16-byte chunk c of row r at c ^ (r % 8), the 128-byte swizzle), so a
-// warp's float2 writes meet no bank twice.  `ra` is the thread's first
-// row of the half.
-__device__ __forceinline__ void stage_tile(const float (&acc)[64],
-                                           uint8_t* stg, const float* vn,
-                                           const float (&qn)[2], int ra,
-                                           int quad) {
+// The same 64 x 128 block, computed as store_tile does, into shared
+// memory as TMA stores it: four boxes of 64 rows x 32 columns (128 B a
+// row, the 16-byte chunk c of row r at c ^ (r % 8), the 128-byte
+// swizzle), so a warp's float2 writes meet no bank twice.  `ra` is the
+// thread's first row of the half.
+template <class T>
+__device__ __forceinline__ void stage_tile(const T (&acc)[64], uint8_t* stg,
+                                           const T* vn, const T (&qn)[2],
+                                           int ra, int quad) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int col = 8 * j + 2 * quad;
-      const float o0 = __fadd_rn(
-          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h])), vn[col]);
-      const float o1 = __fadd_rn(
-          __fsub_rn(qn[h], __fmul_rn(2.f, acc[4 * j + 2 * h + 1])),
-          vn[col + 1]);
+      const float o0 = dist_of(qn[h], acc[4 * j + 2 * h], vn[col]);
+      const float o1 = dist_of(qn[h], acc[4 * j + 2 * h + 1], vn[col + 1]);
       const int chunk = 2 * (j % 4) + quad / 2;
       *reinterpret_cast<float2*>(stg + (j / 4) * 8192 + r * 128 +
                                  ((chunk ^ (r & 7)) << 4) + (quad & 1) * 8) =
@@ -320,12 +391,14 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[64],
   }
 }
 
-// kGran: 0 loads by TMA (f32 where d % 4 == 0, streamed bf16 where
-// d % 8 == 0); 16, 8 or 4 by cp.async granules of that many bytes, from
-// qg (qlog: streamed f32's q lo) and vg.  kStream: d > 128, the query
-// tile's k-slices ride the ring with the vectors' instead of staying
-// resident; qn_g holds the prologue's query norms.
-template <bool kBf16, int kGran, bool kStream>
+// kElem: 4 f32, 2 bf16, 1 8-bit integers (kMix: bit 1 set where q is
+// s8, else u8; bit 0 for v).  kGran: 0 loads by TMA (f32 where d % 4 ==
+// 0, streamed bf16 where d % 8 == 0, 8-bit where d % 16 == 0); 16, 8 or 4
+// by cp.async granules of that many bytes, from qg (qlog: streamed f32's
+// q lo) and vg.  kStream: d > 128, the query tile's k-slices ride the
+// ring with the vectors' instead of staying resident; qn_g holds the
+// prologue's query norms.
+template <int kElem, int kGran, bool kStream, int kMix>
 __global__ void __launch_bounds__(kThreads, 1)
 l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_qlo,
@@ -337,14 +410,16 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const float* __restrict__ qn_g,
                     float* __restrict__ out, int b, int n, int d,
                     int tma_out) {
-  static_assert(kGran != 0 || !kBf16 || kStream,
+  static_assert(kGran != 0 || kElem != 2 || kStream,
                 "resident bf16 loads by cp.async");
-  using C = Cfg<kBf16, kStream>;
-  constexpr int kElem = kBf16 ? 2 : 4;
+  static_assert(kElem != 1 || !kStream, "8-bit rows are at most 128 wide");
+  using C = Cfg<kElem, kStream>;
+  using T = typename Acc<kElem>::T;
+  constexpr bool kBf16 = kElem == 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[C::kNumBars];
-  __shared__ float qn_s[kBM];
-  __shared__ float vn_s[2][kBN];           // each warpgroup's current tile
+  __shared__ T qn_s[kBM];
+  __shared__ T vn_s[2][kBN];               // each warpgroup's current tile
   uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
                               smem_u32(smem_raw));
   // the query k-slice s that the products of ring stage st read (resident:
@@ -451,10 +526,11 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (t < kBM) qn_s[t] = q0 + t < b ? qn_g[q0 + t] : 0.f;
   } else {
     mbar_wait(bar(C::kBarQ), 0);
-    if constexpr (kBf16) fence_proxy_async();
-    float sq[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (!C::kF32 && kGran != 0) fence_proxy_async();
+    T sq[4] = {0, 0, 0, 0};
     for (int s = 0; s < ns; ++s)
-      take_slice<kBf16, kConsumers>(q_hi(s, 0), q_lo(s, 0), t, sq);
+      take_slice<kElem, (kMix & 2) != 0, kConsumers>(q_hi(s, 0), q_lo(s, 0),
+                                                     t, sq);
     store_norms<kConsumers>(sq, qn_s, t);
   }
   named_sync(1, kConsumers);
@@ -467,28 +543,28 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // full barrier is never two phases ahead of it).
   const int wg = t / 128, wt = t % 128, lane = t % 32, quad = lane % 4;
   const int ra = 16 * (wt / 32) + lane / 4;   // rows ra, ra + 8 of a half
-  const float qn[2][2] = {{qn_s[ra], qn_s[ra + 8]},
-                          {qn_s[64 + ra], qn_s[64 + ra + 8]}};
-  float* vn = vn_s[wg];
-  float acc0[64], acc1[64];                   // query rows 0-63, 64-127
+  const T qn[2][2] = {{qn_s[ra], qn_s[ra + 8]},
+                      {qn_s[64 + ra], qn_s[64 + ra + 8]}};
+  T* vn = vn_s[wg];
+  T acc0[64], acc1[64];                       // query rows 0-63, 64-127
   for (int i = wg; (int)(blockIdx.x + i * gridDim.x) < n_vt; i += 2) {
     const int vt = blockIdx.x + i * gridDim.x;
     if (i > 0) mbar_wait(bar(C::kBarTurn + wg), ((i - 1) / 2) & 1);
-    float vsq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    T vsq[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     for (int s = 0; s < ns; ++s) {
       const int g = i * ns + s;               // the slice's place in the ring
       const int st = g % C::kStages;
       mbar_wait(bar(C::kBarFull + st), (g / C::kStages) & 1);
       if constexpr (kGran != 0) fence_proxy_async();   // cp.async's copies
-      take_slice<kBf16, 128>(v_hi(st), v_lo(st), wt, vsq);
+      take_slice<kElem, (kMix & 1) != 0, 128>(v_hi(st), v_lo(st), wt, vsq);
       // f32: every split store is in before the wgmmas read the slice.
-      // Both: before the last slice's norms, the warpgroup is done with
+      // All: before the last slice's norms, the warpgroup is done with
       // its last epilogue, which read vn.
-      if (!kBf16 || s == ns - 1) named_sync(2 + wg, 128);
+      if (C::kF32 || s == ns - 1) named_sync(2 + wg, 128);
       if (s == ns - 1) store_norms<128>(vsq, vn, wt);
-      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row (8 f32
-      // or 16 bf16 columns); the second half of the queries starts 64
-      // rows (8 KB) on
+      // k-step kk reads 32 bytes at kk * 32 of every 128-byte row (8 f32,
+      // 16 bf16 or 32 8-bit columns); the second half of the queries
+      // starts 64 rows (8 KB) on
       const uint32_t a_hi = smem_u32(q_hi(s, st)), b_hi = smem_u32(v_hi(st));
       wgmma_fence();
 #pragma unroll
@@ -496,7 +572,10 @@ l2dist_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t off = kk * 32;
         const int acc = s > 0 || kk > 0;
         const uint64_t bh = desc(b_hi + off, 16, 1024);
-        if constexpr (kBf16) {
+        if constexpr (kElem == 1) {
+          mma_i8<kMix>(acc0, desc(a_hi + off, 16, 1024), bh, acc);
+          mma_i8<kMix>(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, acc);
+        } else if constexpr (kBf16) {
           mma_bf16(acc0, desc(a_hi + off, 16, 1024), bh, acc);
           mma_bf16(acc1, desc(a_hi + 8192 + off, 16, 1024), bh, acc);
         } else {
@@ -580,9 +659,6 @@ l2dist_prologue_kernel(const void* __restrict__ q, float* __restrict__ qn,
   if (lane == 0) qn[row] = sq;
 }
 
-// (rows, d) f32 or bf16, row-major, boxes of 128 rows x 128 bytes (32 f32
-// or 64 bf16 columns), 128-byte swizzle; rows past `rows` and columns
-// past d read as zeros
 // Rows of ws bf16 at src (any 2-byte boundary) copied into rows of wd >
 // ws (a multiple of 8) at dst, the columns past ws zero: the odd bf16
 // widths' route (l2dist_wgmma[bf16,odd]), whose rows lie on 2 bytes,
@@ -616,16 +692,20 @@ cudaError_t pad_rows(const void* src, const void* dst, int rows, int ws,
   return cudaGetLastError();
 }
 
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int bf16) {
+// (rows, d) f32, bf16 or 8-bit, row-major, boxes of 128 rows x 128
+// bytes (32 f32, 64 bf16 or 128 8-bit columns), 128-byte swizzle; rows
+// past `rows` and columns past d read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int d,
+              int elem_bytes) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
-  const int elem_bytes = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)d * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), 128};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+  return fn(map, elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_UINT8,
             2, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -656,15 +736,15 @@ struct Launch {
   int b, n, d, grid_x, tma_out;
 };
 
-template <bool kBf16, int kGran, bool kStream>
+template <int kElem, int kGran, bool kStream, int kMix = 0>
 cudaError_t launch(const Launch& a, cudaStream_t stream) {
-  constexpr int smem = Cfg<kBf16, kStream>::kSmemBytes;
+  constexpr int smem = Cfg<kElem, kStream>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      l2dist_wgmma_kernel<kBf16, kGran, kStream>,
+      l2dist_wgmma_kernel<kElem, kGran, kStream, kMix>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(a.grid_x, (a.b + kBM - 1) / kBM);
-  l2dist_wgmma_kernel<kBf16, kGran, kStream>
+  l2dist_wgmma_kernel<kElem, kGran, kStream, kMix>
       <<<grid, kThreads, smem, stream>>>(
           a.mq, a.mqlo, a.mv, a.mo, static_cast<const uint8_t*>(a.q),
           static_cast<const uint8_t*>(a.qlo),
@@ -674,19 +754,30 @@ cudaError_t launch(const Launch& a, cudaStream_t stream) {
 }
 
 // the resident query tile up to d = 128, streamed above, for the cp.async
-// granule kGran
-template <bool kBf16, int kGran>
+// granule kGran (f32: 4, bf16: 2)
+template <int kElem, int kGran>
 cudaError_t launch_d(const Launch& a, cudaStream_t stream) {
-  return a.d > kMaxD ? launch<kBf16, kGran, true>(a, stream)
-                     : launch<kBf16, kGran, false>(a, stream);
+  return a.d > kMaxD ? launch<kElem, kGran, true>(a, stream)
+                     : launch<kElem, kGran, false>(a, stream);
+}
+
+// 8-bit rows (d <= 128, d % 4 == 0): by TMA where d % 16 == 0, else by
+// the widest cp.async granule the row stride allows
+template <int kMix>
+cudaError_t launch_i8(const Launch& a, cudaStream_t stream) {
+  if (a.d % 16 == 0) return launch<1, 0, false, kMix>(a, stream);
+  if (a.d % 8 == 0) return launch<1, 8, false, kMix>(a, stream);
+  return launch<1, 4, false, kMix>(a, stream);
 }
 
 }  // namespace
 
-// queries (b, d) and vectors (n, d), both f32 (bf16 = 0; loaded by TMA
-// where d % 4 == 0, else by 4-byte cp.async granules) or both bf16
-// (bf16 = 1; d even, loaded by cp.async, streamed with d % 8 == 0 by
-// TMA), row-major, each 16-byte
+// queries (b, d) and vectors (n, d), both f32 (kind = 0; loaded by TMA
+// where d % 4 == 0, else by 4-byte cp.async granules), both bf16 (kind =
+// 1; d even, loaded by cp.async, streamed with d % 8 == 0 by TMA) or both
+// 8-bit integers (kind = 2 + 2 * (q is s8) + (v is s8), else u8; d <= 128
+// with d % 4 == 0, loaded by TMA where d % 16 == 0, else by 8- or 4-byte
+// cp.async granules), row-major, each 16-byte
 // aligned, any d (the query tile resident up to 128, streamed above); out
 // (b, n) f32; grid_x blocks for each 128-query tile (l2dist/ops.py::
 // l2_plan).  Above d = 128, scratch (16-byte aligned) takes the
@@ -699,10 +790,13 @@ cudaError_t launch_d(const Launch& a, cudaStream_t stream) {
 extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
                             const void* q_odd, const void* v_odd,
                             float* out, float* scratch, int b, int n, int d,
-                            int d_odd, int grid_x, int bf16, void* stream) {
+                            int d_odd, int grid_x, int kind, void* stream) {
   const bool streamed = d > kMaxD;
   const bool odd = q_odd != nullptr;
-  if (b < 1 || n < 1 || d < 1 || (bf16 && d % 2) || grid_x < 1 ||
+  const bool bf16 = kind == 1, i8 = kind >= 2;
+  const int elem = i8 ? 1 : bf16 ? 2 : 4;
+  if (b < 1 || n < 1 || d < 1 || kind < 0 || kind > 5 || (bf16 && d % 2) ||
+      (i8 && (streamed || d % 4 || odd)) || grid_x < 1 ||
       (b + kBM - 1) / kBM > 65535 || (streamed && !scratch) ||
       (odd && (!bf16 || !v_odd || d % 8 || d_odd < 1 || d_odd >= d)) ||
       ((reinterpret_cast<uintptr_t>(queries) |
@@ -741,25 +835,34 @@ extern "C" int l2dist_wgmma(const void* queries, const void* vectors,
     }
   }
   // TMA loads where rows lie on 16 bytes: f32 with d % 4 == 0, streamed
-  // bf16 with d % 8 == 0 (resident bf16 loads by cp.async throughout)
-  const bool tma_in = bf16 ? streamed && d % 8 == 0 : d % 4 == 0;
-  if (tma_in && (!make_map(&a.mq, a.q, b, d, bf16) ||
-                 !make_map(&a.mv, vectors, n, d, bf16) ||
+  // bf16 with d % 8 == 0, 8-bit with d % 16 == 0 (resident bf16 loads by
+  // cp.async throughout)
+  const bool tma_in = i8     ? d % 16 == 0
+                      : bf16 ? streamed && d % 8 == 0
+                             : d % 4 == 0;
+  if (tma_in && (!make_map(&a.mq, a.q, b, d, elem) ||
+                 !make_map(&a.mv, vectors, n, d, elem) ||
                  (streamed && !bf16 &&
-                  !make_map(&a.mqlo, a.qlo, b, d, bf16))))
+                  !make_map(&a.mqlo, a.qlo, b, d, elem))))
     return (int)cudaErrorInvalidValue;
-  // resident bf16 writes its tiles by TMA where out's rows start on 16
-  // bytes
-  a.tma_out = bf16 && !streamed && n % 4 == 0 &&
+  // resident bf16 and 8-bit write their tiles by TMA where out's rows
+  // start on 16 bytes
+  a.tma_out = elem < 4 && !streamed && n % 4 == 0 &&
               (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
   if (a.tma_out && !make_out_map(&a.mo, out, b, n))
     return (int)cudaErrorInvalidValue;
+  switch (kind) {
+    case 2: return (int)launch_i8<0>(a, st);
+    case 3: return (int)launch_i8<1>(a, st);
+    case 4: return (int)launch_i8<2>(a, st);
+    case 5: return (int)launch_i8<3>(a, st);
+    default: break;
+  }
   if (!bf16)
-    return (int)(tma_in ? launch_d<false, 0>(a, st)
-                        : launch_d<false, 4>(a, st));
-  if (tma_in) return (int)launch<true, 0, true>(a, st);
+    return (int)(tma_in ? launch_d<4, 0>(a, st) : launch_d<4, 4>(a, st));
+  if (tma_in) return (int)launch<2, 0, true>(a, st);
   // else the widest cp.async granule the row stride (2 d bytes) allows
-  if (d % 8 == 0) return (int)launch<true, 16, false>(a, st);
-  if (d % 4 == 0) return (int)launch_d<true, 8>(a, st);
-  return (int)launch_d<true, 4>(a, st);
+  if (d % 8 == 0) return (int)launch<2, 16, false>(a, st);
+  if (d % 4 == 0) return (int)launch_d<2, 8>(a, st);
+  return (int)launch_d<2, 4>(a, st);
 }

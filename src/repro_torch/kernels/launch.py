@@ -27,7 +27,8 @@ from repro_torch.kernels.build import SOURCES, load
 INSTANCES = ("adc_fused_topk[spill]",
              "l2dist_wgmma[d>128]", "l2dist_wgmma[bf16]",
              "l2dist_wgmma[bf16,off16]", "l2dist_wgmma[bf16,d>128]",
-             "l2dist_wgmma[bf16,odd]",
+             "l2dist_wgmma[bf16,odd]", "l2dist_wgmma[int8]",
+             "l2dist_wgmma[int8,off16]",
              "flash_attn_fwd_wgmma[padded]", "flash_attn_fwd_tf32[padded]",
              "flash_attn_fwd_wgmma[256]", "flash_attn_fwd_tf32[256]",
              "flash_attn_fwd_wgmma[stride-pad]",
@@ -42,7 +43,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point's arguments; the last is always the stream
 _SIGNATURES = {
     "adc_scan_batch": (_P, _P, _P) + (_I,) * 8 + (_P,),
-    "adc_fused_topk": (_P,) * 8 + (_I,) * 13 + (_P,),
+    "adc_fused_topk": (_P,) * 6 + (_I,) * 14 + (_P,),
     "adc_scan": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
     "l2dist_wgmma": (_P,) * 6 + (_I,) * 6 + (_P,),
@@ -89,10 +90,10 @@ _EXACT_IN_BF16 = (torch.uint8, torch.int8, torch.bfloat16)
 def operand_dtype(*dtypes: torch.dtype) -> torch.dtype:
     """The dtype the exact-L2 and flash kernels compute inputs of
     ``dtypes`` in: bf16 where every input is uint8, int8 or bf16 (each
-    value exact in bf16, so SIFT1B's and SPACEV1B's data take the bf16
-    tensor-core path with no rounding); f32, the JAX kernels' own type,
-    for every other mix (f16, f32, f64, wider integers, bool).  Raises
-    ``TypeError`` on a complex dtype."""
+    value exact in bf16: flash's 8-bit inputs, and the exact L2's at
+    widths its 8-bit instances do not take, ``l2dist.l2_instance``); f32,
+    the JAX kernels' own type, for every other mix (f16, f32, f64, wider
+    integers, bool).  Raises ``TypeError`` on a complex dtype."""
     for dt in dtypes:
         if dt.is_complex:
             raise TypeError(f"the kernels take real dtypes, got {dt}")

@@ -71,18 +71,29 @@
 //     (+inf, -1).  No CTA touches another's shared memory after that
 //     barrier, so none waits for its peers to exit.
 // The spill route (ops.py::fused_route, where fused_plan's inbox or key
-// buffer does not fit: a large tk over a long window): `ctas` CTAs a
-// query, a multiple of the cluster (which still shares the LUT build),
-// each taking at most 4,096 slots, so its buffer holds all of them and
-// it never selects mid-scan; step 4 writes each CTA's sorted keys and
-// their count to a global scratch the wrapper allocates instead of the
-// peers' inboxes, and a second kernel on the same stream (grid (ctas, B),
-// one block a CTA's list) places each key by the same rank: its index
-// plus, for each other list of the query (read into shared memory one at
-// a time), the number of that list's keys below it (a binary search); a
-// key stops searching once its position passes tk.  Shared memory a CTA:
-// the LUT and the key buffer, no inbox.  The merge reads each list once
-// for every other list of the query: ctas^2 * keep keys, from L2.
+// buffer does not fit: a large tk over a long window; counted as
+// adc_fused_topk[spill]) is one launch of adc_fused_spill_kernel, the
+// same cluster a query and the same steps 1 and 2 (its scan pipelined two
+// tiles deep), with the select made across the cluster: CTA buffers of
+// up to 16,384 keys hold all their slots where they fit (at B = 64, S =
+// 32,768: 4 CTAs of 8,192), else the cluster selects its best keep every
+// (cap - keep) / kTile tiles; after the scan a radix select of the
+// query's keep-th key (dist, slot), keep = min(tk, cap / 2), 8-bit digits
+// from the top, each CTA's digit counts summed through DSMEM, so the
+// CTAs together keep exactly min(keep, valid) keys; each sorts its own
+// (about keep / cluster), copies the others' sorted keys (DSMEM) into an
+// inbox in the free half of its buffer, and a key's position is its
+// index plus, for each other CTA, the number of that CTA's keys below it
+// (a binary search in the inbox).  No global scratch, no second kernel;
+// where tk passes keep (a long window and a large tk at once),
+// rounds repeat the scan above the last round's largest key.  Its first
+// form (8 CTAs a query of at most 4,096 slots, each bitonic-sorting all
+// of its keys, sorted lists through a global scratch to a merge kernel
+// reading ctas^2 * keep keys a query) took 0.2635 ms at B = 64, S =
+// 32,768, tk = 4,096 in f32: launch 0.0026, LUT 0.0090, scan 0.0907,
+// sort 0.0799, scratch write 0.0087, merge kernel 0.0680
+// (scripts/fused_phases.py --spill on that form's source, H100 80GB
+// HBM3, 700 W).
 // The PR 12 form of this kernel took one block per 2,048 slots (64
 // blocks at the serving window, each rebuilding its query's whole LUT),
 // bitonic-sorted every slot behind a barrier per pass, and left the
@@ -180,13 +191,13 @@ __device__ __forceinline__ float lut_entry(const float* __restrict__ c,
 // computing entry t of each, eight rows' loads in flight, each entry
 // stored to this CTA's LUT and the others'.  int8: each row quantised and
 // dequantised as the plain version does, warp j finding the minimum and
-// maximum of a pass's row j.  Completes the cluster barrier the kernel
-// arrived at before its first store to another CTA.
-template <bool kInt8>
+// maximum of a pass's row j (in sh.lo, sh.hi).  Completes the cluster
+// barrier the kernel arrived at before its first store to another CTA.
+template <bool kInt8, class Sh>
 __device__ __forceinline__ void build_rows(
     float* lut, const float* __restrict__ q,
     const float* __restrict__ codebooks, int m0, int m1, int k, int dsub,
-    Shared& sh, const cg::cluster_group& cluster) {
+    Sh& sh, const cg::cluster_group& cluster) {
   static_assert(kRowsPerPass == kWarps, "a warp a row of a pass");
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   float* peer[kMaxCluster - 1];        // the other CTAs' LUTs
@@ -303,6 +314,95 @@ __device__ __forceinline__ float add16(float acc, uint4 v, const float* lut,
     acc = __fadd_rn(acc, lut[j * k + ((w[j >> 2] >> (8 * (j & 3))) & 0xff)]);
   }
   return acc;
+}
+
+// A thread's share of one tile of 32 of a CTA's chunks: its four slots
+// (p), their row ids (r) and the first 32 bytes of their code rows.
+struct Tile {
+  int p[kSlotsPerThread], r[kSlotsPerThread];
+  uint4 lo[kSlotsPerThread], hi[kSlotsPerThread];
+};
+
+// The row ids of the tile from the CTA's chunk `base` (chunk ch of the CTA
+// is the query's chunk ch * g + qr, own of them; -1 past them).
+__device__ __forceinline__ void tile_ids(Tile& x,
+                                         const int32_t* __restrict__ qrows,
+                                         int base, int own, int g, int qr,
+                                         int s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int u = 0; u < kSlotsPerThread; ++u) {
+    const int ch = base + u * kWarps + warp;
+    x.p[u] = (ch * g + qr) * 32 + lane;
+    x.r[u] = ch < own && x.p[u] < s ? __ldg(qrows + x.p[u]) : -1;
+  }
+}
+
+// The first 32 bytes of the valid rows' codes.
+template <int W>
+__device__ __forceinline__ void tile_codes(Tile& x,
+                                           const uint8_t* __restrict__ codes,
+                                           int n, int m) {
+#pragma unroll
+  for (int u = 0; u < kSlotsPerThread; ++u) {
+    const bool valid = x.r[u] >= 0 && x.r[u] < n;
+    const uint8_t* row = codes + (size_t)(valid ? x.r[u] : 0) * m;
+    x.lo[u] = valid ? load16<W>(row, m) : make_uint4(0, 0, 0, 0);
+    x.hi[u] = valid && m > 16 ? load16<W>(row + 16, m - 16)
+                              : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The tile's distances summed, then each valid key (dist, slot) below tau
+// (and, kLower, above lower) appended to buf at cnt (one shared atomic a
+// warp).
+template <int W, bool kLower>
+__device__ __forceinline__ void tile_append(
+    const Tile& x, const uint8_t* __restrict__ codes, const float* lut,
+    uint64_t* buf, int& cnt, int n, int m, int k, uint64_t lower,
+    uint64_t tau) {
+  const int lane = threadIdx.x & 31;
+  uint64_t key[kSlotsPerThread];
+  bool take[kSlotsPerThread];
+#pragma unroll
+  for (int u = 0; u < kSlotsPerThread; ++u) {
+    const bool valid = x.r[u] >= 0 && x.r[u] < n;
+    float dist = 0.f;
+    if (valid) {
+      dist = add16(dist, x.lo[u], lut, k, m);
+      if (m > 16) dist = add16(dist, x.hi[u], lut + 16 * k, k, m - 16);
+      const uint8_t* row = codes + (size_t)x.r[u] * m;
+      for (int off = 32; off < m; off += 16)
+        dist = add16(dist, load16<W>(row + off, m - off), lut + off * k, k,
+                     m - off);
+    }
+    key[u] = key_of(dist, x.p[u]);
+    take[u] = valid && key[u] < tau && (!kLower || key[u] > lower);
+  }
+#pragma unroll
+  for (int u = 0; u < kSlotsPerThread; ++u) {
+    const unsigned mask = __ballot_sync(0xffffffffu, take[u]);
+    if (mask) {
+      const int leader = __ffs(mask) - 1;
+      int at = 0;
+      if (lane == leader) at = atomicAdd(&cnt, __popc(mask));
+      at = __shfl_sync(0xffffffffu, at, leader);
+      if (take[u]) buf[at + __popc(mask & ((1u << lane) - 1u))] = key[u];
+    }
+  }
+}
+
+// One tile in turn: a thread's four row ids, then their code rows, all
+// in flight before any is summed; then the keys below tau appended.
+template <int W>
+__device__ __forceinline__ void scan_tile(
+    const int32_t* __restrict__ qrows, const uint8_t* __restrict__ codes,
+    const float* lut, uint64_t* buf, int& cnt, int base, int own, int g,
+    int qr, int s, int n, int m, int k, uint64_t tau) {
+  Tile x;
+  tile_ids(x, qrows, base, own, g, qr, s);
+  tile_codes<W>(x, codes, n, m);
+  tile_append<W, false>(x, codes, lut, buf, cnt, n, m, k, 0, tau);
 }
 
 // All threads; c > keep keys in buf (distinct: slots differ).  A radix
@@ -447,18 +547,14 @@ __device__ __forceinline__ void sort_keys(uint64_t* buf, int n) {
   }
 }
 
-// W: the width of the code loads (M % W == 0, codes W-aligned).  kSpill:
-// the spill route, gridDim.x CTAs a query, each writing its sorted keys to
-// spill (keep a CTA) and their count to spill_cnt instead of merging.
-template <int W, bool kInt8, bool kSpill>
+// W: the width of the code loads (M % W == 0, codes W-aligned).
+template <int W, bool kInt8>
 __global__ void __launch_bounds__(kThreads, 3)
 adc_fused_topk_kernel(const int32_t* __restrict__ rows,
                       const uint8_t* __restrict__ codes,
                       const float* __restrict__ queries,
                       const float* __restrict__ codebooks,
                       float* __restrict__ vals, int32_t* __restrict__ ids,
-                      uint64_t* __restrict__ spill,
-                      int* __restrict__ spill_cnt,
                       int s, int n, int m, int k, int dsub, int tk,
                       int slots, int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -474,14 +570,10 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
   const int t = threadIdx.x, lane = t & 31;
   const int32_t* qrows = rows + (size_t)b * s;
   const int keep = min(tk, slots);
-  // the query's CTAs: its cluster, or on the spill route every CTA of
-  // the grid's row (a multiple of the cluster); qr: this one's place
-  const int g = kSpill ? (int)gridDim.x : c;
-  const int qr = kSpill ? (int)blockIdx.x : rank;
   // the query's 32-slot chunks are dealt to the CTAs in turn, so each
   // gets its share of the valid rows, which lead the pads
   const int chunks = (s + 31) / 32;
-  const int own = qr < chunks ? (chunks - qr + g - 1) / g : 0;
+  const int own = rank < chunks ? (chunks - rank + c - 1) / c : 0;
 
   // 1. this CTA's rows of the query's LUT, into every CTA's LUT (stores
   // to the others once the cluster's CTAs have all started)
@@ -494,57 +586,11 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
                     rank * m / c, (rank + 1) * m / c, k, dsub, sh, cluster);
   cluster.sync();                      // every CTA's rows pushed
 
-  // 2. the CTA's tiles of 32 chunks (chunk ch of the CTA is the query's
-  // chunk ch * g + qr): a thread's four row ids, then the first 32 bytes
-  // of their four code rows, all in flight before any is summed; then the
-  // valid keys below tau appended
-  const int warp = t >> 5;
+  // 2. the CTA's tiles of 32 chunks, the valid keys below tau appended
   uint64_t tau = ~0ull;
   for (int base = 0; base < own; base += kTile / 32) {
-    int p[kSlotsPerThread], r[kSlotsPerThread];
-    bool valid[kSlotsPerThread];
-    uint4 lo[kSlotsPerThread], hi[kSlotsPerThread];
-#pragma unroll
-    for (int u = 0; u < kSlotsPerThread; ++u) {
-      const int ch = base + u * kWarps + warp;
-      p[u] = (ch * g + qr) * 32 + lane;
-      r[u] = ch < own && p[u] < s ? __ldg(qrows + p[u]) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kSlotsPerThread; ++u) {
-      valid[u] = r[u] >= 0 && r[u] < n;
-      const uint8_t* row = codes + (size_t)(valid[u] ? r[u] : 0) * m;
-      lo[u] = valid[u] ? load16<W>(row, m) : make_uint4(0, 0, 0, 0);
-      hi[u] = valid[u] && m > 16 ? load16<W>(row + 16, m - 16)
-                                 : make_uint4(0, 0, 0, 0);
-    }
-    uint64_t key[kSlotsPerThread];
-    bool take[kSlotsPerThread];
-#pragma unroll
-    for (int u = 0; u < kSlotsPerThread; ++u) {
-      float dist = 0.f;
-      if (valid[u]) {
-        dist = add16(dist, lo[u], lut, k, m);
-        if (m > 16) dist = add16(dist, hi[u], lut + 16 * k, k, m - 16);
-        const uint8_t* row = codes + (size_t)r[u] * m;
-        for (int off = 32; off < m; off += 16)
-          dist = add16(dist, load16<W>(row + off, m - off), lut + off * k,
-                       k, m - off);
-      }
-      key[u] = key_of(dist, p[u]);
-      take[u] = valid[u] && key[u] < tau;
-    }
-#pragma unroll
-    for (int u = 0; u < kSlotsPerThread; ++u) {
-      const unsigned mask = __ballot_sync(0xffffffffu, take[u]);
-      if (mask) {
-        const int leader = __ffs(mask) - 1;
-        int at = 0;
-        if (lane == leader) at = atomicAdd(&sh.cnt, __popc(mask));
-        at = __shfl_sync(0xffffffffu, at, leader);
-        if (take[u]) buf[at + __popc(mask & ((1u << lane) - 1u))] = key[u];
-      }
-    }
+    scan_tile<W>(qrows, codes, lut, buf, sh.cnt, base, own, c, rank, s, n,
+                 m, k, tau);
     __syncthreads();
     const int next = min(kTile, (own - base - kTile / 32) * 32);
     if (next > 0 && sh.cnt + next > cap) compact(buf, sh.cnt, keep, sh);
@@ -564,16 +610,6 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
     for (int i = cnt + t; i < size; i += kThreads) buf[i] = ~0ull;
     __syncthreads();
     sort_keys(buf, size);
-  }
-
-  if constexpr (kSpill) {
-    // 4'. the sorted keys and their count to the scratch; the merge
-    // kernel places them.  No CTA reads another's shared memory after
-    // the LUT exchange's barrier, so none waits for its peers to exit.
-    const size_t at = (size_t)b * g + qr;
-    for (int i = t; i < cnt; i += kThreads) spill[at * keep + i] = buf[i];
-    if (t == 0) spill_cnt[at] = cnt;
-    return;
   }
 
   // 4. the sorted keys pushed to the other CTAs of the cluster (slot
@@ -627,62 +663,288 @@ adc_fused_topk_kernel(const int32_t* __restrict__ rows,
 }
 
 
-// The spill route's merge: block (own, b) places the keys of CTA own's
-// sorted list of query b (lists: keep keys a CTA, counts: their number)
-// among the query's other lists by rank, as step 4 does in the launch,
-// and writes (dist, row) at each position below tk; positions from the
-// query's key count to tk get (+inf, -1), dealt over the query's blocks.
-__global__ void __launch_bounds__(kThreads)
-adc_fused_merge_kernel(const uint64_t* __restrict__ lists,
-                       const int* __restrict__ counts,
-                       const int32_t* __restrict__ rows,
-                       float* __restrict__ vals, int32_t* __restrict__ ids,
-                       int s, int tk, int keep) {
-  extern __shared__ uint64_t other[];  // one other list at a time
-  const int b = blockIdx.y, own = blockIdx.x, g = gridDim.x;
-  const int t = threadIdx.x;
-  const uint64_t* qlists = lists + (size_t)b * g * keep;
-  const int* qcounts = counts + (size_t)b * g;
-  const int cnt = qcounts[own];
-  uint64_t key[kKeysPerThread];
-  int pos[kKeysPerThread];
-#pragma unroll
-  for (int j = 0; j < kKeysPerThread; ++j) {
-    const int i = t + j * kThreads;
-    key[j] = i < cnt ? qlists[(size_t)own * keep + i] : ~0ull;
-    pos[j] = i;
+// ---- the spill route: one cluster a query, selected across the cluster
+
+constexpr int kSpillMaxCap = 16384;   // keys a CTA of the spill route holds
+constexpr int kHistWords = 3 * 256;   // two histograms and their sums
+
+// What a spill route CTA's threads share besides the dynamic buffers.
+struct SpillShared {
+  float lo[kRowsPerPass];             // int8: a build pass's row minima
+  float hi[kRowsPerPass];             // and maxima
+  uint64_t prefix;                    // the digits of the selected key
+  unsigned need;                      // its rank among keys matching them
+  int done;                           // 1: the digits so far select want
+                                      // keys; 2: the cluster holds fewer
+  int kept;
+  int cnt;                            // keys in the buffer
+  int n_pub;                          // this CTA's sorted keys (the peers
+                                      // search them)
+};
+
+// All threads of every CTA of the cluster, each with the cnt keys of its
+// buf (distinct across the cluster).  A radix select of the cluster's
+// want-th smallest key, 8-bit digits from the top: each pass every CTA
+// counts the digits of its keys that match the digits found so far into
+// hist[pass & 1]; after a cluster barrier each CTA sums the cluster's
+// counts (thread t digit t, through DSMEM) and one warp finds the digit,
+// the same in every CTA.  A CTA clears the other histogram once the
+// barrier shows every CTA has read it; `pass` runs on across calls, so
+// each call starts on a clear one.  As soon as the digits found select
+// exactly want keys (at the last digit at the latest), each CTA moves its
+// keys at or below them to the front of buf, unordered, and the function
+// returns their number and lowers tau to the least key above the digits
+// where that is lower (every key of the cluster's best want is below it).
+// Where the cluster holds no more than want keys, it keeps them all (tau
+// unchanged).
+__device__ __forceinline__ int cluster_select(uint64_t* buf, int cnt, int want,
+                                           unsigned* hist, int& pass,
+                                           uint64_t& tau, SpillShared& sh,
+                                           const cg::cluster_group& cluster) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int c = (int)cluster.num_blocks();
+  unsigned* tot = hist + 512;
+  static_assert(kThreads == 256, "a thread a digit");
+  if (t == 0) {
+    sh.prefix = 0;
+    sh.need = want;
+    sh.done = 0;
   }
-  int total = 0;
-  for (int h = 0; h < g; ++h) {
-    const int ch = qcounts[h];
-    total += ch;
-    if (h == own || ch == 0) continue;
-    __syncthreads();                   // the last list searched by all
-    for (int i = t; i < ch; i += kThreads)
-      other[i] = qlists[(size_t)h * keep + i];
+  int shift = 56;
+  for (bool first = true;; shift -= 8, first = false) {
+    unsigned* h = hist + (pass & 1) * 256;
+    const uint64_t prefix = sh.prefix;
+    for (int i = t; i < cnt; i += kThreads) {
+      const uint64_t key = buf[i];
+      if (shift == 56 || (key ^ prefix) >> (shift + 8) == 0)
+        atomicAdd(&h[(key >> shift) & 255], 1u);
+    }
+    cluster.sync();                    // every CTA's counts in
+    unsigned sum = 0;
+    for (int q = 0; q < c; ++q) sum += cluster.map_shared_rank(h, q)[t];
+    tot[t] = sum;
+    hist[((pass + 1) & 1) * 256 + t] = 0;   // read by all before the barrier
+    ++pass;
     __syncthreads();
+    if (t < 32) {                      // lane takes digits 8 lane .. + 7
+      unsigned d8[8], part = 0;
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        d8[d] = tot[8 * lane + d];
+        part += d8[d];
+      }
+      unsigned incl = part;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const unsigned need = sh.need;
+      unsigned below = incl - part;
+      if (first && __shfl_sync(0xffffffffu, incl, 31) <= need) {
+        if (lane == 0) sh.done = 2;
+      } else if (below < need && need <= incl) {
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          if (below + d8[d] >= need) {
+            sh.prefix = prefix | ((uint64_t)(8 * lane + d) << shift);
+            sh.need = need - below;
+            sh.done = d8[d] == need - below;
+            break;
+          }
+          below += d8[d];
+        }
+      }
+    }
+    __syncthreads();
+    if (sh.done || shift == 0) break;
+  }
+  if (sh.done == 2) return cnt;
+  const uint64_t top = sh.prefix >> shift;   // the digits found
+  if (top < (~0ull >> shift) && ((top + 1) << shift) < tau)
+    tau = (top + 1) << shift;
+  // move the keys at or below them to the front, kKeysPerThread a thread
+  // at a time (a key moves only to a place already read)
+  if (t == 0) sh.kept = 0;
+  for (int base = 0; base < cnt; base += kMaxCap) {
+    uint64_t v[kKeysPerThread];
 #pragma unroll
     for (int j = 0; j < kKeysPerThread; ++j) {
-      if (t + j * kThreads >= cnt || pos[j] >= tk) continue;
-      int lo = 0, hi = ch;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (other[mid] < key[j]) lo = mid + 1;
-        else hi = mid;
+      const int i = base + t + j * kThreads;
+      v[j] = i < cnt ? buf[i] : ~0ull;
+    }
+    __syncthreads();                   // this part read before any moves
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) {
+      const bool take = base + t + j * kThreads < cnt && (v[j] >> shift) <= top;
+      const unsigned mask = __ballot_sync(0xffffffffu, take);
+      if (mask) {
+        const int leader = __ffs(mask) - 1;
+        int at = 0;
+        if (lane == leader) at = atomicAdd(&sh.kept, __popc(mask));
+        at = __shfl_sync(0xffffffffu, at, leader);
+        if (take) buf[at + __popc(mask & ((1u << lane) - 1u))] = v[j];
       }
-      pos[j] += lo;
     }
   }
+  __syncthreads();
+  return sh.kept;
+}
+
+// The spill route (ops.py::fused_route): where fused_plan's inbox or key
+// buffer does not fit.  One cluster of `cluster` CTAs a query (grid
+// (cluster, B)), the query's 32-slot chunks dealt in turn as on the
+// one-launch route, the LUT built and exchanged as there.  Each CTA
+// buffers its valid keys (cap of them, a power of two); where its slots
+// fit (slots <= cap) it buffers them all, else after every (cap - want) /
+// kTile tiles the cluster selects its want best (cluster_select) and each
+// CTA keeps its share of them, its tau the cluster's.  After the scan the
+// cluster selects the query's want best, want = min(keep, tk - base), so
+// the CTAs together hold exactly that many (or all the valid keys); each
+// sorts its own (about want / cluster) and copies the others' sorted keys
+// into an inbox past its own (keep <= cap / 2 leaves the room), then each
+// key's output position is base + its index + for each other CTA the
+// number of that CTA's keys below it, a binary search in the inbox.
+// Where the query's tk passes keep (a long window and a large tk at
+// once), rounds repeat the scan for the next keep keys, above the last
+// round's largest.  No global scratch; positions from the query's valid
+// keys to tk get (+inf, -1).
+template <int W, bool kInt8>
+__global__ void __launch_bounds__(kThreads, 2)
+adc_fused_spill_kernel(const int32_t* __restrict__ rows,
+                       const uint8_t* __restrict__ codes,
+                       const float* __restrict__ queries,
+                       const float* __restrict__ codebooks,
+                       float* __restrict__ vals, int32_t* __restrict__ ids,
+                       int s, int n, int m, int k, int dsub, int tk,
+                       int slots, int keep, int cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut = reinterpret_cast<float*>(smem);           // m*k, to 4
+  uint64_t* buf = reinterpret_cast<uint64_t*>(lut + ((m * k + 3) & ~3));
+  unsigned* hist = reinterpret_cast<unsigned*>(buf + cap);   // kHistWords
+  __shared__ SpillShared sh;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int32_t* qrows = rows + (size_t)b * s;
+  const int chunks = (s + 31) / 32;
+  const int own = rank < chunks ? (chunks - rank + c - 1) / c : 0;
+  const int tiles = (slots / 32 + kTile / 32 - 1) / (kTile / 32);
+
+  // 1. the LUT, as on the one-launch route
+  cluster_arrive_relaxed();
+  for (int i = t; i < 512; i += kThreads) hist[i] = 0;
+  build_rows<kInt8>(lut, queries + (size_t)b * m * dsub, codebooks,
+                    rank * m / c, (rank + 1) * m / c, k, dsub, sh, cluster);
+  cluster.sync();                      // every CTA's rows pushed
+
   float* qvals = vals + (size_t)b * tk;
   int32_t* qids = ids + (size_t)b * tk;
-  const int32_t* qrows = rows + (size_t)b * s;
+  const uint64_t* peer[kMaxCluster];   // every CTA's sorted keys
+  const int* peer_n[kMaxCluster];
 #pragma unroll
-  for (int j = 0; j < kKeysPerThread; ++j) {
-    if (t + j * kThreads >= cnt || pos[j] >= tk) continue;
-    qvals[pos[j]] = key_dist(key[j]);
-    qids[pos[j]] = __ldg(qrows + key_slot(key[j]));
+  for (int q = 0; q < kMaxCluster; ++q) {
+    peer[q] = cluster.map_shared_rank(buf, q < c ? q : 0);
+    peer_n[q] = cluster.map_shared_rank(&sh.n_pub, q < c ? q : 0);
   }
-  for (int p = total + own * kThreads + t; p < tk; p += g * kThreads) {
+  int pass = 0, base = 0;
+  uint64_t lower = 0;                  // keys at or below it came before
+  for (;;) {
+    const int want = min(keep, tk - base);
+    // 2. the scan; with more slots than the buffer holds, a cluster
+    // select after every `every` tiles (each CTA then holds <= want)
+    const int every = slots > cap ? (cap - want) / kTile : tiles;
+    // A pipeline two tiles deep: tile j's sums while tile j + 1's code
+    // rows and tile j + 2's row ids are in flight
+    uint64_t tau = ~0ull;
+    if (t == 0) sh.cnt = 0;
+    __syncthreads();
+    constexpr int kStep = kTile / 32;  // chunks a tile
+    Tile cur, next;
+    tile_ids(cur, qrows, 0, own, c, rank, s);
+    tile_codes<W>(cur, codes, n, m);
+    tile_ids(next, qrows, kStep, own, c, rank, s);
+    for (int j = 0; j < tiles; ++j) {
+      tile_codes<W>(next, codes, n, m);
+      Tile after;
+      tile_ids(after, qrows, (j + 2) * kStep, own, c, rank, s);
+      tile_append<W, true>(cur, codes, lut, buf, sh.cnt, n, m, k, lower,
+                           tau);
+      __syncthreads();
+      if ((j + 1) % every == 0 && j + 1 < tiles) {
+        const int kept = cluster_select(buf, sh.cnt, want, hist, pass, tau,
+                                        sh, cluster);
+        if (t == 0) sh.cnt = kept;
+        __syncthreads();
+      }
+      cur = next;
+#pragma unroll
+      for (int u = 0; u < kSlotsPerThread; ++u) {
+        next.p[u] = after.p[u];
+        next.r[u] = after.r[u];
+      }
+    }
+    // 3. the cluster's best want, each CTA's share sorted
+    const int cnt = cluster_select(buf, sh.cnt, want, hist, pass, tau, sh,
+                                   cluster);
+    int size = 32;
+    while (size < cnt) size <<= 1;
+    for (int i = cnt + t; i < size; i += kThreads) buf[i] = ~0ull;
+    __syncthreads();
+    sort_keys(buf, size);
+    if (t == 0) sh.n_pub = cnt;
+    cluster.sync();                    // every CTA's keys sorted
+    // 4. the other CTAs' sorted keys copied (DSMEM) into this CTA's inbox,
+    // the buffer past its own (want - cnt keys at most, cap / 2 of room);
+    // then each key's position: its index plus, for each other CTA, the
+    // number of that CTA's keys below it (a binary search in the inbox)
+    uint64_t* inbox = buf + size;
+    int nq[kMaxCluster], from[kMaxCluster], total = 0, at = 0;
+    uint64_t largest = 0;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      nq[q] = q < c ? *peer_n[q] : 0;
+      total += nq[q];
+      if (nq[q] > 0) {
+        const uint64_t x = peer[q][nq[q] - 1];
+        largest = x > largest ? x : largest;
+      }
+      from[q] = at;
+      if (q != rank) at += nq[q];
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q == rank) continue;
+      for (int i = t; i < nq[q]; i += kThreads)
+        inbox[from[q] + i] = peer[q][i];
+    }
+    cluster.sync();                    // no CTA reads another's keys now
+    for (int i = t; i < cnt; i += kThreads) {
+      const uint64_t x = buf[i];
+      int pos = base + i;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q) {
+        if (q == rank || nq[q] == 0) continue;
+        const uint64_t* list = inbox + from[q];
+        int lo = 0, hi = nq[q];
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (list[mid] < x) lo = mid + 1;
+          else hi = mid;
+        }
+        pos += lo;
+      }
+      qvals[pos] = key_dist(x);
+      qids[pos] = __ldg(qrows + key_slot(x));
+    }
+    base += total;
+    if (total < want || base >= tk) break;
+    lower = largest;
+  }
+  for (int p = base + rank * kThreads + t; p < tk; p += c * kThreads) {
     qvals[p] = INFINITY;
     qids[p] = -1;
   }
@@ -696,44 +958,46 @@ struct Args {
   const float* codebooks;
   float* vals;
   int32_t* ids;
-  uint64_t* spill;                     // null: the one-launch route
-  int* spill_cnt;
-  int b, s, n, m, k, dsub, tk, cluster, ctas, slots, cap;
+  int b, s, n, m, k, dsub, tk, cluster, slots, keep, cap;
 };
 
 template <int W, bool kInt8, bool kSpill>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t keep = a.tk < a.slots ? a.tk : a.slots;
-  const size_t smem = (size_t)((a.m * a.k + 3) & ~3) * 4 +
-                      (size_t)a.cap * 8 +
-                      (kSpill ? 0 : (size_t)(a.cluster - 1) * keep * 8);
-  auto kernel = adc_fused_topk_kernel<W, kInt8, kSpill>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+  const size_t lut = (size_t)((a.m * a.k + 3) & ~3) * 4;
+  const size_t smem =
+      lut + (size_t)a.cap * 8 +
+      (kSpill ? kHistWords * 4 : (size_t)(a.cluster - 1) * a.keep * 8);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = a.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.ctas, a.b);
+  cfg.gridDim = dim3(a.cluster, a.b);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, a.rows, a.codes, a.queries,
-                         a.codebooks, a.vals, a.ids, a.spill, a.spill_cnt,
-                         a.s, a.n, a.m, a.k, a.dsub, a.tk, a.slots, a.cap);
-  if (e != cudaSuccess) return e;
+  cudaError_t e;
   if constexpr (kSpill) {
-    e = cudaGetLastError();
+    auto kernel = adc_fused_spill_kernel<W, kInt8>;
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    adc_fused_merge_kernel<<<dim3(a.ctas, a.b), kThreads, keep * 8,
-                             stream>>>(a.spill, a.spill_cnt, a.rows, a.vals,
-                                       a.ids, a.s, a.tk, (int)keep);
+    e = cudaLaunchKernelEx(&cfg, kernel, a.rows, a.codes, a.queries,
+                           a.codebooks, a.vals, a.ids, a.s, a.n, a.m, a.k,
+                           a.dsub, a.tk, a.slots, a.keep, a.cap);
+  } else {
+    auto kernel = adc_fused_topk_kernel<W, kInt8>;
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&cfg, kernel, a.rows, a.codes, a.queries,
+                           a.codebooks, a.vals, a.ids, a.s, a.n, a.m, a.k,
+                           a.dsub, a.tk, a.slots, a.cap);
   }
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -750,43 +1014,43 @@ cudaError_t dispatch(int width, const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// `ctas` CTAs a query in clusters of `cluster` (a power of two up to 8;
-// ctas == cluster on the one-launch route, a multiple of it on the spill
-// route), the query's 32-slot chunks dealt to them in turn, slots =
-// ceil(ceil(S/32) / ctas) * 32 the most a CTA takes; cap: the keys a CTA
-// buffers, a multiple of 32, at most 4,096, at least max(32,
-// pow2ceil(keep)), and at least slots or keep + 1,024, keep = min(tk,
-// slots) (ops.py::fused_plan, ops.py::fused_route); width: the code loads'
-// bytes (M % width == 0, codes width-aligned).  spill (ctas * B * keep
-// keys) and spill_cnt (ctas * B ints): the spill route's scratch, null on
-// the one-launch route.  vals/ids hold (B, tk).  Returns a cudaError_t.
+// One thread block cluster of `cluster` CTAs a query (a power of two up
+// to 8), the query's 32-slot chunks dealt to them in turn, slots =
+// ceil(ceil(S/32) / cluster) * 32 the most a CTA takes; width: the code
+// loads' bytes (M % width == 0, codes width-aligned).  spill = 0, the
+// one-launch route (ops.py::fused_plan): keep = min(tk, slots); cap, the
+// keys a CTA buffers, a multiple of 32, at most 4,096, at least max(32,
+// pow2ceil(keep)), and at least slots or keep + 1,024.  spill = 1, the
+// spill route (ops.py::fused_route): cap a power of two from 64 to
+// 16,384, at least slots or keep + 1,024; keep <= min(tk, cap / 2) the
+// keys a round selects (so a CTA's sorted share and its inbox, the other
+// CTAs' shares, fit the buffer together).  vals/ids hold (B, tk).  Returns a cudaError_t.
 extern "C" int adc_fused_topk(const int32_t* rows, const uint8_t* codes,
                               const float* queries, const float* codebooks,
-                              float* vals, int32_t* ids, void* spill,
-                              void* spill_cnt, int b, int s, int n, int m,
-                              int k, int dsub, int tk, int cluster, int ctas,
-                              int slots, int cap, int width, int lut_int8,
-                              void* stream) {
-  const int keep = tk < slots ? tk : slots;
+                              float* vals, int32_t* ids, int b, int s, int n,
+                              int m, int k, int dsub, int tk, int cluster,
+                              int slots, int keep, int cap, int width,
+                              int lut_int8, int spill, void* stream) {
   int pow2 = 32;
   while (pow2 < keep) pow2 <<= 1;
-  const bool spilled = spill != nullptr;
+  const bool route_ok =
+      spill ? cap >= 64 && cap <= kSpillMaxCap && (cap & (cap - 1)) == 0 &&
+                  keep >= 1 && keep <= tk && keep <= cap / 2 &&
+                  (cap >= slots || cap >= keep + kTile)
+            : keep == (tk < slots ? tk : slots) && cap % 32 == 0 &&
+                  cap <= kMaxCap && cap >= pow2 &&
+                  (cap >= slots || cap >= keep + kTile);
   if (b < 1 || b > 65535 || s < 1 || n < 0 || m < 1 || k < 1 || k > 256 ||
       dsub < 1 || tk < 1 || tk > s || cluster < 1 ||
-      cluster > kMaxCluster || (cluster & (cluster - 1)) || ctas < 1 ||
-      ctas % cluster || (!spilled && ctas != cluster) ||
-      (spilled && spill_cnt == nullptr) ||
-      slots != ((s + 31) / 32 + ctas - 1) / ctas * 32 ||
-      cap % 32 || cap > kMaxCap ||
-      cap < pow2 || (cap < slots && cap < keep + kTile) ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) || !route_ok ||
+      slots != ((s + 31) / 32 + cluster - 1) / cluster * 32 ||
       (width != 1 && width != 2 && width != 4 && width != 8 &&
        width != 16) || m % width)
     return (int)cudaErrorInvalidValue;
-  const Args a{rows, codes, queries, codebooks, vals, ids,
-               static_cast<uint64_t*>(spill), static_cast<int*>(spill_cnt),
-               b, s, n, m, k, dsub, tk, cluster, ctas, slots, cap};
+  const Args a{rows, codes, queries, codebooks, vals, ids, b, s, n, m, k,
+               dsub, tk, cluster, slots, keep, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (spilled)
+  if (spill)
     return (int)(lut_int8 ? dispatch<true, true>(width, a, st)
                           : dispatch<false, true>(width, a, st));
   return (int)(lut_int8 ? dispatch<true, false>(width, a, st)

@@ -18,8 +18,10 @@ Four kernels, written in CUDA C++ for ``sm_90a`` (``csrc/``):
   Pallas ``pq_adc_scan_fused`` and of its merge; plain version
   :func:`pq_adc_fused_topk_plain`.  Where a large top-k over a long
   window does not fit that plan, its spill route (:func:`fused_route`,
-  counted as ``adc_fused_topk[spill]``): more CTAs a query, their sorted
-  lists in a global scratch, merged by a second kernel of the source.
+  counted as ``adc_fused_topk[spill]``): one launch too, a cluster a
+  query selecting the query's best keys across its CTAs (a radix select
+  over histograms summed through distributed shared memory), each CTA
+  sorting only its share of them, no global scratch.
 
 A wrapper runs the plain version when its tensors lie on the CPU.  On a
 CUDA tensor it launches the kernel, or raises: it checks device, dtype,
@@ -55,6 +57,9 @@ _FUSED_MAX_CLUSTER = 8          # adc_fused_topk.cu: kMaxCluster
 _FUSED_MAX_CAP = 4096           # adc_fused_topk.cu: kMaxCap, keys a CTA
 _FUSED_MIN_SLOTS = 64           # fewest slots a CTA of a cluster > 1 takes
 _FUSED_STATIC_SMEM = 2048       # adc_fused_topk.cu: room for its static Shared
+_SPILL_MAX_CAP = 16384          # adc_fused_topk.cu: kSpillMaxCap
+_SPILL_MIN_CAP = 2048           # the least buffer that leaves a round keys
+_SPILL_HIST_BYTES = 3 * 256 * 4  # adc_fused_topk.cu: kHistWords
 _TOPK_ROUND = 2048              # adc_scan_topk.cu: kRound, rows a round
 _TOPK_MAX_TK = 2048             # adc_scan_topk.cu: kMaxTk, keys a block keeps
 _TOPK_BUF = 4096                # adc_scan_topk.cu: kBuf, candidate slots
@@ -356,12 +361,11 @@ def fused_plan(b: int, s: int, tk: int, m: int, k: int,
 
 class FusedRoute(NamedTuple):
     """How ``adc_fused_topk`` serves a window: ``key`` is the launch key
-    (``adc_fused_topk``, one launch with its merge; or
-    ``adc_fused_topk[spill]``, the kernel and a merge kernel over a global
-    scratch); ``ctas`` CTAs a query, in clusters of ``plan.cluster``;
-    ``plan`` each CTA's slots, kept keys, key buffer and shared memory."""
+    (``adc_fused_topk``, the one-launch route; or ``adc_fused_topk[spill]``,
+    the spill route, one launch too); ``plan`` the cluster a query, each
+    CTA's slots, the keys a round keeps, the key buffer and the shared
+    memory."""
     key: str
-    ctas: int
     plan: FusedPlan
 
 
@@ -373,32 +377,39 @@ def fused_route(b: int, s: int, tk: int, m: int, k: int,
     Where :func:`fused_plan` fits, its one launch, unchanged.  Elsewhere
     (a large tk over a long window: the inbox of (cluster - 1) * keep
     keys, or keep + a tile, past what a CTA holds) the spill route: the
-    same cluster, repeated until each CTA takes at most 4,096 slots
-    (``ctas`` a multiple of the cluster), so each CTA's buffer holds all
-    its slots and keeps min(tk, slots) <= 4,096 keys for any tk; the CTAs
-    write their sorted keys to a global scratch and a second kernel
-    merges them by rank.  Raises ``ValueError`` only where B passes the
-    grid's 65,535 rows or the LUT and a 4,096-key buffer pass shared
-    memory."""
+    same cluster a query (four CTAs at B = 64 on 132 SMs), each CTA's key
+    buffer a power of two, ``cap``, at most 16,384 keys and within shared
+    memory beside the LUT and the select's histograms: room for all its
+    slots and for twice the keys it may keep, min(tk, slots), where that
+    fits.  A round keeps the query's ``keep = min(tk, cap / 2)`` best (a
+    CTA's sorted share and its inbox of the others' fill at most the
+    buffer); where a CTA's slots fit the buffer it holds all its valid
+    keys, else the cluster selects its best keep every (cap - keep) /
+    1,024 tiles; rounds of keep keys repeat the scan until tk are
+    written (one round at B = 64, S = 32,768, tk = 4,096).  Raises
+    ``ValueError`` only where B passes the grid's 65,535 rows or the LUT
+    leaves no room for a 2,048-key buffer."""
     try:
         plan = fused_plan(b, s, tk, m, k, sms)
-        return FusedRoute("adc_fused_topk", plan.cluster, plan)
+        return FusedRoute("adc_fused_topk", plan)
     except ValueError:
         pass
     c = _fused_cluster(b, s, sms)
-    chunks = -(-s // 32)
-    per_cta = _FUSED_MAX_CAP // 32                  # chunks a CTA at most
-    ctas = c * -(-chunks // (c * per_cta))
-    slots = -(-chunks // ctas) * 32
-    keep = min(tk, slots)
-    cap = _fused_cap(slots, keep)
-    smem = -(-m * k // 4) * 16 + cap * 8
-    if b > 65535 or smem > _SMEM_MAX - _FUSED_STATIC_SMEM:
+    slots = -(-(-(-s // 32)) // c) * 32
+    lut = -(-m * k // 4) * 16
+    cap_max = _SPILL_MAX_CAP
+    while cap_max >= _SPILL_MIN_CAP and (lut + cap_max * 8 + _SPILL_HIST_BYTES
+                                         > _SMEM_MAX - _FUSED_STATIC_SMEM):
+        cap_max //= 2
+    if b > 65535 or cap_max < _SPILL_MIN_CAP:
         raise ValueError(f"adc_fused_topk takes at most 65535 queries a "
                          f"window and {_SMEM_MAX - _FUSED_STATIC_SMEM} B of "
-                         f"shared memory: B={b}, M={m}, K={k} need {smem}")
-    return FusedRoute("adc_fused_topk[spill]", ctas,
-                      FusedPlan(c, slots, keep, cap, smem))
+                         f"shared memory: B={b}, M={m}, K={k} leave no room "
+                         f"for {_SPILL_MIN_CAP} keys beside a {lut} B LUT")
+    cap = min(cap_max, max(64, _pow2ceil(slots),
+                           2 * _pow2ceil(min(tk, slots))))
+    return FusedRoute("adc_fused_topk[spill]", FusedPlan(
+        c, slots, min(tk, cap // 2), cap, lut + cap * 8 + _SPILL_HIST_BYTES))
 
 
 def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
@@ -417,13 +428,12 @@ def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
     past a query's candidate count come back as (+inf, -1).  On the card
     a row >= N is a pad too.
 
-    On the card this is, where :func:`fused_plan` fits, one launch of
-    ``adc_fused_topk`` on its grid: each query's cluster builds its LUT,
-    scans its slots and writes the query's tk pairs itself (no sort or
-    gather after it).  Elsewhere (:func:`fused_route`: a large tk over a
-    long window) its spill route, counted as ``adc_fused_topk[spill]``:
-    the CTAs write their sorted keys to a scratch this wrapper allocates,
-    and a merge kernel in the same call places them."""
+    On the card this is one launch of ``adc_fused_topk`` on the grid of
+    :func:`fused_route`: each query's cluster builds its LUT, scans its
+    slots and writes the query's tk pairs itself (no sort, gather or
+    scratch after it), on the one-launch route where :func:`fused_plan`
+    fits, else (a large tk over a long window) on the spill route,
+    counted as ``adc_fused_topk[spill]``."""
     if codes.device.type == "cpu":
         return pq_adc_fused_topk_plain(codes, queries, codebooks, rows, topk,
                                        lut_int8=lut_int8)
@@ -449,17 +459,9 @@ def pq_adc_fused_topk(codes: torch.Tensor, queries: torch.Tensor,
     plan = route.plan
     vals = torch.empty(b, tk_out, dtype=torch.float32, device=dev)
     ids = torch.empty(b, tk_out, dtype=torch.int32, device=dev)
-    spill = spill_cnt = None
-    if route.key != "adc_fused_topk":
-        # each CTA's sorted keys (keep of them, 8 bytes each) and count
-        spill = torch.empty(b * route.ctas * plan.keep, dtype=torch.int64,
-                            device=dev)
-        spill_cnt = torch.empty(b * route.ctas, dtype=torch.int32,
-                                device=dev)
     launch(route.key, dev, rows.data_ptr(), codes.data_ptr(),
            queries.data_ptr(), codebooks.data_ptr(), vals.data_ptr(),
-           ids.data_ptr(), 0 if spill is None else spill.data_ptr(),
-           0 if spill_cnt is None else spill_cnt.data_ptr(), b, s, n, m, k,
-           dsub, tk_out, plan.cluster, route.ctas, plan.slots, plan.cap,
-           load_width(m, codes.data_ptr()), int(lut_int8))
+           ids.data_ptr(), b, s, n, m, k, dsub, tk_out, plan.cluster,
+           plan.slots, plan.keep, plan.cap, load_width(m, codes.data_ptr()),
+           int(lut_int8), int(route.key != "adc_fused_topk"))
     return vals, ids

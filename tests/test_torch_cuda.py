@@ -13,7 +13,9 @@ values of size D; the tensor-core kernel's 3xTF32 product also drops the
 lo*lo term, about 2^-22 of each product; its bf16 products are exact in
 f32) and bit for bit on integer data below 256 in f32 and bf16 (every
 partial sum an integer below 2^24; below 128 where d > 132, since
-960 * 127^2 < 2^24); flash attention 2e-5
+960 * 127^2 < 2^24), and bit for bit on the whole range of uint8 and
+int8 on their 8-bit instances (int32 sums, one conversion to f32, which
+the plain version's f32 arithmetic also rounds once); flash attention 2e-5
 in f32 (an online softmax against a plain one; the 3xTF32 kernel at dh 64
 and 128 drops only the lo*lo terms) and, in bf16, 5e-2 for
 every element and 2^-6 for each (b, s, h) row's L2 error over the row's
@@ -266,13 +268,13 @@ def test_cuda_single_query_kernels_match_plain(cuda, m):
 
 def _l2_launched(q, v):
     """l2_distances(q, v) and the one kernel it launched, which must be
-    the one l2_kernel names, counted under l2_instance's key."""
+    the one l2_kernel names, counted under l2_instance's key for the
+    inputs' dtypes."""
     before = dict(launch.LAUNCHES)
     got = l2_distances(q, v)
     torch.cuda.synchronize()
     grew = {name for name, c in launch.LAUNCHES.items() if c != before[name]}
-    assert grew == {l2_instance(operand_dtype(q.dtype, v.dtype),
-                                q.shape[1])}
+    assert grew == {l2_instance(q.dtype, q.shape[1], v.dtype)}
     return got
 
 
@@ -669,6 +671,50 @@ def test_cuda_pq_training_is_reproducible(cuda):
     assert torch.equal(*cbs)
 
 
+# ------------------------------------------------------ 8-bit exact L2
+def _extremes(rng, dtype, shape):
+    """8-bit values over the whole range, a quarter of the rows at its
+    ends only (0 / 255, -128 / 127)."""
+    lo, hi = (0, 255) if dtype == torch.uint8 else (-128, 127)
+    x = rng.integers(lo, hi + 1, shape)
+    x[::4] = rng.choice(np.array([lo, hi]), x[::4].shape)
+    return _t(x.astype(np.int16)).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [4, 32, 64, 96, 100, 128])
+@pytest.mark.parametrize("q_dtype,v_dtype", [
+    (torch.uint8, torch.uint8), (torch.int8, torch.int8),
+    (torch.uint8, torch.int8), (torch.int8, torch.uint8)], ids=str)
+def test_cuda_l2_8bit_bit_equal(cuda, q_dtype, v_dtype, d):
+    """8-bit inputs of d <= 128 with d % 4 == 0 (SIFT1B's 128, SPACEV1B's
+    100) on the 8-bit instances, all four mixes of u8 and s8 that wgmma
+    takes: counted under exactly one of l2dist_wgmma[int8] (d % 16 == 0,
+    TMA loads) and l2dist_wgmma[int8,off16] (8- or 4-byte copies), with
+    no copy of either operand made (the call allocates its output only),
+    and bit-equal to the plain version at ragged B and N; views at an
+    offset (off 16 bytes) copied first, still 8-bit, still bit-equal."""
+    rng = np.random.default_rng(48 + d)
+    key = "l2dist_wgmma[int8]" if d % 16 == 0 else "l2dist_wgmma[int8,off16]"
+    assert l2_instance(q_dtype, d, v_dtype) == key
+    for b, n in ((1, 1), (1, 129), (129, 777), (777, 5003), (130, 5003)):
+        q = _extremes(rng, q_dtype, (b, d)).to(cuda)
+        v = _extremes(rng, v_dtype, (n, d)).to(cuda)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        got = _l2_launched(q, v)
+        grown = torch.cuda.max_memory_allocated(cuda) - before
+        assert grown <= -(-b * n * 4 // 512) * 512
+        assert torch.equal(got, l2dist_ref(q, v))
+    for offset in (1, 3, 8):
+        q = _aligned_or_not(_extremes(rng, q_dtype, (37, d)).to(cuda),
+                            offset)
+        v = _aligned_or_not(_extremes(rng, v_dtype, (3001, d)).to(cuda),
+                            offset)
+        assert torch.equal(_l2_launched(q, v), l2dist_ref(q, v))
+
+
 # ------------------------------------------------- the fused spill route
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 8, 64])
@@ -677,12 +723,12 @@ def test_cuda_pq_training_is_reproducible(cuda):
 @pytest.mark.parametrize("lut_int8", [False, True], ids=["f32", "int8"])
 def test_cuda_fused_spill_route_matches_plain(cuda, b, s, tk, lut_int8):
     """A top_n of 3,072 or 4,096 over lists past 16,384 rows, on the route
-    fused_route names: the spill route (the kernel and its merge kernel,
-    one count under adc_fused_topk[spill]) wherever fused_plan's one
-    launch refuses, which is every case but B = 64 at tk = 3,072 (one
-    launch, a cluster of up to eight CTAs); values and ids bit-equal to
-    the plain version, with rows >= N, an all-pad query, exact ties from
-    repeated code rows and valid slots from none to S."""
+    fused_route names: the spill route (one launch, counted under
+    adc_fused_topk[spill]) wherever fused_plan's one launch refuses,
+    which is every case but B = 64 at tk = 3,072 (a cluster of up to
+    eight CTAs); values and ids bit-equal to the plain version, with rows
+    >= N, an all-pad query, exact ties from repeated code rows and valid
+    slots from none to S."""
     rng = np.random.default_rng(43)
     n, m = 200_000, 32
     codes = _t(np.repeat(_codes(rng, n // 4, m), 4, axis=0)).to(cuda)
@@ -705,8 +751,8 @@ def test_cuda_fused_spill_route_matches_plain(cuda, b, s, tk, lut_int8):
 @pytest.mark.parametrize("s", [1 << 15, 1 << 16])
 @pytest.mark.parametrize("lut_int8", [False, True], ids=["f32", "int8"])
 def test_cuda_fused_spill_route_tk_equals_s(cuda, s, lut_int8):
-    """tk = S for one query: every CTA keeps all its slots (4,096) and the
-    merge places all S of them, valid rows first, pads as (+inf, -1)."""
+    """tk = S for one query: every CTA keeps all its valid keys and the
+    merge places all of them, valid rows first, pads as (+inf, -1)."""
     rng = np.random.default_rng(44)
     n, m = 100_000, 32
     codes = _t(np.repeat(_codes(rng, n // 4, m), 4, axis=0)).to(cuda)
@@ -720,6 +766,33 @@ def test_cuda_fused_spill_route_tk_equals_s(cuda, s, lut_int8):
     pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, rows, s,
                                          lut_int8=lut_int8)
     torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,tk", [
+    (8, 1 << 17, 4096),       # 16,384 slots a CTA, all held
+    (64, 1 << 17, 4096),      # 32,768 a CTA: cluster selects mid-scan
+    (1, 1 << 18, 20_000)])    # and three rounds of 8,192 keys
+@pytest.mark.parametrize("lut_int8", [False, True], ids=["f32", "int8"])
+def test_cuda_fused_spill_route_long_windows(cuda, b, s, tk, lut_int8):
+    """The spill route past a CTA's 16,384-key buffer: one launch, values
+    and ids bit-equal to the plain version (ties from repeated code rows,
+    rows >= N, an all-pad query where B > 1)."""
+    rng = np.random.default_rng(49)
+    n, m = 300_000, 32
+    codes = _t(np.repeat(_codes(rng, n // 4, m), 4, axis=0)).to(cuda)
+    q, cb, rows, plain_rows = _fused_case(rng, cuda, n, m, b, s)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ops.fused_route(b, s, tk, m, 256, sms).key == \
+        "adc_fused_topk[spill]"
+    before = dict(launch.LAUNCHES)
+    kv, ki = ops.pq_adc_fused_topk(codes, q, cb, rows, tk, lut_int8=lut_int8)
+    torch.cuda.synchronize()
+    assert {k: c - before[k] for k, c in launch.LAUNCHES.items()
+            if c != before[k]} == {"adc_fused_topk[spill]": 1}
+    pv, pi = ops.pq_adc_fused_topk_plain(codes, q, cb, plain_rows, tk,
+                                         lut_int8=lut_int8)
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
@@ -762,7 +835,7 @@ def _values(rng, dtype, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,v_dtype,d", [
-    (torch.uint8, torch.uint8, 128),      # SIFT1B: bf16, exactly
+    (torch.uint8, torch.uint8, 128),      # SIFT1B: 8-bit, exactly
     (torch.int8, torch.int8, 100),        # SPACEV1B
     (torch.uint8, torch.uint8, 101),      # odd: zero-padded to 104
     (torch.uint8, torch.uint8, 960),      # streamed, integers below 128
@@ -775,8 +848,9 @@ def _values(rng, dtype, shape):
 def test_cuda_l2_any_dtype_matches_plain(cuda, q_dtype, v_dtype, d):
     """l2_distances on the card over any real dtypes, as the JAX wrapper
     takes them: the kernel launched is the one l2_instance names for the
-    operand dtype; integers bit for bit (at d = 960 below 128, so every
-    sum stays below 2^24), floats to the L2 tolerance."""
+    inputs' dtypes (SIFT1B's and SPACEV1B's 8-bit data on the 8-bit
+    instances); integers bit for bit (at d = 960 below 128, so every sum
+    stays below 2^24), floats to the L2 tolerance."""
     rng = np.random.default_rng(45)
     q, v = _values(rng, q_dtype, (37, d)), _values(rng, v_dtype, (3001, d))
     if d == 960:                  # below 128: every sum below 2^24

@@ -615,24 +615,62 @@ def test_l2_kernel_rule(dtype, d, kernel):
 
 
 @pytest.mark.parametrize("dtype,d,width,key", [
-    (torch.uint8, 128, 128, "l2dist_wgmma[bf16]"),       # SIFT1B
-    (torch.int8, 100, 100, "l2dist_wgmma[bf16,off16]"),  # SPACEV1B
-    (torch.uint8, 101, 104, "l2dist_wgmma[bf16,odd]"),
+    (torch.uint8, 128, 128, "l2dist_wgmma[int8]"),        # SIFT1B
+    (torch.int8, 100, 100, "l2dist_wgmma[int8,off16]"),   # SPACEV1B
+    (torch.uint8, 64, 64, "l2dist_wgmma[int8]"),
+    (torch.int8, 4, 4, "l2dist_wgmma[int8,off16]"),
+    (torch.uint8, 104, 104, "l2dist_wgmma[int8,off16]"),  # 8-byte copies
+    (torch.uint8, 101, 104, "l2dist_wgmma[bf16,odd]"),    # stay on bf16
     (torch.int8, 3, 8, "l2dist_wgmma[bf16,odd]"),
     (torch.uint8, 257, 264, "l2dist_wgmma[bf16,odd]"),
+    (torch.uint8, 130, 130, "l2dist_wgmma[bf16,d>128]"),
+    (torch.int8, 98, 98, "l2dist_wgmma[bf16,off16]"),
     (torch.float16, 96, 96, "l2dist_wgmma"),             # f32
     (torch.float16, 101, 101, "l2dist_wgmma"),
     (torch.float64, 960, 960, "l2dist_wgmma[d>128]"),
     (torch.int32, 128, 128, "l2dist_wgmma"),
 ])
 def test_l2_rule_of_other_dtypes(dtype, d, width, key):
-    """Inputs that compute in bf16 (uint8, int8) take the bf16 instances,
-    odd widths zero-padded to a multiple of 8; every other dtype the f32
-    ones at
-    its own width."""
+    """8-bit inputs (uint8, int8) of d <= 128 with d % 4 == 0 take the
+    8-bit instances as they are, ``[int8]`` on TMA's 16-byte row stride
+    and ``[int8,off16]`` off it; other 8-bit widths (odd, d % 4 != 0,
+    d > 128) compute in bf16 on its instances, odd widths zero-padded to
+    a multiple of 8; every other dtype the f32 ones at its own width."""
     assert l2_width(dtype, d) == width
     assert l2_instance(dtype, d) == key
     assert key in launch.LAUNCHES
+
+
+@pytest.mark.parametrize("qdt,vdt", [
+    (torch.uint8, torch.uint8), (torch.int8, torch.int8),
+    (torch.uint8, torch.int8), (torch.int8, torch.uint8)])
+@pytest.mark.parametrize("d", [4, 32, 100, 128])
+def test_l2_8bit_exact_in_int32(qdt, vdt, d):
+    """The 8-bit instances' arithmetic: |q|^2 - 2 q.v + |v|^2 evaluated
+    exactly (int64 here, int32 on the card), cast once to f32, equals
+    l2dist_ref bit for bit for u8 and s8 and their mixes, at the extremes
+    of their ranges (0 / 255, -128 / 127), so the wrapper takes them with
+    no cast; each mix is one of those instances.  u8 or s8 alone stay
+    below 128 * 255^2 < 2^24; a mix reaches 128 * 383^2 > 2^24, where
+    |q|^2 - 2 q.v is still below 2^24 (exact in f32), so the plain
+    version's last add rounds once, as the one conversion does."""
+    rng = np.random.default_rng(d)
+    ends = {torch.uint8: (0, 255), torch.int8: (-128, 127)}
+
+    def draw(dt, rows):
+        lo, hi = ends[dt]
+        x = rng.choice(np.array([lo, hi]), (rows, d))
+        x[1::2] = rng.integers(lo, hi + 1, (rows // 2, d))
+        x[0] = hi if lo == 0 else lo            # the largest squares
+        return torch.from_numpy(x.astype(np.int64))
+    q, v = draw(qdt, 9), draw(vdt, 301)
+    head = (q * q).sum(1)[:, None] - 2 * q @ v.T
+    exact = head + (v * v).sum(1)[None, :]
+    assert int(head.abs().max()) < 1 << 24
+    want = l2dist_ref(q.to(qdt), v.to(vdt))
+    assert torch.equal(exact.to(torch.float32), want)
+    assert l2_instance(qdt, d, vdt) == ("l2dist_wgmma[int8]" if d % 16 == 0
+                                        else "l2dist_wgmma[int8,off16]")
 
 
 @pytest.mark.parametrize("b,n,sms", [
@@ -886,11 +924,15 @@ ROUTE_SHAPES = [(b, s, tk) for b in (1, 8, 64) for s in (1 << 15, 1 << 16)
 def test_fused_route_serves_every_window(b, s, tk):
     """fused_route keeps fused_plan's one launch wherever it fits (the
     serving windows of rows 2 and 2b among them) and takes the spill
-    route elsewhere: the same cluster repeated until each CTA takes at
-    most 4,096 slots, every slot dealt to one CTA, each CTA's buffer
-    holding all its slots (so it never selects mid-scan) and room for its
-    sort, its shared memory the LUT and the buffer only, within the
-    card's 227 KB.  Every tk <= S is served, up to S = 2^17."""
+    route elsewhere: fused_plan's cluster a query (at most 8), every slot
+    dealt to one CTA, each CTA's key buffer a power of two up to 16,384
+    keys, room for all its slots and twice what it may keep where that
+    fits; a round keeps keep = min(tk, cap / 2), so a CTA's sorted share
+    and its inbox of the others' shares (keep keys in all) fit the buffer
+    together, and where the slots pass the buffer a tile's appends fit
+    beside keep; its shared memory the LUT, the buffer (inbox included)
+    and the select's two histograms and sums (3 KB), within the card's
+    227 KB.  Every tk <= S is served, up to S = 2^17."""
     m, k, sms = 32, 256, 132
     route = ops.fused_route(b, s, tk, m, k, sms)
     try:
@@ -898,27 +940,32 @@ def test_fused_route_serves_every_window(b, s, tk):
     except ValueError:
         want = None
     if want is not None:
-        assert route == ops.FusedRoute("adc_fused_topk", want.cluster, want)
+        assert route == ops.FusedRoute("adc_fused_topk", want)
         return
-    plan, g = route.plan, route.ctas
+    plan, c = route.plan, route.plan.cluster
     assert route.key == "adc_fused_topk[spill]"
     assert route.key in launch.LAUNCHES
-    assert plan.cluster in (1, 2, 4, 8) and g % plan.cluster == 0
+    assert c == ops._fused_cluster(b, s, sms) and c in (1, 2, 4, 8)
     chunks = -(-s // 32)
-    assert plan.slots == -(-chunks // g) * 32 <= 4096
-    assert g == plan.cluster or -(-chunks // (g - plan.cluster)) * 32 > 4096
+    assert plan.slots == -(-chunks // c) * 32
     seen = np.zeros(s, np.int64)
-    for r in range(g):
-        own = (chunks - r + g - 1) // g if r < chunks else 0
+    for r in range(c):
+        own = (chunks - r + c - 1) // c if r < chunks else 0
         assert own * 32 <= plan.slots
         for ch in range(own):
-            p = (ch * g + r) * 32 + np.arange(32)
+            p = (ch * c + r) * 32 + np.arange(32)
             seen[p[p < s]] += 1
     assert (seen == 1).all()
-    assert plan.keep == min(tk, plan.slots)
-    assert plan.slots <= plan.cap <= 4096 and plan.cap % 32 == 0
-    assert plan.cap >= 1 << max(5, (plan.keep - 1).bit_length())
-    assert plan.smem == -(-m * k // 4) * 16 + plan.cap * 8
+    cap = plan.cap
+
+    def pow2ceil(x):
+        return 1 << (x - 1).bit_length()
+    assert cap & (cap - 1) == 0 and 64 <= cap <= 16384
+    assert cap == min(16384, max(64, pow2ceil(plan.slots),
+                                 2 * pow2ceil(min(tk, plan.slots))))
+    assert plan.keep == min(tk, cap // 2)
+    assert plan.slots <= cap or plan.keep + 1024 <= cap
+    assert plan.smem == -(-m * k // 4) * 16 + cap * 8 + 3 * 256 * 4
     assert plan.smem + 2048 <= 232_448
 
 
@@ -926,75 +973,147 @@ def test_fused_route_keeps_the_serving_windows_on_one_launch():
     """The smoke's windows (S = 1,024 and 8,192 at topk 512) run the
     one-launch code of rows 2 and 2b; a top_n of 4,096 over lists past
     16,384 rows (S = 32,768), which fused_plan refuses, takes the spill
-    route with eight CTAs a query in clusters of four."""
+    route: one cluster of four CTAs a query (256 CTAs at B = 64, two an
+    SM), 8,192 slots and an 8,192-key buffer each (its sorted share and
+    the inbox of the others' in it), one round of 4,096."""
     for s in (1024, 8192):
         assert ops.fused_route(64, s, 512, 32, 256, 132).key == \
             "adc_fused_topk"
     route = ops.fused_route(64, 1 << 15, 4096, 32, 256, 132)
-    assert route == ops.FusedRoute("adc_fused_topk[spill]", 8, ops.FusedPlan(
-        cluster=4, slots=4096, keep=4096, cap=4096, smem=65536))
+    assert route == ops.FusedRoute("adc_fused_topk[spill]", ops.FusedPlan(
+        cluster=4, slots=8192, keep=4096, cap=8192, smem=101376))
 
 
 def test_fused_route_raises_past_the_grid_and_shared_memory():
     """Past 65,535 queries a window (the grid's rows) or a LUT that leaves
-    no room for a 4,096-key buffer, no route serves: it raises."""
+    no room for a 2,048-key buffer, no route serves: it raises."""
     with pytest.raises(ValueError, match="65535"):
         ops.fused_route(65536, 1 << 15, 4096, 32, 256, 132)
     with pytest.raises(ValueError):
         ops.fused_route(64, 1024, 512, 256, 256, 132)
 
 
-@pytest.mark.parametrize("s,tk,valid_share", [
-    (1 << 15, 4096, 0.6), (1 << 15, 3072, 0.3), (1 << 16, 4096, 0.55),
-    (1 << 15, 1 << 15, 0.8)])
-def test_fused_spill_merge_is_the_stable_order(s, tk, valid_share):
-    """The spill route's merge (each CTA's sorted list from the scratch,
-    placed by rank among the query's other lists, positions from the key
-    count to tk as (+inf, -1)), on its route at B = 1 (eight or sixteen
-    CTAs), gives the first tk of a stable sort of the query's distances:
-    ties to the lowest slot, every position written once."""
+@pytest.mark.parametrize("b,s,tk,valid_share", [
+    (1, 1 << 15, 4096, 0.6), (1, 1 << 15, 3072, 0.3),
+    (1, 1 << 16, 4096, 0.55), (1, 1 << 15, 1 << 15, 0.8),
+    (64, 1 << 15, 4096, 0.5), (64, 1 << 15, 4096, 0.0),
+    (64, 1 << 17, 4096, 0.7), (64, 1 << 17, 40_000, 0.4),
+    (1, 1 << 16, 1 << 16, 0.9)])
+def test_fused_spill_merge_is_the_stable_order(b, s, tk, valid_share):
+    """The spill route replayed on its plan for a window of B queries
+    (``_spill_replay``: the scan's cluster selects every (cap - keep) /
+    1,024 tiles where the slots pass the buffer, the final select, each
+    CTA's sorted share placed by rank, rounds of keep keys), with ties
+    (integer distances below 3,000), gives the first tk of a stable sort
+    of the query's distances: ties to the lowest slot, every position
+    written once, pads (and a query with none valid) as (+inf, -1); at tk
+    = S (seven and eight rounds), at S = 2^17 (selects mid-scan) and at tk
+    = 40,000 (five rounds of 8,192)."""
     rng = np.random.default_rng(42)
-    route = ops.fused_route(1, s, tk, 32, 256, 132)
+    route = ops.fused_route(b, s, tk, 32, 256, 132)
     assert route.key == "adc_fused_topk[spill]"
     n_valid = int(s * valid_share)
     d = torch.from_numpy(rng.integers(0, 3000, s).astype(np.float32))
     valid = torch.zeros(s, dtype=torch.bool)
     valid[:n_valid] = True
-    got_d, got_s = _fused_merge_replay_fast(d, valid, tk, route)
+    got_d, got_s = _spill_replay(d, valid, tk, route.plan)
     want_d, want_s = torch.sort(d.masked_fill(~valid, torch.inf), stable=True)
     want_s = torch.where(valid[want_s], want_s, -1)
     assert torch.equal(got_d, want_d[:tk])
     assert torch.equal(got_s, want_s[:tk])
 
 
-def _fused_merge_replay_fast(d, valid, tk, route):
-    """_fused_merge_replay for the spill route's long windows, the rank
-    counts taken with torch.searchsorted over each other CTA's sorted
-    keys (dist, slot) rather than key by key."""
-    s, g, keep = d.shape[0], route.ctas, route.plan.keep
-    slot = torch.arange(s)
-    lists = []
-    for r in range(g):
-        own = slot[((slot // 32) % g == r) & valid]
-        order = torch.sort(d[own], stable=True)[1][:keep]
-        lists.append(own[order])
-    # (dist, slot) as one ordered float64 key: slots below 2^17, distances
-    # integers below 3,000
-    key = [d[x].double() * (1 << 17) + x.double() for x in lists]
+def _spill_keys(d: np.ndarray, slot: np.ndarray) -> np.ndarray:
+    """adc_fused_topk.cu's key_of: (dist, slot) as one ordered uint64,
+    the float's bits made monotone (distances here are >= 0)."""
+    u = d.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((u | np.uint64(0x80000000)) << np.uint64(32)) | slot.astype(
+        np.uint64)
+
+
+def _cluster_select(bufs, want, tau):
+    """adc_fused_topk.cu's cluster_select replayed: 8-bit digits from the
+    top over the CTAs' summed counts until the digits found select
+    exactly ``want`` keys; each CTA keeps its keys at or below them, and
+    tau drops to the least key above them.  Keeps all where the cluster
+    holds no more than want."""
+    if sum(len(x) for x in bufs) <= want:
+        return bufs, tau
+    prefix, need = 0, want
+    for shift in range(56, -1, -8):
+        hist = np.zeros(256, np.int64)
+        for x in bufs:
+            if shift < 56:
+                x = x[((x ^ np.uint64(prefix)) >> np.uint64(shift + 8)) == 0]
+            hist += np.bincount(((x >> np.uint64(shift)) & np.uint64(255))
+                                .astype(np.int64), minlength=256)
+        cum = np.cumsum(hist)
+        digit = int(np.searchsorted(cum, need))
+        prefix |= digit << shift
+        need -= int(cum[digit] - hist[digit])
+        if hist[digit] == need:
+            break
+    top = prefix >> shift
+    if top < (2 ** 64 - 1) >> shift:
+        tau = min(tau, (top + 1) << shift)
+    return [x[(x >> np.uint64(shift)) <= np.uint64(top)] for x in bufs], tau
+
+
+def _spill_replay(d, valid, tk, plan):
+    """What the spill route writes for one query of distances ``d`` (S,)
+    with ``valid`` (S,) slots, replayed in numpy on ``plan``: each CTA of
+    the cluster appends its tile's valid keys above the round's lower
+    bound and below tau (32-slot chunks dealt in turn, 32 chunks a tile),
+    the cluster selects mid-scan every (cap - want) / 1,024 tiles where
+    its slots pass the buffer and once after the scan; each CTA's kept
+    keys, sorted, go to base + index + the count of keys below each in
+    every other CTA's list; rounds repeat above the last round's largest
+    key until tk are written or the keys run out."""
+    s, c = d.shape[0], plan.cluster
+    dn, vn = d.numpy(), valid.numpy()
+    keys = _spill_keys(dn, np.arange(s))
+    chunks, tiles = -(-s // 32), -(-(plan.slots // 32) // 32)
     out_d = torch.full((tk,), torch.inf)
     out_s = torch.full((tk,), -1, dtype=torch.int64)
-    written = torch.zeros(tk, dtype=torch.int64)
-    for r, own in enumerate(lists):
-        pos = torch.arange(len(own))
-        for q in range(g):
-            if q != r:
-                pos = pos + torch.searchsorted(key[q], key[r])
-        keep_it = pos < tk
-        out_d[pos[keep_it]] = d[own[keep_it]]
-        out_s[pos[keep_it]] = own[keep_it]
-        written.index_add_(0, pos[keep_it], torch.ones_like(pos[keep_it]))
-    total = sum(len(x) for x in lists)
-    assert (written[:min(total, tk)] == 1).all()
+    written = np.zeros(tk, np.int64)
+    base, lower = 0, 0
+    while True:
+        want = min(plan.keep, tk - base)
+        every = (plan.cap - want) // 1024 if plan.slots > plan.cap else tiles
+        tau = 2 ** 64 - 1
+        bufs = [np.zeros(0, np.uint64) for _ in range(c)]
+        for j in range(tiles):
+            for r in range(c):
+                ch = np.arange(32 * j, 32 * j + 32)
+                ch = ch[ch * c + r < chunks]
+                p = ((ch * c + r)[:, None] * 32 + np.arange(32)).ravel()
+                p = p[(p < s)]
+                x = keys[p[vn[p]]]
+                x = x[(x < np.uint64(tau)) & (x > np.uint64(lower))]
+                bufs[r] = np.concatenate([bufs[r], x])
+                assert len(bufs[r]) <= plan.cap
+            if (j + 1) % every == 0 and j + 1 < tiles:
+                bufs, tau = _cluster_select(bufs, want, tau)
+        bufs, tau = _cluster_select(bufs, want, tau)
+        lists = [np.sort(x) for x in bufs]
+        total = sum(len(x) for x in lists)
+        for r, x in enumerate(lists):
+            # the sort's power of two and the inbox (the others' keys)
+            size = max(32, 1 << (len(x) - 1).bit_length())
+            assert size + total - len(x) <= plan.cap
+            pos = base + np.arange(len(x))
+            for q in range(c):
+                if q != r:
+                    pos = pos + np.searchsorted(lists[q], x)
+            slot = (x & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            out_d[pos] = torch.from_numpy(dn[slot])
+            out_s[pos] = torch.from_numpy(slot)
+            written[pos] += 1
+        base += total
+        if total < want or base >= tk:
+            break
+        lower = max(int(x[-1]) for x in lists if len(x))
+    assert (written[:min(base, tk)] == 1).all() and not written[base:].any()
     return out_d, out_s
 
 
