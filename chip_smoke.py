@@ -14,7 +14,9 @@ From the root of a checkout, with one CUDA card:
    of the block, all-pad rows, a mostly-padding last block, N < topk,
    constructed ties, M in {8, 32} (and 16 for the single-query scans; the
    fused scan bit for bit also at 24 and 25, S up to 8,192, rows >= N,
-   and on its spill route at S = 32,768 with tk = 4,096), rows in
+   and on its spill route at S = 32,768 with tk = 4,096) at dsub 4, and
+   the dense and fused scans (f32 and int8) bit for bit at the recsys
+   item index's M = 16, dsub = 5 (phase 14's width), rows in
    descending distance and a topk that fills the top-k kernel's
    candidate buffer; exact L2 (every instantiation of ``l2dist_wgmma``:
    f32 loading by TMA where d % 4 == 0 and by 4-byte ``cp.async`` copies
@@ -97,20 +99,24 @@ From the root of a checkout, with one CUDA card:
    include inserted ids), deletes each query's ground-truth top-1 and a
    tenth of the inserts, computes ground truth over the live set through
    ``l2dist_wgmma``, serves the three paths with the delta scanned
-   exactly, runs ``compact()`` (it must seal every inserted row and grow
+   exactly (on the first ``DELTA_QUERIES``, a ``reduced`` line), runs
+   ``compact()`` (it must seal every inserted row and grow
    the physical rows by the live ones), serves them again on the
    re-published codes and holds those kernel calls against their plain
    versions; in both rounds no deleted id may come back, dense ids must
    equal fused ids, f32 recall > 0.5 and int8 recall >= f32 - 0.05.  It
    then saves a snapshot to a temporary directory, loads it onto the card
    and requires equal ids and distances on the dense and fused paths;
-   runs the background compactor (``min_delta`` 4,096) while 20 batches
-   of 1,024 inserts alternate with serving windows, and requires every
-   inserted id sealed exactly once after ``stop_compactor(flush=True)``
-   (which re-raises a seal's error); and trains OPQ over the N rows on
-   the card, its k-means at the index codebook's 12 rounds from the same
-   seed (rotation orthonormal to 1e-4, reconstruction error below the
-   index's plain PQ), serving the dense and fused paths on an index that
+   runs the background compactor (``min_delta`` 4,096) while
+   ``COMPACTOR_BATCHES`` batches of 1,024 inserts (10; 20 before phase
+   14, a ``reduced`` line) alternate with serving windows, and requires
+   every inserted id sealed exactly once after
+   ``stop_compactor(flush=True)`` (which re-raises a seal's error); and
+   trains OPQ over the N rows on the card in ``OPQ_ROUNDS`` rounds (2;
+   ``train_opq``'s 4 before phase 14, a ``reduced`` line), its k-means
+   at the index codebook's 12 rounds from the same seed (rotation
+   orthonormal to 1e-4, reconstruction error below the index's plain
+   PQ), serving the dense and fused paths on an index that
    shares the built posting lists, graph and SSD tier (equal ids, recall
    > 0.5);
 8. serves the index as phase 7 leaves it through the serving stack
@@ -180,7 +186,8 @@ From the root of a checkout, with one CUDA card:
    prompt 64, 64 new tokens) twice gives the same tokens, in the
    vocabulary, the first of them the argmax of the f32 prefill's logits
    of the prompts (or within 2e-3 of it: a rounding tie), and prints
-   tokens/s; (d) ``RAGPipeline.answer_batch`` of 16 queries at k = 10,
+   tokens/s; (d) ``RAGPipeline.answer_batch`` of ``RAG_QUERIES`` (8, a
+   ``reduced`` line) queries at k = 10,
    through ``submit`` and through a two-replica ``make_serving_stack``
    router: the retrieved ids equal ``batch_query``'s top-10, the dense
    kernel launched on both routes, the same tokens on both.  The flash
@@ -259,7 +266,55 @@ From the root of a checkout, with one CUDA card:
    with the card's name and power limit; DeepSeek-V2-Lite's bf16 gradient
    launches ``flash_attn_fwd_wgmma[dv]`` and ``flash_attn_bwd[bf16,dv]``.
    The kernels line's flash rows count phase 13's launches too, and it
-   gains the rows ``flash_attn_bwd[dv]`` and ``flash_attn_bwd@bf16[dv]``.
+   gains the rows ``flash_attn_bwd[dv]`` and ``flash_attn_bwd@bf16[dv]``;
+14. serves the recsys and GNN models at full width in f32 (TF32 off),
+   random weights and batches from ``--seed``, after phase 13 has freed
+   its state (``recsys_phase``): (a) BERT4Rec (``configs/bert4rec.py``: d
+   64, 2 blocks, 2 heads of 32, S 200, 2^20 items) at serve_p99 (B =
+   512, ``recsys_seq_batch``): ``bert4rec_user_embedding`` launches
+   exactly 2 ``flash_attn_fwd_tf32[padded]`` and no other flash key, each
+   row within ``RECSYS_RTOL`` relative L2 of the same encode on the plain
+   attention; ``score_all_items(u, item_embed, 100)`` returns the largest
+   bf16 scores, descending, equal to the scores of the ids it returns,
+   ties in ascending id; the retrieval_cand step (B = 1, an f32 query,
+   rows past 10^6 at -1e30, top 100 by ``core.topk._select``, as
+   ``src/repro/models/api.py:459-468``) returns only ids below 10^6; the
+   flash call is timed at its shape (row 6j); (b) MIND (K 4, 3 routing
+   rounds, history 50) at serve_p99: the maximum over the interests of
+   ``score_all_items``' top 100, one (512, 2^20) buffer live at a time,
+   finite; (c) DLRM-RM2 and Wide&Deep, one at a time (7.0 and 5.5 GB of
+   tables): at serve_p99 the sigmoid of the forward, its first
+   ``RECSYS_HOST_ROWS`` within ``RECSYS_RTOL`` of the same forward on the
+   host; at serve_bulk (B = 262,144) the bf16 gather bit-equal to
+   ``tables[ids].to(bfloat16)``, the probabilities finite and in [0, 1];
+   (d) GraphSAGE (2 layers, hidden 128) at full_graph_sm (2,708 nodes,
+   10,556 edges, 1,433 features, 7 classes), minibatch_lg (B 1,024,
+   fanouts 15 x 10, 602 features, 41 classes, sampled by
+   ``data.graphs`` from a ``random_graph`` of Reddit's 232,965 nodes with
+   its edges cut by ``SAGE_EDGE_CUT``, a ``reduced`` line) and molecule
+   (128 graphs of 30 nodes and 64 edges): logits (each row) and
+   ``sage_loss`` within ``RECSYS_RTOL`` of the host's, two runs on the
+   card bit for bit; (e) ``examples/recsys_retrieval.py`` at full width:
+   BERT4Rec's 2^20 items as ``[v, sqrt(phi - |v|^2)]`` zero-padded from
+   65 to 80 columns, pq_m 16 (dsub 5), top_m 16, top_n 128, k 10, built
+   by ``FusionANNSIndex.build`` on the card at ``ITEM_POSTING_FRACTION``
+   (a ``reduced`` line) and queried with (a)'s 512 user embeddings,
+   zero-padded, on the dense, ``fused=True`` and ``fused=True,
+   lut_int8=True`` paths (counts set to 0 before each); the exact answer
+   through ``ground_truth`` (``l2dist_wgmma``, f32, d = 80) and by the
+   f32 dot product over all rows must agree on ``MIPS_AGREE`` of the
+   (query, rank) ids, dense ids equal fused ids, each path launched its
+   kernel, and the fused path's recall@10 against the exact answer must
+   reach ``ITEM_RECALL_FLOOR``.  Here alone an answer may hold fewer
+   than k ids (the lists nearest a MIPS query hold few rows): it must
+   then hold every row of its top_m lists, and the count is printed;
+   every other phase fails on a short answer.  It prints encode ms and
+   flash share, ``score_all_items`` ms, serve_p99 ms of each arch,
+   serve_bulk rows/s, the index's build seconds by stage and each path's
+   QPS and p50/p99.
+   The kernels line's ``adc_scan_batch``, ``adc_fused_topk`` (f32, int8)
+   and ``l2dist_wgmma`` rows count phase 14's launches too, and it gains
+   row 6j, ``flash_attn_fwd_tf32[padded]@bert4rec``, with BERT4Rec's.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -276,6 +331,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -313,6 +369,10 @@ FLASH_PADDED_DH = 96        # a head width padded to 128; no model here
 FLASH_WIDE_DH = 256         # the tensor-core kernels' 256 instances
 FLASH_OFF_STRIDE_DH = 100   # bf16 rows off 16 bytes: zero-padded to 104
 SPILL = dict(S=32_768, topk=4096)   # a fused window past fused_plan
+# phase 2's ADC widths (M, dsub): M = 8 and 32, DEEP1B's 24 and SPACEV1B's
+# 25 at dsub 4, and the recsys item index's M = 16 at dsub 5 (phase 14:
+# BERT4Rec's 65 columns padded to 80)
+ADC_WIDTHS = ((8, 4), (32, 4), (24, 4), (25, 4), (16, 5))
 SERVE_PATHS = (("dense", "adc_scan_batch", {}),
                ("fused", "adc_fused_topk", {"fused": True}),
                ("fused_int8", "adc_fused_topk", {"fused": True,
@@ -321,7 +381,12 @@ SERVE_PATHS = (("dense", "adc_scan_batch", {}),
 SERVING_KEYS = {"adc_scan_batch": "dense", "adc_fused_topk": "fused",
                 "adc_fused_topk[lut_int8]": "fused_int8"}
 NOISE_SIGMA = 2.0           # phase 7: noise of an inserted copy of a row
-COMPACTOR_BATCHES, COMPACTOR_BATCH = 20, 1024
+# phase 7's compactor round: 20 batches before phase 14 (a reduced line)
+COMPACTOR_BATCHES, COMPACTOR_BATCH = 10, 1024
+COMPACTOR_BATCHES_FULL = 20
+# phase 7's OPQ: train_opq's 4 rounds before phase 14 (a reduced line);
+# its first round is still the index codebook's k-means
+OPQ_ROUNDS, OPQ_ROUNDS_FULL = 2, 4
 STACK_TIMEOUT_S = 300.0     # phase 8: the longest wait on any answer
 EDGE_BURST = 32             # phase 8: alice's quota (bob's is unlimited)
 EDGE_RATE_QPS = 1e-3        # alice's refill: no token comes back in a run
@@ -330,6 +395,10 @@ ADAPTIVE_N = 64             # phase 8: adaptive requests, one at a time
 ADAPTIVE_PROBES = 16        # plain single requests timed before them
 ADAPTIVE_SLACK = 4.0        # their deadline: this times the probes' p99
 COMPACTOR_MIN_DELTA = 4096
+# phase 7: the queries served with the 100,000-row delta scanned exactly on
+# the host (~15 QPS a path): the first 64 of the 256 (a reduced line), a
+# cut for the smoke's time limit beside phase 14; after the seal all
+DELTA_QUERIES = 64
 MESH_TOP_N = 512            # phase 9 (b): the sharded scans' top-n
 MESH_LUTS = 8               # phase 9 (b): LUTs of the batched scan
 TOPK_SCORES = (64, 1 << 20)     # phase 9 (b): sharded_topk's scores
@@ -346,7 +415,11 @@ LM_ROW_RTOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5}
 DECODE_LEN = 64             # (b): positions decoded against the forward
 DECODE_TOL = 2e-3           # (b): rtol = atol (tests/test_serve.py's)
 GEN = dict(batch=8, prompt=64, new=64)   # (c)
-RAG_QUERIES, RAG_K, RAG_PROMPT, RAG_NEW = 16, 10, 8, 8   # (d)
+# (d): answer_batch generates request by request (~1.4 s an answer on the
+# H100's host at full width): 8 of 16 requests, a cut for the smoke's time
+# limit beside phase 14 (a reduced line)
+RAG_QUERIES, RAG_K, RAG_PROMPT, RAG_NEW = 8, 10, 8, 8
+RAG_QUERIES_UNCUT = 16
 MLA_ARCH = "deepseek-v2-lite-16b"   # phase 11 (a)-(d): at its full CONFIG
 MOE_ARCH = "qwen3-moe-30b-a3b"      # phase 11 (e): full width, depth cut
 MOE_LAYERS = 8              # (e): of 48; 61 GB of bf16 weights beside
@@ -385,6 +458,38 @@ FAULT_BATCH = (2, 512)      # (e): B, S
 # and two MoE layers (1.66 B parameters), Qwen3-30B-A3B two layers (1.87
 # B), and a layer more of either (~0.6 B) would pass the card's 80 GB
 MOE_TRAIN_LAYERS = {MLA_ARCH: 3, MOE_ARCH: 2}
+# phase 14: the recsys and GNN models at full width (configs/*.py, f32)
+RECSYS_P99, RECSYS_BULK = 512, 262_144   # configs/base.RECSYS_SHAPES
+RECSYS_K = 100              # the reference's serve_step and retrieval top-k
+RETRIEVAL_CANDIDATES = 1_000_000   # retrieval_cand's n_candidates
+# user embeddings vs the plain attention, ranking probabilities and SAGE
+# logits and loss vs the host: the same f32 functions summed in another
+# order (flash in 3xTF32 against the plain scan)
+RECSYS_RTOL = 1e-5
+RECSYS_HOST_ROWS = 64       # (c): the rows held to the host's forward
+FLASH_KEY_6J = "flash_attn_fwd_tf32[padded]"   # BERT4Rec's dh 32, in f32
+FLASH_ROW_6J = FLASH_KEY_6J + "@bert4rec"      # its kernels-line row
+SAGE_FULL = (2708, 10_556, 1433, 7)     # full_graph_sm: nodes, edges, F, C
+SAGE_LG = dict(nodes=232_965, edges=114_615_892, batch=1024,
+               fanouts=(15, 10), d_feat=602, classes=41)   # minibatch_lg
+# minibatch_lg's graph has Reddit's edges / 8 (mean in-degree 61, four
+# times the first fanout): the host's random_graph and build_csr grow with
+# E (the sampler took 10.3 s at E / 8 on the H100's host); the sampled
+# shapes do not depend on E
+SAGE_EDGE_CUT = 8
+SAGE_MOLECULE = (128, 30, 64, 16, 2)    # graphs, nodes, edges, F, C
+# (e): examples/recsys_retrieval.py's 0.05 gives 52,428 posting lists,
+# past navgraph's 50,000-vertex exact build: its incremental build, a
+# host loop a vertex, took 239.0 s and the index 315.5 s on the H100's
+# host (scripts/item_index_probe.py), over the phase's ~120 s; 0.0476 is
+# the largest fraction under 50,000 lists (49,912: the exact graph)
+ITEM_POSTING_FRACTION = 0.0476
+MIPS_AGREE = 0.99           # (e): L2 vs MIPS exact ids, equal at f32 ties
+# (e): the fused path's recall@10 over the untrained items: a query's
+# top_m lists hold ~20 rows (scripts/item_index_probe.py), all re-ranked
+# exactly, so recall is the share of the exact top-10 among them; half
+# the first reading on the H100 at ITEM_POSTING_FRACTION, 0.0833984375
+ITEM_RECALL_FLOOR = 0.0416
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -455,6 +560,9 @@ KERNELS = {
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
     "flash_attn_fwd_tf32[dv]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
+    FLASH_ROW_6J: dict(
         route="cuda", source=FLASH_SRC + "flash_attn_fwd_tf32.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:92"),
     # the reference's attention VJP (jnp, no pallas_call): _flash_bwd
@@ -564,9 +672,12 @@ def gpu_ms(fn, reps: int) -> float:
 
 # ---------------------------------------------------------------- phase 2
 def check_kernels_small(dev: torch.device, rng: np.random.Generator) -> None:
+    """The dense scan and its masked top-k bit for bit at M in {8, 32}
+    (dsub 4) and at the recsys item index's M = 16, dsub = 5; the fused
+    scan at the widths of ``check_fused_small``."""
     from repro_torch.kernels.pq_adc import ops, ref
-    for m in (8, 32):
-        k, dsub = 256, 4
+    for m, dsub in ADC_WIDTHS[:2] + ADC_WIDTHS[-1:]:
+        k = 256
         cb = torch.from_numpy(rng.standard_normal((m, k, dsub)).astype(
             np.float32)).to(dev)
         for n in (1, 777, 8192 + 13, 3 * 8192 + 5):
@@ -580,23 +691,28 @@ def check_kernels_small(dev: torch.device, rng: np.random.Generator) -> None:
                     q = torch.from_numpy(rng.standard_normal(
                         (b, m * dsub)).astype(np.float32)).to(dev)
                     luts = ref.build_luts_ref(cb, q)
-                    check_close(f"adc_scan_batch m{m} n{n} b{b}",
-                                ops.pq_adc_batch(cds, luts),
-                                ref.pq_adc_batch_ref(cds, luts))
+                    got = ops.pq_adc_batch(cds, luts)
+                    want = ref.pq_adc_batch_ref(cds, luts)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"adc_scan_batch m{m} dsub{dsub} n{n} b{b}: not "
+                            f"bit-equal to its plain version")
                     mask = torch.from_numpy(rng.random((b, n)) < 0.3).to(dev)
                     kv, ki = ops.pq_adc_topk_batch(cds, luts, 100, mask=mask)
-                    d = ref.pq_adc_batch_ref(cds, luts).masked_fill(
-                        ~mask, torch.inf)
-                    pv, pi = torch.sort(d, dim=1, stable=True)
-                    check_close(f"masked top-k m{m} n{n} b{b}", kv,
-                                pv[:, :100], ki, pi[:, :100])
-    for m in (8, 24, 25, 32):
-        check_fused_small(dev, rng, m)
+                    pv, pi = torch.sort(want.masked_fill(~mask, torch.inf),
+                                        dim=1, stable=True)
+                    if not (torch.equal(kv, pv[:, :100])
+                            and torch.equal(ki, pi[:, :100])):
+                        raise AssertionError(
+                            f"masked top-k m{m} dsub{dsub} n{n} b{b}: not "
+                            f"bit-equal to a stable sort of the plain scan")
+    for m, dsub in ADC_WIDTHS:
+        check_fused_small(dev, rng, m, dsub)
     torch.cuda.synchronize()
 
 
 def check_fused_small(dev: torch.device, rng: np.random.Generator,
-                      m: int) -> None:
+                      m: int, dsub: int) -> None:
     """The fused kernel bit-equal to its plain version: B = 1 (a cluster
     of eight CTAs), 5 (one CTA a query) and 64 (four) at S from 37 to
     8,192, and B = 8 at S = 32,768 with tk = 4,096 (the spill route:
@@ -604,9 +720,11 @@ def check_fused_small(dev: torch.device, rng: np.random.Generator,
     rows below and above tk, the last query all pads, query
     1's last three rows >= N (pads on the card; -1 for the plain
     version), exact ties from repeated code rows; M = 8, DEEP1B's 24 (8-byte
-    code loads), SPACEV1B's 25 (1-byte) and 32 (16-byte)."""
+    code loads), SPACEV1B's 25 (1-byte) and 32 (16-byte) at dsub 4, and
+    the recsys item index's M = 16 at dsub 5 (the LUT built from 5-wide
+    sub-vectors, one float at a time)."""
     from repro_torch.kernels.pq_adc import ops
-    n, k, dsub = 50_000, 256, 4
+    n, k = 50_000, 256
     cb = torch.from_numpy(rng.standard_normal((m, k, dsub)).astype(
         np.float32)).to(dev)
     base = rng.integers(0, 256, (n // 4, m)).astype(np.uint8)
@@ -834,7 +952,11 @@ class Recorder:
         self.ops.pq_adc_batch, self.dist.pq_adc_fused_topk = self._orig
 
 
-def serve(index, queries: np.ndarray, gt: np.ndarray, **plan):
+def serve(index, queries: np.ndarray, gt: np.ndarray, *,
+          short_ok: bool = False, **plan):
+    """Serves ``queries`` through ``index.submit``.  Every answer must
+    hold k ids unless ``short_ok``: then a short answer is padded with
+    -1 and counted under ``short_answers``."""
     from repro_torch.core.engine import recall_at_k
     lat = np.zeros(len(queries))
     torch.cuda.synchronize()
@@ -845,8 +967,17 @@ def serve(index, queries: np.ndarray, gt: np.ndarray, **plan):
             lambda _f, i=i: lat.__setitem__(i, time.perf_counter() - t0))
     res = ticket.results()
     wall = time.perf_counter() - t0
-    ids = np.stack([r.ids for r in res])
+    k = gt.shape[1]
+    short = [i for i, r in enumerate(res) if len(r.ids) < k]
+    if short and not short_ok:
+        raise AssertionError(f"{len(short)} of {len(res)} queries answered "
+                             f"with fewer than {k} ids, the first "
+                             f"{short[0]} with {len(res[short[0]].ids)}")
+    ids = np.full((len(res), k), -1, np.int64)
+    for i, r in enumerate(res):
+        ids[i, :len(r.ids)] = r.ids
     return ids, dict(recall_at_10=recall_at_k(ids, gt, 10),
+                     short_answers=len(short),
                      qps=len(queries) / wall,
                      p50_ms=1e3 * float(np.percentile(lat, 50)),
                      p99_ms=1e3 * float(np.percentile(lat, 99)),
@@ -1238,36 +1369,38 @@ def measure_entry(calls) -> list:
     return out
 
 
-def measure_flash(name: str, q, k, v) -> dict:
-    """Phase 6 for one flash call (causal): the kernel against its plain
-    version, its time, the plain version's and SDPA's, and the bound: (dh + dv) products a pair of (s, t) kept
-    by the mask, the bytes of q, k, v and the output."""
+def measure_flash(name: str, q, k, v, causal: bool = True) -> dict:
+    """Phase 6 for one flash call: the kernel against its plain version,
+    its time, the plain version's and SDPA's, and the bound: (dh + dv)
+    products a pair of (s, t) kept by the mask (all pairs where not
+    ``causal``), the bytes of q, k, v and the output."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
     F = torch.nn.functional
     peak, products = exact_products(q.dtype)
     bsz, s, h, dh = q.shape
     t, dv = k.shape[1], v.shape[3]
-    plain = flash_attn_ref(q, k, v, causal=True)
+    plain = flash_attn_ref(q, k, v, causal=causal)
     tol = FLASH_TOL[q.dtype]
     err = check_attn(f"{name} ({q.dtype})",
-                     flash_attention(q, k, v, causal=True), plain)
+                     flash_attention(q, k, v, causal=causal), plain)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
     check_tol(f"scaled_dot_product_attention yardstick ({q.dtype})",
               sdpa().transpose(1, 2), plain, tol, tol)
     library_ms = gpu_ms(sdpa, 10)
     del plain
-    pairs = sum(min(i + 1, t) for i in range(s))       # unmasked (s, t)
+    pairs = (sum(min(i + 1, t) for i in range(s)) if causal
+             else s * t)                                # unmasked (s, t)
     return dict(
         name=name,
         shape=dict(B=bsz, S=s, T=t, H=h, Hk=k.shape[2], dh=dh, dv=dv,
-                   dtype=str(q.dtype), causal=True),
+                   dtype=str(q.dtype), causal=causal),
         max_abs_err=err,
-        ms=gpu_ms(lambda: flash_attention(q, k, v, causal=True), 10),
-        plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=True), 3),
+        ms=gpu_ms(lambda: flash_attention(q, k, v, causal=causal), 10),
+        plain_ms=gpu_ms(lambda: flash_attn_ref(q, k, v, causal=causal), 3),
         library_ms=library_ms,
         **bound((q.numel() + k.numel() + v.numel() + bsz * s * h * dv)
                 * q.element_size(),
@@ -1369,8 +1502,11 @@ def mutation_phase(index, data: np.ndarray, queries: np.ndarray,
     # the share of the live ground truth that the inserts hold
     out["gt_share_inserted"] = float(np.isin(gt_live, new_ids).mean())
     # 3. query with the delta scanned exactly
-    out["before_seal"] = serve_round("before seal", index, queries,
-                                     gt_live, deleted)
+    log("reduced: " + json.dumps({"before_seal_queries": [nq,
+                                                          DELTA_QUERIES]}))
+    out["before_seal"] = serve_round("before seal", index,
+                                     queries[:DELTA_QUERIES],
+                                     gt_live[:DELTA_QUERIES], deleted)
     # 4. seal
     rows0 = index.view().n_rows
     t = time.perf_counter()
@@ -1413,6 +1549,8 @@ def mutation_phase(index, data: np.ndarray, queries: np.ndarray,
     index.start_compactor(min_delta=COMPACTOR_MIN_DELTA)
     batches = []
     epoch0 = index.epoch
+    log("reduced: " + json.dumps({"compactor_batches": [
+        COMPACTOR_BATCHES_FULL, COMPACTOR_BATCHES]}))
     for _ in range(COMPACTOR_BATCHES):
         pick = rng.choice(n, COMPACTOR_BATCH, replace=False)
         batches.append(index.insert(noisy(rng, data[pick])))
@@ -1434,9 +1572,12 @@ def mutation_phase(index, data: np.ndarray, queries: np.ndarray,
     # the rotation (as the JAX package's OPQ test holds equal rounds)
     dev = index.device
     t = time.perf_counter()
+    log("reduced: " + json.dumps({"opq_rounds": [OPQ_ROUNDS_FULL,
+                                                 OPQ_ROUNDS]}))
     ocb, _ = opq.train_opq(torch.Generator().manual_seed(seed), data,
                            index.cfg.pq_m, index.cfg.pq_nbits,
-                           kmeans_iters=PQ_ROUNDS, device=dev)
+                           iters=OPQ_ROUNDS, kmeans_iters=PQ_ROUNDS,
+                           device=dev)
     out["opq_train_s"] = time.perf_counter() - t
     r = ocb.rotation.astype(np.float64)
     out["opq_orthonormality"] = float(np.abs(r.T @ r - np.eye(len(r))).max())
@@ -2239,6 +2380,8 @@ def rag_round(index, params, cfg, queries: np.ndarray,
     from repro_torch.kernels.launch import LAUNCHES, reset_launches
     from repro_torch.serve.engine import LMServer, RAGPipeline, ServeConfig
     from repro_torch.serve.stack import make_serving_stack
+    log("reduced: " + json.dumps({"rag_queries": [RAG_QUERIES_UNCUT,
+                                                  RAG_QUERIES]}))
     qs = queries[:RAG_QUERIES]
     want = np.stack([r.ids for r in index.batch_query(qs, k=RAG_K)])
     server = LMServer(params, cfg, ServeConfig(
@@ -2922,6 +3065,424 @@ def moe_train_phase(seed: int, card: str) -> tuple:
     return out, rows
 
 
+# --------------------------------------------------------------- phase 14
+@contextlib.contextmanager
+def first_attention(calls: list):
+    """Inside it the models' attention keeps the inputs of its first call
+    on the card (the main path's q, k, v: phase 14 times row 6j's flash
+    call on them)."""
+    from repro_torch.models import layers
+    fwd = layers.flash_attention
+
+    def recording(q, k, v, **kw):
+        if not calls:
+            calls.append((q, k, v))
+        return fwd(q, k, v, **kw)
+    layers.flash_attention = recording
+    try:
+        yield
+    finally:
+        layers.flash_attention = fwd
+
+
+def median_ms(fn, reps: int) -> tuple:
+    """``fn()`` ``reps`` times, each synchronised: (the last result, the
+    median of their milliseconds)."""
+    times, out = [], None
+    for _ in range(reps):
+        out, ms = timed_ms(fn)
+        times.append(ms)
+    return out, float(np.median(times))
+
+
+def add_launches(total: dict, rows: dict) -> None:
+    """Adds the launch counts since the last reset to ``total``, each
+    ``LAUNCHES`` key under the kernels line's row that ``rows`` names for
+    it (else its own name); then sets them to 0."""
+    from repro_torch.kernels import launch
+    for key, n in launch.LAUNCHES.items():
+        if n:
+            row = rows.get(key, key)
+            total[row] = total.get(row, 0) + n
+    launch.reset_launches()
+
+
+def bert4rec_round(seed: int, dev: torch.device, total: dict) -> tuple:
+    """Phase 14 (a): BERT4Rec at serve_p99 through the flash kernel, its
+    items scored, the retrieval_cand step.  Returns (results, params, the
+    user embeddings, the first attention call's q, k, v)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.clustering import full_f32
+    from repro_torch.core.topk import _select
+    from repro_torch.data.synthetic import recsys_seq_batch
+    from repro_torch.kernels import launch
+    from repro_torch.models import recsys as R
+    cfg = get_config("bert4rec")
+    params = R.init_bert4rec(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, dev)
+    items = params["item_embed"]
+    ids = torch.from_numpy(recsys_seq_batch(
+        np.random.default_rng(seed), RECSYS_P99, cfg.seq_len,
+        cfg.vocab_size)["item_ids"]).to(dev)
+    rows = {FLASH_KEY_6J: FLASH_ROW_6J}
+
+    def encode():
+        return R.bert4rec_user_embedding(params, ids, cfg)
+    calls: list = []
+    launch.reset_launches()
+    with first_attention(calls):
+        u = encode()
+    got = {k: n for k, n in launch.LAUNCHES.items()
+           if k.startswith("flash_attn") and n}
+    if got != {FLASH_KEY_6J: cfg.n_blocks}:
+        raise AssertionError(f"bert4rec's encode launched {got}, not "
+                             f"{cfg.n_blocks} x {FLASH_KEY_6J} alone")
+    add_launches(total, rows)
+    with plain_attention():
+        u_plain = encode()
+    row = row_rel_err(u, u_plain)
+    if not (torch.isfinite(u).all() and row <= RECSYS_RTOL):
+        raise AssertionError(f"bert4rec user embeddings: a row's relative "
+                             f"L2 error {row} vs the plain attention, "
+                             f"limit {RECSYS_RTOL}")
+    del u_plain
+    _, enc_ms = median_ms(encode, 5)
+
+    def score():
+        return R.score_all_items(u, items, RECSYS_K)
+    (vals, top), score_ms = median_ms(score, 3)
+    scores = u.to(torch.bfloat16) @ items.to(torch.bfloat16).T
+    if not torch.equal(torch.gather(scores, 1, top.long()), vals):
+        raise AssertionError("score_all_items: its values are not the bf16 "
+                             "scores of the ids it returned")
+    if not torch.equal(torch.topk(scores.float(), RECSYS_K).values,
+                       vals.float()):
+        raise AssertionError("score_all_items: not the largest scores")
+    del scores
+    if (vals[:, 1:] > vals[:, :-1]).any():
+        raise AssertionError("score_all_items: values not descending")
+    tie = vals[:, 1:] == vals[:, :-1]
+    if (top[:, 1:] <= top[:, :-1])[tie].any():
+        raise AssertionError("score_all_items: tied scores not in "
+                             "ascending id")
+    _, p99_ms = median_ms(lambda: R.score_all_items(encode(), items,
+                                                    RECSYS_K), 3)
+    add_launches(total, rows)
+
+    def retrieval():
+        # src/repro/models/api.py:459-468: one f32 query, the rows past
+        # n_candidates masked out of the top-k
+        with full_f32:
+            s = u[:1].float() @ items.T
+        s = torch.where(torch.arange(s.shape[1], device=dev)[None]
+                        < RETRIEVAL_CANDIDATES, s, -1e30)
+        return _select(s, RECSYS_K, True)
+    (rv, ri), retr_ms = median_ms(retrieval, 3)
+    if not (torch.isfinite(rv).all() and (rv > -1e30).all()
+            and (ri < RETRIEVAL_CANDIDATES).all()):
+        raise AssertionError("retrieval_cand: an id past the candidates")
+    res = {"encode_ms": enc_ms, "score_all_items_ms": score_ms,
+           "serve_p99_ms": p99_ms, "retrieval_cand_ms": retr_ms,
+           "row_rel_err_vs_plain": row, "tied_adjacent": int(tie.sum()),
+           "flash_launches_per_encode": got}
+    return res, params, u, calls[0]
+
+
+def mind_round(seed: int, dev: torch.device, total: dict) -> dict:
+    """Phase 14 (b): MIND at serve_p99: the maximum over its interests of
+    each interest's top 100, one (B, V) score buffer live at a time (the
+    reference's ``fori_loop``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import recsys_seq_batch
+    from repro_torch.models import recsys as R
+    cfg = get_config("mind")
+    params = R.init_mind(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         dev)
+    hist = torch.from_numpy(recsys_seq_batch(
+        np.random.default_rng(seed), RECSYS_P99, cfg.hist_len,
+        cfg.vocab_size)["item_ids"]).to(dev)
+
+    def serve_step():
+        interests = R.mind_interests(params, hist, cfg)
+        best = torch.full((RECSYS_P99, RECSYS_K), -1e30, device=dev)
+        for i in range(cfg.n_interests):
+            v, _ = R.score_all_items(interests[:, i], params["item_embed"],
+                                     RECSYS_K)
+            best = torch.maximum(best, v.float())
+        return best
+    best, ms = median_ms(serve_step, 3)
+    if not torch.isfinite(best).all():
+        raise AssertionError("mind serve_p99: a score not finite")
+    add_launches(total, {})
+    return {"serve_p99_ms": ms}
+
+
+def ranking_round(arch: str, seed: int, dev: torch.device,
+                  total: dict) -> dict:
+    """Phase 14 (c): DLRM-RM2 or Wide&Deep at serve_p99 (its first rows
+    held to the same forward on the host) and at serve_bulk (its bf16
+    gather held to the tables' rows rounded)."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import recsys as R
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    t = time.perf_counter()
+    if cfg.kind == "dlrm":
+        params = R.init_dlrm(gen, cfg, dev)
+
+        def batch(b):
+            return synthetic.recsys_dlrm_batch(rng, b, cfg.n_dense,
+                                               cfg.n_sparse, cfg.vocab_size,
+                                               cfg.multi_hot)
+
+        def forward(p, b):
+            return R.dlrm_forward(p, b["dense"], b["sparse_ids"], cfg)
+    else:
+        params = R.init_wide_deep(gen, cfg, dev)
+
+        def batch(b):
+            return synthetic.recsys_sparse_batch(rng, b, cfg.n_sparse,
+                                                 cfg.vocab_size,
+                                                 cfg.multi_hot)
+
+        def forward(p, b):
+            return R.wide_deep_forward(p, b["sparse_ids"], cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+
+    def on(b, d, n=None):
+        return {k: torch.from_numpy(v[:n]).to(d) for k, v in b.items()}
+    small = batch(RECSYS_P99)
+    b = on(small, dev)
+    prob, p99_ms = median_ms(lambda: torch.sigmoid(forward(params, b)), 5)
+    want = torch.sigmoid(forward(tree.tree_map(lambda x: x.cpu(), params),
+                                 on(small, "cpu", RECSYS_HOST_ROWS)))
+    err = check_tol(f"{arch} serve_p99 vs the host",
+                    prob[:RECSYS_HOST_ROWS].cpu(), want, RECSYS_RTOL, 0.0)
+    b = on(batch(RECSYS_BULK), dev)
+    ids = b["sparse_ids"]
+    tables = params["tables"]
+    emb = R.embedding_bag_dense(tables, ids, gather_dtype=torch.bfloat16)
+    rows = tables[torch.arange(tables.shape[0], device=dev)[None, :],
+                  ids[:, :, 0].long()].to(torch.bfloat16)
+    if not torch.equal(emb, rows):
+        raise AssertionError(f"{arch} serve_bulk: the bf16 gather differs "
+                             f"from tables[ids].to(bfloat16)")
+    del emb, rows
+    prob, bulk_ms = median_ms(lambda: torch.sigmoid(forward(params, b)), 3)
+    if not (torch.isfinite(prob).all() and (prob >= 0).all()
+            and (prob <= 1).all()):
+        raise AssertionError(f"{arch} serve_bulk: a probability outside "
+                             f"[0, 1]")
+    add_launches(total, {})
+    return {"init_s": init_s,
+            "params_gb": sum(x.numel() for x in tree.leaves(params)) * 4e-9,
+            "serve_p99_ms": p99_ms, "host_max_abs_err": err,
+            "serve_bulk_ms": bulk_ms,
+            "serve_bulk_rows_per_s": RECSYS_BULK / bulk_ms * 1e3}
+
+
+def sage_round(seed: int, dev: torch.device, total: dict) -> dict:
+    """Phase 14 (d): GraphSAGE at full_graph_sm, minibatch_lg and
+    molecule: logits and loss against the host's, two runs bit for
+    bit."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import graphs
+    from repro_torch.models import gnn as G
+    cfg = get_config("graphsage-reddit")
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    t = time.perf_counter()
+    sm = graphs.random_graph(rng, *SAGE_FULL)
+    lg = graphs.random_graph(rng, SAGE_LG["nodes"],
+                             SAGE_LG["edges"] // SAGE_EDGE_CUT,
+                             SAGE_LG["d_feat"], SAGE_LG["classes"])
+    indptr, indices = graphs.build_csr(lg["edges"], SAGE_LG["nodes"])
+    nodes = rng.integers(0, SAGE_LG["nodes"], SAGE_LG["batch"])
+    hops = graphs.sample_two_hop(rng, indptr, indices, nodes,
+                                 SAGE_LG["fanouts"], lg["features"])
+    mol = graphs.block_diagonal_batch(rng, *SAGE_MOLECULE)
+    out["host_sampler_s"] = time.perf_counter() - t
+    cases = {
+        "full_graph_sm": (G.sage_forward_full, (sm["features"], sm["edges"]),
+                          sm["labels"], SAGE_FULL[2:]),
+        "minibatch_lg": (G.sage_forward_minibatch, hops, lg["labels"][nodes],
+                         (SAGE_LG["d_feat"], SAGE_LG["classes"])),
+        "molecule": (G.sage_forward_batched,
+                     (mol["features"], mol["edges"], mol["graph_ids"],
+                      SAGE_MOLECULE[0]), mol["labels"], SAGE_MOLECULE[3:]),
+    }
+    del lg, indptr, indices
+    for name, (fn, args, labels, (d_feat, n_classes)) in cases.items():
+        params = G.init_sage(gen, cfg, d_feat, n_classes, dev)
+        on = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+              else a for a in args]
+
+        def run():
+            logits = fn(params, *on, cfg=cfg)
+            return logits, G.sage_loss(logits, labels)[0]
+        (logits, loss), ms = median_ms(run, 3)
+        again, loss2 = run()
+        if not (torch.equal(logits, again) and torch.equal(loss, loss2)):
+            raise AssertionError(f"sage {name}: two runs on the card differ")
+        host = fn(tree.tree_map(lambda x: x.cpu(), params),
+                  *[a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in on], cfg=cfg)
+        row = row_rel_err(logits.cpu(), host)
+        loss_err = abs(float(loss) - float(G.sage_loss(host, labels)[0]))
+        if not (torch.isfinite(logits).all() and row <= RECSYS_RTOL
+                and loss_err <= RECSYS_RTOL * abs(float(loss))):
+            raise AssertionError(f"sage {name}: logits {row} and loss "
+                                 f"{loss_err} from the host's, limit "
+                                 f"{RECSYS_RTOL} relative")
+        out[name] = {"ms": ms, "row_rel_err_vs_host": row,
+                     "loss": float(loss), "logits": list(logits.shape)}
+    add_launches(total, {})
+    return out
+
+
+def item_index(seed: int, items: torch.Tensor, u: torch.Tensor,
+               fraction: float) -> tuple:
+    """``examples/recsys_retrieval.py``'s index over BERT4Rec's items,
+    built on the card at posting fraction ``fraction``.  Returns (index,
+    its rows, the user embeddings as its queries, its config)."""
+    from repro_torch.configs.anns_datasets import SIFT_SMALL
+    from repro_torch.core.engine import FusionANNSIndex
+    host = items.cpu().numpy()
+    norms = np.sum(host ** 2, axis=1)
+    phi = float(norms.max())
+    aug = np.concatenate([host, np.sqrt(np.maximum(phi - norms, 0))[:, None]],
+                         axis=1).astype(np.float32)
+    acfg = dataclasses.replace(
+        SIFT_SMALL, n_vectors=len(aug), dim=aug.shape[1],
+        pq_m=max(4, aug.shape[1] // 4 // 4 * 4),
+        n_posting_fraction=fraction, top_m=16, top_n=128)
+    pad = (-aug.shape[1]) % acfg.pq_m
+    aug = np.pad(aug, ((0, 0), (0, pad)))
+    acfg = dataclasses.replace(acfg, dim=aug.shape[1])
+    index = FusionANNSIndex.build(aug, acfg, seed=seed)
+    queries = np.pad(u.cpu().numpy(), ((0, 0),
+                                       (0, aug.shape[1] - u.shape[1])))
+    return index, aug, queries, acfg
+
+
+def item_index_round(seed: int, items: torch.Tensor, u: torch.Tensor,
+                     total: dict) -> dict:
+    """Phase 14 (e): ``examples/recsys_retrieval.py`` at full width:
+    BERT4Rec's item table as a FusionANNS index (MIPS as L2 over [v,
+    sqrt(phi - |v|^2)], zero columns to a multiple of pq_m), the user
+    embeddings as its queries, served dense, fused and int8, against the
+    exact answer computed twice (L2 through ``ground_truth``, and the f32
+    dot product)."""
+    from repro_torch.core.clustering import full_f32
+    from repro_torch.core.engine import ground_truth
+    from repro_torch.core.topk import _select
+    from repro_torch.kernels import launch
+    index, aug, queries, acfg = item_index(seed, items, u,
+                                           ITEM_POSTING_FRACTION)
+    out = {"build_s": {k: round(v, 1)
+                       for k, v in index.build_seconds.items()},
+           "rows": len(aug), "dim": [items.shape[1] + 1, aug.shape[1]],
+           "pq_m": acfg.pq_m, "dsub": aug.shape[1] // acfg.pq_m,
+           "centroids": index.posting.n_clusters}
+    if ITEM_POSTING_FRACTION != 0.05:
+        log("reduced: " + json.dumps({"item_index": {
+            "n_posting_fraction": [0.05, ITEM_POSTING_FRACTION]}}))
+    launch.reset_launches()
+    gt = ground_truth(aug, queries, acfg.top_k)
+    if launch.LAUNCHES["l2dist_wgmma"] < 1:
+        raise AssertionError("the item index's ground truth never launched "
+                             "l2dist_wgmma")
+    add_launches(total, {})
+    with full_f32:
+        mips = _select(u @ items.T, acfg.top_k, True)[1].cpu().numpy()
+    out["exact_l2_vs_mips"] = float(np.mean(gt == mips))
+    if not out["exact_l2_vs_mips"] >= MIPS_AGREE:
+        raise AssertionError(f"the L2 and MIPS exact answers agree on "
+                             f"{out['exact_l2_vs_mips']} of the ids, under "
+                             f"{MIPS_AGREE}")
+    ids = {}
+    for path, kernel, plan in SERVE_PATHS:
+        launch.reset_launches()
+        ids[path], out[path] = serve(index, queries, gt, short_ok=True,
+                                     **plan)
+        if launch.LAUNCHES[kernel] < 1:
+            raise AssertionError(f"item index {path} never launched {kernel}")
+        # the lists nearest a MIPS query hold few rows (PERF.md §7): an
+        # answer may be short, and is then every row of its top_m lists
+        for qi in np.nonzero((ids[path] < 0).any(1))[0]:
+            got = int((ids[path][qi] >= 0).sum())
+            rows = len(index.candidate_ids(queries[qi], acfg.top_m))
+            if got != rows:
+                raise AssertionError(
+                    f"item index {path}: query {qi} answered with {got} ids "
+                    f"of its {rows} candidate rows (k {acfg.top_k})")
+        out[path]["launches"] = {k: n for k, n in launch.LAUNCHES.items()
+                                 if n}
+        add_launches(total, {kernel: kernel + ("[lut_int8]" if
+                                               plan.get("lut_int8") else "")})
+    if not np.array_equal(ids["dense"], ids["fused"]):
+        bad = int((ids["dense"] != ids["fused"]).any(1).sum())
+        raise AssertionError(f"item index: dense and fused ids differ on "
+                             f"{bad} queries")
+    recall = out["fused"]["recall_at_10"]
+    if not recall >= ITEM_RECALL_FLOOR:
+        raise AssertionError(f"item index recall@10 {recall} under "
+                             f"{ITEM_RECALL_FLOOR}")
+    return out
+
+
+def recsys_phase(seed: int, card: str) -> tuple:
+    """Phase 14: the recsys and GNN models at full width in f32 (TF32
+    off), then BERT4Rec's items through FusionANNS.  Returns (results,
+    row 6j of the kernels line)."""
+    from repro_torch.core.clustering import full_f32
+    from repro_torch.kernels import launch
+    dev = torch.device("cuda")
+    total: dict = {}
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    with full_f32:
+        t = time.perf_counter()
+        out["bert4rec"], params, u, qkv = bert4rec_round(seed, dev, total)
+        row = measure_flash(FLASH_ROW_6J, *qkv, causal=False)
+        del qkv
+        launch.reset_launches()      # the comparison's launches count not
+        b4r = out["bert4rec"]
+        b4r["flash_share"] = (b4r["flash_launches_per_encode"][FLASH_KEY_6J]
+                              * row["ms"] / b4r["encode_ms"])
+        b4r["s"] = time.perf_counter() - t
+        log(f"recsys bert4rec ({card}): " + json.dumps(b4r))
+        for name, fn in (("mind", mind_round),
+                         ("dlrm-rm2", functools.partial(ranking_round,
+                                                        "dlrm-rm2")),
+                         ("wide-deep", functools.partial(ranking_round,
+                                                         "wide-deep")),
+                         ("graphsage", sage_round)):
+            t = time.perf_counter()
+            out[name] = fn(seed, dev, total)
+            out[name]["s"] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"recsys {name} ({card}): " + json.dumps(out[name]))
+        log("reduced: " + json.dumps({"minibatch_lg": {"n_edges": [
+            SAGE_LG["edges"], SAGE_LG["edges"] // SAGE_EDGE_CUT]}}))
+        t = time.perf_counter()
+        out["item_index"] = item_index_round(seed, params["item_embed"], u,
+                                             total)
+        out["item_index"]["s"] = time.perf_counter() - t
+        log(f"recsys item index ({card}): " + json.dumps(out["item_index"]))
+    del params, u
+    out["launches"] = total
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out, row
+
+
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
     that are exact, and how many products each takes: 8-bit integers in
@@ -3172,6 +3733,23 @@ def main() -> int:
         log(f"timing {r['name']} {shape}: ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={r['library_ms']}")
+    del mtr_rows, bwd_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec, r = recsys_phase(args.seed, card)
+    log(f"recsys: ok, {time.perf_counter() - t:.1f} s; peak "
+        f"{rec['peak_gb']:.1f} GB; launches=" + json.dumps(rec["launches"]))
+    # and phase 14's: the item index's serving and ground-truth launches
+    # under their rows, BERT4Rec's flash calls under row 6j's
+    for k in kernels:
+        k["launches"] += rec["launches"].get(k["name"], 0)
+    shape = r.pop("shape")
+    kernels.append({"name": r["name"], **KERNELS[r["name"]],
+                    "launches": rec["launches"][r["name"]], **r})
+    log(f"timing {r['name']} {shape}: ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
+        f"({r['bound_by']}) library_ms={r['library_ms']}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

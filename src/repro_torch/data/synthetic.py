@@ -1,6 +1,7 @@
 """Synthetic data (host-side numpy; deterministic by seed).
 
-``lm_batch`` draws the LM trainer's token batches.
+``lm_batch`` draws the LM trainer's token batches; ``recsys_*_batch`` the
+recommendation models' batches, number for number the reference's draws.
 
 ``clustered_vectors`` draws from a Gaussian mixture so IVF clustering and
 the paper's "re-rank candidates are spatially close" locality claim (§4.3)
@@ -57,3 +58,39 @@ def _to_dtype(x: np.ndarray, dtype) -> np.ndarray:
         hi = np.iinfo(dtype).max
         x = np.clip(np.round(128 * x), lo, hi)
     return x.astype(dtype)
+
+
+def recsys_dlrm_batch(rng: np.random.Generator, batch: int, n_dense: int,
+                      n_sparse: int, vocab: int,
+                      multi_hot: int = 1) -> Dict[str, np.ndarray]:
+    """DLRM's batch: ``dense`` (batch, n_dense) f32, ``sparse_ids``
+    (batch, n_sparse, multi_hot) int32 and 0/1 ``labels`` f32."""
+    return {
+        "dense": rng.standard_normal((batch, n_dense)).astype(np.float32),
+        "sparse_ids": rng.integers(0, vocab, (batch, n_sparse, multi_hot),
+                                   dtype=np.int32),
+        "labels": rng.integers(0, 2, (batch,)).astype(np.float32),
+    }
+
+
+def recsys_sparse_batch(rng: np.random.Generator, batch: int, n_sparse: int,
+                        vocab: int, multi_hot: int = 1
+                        ) -> Dict[str, np.ndarray]:
+    """Wide&Deep's batch: ``sparse_ids`` and ``labels`` as above."""
+    return {
+        "sparse_ids": rng.integers(0, vocab, (batch, n_sparse, multi_hot),
+                                   dtype=np.int32),
+        "labels": rng.integers(0, 2, (batch,)).astype(np.float32),
+    }
+
+
+def recsys_seq_batch(rng: np.random.Generator, batch: int, seq: int,
+                     vocab: int, n_neg: int = 127) -> Dict[str, np.ndarray]:
+    """The sequence models' batch: ``item_ids`` (batch, seq), the masked
+    position, the positive item and ``n_neg`` sampled negatives, int32."""
+    return {
+        "item_ids": rng.integers(0, vocab, (batch, seq), dtype=np.int32),
+        "mask_pos": rng.integers(0, seq, (batch,), dtype=np.int32),
+        "pos_items": rng.integers(0, vocab, (batch,), dtype=np.int32),
+        "neg_items": rng.integers(0, vocab, (batch, n_neg), dtype=np.int32),
+    }

@@ -36,6 +36,9 @@ JAX package's ``models/layers.py``.
   :func:`blockwise_attention` with v narrower than q and k; decode
   absorbs ``W_UK`` and ``W_UV`` and attends over the compressed cache.
 
+* :func:`segment_reduce` is ``jax.ops.segment_sum`` / ``segment_max``
+  in a fixed order of adds (the recsys and GNN models' reductions).
+
 :class:`ShardCtx` and :data:`LOCAL_CTX` are ``sharding.spec``'s.
 """
 
@@ -278,6 +281,47 @@ def swiglu_ffn(x: torch.Tensor, wi: torch.Tensor,
     gu = x @ wi.to(x.dtype)
     gate, up = torch.chunk(gu, 2, dim=-1)
     return (F.silu(gate) * up) @ wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Segment reductions (the recsys EmbeddingBag, GNN message passing)
+# ---------------------------------------------------------------------------
+
+def segment_order(segment_ids: torch.Tensor,
+                  num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What :func:`segment_reduce` needs of ``segment_ids`` (L,), computed
+    once for every reduction over the same ids: the rows whose id lies in
+    [0, num_segments), stably sorted by id, and each segment's length."""
+    seg = segment_ids.long()
+    rows = torch.nonzero((seg >= 0) & (seg < num_segments)).squeeze(1)
+    seg, perm = torch.sort(seg[rows], stable=True)
+    return rows[perm], torch.bincount(seg, minlength=num_segments)
+
+
+def segment_reduce(values: torch.Tensor, segment_ids: Optional[torch.Tensor],
+                   num_segments: int, mode: str = "sum",
+                   order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
+    """``jax.ops.segment_sum`` (``mode="sum"``) or ``segment_max``
+    (``"max"``) over axis 0: values (L, ...) and segment_ids (L,) in any
+    order -> (num_segments, ...).  Rows whose id lies outside [0,
+    num_segments) are dropped; an empty segment is 0 (sum) or -inf (max).
+    ``order`` is :func:`segment_order` of the ids, where the caller has it.
+
+    The rows are sorted by segment id (stable) and each segment reduced
+    in that order by ``torch.segment_reduce``, so the card adds in a
+    fixed order and two runs give the same bits (``index_add_`` and
+    ``scatter_reduce`` add in no fixed order there)."""
+    if mode not in ("sum", "max"):
+        raise ValueError(mode)
+    rows, lengths = (segment_order(segment_ids, num_segments)
+                     if order is None else order)
+    if rows.numel() == 0:
+        return torch.full((num_segments,) + tuple(values.shape[1:]),
+                          0.0 if mode == "sum" else -torch.inf,
+                          dtype=values.dtype, device=values.device)
+    return torch.segment_reduce(values[rows], mode, lengths=lengths,
+                                axis=0, unsafe=True)
 
 
 # ---------------------------------------------------------------------------

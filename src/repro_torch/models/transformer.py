@@ -172,12 +172,15 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device=None,
 
 def params_from_numpy(tree, device=None):
     """A tree of numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``
-    of the reference's ``init_lm``) as the port's params: the same dict
-    keys, each array copied to a tensor of its dtype on ``device`` (None:
-    the card)."""
+    of the reference's ``init_lm``, ``init_sage`` or a recsys ``init_*``)
+    as the port's params: the same dict keys and list positions, each
+    array copied to a tensor of its dtype on ``device`` (None: the
+    card)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev) for v in tree]
     return torch.tensor(np.asarray(tree), device=dev)
 
 
