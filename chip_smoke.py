@@ -70,7 +70,13 @@ From the root of a checkout, with one CUDA card:
    dh = 128, at dh = 96 (a width no model of the repo has: the
    tensor-core kernels' 128 instances, padded) and at dh = 256 (their 256
    instances), and in bf16 at dh = 100 (off the 16-byte stride: copied
-   with zero columns); and the fused scan's spill route at a window of
+   with zero columns); f32's narrow (32, 32) instance at row 6j's shape
+   (B = 512, S = T = 200, H = 2, dh = 32, not causal) on q, k and v split
+   from one (B, S, 3H, dh) tensor, which it must read with no copy
+   (``launch.tma_view`` passes each, and the wrapper copies nothing), and
+   causal with GQA (H = 8, Hk = 2), S = 300 != T = 333 (a ragged last KV
+   tile), each one launch of ``flash_attn_fwd_tf32[32]`` within f32's
+   2e-5 of the plain version; and the fused scan's spill route at a window of
    B = 64, S = 32,768 (each query's valid rows uniform in [S/4, 3S/4]),
    tk = 4,096, in f32 and int8, bit-equal to its plain version; each
    against its plain version.  It fails unless each call launched the
@@ -272,7 +278,7 @@ From the root of a checkout, with one CUDA card:
    its state (``recsys_phase``): (a) BERT4Rec (``configs/bert4rec.py``: d
    64, 2 blocks, 2 heads of 32, S 200, 2^20 items) at serve_p99 (B =
    512, ``recsys_seq_batch``): ``bert4rec_user_embedding`` launches
-   exactly 2 ``flash_attn_fwd_tf32[padded]`` and no other flash key, each
+   exactly 2 ``flash_attn_fwd_tf32[32]`` and no other flash key, each
    row within ``RECSYS_RTOL`` relative L2 of the same encode on the plain
    attention; ``score_all_items(u, item_embed, 100)`` returns the largest
    bf16 scores, descending, equal to the scores of the ids it returns,
@@ -314,7 +320,7 @@ From the root of a checkout, with one CUDA card:
    QPS and p50/p99.
    The kernels line's ``adc_scan_batch``, ``adc_fused_topk`` (f32, int8)
    and ``l2dist_wgmma`` rows count phase 14's launches too, and it gains
-   row 6j, ``flash_attn_fwd_tf32[padded]@bert4rec``, with BERT4Rec's.
+   row 6j, ``flash_attn_fwd_tf32[32]@bert4rec``, with BERT4Rec's.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -467,8 +473,10 @@ RETRIEVAL_CANDIDATES = 1_000_000   # retrieval_cand's n_candidates
 # order (flash in 3xTF32 against the plain scan)
 RECSYS_RTOL = 1e-5
 RECSYS_HOST_ROWS = 64       # (c): the rows held to the host's forward
-FLASH_KEY_6J = "flash_attn_fwd_tf32[padded]"   # BERT4Rec's dh 32, in f32
+FLASH_KEY_6J = "flash_attn_fwd_tf32[32]"   # BERT4Rec's dh 32, in f32
 FLASH_ROW_6J = FLASH_KEY_6J + "@bert4rec"      # its kernels-line row
+# phase 5: row 6j's attention (configs/bert4rec.py at serve_p99)
+NARROW_6J = dict(B=RECSYS_P99, S=200, H=2, dh=32)
 SAGE_FULL = (2708, 10_556, 1433, 7)     # full_graph_sm: nodes, edges, F, C
 SAGE_LG = dict(nodes=232_965, edges=114_615_892, batch=1024,
                fanouts=(15, 10), d_feat=602, classes=41)   # minibatch_lg
@@ -1008,6 +1016,7 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     from repro_torch.core.pq import adc_lut_batch
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
     from repro_torch.kernels.l2dist import l2_distances, l2dist_ref
+    from repro_torch.kernels.launch import tma_view
     from repro_torch.kernels.pq_adc import ops, ref
     dev = index.device
     codes = index.codes
@@ -1035,6 +1044,19 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
             ("flash_attn_fwd_wgmma[256]", torch.bfloat16, FLASH_WIDE_DH),
             ("flash_attn_fwd_wgmma[stride-pad]", torch.bfloat16,
              FLASH_OFF_STRIDE_DH))}
+    # f32's narrow (32, 32) instance at row 6j's shape (BERT4Rec's serve_p99
+    # attention: B 512, S = T = 200, two heads of 32, not causal) on q, k
+    # and v split from one (B, S, 3H, dh) tensor, read with no copy, and a
+    # causal GQA case with S != T and a ragged last KV tile
+    x6j = torch.randn(NARROW_6J["B"], NARROW_6J["S"], 3 * NARROW_6J["H"],
+                      NARROW_6J["dh"], generator=gen, device=dev)
+    narrow_calls = {
+        "row 6j's shape, split views": (
+            *torch.split(x6j, NARROW_6J["H"], dim=2), False),
+        "causal GQA, S != T": (*(
+            torch.randn(shape, generator=gen, device=dev) for shape in (
+                (2, 300, 8, NARROW_6J["dh"]), (2, 333, 2, NARROW_6J["dh"]),
+                (2, 333, 2, NARROW_6J["dh"]))), True)}
     q16, chunk16 = q.bfloat16(), chunk.bfloat16()
     chunk8 = torch.from_numpy(np.ascontiguousarray(data[:1 << 20])).to(dev)
     # the chunk in f32 (TMA loads) and in bf16 (16-byte cp.async copies)
@@ -1101,12 +1123,36 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
         outs[key] = flash_attention(*qkv, causal=True)
         ran[key] = {name for name, c in ops.LAUNCHES.items()
                     if c != before[name]}
+    narrow, narrow_ran, copies = {}, {}, {}
+    for what, (*qkv, causal) in narrow_calls.items():
+        before = dict(ops.LAUNCHES)
+        with counting_copies() as made:
+            narrow[what] = flash_attention(*qkv, causal=causal)
+        copies[what] = list(made)
+        narrow_ran[what] = {name for name, c in ops.LAUNCHES.items()
+                            if c != before[name]}
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     for key, got in ran.items():    # each call is keyed by its kernel
         if got != {launch_key(key)}:
             raise AssertionError(f"the call for {key} launched "
                                  f"{sorted(got)}")
+    for what, (*qkv, causal) in narrow_calls.items():
+        if narrow_ran[what] != {FLASH_KEY_6J}:
+            raise AssertionError(f"flash_attention f32 dh 32 ({what}) "
+                                 f"launched {sorted(narrow_ran[what])}, not "
+                                 f"{FLASH_KEY_6J}")
+        views = what.endswith("split views")
+        if views and (copies[what] or not all(
+                tma_view(x, torch.float32, x.shape[-1]) for x in qkv)):
+            raise AssertionError(f"flash_attention ({what}): copied "
+                                 f"{copies[what]} of the encode's views")
+        err = check_attn(f"{FLASH_KEY_6J} ({what})", narrow[what],
+                         flash_attn_ref(*qkv, causal=causal))
+        log(f"{FLASH_KEY_6J} {tuple(qkv[0].shape)} x {tuple(qkv[1].shape)} "
+            f"causal={causal} ({what}{', no copy' if views else ''}): max "
+            f"abs error {err}")
+    del narrow, narrow_calls, x6j
 
     for key, args in spill_calls.items():
         int8 = key.endswith("lut_int8]")
@@ -1178,6 +1224,23 @@ def drive_entry_points(index, top_n: int, data: np.ndarray,
     return launches, {"adc_scan": (codes, luts[0]),
                       "adc_scan_topk": (codes, luts[0], top_n),
                       **spill_calls, **l2_calls, **flash_calls}
+
+
+@contextlib.contextmanager
+def counting_copies():
+    """Inside it the flash wrapper's copies of its inputs (``operand``
+    calls) are listed by name in the list it yields."""
+    from repro_torch.kernels.flash_attn import ops
+    made, real = [], ops.operand
+
+    def counted(name, *args):
+        made.append(name)
+        return real(name, *args)
+    ops.operand = counted
+    try:
+        yield made
+    finally:
+        ops.operand = real
 
 
 def launch_key(row: str) -> str:

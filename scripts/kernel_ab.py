@@ -34,7 +34,10 @@ Qwen3-0.6B's widths (H 16, Hk 8), B = 1, S = T = 4096, causal, in bf16
 and in f32 at dh 128, 96 and 256, and in bf16 at dh 256 and at dh 100
 (off the 16-byte row stride), and at DeepSeek-V2-Lite's MLA prefill
 (H = Hk = 16, q and k 192 wide, v 128, B = 1, S = T = 4096, causal) in
-bf16 and f32; exact L2 at the ground-truth chunk, 256
+bf16 and f32, and at BERT4Rec's serve_p99 attention (B = 512, S = T =
+200, H = Hk = 2, dh 32, not causal; row 6j) in f32 on q, k and v split
+from one (B, S, 3H, dh) tensor, so a tree's copies of such views are
+timed as the encode pays them (SDPA with TF32 off beside it); exact L2 at the ground-truth chunk, 256
 queries x 2^20 vectors x 128, in f32, in bf16 and passed as uint8, in
 bf16 cut to SPACEV1B's d = 100 (rows off TMA's 16-byte stride) and to
 an odd d = 101, as int8 at d = 100, and in f32 and bf16 at GIST1M's d =
@@ -54,8 +57,8 @@ kernel's output and lse, its gradients' relative L2 error against
 ``flash_attn_bwd_ref`` (and, where the tree's plain version evaluates in f64, against that
 exact gradient, with the f32 plain version's own error beside it),
 whether two runs are bit-equal, SDPA's backward beside it (this tree's
-process), and the ``ptxas`` lines (registers, spills) of the bf16 flash
-forward's kernels (``--only flash``), of the backward's (``bwd``), of
+process), and the ``ptxas`` lines (registers, spills) of both flash
+forwards' kernels (``--only flash``), of the backward's (``bwd``), of
 the exact L2's (``l2``) and of the fused scan's (``adc``) where the
 process compiled them.  A reading whose call raises (a width, dtype or
 window an older tree's kernels do not take) is reported with its error.
@@ -100,7 +103,12 @@ FUSED = dict(N=10_000_000, dsub=4, topk=512,      # the fused windows
 TOPK = dict(N=10_000_000, topk=512)               # smoke phase 5's top-k
 ATTN = dict(S=4096, H=16, Hk=8)                  # Qwen3-0.6B's attention
 MLA = dict(S=4096, H=16, Hk=16)                 # DeepSeek-V2-Lite's MLA
-# (dtype, tag, q/k width, v width, the shape: S = T, H, Hk)
+# BERT4Rec's serve_p99 attention (row 6j): B 512, two heads of 32, not
+# causal, q, k and v split from one (B, S, 3H, dh) tensor as the encode
+# splits them (the copies a tree makes of such views are in its time)
+BERT4REC = dict(S=200, H=2, Hk=2, B=512, causal=False, views=True)
+# (dtype, tag, q/k width, v width, the shape: S = T, H, Hk, and where
+# given B (else 1), causal (else True), split views (else not))
 ATTN_CASES = ((torch.bfloat16, "bf16", 128, 128, ATTN),
               (torch.float32, "f32", 128, 128, ATTN),
               (torch.bfloat16, "bf16,dh96", 96, 96, ATTN),
@@ -109,7 +117,8 @@ ATTN_CASES = ((torch.bfloat16, "bf16", 128, 128, ATTN),
               (torch.bfloat16, "bf16,dh256", 256, 256, ATTN),
               (torch.bfloat16, "bf16,dh100", 100, 100, ATTN),
               (torch.bfloat16, "bf16,mla", 192, 128, MLA),
-              (torch.float32, "f32,mla", 192, 128, MLA))
+              (torch.float32, "f32,mla", 192, 128, MLA),
+              (torch.float32, "f32,bert4rec", 32, 32, BERT4REC))
 GROUPS = ("adc", "flash", "l2", "bwd")
 PREFIX = {"adc": "adc_", "flash": "flash_", "l2": "l2dist",   # sources
           "bwd": "flash_"}
@@ -184,9 +193,9 @@ def measure(tree: Path, seed: int, only=GROUPS) -> dict:
             out[f"flash_attn[{tag}]"] = reading(lambda: flash_reading(
                 dtype, dh, dv, shape, dev, gen, ran, yardsticks,
                 chip_smoke))
-        if "flash_attn_fwd_wgmma" in reports:   # compiled by this process
-            out["flash_attn_fwd_wgmma[ptxas]"] = ptxas_lines(
-                reports["flash_attn_fwd_wgmma"])
+        for source in ("flash_attn_fwd_wgmma", "flash_attn_fwd_tf32"):
+            if source in reports:               # compiled by this process
+                out[f"{source}[ptxas]"] = ptxas_lines(reports[source])
     if "bwd" in only:
         for dtype, tag, dh, dv, shape in BWD_CASES:
             out[f"flash_attn_bwd[{tag}]"] = reading(lambda: bwd_reading(
@@ -221,15 +230,21 @@ def reading(fn) -> dict:
 
 def flash_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
                   chip_smoke) -> dict:
-    """Flash attention at ``shape``'s S = T, H and Hk, q and k ``dh`` wide,
-    v ``dv`` wide."""
+    """Flash attention at ``shape``'s B, S = T, H and Hk, q and k ``dh``
+    wide, v ``dv`` wide, causal or not; with ``views``, q, k and v split
+    from one (B, S, H + 2 Hk, dh) tensor."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attn_ref
     F = torch.nn.functional
-    s, h, hk = shape["S"], shape["H"], shape["Hk"]
-    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
-               for sh in ((1, s, h, dh), (1, s, hk, dh), (1, s, hk, dv)))
-    out, launched = ran(lambda: flash_attention(q, k, v, causal=True))
-    want = flash_attn_ref(q, k, v, causal=True)
+    b, s, h, hk = shape.get("B", 1), shape["S"], shape["H"], shape["Hk"]
+    causal = shape.get("causal", True)
+    if shape.get("views"):
+        x = torch.randn(b, s, h + 2 * hk, dh, generator=gen, device=dev)
+        q, k, v = torch.split(x.to(dtype), [h, hk, hk], dim=2)
+    else:
+        q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                   for sh in ((b, s, h, dh), (b, s, hk, dh), (b, s, hk, dv)))
+    out, launched = ran(lambda: flash_attention(q, k, v, causal=causal))
+    want = flash_attn_ref(q, k, v, causal=causal)
     try:
         chip_smoke.check_attn(f"flash {dtype} dh={dh} dv={dv}", out, want)
         accepted = True
@@ -240,13 +255,13 @@ def flash_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
              row_rel_err=chip_smoke.row_rel_err(out, want),
              smoke_check_accepts=accepted,
              ms=chip_smoke.gpu_ms(
-                 lambda: flash_attention(q, k, v, causal=True), 20))
+                 lambda: flash_attention(q, k, v, causal=causal), 20))
     del out, want
     if yardsticks:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         r["sdpa_ms"] = chip_smoke.gpu_ms(
             lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
     return r
 
 

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Shows that the GPU tests of the 3xTF32 kernels catch a dropped lo
 term: for each of the flash kernels' four lo parts (the keys-split kernel,
-of dh <= 128 and of MLA's 192 x 128, and the one of 128 < dh <= 256 whose
-warpgroups split the head width),
+of 32 < dh <= 128 and of MLA's 192 x 128, the one of 128 < dh <= 256 whose
+warpgroups split the head width, and the narrow one of dh <= 32),
 and for the lo part of the exact-L2 kernel's streamed query slices, copies
 the tree with that part set to zero and runs the kernel's lo-term tests
 on the copy, which must fail.
 
     python3 scripts/plant_lo_faults.py [--dir build/plant] [--out FILE]
+                                       [--only FAULT ...]
 
 Each copy (``src/``, ``tests/``, ``pytest.ini``) goes under ``--dir``, a
 directory ``.gitignore`` lists, and builds its own kernels there.  The
-nine faults, one edit each:
+thirteen faults, one edit each:
 
 * ``no_Qhi_Klo`` (``flash_attn_fwd_tf32.cu``, the keys-split kernel):
   K lo = 0, so Q hi * K lo drops out of S;
@@ -21,14 +22,16 @@ nine faults, one edit each:
 * ``wide_no_Qhi_Klo`` ... ``wide_no_Phi_Vlo``: the same four in the
   kernel of 128 < dh <= 256 (the second occurrence of each line the two
   share);
+* ``narrow_no_Qhi_Klo`` ... ``narrow_no_Phi_Vlo``: the same four in the
+  narrow kernel of dh <= 32 (its own lines: the lo parts unrounded);
 * ``l2_streamed_no_Qlo_Vhi`` (``l2dist_wgmma.cu``): the prologue that
   splits the queries for the streamed path (d > 128) writes q lo = 0, so
   Q lo * V hi drops out of the distances.
 
 Runs ``pytest -m gpu -k <selection> tests/test_torch_cuda.py`` on each
 copy (the flash faults: every ``flash_tf32`` test at the widths of the
-kernel changed, dh <= 128 and the 192 x 128 ``[dv]`` instance, or dh 192
-and 256; the L2 fault: the
+kernel changed, 32 < dh <= 128 and the 192 x 128 ``[dv]`` instance, dh
+192 and 256, or the lo-term tests at dh 32; the L2 fault: the
 cross-term tests whose queries carry lo parts and whose query tile is
 streamed) and prints its exit code, its greatest differences and the
 tests that failed; ``--out`` also writes that log.  Exits non-zero unless
@@ -49,8 +52,11 @@ ROOT = Path(__file__).resolve().parents[1]
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd_tf32.cu"
 # (source, pytest -k selection, which occurrence of the line to change,
 # how many there are)
-FLASH = (FLASH_SRC, "flash_tf32 and not 192 and not 256")
+# (the narrow instance's dh 32 tests named by their ids: "tf32" holds "32")
+FLASH = (FLASH_SRC, "flash_tf32 and not 192 and not 256 and not dh32 and "
+                    "not split_views and not scores-32 and not values-32")
 WIDE = (FLASH_SRC, "flash_tf32_lo_terms and (192 or 256)")
+NARROW = (FLASH_SRC, "flash_tf32_lo_terms and (scores-32 or values-32)")
 L2 = ("src/repro_torch/kernels/l2dist/csrc/l2dist_wgmma.cu",
       "l2dist_wgmma_cross_terms and vectors and not 128")
 # lines both flash kernels share (occurrence 0 in the kernel of dh <= 128,
@@ -71,6 +77,17 @@ FAULTS = {
     "wide_no_Qlo_Khi": WIDE + (1, 2) + Q_LO,
     "wide_no_Plo_Vhi": WIDE + (1, 2) + P_LO,
     "wide_no_Phi_Vlo": WIDE + (1, 2) + V_LO,
+    "narrow_no_Qhi_Klo": NARROW + (0, 1) + (
+        "reinterpret_cast<float4*>(k_lo(st))[i] =",
+        "reinterpret_cast<float4*>(k_lo(st))[i] = make_float4(0.f, 0.f, "
+        "0.f, 0.f); (void)"),
+    "narrow_no_Qlo_Khi": NARROW + (0, 1) + (
+        "return __fsub_rn(y, tf32_hi(y));", "return 0.f;"),
+    "narrow_no_Plo_Vhi": NARROW + (0, 1) + (
+        "p_lo[slot] = __float_as_uint(__fsub_rn(p, hi));",
+        "p_lo[slot] = 0u;"),
+    "narrow_no_Phi_Vlo": NARROW + (0, 1) + (
+        "lv[e] = __fsub_rn(x, hv[e]);", "lv[e] = 0.f;"),
     "l2_streamed_no_Qlo_Vhi": L2 + (0, 1) + (
         "lo[i] = tf32_rna(__fsub_rn(x, h));",
         "lo[i] = 0.f;"),
@@ -101,10 +118,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dir", type=Path, default=ROOT / "build" / "plant")
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--only", nargs="+", choices=FAULTS, default=FAULTS,
+                    metavar="FAULT", help="the faults to plant (all by "
+                    "default)")
     args = ap.parse_args()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     log, caught = [], True
-    for name, (source, select, at, count, old, new) in FAULTS.items():
+    for name in args.only:
+        source, select, at, count, old, new = FAULTS[name]
         dst = args.dir / name
         plant(dst, source, at, count, old, new)
         run = subprocess.run(

@@ -10,26 +10,36 @@ Two kernels, written in CUDA C++ for ``sm_90a``, port the Pallas
   three products: one TF32 product would break the f32 tolerance, three
   keep it).
 
-Each kernel has four instances, named by the width of q and k (kDh, the
-K of the Q K^T product) and of v (kDv, the N of the P V product): (64,
-64), (128, 128), (192, 128) and (256, 256).  :func:`flash_plan` states
-the rule, the same for both dtypes: a head width up to 64 runs on the
-first, up to 128 on the second, up to 192 with v at most 128 wide on the
-third (DeepSeek-V2's MLA prefill: q and k 192 wide, v 128), the rest on
-the fourth.  The tensor maps take the true widths as their inner extent,
-so TMA reads the columns past dh (q, k) and dv (v) as zeros; the output
-is written at v's width.  TMA needs every row stride on 16 bytes: a
-width off it (bf16 % 8 != 0, f32 % 4 != 0) is copied into buffers
-zero-padded to the next multiple of 8 or 4 (zero columns add nothing to
-a score and give zero output columns, which are cut off), with the scale
-of the true dh.  Above dh = 256 the card has no kernel and the wrapper
-raises; the JAX package takes any width.
+Each kernel has instances named by the width of q and k (kDh, the K of
+the Q K^T product) and of v (kDv, the N of the P V product): (64, 64),
+(128, 128), (192, 128) and (256, 256) in both, and in f32 also (32, 32).
+:func:`flash_plan` states the rule per dtype.  f32: q/k up to 32 wide
+(so v too) runs on (32, 32), a narrow kernel of its own (a persistent
+block of four consumer warpgroups takes a (batch, KV head) with up to
+four 64-row q tiles of its query heads, and splits each 40-key K and V
+tile once for all of them: BERT4Rec's two heads of 32); up to 64 on (64,
+64), up to 128 on (128, 128), up to 192 with v at most 128 wide on (192,
+128) (DeepSeek-V2's MLA prefill: q and k 192 wide, v 128), the rest on
+(256, 256).  bf16: the same without (32, 32) (no model of the repo runs
+bf16 at dh <= 32), so up to 64 on (64, 64).  The tensor maps take the
+true widths as their inner extent, so TMA reads the columns past dh (q,
+k) and dv (v) as zeros; the output is written at v's width.  TMA needs
+every row stride on 16 bytes: a width off it (bf16 % 8 != 0, f32 % 4 !=
+0) is copied into buffers zero-padded to the next multiple of 8 or 4
+(zero columns add nothing to a score and give zero output columns, which
+are cut off), with the scale of the true dh.  Above dh = 256 the card
+has no kernel and the wrapper raises; the JAX package takes any width.
 
 The wrapper takes what the JAX one takes: any real dtype for each of q,
 k and v, mixed, and views.  ``launch.operand_dtype`` names the dtype the
 kernel computes in (bf16 where all three are uint8, int8 or bf16; f32
-otherwise); an input of another dtype, not contiguous or off a 16-byte
-boundary is copied first.  It returns q's dtype, as the JAX kernel does.
+otherwise).  The f32 kernel reads q, k and v through tensor maps at
+their own strides, so a view passes as it lies where ``launch.tma_view``
+says so (the last axis unit-stride, the other strides and the base on 16
+bytes: the q, k and v split from one (B, S, 3H, dh) tensor); the bf16
+kernel takes contiguous operands.  Any other input (another dtype, a
+layout the kernel cannot read) is copied first.  It returns q's dtype, as
+the JAX kernel does.
 v may be narrower than q and k (dv < dh), as the JAX model's attention
 takes it.
 
@@ -48,9 +58,10 @@ memory.
 
 :func:`flash_kernel` names the kernel, :func:`flash_instance` the key a
 launch is counted under: ``<kernel>[dv]`` where v is narrower than q;
-else ``<kernel>`` at dh 64 and 128, ``<kernel>[padded]`` at other
-widths up to 128 on the stride, ``<kernel>[256]`` above 128 on the
-stride, ``<kernel>[stride-pad]`` off it.  The wrapper keeps the JAX
+else ``<kernel>[stride-pad]`` off the stride; on it ``<kernel>`` at dh 64
+and 128, ``flash_attn_fwd_tf32[32]`` for f32 up to 32 (the narrow
+instance), ``<kernel>[padded]`` at other widths up to 128,
+``<kernel>[256]`` above 128.  The wrapper keeps the JAX
 package's layout — q (B, S, H, dh), k (B, T, Hk, dh), v (B, T, Hk, dv)
 — and runs the plain version when its tensors lie on the CPU.  On CUDA
 tensors it launches the kernel the plan names, or raises: it checks
@@ -96,10 +107,12 @@ import torch
 
 from repro_torch.kernels.flash_attn.ref import (flash_attn_bwd_ref,
                                                 flash_attn_ref)
-from repro_torch.kernels.launch import launch, operand, operand_dtype
+from repro_torch.kernels.launch import (launch, operand, operand_dtype,
+                                        tma_strides, tma_view)
 
 _MAX_DH = 256                   # the kernels' widest instance
 _INSTANCE_DH = (64, 128)        # instances taken without a [padded] key
+_NARROW_DH = 32                 # f32's narrow instance, (32, 32)
 
 
 def _step(dtype: torch.dtype) -> int:
@@ -134,10 +147,11 @@ def flash_instance(dtype: torch.dtype, dh: int,
     ``<kernel>[dv]`` where v is ``dv`` wide, narrower than q and k,
     whatever the strides; else ``<kernel>[stride-pad]`` for a head width
     off the 16-byte row stride (copied with zero columns first); on it,
-    ``<kernel>[256]`` above 128 (the 256 instance), ``<kernel>[padded]``
-    at other widths than 64 and 128 (its columns past dh read as zeros
-    up to the instance), else the kernel's name.  Raises ``ValueError``
-    where dv is not in 1 .. dh."""
+    ``<kernel>[256]`` above 128 (the 256 instance),
+    ``flash_attn_fwd_tf32[32]`` for f32 at dh <= 32 (the narrow (32, 32)
+    instance), ``<kernel>[padded]`` at other widths than 64 and 128 (its
+    columns past dh read as zeros up to the instance), else the kernel's
+    name.  Raises ``ValueError`` where dv is not in 1 .. dh."""
     name = flash_kernel(dtype, dh)
     if dv is not None and dv != dh:
         if not 1 <= dv < dh:
@@ -148,6 +162,8 @@ def flash_instance(dtype: torch.dtype, dh: int,
         return f"{name}[stride-pad]"
     if dh > 128:
         return f"{name}[256]"
+    if dh <= _NARROW_DH and operand_dtype(dtype) == torch.float32:
+        return f"{name}[32]"
     if dh not in _INSTANCE_DH:
         return f"{name}[padded]"
     return name
@@ -166,14 +182,18 @@ def flash_plan(dtype: torch.dtype, dh: int,
                dv: Optional[int] = None) -> FlashPlan:
     """The instance that computes attention over q and k ``dh`` wide and v
     ``dv`` wide (``dh`` when None) for inputs of ``dtype``, by the rule of
-    both kernels' C entry points: q/k at most 64 wide -> (64, 64); at most
-    128 -> (128, 128); at most 192 with v at most 128 -> (192, 128); else
-    (256, 256), the widths taken after rounding to the row stride.  Raises
-    ``ValueError`` as :func:`flash_instance` does."""
+    both kernels' C entry points, the widths taken after rounding to the
+    row stride.  f32: q/k at most 32 wide (v at most as wide) -> (32, 32);
+    at most 64 -> (64, 64); at most 128 -> (128, 128); at most 192 with v
+    at most 128 -> (192, 128); else (256, 256).  bf16: the same without
+    (32, 32), so q/k at most 64 wide -> (64, 64).  Raises ``ValueError``
+    as :func:`flash_instance` does."""
     dv = dh if dv is None else dv
     key = flash_instance(dtype, dh, dv)
     dp, dvp = flash_width(dtype, dh), flash_width(dtype, dv)
-    if dp <= 64:
+    if dp <= _NARROW_DH and operand_dtype(dtype) == torch.float32:
+        instance = (_NARROW_DH, _NARROW_DH)
+    elif dp <= 64:
         instance = (64, 64)
     elif dp <= 128:
         instance = (128, 128)
@@ -201,8 +221,9 @@ SMEM_CAP = 227 * 1024           # shared memory a block may have on an H100
 
 def flash_schedule(instance: Tuple[int, int]) -> FlashSchedule:
     """The launch of ``flash_attn_fwd_wgmma``'s (kDh, kDv) ``instance``
-    (one of :func:`flash_plan`'s four): a producer warpgroup beside the
-    two consumer warpgroups where kDv <= 128 (384 threads; 128-key tiles
+    (one of :func:`flash_plan`'s four for bf16): a producer warpgroup
+    beside the two consumer warpgroups where kDv <= 128 (384 threads;
+    128-key tiles
     at kDv = 64, 96-key at 128), the consumers alone at (256, 256) (256
     threads, 80-key tiles); as many stages as ``SMEM_CAP`` holds beside
     the 128-row q tile and 2 KB for the alignment and the barriers, at
@@ -258,9 +279,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plan = flash_plan(dtype, dh, dv)        # raises past dh = 256, dv > dh
     dp, dvp = plan.widths
     q_dtype = q.dtype
-    q, k = (operand(nm, x, dtype, 4, dp, dev) for nm, x in (("q", q),
-                                                            ("k", k)))
-    v = operand("v", v, dtype, 4, dvp, dev)
+    operands = (("q", q, dp), ("k", k, dp), ("v", v, dvp))
+    if dtype == torch.float32:
+        # the f32 kernel reads a view at its own strides where TMA can
+        q, k, v = (x if x.device == dev and tma_view(x, dtype, wd)
+                   else operand(nm, x, dtype, 4, wd, dev)
+                   for nm, x, wd in operands)
+        strides = [st for x in (q, k, v) for st in tma_strides(x)]
+    else:
+        q, k, v = (operand(nm, x, dtype, 4, wd, dev)
+                   for nm, x, wd in operands)
+        strides = []
     out = torch.empty(b, s, h, dvp, dtype=dtype, device=dev)
     lse = (torch.empty(b, h, s, dtype=torch.float32, device=dev)
            if return_lse else None)
@@ -268,7 +297,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = scale if scale is not None else 1.0 / math.sqrt(dh)
         launch(plan.key, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-               b, s, t, h, hk, dp, dvp, scale, int(causal))
+               b, s, t, h, hk, dp, dvp, scale, int(causal), *strides)
     if dvp != dv:
         out = out[..., :dv]
     out = out.to(q_dtype).contiguous()

@@ -10,13 +10,16 @@ L2 and flash-attention wrappers take any real dtype, as the JAX kernels
 do: :func:`operand_dtype` names the type their kernels compute in, and
 :func:`operand` copies an input into it (and pads its last axis) where
 the input is not already a contiguous, 16-byte aligned tensor of it.
+Kernels that read their operands through TMA tensor maps at the
+caller's strides (the f32 flash forward) take a view as it lies where
+:func:`tma_view` says so, with :func:`tma_strides` for its map.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -34,12 +37,14 @@ INSTANCES = ("adc_fused_topk[spill]",
              "flash_attn_fwd_wgmma[stride-pad]",
              "flash_attn_fwd_tf32[stride-pad]",
              "flash_attn_fwd_wgmma[dv]", "flash_attn_fwd_tf32[dv]",
+             "flash_attn_fwd_tf32[32]",
              "flash_attn_bwd[bf16]", "flash_attn_bwd[dv]",
              "flash_attn_bwd[bf16,dv]")
 # kernel launches since the last reset_launches()
 LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # each C entry point's arguments; the last is always the stream
 _SIGNATURES = {
     "adc_scan_batch": (_P, _P, _P) + (_I,) * 8 + (_P,),
@@ -48,7 +53,9 @@ _SIGNATURES = {
     "adc_scan_topk": (_P,) * 4 + (_I,) * 7 + (_P,),
     "l2dist_wgmma": (_P,) * 6 + (_I,) * 6 + (_P,),
     "flash_attn_fwd_wgmma": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attn_fwd_tf32": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P),
+    # f32 flash: the last 9 are q, k and v's batch, row and head strides
+    "flash_attn_fwd_tf32": (_P,) * 5 + (_I,) * 7 + (_F, _I) + (_L,) * 9
+                           + (_P,),
     "flash_attn_bwd": (_P,) * 11 + (_I,) * 7 + (_F, _I, _I, _P),
 }
 
@@ -123,6 +130,34 @@ def operand(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
     out[..., d:].zero_()
     out[..., :d].copy_(t)
     return out
+
+
+def tma_view(t: torch.Tensor, dtype: torch.dtype, width: int) -> bool:
+    """Whether a kernel that reads ``t`` through a TMA tensor map at its
+    own strides takes it as it lies, with no copy: ``t`` is of ``dtype``,
+    its last axis is ``width`` long and unit-stride, every other axis
+    longer than 1 has a positive stride of a multiple of 16 bytes, and
+    its first element lies on a 16-byte boundary (TMA's rules for a
+    tensor map's base and strides).  The q, k and v split from one (B, S,
+    3H, dh) f32 tensor with dh % 4 == 0 pass; a view 4 bytes off, a
+    strided last axis, or rows off 16 bytes do not."""
+    if t.dtype != dtype or t.dim() < 1 or t.shape[-1] != width:
+        return False
+    if width > 1 and t.stride(-1) != 1:
+        return False
+    item = t.element_size()
+    if any(n > 1 and (st <= 0 or st * item % 16)
+           for n, st in zip(t.shape[:-1], t.stride()[:-1])):
+        return False
+    return t.data_ptr() % 16 == 0
+
+
+def tma_strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """The element strides of ``t``'s leading axes for a tensor map, of a
+    tensor :func:`tma_view` takes: its own, except on an axis of length 1,
+    whose stride no load reads, given as 16 bytes' worth."""
+    return tuple(st if n > 1 else 16 // t.element_size()
+                 for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -11,8 +11,9 @@ counterpart of the JAX package's ``models/recsys.py``).
   rounds them after, the same values as rounding the table first, without
   a copy of DLRM's 7 GB of tables on every call.
 * BERT4Rec's attention is ``layers.blockwise_attention(causal=False)``:
-  the flash kernel on the card (``flash_attn_fwd_tf32[padded]`` at its
-  head width 32 in f32), the plain scan on the CPU.
+  the flash kernel on the card (``flash_attn_fwd_tf32[32]``, the narrow
+  instance, at its head width 32 in f32, reading the q, k and v split
+  from the block's product as they lie), the plain scan on the CPU.
 * :func:`score_all_items` is a bf16 product (cuBLAS, as the reference's
   is XLA's) and a top-k that gives ties to the lowest id, as
   ``lax.top_k`` does (``core.topk._select``, a stable sort).

@@ -489,8 +489,87 @@ def test_cuda_flash_tf32_matches_plain(cuda, dh, causal):
         _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
 
 
+NARROW_KEY = "flash_attn_fwd_tf32[32]"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 96, 128, 192, 256])
+@pytest.mark.parametrize("dh", [4, 8, 20, 32])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_tf32_dh32_matches_plain(cuda, dh, causal):
+    """The f32 narrow instance (32, 32) (a persistent block of four
+    warpgroups a (batch, KV head), 40-key tiles split once a block) on
+    test_cuda_flash_tf32_matches_plain's shapes, plus T = 4,096 (the ring
+    wraps ~34 times), T = 40 (one tile) and G = 4 over 300 rows (five q
+    tiles of each head: two chunks of a unit); the lse against the plain
+    version's (relative to at least 1); f32's 2e-5; one launch of
+    ``flash_attn_fwd_tf32[32]`` each."""
+    rng = np.random.default_rng(34)
+    assert flash_plan(torch.float32, dh).instance == (32, 32)
+    for B, S, T, H, Hk in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
+                           (1, 300, 70, 2, 1), (2, 1, 129, 2, 2),
+                           (1, 513, 513, 8, 4), (1, 33, 33, 2, 2),
+                           (1, 300, 4096, 4, 1), (3, 40, 40, 2, 2)):
+        q, k, v = (_t(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda) for shape in ((B, S, H, dh), (B, T, Hk, dh),
+                                (B, T, Hk, dh)))
+        before = dict(launch.LAUNCHES)
+        got, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        torch.cuda.synchronize()
+        grew = {name: c - before[name]
+                for name, c in launch.LAUNCHES.items() if c != before[name]}
+        assert grew == {NARROW_KEY: 1}, (B, S, T, H, Hk)
+        want, want_lse = flash_attn_ref(q, k, v, causal=causal,
+                                        return_lse=True)
+        _assert_attn_close(got, want)
+        assert float(((lse - want_lse).abs()
+                      / want_lse.abs().clamp_min(1.0)).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_flash_tf32_reads_split_views_without_copies(cuda,
+                                                          monkeypatch):
+    """q, k and v split from one (B, S, 3H, dh) f32 tensor, as BERT4Rec's
+    encode splits them, pass ``launch.tma_view`` and reach the kernel as
+    they lie (``operand``, which copies, is never called): on the narrow
+    instance at BERT4Rec's dh 32 (not causal, and causal with G = 2) and at
+    dh 20, and on the (64, 64) instance at dh 64; so does a (B, H, S, dh)
+    tensor's transpose (strides not in the axes' order).  Each output
+    matches the plain version."""
+    from repro_torch.kernels.flash_attn import ops
+    copies = []
+    real = ops.operand
+
+    def spy(name, *args):
+        copies.append(name)
+        return real(name, *args)
+    monkeypatch.setattr(ops, "operand", spy)
+    rng = np.random.default_rng(35)
+    for B, S, H, Hk, dh, causal in ((8, 200, 2, 2, 32, False),
+                                    (2, 130, 4, 2, 32, True),
+                                    (2, 70, 2, 2, 20, False),
+                                    (2, 100, 4, 2, 64, True)):
+        x = _t(rng.standard_normal((B, S, H + 2 * Hk, dh)).astype(
+            np.float32)).to(cuda)
+        q, k, v = torch.split(x, [H, Hk, Hk], dim=2)
+        assert all(launch.tma_view(t, torch.float32, dh) for t in (q, k, v))
+        before = dict(launch.LAUNCHES)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        grew = {n for n, c in launch.LAUNCHES.items() if c != before[n]}
+        assert grew == {flash_plan(torch.float32, dh).key}
+        assert copies == []
+        _assert_attn_close(got, flash_attn_ref(q, k, v, causal=causal))
+    q, k, v = (_t(rng.standard_normal((2, 2, 200, 32)).astype(
+        np.float32)).to(cuda).transpose(1, 2) for _ in range(3))
+    assert all(launch.tma_view(t, torch.float32, 32) for t in (q, k, v))
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert copies == []
+    _assert_attn_close(got, flash_attn_ref(q, k, v, causal=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [32, 64, 96, 128, 192, 256])
 @pytest.mark.parametrize("side", ["scores", "values"])
 def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
     """Inputs on which every lo term of the 3xTF32 kernel moves the
@@ -500,9 +579,11 @@ def test_cuda_flash_tf32_lo_terms(cuda, dh, side):
     dropped, a weight by ~5.6e-4 of itself; "values": v eight times as
     large, so a dropped P hi * V lo or P lo * V hi moves the output by
     ~1e-3 or ~5e-4 against a limit of ~1.8e-4.  Causal, so the first rows
-    of each head, over a few keys, carry the whole error.  dh = 96 runs on
-    the 128 instance, its last box never loaded; 192 and 256 on the 256
-    instance, the two warpgroups each taking half the head width."""
+    of each head, over a few keys, carry the whole error.  dh = 32 runs on
+    the narrow (32, 32) instance (its lo parts unrounded: the tensor cores
+    truncate them), dh = 96 on the 128 instance, its last box never
+    loaded; 192 and 256 on the 256 instance, the two warpgroups each
+    taking half the head width."""
     rng = np.random.default_rng(33)
     B, S, H, Hk = 2, 80, 4, 2
     gain = dict(scores=(2.0, 2.0, 1.0), values=(1.0, 1.0, 8.0))[side]
@@ -541,13 +622,16 @@ def _flash_case(rng, cuda, dtype, shape, dh, causal):
                          ids=["f32", "bf16"])
 def test_cuda_flash_padded_heads_match_plain(cuda, dtype, dh, causal):
     """The tensor-core kernels at head widths other than 64 and 128: the
-    64 instance up to dh = 64, the 128 one above, the tensor maps' inner
-    extent the true dh (TMA fills the columns past it with zeros; at f32
-    dh <= 32 and 68..96 a box lies wholly past dh and is never loaded),
-    stores masked to dh, scale 1/sqrt(dh); S and T off the tiles, S != T
-    both ways, MQA (Hk = 1), G = 2; f32's 2e-5 and the bf16 limits."""
+    64 instance up to dh = 64 (f32 up to 32: the narrow (32, 32) instance,
+    counted as ``[32]``), the 128 one above, the tensor maps' inner extent
+    the true dh (TMA fills the columns past it with zeros; at f32 68..96 a
+    box lies wholly past dh and is never loaded), stores masked to dh,
+    scale 1/sqrt(dh); S and T off the tiles, S != T both ways, MQA (Hk =
+    1), G = 2; f32's 2e-5 and the bf16 limits."""
     rng = np.random.default_rng(36)
-    assert flash_instance(dtype, dh) == f"{flash_kernel(dtype, dh)}[padded]"
+    narrow = dtype == torch.float32 and dh <= 32
+    assert flash_instance(dtype, dh) == flash_kernel(dtype, dh) + (
+        "[32]" if narrow else "[padded]")
     for shape in ((2, 200, 200, 4, 2), (1, 70, 300, 4, 1),
                   (1, 300, 70, 2, 1), (1, 33, 33, 2, 2)):
         _flash_case(rng, cuda, dtype, shape, dh, causal)
@@ -607,12 +691,15 @@ def test_cuda_flash_dh192_no_longer_raises(cuda, dtype):
     (torch.float32, 256, 1, "flash_attn_fwd_tf32[256]"),
     (torch.float32, 128, 1, "flash_attn_fwd_tf32"),     # copied to align
     (torch.float32, 96, 1, "flash_attn_fwd_tf32[padded]"),
+    (torch.float32, 32, 0, "flash_attn_fwd_tf32[32]"),
+    (torch.float32, 32, 1, "flash_attn_fwd_tf32[32]"),  # copied to align
 ])
 def test_cuda_flash_dispatch_launches(cuda, dtype, dh, offset, kernel):
     """Every head width up to 256 runs on the tensor-core kernels (bf16 on
-    flash_attn_fwd_wgmma, f32 in 3xTF32 on flash_attn_fwd_tf32; other than
-    64 and 128 counted as [padded], above 128 as [256], off the 16-byte
-    row stride as [stride-pad]), also from views that do not start on a
+    flash_attn_fwd_wgmma, f32 in 3xTF32 on flash_attn_fwd_tf32; f32 up to
+    32 counted as [32], other widths than 64 and 128 as [padded], above
+    128 as [256], off the 16-byte row stride as [stride-pad]), also from
+    views that do not start on a
     16-byte boundary; the launch count of the kernel that ran, and only
     it, goes up."""
     rng = np.random.default_rng(28)
@@ -932,7 +1019,8 @@ def test_cuda_flash_any_dtype_matches_plain(cuda, dtypes, dh):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_cuda_flash_strided_views_match_plain(cuda, dtype):
     """q, k and v sliced out of one wider tensor (views, not contiguous)
-    are copied before the loads and give the plain version's output."""
+    give the plain version's output: read as they lie in f32 (the
+    tensor maps take their strides), copied before the loads in bf16."""
     rng = np.random.default_rng(49)
     x = _values(rng, dtype, (1, 130, 7, 64)).to(cuda)
     q, k, v = x[:, :, :4], x[:, :, 4:6], x[:, :, 5:7]
@@ -1427,7 +1515,7 @@ def test_cuda_reduced_lm_forward_matches_cpu(cuda, arch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dk,dv", [(192, 128), (64, 32), (96, 32),
                                    (256, 128), (160, 64), (100, 60),
-                                   (136, 120)])
+                                   (136, 120), (32, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_flash_narrow_v_matches_plain(cuda, dtype, dk, dv):
@@ -1436,7 +1524,8 @@ def test_cuda_flash_narrow_v_matches_plain(cuda, dtype, dk, dv):
     (192, 128) instance at 192 x 128, 160 x 64 and 136 x 120 (V's tensor
     map at the true dv; a V box wholly past dv at 160 x 64); 256 x 128 on
     the 256 instance, its V boxes past dv cleared; a narrower v on the 64
-    and 128 instances (a V box wholly past dv at 96 x 32); an off-stride
+    and 128 instances (a V box wholly past dv at 96 x 32), and in f32 32 x
+    16 on the narrow (32, 32) instance (bf16: the 64 one); an off-stride
     pair (bf16 100 x 60) copied to 104 x 64 first.  Causal and not, S and
     T off the tiles, S != T both ways, MQA and H = Hk; one launch of
     flash_instance's key each."""

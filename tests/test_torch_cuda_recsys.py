@@ -100,7 +100,7 @@ def test_cuda_bert4rec_launches_flash_and_matches_host(cuda):
 @pytest.mark.gpu
 def test_cuda_bert4rec_attention_at_full_shape(cuda):
     """BERT4Rec's attention at its full config's shape: one launch of
-    the f32 kernel's padded (64, 64) instance, against the plain scan on
+    the f32 kernel's narrow (32, 32) instance, against the plain scan on
     the card."""
     cfg = get_config("bert4rec")
     dh = cfg.embed_dim // cfg.n_heads
@@ -110,7 +110,7 @@ def test_cuda_bert4rec_attention_at_full_shape(cuda):
     launch.reset_launches()
     got = L.blockwise_attention(q, k, v, causal=False,
                                 block_size=min(512, cfg.seq_len))
-    assert launch.LAUNCHES["flash_attn_fwd_tf32[padded]"] == 1
+    assert launch.LAUNCHES["flash_attn_fwd_tf32[32]"] == 1
     want = L._attention_fwd_scan(q, k, v, False, 0, cfg.seq_len,
                                  dh ** -0.5)[0]
     torch.testing.assert_close(got, want, rtol=FLASH_F32, atol=FLASH_F32)

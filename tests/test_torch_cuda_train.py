@@ -232,6 +232,39 @@ def test_cuda_attention_vjp_matches_cpu(cuda, dtype):
 
 
 @pytest.mark.gpu
+def test_cuda_attention_vjp_narrow_matches_cpu(cuda):
+    """A gradient through ``layers._FlashAttention`` at dh 32 in f32
+    (BERT4Rec's and the reduced LMs' head width): the forward on the
+    narrow (32, 32) instance with its lse, the backward on its (64, 64)
+    instance, one launch each; dq, dk, dv within phase 12's 1e-4 relative
+    L2 of the plain scan's gradients (the CPU path), the lse within
+    ``LSE_REL`` of the plain forward's; G = 2, S != T."""
+    x = _inputs(torch.device("cpu"), 2, 200, 160, 4, 2, 32, torch.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v, do = (t.to(dev).detach().clone() for t in x)
+        for t in (q, k, v):
+            t.requires_grad_()
+        launch.reset_launches()
+        out = L.blockwise_attention(q, k, v, causal=False, block_size=160)
+        out.backward(do)
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
+                "flash_attn_fwd_tf32[32]": 1, BWD_KEY: 1}
+            assert flash_bwd_plan(torch.float32, 32).instance == (64, 64)
+            _, lse = flash_attention(q.detach(), k.detach(), v.detach(),
+                                     causal=False, return_lse=True)
+            _, want = flash_attn_ref(q.detach(), k.detach(), v.detach(),
+                                     causal=False, return_lse=True)
+            assert float(((lse - want).abs()
+                          / want.abs().clamp_min(1.0)).max()) <= LSE_REL
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(g, w) <= VJP_REL[torch.float32]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("caller_tf32", [False, True])
 def test_cuda_lm_loss_grads_match_cpu(cuda, caller_tf32):
     """A reduced Qwen3-0.6B's f32 loss gradients on the card (flash
@@ -257,7 +290,7 @@ def test_cuda_lm_loss_grads_match_cpu(cuda, caller_tf32):
     got, m = value_and_grad(loss_fn, on_card, batch)
     torch.cuda.synchronize()
     assert torch.backends.cuda.matmul.allow_tf32 == caller_tf32
-    fwd = flash_plan(torch.float32, cfg.d_head).key     # dh 32: [padded]
+    fwd = flash_plan(torch.float32, cfg.d_head).key     # dh 32: [32]
     assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
         fwd: 2 * cfg.n_layers, BWD_KEY: cfg.n_layers}
     assert float(m["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)

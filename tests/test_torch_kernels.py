@@ -261,6 +261,9 @@ def test_l2_distances_take_strided_views():
     (2, 16, 2, 2, 6, True, 8, 8),
     (1, 16, 2, 1, 192, True, 16, 8),
     (1, 16, 2, 2, 256, False, 8, 16),
+    # BERT4Rec's attention (two heads of 32, S = T = 200, not causal): the
+    # card's narrow (32, 32) instance in f32
+    (2, 200, 2, 2, 32, False, 200, 40),
 ])
 @MODES
 def test_flash_attention_matches_jax(B, S, H, Hk, dh, causal, bq, bk,
@@ -380,8 +383,8 @@ def test_new_wrappers_run_plain_versions_on_cpu_tensors():
     (torch.float32, 128, "flash_attn_fwd_tf32"),
     (torch.float32, 64, "flash_attn_fwd_tf32"),
     (torch.float32, 96, "flash_attn_fwd_tf32"),     # padded to 128
-    (torch.float32, 32, "flash_attn_fwd_tf32"),     # padded to 64
-    (torch.float32, 36, "flash_attn_fwd_tf32"),
+    (torch.float32, 32, "flash_attn_fwd_tf32"),     # the narrow instance
+    (torch.float32, 36, "flash_attn_fwd_tf32"),     # padded to 64
     (torch.float32, 8, "flash_attn_fwd_tf32"),
     (torch.float32, 6, "flash_attn_fwd_tf32"),      # rows off 16 bytes
     (torch.float32, 1, "flash_attn_fwd_tf32"),
@@ -395,8 +398,8 @@ def test_flash_kernel_rule(dtype, dh, kernel):
     every head width up to 256.  A head width off TMA's 16-byte row
     stride (bf16 dh % 8, f32 dh % 4) is padded with zero columns to it
     and counts as [stride-pad]; on it, above 128 the 256 instance counts
-    as [256], and a width other than an instance's 64 or 128 as
-    [padded]."""
+    as [256], f32 up to 32 the narrow (32, 32) instance as [32], and a
+    width other than an instance's 64 or 128 as [padded]."""
     assert flash_kernel(dtype, dh) == kernel
     key = flash_instance(dtype, dh)
     step = 8 if dtype == torch.bfloat16 else 4
@@ -404,6 +407,8 @@ def test_flash_kernel_rule(dtype, dh, kernel):
         assert key == f"{kernel}[stride-pad]"
     elif dh > 128:
         assert key == f"{kernel}[256]"
+    elif dh <= 32 and dtype == torch.float32:
+        assert key == f"{kernel}[32]"
     elif dh not in (64, 128):
         assert key == f"{kernel}[padded]"
     else:
@@ -506,7 +511,7 @@ _WG, _TF = "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32"
     (_F32, 192, 128, (192, 128), (192, 128), f"{_TF}[dv]"),
     (_BF, 48, 32, (64, 64), (48, 32), f"{_WG}[dv]"),            # reduced
     (_BF, 100, 60, (128, 128), (104, 64), f"{_WG}[dv]"),        # off stride
-    (_F32, 6, 2, (64, 64), (8, 4), f"{_TF}[dv]"),
+    (_F32, 6, 2, (32, 32), (8, 4), f"{_TF}[dv]"),
     (_BF, 128, 128, (128, 128), (128, 128), _WG),                # dv == dh
     (_F32, 192, 192, (256, 256), (192, 192), f"{_TF}[256]"),
     (_BF, 100, 100, (128, 128), (104, 104), f"{_WG}[stride-pad]"),
@@ -525,13 +530,28 @@ _WG, _TF = "flash_attn_fwd_wgmma", "flash_attn_fwd_tf32"
     (_F32, 96, None, (128, 128), (96, 96), f"{_TF}[padded]"),
     (_F32, 256, None, (256, 256), (256, 256), f"{_TF}[256]"),
     (_BF, 256, None, (256, 256), (256, 256), f"{_WG}[256]"),
+    # f32 up to 32 wide: the narrow instance (BERT4Rec's heads of 32)
+    (_F32, 32, None, (32, 32), (32, 32), f"{_TF}[32]"),
+    (_F32, 20, None, (32, 32), (20, 20), f"{_TF}[32]"),
+    (_F32, 8, None, (32, 32), (8, 8), f"{_TF}[32]"),
+    (_F32, 6, None, (32, 32), (8, 8), f"{_TF}[stride-pad]"),
+    (_F32, 1, None, (32, 32), (4, 4), f"{_TF}[stride-pad]"),
+    (_F32, 32, 16, (32, 32), (32, 16), f"{_TF}[dv]"),
+    (_F32, 30, 10, (32, 32), (32, 12), f"{_TF}[dv]"),
+    (_F32, 36, None, (64, 64), (36, 36), f"{_TF}[padded]"),
+    (_F32, 33, None, (64, 64), (36, 36), f"{_TF}[stride-pad]"),
+    # bf16 keeps (64, 64) there: no model of the repo runs bf16 at dh <= 32
+    (_BF, 32, None, (64, 64), (32, 32), f"{_WG}[padded]"),
+    (_BF, 32, 16, (64, 64), (32, 16), f"{_WG}[dv]"),
+    (_BF, 8, None, (64, 64), (8, 8), f"{_WG}[padded]"),
 ], ids=str)
 def test_flash_plan(dtype, dh, dv, instance, widths, key):
     """The instance both kernels' C entry points pick, the widths the
     wrapper passes them (rounded to the 16-byte row stride) and the launch
-    key: (64, 64) up to 64, (128, 128) up to 128, (192, 128) up to 192
-    with v at most 128 wide (MLA's prefill, in f32 as in bf16: no v
-    padded to q's width), (256, 256) for the rest."""
+    key: in f32 (32, 32) up to 32, then in both dtypes (64, 64) up to 64,
+    (128, 128) up to 128, (192, 128) up to 192 with v at most 128 wide
+    (MLA's prefill, in f32 as in bf16: no v padded to q's width), (256,
+    256) for the rest."""
     plan = flash_plan(dtype, dh, dv)
     assert plan == (instance, widths, key)
     assert plan.key == flash_instance(dtype, dh, dv)
@@ -542,8 +562,10 @@ def test_flash_plan(dtype, dh, dv, instance, widths, key):
 def test_flash_plan_takes_the_smallest_instance_that_holds(dtype):
     """For every pair 1 <= dv <= dh <= 256 the plan's instance holds the
     widths it passes (kDh >= q/k's, kDv >= v's), and no instance earlier in
-    (64, 64), (128, 128), (192, 128), (256, 256) does."""
-    order = ((64, 64), (128, 128), (192, 128), (256, 256))
+    its dtype's order does: (32, 32) in f32 only, then (64, 64), (128,
+    128), (192, 128), (256, 256)."""
+    order = (((32, 32),) if dtype == _F32 else ()) + (
+        (64, 64), (128, 128), (192, 128), (256, 256))
     for dh in range(1, 257, 3):
         for dv in range(1, dh + 1, 5):
             plan = flash_plan(dtype, dh, dv)
@@ -552,6 +574,36 @@ def test_flash_plan_takes_the_smallest_instance_that_holds(dtype):
                                  flash_width(dtype, dv))
             holds = [i for i in order if i[0] >= dp and i[1] >= dvp]
             assert plan.instance == holds[0]
+
+
+def test_tma_view_rule():
+    """``launch.tma_view``: the f32 kernel reads q, k and v split from one
+    (B, S, 3H, dh) tensor (BERT4Rec's encode) as they lie, and a (B, H,
+    S, dh) tensor's transpose too; it refuses another dtype or width, a
+    view 4 bytes off a 16-byte boundary, a last axis that is not
+    unit-stride and rows off 16 bytes (all copied first).
+    ``launch.tma_strides`` gives the leading axes' strides, 16 bytes'
+    worth on an axis of length 1."""
+    x = torch.zeros(2, 200, 6, 32)
+    q, k, v = torch.split(x, 2, dim=2)
+    assert all(launch.tma_view(t, torch.float32, 32) for t in (q, k, v))
+    assert launch.tma_strides(q) == (38400, 192, 32)
+    assert k.data_ptr() - q.data_ptr() == 256
+    assert launch.tma_view(torch.zeros(2, 2, 200, 32).transpose(1, 2),
+                           torch.float32, 32)
+    assert launch.tma_view(x[:, :, :1], torch.float32, 32)       # Hk = 1
+    assert launch.tma_strides(x[:, :, :1]) == (38400, 192, 4)
+    assert not launch.tma_view(q, torch.bfloat16, 32)            # dtype
+    assert not launch.tma_view(q, torch.float32, 36)             # width
+    flat = torch.zeros(2 * 200 * 2 * 32 + 1)
+    off = flat[1:].view(2, 200, 2, 32)                           # 4 bytes off
+    assert off.data_ptr() % 16 == 4
+    assert not launch.tma_view(off, torch.float32, 32)
+    assert not launch.tma_view(torch.zeros(2, 200, 2, 64)[..., ::2],
+                               torch.float32, 32)                # last stride
+    rows = torch.zeros(2, 200, 2, 33)[..., :32]                  # 132 B rows
+    assert rows.stride(-1) == 1 and rows.data_ptr() % 16 == 0
+    assert not launch.tma_view(rows, torch.float32, 32)
 
 
 def test_flash_attention_narrow_v_on_cpu_runs_the_plain_version():
