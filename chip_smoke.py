@@ -114,8 +114,8 @@ From the root of a checkout, with one CUDA card:
    then saves a snapshot to a temporary directory, loads it onto the card
    and requires equal ids and distances on the dense and fused paths;
    runs the background compactor (``min_delta`` 4,096) while
-   ``COMPACTOR_BATCHES`` batches of 1,024 inserts (10; 20 before phase
-   14, a ``reduced`` line) alternate with serving windows, and requires
+   ``COMPACTOR_BATCHES`` batches of 1,024 inserts (5; 20 before phase
+   14, 10 before phase 15, a ``reduced`` line) alternate with serving windows, and requires
    every inserted id sealed exactly once after
    ``stop_compactor(flush=True)`` (which re-raises a seal's error); and
    trains OPQ over the N rows on the card in ``OPQ_ROUNDS`` rounds (2;
@@ -154,7 +154,8 @@ From the root of a checkout, with one CUDA card:
 9. runs the mesh half over the index as phase 8 leaves it
    (``mesh_phase``, no new index): ``make_test_mesh(4)``, four cards where
    there are four, else four logical devices on ``cuda:0`` (printed),
-   whose shards then run one after another on one card: (a)
+   whose shards then run one after another on one card; (a) and (c)
+   serve the first ``MESH_QUERIES`` (128) queries, a ``reduced`` line: (a)
    ``make_executor`` over the mesh and over one half of it
    (``split_mesh``) serves the dense, fused and int8 paths, each answer
    equal to a one-device executor's and each path's kernel launched
@@ -189,10 +190,11 @@ From the root of a checkout, with one CUDA card:
    kernel's share of it; (b) the f32 ``lm_decode_step`` over the first
    64 positions of one sequence equals ``lm_forward(dtype=float32)``
    within rtol = atol = 2e-3; (c) greedy ``LMServer.generate`` (B = 8,
-   prompt 64, 64 new tokens) twice gives the same tokens, in the
+   prompt 32, 32 new tokens: 64 each before phase 15, a ``reduced``
+   line) twice gives the same tokens, in the
    vocabulary, the first of them the argmax of the f32 prefill's logits
    of the prompts (or within 2e-3 of it: a rounding tie), and prints
-   tokens/s; (d) ``RAGPipeline.answer_batch`` of ``RAG_QUERIES`` (8, a
+   tokens/s; (d) ``RAGPipeline.answer_batch`` of ``RAG_QUERIES`` (4, a
    ``reduced`` line) queries at k = 10,
    through ``submit`` and through a two-replica ``make_serving_stack``
    router: the retrieved ids equal ``batch_query``'s top-10, the dense
@@ -320,7 +322,43 @@ From the root of a checkout, with one CUDA card:
    QPS and p50/p99.
    The kernels line's ``adc_scan_batch``, ``adc_fused_topk`` (f32, int8)
    and ``l2dist_wgmma`` rows count phase 14's launches too, and it gains
-   row 6j, ``flash_attn_fwd_tf32[32]@bert4rec``, with BERT4Rec's.
+   row 6j, ``flash_attn_fwd_tf32[32]@bert4rec``, with BERT4Rec's;
+15. trains the recsys and GNN models at full width in f32 (TF32 off)
+   through ``models.api.build_cell(arch, shape)`` and its cell's loss,
+   random weights and batches from ``--seed``, after phase 14
+   (``recsys_train_phase``): (a) row 7e, ``flash_attn_bwd`` at a
+   BERT4Rec microbatch's shape (B = 16,384, S = T = 200, H = Hk = 2, dh
+   32, not causal, its (64, 64) instance) with phase 12 (a)'s checks
+   (against its plain version in f64, evaluated ``BWD_REF_ROWS`` batch
+   rows at a time, two runs, the forward's output and lse), timed beside
+   its plain version,
+   SDPA's f32 backward and its bound; then for BERT4Rec, MIND, DLRM-RM2
+   and Wide&Deep at train_batch (B = 65,536, ``data.synthetic``'s ids
+   over the whole 2^20-row tables) and GraphSAGE at full_graph_sm,
+   minibatch_lg (phase 14's sampled batch) and molecule (the reference's
+   dummy node added), each batch held to the cell's abstract args: (b)
+   the loss gradient at BERT4Rec's first microbatch through the kernels
+   (one ``flash_attn_fwd_tf32[32]`` and one ``flash_attn_bwd`` a block)
+   within ``TRAIN_GRAD_RTOL`` relative L2 of the plain attention's, a
+   leaf at a time; the other archs' at the batch's first
+   ``TRAIN_HOST_ROWS`` rows (SAGE's cells on their whole graphs) within
+   it of the same function on the host
+   (the tables cut to the rows the slice touches; the host replays the
+   card's ReLU masks, ``relu_masks``, as phase 13 replays expert choices,
+   and the inputs that took the other side of 0 there are printed), a
+   bf16-gathered table's rows within ``TRAIN_BF16_TABLE_RTOL``; (c) one
+   step (``train.loop.make_train_step``, BERT4Rec in ``TRAIN_MICRO`` = m
+   microbatches: exactly 2m forwards and 2m backwards a step, one a block
+   a microbatch, no other flash key) run twice from the same state, bit
+   for bit (a digest of
+   every leaf's bits; element by element too under
+   ``TRAIN_EQUAL_BYTES``); (d) ``TRAIN_STEPS_15`` steps on the batch
+   (AdamW at ``TRAIN_OPT_15``, phase 12's lr and warmup), the last loss
+   below the first by more than ``TRAIN_DROP_15`` of it; it prints m,
+   the drop,
+   step ms and rows (graph cells: feature rows) a second, and each
+   cell's peak memory.  The kernels line's row 6j counts phase 15's
+   forwards too, and it gains row 7e, ``flash_attn_bwd@bert4rec``.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -387,8 +425,9 @@ SERVE_PATHS = (("dense", "adc_scan_batch", {}),
 SERVING_KEYS = {"adc_scan_batch": "dense", "adc_fused_topk": "fused",
                 "adc_fused_topk[lut_int8]": "fused_int8"}
 NOISE_SIGMA = 2.0           # phase 7: noise of an inserted copy of a row
-# phase 7's compactor round: 20 batches before phase 14 (a reduced line)
-COMPACTOR_BATCHES, COMPACTOR_BATCH = 10, 1024
+# phase 7's compactor round: 20 batches before phase 14, 10 before phase 15
+# (a reduced line; 5 x 1,024 still pass min_delta, so the compactor seals)
+COMPACTOR_BATCHES, COMPACTOR_BATCH = 5, 1024
 COMPACTOR_BATCHES_FULL = 20
 # phase 7's OPQ: train_opq's 4 rounds before phase 14 (a reduced line);
 # its first round is still the index codebook's k-means
@@ -402,12 +441,17 @@ ADAPTIVE_PROBES = 16        # plain single requests timed before them
 ADAPTIVE_SLACK = 4.0        # their deadline: this times the probes' p99
 COMPACTOR_MIN_DELTA = 4096
 # phase 7: the queries served with the 100,000-row delta scanned exactly on
-# the host (~15 QPS a path): the first 64 of the 256 (a reduced line), a
-# cut for the smoke's time limit beside phase 14; after the seal all
-DELTA_QUERIES = 64
+# the host (~12 QPS a path): the first 32 of the 256 (a reduced line), a
+# cut for the smoke's time limit beside phases 14 and 15 (64 before phase
+# 15); after the seal all
+DELTA_QUERIES = 32
 MESH_TOP_N = 512            # phase 9 (b): the sharded scans' top-n
 MESH_LUTS = 8               # phase 9 (b): LUTs of the batched scan
 TOPK_SCORES = (64, 1 << 20)     # phase 9 (b): sharded_topk's scores
+# phase 9 (a), (c): the executors and the mesh stacks serve the first 128
+# of the 256 queries (a reduced line), a cut for the smoke's time limit
+# beside phase 15
+MESH_QUERIES = 128
 BASELINE_QUERIES = 16       # phase 9 (d): queries a baseline serves
 PQ_ROUNDS = 12              # pq.train_codebooks' default: the index's
 ATTN_LEN = 4096                          # S = T of the full-width flash run
@@ -420,11 +464,14 @@ PREFILL = (2, 4096)         # phase 10 (a): B, S of the prefill
 LM_ROW_RTOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5}
 DECODE_LEN = 64             # (b): positions decoded against the forward
 DECODE_TOL = 2e-3           # (b): rtol = atol (tests/test_serve.py's)
-GEN = dict(batch=8, prompt=64, new=64)   # (c)
-# (d): answer_batch generates request by request (~1.4 s an answer on the
-# H100's host at full width): 8 of 16 requests, a cut for the smoke's time
-# limit beside phase 14 (a reduced line)
-RAG_QUERIES, RAG_K, RAG_PROMPT, RAG_NEW = 8, 10, 8, 8
+# (c): prompt and new tokens 64 each before phase 15 (a reduced line):
+# DeepSeek-V2-Lite's two runs took 31 s, a token at a time
+GEN = dict(batch=8, prompt=32, new=32)
+GEN_FULL = dict(prompt=64, new=64)
+# (d): answer_batch generates request by request (~1.2 s an answer on the
+# H100's host at full width): 4 of 16 requests, a cut for the smoke's time
+# limit beside phases 14 and 15 (a reduced line; 8 before phase 15)
+RAG_QUERIES, RAG_K, RAG_PROMPT, RAG_NEW = 4, 10, 8, 8
 RAG_QUERIES_UNCUT = 16
 MLA_ARCH = "deepseek-v2-lite-16b"   # phase 11 (a)-(d): at its full CONFIG
 MOE_ARCH = "qwen3-moe-30b-a3b"      # phase 11 (e): full width, depth cut
@@ -498,6 +545,46 @@ MIPS_AGREE = 0.99           # (e): L2 vs MIPS exact ids, equal at f32 ties
 # exactly, so recall is the share of the exact top-10 among them; half
 # the first reading on the H100 at ITEM_POSTING_FRACTION, 0.0833984375
 ITEM_RECALL_FLOOR = 0.0416
+# phase 15: the recsys and GNN train cells of models.api at full width
+# (f32, TF32 off), random weights and batches from --seed
+RECSYS_TRAIN_BATCH = 65_536     # configs/base.RECSYS_SHAPES' train_batch
+TRAIN_CELLS = (("bert4rec", "train_batch", "bert4rec"),
+               ("mind", "train_batch", "mind"),
+               ("dlrm-rm2", "train_batch", "dlrm-rm2"),
+               ("wide-deep", "train_batch", "wide-deep"),
+               ("graphsage-reddit", "full_graph_sm", "full_graph_sm"),
+               ("graphsage-reddit", "minibatch_lg", "minibatch_lg"),
+               ("graphsage-reddit", "molecule", "molecule"))
+# BERT4Rec keeps ~1,300 f32 values a token a block for its backward (the
+# norms' inputs, qkv, the FFN's 256 twice, ...): ~34 GB a block at 65,536
+# x 200 tokens, which the card cannot hold for two blocks; four
+# microbatches of 16,384 (train.loop's accumulation) hold ~35 GB
+TRAIN_MICRO = {"bert4rec": 4}
+# (b): the gradient held to the host's at the batch's first rows: the
+# ranking archs at 16,384, where the bf16 gather rule still holds; MIND
+# at 4,096; SAGE whole
+TRAIN_HOST_ROWS = {"dlrm-rm2": 16_384, "wide-deep": 16_384, "mind": 4096}
+# (b): a bf16-gathered table's touched rows vs the host: a row's f32
+# cotangent rounds to bf16 before its bf16 sum; a cotangent a rounding
+# apart on the two sides may round the other way, one bf16 step (2^-8)
+TRAIN_BF16_TABLE_RTOL = 2.0 ** -8
+# (c), (d): every cell's step is train.loop.make_train_step at this
+# recipe (OptimizerConfig's fields: the reference's recsys / GNN recipe,
+# tests/test_gnn_recsys.py's test_sage_full_graph_learns), run on one
+# batch TRAIN_STEPS_15 times; the last loss must be below the first by
+# more than TRAIN_DROP_15 of it (~10^5 f32 roundings of the loss).  At
+# phase 12's lr 1e-3 MIND and molecule fell by under 1% in 12 steps, and
+# DLRM-RM2 rose at its third, on the host's copy as on the card
+# (scripts/train_recipe_probe.py)
+TRAIN_OPT_15 = dict(lr=1e-2, warmup_steps=2, total_steps=60)
+TRAIN_STEPS_15 = 12
+TRAIN_DROP_15 = 0.01
+TRAIN_EQUAL_BYTES = 4e9     # (c): states compared element by element too
+DIGEST_CHUNK = 1 << 26      # (c): elements a digest reads at once
+BWD_REF_ROWS = 2048         # (a): batch rows a plain evaluation takes
+BWD_ROW_7E = "flash_attn_bwd@bert4rec"     # row 7e of the kernels line
+# the kernels-line rows of phase 15's launches, by LAUNCHES key
+TRAIN_ROWS = {FLASH_KEY_6J: FLASH_ROW_6J, "flash_attn_bwd": BWD_ROW_7E}
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -584,6 +671,9 @@ KERNELS = {
         route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
         replaces="src/repro/models/layers.py:173"),
     "flash_attn_bwd@bf16[dv]": dict(
+        route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
+        replaces="src/repro/models/layers.py:173"),
+    BWD_ROW_7E: dict(
         route="cuda", source=FLASH_SRC + "flash_attn_bwd.cu",
         replaces="src/repro/models/layers.py:173"),
 }
@@ -2188,10 +2278,14 @@ def mesh_phase(index, queries: np.ndarray, seed: int) -> dict:
            f"another"))
     launches = {}
     out = {"cards": cards}
-    out["executors"] = mesh_executors(index, queries, mesh4, launches)
+    log("reduced: " + json.dumps({"mesh_queries": [len(queries),
+                                                   MESH_QUERIES]}))
+    out["executors"] = mesh_executors(index, queries[:MESH_QUERIES], mesh4,
+                                      launches)
     out["functions"] = mesh_functions(index, queries, mesh4, launches,
                                       np.random.default_rng(seed + 9))
-    out["stacks"] = mesh_stacks(index, queries, mesh4, launches)
+    out["stacks"] = mesh_stacks(index, queries[:MESH_QUERIES], mesh4,
+                                launches)
     out["baselines"] = baselines_round(index, queries)
     out["launches"] = launches
     return out
@@ -2398,6 +2492,8 @@ def generate_round(params, cfg, rng: np.random.Generator, launches: dict,
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import LMServer, ServeConfig
     b, p, n = GEN["batch"], GEN["prompt"], GEN["new"]
+    log("reduced: " + json.dumps({"generate": {
+        k: [GEN_FULL[k], GEN[k]] for k in GEN_FULL}}))
     server = LMServer(params, cfg, ServeConfig(max_len=p + n))
     prompts = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
     with record_routing() as routed:
@@ -2625,19 +2721,33 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
+def plain_bwd(q, k, v, out, lse, do, causal: bool, **kw) -> list:
+    """``flash_attn_bwd_ref`` evaluated ``BWD_REF_ROWS`` batch rows at a
+    time (each row's gradient is its own: the same function, with an S x
+    T block of a few rows alive at once)."""
+    from repro_torch.kernels.flash_attn import flash_attn_bwd_ref
+    parts = [flash_attn_bwd_ref(*(x[i:i + BWD_REF_ROWS] for x in
+                                  (q, k, v, out, lse, do)),
+                                causal=causal, **kw)
+             for i in range(0, q.shape[0], BWD_REF_ROWS)]
+    return [torch.cat(g) for g in zip(*parts)]
+
+
 def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
-                dh: int, dv: int) -> dict:
-    """Phase 12 (a), 13 (a): the backward kernel at B = 1, S = T =
-    ATTN_LEN, causal, H query and Hk KV heads, q/k ``dh`` and v ``dv``
-    wide (row 6b's shape: Qwen3-0.6B's heads; 7c's: DeepSeek-V2-Lite's
-    MLA) on inputs of ``dtype``, against its plain version evaluated in
-    f64 on the same residuals (the forward kernel's output and lse; also
-    read against it in f32), the launch under the instance
-    ``flash_bwd_plan`` names, the forward's lse against the plain
-    forward's; its time, the plain version's, SDPA's backward alone, and
-    the bound: five products a (s, t) pair kept by the mask (S, dK and dQ
-    over dh, dP and dV over dv), the bytes of q, k, v, o, dO and lse read
-    and dq, dk, dv written."""
+                dh: int, dv: int, B: int = 1, S: int = ATTN_LEN,
+                causal: bool = True) -> dict:
+    """Phase 12 (a), 13 (a), 15 (a): the backward kernel at B, S = T, H
+    query and Hk KV heads, q/k ``dh`` and v ``dv`` wide, causal or not
+    (row 6b's shape: Qwen3-0.6B's heads; 7c's: DeepSeek-V2-Lite's MLA;
+    7e's: a BERT4Rec microbatch) on inputs of ``dtype``, against its
+    plain version evaluated in f64 on the same residuals (the forward
+    kernel's output and lse; also read against it in f32), the launch
+    under the instance ``flash_bwd_plan`` names, the forward's output
+    (``check_attn``) and lse against the plain forward's; its time, the
+    plain version's, SDPA's backward alone, and the bound: five products
+    a (s, t) pair kept by the mask (S, dK and dQ over dh, dP and dV over
+    dv), the bytes of q, k, v, o, dO and lse read and dq, dk, dv
+    written."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_bwd,
                                                 flash_attn_bwd_ref,
@@ -2647,26 +2757,27 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
     F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(1, ATTN_LEN, H, dh, generator=gen, device=dev).to(dtype)
-    do = torch.randn(1, ATTN_LEN, H, dv, generator=gen, device=dev).to(dtype)
-    k = torch.randn(1, ATTN_LEN, Hk, dh, generator=gen, device=dev).to(dtype)
-    v = torch.randn(1, ATTN_LEN, Hk, dv, generator=gen, device=dev).to(dtype)
-    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-    _, lse_plain = flash_attn_ref(q, k, v, causal=True, return_lse=True)
+    q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
+    do = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, S, Hk, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, Hk, dv, generator=gen, device=dev).to(dtype)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    out_plain, lse_plain = flash_attn_ref(q, k, v, causal=causal,
+                                          return_lse=True)
+    out_err = check_attn(f"{name} forward", out, out_plain)
     lse_err = float(((lse - lse_plain).abs()
                      / lse_plain.abs().clamp_min(1)).max())
     if not lse_err <= LSE_RTOL:
         raise AssertionError(f"{name}: lse relative error {lse_err} > "
                              f"{LSE_RTOL}")
-    del lse_plain
+    del out_plain, lse_plain
     key = flash_bwd_plan(dtype, dh, dv).key
     before = LAUNCHES[key]
-    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     if LAUNCHES[key] != before + 1:
         raise AssertionError(f"{name}: no launch of {key}")
-    want = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=True,
-                              compute=torch.float64)
-    plain = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=True)
+    want = plain_bwd(q, k, v, out, lse, do, causal, compute=torch.float64)
+    plain = plain_bwd(q, k, v, out, lse, do, causal)
     limit = BWD_RTOL[dtype]
     errs, plain_errs, plain_exact = {}, {}, {}
     for g_name, g, w, p in zip(("dq", "dk", "dv"), got, want, plain):
@@ -2678,7 +2789,7 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
         if not errs[g_name] <= limit:
             raise AssertionError(f"{name}: {g_name} relative L2 error "
                                  f"{errs[g_name]} > {limit}")
-    again = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name}: two runs differ")
     max_abs = max(float((g.float() - w.float()).abs().max())
@@ -2686,7 +2797,7 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
     del got, want, plain, again
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                             enable_gqa=True)
     do_t = do.transpose(1, 2)
 
@@ -2695,26 +2806,27 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
                                    retain_graph=True)
     lib = sdpa_bwd()
     lib_err = max(rel_l2(g.transpose(1, 2), w) for g, w in zip(
-        lib, flash_attention_bwd(q, k, v, out, lse, do, causal=True)))
+        lib, flash_attention_bwd(q, k, v, out, lse, do, causal=causal)))
     del lib
     library_ms = gpu_ms(sdpa_bwd, 5)
     peak, products = exact_products(dtype)
-    pairs = ATTN_LEN * (ATTN_LEN + 1) // 2            # (s, t) kept
+    pairs = S * (S + 1) // 2 if causal else S * S      # (s, t) kept
     nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + out.numel()
                + do.numel()) * q.element_size() + lse.numel() * 4)
     row = dict(
         name=name,
-        shape=dict(B=1, S=ATTN_LEN, T=ATTN_LEN, H=H, Hk=Hk, dh=dh, dv=dv,
-                   dtype=str(dtype), causal=True),
+        shape=dict(B=B, S=S, T=S, H=H, Hk=Hk, dh=dh, dv=dv,
+                   dtype=str(dtype), causal=causal),
         max_abs_err=max_abs, rel_l2=errs, rel_l2_vs_f32_plain=plain_errs,
         f32_plain_rel_l2=plain_exact, lse_rel_err=lse_err,
+        fwd_max_abs_err=out_err,
         sdpa_rel_l2=lib_err,
         ms=gpu_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
-                                              causal=True), 5),
+                                              causal=causal), 5),
         plain_ms=gpu_ms(lambda: flash_attn_bwd_ref(q, k, v, out, lse, do,
-                                                   causal=True), 3),
+                                                   causal=causal), 3),
         library_ms=library_ms,
-        **bound(nbytes, products * 2 * H * (3 * dh + 2 * dv) * pairs,
+        **bound(nbytes, products * 2 * B * H * (3 * dh + 2 * dv) * pairs,
                 peak=peak))
     del q, k, v, do, out, lse, o_sdpa, qt, kt, vt
     torch.cuda.empty_cache()
@@ -3348,10 +3460,12 @@ def ranking_round(arch: str, seed: int, dev: torch.device,
             "serve_bulk_rows_per_s": RECSYS_BULK / bulk_ms * 1e3}
 
 
-def sage_round(seed: int, dev: torch.device, total: dict) -> dict:
+def sage_round(seed: int, dev: torch.device, total: dict,
+               keep: dict) -> dict:
     """Phase 14 (d): GraphSAGE at full_graph_sm, minibatch_lg and
-    molecule: logits and loss against the host's, two runs bit for
-    bit."""
+    molecule: logits and loss against the host's, two runs bit for bit.
+    Keeps minibatch_lg's sampled batch in ``keep`` (phase 15 trains on
+    it: the sampler takes seconds)."""
     from repro_torch import tree
     from repro_torch.configs.registry import get_config
     from repro_torch.data import graphs
@@ -3380,6 +3494,7 @@ def sage_round(seed: int, dev: torch.device, total: dict) -> dict:
                      (mol["features"], mol["edges"], mol["graph_ids"],
                       SAGE_MOLECULE[0]), mol["labels"], SAGE_MOLECULE[3:]),
     }
+    keep["minibatch_lg"] = (hops, lg["labels"][nodes])
     del lg, indptr, indices
     for name, (fn, args, labels, (d_feat, n_classes)) in cases.items():
         params = G.init_sage(gen, cfg, d_feat, n_classes, dev)
@@ -3500,10 +3615,12 @@ def item_index_round(seed: int, items: torch.Tensor, u: torch.Tensor,
     return out
 
 
-def recsys_phase(seed: int, card: str) -> tuple:
+def recsys_phase(seed: int, card: str, keep: dict) -> tuple:
     """Phase 14: the recsys and GNN models at full width in f32 (TF32
     off), then BERT4Rec's items through FusionANNS.  Returns (results,
-    row 6j of the kernels line)."""
+    row 6j of the kernels line); ``keep`` gets minibatch_lg's sampled
+    batch."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.clustering import full_f32
     from repro_torch.kernels import launch
     dev = torch.device("cuda")
@@ -3526,7 +3643,8 @@ def recsys_phase(seed: int, card: str) -> tuple:
                                                         "dlrm-rm2")),
                          ("wide-deep", functools.partial(ranking_round,
                                                          "wide-deep")),
-                         ("graphsage", sage_round)):
+                         ("graphsage", functools.partial(sage_round,
+                                                         keep=keep))):
             t = time.perf_counter()
             out[name] = fn(seed, dev, total)
             out[name]["s"] = time.perf_counter() - t
@@ -3543,6 +3661,422 @@ def recsys_phase(seed: int, card: str) -> tuple:
     del params, u
     out["launches"] = total
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out, row
+
+
+# --------------------------------------------------------------- phase 15
+def bits_digest(t) -> list:
+    """Each leaf's bits as two sums mod 2^64: plain, and weighted by odd
+    position weights, so one changed element always changes the second.
+    Read a chunk at a time: a 7 GB leaf needs no copy."""
+    from repro_torch import tree
+    out = []
+    for x in tree.leaves(t):
+        flat = x.detach().reshape(-1)
+        if flat.dtype.is_floating_point:
+            flat = flat.view({2: torch.int16, 4: torch.int32,
+                              8: torch.int64}[flat.element_size()])
+        s1 = s2 = 0
+        for i in range(0, flat.numel(), DIGEST_CHUNK):
+            c = flat[i:i + DIGEST_CHUNK].long()
+            w = 2 * torch.arange(i, i + c.numel(), device=c.device) + 1
+            s1 += int(c.sum())
+            s2 += int((c * w).sum())
+        out.append((s1 % 2 ** 64, s2 % 2 ** 64))
+    return out
+
+
+def cell_batch(cell, batch: dict, dev: torch.device) -> dict:
+    """``batch`` (numpy) on ``dev``, each array held to the shape and
+    dtype of the cell's abstract argument of its name."""
+    want = cell.args[1]
+    if batch.keys() != want.keys():
+        raise AssertionError(f"{cell.arch} {cell.shape_id}: batch keys "
+                             f"{sorted(batch)}, the cell's {sorted(want)}")
+    out = {}
+    for k, x in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if tuple(t.shape) != tuple(want[k].shape) or t.dtype != want[k].dtype:
+            raise AssertionError(f"{cell.arch} {cell.shape_id} {k}: "
+                                 f"{tuple(t.shape)} {t.dtype}, the cell's "
+                                 f"{tuple(want[k].shape)} {want[k].dtype}")
+        out[k] = t.to(dev)
+    return out
+
+
+def touched_rows(params, batch: dict, kind: str) -> tuple:
+    """The embedding rows a recsys ``batch`` (numpy) touches, as a host
+    copy of ``params`` cut to them and the batch's ids renumbered into
+    them: the same function (each id keeps its rows, in their order, so
+    its gradient's sums run in the same order).  Returns (host params,
+    host batch, {table name: (the card gradient's rows at the touched
+    ids, the host gradient's)})."""
+    from repro_torch import tree
+    host = {k: tree.tree_map(lambda x: x.cpu(), v) for k, v in params.items()
+            if k not in ("tables", "wide", "item_embed")}
+    hb = dict(batch)
+    if kind in ("dlrm", "wide_deep"):
+        ids = batch["sparse_ids"]
+        T = ids.shape[1]
+        uniq = [np.unique(ids[:, t]) for t in range(T)]
+        U = max(len(u) for u in uniq)
+        valid = torch.from_numpy(np.stack([np.arange(U) < len(u)
+                                           for u in uniq]))
+        idx = torch.from_numpy(np.stack([np.pad(u, (0, U - len(u)),
+                                                mode="edge")
+                                         for u in uniq])).long()
+        hb["sparse_ids"] = np.stack([np.searchsorted(uniq[t], ids[:, t])
+                                     for t in range(T)], 1).astype(np.int32)
+        at = (torch.arange(T)[:, None], idx)
+        names = ("tables", "wide") if kind == "wide_deep" else ("tables",)
+        for n in names:
+            dev = params[n].device
+            host[n] = params[n][at[0].to(dev), at[1].to(dev)].cpu()
+
+        def card(g):
+            return g[at[0].to(g.device), at[1].to(g.device)][
+                valid.to(g.device)].cpu()
+        return host, hb, {n: (card, lambda g: g[valid]) for n in names}
+    keys = [k for k in ("item_ids", "hist_ids", "pos_items", "neg_items")
+            if k in batch]
+    u = np.unique(np.concatenate([batch[k].ravel() for k in keys]))
+    for k in keys:
+        hb[k] = np.searchsorted(u, batch[k]).astype(np.int32)
+    idx = torch.from_numpy(u).long()
+    emb = params["item_embed"]
+    host["item_embed"] = emb[idx.to(emb.device)].cpu()
+    return host, hb, {"item_embed": (lambda g: g[idx.to(g.device)].cpu(),
+                                     lambda g: g)}
+
+
+@contextlib.contextmanager
+def relu_masks(masks: list, replay: bool = False):
+    """Inside it ``F.relu`` (the recsys and GNN models' MLPs) keeps each
+    call's mask (x > 0) on the host, in call order; with ``replay`` it
+    applies the kept masks in that order instead (x times the mask: the
+    same piece of the function, and the same gradient), so a second run
+    computes the first run's function where an input within a rounding
+    of 0 took the other side.  Yields a dict counting, in a replay, the
+    entries whose own mask differs from the kept one."""
+    F = torch.nn.functional
+    relu = F.relu
+    seen = {"calls": 0, "flipped": 0}
+
+    def record(x, inplace=False):
+        masks.append((x > 0).cpu())
+        return relu(x)
+
+    def apply(x, inplace=False):
+        m = masks[seen["calls"]].to(x.device)
+        seen["calls"] += 1
+        seen["flipped"] += int(((x > 0) != m).sum())
+        return x * m.to(x.dtype)
+    F.relu = apply if replay else record
+    try:
+        yield seen
+    finally:
+        F.relu = relu
+
+
+def grads_vs_host(cell, params, batch: dict, kind: str,
+                  n: int | None) -> dict:
+    """Phase 15 (b): the cell's loss gradient on the card at the batch's
+    first ``n`` rows (None: the whole batch, as a graph cell must be
+    taken: its leaves are not indexed by one batch row) against the same
+    function on the host (a recsys model's tables cut to the rows the
+    slice touches), the host replaying
+    the card's ReLU masks (``relu_masks``; the inputs that fell on the
+    other side of 0 there are counted); each leaf within TRAIN_GRAD_RTOL
+    relative L2, a bf16-gathered table's touched rows within
+    TRAIN_BF16_TABLE_RTOL, the loss within RECSYS_RTOL."""
+    from repro_torch import tree
+    from repro_torch.models.recsys import BULK_GATHER_BATCH
+    from repro_torch.train.loop import value_and_grad
+    dev = tree.leaves(params)[0].device
+    sl = batch if n is None else {k: v[:n] for k, v in batch.items()}
+    rows = len(next(iter(sl.values())))
+    got_shapes = {k: tuple(v.shape) for k, v in sl.items()}
+    whole = {k: tuple(x.shape) for k, x in cell.args[1].items()}
+    if kind == "sage" and got_shapes != whole:
+        raise AssertionError(f"{cell.arch} {cell.shape_id}: the gradient "
+                             f"compared on {got_shapes}, not on the whole "
+                             f"graph {whole}")
+    masks: list = []
+    with relu_masks(masks):
+        got, gm = value_and_grad(cell.loss_fn, params,
+                                 {k: torch.from_numpy(v).to(dev)
+                                  for k, v in sl.items()})
+    if kind == "sage":
+        host_p, host_b, cut = (tree.tree_map(lambda x: x.cpu(), params), sl,
+                               {})
+    else:
+        host_p, host_b, cut = touched_rows(params, sl, kind)
+    with relu_masks(masks, replay=True) as seen:
+        want, wm = value_and_grad(cell.loss_fn, host_p,
+                                  {k: torch.from_numpy(v)
+                                   for k, v in host_b.items()})
+    if seen["calls"] != len(masks):
+        raise AssertionError(f"{cell.arch} {cell.shape_id}: the host ran "
+                             f"{seen['calls']} ReLUs, the card "
+                             f"{len(masks)}")
+    want = dict(tree.keyed_leaves(want))
+    bf16 = kind in ("dlrm", "wide_deep") and rows >= BULK_GATHER_BATCH
+    errs = {}
+    for key, g in tree.keyed_leaves(got):
+        name = tree.parse_key(key)[0]
+        w = want[key]
+        if name in cut:
+            g, w = cut[name][0](g), cut[name][1](w)
+        lim = (TRAIN_BF16_TABLE_RTOL if bf16 and name == "tables"
+               else TRAIN_GRAD_RTOL)
+        errs[key] = rel_l2(g.cpu(), w)
+        if not (bool(torch.isfinite(g).all()) and errs[key] <= lim):
+            raise AssertionError(f"{cell.arch} {cell.shape_id} gradient "
+                                 f"{key} vs the host: relative L2 "
+                                 f"{errs[key]} > {lim}")
+    loss_err = abs(float(gm["loss"]) - float(wm["loss"])) / abs(
+        float(wm["loss"]))
+    if not loss_err <= RECSYS_RTOL:
+        raise AssertionError(f"{cell.arch} {cell.shape_id} loss vs the "
+                             f"host: {loss_err} relative > {RECSYS_RTOL}")
+    worst = max(errs, key=errs.get)
+    return {"rows": rows,
+            **({"edges": len(sl["edges"])} if "edges" in sl else {}),
+            "worst_rel_l2": errs[worst], "worst_leaf": worst,
+            "loss_rel_err": loss_err, "bf16_tables": bf16,
+            "relu_entries": sum(m.numel() for m in masks),
+            "relu_flipped_on_host": seen["flipped"]}
+
+
+def grads_vs_plain(cell, params, batch: dict, n: int, total: dict) -> dict:
+    """Phase 15 (b), BERT4Rec: the loss gradient at one microbatch (the
+    batch's first ``n`` rows) through the kernels, exactly one forward
+    with its lse and one backward a block, against the same on the plain
+    attention (the CPU path's scan and backward, on the card); each leaf
+    within TRAIN_GRAD_RTOL relative L2."""
+    from repro_torch import tree
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.flash_attn import BWD_KEY
+    from repro_torch.train.loop import value_and_grad
+    one = {k: v[:n] for k, v in batch.items()}
+    blocks = len(params["blocks"])
+    launch.reset_launches()
+    got, gm = value_and_grad(cell.loss_fn, params, one)
+    torch.cuda.synchronize()
+    grew = {k: c for k, c in launch.LAUNCHES.items() if c}
+    if grew != {FLASH_KEY_6J: blocks, BWD_KEY: blocks}:
+        raise AssertionError(f"bert4rec's gradient launched {grew}, not "
+                             f"{blocks} x {FLASH_KEY_6J} and {BWD_KEY}")
+    add_launches(total, TRAIN_ROWS)
+    with plain_attention():
+        want, wm = value_and_grad(cell.loss_fn, params, one)
+    torch.cuda.synchronize()
+    if any(launch.LAUNCHES.values()):
+        raise AssertionError("the plain-attention gradient launched a "
+                             "kernel")
+    errs = {key: rel_l2(g, w) for (key, g), w in zip(
+        tree.keyed_leaves(got), tree.leaves(want))}
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"bert4rec gradient {worst} vs the plain "
+                             f"attention: relative L2 {errs[worst]} > "
+                             f"{TRAIN_GRAD_RTOL}")
+    return {"rows": n, "worst_rel_l2": errs[worst], "worst_leaf": worst,
+            "loss": float(gm["loss"]), "loss_plain": float(wm["loss"]),
+            "launches": grew}
+
+
+def train_round(arch: str, shape: str, batch: dict, seed: int,
+                dev: torch.device, total: dict) -> dict:
+    """Phase 15 (b)-(d) for one cell of ``models.api.build_cell(arch,
+    shape)`` at full width: its params from ``init_fn``, ``batch``
+    (numpy) held to its abstract args; the loss gradient against the
+    plain attention (BERT4Rec) or the host; one step run twice from the
+    same state, bit for bit (params and AdamW's state: a digest of every
+    leaf's bits, and every element where the state is small); then
+    TRAIN_STEPS_15 steps in all on the batch (``train_step``: the
+    cell's loss at TRAIN_OPT_15), the loss down by more than
+    TRAIN_DROP_15 of it; step ms and rows a second."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.flash_attn import BWD_KEY
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import adamw_init
+    cell = api.build_cell(arch, shape)
+    micro = TRAIN_MICRO.get(arch, 1)
+    kind = getattr(get_config(arch), "kind", "sage")
+    params = cell.init_fn(torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+    on = cell_batch(cell, batch, dev)
+    rows = next(iter(batch.values())).shape[0]
+    res = {"microbatches": micro}
+    if arch == "bert4rec":
+        res["grad"] = grads_vs_plain(cell, params, on, rows // micro, total)
+    else:
+        res["grad"] = grads_vs_host(cell, params, batch, kind,
+                                    TRAIN_HOST_ROWS.get(arch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = train_step(cell, micro)
+    want = ({FLASH_KEY_6J: micro * len(params["blocks"]),
+             BWD_KEY: micro * len(params["blocks"])}
+            if arch == "bert4rec" else {})
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+
+    def run(st):
+        launch.reset_launches()
+        (new, m), ms = timed_ms(lambda: step(st, on))
+        grew = {k: c for k, c in launch.LAUNCHES.items()
+                if c and k.startswith("flash")}
+        if grew != want:
+            raise AssertionError(f"{arch} {shape}: a step launched {grew}, "
+                                 f"expected {want}")
+        add_launches(total, TRAIN_ROWS)
+        return new, float(m["loss"]), ms
+    first, loss0, first_ms = run(state)
+    digest = bits_digest(first)
+    small = state_bytes(first) <= TRAIN_EQUAL_BYTES
+    kept = first if small else None
+    del first
+    second, loss1, ms = run(state)
+    del state
+    if bits_digest(second) != digest or loss1 != loss0 or (
+            kept is not None and not all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(kept), tree.leaves(second)))):
+        raise AssertionError(f"{arch} {shape}: two runs of a step differ")
+    del kept
+    losses, secs, state = [loss0], [ms], second
+    del second
+    for _ in range(TRAIN_STEPS_15 - 1):
+        state, loss, ms = run(state)
+        losses.append(loss)
+        secs.append(ms)
+    state_gb = state_bytes(state) / 1e9
+    del state
+    if not (np.all(np.isfinite(losses))
+            and losses[0] - losses[-1] > TRAIN_DROP_15 * abs(losses[0])):
+        raise AssertionError(f"{arch} {shape}: losses {losses} over "
+                             f"{TRAIN_STEPS_15} steps, not down by "
+                             f"{TRAIN_DROP_15} of the first")
+    step_ms = float(np.median(secs))
+    res.update(losses=losses, drop=losses[0] - losses[-1],
+               first_step_ms=first_ms, step_ms=step_ms,
+               rows=rows, rows_per_s=rows / step_ms * 1e3,
+               state_gb=state_gb, bit_equal_runs=True,
+               compared_elementwise=small, launches_per_step=want)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_step(cell, micro: int, recipe: dict | None = None):
+    """Phase 15's step of a train cell: ``train.loop.make_train_step``
+    of its loss at ``recipe`` (OptimizerConfig's fields; TRAIN_OPT_15)
+    in ``micro`` microbatches."""
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    return make_train_step(cell.loss_fn, TrainConfig(
+        opt=OptimizerConfig(**(recipe or TRAIN_OPT_15)),
+        microbatches=micro))
+
+
+def state_bytes(t) -> int:
+    from repro_torch import tree
+    return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+def train_batches(seed: int, keep: dict) -> dict:
+    """Phase 15's batches, numpy from ``seed``: the recsys archs'
+    train_batch rows by ``data.synthetic`` (ids over the whole 2^20 rows);
+    SAGE's cells by ``data.graphs`` (full_graph_sm and molecule with the
+    reference's dummy node: zero features, masked out or in no graph;
+    minibatch_lg phase 14's sampled batch)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import graphs, synthetic
+    rng = np.random.default_rng(seed + 15)
+    B = RECSYS_TRAIN_BATCH
+    out = {}
+    c = get_config("bert4rec")
+    out["bert4rec"] = synthetic.recsys_seq_batch(rng, B, c.seq_len,
+                                                 c.vocab_size)
+    c = get_config("mind")
+    b = synthetic.recsys_seq_batch(rng, B, c.hist_len, c.vocab_size)
+    out["mind"] = {"hist_ids": b["item_ids"], "pos_items": b["pos_items"],
+                   "neg_items": b["neg_items"]}
+    c = get_config("dlrm-rm2")
+    out["dlrm-rm2"] = synthetic.recsys_dlrm_batch(
+        rng, B, c.n_dense, c.n_sparse, c.vocab_size, c.multi_hot)
+    c = get_config("wide-deep")
+    out["wide-deep"] = synthetic.recsys_sparse_batch(
+        rng, B, c.n_sparse, c.vocab_size, c.multi_hot)
+    sm = graphs.random_graph(rng, *SAGE_FULL)
+    n = SAGE_FULL[0]
+    out["full_graph_sm"] = {
+        "features": np.concatenate([sm["features"],
+                                    np.zeros((1, SAGE_FULL[2]), np.float32)]),
+        "edges": sm["edges"],
+        "labels": np.append(sm["labels"], 0).astype(np.int32),
+        "mask": (np.arange(n + 1) < n).astype(np.float32)}
+    hops, labels = keep["minibatch_lg"]
+    out["minibatch_lg"] = {"feats0": hops[0], "feats1": hops[1],
+                           "feats2": hops[2],
+                           "labels": labels.astype(np.int32)}
+    g, nodes, edges, f, cl = SAGE_MOLECULE
+    mol = graphs.block_diagonal_batch(rng, g, nodes, edges, f, cl)
+    out["molecule"] = {
+        "features": np.concatenate([mol["features"],
+                                    np.zeros((1, f), np.float32)]),
+        "edges": mol["edges"],
+        "graph_ids": np.append(mol["graph_ids"], g).astype(np.int32),
+        "labels": mol["labels"]}
+    return out
+
+
+def recsys_train_phase(seed: int, card: str, keep: dict) -> tuple:
+    """Phase 15: the recsys and GNN train cells of ``models.api`` at full
+    width in f32 (TF32 off), after phase 14: (a) row 7e, the backward
+    kernel at a BERT4Rec microbatch's shape; (b)-(d) ``train_round`` for
+    BERT4Rec, MIND, DLRM-RM2 and Wide&Deep at train_batch and SAGE at
+    full_graph_sm, minibatch_lg and molecule.  Returns (results, row
+    7e)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.clustering import full_f32
+    from repro_torch.kernels import launch
+    dev = torch.device("cuda")
+    total: dict = {}
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    c = get_config("bert4rec")
+    H, dh = c.n_heads, c.embed_dim // c.n_heads
+    with full_f32:
+        t = time.perf_counter()
+        row = measure_bwd(BWD_ROW_7E, torch.float32, seed, H, H, dh, dh,
+                          B=RECSYS_TRAIN_BATCH // TRAIN_MICRO["bert4rec"],
+                          S=c.seq_len, causal=False)
+        launch.reset_launches()    # the comparison's launches count not
+        log(f"{BWD_ROW_7E} ({card}) {row['shape']}: rel L2 "
+            f"{row['rel_l2']} (limit {BWD_RTOL[torch.float32]}; against "
+            f"the f32 plain version {row['rel_l2_vs_f32_plain']}), lse "
+            f"{row['lse_rel_err']}, forward {row['fwd_max_abs_err']}, "
+            f"SDPA's backward {row['sdpa_rel_l2']}; "
+            f"ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) plain_ms={row['plain_ms']:.3f} "
+            f"library_ms={row['library_ms']:.4f}; "
+            f"{time.perf_counter() - t:.1f} s")
+        batches = train_batches(seed, keep)
+        keep.clear()
+        for arch, shape, name in TRAIN_CELLS:
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out[name] = train_round(arch, shape, batches.pop(name), seed,
+                                    dev, total)
+            out[name]["s"] = time.perf_counter() - t
+            out[name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            log(f"recsys train {name} ({card}): " + json.dumps(out[name]))
+    out["peak_gb"] = max(v["peak_gb"] for v in out.values())
+    out["launches"] = total
     return out, row
 
 
@@ -3800,7 +4334,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    rec, r = recsys_phase(args.seed, card)
+    keep: dict = {}
+    rec, r = recsys_phase(args.seed, card, keep)
     log(f"recsys: ok, {time.perf_counter() - t:.1f} s; peak "
         f"{rec['peak_gb']:.1f} GB; launches=" + json.dumps(rec["launches"]))
     # and phase 14's: the item index's serving and ground-truth launches
@@ -3810,6 +4345,25 @@ def main() -> int:
     shape = r.pop("shape")
     kernels.append({"name": r["name"], **KERNELS[r["name"]],
                     "launches": rec["launches"][r["name"]], **r})
+    log(f"timing {r['name']} {shape}: ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
+        f"({r['bound_by']}) library_ms={r['library_ms']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trn15, r = recsys_train_phase(args.seed, card, keep)
+    log(f"recsys train: ok, {time.perf_counter() - t:.1f} s; peak "
+        f"{trn15['peak_gb']:.1f} GB; launches="
+        + json.dumps(trn15["launches"]))
+    # and phase 15's: BERT4Rec's forwards under row 6j, its backward
+    # launches under row 7e
+    for k in kernels:
+        k["launches"] += trn15["launches"].get(k["name"], 0)
+    shape = r.pop("shape")
+    for extra in ("rel_l2", "lse_rel_err", "sdpa_rel_l2"):
+        r.pop(extra)
+    kernels.append({"name": r["name"], **KERNELS[r["name"]],
+                    "launches": trn15["launches"].get(r["name"], 0), **r})
     log(f"timing {r['name']} {shape}: ms={r['ms']:.4f} "
         f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
         f"({r['bound_by']}) library_ms={r['library_ms']}")

@@ -52,7 +52,9 @@ split within a launch is ``scripts/fused_phases.py --spill``); the
 attention backward (``flash_attention_bwd``), B = 1, S = T
 = 4096, causal, at Qwen3-0.6B's widths, dh 128, and at DeepSeek-V2-Lite's
 MLA shape (q/k 192, v 128, H = Hk = 16), each on f32 and bf16 inputs
-(rows 7, 7b, 7c and 7d of PERF.md section 6), from the forward
+(rows 7, 7b, 7c and 7d of PERF.md section 6), and at BERT4Rec's training
+shape (B = 16,384, one microbatch of train_batch, S = T = 200, H = Hk =
+2, dh 32, not causal) in f32 (row 7e), from the forward
 kernel's output and lse, its gradients' relative L2 error against
 ``flash_attn_bwd_ref`` (and, where the tree's plain version evaluates in f64, against that
 exact gradient, with the f32 plain version's own error beside it),
@@ -124,13 +126,17 @@ PREFIX = {"adc": "adc_", "flash": "flash_", "l2": "l2dist",   # sources
           "bwd": "flash_"}
 # the attention backward, B = 1, S = T = 4096, causal, (dtype, tag, q/k
 # width, v width, the shape): at row 6b's shape (Qwen3-0.6B's heads, dh
-# 128) in f32 (row 7) and on bf16 inputs (row 7b), and at DeepSeek-V2's
+# 128) in f32 (row 7) and on bf16 inputs (row 7b), at DeepSeek-V2's
 # MLA shape (H = Hk = 16, q/k 192, v 128) in f32 (row 7c) and on bf16
-# inputs (row 7d)
+# inputs (row 7d); and at BERT4Rec's training shape, one microbatch of
+# train_batch (B = 16,384 of 65,536, S = T = 200, H = Hk = 2, dh 32, not
+# causal) in f32 (row 7e)
+BERT4REC_TRAIN = dict(S=200, H=2, Hk=2, B=16_384, causal=False)
 BWD_CASES = ((torch.float32, "f32", 128, 128, ATTN),
              (torch.bfloat16, "bf16", 128, 128, ATTN),
              (torch.float32, "f32,mla", 192, 128, MLA),
-             (torch.bfloat16, "bf16,mla", 192, 128, MLA))
+             (torch.bfloat16, "bf16,mla", 192, 128, MLA),
+             (torch.float32, "f32,bert4rec", 32, 32, BERT4REC_TRAIN))
 L2 = dict(B=256, N=1 << 20, D=128)               # one ground-truth chunk
 # (dtype, tag, width, integers below): the chunk at SIFT1B's 128, cut to
 # SPACEV1B's 100 and to an odd 101, and at GIST1M's 960; 8-bit: SIFT1B's
@@ -267,28 +273,32 @@ def flash_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
 
 def bwd_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
                 chip_smoke) -> dict:
-    """The attention backward (``flash_attention_bwd``) at ``shape``'s S =
-    T, H and Hk, q and k ``dh`` wide, v ``dv`` wide, on inputs of
-    ``dtype``, from the forward kernel's output and lse: the
-    kernels it launched, each gradient's relative L2 error against
-    ``flash_attn_bwd_ref`` on the same residuals, whether two runs are
+    """The attention backward (``flash_attention_bwd``) at ``shape``'s B
+    (else 1), S = T, H and Hk, causal (else True), q and k ``dh`` wide, v
+    ``dv`` wide, on inputs of ``dtype``, from the forward kernel's output
+    and lse: the kernels it launched, each gradient's relative L2 error
+    against ``flash_attn_bwd_ref`` on the same residuals
+    (``chip_smoke.plain_bwd``), whether two runs are
     bit-equal, and its time; this tree's process also times SDPA's
     backward alone (``torch.autograd.grad`` of its output) and reads its
     gradients' relative L2 error against the kernel's."""
     from repro_torch.kernels.flash_attn import (flash_attention,
-                                                flash_attention_bwd,
-                                                flash_attn_bwd_ref)
+                                                flash_attention_bwd)
     F = torch.nn.functional
-    s, h, hk = shape["S"], shape["H"], shape["Hk"]
+    b, s, h, hk = shape.get("B", 1), shape["S"], shape["H"], shape["Hk"]
+    causal = shape.get("causal", True)
     q, do, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
-                   for sh in ((1, s, h, dh), (1, s, h, dv), (1, s, hk, dh),
-                              (1, s, hk, dv)))
-    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+                   for sh in ((b, s, h, dh), (b, s, h, dv), (b, s, hk, dh),
+                              (b, s, hk, dv)))
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
 
     def call():
-        return flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        return flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+
+    def plain(**kw):
+        return chip_smoke.plain_bwd(q, k, v, out, lse, do, causal, **kw)
     got, launched = ran(call)
-    want = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=True)
+    want = plain()
     names = ("dq", "dk", "dv")
     r = dict(launched=launched,
              rel_l2={n: chip_smoke.rel_l2(g, w) for n, g, w in
@@ -297,8 +307,7 @@ def bwd_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
                                 for a, b in zip(got, call())),
              ms=chip_smoke.gpu_ms(call, 10))
     try:                # a plain version that evaluates in f64 too
-        exact = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=True,
-                                   compute=torch.float64)
+        exact = plain(compute=torch.float64)
         r["exact_rel_l2"] = {n: chip_smoke.rel_l2(g, e) for n, g, e in
                              zip(names, got, exact)}
         r["plain_exact_rel_l2"] = {n: chip_smoke.rel_l2(w, e) for n, w, e
@@ -310,7 +319,7 @@ def bwd_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
     if yardsticks:
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
         do_t = do.transpose(1, 2)
 

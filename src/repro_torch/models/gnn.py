@@ -5,7 +5,9 @@ Message passing is a gather of the sources, then a sum into the
 destinations over an edge list: ``layers.segment_reduce``, which sorts
 the edges by destination (stable, once a forward) and reduces each
 segment in that order, so the card adds in a fixed order and two runs
-give the same bits (``index_add_`` adds in no fixed order there).
+give the same bits (``index_add_`` adds in no fixed order there).  The
+gather is ``layers.gather_rows``, whose backward sums each source's
+messages' gradients the same way.
 Three modes, all on one device:
 
 * full graph: edges (E, 2) + features (N, F);
@@ -30,8 +32,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.clustering import full_f32
 from repro_torch.core.engine import resolve_device
-from repro_torch.models.layers import (LOCAL_CTX, ShardCtx, segment_order,
-                                      segment_reduce)
+from repro_torch.models.layers import (LOCAL_CTX, ShardCtx, gather_rows,
+                                      segment_order, segment_reduce)
 from repro_torch.models.transformer import _local_only, _normal
 
 
@@ -73,12 +75,14 @@ def _mean_aggregate(h: torch.Tensor, edges, n_nodes: int, ctx: ShardCtx,
         order = segment_order(dst, n_nodes)
     if weights is None:
         # unit weights: the degree is each destination's edge count
-        agg = segment_reduce(h[src], None, n_nodes, order=order)
+        agg = segment_reduce(gather_rows(h, src), None, n_nodes,
+                             order=order)
         deg = order[1].to(h.dtype)
     else:
         # the messages and the weights in one reduction
         weights = torch.as_tensor(weights, device=h.device).to(h.dtype)
-        both = segment_reduce(torch.cat([h[src] * weights[:, None],
+        both = segment_reduce(torch.cat([gather_rows(h, src)
+                                         * weights[:, None],
                                          weights[:, None]], dim=1),
                               None, n_nodes, order=order)
         agg, deg = both[:, :-1], both[:, -1]

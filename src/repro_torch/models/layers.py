@@ -37,7 +37,10 @@ JAX package's ``models/layers.py``.
   absorbs ``W_UK`` and ``W_UV`` and attends over the compressed cache.
 
 * :func:`segment_reduce` is ``jax.ops.segment_sum`` / ``segment_max``
-  in a fixed order of adds (the recsys and GNN models' reductions).
+  in a fixed order of adds (the recsys and GNN models' reductions);
+  :func:`gather_rows` is their row gathers, whose backward sums each
+  id's rows through it (the reference's scatter-add, in the gathered
+  dtype), so a training step repeats bit for bit on the card.
 
 :class:`ShardCtx` and :data:`LOCAL_CTX` are ``sharding.spec``'s.
 """
@@ -322,6 +325,44 @@ def segment_reduce(values: torch.Tensor, segment_ids: Optional[torch.Tensor],
                           dtype=values.dtype, device=values.device)
     return torch.segment_reduce(values[rows], mode, lengths=lengths,
                                 axis=0, unsafe=True)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` in ``dtype``, whose backward sums each id's
+    gradient rows in a fixed order (see :func:`gather_rows`)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, dtype):
+        ctx.save_for_backward(ids)
+        ctx.table = (tuple(table.shape), table.dtype)
+        rows = table[ids]
+        return rows if dtype is None else rows.to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        shape, dtype = ctx.table
+        flat = ids.reshape(-1)
+        sums = segment_reduce(grad.reshape(flat.shape[0], *shape[1:]), flat,
+                              shape[0])
+        return sums.to(dtype), None, None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``table[ids]`` (rows of ``table`` (V, ...) at int64 ``ids`` of any
+    shape), rounded to ``dtype`` where given: the reference's
+    ``jnp.take(table.astype(dtype), ids, axis=0)``.
+
+    The backward is the reference's scatter-add: each id's gradient rows,
+    in ``dtype`` (the gathered rows' type), summed in the order the ids
+    come (:func:`segment_reduce`, whose sums round to their dtype at each
+    add, as the reference's scatter into a buffer of that dtype does),
+    then cast to the table's dtype.  So two runs on the card give the
+    same bits, where the backward of ``table[ids]`` adds with atomics in
+    no fixed order, and a bf16 gather's gradient is summed in bf16, as
+    the reference sums it."""
+    return _GatherRows.apply(table, ids, dtype)
 
 
 # ---------------------------------------------------------------------------

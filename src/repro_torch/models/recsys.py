@@ -1,7 +1,11 @@
 """RecSys architectures: DLRM, Wide&Deep, BERT4Rec, MIND (the port's
 counterpart of the JAX package's ``models/recsys.py``).
 
-* The embedding lookup is the hot path.  :func:`embedding_bag_ragged` is
+* The embedding lookup is the hot path.  Every row gather goes through
+  ``layers.gather_rows``, whose backward sums each id's gradient rows in
+  a fixed order (the reference's scatter-add; on the card the backward
+  of ``table[ids]`` adds with atomics in no fixed order).
+  :func:`embedding_bag_ragged` is
   a gather, then a segment reduction in a fixed order
   (``layers.segment_reduce``): the reference's ``jax.ops.segment_*``
   semantics, which ``F.embedding_bag`` does not have (an empty bag's max
@@ -9,7 +13,8 @@ counterpart of the JAX package's ``models/recsys.py``).
   ``n_bags`` are dropped).  :func:`embedding_bag_dense` is the fixed
   multi-hot fast path; with ``gather_dtype`` it gathers the rows first and
   rounds them after, the same values as rounding the table first, without
-  a copy of DLRM's 7 GB of tables on every call.
+  a copy of DLRM's 7 GB of tables on every call, and sums their gradient
+  in that dtype, as the reference's scatter into the rounded table does.
 * BERT4Rec's attention is ``layers.blockwise_attention(causal=False)``:
   the flash kernel on the card (``flash_attn_fwd_tf32[32]``, the narrow
   instance, at its head width 32 in f32, reading the q, k and v split
@@ -40,8 +45,9 @@ from repro_torch.core.clustering import full_f32
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.topk import _select
 from repro_torch.models.layers import (LOCAL_CTX, ShardCtx,
-                                       blockwise_attention, rms_norm,
-                                       segment_order, segment_reduce)
+                                       blockwise_attention, gather_rows,
+                                       rms_norm, segment_order,
+                                       segment_reduce)
 from repro_torch.models.transformer import _local_only, _normal
 
 BULK_GATHER_BATCH = 16384   # bf16 gathers from this batch on (recsys.py:147)
@@ -63,7 +69,7 @@ def embedding_bag_ragged(table: torch.Tensor, flat_ids, segment_ids,
     ``mean`` (an empty bag 0) or ``max`` (an empty bag -inf)."""
     dev = table.device
     seg = _ids(segment_ids, dev)
-    rows = table[_ids(flat_ids, dev)]                          # (L, d)
+    rows = gather_rows(table, _ids(flat_ids, dev))             # (L, d)
     if mode == "sum":
         return segment_reduce(rows, seg, n_bags)
     if mode == "mean":
@@ -81,15 +87,14 @@ def embedding_bag_dense(tables: torch.Tensor, ids, mode: str = "mean",
                         ) -> torch.Tensor:
     """Fixed multi-hot fast path: tables (T, V, d), ids (B, T, M) ->
     (B, T, d).  ``gather_dtype`` rounds the gathered rows to it (the
-    reference rounds the table first: the same values)."""
+    reference rounds the table first: the same values) and sums their
+    gradient in it, as the reference's scatter into the rounded table
+    does (``layers.gather_rows``)."""
     T, V, d = tables.shape
     ids = _ids(ids, tables.device)
     flat = ids + V * torch.arange(T, device=ids.device)[None, :, None]
-    gathered = torch.index_select(tables.reshape(T * V, d), 0,
-                                  flat.reshape(-1)).reshape(
-                                      *ids.shape, d)           # (B, T, M, d)
-    if gather_dtype is not None:
-        gathered = gathered.to(gather_dtype)
+    gathered = gather_rows(tables.reshape(T * V, d), flat,
+                           gather_dtype)                      # (B, T, M, d)
     if mode == "sum":
         return gathered.sum(dim=2)
     if mode == "mean":
@@ -223,7 +228,7 @@ def bert4rec_encode(params, item_ids, cfg: RecsysConfig,
     B, S = ids.shape
     d, H = cfg.embed_dim, cfg.n_heads
     with full_f32:
-        x = (params["item_embed"][ids]
+        x = (gather_rows(params["item_embed"], ids)
              + params["pos_embed"][None, :S]).to(dtype)
         for p in params["blocks"]:
             h = rms_norm(x, p["ln1"])
@@ -254,7 +259,7 @@ def bert4rec_sampled_loss(params, item_ids, mask_pos, pos_items, neg_items,
     hm = h[torch.arange(h.shape[0], device=dev), _ids(mask_pos, dev)]
     cand = torch.cat([_ids(pos_items, dev)[:, None], _ids(neg_items, dev)],
                      dim=1)
-    ce = params["item_embed"][cand].to(h.dtype)                # (B, N, d)
+    ce = gather_rows(params["item_embed"], cand).to(h.dtype)   # (B, N, d)
     with full_f32:
         logits = torch.einsum("bd,bnd->bn", hm, ce).float()
     return _sampled_softmax(logits)
@@ -290,7 +295,8 @@ def mind_interests(params, hist_ids, cfg: RecsysConfig,
     """hist_ids (B, L) -> interest capsules (B, K, d), by dynamic
     routing (``capsule_iters`` rounds, the reference's ``lax.scan``)."""
     _local_only(ctx)
-    e = params["item_embed"][_ids(hist_ids, params["item_embed"].device)]
+    e = gather_rows(params["item_embed"],
+                    _ids(hist_ids, params["item_embed"].device))
     B, Lh, _ = e.shape
     with full_f32:
         eS = e @ params["bilinear"].to(e.dtype)                # (B, L, d)
@@ -313,7 +319,7 @@ def mind_sampled_loss(params, hist_ids, pos_items, neg_items,
     dev = interests.device
     cand = torch.cat([_ids(pos_items, dev)[:, None], _ids(neg_items, dev)],
                      dim=1)
-    ce = params["item_embed"][cand]                            # (B, N, d)
+    ce = gather_rows(params["item_embed"], cand)               # (B, N, d)
     with full_f32:
         att = torch.einsum("bkd,bnd->bkn", interests, ce)
         w = torch.softmax(torch.pow(torch.clamp(att, min=0.0) + 1e-6,

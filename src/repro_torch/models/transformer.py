@@ -112,7 +112,11 @@ def _normal(gen: torch.Generator, shape, std: float, device: torch.device,
     """``std`` times standard normals drawn by ``gen`` on its own device
     in f32, stored in ``dtype`` on ``device``.  In f32, or where not
     ``per_layer``, in one draw; else one draw per index of the leading
-    (layer) axis, so the f32 transient is one layer's."""
+    (layer) axis, so the f32 transient is one layer's.  On the meta
+    device, the shape alone: nothing is drawn or allocated
+    (``models.api``'s abstract cells)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if dtype == torch.float32 or not per_layer:
         x = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)

@@ -51,34 +51,41 @@ def value_and_grad(loss_fn: Callable, params, batch):
             {k: torch.as_tensor(v).detach() for k, v in metrics.items()})
 
 
+def microbatch_grads(loss_fn: Callable, params, batch, microbatches: int):
+    """:func:`value_and_grad` of ``batch`` cut along its leading axis into
+    ``microbatches`` equal parts, one after another: the gradients summed
+    in f32 and divided by their count, the metrics averaged (the
+    reference's ``lax.scan`` accumulation).  One part: ``value_and_grad``
+    itself."""
+    mb = microbatches
+    if mb <= 1:
+        return value_and_grad(loss_fn, params, batch)
+    b = next(iter(batch.values())).shape[0]
+    micro = {k: v.reshape(mb, b // mb, *v.shape[1:])
+             for k, v in batch.items()}
+    acc, per_mb = None, []
+    for i in range(mb):
+        grads, metrics = value_and_grad(
+            loss_fn, params, {k: v[i] for k, v in micro.items()})
+        g32 = tree.tree_map(lambda g: g.float(), grads)
+        acc = g32 if acc is None else tree.tree_map(torch.add, acc, g32)
+        per_mb.append(metrics)
+    grads = tree.tree_map(lambda g: g / mb, acc)
+    metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
+               for k in per_mb[0]}
+    return grads, metrics
+
+
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
     """``loss_fn(params, batch) -> (loss, metrics)``.  Returns
     ``train_step(state, batch) -> (state, metrics)``; state = {"params",
     "opt"[, "ef"]}.  A batch is a dict of arrays or tensors whose leading
-    axis ``microbatches`` divides."""
-
-    def compute_grads(params, batch):
-        mb = tcfg.microbatches
-        if mb <= 1:
-            return value_and_grad(loss_fn, params, batch)
-        b = next(iter(batch.values())).shape[0]
-        micro = {k: v.reshape(mb, b // mb, *v.shape[1:])
-                 for k, v in batch.items()}
-        acc, per_mb = None, []
-        for i in range(mb):
-            grads, metrics = value_and_grad(
-                loss_fn, params, {k: v[i] for k, v in micro.items()})
-            g32 = tree.tree_map(lambda g: g.float(), grads)
-            acc = g32 if acc is None else tree.tree_map(torch.add, acc, g32)
-            per_mb.append(metrics)
-        grads = tree.tree_map(lambda g: g / mb, acc)
-        metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
-                   for k in per_mb[0]}
-        return grads, metrics
+    axis ``microbatches`` divides (:func:`microbatch_grads`)."""
 
     def train_step(state, batch):
         params, opt_state = state["params"], state["opt"]
-        grads, metrics = compute_grads(params, batch)
+        grads, metrics = microbatch_grads(loss_fn, params, batch,
+                                          tcfg.microbatches)
         if tcfg.grad_compress_bits:
             grads, residuals = ef_compress_grads(
                 grads, state["ef"], tcfg.grad_compress_bits)

@@ -38,19 +38,22 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in keyed_leaves(tree)]
 
 
+def _build(t, it) -> Any:
+    if isinstance(t, dict):
+        out = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}              # the caller's key order
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
+
+
 def unflatten_like(like, values) -> Any:
     """A tree of ``like``'s structure holding ``values`` (an iterable, in
-    the order :func:`leaves` gives ``like``'s leaves)."""
-    it = iter(values)
-
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}          # the caller's key order
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-    return build(like)
+    the order :func:`leaves` gives ``like``'s leaves).  No closure refers
+    to itself here: a suspended generator of ``values`` (and whatever its
+    frame holds, e.g. a train step's new state) is freed on return, not
+    at the next garbage collection."""
+    return _build(like, iter(values))
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:
