@@ -326,9 +326,11 @@ From the root of a checkout, with one CUDA card:
 15. trains the recsys and GNN models at full width in f32 (TF32 off)
    through ``models.api.build_cell(arch, shape)`` and its cell's loss,
    random weights and batches from ``--seed``, after phase 14
-   (``recsys_train_phase``): (a) row 7e, ``flash_attn_bwd`` at a
-   BERT4Rec microbatch's shape (B = 16,384, S = T = 200, H = Hk = 2, dh
-   32, not causal, its (64, 64) instance) with phase 12 (a)'s checks
+   (``recsys_train_phase``): (a) row 7e, the backward at a BERT4Rec
+   microbatch's shape (B = 16,384, S = T = 200, H = Hk = 2, dh 32, not
+   causal: its narrow instance, one launch of ``flash_attn_bwd[32]``, on
+   q, k and v split from one (B, S, 3H, dh) tensor as the encode hands
+   them over, no operand but lse copied) with phase 12 (a)'s checks
    (against its plain version in f64, evaluated ``BWD_REF_ROWS`` batch
    rows at a time, two runs, the forward's output and lse), timed beside
    its plain version,
@@ -338,7 +340,8 @@ From the root of a checkout, with one CUDA card:
    minibatch_lg (phase 14's sampled batch) and molecule (the reference's
    dummy node added), each batch held to the cell's abstract args: (b)
    the loss gradient at BERT4Rec's first microbatch through the kernels
-   (one ``flash_attn_fwd_tf32[32]`` and one ``flash_attn_bwd`` a block)
+   (one ``flash_attn_fwd_tf32[32]`` and one ``flash_attn_bwd[32]`` a
+   block)
    within ``TRAIN_GRAD_RTOL`` relative L2 of the plain attention's, a
    leaf at a time; the other archs' at the batch's first
    ``TRAIN_HOST_ROWS`` rows (SAGE's cells on their whole graphs) within
@@ -583,8 +586,9 @@ TRAIN_EQUAL_BYTES = 4e9     # (c): states compared element by element too
 DIGEST_CHUNK = 1 << 26      # (c): elements a digest reads at once
 BWD_REF_ROWS = 2048         # (a): batch rows a plain evaluation takes
 BWD_ROW_7E = "flash_attn_bwd@bert4rec"     # row 7e of the kernels line
+BWD_KEY_7E = "flash_attn_bwd[32]"          # its narrow instance's key
 # the kernels-line rows of phase 15's launches, by LAUNCHES key
-TRAIN_ROWS = {FLASH_KEY_6J: FLASH_ROW_6J, "flash_attn_bwd": BWD_ROW_7E}
+TRAIN_ROWS = {FLASH_KEY_6J: FLASH_ROW_6J, BWD_KEY_7E: BWD_ROW_7E}
 PQ_SRC = "src/repro_torch/kernels/pq_adc/csrc/"
 PQ_TPU = "src/repro/kernels/pq_adc/pq_adc.py:"
 FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -2733,9 +2737,26 @@ def plain_bwd(q, k, v, out, lse, do, causal: bool, **kw) -> list:
     return [torch.cat(g) for g in zip(*parts)]
 
 
+@contextlib.contextmanager
+def copies_recorded():
+    """The names of the operands the flash wrappers copy (their calls of
+    ``launch.operand``) inside the block, in a list."""
+    from repro_torch.kernels.flash_attn import ops
+    copied, real = [], ops.operand
+
+    def spy(name, *args):
+        copied.append(name)
+        return real(name, *args)
+    ops.operand = spy
+    try:
+        yield copied
+    finally:
+        ops.operand = real
+
+
 def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
                 dh: int, dv: int, B: int = 1, S: int = ATTN_LEN,
-                causal: bool = True) -> dict:
+                causal: bool = True, views: bool = False) -> dict:
     """Phase 12 (a), 13 (a), 15 (a): the backward kernel at B, S = T, H
     query and Hk KV heads, q/k ``dh`` and v ``dv`` wide, causal or not
     (row 6b's shape: Qwen3-0.6B's heads; 7c's: DeepSeek-V2-Lite's MLA;
@@ -2747,7 +2768,9 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
     plain version's, SDPA's backward alone, and the bound: five products
     a (s, t) pair kept by the mask (S, dK and dQ over dh, dP and dV over
     dv), the bytes of q, k, v, o, dO and lse read and dq, dk, dv
-    written."""
+    written.  ``views``: q, k and v split from one (B, S, 3H, dh) tensor,
+    as BERT4Rec's encode hands them over (H == Hk, dv == dh); the launch
+    must then copy no operand but lse (``launch.operand``)."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_bwd,
                                                 flash_attn_bwd_ref,
@@ -2757,10 +2780,16 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
     F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
-    do = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, S, Hk, dh, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, S, Hk, dv, generator=gen, device=dev).to(dtype)
+    if views:
+        qkv = torch.randn(B, S, 3 * H, dh, generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = torch.split(qkv, H, dim=2)
+        do = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
+    else:
+        q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
+        do = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, Hk, dh, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, Hk, dv, generator=gen, device=dev).to(dtype)
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     out_plain, lse_plain = flash_attn_ref(q, k, v, causal=causal,
                                           return_lse=True)
@@ -2771,11 +2800,14 @@ def measure_bwd(name: str, dtype: torch.dtype, seed: int, H: int, Hk: int,
         raise AssertionError(f"{name}: lse relative error {lse_err} > "
                              f"{LSE_RTOL}")
     del out_plain, lse_plain
-    key = flash_bwd_plan(dtype, dh, dv).key
+    key = flash_bwd_plan(dtype, dh, dv, S).key
     before = LAUNCHES[key]
-    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    with copies_recorded() as copied:
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     if LAUNCHES[key] != before + 1:
         raise AssertionError(f"{name}: no launch of {key}")
+    if views and copied != ["lse"]:
+        raise AssertionError(f"{name}: the launch copied {copied}")
     want = plain_bwd(q, k, v, out, lse, do, causal, compute=torch.float64)
     plain = plain_bwd(q, k, v, out, lse, do, causal)
     limit = BWD_RTOL[dtype]
@@ -3856,7 +3888,6 @@ def grads_vs_plain(cell, params, batch: dict, n: int, total: dict) -> dict:
     within TRAIN_GRAD_RTOL relative L2."""
     from repro_torch import tree
     from repro_torch.kernels import launch
-    from repro_torch.kernels.flash_attn import BWD_KEY
     from repro_torch.train.loop import value_and_grad
     one = {k: v[:n] for k, v in batch.items()}
     blocks = len(params["blocks"])
@@ -3864,9 +3895,9 @@ def grads_vs_plain(cell, params, batch: dict, n: int, total: dict) -> dict:
     got, gm = value_and_grad(cell.loss_fn, params, one)
     torch.cuda.synchronize()
     grew = {k: c for k, c in launch.LAUNCHES.items() if c}
-    if grew != {FLASH_KEY_6J: blocks, BWD_KEY: blocks}:
+    if grew != {FLASH_KEY_6J: blocks, BWD_KEY_7E: blocks}:
         raise AssertionError(f"bert4rec's gradient launched {grew}, not "
-                             f"{blocks} x {FLASH_KEY_6J} and {BWD_KEY}")
+                             f"{blocks} x {FLASH_KEY_6J} and {BWD_KEY_7E}")
     add_launches(total, TRAIN_ROWS)
     with plain_attention():
         want, wm = value_and_grad(cell.loss_fn, params, one)
@@ -3900,7 +3931,6 @@ def train_round(arch: str, shape: str, batch: dict, seed: int,
     from repro_torch import tree
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch
-    from repro_torch.kernels.flash_attn import BWD_KEY
     from repro_torch.models import api
     from repro_torch.optim.adamw import adamw_init
     cell = api.build_cell(arch, shape)
@@ -3920,7 +3950,7 @@ def train_round(arch: str, shape: str, batch: dict, seed: int,
     torch.cuda.empty_cache()
     step = train_step(cell, micro)
     want = ({FLASH_KEY_6J: micro * len(params["blocks"]),
-             BWD_KEY: micro * len(params["blocks"])}
+             BWD_KEY_7E: micro * len(params["blocks"])}
             if arch == "bert4rec" else {})
     state = {"params": params, "opt": adamw_init(params)}
     del params
@@ -4054,7 +4084,7 @@ def recsys_train_phase(seed: int, card: str, keep: dict) -> tuple:
         t = time.perf_counter()
         row = measure_bwd(BWD_ROW_7E, torch.float32, seed, H, H, dh, dh,
                           B=RECSYS_TRAIN_BATCH // TRAIN_MICRO["bert4rec"],
-                          S=c.seq_len, causal=False)
+                          S=c.seq_len, causal=False, views=True)
         launch.reset_launches()    # the comparison's launches count not
         log(f"{BWD_ROW_7E} ({card}) {row['shape']}: rel L2 "
             f"{row['rel_l2']} (limit {BWD_RTOL[torch.float32]}; against "

@@ -54,7 +54,8 @@ attention backward (``flash_attention_bwd``), B = 1, S = T
 MLA shape (q/k 192, v 128, H = Hk = 16), each on f32 and bf16 inputs
 (rows 7, 7b, 7c and 7d of PERF.md section 6), and at BERT4Rec's training
 shape (B = 16,384, one microbatch of train_batch, S = T = 200, H = Hk =
-2, dh 32, not causal) in f32 (row 7e), from the forward
+2, dh 32, not causal) in f32 (row 7e) on q, k and v split from one (B,
+S, 3H, dh) tensor, from the forward
 kernel's output and lse, its gradients' relative L2 error against
 ``flash_attn_bwd_ref`` (and, where the tree's plain version evaluates in f64, against that
 exact gradient, with the f32 plain version's own error beside it),
@@ -130,8 +131,10 @@ PREFIX = {"adc": "adc_", "flash": "flash_", "l2": "l2dist",   # sources
 # MLA shape (H = Hk = 16, q/k 192, v 128) in f32 (row 7c) and on bf16
 # inputs (row 7d); and at BERT4Rec's training shape, one microbatch of
 # train_batch (B = 16,384 of 65,536, S = T = 200, H = Hk = 2, dh 32, not
-# causal) in f32 (row 7e)
-BERT4REC_TRAIN = dict(S=200, H=2, Hk=2, B=16_384, causal=False)
+# causal) in f32 (row 7e), q, k and v split from one (B, S, 3H, dh)
+# tensor as the encode hands them over (a tree's copies of such views
+# are in its time)
+BERT4REC_TRAIN = dict(S=200, H=2, Hk=2, B=16_384, causal=False, views=True)
 BWD_CASES = ((torch.float32, "f32", 128, 128, ATTN),
              (torch.bfloat16, "bf16", 128, 128, ATTN),
              (torch.float32, "f32,mla", 192, 128, MLA),
@@ -275,8 +278,9 @@ def bwd_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
                 chip_smoke) -> dict:
     """The attention backward (``flash_attention_bwd``) at ``shape``'s B
     (else 1), S = T, H and Hk, causal (else True), q and k ``dh`` wide, v
-    ``dv`` wide, on inputs of ``dtype``, from the forward kernel's output
-    and lse: the kernels it launched, each gradient's relative L2 error
+    ``dv`` wide, on inputs of ``dtype`` (with ``views``, q, k and v split
+    from one (B, S, H + 2 Hk, dh) tensor), from the forward kernel's
+    output and lse: the kernels it launched, each gradient's relative L2 error
     against ``flash_attn_bwd_ref`` on the same residuals
     (``chip_smoke.plain_bwd``), whether two runs are
     bit-equal, and its time; this tree's process also times SDPA's
@@ -287,9 +291,14 @@ def bwd_reading(dtype, dh, dv, shape, dev, gen, ran, yardsticks,
     F = torch.nn.functional
     b, s, h, hk = shape.get("B", 1), shape["S"], shape["H"], shape["Hk"]
     causal = shape.get("causal", True)
-    q, do, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
-                   for sh in ((b, s, h, dh), (b, s, h, dv), (b, s, hk, dh),
-                              (b, s, hk, dv)))
+    if shape.get("views"):
+        x = torch.randn(b, s, h + 2 * hk, dh, generator=gen, device=dev)
+        q, k, v = torch.split(x.to(dtype), [h, hk, hk], dim=2)
+        do = torch.randn(b, s, h, dv, generator=gen, device=dev).to(dtype)
+    else:
+        q, do, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                       for sh in ((b, s, h, dh), (b, s, h, dv),
+                                  (b, s, hk, dh), (b, s, hk, dv)))
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
 
     def call():

@@ -30,10 +30,12 @@ and add are contracted unless the source writes ``__fmaf_rn``.
   division round each step (``__fmul_rn``, ``__fadd_rn``, ...).
 * ``flash_attn_bwd``: the attention backward on the tensor cores, every
   product in bf16 ``wgmma`` on bf16 terms of its operands (three terms of
-  f32 inputs, P and dS; f32 sums, in the tensor cores' order); D a chain
-  of ``__fmaf_rn``, each element step rounded on its own, the
-  exponentials ``expf`` (in base 2 by ``ex2.approx`` in the (192, 128)
-  instance's kernels); the forwards write the logsumexp it reads
+  f32 inputs, P and dS; f32 sums, in the tensor cores' order, dQ of the
+  narrow (32, 32) instance by ``mma.sync``); D a chain of ``__fmaf_rn``
+  (in the narrow instance products rounded apart, summed by shuffles in a
+  fixed order), each element step rounded on its own, the exponentials
+  ``expf`` (in base 2 by ``ex2.approx`` in the (192, 128) and the narrow
+  instances' kernels); the forwards write the logsumexp it reads
   (``flash_lse.cuh``).
 * ``l2dist_wgmma``: its product runs on the tensor cores, in 3xTF32 for
   f32 inputs and in one bf16 product for bf16 (f32 sums in the tensor

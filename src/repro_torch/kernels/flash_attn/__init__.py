@@ -1,5 +1,6 @@
 from repro_torch.kernels.flash_attn.ops import (  # noqa: F401
-    BWD_BF16_DV_KEY, BWD_BF16_KEY, BWD_DV_KEY, BWD_KEY, BwdLaunch, BwdPlan,
+    BWD_BF16_DV_KEY, BWD_BF16_KEY, BWD_DV_KEY, BWD_KEY, BWD_NARROW_KEY,
+    BwdLaunch, BwdPlan,
     BwdSchedule, FlashPlan, FlashSchedule, flash_attention,
     flash_attention_bwd, flash_bwd_plan, flash_bwd_schedule, flash_bwd_width,
     flash_instance, flash_kernel, flash_plan, flash_schedule, flash_width)

@@ -20,10 +20,12 @@
 // causal masking aligned at the top left (key t kept for query s where
 // t <= s), q at offset 0, q and k d wide, v, O and dO d_v <= d wide, both
 // multiples of 8 (the wrapper pads other widths with zero columns, which
-// give zero gradient columns, cut off after).  Instances (kD, kDv): (64,
-// 64), (128, 128) and (192, 128), DeepSeek-V2's MLA (q/k 192, v 128); a
-// narrower width runs on the smallest instance that holds it, its tensor
-// maps at the true widths, so TMA reads the columns past them as zeros.
+// give zero gradient columns, cut off after).  Instances (kD, kDv): (32,
+// 32), the narrow kernel at the end (f32 inputs, q/k at most 32 wide, at
+// most 256 keys: BERT4Rec's training shape); (64, 64), (128, 128) and
+// (192, 128), DeepSeek-V2's MLA (q/k 192, v 128); any other width runs on
+// the smallest of the last three that holds it, its tensor maps at the
+// true widths, so TMA reads the columns past them as zeros.
 //
 // What bounds it on an H100 SXM: operations.  At Qwen3-0.6B's attention
 // widths (H 16, Hk 8, dh 128), B = 1, S = T = 4096, causal, each product
@@ -152,6 +154,72 @@
 // conversions) and S^T reads K from registers (its A fragments loaded once
 // a block), not shared memory.  The one-warpgroup instances keep expf and
 // rounded terms.
+//
+// The narrow instance (bwd_narrow_kernel): f32 inputs with q/k at most 32
+// wide over at most 256 keys, BERT4Rec's training shape (B 16,384 a
+// microbatch, S = T = 200, H = Hk = 2, dh 32).  There the (64, 64)
+// instance spent half of every product on zero columns, ran 131,072
+// blocks a pass whose set-up was as long as their work, formed S and dP
+// twice, and wrote and read back 5 GB of term planes.  Here a unit of
+// work is a (batch, KV head) with all its G S query rows and T keys, on
+// one block of four warpgroups (512 threads, at most 128 registers each);
+// the grid is persistent (a block an SM, the units in turn).  Warpgroup w
+// keeps keys [64 w, 64 w + 64) of K and V resident in shared memory in
+// three bf16 terms (the A operands of its scores; its K also the B
+// operand of its share of dQ), loaded from device memory by its own
+// threads at the unit's start (each key's row read once; the next unit's
+// rows prefetched into L2 at this one's start), rows past T zero.  The
+// unit's query rows stream in stages of 32 rows of one query head (heads
+// outer): every thread loads its two columns of one row of q, dO and O
+// one stage ahead into registers (so the loads run under this stage's
+// products), then, once its warpgroup's dV and dK have read the stage,
+// splits q and dO into three bf16 terms in the other of two stage
+// buffers and sums its row's D = rowsum(dO O) with the row's other
+// 15 threads by shuffles in a fixed order (no prep kernel, no scratch);
+// a barrier a buffer (16 warps arrive) publishes the stage.  Each
+// warpgroup, for each stage:
+//   * S^T = K Q^T and dP^T = V dO^T (m64n32k16 on SW64 tiles: 64 keys x
+//     32 queries, K = 32: two k-steps, six term pairs, one chain of twelve
+//     steps each, the small pairs first: two chains, as the other
+//     instances keep, took 32 more registers and spilled), so P^T =
+//     2^(S^T scale2 - lse2) (ex2.approx, lse2 = lse log2(e) formed with
+//     the stage) and dS^T = P^T (dP^T - D) come out in the accumulator
+//     layout, the A layout from registers of
+//   * dV += P^T dO and dK += dS^T Q (m64n32k16, B the stage's dO and Q
+//     read MN-major through the transpose bit; twelve steps a product,
+//     from zero, promoted into the running f32 sums): each input row is
+//     read once and S and dP are formed once, five products in all;
+//   * dS^T's three terms into the warpgroup's 12 KB slice, then its dQ
+//     share over its 64 keys, dS K, by mma.sync m16n8k16 (wgmma's M is
+//     64 and a stage has 32 query rows): warp w takes queries 16 (w & 1)
+//     .. and columns 16 (w >> 1) .., A (dS) and B (K) from shared memory
+//     by ldmatrix.trans, a 16-key step at a time from zero, promoted; the
+//     32 x 32 f32 partial into one of two partial buffers, and a barrier
+//     a buffer (16 warps arrive);
+//   * warpgroup j % 4 (j the block's stage) waits for the stage's four
+//     partials, sums them in order w = 0 .. 3 and writes dQ's 32 rows: dQ
+//     is complete inside the block, with no atomics.
+// At the unit's end each warpgroup writes its keys' dK (scaled) and dV.
+// No sum depends on timing, so a gradient repeats bit for bit.  The
+// stage and partial buffers need no empty barriers: a thread passes
+// stage j's full barrier only after every thread has split stage j, which
+// each does in stage j - 1 after its products have read that stage's
+// buffer, and after its stage j - 2 (its dQ sum included) is done.
+// Padding: the keys as M pad T to 256 (200 -> 256, 28%); the query rows
+// to a multiple of 32 (200 -> 224, 12%); no column is padded at dh 32.
+// Shared memory (one block an SM): K and V 2 x 48 KB, two stages 2 x 12
+// KB, the dS^T slices 48 KB, two sets of partials 2 x 16 KB, the stages'
+// lse2 and D 0.5 KB, 1 KB of alignment: 201.5 KB.  Registers: the 128 a
+// thread of a 512-thread block may have (ptxas: 128, 48 bytes spilled; no
+// wgmma serialised: every warpgroup issues every product, no branch
+// around a wgmma, no call).  Registers bound the design: each of these
+// spilled more and read slower at BERT4Rec's shape: two score chains;
+// three stage buffers, a stage split one stage early; dK's A from the
+// dS^T slice, issued with dV in one group; K's (and V's) A fragments in
+// registers; the last warp to publish a stage's partial summing its dQ;
+// the sum one stage late.  Bound at BERT4Rec's shape: the five products,
+// 419 GFLOP, 1.26 T as 3xTF32: 2.54 ms at 495 TFLOP/s (6.7 GB of inputs
+// and outputs, 2.0 ms).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1368,6 +1436,448 @@ bwd_dq_duo_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ------------------------------------------- the narrow instance, q/k <= 32
+// (the header's last section).  Shared memory, from a 1024-byte aligned
+// base: K's three terms (256 rows of 64 bytes each), V's, two stages (Q's
+// three terms and dO's, 32 rows each), the four warpgroups' dS^T terms (64
+// keys x 32 queries each), two sets of the four warpgroups' dQ partials
+// (32 x 32 f32 each), and two stages' lse2 and D (32 floats each).
+constexpr int kNWgs = 4;                       // warpgroups: 64 keys each
+constexpr int kNThreads = kNWgs * 128;         // 512: 128 registers a thread
+constexpr int kNWarps = kNThreads / 32;
+constexpr int kNKeys = kNWgs * kRows;          // 256 keys resident at most
+constexpr int kNQ = 32;                        // query rows a stage
+constexpr int kNWidth = 32;                    // columns of every tile
+constexpr int kNKTerm = kNKeys * 64;           // a term of K or V, 16 KB
+constexpr int kNSlice = kRows * 64;            // a warpgroup's 64 keys of it
+constexpr int kNQTerm = kNQ * 64;              // a term of a stage's Q or dO
+constexpr int kNStage = 6 * kNQTerm;           // Q and dO, three terms each
+constexpr int kNDsTerm = kRows * kNQ * 2;      // a term of a warpgroup's dS^T
+constexpr int kNPart = kNQ * kNWidth * 4;      // a warpgroup's dQ partial
+constexpr int kNOffV = 3 * kNKTerm;
+constexpr int kNOffStage = 6 * kNKTerm;
+constexpr int kNOffDs = kNOffStage + 2 * kNStage;
+constexpr int kNOffPart = kNOffDs + kNWgs * 3 * kNDsTerm;
+constexpr int kNOffRows = kNOffPart + 2 * kNWgs * kNPart;
+constexpr int kNSmem = kNOffRows + 2 * 2 * kNQ * 4 + 1024;
+static_assert(kNSmem + 1024 <= kSmemCap, "shared memory");
+
+// byte offset of bf16 column c (even) of row r in a tile of 64-byte rows,
+// 64-byte swizzle (16-byte chunk c / 8 ^ (r / 2) % 4, 512-byte atoms; the
+// tile 512-byte aligned): the layout wgmma's SW64 descriptors read
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return r * 64 + ((((c >> 3) ^ (r >> 1)) & 3) << 4) + (c & 7) * 2;
+}
+
+// d (64 x 32, f32) (+)= A (64 x 16, registers) * B (16 x 32, smem,
+// MN-major); accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (16 x 8, f32) += A (16 x 16, row) * B (16 x 8, col), bf16: one warp
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices, transposed: lane l gives the address of row l %
+// 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// sum (64 x 32) += X B: X (64 keys x 32 queries, P^T or dS^T) in three terms
+// in registers as A, B a stage's 32-row term tile (dO or Q) read MN-major
+// (k-step kk: its rows 16 kk .., 1 KB on); over the term pairs a + b <= 2,
+// smallest first, one chain from zero, committed, waited for and promoted
+__device__ __forceinline__ void grad_narrow(float (&sum)[16],
+                                            const uint32_t (&x)[3][8],
+                                            uint32_t b) {
+  float part[16];
+  wgmma_fence();
+  int acc = 0;
+#pragma unroll
+  for (int o = 2; o >= 0; --o)
+#pragma unroll
+    for (int ta = 0; ta <= o; ++ta) {
+      const int tb = o - ta;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        mma_rs_n32(part, &x[ta][4 * kk],
+                   desc_sw64(b + tb * kNQTerm + kk * 1024, kNQTerm, 512), acc);
+        acc = 1;
+      }
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+  promote(sum, part);
+}
+
+// S^T or dP^T of a warpgroup's 64 keys and a stage's 32 queries (A the
+// keys' slice of a resident term plane, B a stage's 32-row term tile, both
+// K-major, SW64): two k-steps over the six term pairs, the small pairs
+// first, one chain of twelve steps from zero (two chains, as the other
+// instances keep, took 32 more registers and spilled).  Issued, not
+// committed.
+__device__ __forceinline__ void issue_scores_narrow(float (&s)[16],
+                                                    uint32_t a, uint32_t b) {
+  int acc = 0;
+#pragma unroll
+  for (int o = 2; o >= 0; --o)
+#pragma unroll
+    for (int ta = 0; ta <= o; ++ta)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        mma_ss(s, desc_sw64(a + ta * kNKTerm + kk * 32, 16, 512),
+               desc_sw64(b + (o - ta) * kNQTerm + kk * 32, 16, 512), acc);
+        acc = 1;
+      }
+}
+
+// the narrow kernel's arguments: q (b, s, h, d), k (b, t, hk, d), v (b, t,
+// hk, d_v), o and dout (b, s, h, d_v) f32 at the element strides of their
+// batch, row and head axes; lse (b, h, s); dq, dk, dv contiguous
+struct NarrowArgs {
+  const float *q, *k, *v, *o, *dout, *lse;
+  float *dq, *dk, *dv;
+  long long q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh;
+  long long o_sb, o_sr, o_sh, g_sb, g_sr, g_sh;
+  int s_len, t_len, h_q, h_kv, d, d_v, causal, n_units;
+  float scale, scale2;
+};
+
+// a stage's loads: thread tid takes row tid / 16 of the stage's 32, columns
+// 2 (tid % 16) and the next, of q, dO and O, and the row's lse (tid % 16
+// == 0)
+struct NarrowLoad {
+  float2 q, g, o;
+  float lse;
+};
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// One block an SM, the (batch, KV head) units in turn (the header)
+__global__ void __launch_bounds__(kNThreads, 1)
+bwd_narrow_kernel(const __grid_constant__ NarrowArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[4];   // full [2], dq in [2]
+  uint8_t* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
+                              smem_u32(smem_raw));
+  const uint32_t sb = smem_u32(base);
+  const uint32_t bar0 = smem_u32(bars);
+  auto full = [&](int p) { return bar0 + 8u * (uint32_t)p; };
+  auto dq_in = [&](int p) { return bar0 + 8u * (uint32_t)(2 + p); };
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);   // warp-uniform
+  const int t = tid % 128, warp = t / 32, quad = lane % 4;
+  const int n_qt = (a.s_len + kNQ - 1) / kNQ;
+  const int g_n = a.h_q / a.h_kv;
+  const int n_st = g_n * n_qt;                     // stages a unit
+  const int d = a.d, d_v = a.d_v;
+
+  if (tid == 0) {
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(full(p), kNWarps);
+      mbar_init(dq_in(p), kNWarps);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // stage i of unit it into registers (zeros past the rows and columns,
+  // and for a unit past the last)
+  auto load_stage = [&](int it, int i) {
+    NarrowLoad x{{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, 0.f};
+    if (it >= a.n_units) return x;
+    const int bb = it / a.h_kv, kh = it % a.h_kv;
+    const int h = kh * g_n + i / n_qt, s = (i % n_qt) * kNQ + tid / 16;
+    const int c = 2 * (tid % 16);
+    if (s < a.s_len) {
+      if (c < d) x.q = ld2(a.q + bb * a.q_sb + s * a.q_sr + h * a.q_sh + c);
+      if (c < d_v) {
+        x.g = ld2(a.dout + bb * a.g_sb + s * a.g_sr + h * a.g_sh + c);
+        x.o = ld2(a.o + bb * a.o_sb + s * a.o_sr + h * a.o_sh + c);
+      }
+      if (c == 0) x.lse = a.lse[((long long)bb * a.h_q + h) * a.s_len + s];
+    }
+    return x;
+  };
+  // a stage's registers split into buffer p: Q's and dO's terms, lse2 =
+  // lse log2(e) and D = rowsum(dO O) (the row's 16 threads, lanes of one
+  // half-warp, summed in a fixed order); then one arrival a warp on full(p)
+  auto store_stage = [&](const NarrowLoad& x, int p) {
+    uint8_t* st = base + kNOffStage + p * kNStage;
+    const int r = tid / 16, c = 2 * (tid % 16);
+    float dl = __fadd_rn(__fmul_rn(x.g.x, x.o.x), __fmul_rn(x.g.y, x.o.y));
+#pragma unroll
+    for (int sh = 8; sh >= 1; sh >>= 1)
+      dl = __fadd_rn(dl, __shfl_xor_sync(0xffffffffu, dl, sh));
+    const float vq[2] = {x.q.x, x.q.y}, vg[2] = {x.g.x, x.g.y};
+    uint32_t tq[3][1], tg[3][1];
+    split_pack(vq, tq);
+    split_pack(vg, tg);
+#pragma unroll
+    for (int tt = 0; tt < 3; ++tt) {
+      *reinterpret_cast<uint32_t*>(st + tt * kNQTerm + sw64(r, c)) = tq[tt][0];
+      *reinterpret_cast<uint32_t*>(st + (3 + tt) * kNQTerm + sw64(r, c)) =
+          tg[tt][0];
+    }
+    if (c == 0) {
+      float* rows = reinterpret_cast<float*>(base + kNOffRows) + p * 2 * kNQ;
+      rows[r] = __fmul_rn(x.lse, kLog2e);
+      rows[kNQ + r] = dl;
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(full(p));
+  };
+  // the warpgroup's 64 keys of unit it: K and V from device memory (thread
+  // t: rows t / 8 + 16 i, columns 4 (t % 8) ..), three terms each into the
+  // resident planes (zeros past t_len and the widths)
+  auto load_kv = [&](int it) {
+    const int bb = it / a.h_kv, kh = it % a.h_kv;
+    const int c = 4 * (t % 8);
+    float4 kx[4], vx[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = kRows * wg + t / 8 + 16 * i;
+      const bool in = key < a.t_len;
+      kx[i] = in && c < d ? ld4(a.k + bb * a.k_sb + key * a.k_sr +
+                                kh * a.k_sh + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      vx[i] = in && c < d_v ? ld4(a.v + bb * a.v_sb + key * a.v_sr +
+                                  kh * a.v_sh + c)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    named_sync(1 + wg, 128);        // the last unit's reads of the slice done
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = t / 8 + 16 * i;
+      const float vk[4] = {kx[i].x, kx[i].y, kx[i].z, kx[i].w};
+      const float vv[4] = {vx[i].x, vx[i].y, vx[i].z, vx[i].w};
+      uint32_t tk[3][2], tv[3][2];
+      split_pack(vk, tk);
+      split_pack(vv, tv);
+#pragma unroll
+      for (int tt = 0; tt < 3; ++tt) {
+        *reinterpret_cast<uint2*>(base + tt * kNKTerm + wg * kNSlice +
+                                  sw64(row, c)) = make_uint2(tk[tt][0],
+                                                             tk[tt][1]);
+        *reinterpret_cast<uint2*>(base + kNOffV + tt * kNKTerm +
+                                  wg * kNSlice + sw64(row, c)) =
+            make_uint2(tv[tt][0], tv[tt][1]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);        // the slice is in
+  };
+  // the next unit's K and V rows of the warpgroup into L2 (thread t: row t
+  // % 64 of K, t < 64, or of V), so load_kv finds them there
+  auto prefetch_kv = [&](int it) {
+    if (it >= a.n_units) return;
+    const int bb = it / a.h_kv, kh = it % a.h_kv;
+    const int key = kRows * wg + t % 64;
+    if (key >= a.t_len) return;
+    const float* p = t < 64 ? a.k + bb * a.k_sb + key * a.k_sr + kh * a.k_sh
+                            : a.v + bb * a.v_sb + key * a.v_sr + kh * a.v_sh;
+    prefetch_l2(p);
+    prefetch_l2(p + (t < 64 ? d : d_v) - 1);
+  };
+
+  store_stage(load_stage(blockIdx.x, 0), 0);
+  const uint32_t k_s = sb + wg * kNSlice, v_s = sb + kNOffV + wg * kNSlice;
+  const uint32_t ds_s = sb + kNOffDs + wg * 3 * kNDsTerm;
+  uint8_t* ds_p = base + kNOffDs + wg * 3 * kNDsTerm;
+  const int rk = 16 * warp + lane / 4;             // slice rows rk, rk + 8
+  int j = 0;                                       // the block's stage
+  for (int it = blockIdx.x; it < a.n_units; it += gridDim.x) {
+    const int bb = it / a.h_kv, kh = it % a.h_kv;
+    prefetch_kv(it + gridDim.x);
+    load_kv(it);
+    float dk_acc[16], dv_acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < n_st; ++i, ++j) {
+      const int p = j & 1;
+      const uint32_t ph = (j >> 1) & 1;
+      const int h = kh * g_n + i / n_qt, q0 = (i % n_qt) * kNQ;
+      const uint32_t q_s = sb + kNOffStage + p * kNStage;
+      const uint32_t g_s = q_s + 3 * kNQTerm;
+
+      // S^T = K Q^T, dP^T = V dO^T (64 keys x 32 queries)
+      float s[16], dp[16];
+      mbar_wait(full(p), ph);
+      wgmma_fence();
+      issue_scores_narrow(s, k_s, q_s);
+      issue_scores_narrow(dp, v_s, g_s);
+      wgmma_commit();
+      // the next stage's loads, in flight until this one's end
+      const bool more = i + 1 < n_st;
+      const NarrowLoad nx = load_stage(more ? it : it + gridDim.x,
+                                       more ? i + 1 : 0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = 2^(S scale2 - lse2) and dS = P (dP - D) in place: element r at
+      // key rk (+ 8 where r & 2), query q0 + c
+      const float* rows =
+          reinterpret_cast<const float*>(base + kNOffRows) + p * 2 * kNQ;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int c = 8 * (r / 4) + 2 * quad + (r & 1);
+        const int key = kRows * wg + rk + ((r & 2) ? 8 : 0), qry = q0 + c;
+        const bool keep = qry < a.s_len && key < a.t_len &&
+                          (!a.causal || key <= qry);
+        const float pr = ex2(__fsub_rn(__fmul_rn(s[r], a.scale2), rows[c]));
+        s[r] = keep ? pr : 0.f;
+        dp[r] = __fmul_rn(s[r], __fsub_rn(dp[r], rows[kNQ + c]));
+      }
+
+      // dV += P^T dO, dK += dS^T Q (three terms of P^T, then dS^T, as A)
+      uint32_t xt[3][8];
+      split_pack(s, xt);
+      grad_narrow(dv_acc, xt, g_s);
+      split_pack(dp, xt);
+      grad_narrow(dk_acc, xt, q_s);
+
+      // the next stage into the other buffer, now that this warpgroup has
+      // read this stage's (every thread is past this stage's full barrier,
+      // so every thread has read the stage before and summed its dQ)
+      if (more || it + (int)gridDim.x < a.n_units) store_stage(nx, p ^ 1);
+
+      // dS^T's terms into the warpgroup's slice (its last reads done)
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int tt = 0; tt < 3; ++tt)
+#pragma unroll
+        for (int r = 0; r < 16; r += 2)
+          *reinterpret_cast<uint32_t*>(
+              ds_p + tt * kNDsTerm +
+              sw64(rk + ((r & 2) ? 8 : 0), 8 * (r / 4) + 2 * quad)) =
+              xt[tt][r / 2];
+      named_sync(1 + wg, 128);
+
+      // the warpgroup's dQ partial over its 64 keys, dS K by mma.sync: warp
+      // w the queries 16 (w & 1) .., columns 16 (w >> 1) ..; a 16-key step
+      // at a time from zero, promoted
+      const int mb = warp & 1, nb = warp >> 1;
+      const int i8 = lane / 8, r8 = lane % 8;
+      float dq_acc[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks) {
+        uint32_t af[3][4], bf[3][4];
+#pragma unroll
+        for (int tt = 0; tt < 3; ++tt) {
+          ldsm_t(af[tt], ds_s + tt * kNDsTerm +
+                             sw64(16 * ks + r8 + 8 * (i8 >> 1),
+                                  16 * mb + 8 * (i8 & 1)));
+          ldsm_t(bf[tt], k_s + tt * kNKTerm +
+                             sw64(16 * ks + r8 + 8 * (i8 & 1),
+                                  16 * nb + 8 * (i8 >> 1)));
+        }
+        float part[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+        for (int o = 2; o >= 0; --o)
+#pragma unroll
+          for (int ta = 0; ta <= o; ++ta)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              mma16816(part[n], af[ta], bf[o - ta][2 * n],
+                       bf[o - ta][2 * n + 1]);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) promote(dq_acc[n], part[n]);
+      }
+      float* part_p = reinterpret_cast<float*>(base + kNOffPart) +
+                      (p * kNWgs + wg) * (kNPart / 4);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int qr = 16 * mb + lane / 4, col = 16 * nb + 8 * n + 2 * quad;
+        *reinterpret_cast<float2*>(part_p + qr * kNWidth + col) =
+            make_float2(dq_acc[n][0], dq_acc[n][1]);
+        *reinterpret_cast<float2*>(part_p + (qr + 8) * kNWidth + col) =
+            make_float2(dq_acc[n][2], dq_acc[n][3]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(dq_in(p));
+
+      // warpgroup j % 4 sums the stage's four partials in order and writes
+      // dQ (thread t: query t / 4, columns 8 (t % 4) ..)
+      if (wg == (j & 3)) {
+        mbar_wait(dq_in(p), ph);
+        const int qr = t / 4, col = 8 * (t % 4);
+        const float* pp = reinterpret_cast<const float*>(base + kNOffPart) +
+                          p * kNWgs * (kNPart / 4) + qr * kNWidth + col;
+        float sum[8];
+#pragma unroll
+        for (int w = 0; w < kNWgs; ++w) {
+          const float4 x0 = *reinterpret_cast<const float4*>(pp);
+          const float4 x1 = *reinterpret_cast<const float4*>(pp + 4);
+          const float v8[8] = {x0.x, x0.y, x0.z, x0.w,
+                               x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            sum[e] = w == 0 ? v8[e] : __fadd_rn(sum[e], v8[e]);
+          pp += kNPart / 4;
+        }
+        const int sq = q0 + qr;
+        if (sq < a.s_len && col < d) {
+          float* dst = a.dq + (((long long)bb * a.s_len + sq) * a.h_q + h) * d +
+                       col;
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(__fmul_rn(sum[0], a.scale), __fmul_rn(sum[1], a.scale),
+                          __fmul_rn(sum[2], a.scale), __fmul_rn(sum[3], a.scale));
+          *reinterpret_cast<float4*>(dst + 4) =
+              make_float4(__fmul_rn(sum[4], a.scale), __fmul_rn(sum[5], a.scale),
+                          __fmul_rn(sum[6], a.scale), __fmul_rn(sum[7], a.scale));
+        }
+      }
+
+    }
+    const long long out = (long long)bb * a.t_len * a.h_kv + kh;  // (bb, 0, kh)
+    store_rows(a.dk + out * d, (long long)a.h_kv * d, kRows * wg + rk,
+               a.t_len, d, quad, a.scale, dk_acc);
+    store_rows(a.dv + out * d_v, (long long)a.h_kv * d_v, kRows * wg + rk,
+               a.t_len, d_v, quad, 1.f, dv_acc);
+  }
+}
+
 // ------------------------------------------------------------------ host
 // (batch, len, heads, d) bf16, 64-column x rows boxes, 128-byte swizzle;
 // rows past len and columns past d read as zeros
@@ -1464,6 +1974,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the narrow instance: one kernel, 512 threads, 256 keys resident, 32-row
+// stages, two of them (reported for both passes)
+cudaError_t launch_narrow(const NarrowArgs& args, int units,
+                          cudaStream_t stream) {
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_narrow_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kNSmem);
+  if (e != cudaSuccess) return e;
+  bwd_narrow_kernel<<<units < sms ? units : sms, kNThreads, kNSmem, stream>>>(
+      args);
+  return cudaGetLastError();
+}
+
 template <int kD, int kDv, int kTerms>
 void schedule(int* out) {
   using P = Schedule<kD, kDv, kTerms>;
@@ -1475,24 +2002,36 @@ void schedule(int* out) {
 }  // namespace
 
 // q, dq (b, s, h, d); o, dout (b, s, h, d_v); k, dk (b, t, hk, d); v, dv
-// (b, t, hk, d_v); lse and delta (b, h, s) f32: contiguous, each 16-byte
-// aligned; lse the forward's natural-log logsumexp, delta scratch the call
-// overwrites.  terms = 1: q, k, v, o, dout bf16, dq, dk, dv written in
-// bf16, scratch unused; terms = 3: all f32, scratch 3 (b s h + b t hk) (d
-// + d_v) bf16 for the term planes.  h % hk == 0; d and d_v multiples of 8,
-// 8 <= d_v <= d, and (d, d_v) within an instance: d <= 128, or d <= 192
-// with d_v <= 128.  The instance: (64, 64) where both are at most 64, else
-// (128, 128) where both are at most 128, else (192, 128).  Returns a
+// (b, t, hk, d_v); lse and delta (b, h, s) f32, each 16-byte aligned; lse
+// the forward's natural-log logsumexp, delta scratch the call overwrites.
+// The instance: with terms = 3, d <= 32 and t <= 256 the narrow one (the
+// header), which reads q, k, v, o and dout at the element strides of their
+// batch, row and head axes (q_sb, q_sr, q_sh, ...; each a positive multiple
+// of 4: views need no copy), writes dq, dk and dv contiguous in f32, and
+// uses neither delta nor scratch (either may be null).  Otherwise every
+// tensor is contiguous (the strides are not read) and: terms = 1: q, k, v,
+// o, dout bf16, dq, dk, dv written in bf16, scratch unused; terms = 3: all
+// f32, scratch 3 (b s h + b t hk) (d + d_v) bf16 for the term planes;
+// (64, 64) where d and d_v are at most 64, else (128, 128) where both are
+// at most 128, else (192, 128).  h % hk == 0; d and d_v multiples of 8, 8
+// <= d_v <= d, and d <= 128, or d <= 192 with d_v <= 128.  Returns a
 // cudaError_t.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* dq, void* dk, void* dv,
                               void* delta, void* scratch, int b, int s, int t,
                               int h, int hk, int d, int d_v, float scale,
-                              int causal, int terms, void* stream) {
+                              int causal, int terms, long long q_sb,
+                              long long q_sr, long long q_sh, long long k_sb,
+                              long long k_sr, long long k_sh, long long v_sb,
+                              long long v_sr, long long v_sh, long long o_sb,
+                              long long o_sr, long long o_sh, long long g_sb,
+                              long long g_sr, long long g_sh, void* stream) {
+  const bool narrow = terms == 3 && d <= kNWidth && t <= kNKeys;
   if (b < 1 || s < 1 || t < 1 || hk < 1 || h % hk || d_v < 8 || d % 8 ||
       d_v % 8 || d_v > d || d > 192 || (d > 128 && d_v > 128) ||
-      (terms != 1 && terms != 3) || (terms == 3 && scratch == nullptr) ||
+      (terms != 1 && terms != 3) ||
+      (terms == 3 && !narrow && scratch == nullptr) ||
       (long long)b * h > 0x7fffffffLL || (long long)b * terms > 0x7fffffffLL ||
       (s + kRows - 1) / kRows > 65535 || (t + kRows - 1) / kRows > 65535 ||
       (long long)b * h * ((s + kRows - 1) / kRows) > 0x7fffffffLL ||
@@ -1506,6 +2045,21 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
+  if (narrow) {
+    const long long strides[15] = {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb,
+                                   v_sr, v_sh, o_sb, o_sr, o_sh, g_sb, g_sr,
+                                   g_sh};
+    for (long long x : strides)
+      if (x <= 0 || x % 4) return (int)cudaErrorInvalidValue;
+    NarrowArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), static_cast<const float*>(o),
+                 static_cast<const float*>(dout), ls, static_cast<float*>(dq),
+                 static_cast<float*>(dk), static_cast<float*>(dv),
+                 q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh,
+                 o_sb, o_sr, o_sh, g_sb, g_sr, g_sh,
+                 s, t, h, hk, d, d_v, causal, b * hk, scale, scale * kLog2e};
+    return (int)launch_narrow(a, b * hk, st);
+  }
   float* dl = static_cast<float*>(delta);
   __nv_bfloat16* sc = static_cast<__nv_bfloat16*>(scratch);
 #define FLASH_BWD_LAUNCH(D, DV, TERMS)                                       \
@@ -1525,13 +2079,18 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
 // The launch of instance (kd, kdv) with `terms` terms into out[0..10):
 // for the dK/dV kernel, then the dQ kernel, threads a block, rows a
 // block, streamed rows, stages, dynamic shared-memory bytes (what
-// ops.py::flash_bwd_schedule states).  Returns a cudaError_t: invalid for
-// an instance or a term count the kernel does not have.
+// ops.py::flash_bwd_schedule states); the narrow instance (32, 32), one
+// kernel in three terms, reports its launch for both.  Returns a
+// cudaError_t: invalid for an instance or a term count the kernel does not
+// have.
 extern "C" int flash_attn_bwd_schedule(int kd, int kdv, int terms,
                                        int* out) {
   if (terms != 1 && terms != 3) return (int)cudaErrorInvalidValue;
   const bool one = terms == 1;
-  if (kd == 64 && kdv == 64)
+  if (kd == kNWidth && kdv == kNWidth && !one) {
+    const int v[5] = {kNThreads, kNKeys, kNQ, 2, kNSmem};
+    for (int i = 0; i < 10; ++i) out[i] = v[i % 5];
+  } else if (kd == 64 && kdv == 64)
     one ? schedule<64, 64, 1>(out) : schedule<64, 64, 3>(out);
   else if (kd == 128 && kdv == 128)
     one ? schedule<128, 128, 1>(out) : schedule<128, 128, 3>(out);

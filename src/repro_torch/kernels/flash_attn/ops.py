@@ -79,11 +79,19 @@ The backward, :func:`flash_attention_bwd`, has no Pallas counterpart
 (``csrc/flash_attn_bwd.cu``, bf16 ``wgmma`` on operands split into bf16
 terms, f32 sums; plain version ``ref.flash_attn_bwd_ref``) recomputes the
 scores from the saved lse.  Its instances are named (kD, kDv) as the
-forward's: (64, 64), (128, 128) and (192, 128), the last for MLA's
-training (q/k 192, v 128).  :func:`flash_bwd_plan` names the instance by
-the forward's rule (q/k up to 64, up to 128, up to 192 with v up to 128;
-:func:`flash_bwd_width` raises ``ValueError`` past it, naming the shape:
-(192, 192), (256, 256), a v wider than q), the widths padded to
+forward's: (32, 32), (64, 64), (128, 128) and (192, 128), the last for
+MLA's training (q/k 192, v 128).  :func:`flash_bwd_plan` names the
+instance from the dtype, the widths and the number of keys T: f32 inputs
+with q/k up to 32 wide over up to 256 keys run the narrow (32, 32)
+instance, counted under ``flash_attn_bwd[32]`` (BERT4Rec's training
+shape: one kernel of four warpgroups a (batch, KV head), its keys
+resident, every input read once, S and dP formed once, dQ summed inside
+the block; it reads q, k, v, out and dout at their own strides where
+``launch.tma_view`` says so, so the encode's split q, k, v are not
+copied, and takes no scratch); every other shape by the forward's rule
+without its (32, 32) (q/k up to 64, up to 128, up to 192 with v up to
+128; :func:`flash_bwd_width` raises ``ValueError`` past it, naming the
+shape: (192, 192), (256, 256), a v wider than q), the widths padded to
 multiples of 8, and the term count: bf16 inputs
 (``launch.operand_dtype``) run the one-term instance, counted under
 ``flash_attn_bwd[bf16]``, which reads them as they are and writes bf16
@@ -92,10 +100,12 @@ computes in f32) and runs the three-term instance, counted under
 ``flash_attn_bwd``, with a scratch buffer for the terms; ``[dv]`` is
 added to either key where v is narrower than q (``flash_attn_bwd[dv]``,
 ``flash_attn_bwd[bf16,dv]``).  One launch a call.
-:func:`flash_bwd_schedule` gives each instance's launches: one
-warpgroup a block at (64, 64) and (128, 128); at (192, 128) two, parted
-by product (one forms S and P, the other dP and dS, P handed over in
-shared memory), on 64-row streamed tiles in bf16 and 16-row in f32.
+:func:`flash_bwd_schedule` gives each instance's launches: at (32, 32)
+one kernel of 512 threads, 256 keys resident, two stages of 32 query
+rows; one warpgroup a block at (64, 64) and (128, 128); at (192, 128)
+two, parted by product (one forms S and P, the other dP and dS, P handed
+over in shared memory), on 64-row streamed tiles in bf16 and 16-row in
+f32.
 """
 
 from __future__ import annotations
@@ -306,10 +316,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 _BWD_INSTANCES = ((64, 64), (128, 128), (192, 128))   # (kD, kDv)
 _BWD_MAX_DH = 192
+_BWD_NARROW_T = 256             # the narrow instance's keys, all resident
 BWD_KEY = "flash_attn_bwd"
 BWD_BF16_KEY = "flash_attn_bwd[bf16]"
 BWD_DV_KEY = "flash_attn_bwd[dv]"
 BWD_BF16_DV_KEY = "flash_attn_bwd[bf16,dv]"
+BWD_NARROW_KEY = "flash_attn_bwd[32]"
 
 
 def flash_bwd_width(dh: int, dv: Optional[int] = None) -> Tuple[int, int]:
@@ -344,23 +356,30 @@ class BwdPlan(NamedTuple):
     terms: int
 
 
-def flash_bwd_plan(dtype: torch.dtype, dh: int,
-                   dv: Optional[int] = None) -> BwdPlan:
+def flash_bwd_plan(dtype: torch.dtype, dh: int, dv: Optional[int] = None,
+                   t: Optional[int] = None) -> BwdPlan:
     """The backward instance for inputs computing in ``dtype``
-    (``launch.operand_dtype``) with q and k ``dh`` wide and v ``dv`` wide
-    (``dh`` when None), by the rule of the kernel's C entry point, which
-    mirrors :func:`flash_plan`'s: q/k at most 64 wide -> (64, 64); at most
-    128 -> (128, 128); at most 192 with v at most 128 -> (192, 128), the
-    widths :func:`flash_bwd_width` gives (a v narrower than the instance
-    read as zero columns).  bf16 (inputs exact in bf16) -> one term, key
-    ``flash_attn_bwd[bf16]``; anything else -> f32 in three terms, key
-    ``flash_attn_bwd``; ``[dv]`` added (``flash_attn_bwd[dv]``,
-    ``flash_attn_bwd[bf16,dv]``) where v is narrower than q, as
-    :func:`flash_instance` names the forward's.  Raises ``ValueError`` as
-    :func:`flash_bwd_width` does."""
+    (``launch.operand_dtype``) with q and k ``dh`` wide, v ``dv`` wide
+    (``dh`` when None) and ``t`` keys (None: any number), by the rule of
+    the kernel's C entry point.  Inputs computing in f32 with q/k at most
+    32 wide over at most 256 keys -> the narrow instance (32, 32),
+    key ``flash_attn_bwd[32]`` whatever v's width: one kernel keeps a
+    (batch, KV head)'s keys resident and forms dQ, dK and dV from each
+    input read once.  Otherwise the forward's rule without its (32, 32):
+    q/k at most 64 wide -> (64, 64); at most 128 -> (128, 128); at most
+    192 with v at most 128 -> (192, 128), the widths :func:`flash_bwd_width`
+    gives (a v narrower than the instance read as zero columns).  bf16
+    (inputs exact in bf16) -> one term, key ``flash_attn_bwd[bf16]``;
+    anything else -> f32 in three terms, key ``flash_attn_bwd``; ``[dv]``
+    added (``flash_attn_bwd[dv]``, ``flash_attn_bwd[bf16,dv]``) where v is
+    narrower than q, as :func:`flash_instance` names the forward's.
+    Raises ``ValueError`` as :func:`flash_bwd_width` does."""
     dv = dh if dv is None else dv
     w, wv = flash_bwd_width(dh, dv)
     bf16 = operand_dtype(dtype) == torch.bfloat16
+    if (not bf16 and w <= _NARROW_DH and t is not None
+            and t <= _BWD_NARROW_T):
+        return BwdPlan(BWD_NARROW_KEY, (_NARROW_DH, _NARROW_DH), (w, wv), 3)
     if dv != dh:
         key = BWD_BF16_DV_KEY if bf16 else BWD_DV_KEY
     else:
@@ -381,21 +400,41 @@ class BwdSchedule(NamedTuple):
 
 
 class BwdLaunch(NamedTuple):
-    """The launches of a backward instance: its dK/dV and its dQ kernel."""
+    """The launches of a backward instance: its dK/dV and its dQ kernel
+    (the narrow instance's one kernel in both)."""
     dkdv: BwdSchedule
     dq: BwdSchedule
 
 
 _BWD_ROWS = 64                  # keys or queries a block
 SMEM_HALF = 113 * 1024          # a block's share where two fit an SM
+_NARROW_STAGE = 32              # query rows of a narrow stage
+_NARROW_STAGES = 2              # its stage buffers
+
+
+def _narrow_smem() -> int:
+    """The narrow kernel's dynamic shared memory: K and V in three bf16
+    terms at 256 keys x 32 columns, two stages of Q's and dO's terms (32
+    rows), the four warpgroups' dS^T terms (64 keys x 32 queries), two sets
+    of their f32 dQ partials (32 x 32), two stages' lse2 and D (32 f32
+    each), 1 KB to align them."""
+    kv = 2 * 3 * _BWD_NARROW_T * _NARROW_DH * 2
+    stages = _NARROW_STAGES * 2 * 3 * _NARROW_STAGE * _NARROW_DH * 2
+    ds = 4 * 3 * _BWD_ROWS * _NARROW_STAGE * 2
+    parts = 2 * 4 * _NARROW_STAGE * _NARROW_DH * 4
+    rows = _NARROW_STAGES * 2 * _NARROW_STAGE * 4
+    return kv + stages + ds + parts + rows + 1024
 
 
 def flash_bwd_schedule(instance: Tuple[int, int], terms: int) -> BwdLaunch:
     """The launches of ``flash_attn_bwd``'s (kD, kDv) ``instance`` with
     ``terms`` bf16 terms of q, k, v and dO (:func:`flash_bwd_plan`'s).
-    Each block keeps 64 rows of one pair of tensors resident (K and V, or
-    Q and dO, ``terms`` planes each) and streams the other pair through a
-    ring.  (64, 64) and (128, 128): one warpgroup (128 threads), 32-row
+    (32, 32), three terms only: one kernel of four warpgroups (512
+    threads), 256 keys resident, two stages of 32 query rows, on a grid of
+    one block an SM (the same launch in both fields).  Otherwise each block
+    keeps 64 rows of one pair of tensors resident (K and V, or Q and dO,
+    ``terms`` planes each) and streams the other pair through a ring.
+    (64, 64) and (128, 128): one warpgroup (128 threads), 32-row
     tiles; in f32 as many stages as ``SMEM_CAP`` holds beside the
     resident tiles and 2 KB, in bf16 as many as ``SMEM_HALF`` holds (two
     blocks an SM), and the bf16 dQ pass two stages (three blocks an SM);
@@ -408,11 +447,18 @@ def flash_bwd_schedule(instance: Tuple[int, int], terms: int) -> BwdLaunch:
     kernel's ``Schedule`` computes the same numbers, and its
     ``flash_attn_bwd_schedule`` reports them.  Raises ``ValueError`` for
     an instance or a term count the kernel does not have."""
-    if tuple(instance) not in _BWD_INSTANCES:
-        raise ValueError(f"no backward instance {tuple(instance)}: the "
-                         f"kernel has {_BWD_INSTANCES}")
     if terms not in (1, 3):
         raise ValueError(f"{terms} terms: the backward takes 1 or 3")
+    if tuple(instance) == (_NARROW_DH, _NARROW_DH):
+        if terms != 3:
+            raise ValueError("the narrow backward instance (32, 32) takes "
+                             "three terms (f32 inputs)")
+        one = BwdSchedule(512, _BWD_NARROW_T, _NARROW_STAGE, _NARROW_STAGES,
+                          _narrow_smem())
+        return BwdLaunch(one, one)
+    if tuple(instance) not in _BWD_INSTANCES:
+        raise ValueError(f"no backward instance {tuple(instance)}: the "
+                         f"kernel has {((32, 32),) + _BWD_INSTANCES}")
     kd, kdv = instance
     res = terms * (kd + kdv) * _BWD_ROWS * 2       # bf16 terms
 
@@ -453,7 +499,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset == 0`` and the shapes :func:`flash_bwd_width` takes, and
     raises ``ValueError`` on any other (it tiles the keys on its own:
     ``block_size`` is not read); the instance is :func:`flash_bwd_plan`'s
-    for the dtype q, k, v, out and dout compute in."""
+    for the dtype q, k, v, out and dout compute in, their widths and T.
+    The narrow instance reads q, k, v, out and dout as they lie where
+    ``launch.tma_view`` takes them and copies the others."""
     if q.device.type == "cpu":
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                   scale=scale, q_offset=q_offset,
@@ -466,7 +514,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, dh = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     dtype = operand_dtype(q.dtype, k.dtype, v.dtype, out.dtype, dout.dtype)
-    plan = flash_bwd_plan(dtype, dh, dv)
+    plan = flash_bwd_plan(dtype, dh, dv, t)
     w, wv = plan.widths
     if tuple(out.shape) != (b, s, h, dv) or tuple(dout.shape) != (b, s, h,
                                                                     dv):
@@ -475,26 +523,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(lse.shape) != (b, h, s):
         raise ValueError(f"lse {tuple(lse.shape)} must be {(b, h, s)}")
     dt = torch.bfloat16 if plan.terms == 1 else torch.float32
-    ops = [operand(nm, x, dt, 4, wd, dev) for nm, x, wd in
-           (("q", q, w), ("k", k, w), ("v", v, wv), ("out", out, wv),
-            ("dout", dout, wv))]
+    narrow = plan.key == BWD_NARROW_KEY
+    operands = (("q", q, w), ("k", k, w), ("v", v, wv), ("out", out, wv),
+                ("dout", dout, wv))
+    # the narrow instance reads a view at its own strides where it can
+    ops = [x if narrow and x.device == dev and tma_view(x, dt, wd)
+           else operand(nm, x, dt, 4, wd, dev) for nm, x, wd in operands]
+    strides = [st for x in ops for st in tma_strides(x)]
     lse = operand("lse", lse, torch.float32, 3, s, dev)
     dq = torch.empty(b, s, h, w, dtype=dt, device=dev)
     dk = torch.empty(b, t, hk, w, dtype=dt, device=dev)
     dvv = torch.empty(b, t, hk, wv, dtype=dt, device=dev)
-    delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
-    # the three-term instance's planes: q, k at w, dO, v at wv, three bf16
-    # terms each
+    # D and the three-term planes (q, k at w, dO, v at wv, three bf16
+    # terms each) of the (64, 64) and wider instances; the narrow one
+    # forms both in shared memory
+    delta = (None if narrow else
+             torch.empty(b, h, s, dtype=torch.float32, device=dev))
     scratch = (torch.empty(3 * (b * s * h + b * t * hk) * (w + wv),
                            dtype=torch.bfloat16, device=dev)
-               if plan.terms == 3 else None)
+               if plan.terms == 3 and not narrow else None)
     if b and s and h:
         scale = scale if scale is not None else 1.0 / math.sqrt(dh)
         launch(plan.key, dev, *(x.data_ptr() for x in ops), lse.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-               delta.data_ptr(),
-               0 if scratch is None else scratch.data_ptr(),
-               b, s, t, h, hk, w, wv, scale, int(causal), plan.terms)
+               *(0 if x is None else x.data_ptr() for x in (delta, scratch)),
+               b, s, t, h, hk, w, wv, scale, int(causal), plan.terms,
+               *strides)
     grads = []
     for g, x in ((dq, q), (dk, k), (dvv, v)):
         g = g[..., :x.shape[-1]] if g.shape[-1] != x.shape[-1] else g

@@ -10,9 +10,10 @@ L2 and flash-attention wrappers take any real dtype, as the JAX kernels
 do: :func:`operand_dtype` names the type their kernels compute in, and
 :func:`operand` copies an input into it (and pads its last axis) where
 the input is not already a contiguous, 16-byte aligned tensor of it.
-Kernels that read their operands through TMA tensor maps at the
-caller's strides (the f32 flash forward) take a view as it lies where
-:func:`tma_view` says so, with :func:`tma_strides` for its map.
+Kernels that read their operands at the caller's strides (the f32 flash
+forward through TMA tensor maps, the narrow flash backward by 8- and
+16-byte loads) take a view as it lies where :func:`tma_view` says so,
+with :func:`tma_strides` for its strides.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ INSTANCES = ("adc_fused_topk[spill]",
              "flash_attn_fwd_wgmma[dv]", "flash_attn_fwd_tf32[dv]",
              "flash_attn_fwd_tf32[32]",
              "flash_attn_bwd[bf16]", "flash_attn_bwd[dv]",
-             "flash_attn_bwd[bf16,dv]")
+             "flash_attn_bwd[bf16,dv]", "flash_attn_bwd[32]")
 # kernel launches since the last reset_launches()
 LAUNCHES = {name: 0 for name in (*SOURCES, *INSTANCES)}
 
@@ -56,7 +57,10 @@ _SIGNATURES = {
     # f32 flash: the last 9 are q, k and v's batch, row and head strides
     "flash_attn_fwd_tf32": (_P,) * 5 + (_I,) * 7 + (_F, _I) + (_L,) * 9
                            + (_P,),
-    "flash_attn_bwd": (_P,) * 11 + (_I,) * 7 + (_F, _I, _I, _P),
+    # the backward: the last 15 are q, k, v, o and dout's batch, row and
+    # head strides (read by its narrow instance)
+    "flash_attn_bwd": (_P,) * 11 + (_I,) * 7 + (_F, _I, _I) + (_L,) * 15
+                      + (_P,),
 }
 
 

@@ -1105,10 +1105,11 @@ def test_cuda_flash_schedule_is_the_kernels(cuda):
 @pytest.mark.gpu
 def test_cuda_flash_bwd_schedule_is_the_kernels(cuda):
     """``flash_bwd_schedule`` states the launches of each instance of the
-    backward, in one and in three terms: its ``flash_attn_bwd_schedule``
-    reports the same threads, rows, streamed rows, stages and shared
-    memory for the dK/dV and the dQ kernel, and refuses an instance or a
-    term count it does not have."""
+    backward, in one and in three terms (the narrow (32, 32) in three
+    only): its ``flash_attn_bwd_schedule`` reports the same threads, rows,
+    streamed rows, stages and shared memory for the dK/dV and the dQ
+    kernel (the narrow one kernel's in both), and refuses an instance or
+    a term count it does not have."""
     fn = build.load("flash_attn_bwd").flash_attn_bwd_schedule
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -1119,6 +1120,11 @@ def test_cuda_flash_bwd_schedule_is_the_kernels(cuda):
             sch = flash_bwd_schedule(inst, terms)
             assert tuple(out) == tuple(sch.dkdv) + tuple(sch.dq), (inst,
                                                                    terms)
+    # the narrow instance: one kernel, in three terms only
+    assert fn(32, 32, 3, out) == 0
+    sch = flash_bwd_schedule((32, 32), 3)
+    assert tuple(out) == tuple(sch.dkdv) + tuple(sch.dq)
+    assert fn(32, 32, 1, out) != 0
     assert fn(96, 96, 3, out) != 0 and fn(64, 64, 2, out) != 0
 
 

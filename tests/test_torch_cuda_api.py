@@ -25,7 +25,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.kernels import launch
-from repro_torch.kernels.flash_attn import BWD_KEY, flash_plan
+from repro_torch.kernels.flash_attn import flash_bwd_plan, flash_plan
 from repro_torch.models import api as A
 from repro_torch.optim.adamw import cosine_lr
 from repro_torch.train.loop import TrainConfig, make_train_step
@@ -126,8 +126,8 @@ def test_cuda_train_step_repeats_bit_for_bit(cuda, arch, shape, batch):
 @pytest.mark.gpu
 def test_cuda_bert4rec_step_launches(cuda):
     """A BERT4Rec step in two microbatches launches the f32 forward with
-    its lse once a block a microbatch and the backward kernel once a
-    block a microbatch, and no other flash key."""
+    its lse once a block a microbatch and the backward kernel (its narrow
+    instance) once a block a microbatch, and no other flash key."""
     cell = _cell("bert4rec", "train_batch", 8)
     state, data = A.realize(cell, device=cuda)
     step = make_train_step(cell.loss_fn, TrainConfig(microbatches=2))
@@ -136,6 +136,9 @@ def test_cuda_bert4rec_step_launches(cuda):
     torch.cuda.synchronize()
     dh = cell.args[0]["params"]["blocks"][0]["wqkv"].shape[0] // 2
     n = 2 * len(cell.args[0]["params"]["blocks"])
+    t = data["item_ids"].shape[1]
+    bwd = flash_bwd_plan(torch.float32, dh, None, t).key
+    assert bwd == "flash_attn_bwd[32]"          # dh 32 over <= 256 keys
     assert {k: c for k, c in launch.LAUNCHES.items()
             if c and k.startswith("flash")} == {
-        flash_plan(torch.float32, dh).key: n, BWD_KEY: n}
+        flash_plan(torch.float32, dh).key: n, bwd: n}

@@ -35,7 +35,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.kernels import launch
 from repro_torch.kernels.flash_attn import (BWD_BF16_DV_KEY, BWD_BF16_KEY,
                                             BWD_DV_KEY, BWD_KEY,
-                                            flash_attention,
+                                            BWD_NARROW_KEY, flash_attention,
                                             flash_attention_bwd,
                                             flash_attn_bwd_ref,
                                             flash_attn_ref, flash_bwd_plan,
@@ -109,7 +109,9 @@ def test_cuda_flash_bwd_matches_plain(cuda, b, s, t, h, hk, dh, dv, causal,
            (torch.bfloat16, True): BWD_BF16_KEY,
            (torch.float32, False): BWD_DV_KEY,
            (torch.bfloat16, False): BWD_BF16_DV_KEY}[dtype, dv == dh]
-    assert flash_bwd_plan(dtype, dh, dv).key == key   # its instance
+    if dtype == torch.float32 and dh <= 32 and t <= 256:
+        key = BWD_NARROW_KEY                 # f32 at q/k <= 32, T <= 256
+    assert flash_bwd_plan(dtype, dh, dv, t).key == key   # its instance
     launch.reset_launches()
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
@@ -123,6 +125,79 @@ def test_cuda_flash_bwd_matches_plain(cuda, b, s, t, h, hk, dh, dv, causal,
     again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     for g, a in zip(got, again):
         assert torch.equal(g, a)                       # bit for bit
+
+
+# the narrow instance against the plain version evaluated in f64: G 1 and
+# 2, S != T, causal, dh 8, 20 (padded to 24) and 32, v narrower, T at the
+# resident limit 256, and a batch at which every block of the persistent
+# grid takes several (batch, KV head) units; T = 257 keeps (64, 64)
+NARROW_CASES = [
+    (2, 200, 200, 2, 2, 32, 32),       # BERT4Rec's row, G = 1
+    (2, 200, 200, 4, 2, 32, 32),       # G = 2
+    (3, 200, 160, 2, 2, 32, 32),       # S != T
+    (3, 160, 200, 4, 1, 32, 32),       # T > S, G = 4
+    (2, 64, 64, 2, 2, 8, 8),
+    (2, 100, 90, 2, 1, 20, 20),
+    (2, 300, 200, 2, 2, 32, 16),       # v narrower
+    (2, 256, 256, 2, 2, 32, 32),
+    (2, 257, 257, 2, 2, 32, 32),       # past the resident keys: (64, 64)
+    (700, 200, 200, 2, 2, 32, 32),     # 1,400 units: ~10 a block
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,hk,dh,dv", NARROW_CASES)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_bwd_narrow_matches_f64(cuda, b, s, t, h, hk, dh, dv,
+                                           causal):
+    """f32 at q/k <= 32 over at most 256 keys: one launch of
+    ``flash_attn_bwd[32]``, dq, dk and dv within ``REL`` (1e-4, the
+    smoke's ``BWD_RTOL``) of ``flash_attn_bwd_ref`` in f64, two runs bit
+    for bit; at 257 keys the (64, 64) instance under ``flash_attn_bwd``."""
+    q, k, v, do = _inputs(cuda, b, s, t, h, hk, dh, torch.float32, dv=dv)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    key = BWD_NARROW_KEY if t <= 256 else (BWD_KEY if dv == dh
+                                           else BWD_DV_KEY)
+    assert flash_bwd_plan(torch.float32, dh, dv, t).key == key
+    launch.reset_launches()
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in launch.LAUNCHES.items() if c} == {key: 1}
+    want = flash_attn_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                              block_size=t, compute=torch.float64)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        assert _rel(g, w) <= REL[torch.float32], (name, _rel(g, w))
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)                       # bit for bit
+
+
+@pytest.mark.gpu
+def test_cuda_flash_bwd_narrow_reads_split_views(cuda, monkeypatch):
+    """q, k and v split from one (B, S, 3H, 32) tensor, as BERT4Rec's
+    encode hands them over, reach the narrow instance as they lie: no
+    operand of the five is copied, and the gradients are the ones of
+    contiguous copies bit for bit."""
+    from repro_torch.kernels.flash_attn import ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(3, 200, 6, 32, generator=g, device=cuda)
+    q, k, v = torch.split(qkv, 2, dim=2)
+    do = torch.randn(3, 200, 2, 32, generator=g, device=cuda)
+    out, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+    copied = []
+    real = ops.operand
+
+    def spy(name, *args):
+        copied.append(name)
+        return real(name, *args)
+    monkeypatch.setattr(ops, "operand", spy)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+    assert copied == ["lse"], copied
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(),
+                               v.contiguous(), out, lse, do, causal=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -234,11 +309,11 @@ def test_cuda_attention_vjp_matches_cpu(cuda, dtype):
 @pytest.mark.gpu
 def test_cuda_attention_vjp_narrow_matches_cpu(cuda):
     """A gradient through ``layers._FlashAttention`` at dh 32 in f32
-    (BERT4Rec's and the reduced LMs' head width): the forward on the
-    narrow (32, 32) instance with its lse, the backward on its (64, 64)
-    instance, one launch each; dq, dk, dv within phase 12's 1e-4 relative
-    L2 of the plain scan's gradients (the CPU path), the lse within
-    ``LSE_REL`` of the plain forward's; G = 2, S != T."""
+    (BERT4Rec's and the reduced LMs' head width): the forward and the
+    backward both on their narrow (32, 32) instances, one launch each;
+    dq, dk, dv within phase 12's 1e-4 relative L2 of the plain scan's
+    gradients (the CPU path), the lse within ``LSE_REL`` of the plain
+    forward's; G = 2, S != T."""
     x = _inputs(torch.device("cpu"), 2, 200, 160, 4, 2, 32, torch.float32)
     grads = {}
     for dev in ("cpu", cuda):
@@ -252,8 +327,9 @@ def test_cuda_attention_vjp_narrow_matches_cpu(cuda):
         if dev is cuda:
             torch.cuda.synchronize()
             assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
-                "flash_attn_fwd_tf32[32]": 1, BWD_KEY: 1}
-            assert flash_bwd_plan(torch.float32, 32).instance == (64, 64)
+                "flash_attn_fwd_tf32[32]": 1, BWD_NARROW_KEY: 1}
+            assert flash_bwd_plan(torch.float32, 32, None,
+                                  160).instance == (32, 32)
             _, lse = flash_attention(q.detach(), k.detach(), v.detach(),
                                      causal=False, return_lse=True)
             _, want = flash_attn_ref(q.detach(), k.detach(), v.detach(),
@@ -269,7 +345,8 @@ def test_cuda_attention_vjp_narrow_matches_cpu(cuda):
 def test_cuda_lm_loss_grads_match_cpu(cuda, caller_tf32):
     """A reduced Qwen3-0.6B's f32 loss gradients on the card (flash
     forward with lse, the backward kernel, full remat) against the CPU's;
-    two forward launches and one backward a layer.  With TF32 allowed by
+    two forward launches and one backward a layer (dh 32 at 128 tokens:
+    both on their narrow instances).  With TF32 allowed by
     the caller they still match: the backward and the remat recompute run
     after ``lm_forward``'s ``full_f32`` has closed, so ``value_and_grad``
     holds them in full f32 itself (TF32 products there err by ~1e-3);
@@ -291,8 +368,10 @@ def test_cuda_lm_loss_grads_match_cpu(cuda, caller_tf32):
     torch.cuda.synchronize()
     assert torch.backends.cuda.matmul.allow_tf32 == caller_tf32
     fwd = flash_plan(torch.float32, cfg.d_head).key     # dh 32: [32]
+    bwd = flash_bwd_plan(torch.float32, cfg.d_head, None, 128).key
+    assert bwd == BWD_NARROW_KEY                        # dh 32, T 128
     assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
-        fwd: 2 * cfg.n_layers, BWD_KEY: cfg.n_layers}
+        fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
     assert float(m["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)
     for (key, g), w in zip(tree.keyed_leaves(got), tree.leaves(want)):
         assert _rel(g.cpu(), w) <= 1e-4, key
@@ -308,7 +387,8 @@ def test_cuda_moe_lm_loss_grads_match_cpu(cuda, arch):
     under grad, full remat) against the CPU's, each leaf within 1e-4
     relative L2; the same expert assignments on both; two forward
     launches and one backward a layer, under the ``[dv]`` keys where v
-    is narrower than q (DeepSeek-V2-Lite's MLA: 48 x 32)."""
+    is narrower than q (DeepSeek-V2-Lite's MLA: 48 x 32), on the narrow
+    instance at Qwen3-30B-A3B's dh 32."""
     cfg = get_config(arch, reduced=True)
     params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     rng = np.random.default_rng(0)
@@ -341,8 +421,8 @@ def test_cuda_moe_lm_loss_grads_match_cpu(cuda, arch):
     else:
         dh = dv = cfg.d_head
     fwd = flash_plan(torch.float32, dh, dv).key
-    bwd = flash_bwd_plan(torch.float32, dh, dv).key
-    assert bwd == (BWD_DV_KEY if cfg.mla else BWD_KEY)
+    bwd = flash_bwd_plan(torch.float32, dh, dv, 128).key
+    assert bwd == (BWD_DV_KEY if cfg.mla else BWD_NARROW_KEY)
     assert {n: c for n, c in launch.LAUNCHES.items() if c} == {
         fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
     assert float(m["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)

@@ -32,7 +32,7 @@ import torch
 from repro.models import layers as RL
 from repro_torch.kernels.flash_attn import (BWD_BF16_DV_KEY, BWD_BF16_KEY,
                                             BWD_DV_KEY, BWD_KEY,
-                                            flash_bwd_plan,
+                                            BWD_NARROW_KEY, flash_bwd_plan,
                                             flash_bwd_schedule,
                                             flash_bwd_width)
 from repro_torch.kernels.flash_attn.ops import SMEM_CAP
@@ -43,9 +43,10 @@ P_TERMS = 3                     # terms of P and dS in the kernel
 
 # (dh, dv): one width (dv None), and v narrower than q and k: the reduced
 # DeepSeek config's MLA (48, 32) on the 64 instance, DeepSeek-V2's (192,
-# 128), and (136, 96) padded within the (192, 128) instance
+# 128), and (136, 96) padded within the (192, 128) instance; BERT4Rec's 32,
+# 20 and (32, 16), on the narrow instance in f32 where T <= 256
 WIDTHS = [(dh, None) for dh in (1, 6, 36, 64, 96, 100, 128)] + [
-    (48, 32), (192, 128), (136, 96)]
+    (48, 32), (192, 128), (136, 96)] + [(32, None), (20, None), (32, 16)]
 
 
 @pytest.mark.parametrize("dh,dv", WIDTHS,
@@ -67,6 +68,12 @@ def test_bwd_plan(dtype, key, terms, dh, dv):
     assert plan.widths[1] <= instance[1]
     if dv is None:
         assert flash_bwd_plan(dtype, dh, dh) == plan
+    # with the keys counted: f32 at q/k <= 32 and T <= 256 takes the narrow
+    # instance, whatever v's width; T = 257, bf16 and wider q/k keep theirs
+    for t in (1, 200, 256, 257):
+        narrow = terms == 3 and w <= 32 and t <= 256
+        assert flash_bwd_plan(dtype, dh, dv, t) == (
+            (BWD_NARROW_KEY, (32, 32), (w, wv), 3) if narrow else plan)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -85,11 +92,15 @@ def test_bwd_plan_rejects_what_it_lacks(dtype):
 
 
 # (instance, terms) -> the (dK/dV, dQ) launches: threads, rows a block,
-# streamed rows, stages, dynamic shared memory.  (64, 64) and (128, 128)
-# as the one-warpgroup kernels have run them since their redesign; (192,
+# streamed rows, stages, dynamic shared memory.  (32, 32), f32 only: one
+# kernel of four warpgroups, a (batch, KV head)'s 256 keys resident, 32
+# query rows a stage, two stages (its launch in both places).  (64, 64) and
+# (128, 128) as the one-warpgroup kernels have run them since their
+# redesign; (192,
 # 128) on two warpgroups, 64 streamed rows in bf16, 16 in f32 (its
 # three-term residency leaves no room for two 32-row stages)
 SCHEDULES = {
+    ((32, 32), 3): ((512, 256, 32, 2, 206336), (512, 256, 32, 2, 206336)),
     ((64, 64), 3): ((128, 64, 32, 4, 148480), (128, 64, 32, 4, 148480)),
     ((64, 64), 1): ((128, 64, 32, 4, 50176), (128, 64, 32, 2, 33792)),
     ((128, 128), 3): ((128, 64, 32, 2, 197632), (128, 64, 32, 2, 197632)),
@@ -115,6 +126,9 @@ def test_bwd_schedule(instance, terms):
                                                    * k.streamed)
     if kd > 128:                # two warpgroups: 64 rows each, two stages
         assert sch.dkdv.threads == 256 and sch.dkdv.streamed <= 64
+    if kd == 32:                # one kernel: four warpgroups of 64 keys
+        assert sch.dkdv == sch.dq and sch.dkdv.threads == 4 * 128
+        assert sch.dkdv.rows == 4 * 64
 
 
 def test_bwd_schedule_rejects_what_it_lacks():
@@ -123,6 +137,8 @@ def test_bwd_schedule_rejects_what_it_lacks():
             flash_bwd_schedule(inst, 3)
     with pytest.raises(ValueError, match="2 terms"):
         flash_bwd_schedule((64, 64), 2)
+    with pytest.raises(ValueError, match="three terms"):
+        flash_bwd_schedule((32, 32), 1)      # bf16 keeps (64, 64)
 
 
 # ------------------------------------------------------------- emulation
@@ -151,16 +167,47 @@ def _product(eq: str, a: list, b: list) -> torch.Tensor:
     return acc.float()
 
 
+def _narrow_grads(pt, dst, qt, kt, dot, S, T, G, scale):
+    """dV, dK and dQ in the narrow instance's order of sums: dV and dK per
+    stage of 32 query rows of one query head (heads outer), each stage's
+    product rounded to f32 and added to the running f32 sum; dQ per step of
+    16 keys, rounded to f32, the steps of each warpgroup's 64 keys added in
+    order, then the four warpgroups' partials in order."""
+    def rows(ts, g, s0):            # (B, Hk, G, S, T): a stage's queries
+        return [x[:, :, g, s0:s0 + 32] for x in ts]
+
+    def qrows(ts, g, s0):           # (B, S, Hk, G, d): the same
+        return [x[:, s0:s0 + 32, :, g] for x in ts]
+    dv = dk = 0
+    for g in range(G):
+        for s0 in range(0, S, 32):
+            dv = dv + _product("bkst,bskd->btkd", rows(pt, g, s0),
+                               qrows(dot, g, s0))
+            dk = dk + _product("bkst,bskd->btkd", rows(dst, g, s0),
+                               qrows(qt, g, s0))
+    dq = 0
+    for w0 in range(0, T, 64):
+        part = 0
+        for k0 in range(w0, min(w0 + 64, T), 16):
+            part = part + _product("bkgst,btkd->bskgd",
+                                   [x[..., k0:k0 + 16] for x in dst],
+                                   [x[:, k0:k0 + 16] for x in kt])
+        dq = dq + part
+    return dq * scale, dk * scale, dv
+
+
 def emulate_bwd(q, k, v, out, lse, do, *, causal, scale, terms_in,
-                terms_p=P_TERMS, base2=False):
+                terms_p=P_TERMS, base2=False, narrow=False):
     """The kernel's arithmetic in plain torch: q, k, v and dO split into
     ``terms_in`` bf16 terms, P and dS into ``terms_p``, every sum rounded
     to f32 where the kernel holds it in f32; with ``terms_in=None`` the
     same f32 arithmetic with nothing split (each product of f32 operands
-    exact, rounded once).  ``base2``: P as the (192, 128) instance forms
-    it, 2^(S scale2 - lse2) with scale2 = scale log2(e) and lse2 = lse
-    log2(e) each rounded to f32 (else exp(S scale - lse)).  Returns (dq,
-    dk, dv) in f32, unrounded to the inputs' dtype."""
+    exact, rounded once).  ``base2``: P as the (192, 128) and the narrow
+    instances form it, 2^(S scale2 - lse2) with scale2 = scale log2(e) and
+    lse2 = lse log2(e) each rounded to f32 (else exp(S scale - lse)).
+    ``narrow``: the narrow instance's order of sums (S and dP in one
+    chain each, as here; dV, dK and dQ as ``_narrow_grads``).  Returns
+    (dq, dk, dv) in f32, unrounded to the inputs' dtype."""
     if terms_in is None:
         terms_p = None
     B, S, H, dh = q.shape
@@ -184,6 +231,9 @@ def emulate_bwd(q, k, v, out, lse, do, *, causal, scale, terms_in,
     dp = _product("bskgd,btkd->bkgst", dot, vt)
     ds = p * (dp - delta)
     pt, dst = _terms(p, terms_p), _terms(ds, terms_p)
+    if narrow:
+        dq, dk, dv = _narrow_grads(pt, dst, qt, kt, dot, S, T, G, scale)
+        return dq.reshape(B, S, H, dh), dk, dv
     dv = _product("bkgst,bskgd->btkd", pt, dot)
     dk = _product("bkgst,bskgd->btkd", dst, qt) * scale
     dq = _product("bkgst,btkd->bskgd", dst, kt) * scale
@@ -212,9 +262,10 @@ def _case(dtype, S, H, Hk, dh, causal, seed, dv=None):
                    for sh in ((1, S, H, dh), (1, S, Hk, dh), (1, S, Hk, dv),
                               (1, S, H, dv)))
     scale = 1 / math.sqrt(dh)
-    out, lse = RL._attention_fwd_scan(q, k, v, causal, 0, 128, scale)
+    blk = 128 if S % 128 == 0 else S        # the reference's KV blocks
+    out, lse = RL._attention_fwd_scan(q, k, v, causal, 0, blk, scale)
     f32 = [x.astype(jnp.float32) for x in (q, k, v, out, lse, do)]
-    want = RL._flash_bwd(causal, 0, 128, scale, tuple(f32[:5]), f32[5])
+    want = RL._flash_bwd(causal, 0, blk, scale, tuple(f32[:5]), f32[5])
 
     def tt(x, x32):
         return torch.tensor(np.asarray(x32)).to(
@@ -228,8 +279,11 @@ CASE_IDS = ["S256-G1", "S512-G2"]
 
 
 # q/k and v widths: one width on each instance up to 128; v narrower on
-# the 64 instance (the reduced DeepSeek config) and on the (192, 128)
-WIDTHS_EMU = [(64, None), (128, None), (48, 32), (192, 128)]
+# the 64 instance (the reduced DeepSeek config) and on the (192, 128);
+# BERT4Rec's 32, run at its S = T = 200 (the case's G): in f32 the narrow
+# instance, in bf16 the (64, 64) one
+WIDTHS_EMU = [(64, None), (128, None), (48, 32), (192, 128), (32, None)]
+NARROW_S = 200
 
 
 @pytest.mark.parametrize("dh,dv", WIDTHS_EMU,
@@ -241,7 +295,8 @@ WIDTHS_EMU = [(64, None), (128, None), (48, 32), (192, 128)]
                          ids=["f32", "bf16"])
 def test_emulated_kernel_matches_reference_bwd(dtype, causal, S, H, Hk, dh,
                                                dv):
-    """The planner's terms for q, k, v and dO, three for P and dS: the
+    """The planner's terms for q, k, v and dO, three for P and dS (with
+    the narrow instance's order of sums at dh 32 in f32, S = T = 200): the
     f32 gradients within the smoke's f32 limit of the reference's
     ``_flash_bwd`` (on bf16 inputs, before either side rounds them to
     bf16), and, rounded to the inputs' dtype, within that dtype's limit
@@ -250,15 +305,19 @@ def test_emulated_kernel_matches_reference_bwd(dtype, causal, S, H, Hk, dh,
     orders, e.g. the plain torch backward and the reference's, differ by
     up to 1e-4 after the rounding at these sizes: a few flipped roundings
     of large elements dominate the relative L2.)"""
+    if dh <= 32:
+        S = NARROW_S
     (q, k, v, out, lse, do), want, scale = _case(dtype, S, H, Hk, dh,
                                                  causal, seed=S + H + Hk,
                                                  dv=dv)
-    plan = flash_bwd_plan(dtype, dh, dv)
-    base2 = plan.instance == (192, 128)
+    plan = flash_bwd_plan(dtype, dh, dv, S)
+    narrow = plan.instance == (32, 32)
+    assert narrow == (dtype == torch.float32 and dh <= 32)
+    base2 = plan.instance in ((192, 128), (32, 32))
     got = emulate_bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
-                      terms_in=plan.terms, base2=base2)
+                      terms_in=plan.terms, base2=base2, narrow=narrow)
     unsplit = emulate_bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
-                          terms_in=None, base2=base2)
+                          terms_in=None, base2=base2, narrow=narrow)
     for name, g, w, e, x in zip(("dq", "dk", "dv"), got, want, unsplit,
                                 (q, k, v)):
         assert g.dtype == torch.float32 and g.shape == x.shape, name
