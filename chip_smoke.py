@@ -362,6 +362,42 @@ From the root of a checkout, with one CUDA card:
    step ms and rows (graph cells: feature rows) a second, and each
    cell's peak memory.  The kernels line's row 6j counts phase 15's
    forwards too, and it gains row 7e, ``flash_attn_bwd@bert4rec``.
+16. runs the models on a mesh of 4 logical devices sharing the card
+   (``mesh_models_phase``, after phase 15): Qwen3-30B-A3B at full width
+   in f32 from ``--seed`` on ``MESH_LM`` = (1, 4), its expert axis in 4
+   shards, depth 48 -> ``MESH_MOE_LAYERS`` (2, as phase 13; a
+   ``reduced`` line): (a) ``lm_prefill`` at B, S = 2, 4,096 and capacity
+   factor 16 on the mesh (the all-to-all dispatch) against one device,
+   each row of last-position logits within ``MESH_ROW_RTOL`` (where an
+   expert choice differs between the runs, the mesh run again replaying
+   the one device's choices, as phase 13 replays them), the flash
+   launches of each counted (one a layer), each shard's expert FFN on
+   its logical device with its 32 experts; at the config's 1.25 the
+   (token, expert) pairs each shard drops equal, pair for pair, those
+   the host computes from the recorded expert ids at the shard's own
+   capacity (printed layer by layer, shard by shard); (b) 8 greedy
+   decode steps after an 8-token prompt (B = 2) through the replicated
+   MoE give the one-device tokens, logits within ``DECODE_TOL``; (c) at
+   depth ``MESH_TRAIN_LAYERS`` (1: three train states live at once)
+   ``lm_loss`` gradients at B, S = 2, 2,048 and capacity factor 16 on
+   the mesh (replaying the one device's expert choices) against one
+   device, each leaf within ``TRAIN_GRAD_RTOL``; a
+   step at ``MESH_STEP_BATCH``, ``train.fault.reshard_state`` of its
+   state onto the (1, 2) submesh, every leaf bit for bit, and the next
+   step there (replaying the (1, 4) step's choices) against the next
+   step on (1, 4), each leaf within ``TRAIN_GRAD_RTOL``; then on ``MESH_GRID`` = (2, 2): (d) GraphSAGE's
+   full_graph_sm cell through ``models.api.build_cell(..., mesh)`` (the
+   destination-partitioned forward, edges by
+   ``data.partition.partition_edges_by_dst``) against the one-device
+   cell, each logit within the bf16 bound of the hidden states it
+   gathers (``sage_bf16_bound``), two runs bit for bit, a train step of
+   the mesh cell finite; (e) the retrieval_cand cells of DLRM-RM2 and
+   BERT4Rec (four equal rows planted across the shard boundaries) and
+   ``score_all_items`` at B = 512 over BERT4Rec's 2^20 items against
+   one device: ids and values equal, equal scores in ascending id.  It
+   prints each part's ms on the mesh and on one device.  The kernels
+   line's ``flash_attn_fwd_tf32`` and ``flash_attn_bwd`` rows count
+   phase 16's launches too.
 
 Flash attention is held to its plain version elementwise (2e-5 in f32,
 2e-3 in f16, 5e-2 in bf16) and, in bf16, row by row: each (b, s, h)
@@ -686,6 +722,22 @@ BWD_ROWS = {"flash_attn_bwd": "flash_attn_bwd",
             "flash_attn_bwd@bf16": "flash_attn_bwd[bf16]",
             "flash_attn_bwd[dv]": "flash_attn_bwd[dv]",
             "flash_attn_bwd@bf16[dv]": "flash_attn_bwd[bf16,dv]"}
+# phase 16: models on a mesh of 4 logical devices sharing the card
+MESH_LM = (1, 4)            # the LMs': the expert axis in 4 shards
+MESH_GRID = (2, 2)          # SAGE's and retrieval's: 4 corpus shards
+MESH_MOE_LAYERS = 2         # (a), (b): Qwen3-30B-A3B's 48, as phase 13
+# (a): the prefill's last-position logits, each row's L2 error over its
+# norm, mesh vs one device at capacity factor 16 (no pair dropped on
+# either): the same f32 function, the experts' products batched 32 a
+# bmm on a shard against 128 on one device (written before the reading)
+MESH_ROW_RTOL = 1e-5
+MESH_DECODE = dict(batch=2, prompt=8, new=8)   # (b): greedy steps
+# (c): one layer, and the steps at a smaller batch (a reduced line):
+# three train states of ~15 GB live at once beside a step's buffers
+MESH_TRAIN_LAYERS = 1
+MESH_STEP_BATCH = (2, 512)
+MESH_SUB = [[0, 1]]         # (c): the (1, 2) submesh the state moves to
+MESH_SCORE_B = 512          # (e): BERT4Rec's serve_p99 batch
 
 
 def log(*a) -> None:
@@ -4110,6 +4162,526 @@ def recsys_train_phase(seed: int, card: str, keep: dict) -> tuple:
     return out, row
 
 
+# --------------------------------------------------------------- phase 16
+def _mesh_ctx(shape, dev: torch.device):
+    """A ShardCtx on a mesh of logical devices ``shape`` ("data",
+    "model"), every id on ``dev``."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.spec import ShardCtx, rules_for_mesh
+    n = int(np.prod(shape))
+    mesh = Mesh(np.arange(n).reshape(shape), ("data", "model"), [dev] * n)
+    return ShardCtx(mesh=mesh, rules=rules_for_mesh(mesh))
+
+
+@contextlib.contextmanager
+def record_moe_stages():
+    """Inside it each MoE dispatch keeps (tokens t, capacity, experts it
+    slots, slot (t*k,)) and each expert FFN (its device, its weights'
+    device, its experts), in call order."""
+    from repro_torch.models import layers
+    dispatch, ffn = layers._moe_dispatch, layers._expert_ffn
+    seen = {"dispatch": [], "ffn": []}
+
+    def recording(x, router_w, cfg, cap, lo=0, n_local=None):
+        buf, slot, gates = dispatch(x, router_w, cfg, cap, lo, n_local)
+        seen["dispatch"].append((x.shape[0], cap, buf.shape[0], slot))
+        return buf, slot, gates
+
+    def ffn_recording(buf, w1, w2, dtype):
+        seen["ffn"].append((buf.device, w1.device, w1.shape[0]))
+        return ffn(buf, w1, w2, dtype)
+    layers._moe_dispatch, layers._expert_ffn = recording, ffn_recording
+    try:
+        yield seen
+    finally:
+        layers._moe_dispatch, layers._expert_ffn = dispatch, ffn
+
+
+def host_drops(eids: torch.Tensor, cap: int) -> np.ndarray:
+    """The (token, k) pairs past ``cap`` in their expert's order of
+    arrival, the tokens in the order given: the reference's cumsum
+    slotting, on the host."""
+    e = eids.reshape(-1).cpu().numpy()
+    order = np.argsort(e, kind="stable")
+    first = np.searchsorted(e[order], e[order], side="left")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(e)) - first
+    return rank >= cap
+
+
+def global_routes(calls, B: int, S: int, n: int) -> list:
+    """Recorded router calls of a run whose tokens (B, S) were split over
+    n sequence shards (n calls a group: a layer's shards in order), as
+    one (B * S, k) ids tensor a group, in the tokens' (b, s) order."""
+    return [torch.cat([e.reshape(B, S // n, -1) for e, *_ in
+                       calls[i:i + n]], 1).reshape(B * S, -1)
+            for i in range(0, len(calls), n)]
+
+
+def shard_routes(routes: list, B: int, S: int, n: int) -> list:
+    """``global_routes`` cut back into the calls of a run on n sequence
+    shards: shard j of group g takes its tokens' rows of routes[g], as
+    ``replay_routing`` takes calls."""
+    return [(r.reshape(B, S, -1)[:, j * S // n:(j + 1) * S // n]
+             .reshape(B * S // n, -1),) for r in routes for j in range(n)]
+
+
+def mesh_prefill_round(params, cfg, tokens, ctx, dev, launches: dict
+                       ) -> dict:
+    """Phase 16 (a): the prefill on the mesh against one device at
+    capacity factor MOE_CAPACITY, flash launches of each; at the config's
+    factor the mesh's dropped pairs against the host's, shard by shard;
+    each shard's expert FFN on its logical device."""
+    from repro_torch.kernels.flash_attn import flash_instance
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.spec import LOCAL_CTX
+    mesh = ctx.mesh
+    n = mesh.shape[ctx.rules.expert]
+    key = flash_instance(torch.float32, cfg.d_head, cfg.d_head)
+    want = {key: cfg.n_layers}
+    cf16 = dataclasses.replace(cfg, capacity_factor=MOE_CAPACITY)
+    out, logits, routes = {}, {}, {}
+    with torch.no_grad():
+        for name, c in (("one_device", LOCAL_CTX), ("mesh", ctx)):
+            reset_launches()
+            with record_moe_stages() as seen, record_routing() as calls:
+                logits[name], ms = timed_ms(lambda: tfm.lm_prefill(
+                    params, tokens, cf16, c, dtype=torch.float32))
+            routes[name] = calls
+            grew = {k: v for k, v in LAUNCHES.items() if v}
+            if grew != want:
+                raise AssertionError(f"mesh (a) {name} prefill: launches "
+                                     f"{grew}, expected {want}")
+            launches[key] = launches.get(key, 0) + cfg.n_layers
+            out[f"{name}_ms"] = ms
+            if name == "mesh":
+                ffn = seen["ffn"]
+                at = [mesh.device(i) for i in mesh.ids.flat] * cfg.n_layers
+                if len(ffn) != len(at) or any(
+                        d != a or w != a or e != cfg.n_experts // n
+                        for (d, w, e), a in zip(ffn, at)):
+                    raise AssertionError(f"mesh (a): expert FFNs {ffn}, "
+                                         f"expected {n} a layer, each on "
+                                         f"its logical device with "
+                                         f"{cfg.n_experts // n} experts")
+        row = row_rel_err(logits["mesh"], logits["one_device"])
+        out["row_rel_err"] = row
+        # the mesh's router calls put back in the one device's token
+        # order, layer by layer: a near-tie the two runs round apart
+        # moves a token to another expert, another function (phase 13's
+        # rule); then the mesh runs again on the one device's choices
+        B, S = tokens.shape
+        mesh_routes = global_routes(routes["mesh"], B, S, n)
+        out["assignments_differing"] = differing_assignments(
+            routes["one_device"],
+            [(e,) + tuple(r[1:]) for e, r in zip(mesh_routes,
+                                                 routes["one_device"])])
+        if out["assignments_differing"]:
+            reset_launches()
+            with replay_routing(shard_routes(
+                    global_routes(routes["one_device"], B, S, 1), B, S, n)):
+                logits["mesh"] = tfm.lm_prefill(params, tokens, cf16, ctx,
+                                                dtype=torch.float32)
+            if {k: v for k, v in LAUNCHES.items() if v} != want:
+                raise AssertionError(f"mesh (a) replayed prefill: launches "
+                                     f"{dict(LAUNCHES)}, expected {want}")
+            launches[key] = launches.get(key, 0) + cfg.n_layers
+            out["row_rel_err_unreplayed"] = row
+            row = out["row_rel_err"] = row_rel_err(logits["mesh"],
+                                                   logits["one_device"])
+        if not (torch.isfinite(logits["mesh"]).all()
+                and row <= MESH_ROW_RTOL):
+            raise AssertionError(f"mesh (a): last-position logits row "
+                                 f"error {row} > {MESH_ROW_RTOL}")
+        # the config's capacity factor: each shard's own capacity
+        reset_launches()
+        with record_routing() as calls, record_moe_stages() as seen:
+            tfm.lm_prefill(params, tokens, cfg, ctx, dtype=torch.float32)
+        torch.cuda.synchronize()
+        if {k: v for k, v in LAUNCHES.items() if v} != want:
+            raise AssertionError(f"mesh (a) prefill at the config's "
+                                 f"capacity factor: launches "
+                                 f"{dict(LAUNCHES)}, expected {want}")
+        launches[key] = launches.get(key, 0) + cfg.n_layers
+        by_shard = []
+        for i, ((eids, *_), (t, cap, n_local, slot)) in enumerate(
+                zip(calls, seen["dispatch"], strict=True)):
+            host_cap = layers._capacity(t, cfg.moe_top_k, cfg.n_experts,
+                                        cfg.capacity_factor)
+            got = (slot == n_local * cap).cpu().numpy()
+            if cap != host_cap or not np.array_equal(
+                    got, host_drops(eids, host_cap)):
+                raise AssertionError(f"mesh (a): router call {i} drops "
+                                     f"{int(got.sum())} pairs at capacity "
+                                     f"{cap}, the host "
+                                     f"{int(host_drops(eids, host_cap).sum())}"
+                                     f" at {host_cap}")
+            by_shard.append(int(got.sum()))
+        out["capacity_per_shard"] = seen["dispatch"][0][1]
+        out["dropped_by_layer_and_shard"] = [
+            by_shard[i:i + n] for i in range(0, len(by_shard), n)]
+    return out
+
+
+def mesh_decode_round(params, cfg, prompt, ctx, dev) -> dict:
+    """Phase 16 (b): the prompt, then MESH_DECODE["new"] greedy steps, on
+    the mesh (its replicated MoE: each shard its own experts, capacity B)
+    and on one device: the same tokens, logits within DECODE_TOL."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.spec import LOCAL_CTX
+    B, P = prompt.shape
+    N = MESH_DECODE["new"]
+    runs, secs = {}, {}
+    with torch.no_grad():
+        for name, c in (("one_device", LOCAL_CTX), ("mesh", ctx)):
+            cache = tfm.init_kv_cache(cfg, B, P + N, dtype=torch.float32,
+                                      device=dev)
+            toks, logits = [], []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with record_moe_stages() as seen:
+                for p in range(P):
+                    lg, cache = tfm.lm_decode_step(
+                        params, cache, prompt[:, p:p + 1], p, cfg, c,
+                        dtype=torch.float32)
+                for i in range(N):
+                    nxt = lg[:, -1].argmax(-1)
+                    toks.append(nxt)
+                    lg, cache = tfm.lm_decode_step(
+                        params, cache, nxt[:, None], P + i, cfg, c,
+                        dtype=torch.float32)
+                    logits.append(lg)
+            torch.cuda.synchronize()
+            secs[name] = (time.perf_counter() - t) / (P + N)
+            runs[name] = (torch.stack(toks, 1), torch.cat(logits, 1))
+            if name == "mesh":
+                n = ctx.mesh.shape[ctx.rules.expert]
+                bad = [(tk, cap, nl) for tk, cap, nl, _ in seen["dispatch"]
+                       if cap != B or nl != cfg.n_experts // n]
+                if bad or len(seen["dispatch"]) != n * cfg.n_layers * (P + N):
+                    raise AssertionError(f"mesh (b): dispatches {bad[:4]} "
+                                         f"(of {len(seen['dispatch'])}) not "
+                                         f"at capacity {B} over "
+                                         f"{cfg.n_experts // n} experts")
+    (tm, lm), (t1, l1) = runs["mesh"], runs["one_device"]
+    if not torch.equal(tm, t1):
+        raise AssertionError(f"mesh (b): greedy tokens {tm.tolist()} on the "
+                             f"mesh, {t1.tolist()} on one device")
+    err = check_tol("mesh (b) decode logits", lm, l1, DECODE_TOL, DECODE_TOL)
+    return {"tokens": tm.tolist(), "max_abs_err": err,
+            "step_ms_one_device": 1e3 * secs["one_device"],
+            "step_ms_mesh": 1e3 * secs["mesh"]}
+
+
+def mesh_train_round(seed: int, ctx, dev, rng, launches: dict) -> dict:
+    """Phase 16 (c): Qwen3-30B-A3B at MESH_TRAIN_LAYERS, f32: lm_loss
+    gradients on the mesh vs one device at capacity factor
+    MOE_CAPACITY; a step on the mesh, ``reshard_state`` onto its (1, 2)
+    submesh (every leaf bit for bit), and the next step there against
+    the next step on (1, 4)."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attn import flash_bwd_plan, flash_plan
+    from repro_torch.kernels.launch import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import OptimizerConfig, opt_state_specs
+    from repro_torch.sharding.spec import (LOCAL_CTX, NamedSharding,
+                                           ShardCtx)
+    from repro_torch.train.fault import reshard_state
+    from repro_torch.train.loop import (TrainConfig, init_state,
+                                        make_train_step, value_and_grad)
+    full = get_config(MOE_ARCH)
+    log("reduced: " + json.dumps({
+        "model": f"{MOE_ARCH} (phase 16 (c))",
+        "n_layers": [full.n_layers, MESH_TRAIN_LAYERS],
+        "step_batch": [list(TRAIN_BATCH), list(MESH_STEP_BATCH)],
+        "why": "memory: three train states (~15 GB each at one layer) "
+               "live at once beside a step's expert buffers"}))
+    cfg = dataclasses.replace(full, n_layers=MESH_TRAIN_LAYERS,
+                              capacity_factor=MOE_CAPACITY)
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(seed + 16),
+                         cfg, device=dev)
+    fwd = flash_plan(torch.float32, cfg.d_head, cfg.d_head).key
+    bwd = flash_bwd_plan(torch.float32, cfg.d_head, cfg.d_head).key
+    want = {fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
+
+    def loss(c):
+        return lambda p, b: tfm.lm_loss(p, b, cfg, c, dtype=torch.float32)
+
+    def counted(label, fn):
+        reset_launches()
+        res, ms = timed_ms(fn)
+        grew = {k: v for k, v in LAUNCHES.items() if v}
+        if grew != want:
+            raise AssertionError(f"mesh (c) {label}: launches {grew}, "
+                                 f"expected {want}")
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+        return res, ms
+    out = {}
+    n = ctx.mesh.shape[ctx.rules.expert]
+    batch = lm_batch(rng, *TRAIN_BATCH, cfg.vocab_size)
+    B, S = TRAIN_BATCH
+    with record_routing() as calls:
+        (g_one, m_one), out["grad_ms_one_device"] = counted(
+            "gradient",
+            lambda: value_and_grad(loss(LOCAL_CTX), params, batch))
+    # the mesh replays the one device's expert choices (forward and
+    # recompute), its own gates at them: a near-tie the two runs round
+    # apart would move whole expert rows (phase 13's rule)
+    with replay_routing(shard_routes(global_routes(calls, B, S, 1), B, S,
+                                     n)) as differ:
+        (g_mesh, m_mesh), out["grad_ms_mesh"] = counted(
+            "gradient", lambda: value_and_grad(loss(ctx), params, batch))
+    out["grad_assignments_differing"] = sum(differ)
+    worst = max((rel_l2(g, w), k) for (k, g), w in zip(
+        tree.keyed_leaves(g_mesh), tree.leaves(g_one), strict=True))
+    out["grad_worst_rel_l2"], out["grad_worst_leaf"] = worst
+    out["loss"] = [float(m_mesh["loss"]), float(m_one["loss"])]
+    if not worst[0] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"mesh (c) gradient {worst[1]}: relative L2 "
+                             f"{worst[0]} > {TRAIN_GRAD_RTOL}")
+    del g_mesh, g_one
+    torch.cuda.empty_cache()
+
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                                           total_steps=40))
+    mesh = ctx.mesh
+    half = mesh.submesh(np.array(MESH_SUB))
+    half_ctx = ShardCtx(mesh=half, rules=ctx.rules)
+    step4 = make_train_step(loss(ctx), tcfg)
+    step2 = make_train_step(loss(half_ctx), tcfg)
+    small = lm_batch(rng, *MESH_STEP_BATCH, cfg.vocab_size)
+    Bs, Ss = MESH_STEP_BATCH
+    state0 = init_state(params, tcfg)
+    (state1, _), out["step_ms_mesh"] = counted(
+        "step", lambda: step4(state0, small))
+    del state0, params
+    specs = tfm.lm_param_specs(cfg, ctx.rules)
+    to_half = tree.tree_map(lambda s: NamedSharding(half, s),
+                            {"params": specs, "opt": opt_state_specs(specs)})
+    moved = reshard_state(state1, to_half)
+    for (k, a), b in zip(tree.keyed_leaves(state1), tree.leaves(moved),
+                         strict=True):
+        if b.device != half.first_device or not torch.equal(
+                a.view(torch.uint8) if a.dim() else a.reshape(1).view(
+                    torch.uint8),
+                b.view(torch.uint8) if b.dim() else b.reshape(1).view(
+                    torch.uint8)):
+            raise AssertionError(f"mesh (c): {k} changed in the move to "
+                                 f"{half}")
+    with record_routing() as calls:
+        (s2b, _), _ = counted("step", lambda: step4(state1, small))
+    # the (1, 2) step replays the (1, 4) step's choices, as above
+    with replay_routing(shard_routes(global_routes(calls, Bs, Ss, n), Bs,
+                                     Ss, half.shape["model"])) as differ:
+        (s2a, _), out["step_ms_half"] = counted(
+            "step", lambda: step2(moved, small))
+    out["step_assignments_differing"] = sum(differ)
+    worst = max((rel_l2(a, b), k) for (k, a), b in zip(
+        tree.keyed_leaves(s2a), tree.leaves(s2b), strict=True))
+    out["next_step_worst_rel_l2"], out["next_step_worst_leaf"] = worst
+    if not worst[0] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"mesh (c) next step on {MESH_SUB}: {worst[1]} "
+                             f"relative L2 {worst[0]} from the step on "
+                             f"{MESH_LM} > {TRAIN_GRAD_RTOL}")
+    out["state_gb"] = sum(x.numel() * x.element_size()
+                          for x in tree.leaves(state1)) / 1e9
+    return out
+
+
+def sage_bf16_bound(params, feats, edges) -> torch.Tensor:
+    """The elementwise limit of SAGE's dst-partitioned logits against the
+    one-device ones: layer 2 aggregates the hidden states rounded to bf16
+    (each off by at most 2^-8 of itself), so a logit moves by at most
+    2^-8 * mean_neighbours(|h1|) @ |w_neigh| of layer 2."""
+    from repro_torch.models import gnn as G
+    p1, p2 = params["layers"]
+    n = feats.shape[0]
+    with torch.no_grad():
+        h1 = G._sage_layer(feats, G._mean_aggregate(feats, edges, n, None),
+                           p1, final=False)
+        agg = G._mean_aggregate(h1.abs(), edges, n, None)
+        return 2.0 ** -8 * (agg @ p2["w_neigh"].abs())
+
+
+def mesh_sage_round(seed: int, dev, rng) -> dict:
+    """Phase 16 (d): GraphSAGE's full_graph_sm cell on a (2, 2) mesh
+    (``build_cell(..., mesh)``: nodes padded to the mesh, edges by
+    destination with weights) against the one-device cell: logits within
+    ``sage_bf16_bound`` plus 1e-5 of the largest, two runs bit for bit,
+    a train step of the mesh cell finite."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import graphs
+    from repro_torch.data.partition import partition_edges_by_dst
+    from repro_torch.models import api as A
+    from repro_torch.models import gnn as G
+    from repro_torch.optim.adamw import adamw_init
+    ctx = _mesh_ctx(MESH_GRID, dev)
+    cfg = get_config("graphsage-reddit")
+    cell = A.build_cell("graphsage-reddit", "full_graph_sm", mesh=ctx.mesh)
+    one = A.build_cell("graphsage-reddit", "full_graph_sm")
+    N, E, F, C = SAGE_FULL
+    g = graphs.random_graph(rng, N, E, F, C)
+    n_pad = cell.args[1]["features"].shape[0]
+    feats = np.zeros((n_pad, F), np.float32)
+    feats[:N] = g["features"]
+    labels = np.zeros(n_pad, np.int32)
+    labels[:N] = g["labels"]
+    mask = (np.arange(n_pad) < N).astype(np.float32)
+    pe, pw = partition_edges_by_dst(g["edges"], n_pad, ctx.mesh.size)
+    on = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("features", feats), ("edges", pe), ("edge_weight", pw),
+        ("labels", labels), ("mask", mask))}
+    if set(on) != set(cell.args[1]):
+        raise AssertionError(f"mesh (d): batch keys {sorted(on)}, the "
+                             f"cell's {sorted(cell.args[1])}")
+    params = cell.init_fn(torch.Generator(device=dev).manual_seed(seed), dev)
+    with torch.no_grad():
+        run = lambda: G.sage_forward_full_dstpart(  # noqa: E731
+            params, on["features"], on["edges"], on["edge_weight"], cfg, ctx)
+        logits, ms = timed_ms(run)
+        again = run()
+        loss = cell.loss_fn(params, on)[0]
+        loss2 = cell.loss_fn(params, on)[0]
+        if not (torch.equal(logits, again) and torch.equal(loss, loss2)):
+            raise AssertionError("mesh (d): two runs on the mesh differ")
+        edges = torch.from_numpy(g["edges"]).to(dev).long()
+        f1 = on["features"][:N + 1]
+        ref = G.sage_forward_full(params, f1, edges, cfg)
+        ref_loss = one.loss_fn(params, {
+            "features": f1, "edges": edges, "labels": on["labels"][:N + 1],
+            "mask": on["mask"][:N + 1]})[0]
+        bound = sage_bf16_bound(params, f1, edges)[:N]
+        err = (logits[:N] - ref[:N]).abs()
+        slack = 1e-5 * float(ref[:N].abs().max())
+        if not (torch.isfinite(logits).all()
+                and bool((err <= bound + slack).all())):
+            worst = float((err - bound).max())
+            raise AssertionError(f"mesh (d): a logit {worst} past its bf16 "
+                                 f"bound (+{slack})")
+    state = {"params": params, "opt": adamw_init(params)}
+    new, m = cell.fn(state, on)
+    if not all(bool(torch.isfinite(x).all()) for x in
+               (m["loss"], *new["params"]["layers"][0].values())):
+        raise AssertionError("mesh (d): the mesh cell's train step is not "
+                             "finite")
+    return {"ms": ms, "max_abs_err": float(err.max()),
+            "bound_max": float(bound.max()),
+            "loss": [float(loss), float(ref_loss)],
+            "step_loss": float(m["loss"]), "nodes_padded": n_pad,
+            "edges_partitioned": int(pe.shape[0])}
+
+
+def mesh_retrieval_round(seed: int, dev) -> dict:
+    """Phase 16 (e): the retrieval_cand cells of DLRM-RM2 and BERT4Rec on
+    a (2, 2) mesh (the scores' rows over the 4 corpus shards, the
+    two-level top-k) and ``score_all_items`` at BERT4Rec's serve_p99
+    batch over its 2^20 items, against one device: ids and values equal,
+    equal scores in ascending id (rows planted equal across the shard
+    boundaries for the retrieval cells)."""
+    from repro_torch.models import api as A
+    from repro_torch.models import recsys as R
+    ctx = _mesh_ctx(MESH_GRID, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for arch in ("dlrm-rm2", "bert4rec"):
+        cell = A.build_cell(arch, "retrieval_cand", mesh=ctx.mesh)
+        one = A.build_cell(arch, "retrieval_cand")
+        params = one.init_fn(gen, dev)
+        table = (params["item_embed"] if "item_embed" in params
+                 else params["tables"][0])
+        q = torch.randn((1, table.shape[1]), generator=gen, device=dev)
+        V = table.shape[0]
+        tied = [V // 4 - 1, V // 4, V // 2, 3 * V // 4]
+        table[tied] = 3.0 * q[0]                # four equal top scores
+        (vm, im), ms_mesh = timed_ms(lambda: cell.fn(params, q))
+        (v1, i1), ms_one = timed_ms(lambda: one.fn(params, q))
+        if not (torch.equal(im, i1) and torch.equal(vm, v1)):
+            raise AssertionError(f"mesh (e) {arch} retrieval: ids or values "
+                                 f"differ from one device's")
+        if im[0, :4].tolist() != tied:
+            raise AssertionError(f"mesh (e) {arch}: the tied rows come "
+                                 f"{im[0, :4].tolist()}, not {tied}")
+        out[arch] = {"ms_mesh": ms_mesh, "ms_one_device": ms_one}
+        if arch == "bert4rec":
+            user = 0.1 * torch.randn((MESH_SCORE_B, table.shape[1]),
+                                     generator=gen, device=dev)
+            (sv, si), ms_mesh = timed_ms(lambda: R.score_all_items(
+                user, table, RECSYS_K, ctx))
+            (ov, oi), ms_one = timed_ms(lambda: R.score_all_items(
+                user, table, RECSYS_K))
+            if not (torch.equal(si, oi) and torch.equal(sv, ov)):
+                raise AssertionError("mesh (e) score_all_items: ids or "
+                                     "values differ from one device's")
+            ties = sv[:, 1:] == sv[:, :-1]
+            if bool((ties & (si[:, 1:] < si[:, :-1])).any()):
+                raise AssertionError("mesh (e) score_all_items: equal "
+                                     "scores out of id order")
+            out["score_all_items"] = {
+                "ms_mesh": ms_mesh, "ms_one_device": ms_one,
+                "tied_neighbours": int(ties.sum())}
+        del params, table
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_models_phase(seed: int, card: str) -> dict:
+    """Phase 16: the models on a mesh of 4 logical devices sharing the
+    card, through the port's sharded functions; (a) to (e) as the
+    module's docstring says.  Returns the results and the flash launches
+    by LAUNCHES key."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 16)
+    launches, out = {}, {"card": card}
+    ctx = _mesh_ctx(MESH_LM, dev)
+    full = get_config(MOE_ARCH)
+    log("reduced: " + json.dumps({
+        "model": f"{MOE_ARCH} (phase 16 (a), (b))",
+        "n_layers": [full.n_layers, MESH_MOE_LAYERS]}))
+    cfg = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           PREFILL)).to(dev)
+    out["prefill"] = mesh_prefill_round(params, cfg, tokens, ctx, dev,
+                                        launches)
+    log(f"mesh (a) {MOE_ARCH} prefill B, S = {PREFILL} on {MESH_LM} vs one "
+        f"device: " + json.dumps(out["prefill"]))
+    prompt = tokens[:MESH_DECODE["batch"], :MESH_DECODE["prompt"]]
+    out["decode"] = mesh_decode_round(params, cfg, prompt, ctx, dev)
+    log(f"mesh (b) {MOE_ARCH} decode on {MESH_LM} vs one device: "
+        + json.dumps(out["decode"]))
+    out["ab_s"] = time.perf_counter() - t0
+    del params, tokens, prompt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["train"] = mesh_train_round(seed, ctx, dev, rng, launches)
+    out["train"]["s"] = time.perf_counter() - t0
+    log(f"mesh (c) {MOE_ARCH} gradient, reshard {MESH_LM} -> {MESH_SUB}, "
+        f"next step: " + json.dumps(out["train"]))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["sage"] = mesh_sage_round(seed, dev, rng)
+    log(f"mesh (d) graphsage full_graph_sm on {MESH_GRID} vs one device: "
+        + json.dumps(out["sage"]))
+    out["retrieval"] = mesh_retrieval_round(seed, dev)
+    out["de_s"] = time.perf_counter() - t0
+    log(f"mesh (e) retrieval on {MESH_GRID} vs one device: "
+        + json.dumps(out["retrieval"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
+    return out
+
+
 def exact_products(dtype: torch.dtype) -> tuple[float, int]:
     """The fastest rate the card has for products of inputs of ``dtype``
     that are exact, and how many products each takes: 8-bit integers in
@@ -4397,6 +4969,18 @@ def main() -> int:
     log(f"timing {r['name']} {shape}: ms={r['ms']:.4f} "
         f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
         f"({r['bound_by']}) library_ms={r['library_ms']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    msh16 = mesh_models_phase(args.seed, card)
+    log(f"mesh models: ok, {time.perf_counter() - t:.1f} s; peak "
+        f"{msh16['peak_gb']:.1f} GB; launches="
+        + json.dumps(msh16["launches"]))
+    # and phase 16's: the MoE LM's prefills and train runs on the mesh
+    # and on one device, under the f32 forward and backward rows
+    for k in kernels:
+        k["launches"] += msh16["launches"].get(
+            BWD_ROWS.get(k["name"], k["name"]), 0)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,12 @@ all-gathered array does.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
 
-from repro_torch.sharding.spec import ShardCtx, axes_tuple
+from repro_torch.sharding.spec import P, ShardCtx, axes_tuple, shard_map
 
 Axes = Union[str, Tuple[str, ...]]
 
@@ -49,8 +50,9 @@ def sharded_topk(scores: torch.Tensor, k: int, ctx: ShardCtx, *,
     V is split over the mesh axes ``shard_axes`` and B over
     ``batch_axes`` (a logical rule name, resolved through ``ctx.rules``,
     or mesh axes), as ``PartitionSpec(batch, shard_axes)`` places them in
-    the JAX package: the block (b, s) goes to the logical device at that
-    position of the mesh, its top-k runs there, and only its pairs move.
+    the JAX package: ``sharding.spec.shard_map`` puts each block on its
+    logical device, its top-k runs there, and only its pairs move to the
+    mesh's first device, concatenated in shard order for the merge.
     B and V must split evenly (``shard_map`` refuses otherwise), and k
     may not pass V (nor may ``lax.top_k``'s)."""
     if k > scores.shape[-1]:
@@ -63,25 +65,20 @@ def sharded_topk(scores: torch.Tensor, k: int, ctx: ShardCtx, *,
               if isinstance(batch_axes, str) and hasattr(ctx.rules,
                                                          batch_axes)
               else batch_axes)
-    grid = mesh.grid_ids(axes_tuple(b_spec), axes)
-    nb, ns = grid.shape
+    nb = math.prod(mesh.shape.get(a, 1) for a in axes_tuple(b_spec))
+    ns = math.prod(mesh.shape.get(a, 1) for a in axes)
     b, v = scores.shape
     if b % nb or v % ns:
         raise ValueError(f"scores {tuple(scores.shape)} do not split into "
                          f"{nb} x {ns} blocks")
-    b_loc, v_loc = b // nb, v // ns
-    out = mesh.first_device
-    vals, ids = [], []
-    for bi in range(nb):
-        part_v, part_i = [], []
-        for si in range(ns):
-            block = scores[bi * b_loc:(bi + 1) * b_loc,
-                           si * v_loc:(si + 1) * v_loc].to(
-                               mesh.device(grid[bi, si]))
-            sv, si_pos = _select(block, min(k, v_loc), largest)
-            part_v.append(sv.to(out))
-            part_i.append((si_pos + si * v_loc).to(out))
-        mv, pos = _select(torch.cat(part_v, -1), k, largest)
-        vals.append(mv)
-        ids.append(torch.gather(torch.cat(part_i, -1), -1, pos))
-    return torch.cat(vals), torch.cat(ids)
+    v_loc = v // ns
+
+    def local(shard, block):
+        sv, pos = _select(block, min(k, v_loc), largest)
+        return sv, pos + shard.axis_index(axes) * v_loc
+
+    blocks = P(b_spec, axes)
+    part_v, part_i = shard_map(local, mesh, (blocks,), (blocks, blocks))(
+        scores)
+    mv, pos = _select(part_v, k, largest)
+    return mv, torch.gather(part_i, -1, pos)

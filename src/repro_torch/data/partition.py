@@ -1,8 +1,8 @@
 """Host-side edge partitioning for a destination-partitioned GNN (host
 numpy, the port's own copy of the reference's ``data/partition.py``):
 edges range-partitioned by destination node, every shard padded to equal
-length with zero-weight edges.  The forward that consumes them,
-``sage_forward_full_dstpart``, runs on a mesh and is not ported yet."""
+length with zero-weight edges, as ``models.gnn.sage_forward_full_dstpart``
+takes them on a mesh."""
 
 from __future__ import annotations
 

@@ -23,13 +23,14 @@ Devices = Union[Mapping[int, object], Sequence[object]]
 
 def _reachable(dev) -> torch.device:
     """``dev`` as a ``torch.device`` with its index, or ``ValueError``
-    where this process cannot reach it."""
+    where this process cannot reach it.  ``meta`` is taken: a mesh that
+    only places shapes (``make_production_mesh``), where no shard runs."""
     dev = torch.device(dev)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"a logical device lives on the CPU or a CUDA "
-                         f"card, not on {dev}")
+        raise ValueError(f"a logical device lives on the CPU, a CUDA "
+                         f"card or meta, not on {dev}")
     idx = 0 if dev.index is None else dev.index
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if idx >= count:
@@ -116,12 +117,16 @@ class Mesh:
                 f"on {', '.join(devs)})")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's production mesh is a TPU pod (16 x 16 chips, or
-    2 x 16 x 16 across two pods); its port waits for ``launch/dryrun``."""
-    raise NotImplementedError(
-        "the production mesh is a TPU pod (16x16, or 2x16x16 multi-pod); "
-        "its port waits for launch/dryrun")
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh: one pod, 16 x 16 = 256 devices
+    ``("data", "model")``, or two, 2 x 16 x 16 = 512 ``("pod", "data",
+    "model")``, as logical ids 0..n-1 row-major.  Every id lives on
+    ``meta``: a mesh that places shapes for ``launch.dryrun`` and runs no
+    shard (no host of the port holds 256 cards)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    return Mesh(np.arange(n).reshape(shape), axes, ["meta"] * n)
 
 
 def make_test_mesh(n_devices: Optional[int] = None, *,

@@ -6,8 +6,9 @@
 The reference's CLI: a dense or MoE LM of the registry in f32 (attention
 through the flash forward and backward kernels on the card), AdamW with
 warmup and a cosine, optional microbatching, int8 error-feedback
-gradient compression and periodic checkpoints.  One device: the models'
-mesh paths wait for ROADMAP queue 1 item 5.
+gradient compression and periodic checkpoints, on one device, as the
+reference's launcher trains (its full-scale runs on the production mesh
+are ``launch.dryrun``'s cells here, which place shapes only).
 """
 
 from __future__ import annotations

@@ -8,17 +8,21 @@ segment in that order, so the card adds in a fixed order and two runs
 give the same bits (``index_add_`` adds in no fixed order there).  The
 gather is ``layers.gather_rows``, whose backward sums each source's
 messages' gradients the same way.
-Three modes, all on one device:
+Three modes:
 
-* full graph: edges (E, 2) + features (N, F);
+* full graph: edges (E, 2) + features (N, F); on a mesh also
+  destination-partitioned (:func:`sage_forward_full_dstpart`: each shard
+  aggregates its own node range, one all-gather of the hidden states in
+  bf16 between the layers);
 * minibatch: the dense sampled neighbourhoods of ``data.graphs``
   (B, f0, F) / (B, f0, f1, F);
 * batched small graphs: block-diagonal flattening and a mean readout a
   graph.
 
-f32 products run in full f32 (TF32 off: ``clustering.full_f32``).  Not
-ported: ``sage_forward_full_dstpart`` and ``sage_param_specs`` (the mesh
-half, ROADMAP queue 1 item 5); a :class:`ShardCtx` with a mesh raises.
+f32 products run in full f32 (TF32 off: ``clustering.full_f32``).  On a
+mesh :func:`sage_forward_full` is the reference's one-device forward (no
+sharding constraint in it); :func:`sage_param_specs` replicates the
+weights (the edges are what is sharded).
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ from repro_torch.core.clustering import full_f32
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.layers import (LOCAL_CTX, ShardCtx, gather_rows,
                                       segment_order, segment_reduce)
-from repro_torch.models.transformer import _local_only, _normal
+from repro_torch.models.transformer import _normal
+from repro_torch.sharding.spec import (P, Rules, all_gather, axes_tuple,
+                                       per_shard, shard_merge, shard_split)
 
 
 def init_sage(gen: torch.Generator, cfg: GNNConfig,
@@ -55,6 +61,13 @@ def init_sage(gen: torch.Generator, cfg: GNNConfig,
                        "b": torch.zeros((dims[i + 1],), dtype=torch.float32,
                                         device=dev)})
     return {"layers": layers}
+
+
+def sage_param_specs(cfg: GNNConfig, r: Rules) -> Dict[str, Any]:
+    """SAGE's weights are small (d_feat x 128) and d_feat rarely divides
+    the mesh (1433, 602, 100, ...): replicated; the edges are sharded."""
+    layer = {"w_self": P(None, None), "w_neigh": P(None, None), "b": P(None)}
+    return {"layers": [dict(layer) for _ in range(cfg.n_layers)]}
 
 
 def _mean_aggregate(h: torch.Tensor, edges, n_nodes: int, ctx: ShardCtx,
@@ -106,7 +119,6 @@ def sage_forward_full(params, feats: torch.Tensor, edges, cfg: GNNConfig,
                       ctx: ShardCtx = LOCAL_CTX, weights=None
                       ) -> torch.Tensor:
     """Full-graph forward: feats (N, F), edges (E, 2) -> logits (N, C)."""
-    _local_only(ctx)
     n_nodes = feats.shape[0]
     edges = torch.as_tensor(edges, device=feats.device).long()
     order = segment_order(edges[:, 1], n_nodes)      # once a forward
@@ -117,6 +129,71 @@ def sage_forward_full(params, feats: torch.Tensor, edges, cfg: GNNConfig,
                                       order=order)
             h = _sage_layer(h, h_neigh, p, final=(i == cfg.n_layers - 1))
     return h
+
+
+def sage_forward_full_dstpart(params, feats: torch.Tensor, edges, weights,
+                              cfg: GNNConfig, ctx: ShardCtx) -> torch.Tensor:
+    """The reference's destination-partitioned full-graph forward on a
+    mesh: feats (N, F) replicated; edges (E, 2) and weights (E,) split
+    over the ``corpus`` axes in blocks that hold exactly the edges whose
+    destination lies in the shard's N/P nodes (``data.partition.
+    partition_edges_by_dst``: zero-weight edges pad each block) ->
+    logits (N, C) on the mesh's first device.
+
+    Each shard, on its logical device, aggregates and transforms only its
+    own nodes (layer 1); the hidden states are rounded to bf16 and
+    all-gathered in shard order (the reference ships their 16-bit
+    patterns); each shard then runs layer 2 on its nodes.  The gathered
+    copy carries no gradient, as the reference's integer bit patterns
+    carry none: a shard's own hidden states reach layer 2's self term
+    with their gradient, its neighbours' reach the aggregation without
+    one (ROADMAP queue 3 records this fault of the reference's training
+    gradient; the port keeps the sharded function's)."""
+    if ctx.mesh is None:
+        raise ValueError("sage_forward_full_dstpart runs on a mesh")
+    if cfg.n_layers != 2:
+        raise ValueError(f"the dst-partitioned forward has 2 layers, not "
+                         f"{cfg.n_layers}")
+    mesh = ctx.mesh
+    axes = axes_tuple(ctx.rules.corpus)
+    n_shards = math.prod(mesh.shape[a] for a in axes)
+    n_nodes = feats.shape[0]
+    if n_nodes % n_shards:
+        raise ValueError(f"{n_nodes} nodes do not split over {n_shards} "
+                         f"shards")
+    n_loc = n_nodes // n_shards
+    p1, p2 = params["layers"]
+    edges = torch.as_tensor(edges, device=feats.device).long()
+    weights = torch.as_tensor(weights, device=feats.device).to(feats.dtype)
+    fs = shard_split(feats, mesh, P(None, None))
+    es = shard_split(edges, mesh, P(axes, None))
+    ws = shard_split(weights, mesh, P(axes))
+
+    def on(dev, p):
+        return {k: v.to(dev) for k, v in p.items()}
+
+    def layer1(sh, f, e, w):
+        lo = sh.axis_index(axes) * n_loc
+        order = segment_order(e[:, 1] - lo, n_loc)   # both layers' sums
+        with full_f32:
+            neigh = _mean_aggregate(f, e, n_loc, None, w, dst_offset=lo,
+                                    order=order)
+            h1 = _sage_layer(f[lo:lo + n_loc], neigh, on(sh.device, p1),
+                             final=False)
+        return h1, order
+    first = per_shard(mesh, layer1, fs, es, ws)
+    h1s = all_gather({i: h.detach().to(torch.bfloat16)
+                      for i, (h, _) in first.items()}, mesh, axes, dim=0)
+
+    def layer2(sh, h1g, e, w):
+        h1_l, order = first[sh.lid]
+        lo = sh.axis_index(axes) * n_loc
+        with full_f32:
+            neigh = _mean_aggregate(h1g.to(h1_l.dtype), e, n_loc, None, w,
+                                    dst_offset=lo, order=order)
+            return _sage_layer(h1_l, neigh, on(sh.device, p2), final=True)
+    outs = per_shard(mesh, layer2, h1s, es, ws)
+    return shard_merge(outs, mesh, P(axes, None))
 
 
 def sage_forward_minibatch(params, feats0: torch.Tensor,

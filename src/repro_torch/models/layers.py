@@ -22,15 +22,18 @@ JAX package's ``models/layers.py``.
   CPU).  The reference's ``REPRO_FLASH_VJP`` ablation switch (autograd
   through the scan) is not ported: the port keeps its default.
 
-* :func:`moe_block` is the reference's MoE on its local path (one shard):
-  capacity-bounded, cumsum-slotted dispatch, every expert's FFN as one
-  batched product, a gated combine; shared experts through
-  :func:`swiglu_ffn`.  Routing is deterministic on the card: ties go to
-  the lowest expert id, as ``lax.top_k`` sends them (a stable sort, not
-  ``torch.topk``), the router's product runs in full f32 (TF32 off:
+* :func:`moe_block` is the reference's MoE: capacity-bounded,
+  cumsum-slotted dispatch, every expert's FFN as one batched product, a
+  gated combine; shared experts through :func:`swiglu_ffn`.  Routing is
+  deterministic on the card: ties go to the lowest expert id, as
+  ``lax.top_k`` sends them (a stable sort, not ``torch.topk``), the
+  router's product runs in full f32 (TF32 off:
   ``core.clustering.full_f32``), each kept slot is written once and the
-  combine sums each token's k outputs in a fixed order (no atomics).  A
-  :class:`ShardCtx` with a mesh raises (ROADMAP queue 1 item 5).
+  combine sums each token's k outputs in a fixed order (no atomics).  On
+  a :class:`ShardCtx` with a mesh it is expert-parallel as the
+  reference's ``shard_map`` regions are, written as stages
+  (``sharding.spec``): the all-to-all dispatch for train and prefill,
+  each shard's own experts and a sum over shards for decode.
 * :func:`mla_qkv` and :func:`mla_decode_absorbed` are DeepSeek-V2's MLA:
   the prefill expands the compressed KV and runs
   :func:`blockwise_attention` with v narrower than q and k; decode
@@ -58,7 +61,9 @@ from repro_torch.core.clustering import full_f32
 from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                 flash_attention_bwd,
                                                 flash_bwd_width)
-from repro_torch.sharding.spec import LOCAL_CTX, ShardCtx  # noqa: F401
+from repro_torch.sharding.spec import (LOCAL_CTX, P, ShardCtx, all_to_all,
+                                       per_shard, psum, shard_merge,
+                                       shard_split)
 
 _NEG_INF = -1e30  # finite mask value: avoids (-inf) - (-inf) = nan paths
 
@@ -412,47 +417,150 @@ def _expert_ffn(buf: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return torch.bmm(F.silu(gate) * up, w2.to(dtype))
 
 
-def _moe_local_a2a(x: torch.Tensor, router_w, w1, w2, *,
-                   cfg: LMConfig) -> torch.Tensor:
-    """The reference's ``_moe_local_a2a`` with one shard (no all-to-all):
-    x (t, D) -> (t, D).  A pair past its expert's capacity goes to the
-    bucket row ``E * cap`` and adds zero."""
+def _moe_dispatch(x: torch.Tensor, router_w, cfg: LMConfig, cap: int,
+                  lo: int = 0, n_local: Optional[int] = None):
+    """Route x (t, D) and slot each (token, k) pair to experts [lo, lo +
+    n_local) (default: all E) at capacity ``cap``: (buf (n_local, cap,
+    D), slot (t*k,), gates (t, k)).  A pair past its expert's capacity,
+    or routed to another shard's expert, goes to the bucket row
+    ``n_local * cap`` and adds zero."""
     t, D = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
-    cap = _capacity(t, k, E, cfg.capacity_factor)
+    n_local = E if n_local is None else n_local
     gates, eids = _router(x, router_w, cfg)
     eid_flat, pos_flat = _expert_slots(eids, E)
-    keep = pos_flat < cap
-    slot = torch.where(keep, eid_flat * cap + pos_flat, E * cap)
+    keep = (eid_flat >= lo) & (eid_flat < lo + n_local) & (pos_flat < cap)
+    slot = torch.where(keep, (eid_flat - lo) * cap + pos_flat, n_local * cap)
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     # each kept slot is written once; only the discarded bucket row takes
     # duplicates (the reference adds into zeros, the same buffer)
-    buf = x.new_zeros(E * cap + 1, D)
+    buf = x.new_zeros(n_local * cap + 1, D)
     buf[slot] = x[tok_idx]
-    y = _expert_ffn(buf[:-1].reshape(E, cap, D), w1, w2, x.dtype)
-    y = torch.cat([y.reshape(E * cap, D), y.new_zeros(1, D)])
+    return buf[:-1].reshape(n_local, cap, D), slot, gates
+
+
+def _moe_combine(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor
+                 ) -> torch.Tensor:
+    """The experts' outputs y (n, cap, D) back to the tokens: each pair's
+    slot row times its gate (the bucket row zero), a token's k outputs
+    summed in k's order, in y's dtype, as the reference's scatter-add
+    into zeros sums them; no atomics."""
+    t, k = gates.shape
+    D = y.shape[-1]
+    y = torch.cat([y.reshape(-1, D), y.new_zeros(1, D)])
     y_pair = (y[slot] * gates.reshape(-1, 1).to(y.dtype)).reshape(t, k, D)
-    # a token's k outputs summed in k's order, in y's dtype, as the
-    # reference's scatter-add into zeros sums them; no atomics
     out = y_pair[:, 0]
     for j in range(1, k):
         out = out + y_pair[:, j]
     return out
 
 
+def _moe_local_a2a(x: torch.Tensor, router_w, w1, w2, *,
+                   cfg: LMConfig) -> torch.Tensor:
+    """The reference's ``_moe_local_a2a`` with one shard (no all-to-all):
+    x (t, D) -> (t, D)."""
+    cap = _capacity(x.shape[0], cfg.moe_top_k, cfg.n_experts,
+                    cfg.capacity_factor)
+    buf, slot, gates = _moe_dispatch(x, router_w, cfg, cap)
+    return _moe_combine(_expert_ffn(buf, w1, w2, x.dtype), slot, gates)
+
+
+def _expert_shards(ctx: ShardCtx, cfg: LMConfig, w1, w2):
+    """The expert axis, its shard count and each logical id's experts'
+    weights (on its device), as ``P(expert, None, None)`` splits them."""
+    mesh, r = ctx.mesh, ctx.rules
+    axis = r.expert
+    n = mesh.shape[axis]
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not split over the "
+                         f"{n} shards of mesh axis {axis!r}")
+    spec = P(r.expert, None, None)
+    return axis, n, shard_split(w1, mesh, spec), shard_split(w2, mesh, spec)
+
+
+def _moe_mesh_a2a(x: torch.Tensor, router_w, w1, w2, *, cfg: LMConfig,
+                  ctx: ShardCtx) -> torch.Tensor:
+    """The reference's sequence-sharded MoE on a mesh (``shard_map`` over
+    ``_moe_local_a2a`` with its two ``all_to_all``s), as stages: x (B, S,
+    D) split ``P(batch, tensor, None)``; each shard routes its own tokens
+    at a capacity from its own token count (so where pairs drop, this is
+    another function than the one-device MoE, as the reference's is);
+    the (E, cap, D) buffers re-split so each shard holds its E/n experts'
+    slots from every shard of its group (E/n, n*cap, D); each shard's
+    experts run on its device with its own weights; the outputs go back
+    and each shard combines its tokens'."""
+    mesh, r = ctx.mesh, ctx.rules
+    axis, _, w1s, w2s = _expert_shards(ctx, cfg, w1, w2)
+    x_spec = P(r.batch, r.tensor, None)
+    xs = shard_split(x, mesh, x_spec)
+    rws = shard_split(router_w, mesh, P(None, None))
+    E, k = cfg.n_experts, cfg.moe_top_k
+
+    def dispatch(sh, xl, rw):
+        t = xl.shape[0] * xl.shape[1]
+        cap = _capacity(t, k, E, cfg.capacity_factor)
+        return _moe_dispatch(xl.reshape(t, -1), rw, cfg, cap)
+    routed = per_shard(mesh, dispatch, xs, rws)
+    bufs = all_to_all({i: d[0] for i, d in routed.items()}, mesh, axis,
+                      split_axis=0, concat_axis=1)
+    # each stage's buffers go as soon as the next stage holds its own
+    # (E x cap x D a shard: gigabytes at full width)
+    routed = {i: d[1:] for i, d in routed.items()}
+    ys = per_shard(mesh, lambda sh, b, a, c: _expert_ffn(b, a, c, x.dtype),
+                   bufs, w1s, w2s)
+    del bufs
+    ys = all_to_all(ys, mesh, axis, split_axis=1, concat_axis=0)
+    outs = {i: _moe_combine(ys.pop(i), *d).reshape(xs[i].shape)
+            for i, d in routed.items()}
+    return shard_merge(outs, mesh, x_spec)
+
+
+def _moe_mesh_replicated(x: torch.Tensor, router_w, w1, w2, *,
+                         cfg: LMConfig, ctx: ShardCtx) -> torch.Tensor:
+    """The reference's ``_moe_local_replicated`` on a mesh (decode): x
+    (B, S, D) split ``P(batch, None, None)``, so every shard of an expert
+    group sees the same tokens; each routes them at capacity t (a decode
+    drops no pair), runs only its own E/n experts and combines their
+    outputs; the partial outputs are summed over the expert axis in shard
+    order (``psum``)."""
+    mesh, r = ctx.mesh, ctx.rules
+    axis, n, w1s, w2s = _expert_shards(ctx, cfg, w1, w2)
+    x_spec = P(r.batch, None, None)
+    xs = shard_split(x, mesh, x_spec)
+    rws = shard_split(router_w, mesh, P(None, None))
+    E, k = cfg.n_experts, cfg.moe_top_k
+    e_loc = E // n
+
+    def body(sh, xl, rw, a, c):
+        t = xl.shape[0] * xl.shape[1]
+        cap = min(t, _capacity(t, k, E, 1e9))
+        buf, slot, gates = _moe_dispatch(xl.reshape(t, -1), rw, cfg, cap,
+                                         lo=sh.axis_index(axis) * e_loc,
+                                         n_local=e_loc)
+        y = _expert_ffn(buf, a, c, x.dtype)
+        return _moe_combine(y, slot, gates).reshape(xl.shape)
+    outs = psum(per_shard(mesh, body, xs, rws, w1s, w2s), mesh, axis)
+    return shard_merge(outs, mesh, x_spec)
+
+
 def moe_block(x: torch.Tensor, router_w, w1, w2, shared_w1, shared_w2, *,
-              cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D), the reference's local path
-    (``ctx.mesh is None``; the same for prefill and decode).  Routed
-    experts, then the shared experts' SwiGLU (``shared_w1`` None:
-    none)."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(
-            "MoE on a mesh is not ported yet (ROADMAP queue 1 item 5): "
-            "pass LOCAL_CTX")
+              cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
+              seq_sharded: bool = True) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): routed experts, then the shared
+    experts' SwiGLU (``shared_w1`` None: none).  Without a mesh the
+    reference's local path (the same for prefill and decode).  On a mesh
+    the experts are sharded over the ``expert`` axis: ``seq_sharded``
+    (train, prefill) takes tokens sequence-sharded over it through the
+    all-to-all dispatch (:func:`_moe_mesh_a2a`); False (decode) takes
+    them replicated, each shard computing its own experts, the partial
+    outputs summed (:func:`_moe_mesh_replicated`)."""
     B, S, D = x.shape
-    out = _moe_local_a2a(x.reshape(B * S, D), router_w, w1, w2,
-                         cfg=cfg).reshape(B, S, D)
+    if ctx.mesh is None:
+        out = _moe_local_a2a(x.reshape(B * S, D), router_w, w1, w2,
+                             cfg=cfg).reshape(B, S, D)
+    else:
+        fn = _moe_mesh_a2a if seq_sharded else _moe_mesh_replicated
+        out = fn(x, router_w, w1, w2, cfg=cfg, ctx=ctx)
     if shared_w1 is not None:
         out = out + swiglu_ffn(x, shared_w1.to(x.dtype),
                                shared_w2.to(x.dtype))

@@ -21,15 +21,22 @@ counterpart of the JAX package's ``models/recsys.py``).
   from the block's product as they lie), the plain scan on the CPU.
 * :func:`score_all_items` is a bf16 product (cuBLAS, as the reference's
   is XLA's) and a top-k that gives ties to the lowest id, as
-  ``lax.top_k`` does (``core.topk._select``, a stable sort).
+  ``lax.top_k`` does (``core.topk._select``, a stable sort); on a mesh
+  the reference's two-level ``core.topk.sharded_topk`` over the item
+  shards (each shard's top k on its logical device, the pairs merged in
+  shard order: the same ids).
 * f32 products run in full f32 (TF32 off: ``clustering.full_f32``).
+* On a mesh the forwards are the reference's: its sharding constraints
+  (``ctx.constrain``) check their specs and change no value; the
+  ``*_param_specs`` are its layouts (tables row-sharded over ``corpus``,
+  or over ``tensor`` for bulk serving; MLPs replicated).
 
 Parameters are nested dicts and lists of tensors, drawn by an explicit
 ``torch.Generator`` (other numbers than ``jax.random``'s: carry the
 reference's across with ``transformer.params_from_numpy``).  Not ported:
 the reference's ``REPRO_OPT_RECSYS`` switch (the port keeps its default,
-bf16 gathers from B >= 16,384) and the ``*_param_specs`` of its mesh; a
-:class:`ShardCtx` with a mesh raises (ROADMAP queue 1 item 5).
+bf16 gathers from B >= 16,384, and the tensor-axis table layout of bulk
+serving that goes with it).
 """
 
 from __future__ import annotations
@@ -43,12 +50,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.clustering import full_f32
 from repro_torch.core.engine import resolve_device
-from repro_torch.core.topk import _select
+from repro_torch.core.topk import _select, sharded_topk
 from repro_torch.models.layers import (LOCAL_CTX, ShardCtx,
                                        blockwise_attention, gather_rows,
                                        rms_norm, segment_order,
                                        segment_reduce)
-from repro_torch.models.transformer import _local_only, _normal
+from repro_torch.models.transformer import _normal
+from repro_torch.sharding.spec import P, Rules
 
 BULK_GATHER_BATCH = 16384   # bf16 gathers from this batch on (recsys.py:147)
 
@@ -111,6 +119,19 @@ def _mlp_init(gen: torch.Generator, dims, device: torch.device
             for i in range(len(dims) - 1)]
 
 
+def _mlp_specs(dims, r: Rules):
+    """Ranking MLPs are small (<= 1024 wide) with awkward widths (13,
+    415, ...): replicated; the embedding tables carry the memory and are
+    sharded."""
+    return [{"w": P(None, None), "b": P(None)} for _ in range(len(dims) - 1)]
+
+
+def _table_rows(r: Rules, bulk_serving: bool):
+    """The tables' row axes: ``tensor`` for bulk serving (small
+    all-reduce groups for the lookup), ``corpus`` otherwise."""
+    return r.tensor if bulk_serving else r.corpus
+
+
 def _mlp_apply(layers, x: torch.Tensor, final_act=None) -> torch.Tensor:
     for i, p in enumerate(layers):
         x = x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
@@ -143,10 +164,20 @@ def init_dlrm(gen: torch.Generator, cfg: RecsysConfig,
     }
 
 
+def dlrm_param_specs(cfg: RecsysConfig, r: Rules,
+                     bulk_serving: bool = False):
+    """Bulk serving reshards the tables to the tensor axis; training keeps
+    them corpus-sharded (the reference's iteration C2b)."""
+    return {
+        "tables": P(None, _table_rows(r, bulk_serving), None),
+        "bot": _mlp_specs(list(cfg.bot_mlp), r),
+        "top": _mlp_specs(_dlrm_top_dims(cfg), r),
+    }
+
+
 def dlrm_forward(params, dense, sparse_ids, cfg: RecsysConfig,
                  ctx: ShardCtx = LOCAL_CTX) -> torch.Tensor:
     """dense (B, 13) f32; sparse_ids (B, 26, M) -> logit (B,)."""
-    _local_only(ctx)
     dev = params["tables"].device
     dense = torch.as_tensor(dense, device=dev)
     with full_f32:
@@ -155,6 +186,7 @@ def dlrm_forward(params, dense, sparse_ids, cfg: RecsysConfig,
                else None)
         emb = embedding_bag_dense(params["tables"], sparse_ids,
                                   gather_dtype=gdt).to(x.dtype)
+        emb = ctx.constrain(emb, "batch", None, None)
         feats = torch.cat([x[:, None], emb], dim=1)            # (B, F, d)
         inter = torch.bmm(feats, feats.transpose(1, 2))        # (B, F, F)
         iu, ju = torch.triu_indices(feats.shape[1], feats.shape[1], 1,
@@ -180,15 +212,27 @@ def init_wide_deep(gen: torch.Generator, cfg: RecsysConfig,
     }
 
 
+def wide_deep_param_specs(cfg: RecsysConfig, r: Rules,
+                          bulk_serving: bool = False):
+    rows = _table_rows(r, bulk_serving)
+    deep_dims = [cfg.n_sparse * cfg.embed_dim] + list(cfg.mlp) + [1]
+    return {
+        "tables": P(None, rows, None),
+        "wide": P(None, rows, None),
+        "deep": _mlp_specs(deep_dims, r),
+        "bias": P(),
+    }
+
+
 def wide_deep_forward(params, sparse_ids, cfg: RecsysConfig,
                       ctx: ShardCtx = LOCAL_CTX) -> torch.Tensor:
     """sparse_ids (B, T, M) -> logit (B,)."""
-    _local_only(ctx)
     B = sparse_ids.shape[0]
     gdt = torch.bfloat16 if B >= BULK_GATHER_BATCH else None
     with full_f32:
         emb = embedding_bag_dense(params["tables"], sparse_ids,
-                                  gather_dtype=gdt).float()
+                                  gather_dtype=gdt)
+        emb = ctx.constrain(emb, "batch", None, None).float()
         deep = _mlp_apply(params["deep"], emb.reshape(B, -1))[:, 0]
         wide = embedding_bag_dense(params["wide"], sparse_ids,
                                    mode="sum").float().sum(dim=(1, 2))
@@ -218,18 +262,26 @@ def init_bert4rec(gen: torch.Generator, cfg: RecsysConfig,
             "blocks": blocks}
 
 
+def bert4rec_param_specs(cfg: RecsysConfig, r: Rules):
+    blk = {"ln1": P(None), "ln2": P(None), "wqkv": P(None, None),
+           "wo": P(None, None), "wi": P(None, None), "wof": P(None, None)}
+    return {"item_embed": P(r.corpus, None), "pos_embed": P(None, None),
+            "final_ln": P(None),
+            "blocks": [dict(blk) for _ in range(cfg.n_blocks)]}
+
+
 def bert4rec_encode(params, item_ids, cfg: RecsysConfig,
                     ctx: ShardCtx = LOCAL_CTX,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """item_ids (B, S) -> the sequence's representation (B, S, d), through
     bidirectional blocks."""
-    _local_only(ctx)
     ids = _ids(item_ids, params["item_embed"].device)
     B, S = ids.shape
     d, H = cfg.embed_dim, cfg.n_heads
     with full_f32:
         x = (gather_rows(params["item_embed"], ids)
              + params["pos_embed"][None, :S]).to(dtype)
+        x = ctx.constrain(x, "batch", None, None)
         for p in params["blocks"]:
             h = rms_norm(x, p["ln1"])
             qkv = (h @ p["wqkv"].to(dtype)).reshape(B, S, 3 * H, d // H)
@@ -285,6 +337,12 @@ def init_mind(gen: torch.Generator, cfg: RecsysConfig,
     }
 
 
+def mind_param_specs(cfg: RecsysConfig, r: Rules):
+    return {"item_embed": P(r.corpus, None), "bilinear": P(None, None),
+            "proj": _mlp_specs([cfg.embed_dim, 2 * cfg.embed_dim,
+                                cfg.embed_dim], r)}
+
+
 def _squash(z: torch.Tensor) -> torch.Tensor:
     n2 = torch.sum(torch.square(z), dim=-1, keepdim=True)
     return (n2 / (1.0 + n2)) * z / torch.sqrt(n2 + 1e-9)
@@ -294,9 +352,9 @@ def mind_interests(params, hist_ids, cfg: RecsysConfig,
                    ctx: ShardCtx = LOCAL_CTX) -> torch.Tensor:
     """hist_ids (B, L) -> interest capsules (B, K, d), by dynamic
     routing (``capsule_iters`` rounds, the reference's ``lax.scan``)."""
-    _local_only(ctx)
     e = gather_rows(params["item_embed"],
                     _ids(hist_ids, params["item_embed"].device))
+    e = ctx.constrain(e, "batch", None, None)
     B, Lh, _ = e.shape
     with full_f32:
         eS = e @ params["bilinear"].to(e.dtype)                # (B, L, d)
@@ -337,10 +395,16 @@ def score_all_items(user_emb: torch.Tensor, item_table: torch.Tensor,
                     k: int, ctx: ShardCtx = LOCAL_CTX, shard_axes=None):
     """user_emb (B, d) x item_table (V, d) -> the top k (values (B, k)
     bf16, ids (B, k) int32): a bf16 product, then the largest k, equal
-    scores in ascending id (``lax.top_k``'s order).  ``shard_axes``
-    belongs to the mesh branch, which is not ported (queue 1 item 5)."""
-    _local_only(ctx)
+    scores in ascending id (``lax.top_k``'s order).  On a mesh the (B, V)
+    scores are split ``P(batch, shard_axes)`` (default: the ``tensor``
+    axis; batch already takes the data axes) and reduced by the
+    two-level ``sharded_topk``: only k pairs a shard move."""
     scores = user_emb.to(torch.bfloat16) @ item_table.to(torch.bfloat16).T
+    if ctx.mesh is not None:
+        axes = shard_axes if shard_axes is not None else ctx.rules.tensor
+        scores = ctx.constrain(scores, "batch", "tensor")
+        vals, ids = sharded_topk(scores, k, ctx, shard_axes=axes)
+        return vals, ids.int()
     vals, ids = _select(scores, k, True)
     # a copy, so the sorted (B, V) buffer is not kept alive by a view
     return vals.contiguous(), ids.int()

@@ -6,8 +6,16 @@ five LMs: MHA / GQA with optional QKV bias, per-head qk RMSNorm and
 partial RoPE, or MLA (DeepSeek-V2) with its compressed-KV absorbed
 decode; a dense SwiGLU FFN or the MoE (routed experts, shared experts,
 the first ``first_k_dense`` layers dense in their own stack,
-``dense_blocks``).  A :class:`ShardCtx` with a mesh raises
-``NotImplementedError`` (ROADMAP queue 1 item 5).
+``dense_blocks``).
+
+On a :class:`ShardCtx` with a mesh the forward, loss, prefill and decode
+step are the reference's sharded ones: the MoE is expert-parallel
+(``layers.moe_block``: the all-to-all dispatch in the forward, each
+shard's own experts summed in decode), and the reference's sharding
+constraints (``ctx.constrain``) check their specs against the mesh and
+change no value: the activations stay whole on its first device.
+:func:`lm_param_specs` and :func:`kv_cache_specs` are the reference's
+layouts (``models.api`` records them; ``launch.dryrun`` counts them).
 
 Params are a dict of tensors with the reference's keys and its stacked
 ``(n_layers, ...)`` layout; a Python loop over layers takes the place of
@@ -46,13 +54,7 @@ from repro_torch.core.clustering import full_f32
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import LOCAL_CTX, ShardCtx
-
-
-def _local_only(ctx: ShardCtx) -> None:
-    if ctx.mesh is not None:
-        raise NotImplementedError(
-            "models on a mesh are not ported yet (ROADMAP queue 1 item 5): "
-            "pass LOCAL_CTX")
+from repro_torch.sharding.spec import P, Rules
 
 
 def _n_main(cfg: LMConfig) -> int:
@@ -104,6 +106,47 @@ def _block_shapes(cfg: LMConfig, moe: bool, d_ff: int) -> Dict[str, Any]:
     else:
         s.update(wi=(D, 2 * d_ff), wof=(d_ff, D))
     return s
+
+
+def _block_specs(cfg: LMConfig, r: Rules, moe: bool) -> Dict[str, P]:
+    """A stacked block's param specs (the leading layer axis unsplit)."""
+    fs, tp, ep = r.fsdp, r.tensor, r.expert
+    s: Dict[str, P] = {"ln1": P(None, None), "ln2": P(None, None)}
+    if cfg.mla:
+        s.update(wq=P(None, fs, tp), wdkv=P(None, fs, None),
+                 kv_norm=P(None, None),
+                 wuk=P(None, fs, tp), wuv=P(None, fs, tp),
+                 wo=P(None, tp, fs))
+    else:
+        s.update(wq=P(None, fs, tp), wk=P(None, fs, tp), wv=P(None, fs, tp),
+                 wo=P(None, tp, fs))
+        if cfg.qkv_bias:
+            s.update(bq=P(None, tp), bk=P(None, tp), bv=P(None, tp))
+        if cfg.qk_norm:
+            s.update(q_norm=P(None, None), k_norm=P(None, None))
+    if moe:
+        s.update(router=P(None, fs, None),
+                 w1=P(None, ep, fs, None), w2=P(None, ep, None, fs))
+        if cfg.n_shared_experts:
+            s.update(ws1=P(None, fs, tp), ws2=P(None, tp, fs))
+    else:
+        s.update(wi=P(None, fs, tp), wof=P(None, tp, fs))
+    return s
+
+
+def lm_param_specs(cfg: LMConfig, r: Rules) -> Dict[str, Any]:
+    """The params' specs under rules ``r``: the tree of :func:`init_lm`'s
+    params, a ``PartitionSpec`` a leaf."""
+    specs: Dict[str, Any] = {
+        "embed": P(r.tensor, r.fsdp),
+        "blocks": _block_specs(cfg, r, cfg.moe),
+        "final_norm": P(None),
+    }
+    if cfg.moe and cfg.first_k_dense:
+        specs["dense_blocks"] = _block_specs(cfg, r, False)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(r.fsdp, r.tensor)
+    return specs
 
 
 def _normal(gen: torch.Generator, shape, std: float, device: torch.device,
@@ -218,13 +261,14 @@ def _qkv(x, p, cfg: LMConfig):
     return q, k, v
 
 
-def _attn(x, p, cfg: LMConfig, rope):
+def _attn(x, p, cfg: LMConfig, rope, ctx: ShardCtx):
     B, S, _ = x.shape
     q, k, v = _qkv(x, p, cfg)
     cos, sin = rope
     q = L.apply_rope(q, cos, sin, cfg.rope_fraction)
     k = L.apply_rope(k, cos, sin, cfg.rope_fraction)
     o = L.blockwise_attention(q, k, v, causal=True)
+    o = ctx.constrain(o, "batch", "tensor", None, None)
     return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)
 
 
@@ -239,32 +283,38 @@ def _mla_weights(p, cfg: LMConfig) -> Dict[str, torch.Tensor]:
     return pr
 
 
-def _mla_attn(x, p, cfg: LMConfig, positions):
+def _mla_attn(x, p, cfg: LMConfig, positions, ctx: ShardCtx):
     """MLA's prefill: the expanded q, k (192 wide at DeepSeek-V2) and v
     (128) through ``blockwise_attention``, scaled by 1/sqrt(nope + rope)."""
     B, S, _ = x.shape
     q, k, v, _ = L.mla_qkv(x, _mla_weights(p, cfg), cfg, positions)
     scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     o = L.blockwise_attention(q, k, v, causal=True, scale=scale)
+    o = ctx.constrain(o, "batch", "tensor", None, None)
     return (o.reshape(B, S, cfg.n_heads * cfg.v_head_dim)
             @ p["wo"].to(x.dtype))
 
 
-def _ffn_or_moe(x, p, cfg: LMConfig, ctx: ShardCtx, moe: bool):
+def _ffn_or_moe(x, p, cfg: LMConfig, ctx: ShardCtx, moe: bool,
+                seq_sharded: bool = True):
     if not moe:
         return L.swiglu_ffn(x, p["wi"].to(x.dtype), p["wof"].to(x.dtype))
     return L.moe_block(x, p["router"], p["w1"], p["w2"], p.get("ws1"),
-                       p.get("ws2"), cfg=cfg, ctx=ctx)
+                       p.get("ws2"), cfg=cfg, ctx=ctx,
+                       seq_sharded=seq_sharded)
 
 
-def _block(x, p, cfg: LMConfig, rope, positions, moe: bool):
+def _block(x, p, cfg: LMConfig, rope, positions, ctx: ShardCtx,
+           moe: bool):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla:
-        x = x + _mla_attn(h, p, cfg, positions)
+        x = x + _mla_attn(h, p, cfg, positions, ctx)
     else:
-        x = x + _attn(h, p, cfg, rope)
+        x = x + _attn(h, p, cfg, rope, ctx)
+    x = ctx.constrain(x, "batch", "tensor", None)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn_or_moe(h, p, cfg, LOCAL_CTX, moe)
+    x = x + _ffn_or_moe(h, p, cfg, ctx, moe)
+    return ctx.constrain(x, "batch", "tensor", None)
 
 
 def _stacks(params, cfg: LMConfig):
@@ -295,11 +345,12 @@ def _tokens(params, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params["embed"].device).long()
 
 
-def _trunk(params, tokens: torch.Tensor, cfg: LMConfig,
+def _trunk(params, tokens: torch.Tensor, cfg: LMConfig, ctx: ShardCtx,
            dtype: torch.dtype) -> torch.Tensor:
     """tokens (B, S) -> the last block's output (B, S, D) in ``dtype``."""
     S = tokens.shape[1]
-    x = params["embed"][tokens].to(dtype)
+    x = ctx.constrain(params["embed"][tokens].to(dtype), "batch", "tensor",
+                      None)
     positions = torch.arange(S, device=x.device)
     # MLA computes its own tables over the rope sub-dims
     rope = (None if cfg.mla else
@@ -315,10 +366,10 @@ def _trunk(params, tokens: torch.Tensor, cfg: LMConfig,
         for p in zip(*(stack[n].unbind(0) for n in names)):
             p = dict(zip(names, p))
             if grad:
-                x = checkpoint(_block, x, p, cfg, rope, positions, moe,
+                x = checkpoint(_block, x, p, cfg, rope, positions, ctx, moe,
                                use_reentrant=False)
             else:
-                x = _block(x, p, cfg, rope, positions, moe)
+                x = _block(x, p, cfg, rope, positions, ctx, moe)
     return x
 
 
@@ -326,10 +377,11 @@ def lm_forward(params, tokens, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in ``dtype``, on the params'
     device."""
-    _local_only(ctx)
     with _precision(dtype):
         tokens = _tokens(params, tokens)
-        return _head(params, _trunk(params, tokens, cfg, dtype), cfg, dtype)
+        logits = _head(params, _trunk(params, tokens, cfg, ctx, dtype), cfg,
+                       dtype)
+        return ctx.constrain(logits, "batch", "tensor", None)
 
 
 def lm_loss(params, batch, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
@@ -358,10 +410,9 @@ def lm_prefill(params, tokens, cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
     """Prefill pass: last-position logits (B, V), as ``lm_forward(...)[:,
     -1]`` (the head is applied to the last position only).  Cache
     write-back is the decode path's job, as in the reference."""
-    _local_only(ctx)
     with _precision(dtype):
         tokens = _tokens(params, tokens)
-        x = _trunk(params, tokens, cfg, dtype)
+        x = _trunk(params, tokens, cfg, ctx, dtype)
         return _head(params, x[:, -1], cfg, dtype)
 
 
@@ -393,6 +444,21 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
         return cache
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": zeros(*shape), "v": zeros(*shape)}
+
+
+def kv_cache_specs(cfg: LMConfig, r: Rules, *, seq_axes) -> Dict[str, P]:
+    """The cache's specs: sequence-sharded over ``seq_axes`` (the decode
+    attention's reductions run over the sharded T dimension in the
+    reference)."""
+    if cfg.mla:
+        specs = {"ckv": P(None, r.batch, seq_axes, None),
+                 "kpe": P(None, r.batch, seq_axes, None)}
+        if cfg.first_k_dense:
+            specs["ckv_dense"] = P(None, r.batch, seq_axes, None)
+            specs["kpe_dense"] = P(None, r.batch, seq_axes, None)
+        return specs
+    return {"k": P(None, r.batch, seq_axes, None, None),
+            "v": P(None, r.batch, seq_axes, None, None)}
 
 
 def _decode_attn_gqa(x, p, cfg: LMConfig, kc, vc, pos: int):
@@ -437,17 +503,19 @@ def lm_decode_step(params, cache: Dict[str, torch.Tensor], tokens, pos: int,
                    cfg: LMConfig, ctx: ShardCtx = LOCAL_CTX,
                    dtype: torch.dtype = torch.bfloat16):
     """One decode step: tokens (B, 1) at position ``pos``, through the
-    dense first layers and then the main stack.  The MoE takes the B
-    tokens through the reference's local path: its capacity holds at
-    least k pairs an expert, so B = 1 drops none, and a larger B may drop
-    a pair as the reference does.
+    dense first layers and then the main stack.  Without a mesh the MoE
+    takes the B tokens through the reference's local path: its capacity
+    holds at least k pairs an expert, so B = 1 drops none, and a larger B
+    may drop a pair as the reference does.  On a mesh it takes them
+    replicated over the expert axis at capacity B (none dropped), as the
+    reference's decode does.
 
     Returns (logits (B, 1, V), cache): the cache is written in place."""
-    _local_only(ctx)
     names = ("ckv", "kpe") if cfg.mla else ("k", "v")
     attn = _decode_attn_mla if cfg.mla else _decode_attn_gqa
     with _precision(dtype):
         x = params["embed"][_tokens(params, tokens)].to(dtype)
+        x = ctx.constrain(x, "batch", None, None)
         for stack, suffix, moe in _stacks(params, cfg):
             c0, c1 = cache[names[0] + suffix], cache[names[1] + suffix]
             for i in range(stack["ln1"].shape[0]):
@@ -455,5 +523,6 @@ def lm_decode_step(params, cache: Dict[str, torch.Tensor], tokens, pos: int,
                 h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
                 x = x + attn(h, p, cfg, c0[i], c1[i], pos)
                 h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-                x = x + _ffn_or_moe(h, p, cfg, ctx, moe)
+                x = x + _ffn_or_moe(h, p, cfg, ctx, moe, seq_sharded=False)
+                x = ctx.constrain(x, "batch", None, None)
         return _head(params, x, cfg, dtype), cache

@@ -8,9 +8,9 @@ tensor), every step returns new tensors (nothing is updated in place).
 The semantics are the reference's: the global norm clips the gradients
 before the moments, bias correction divides the moments, weight decay
 is added to the update inside it (decoupled, times the same lr), and the
-schedule is f32 arithmetic on the step.  ``opt_state_specs`` (the
-state's mesh layout) waits for the models' mesh paths (ROADMAP queue 1
-item 5).
+schedule is f32 arithmetic on the step.  :func:`opt_state_specs` is the
+state's layout on a mesh: the moments as the params, the step
+replicated.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import tree
+from repro_torch.sharding.spec import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,10 @@ def adamw_init(params) -> Dict[str, Any]:
     dev = tree.leaves(params)[0].device
     return {"m": zeros, "v": tree.tree_map(torch.clone, zeros),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_state_specs(param_specs) -> Dict[str, Any]:
+    return {"m": param_specs, "v": param_specs, "step": P()}
 
 
 def adamw_update(grads, state, params, cfg: OptimizerConfig):

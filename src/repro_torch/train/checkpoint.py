@@ -15,8 +15,10 @@ back from those bits; the JAX package writes such a leaf through
 :func:`restore` needs no model: the tree's structure comes from the
 manifest's keys, or from ``like`` (its leaves are not read, so a tree of
 meta tensors will do), and each leaf goes to ``device`` (None: the
-card).  One process writes ``proc_0``: the multi-host layout waits for
-the models' mesh paths (ROADMAP queue 1 item 5).
+card).  One process writes ``proc_0``: the port is single-controller
+(one process drives every logical device of a mesh), so that process
+writes a mesh's whole state; ``train.fault.reshard_state`` re-places a
+restored state on a mesh.
 """
 
 from __future__ import annotations
@@ -86,10 +88,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _leaf(arr: np.ndarray, dtype: str, device: torch.device) -> torch.Tensor:
+    # ascontiguousarray gives a 0-d array one dimension: keep the shape
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def restore(ckpt_dir: str, like=None, *, step: Optional[int] = None,

@@ -5,9 +5,10 @@ retries and straggler deadlines: the port of the JAX package's
 Failures are injected through ``FaultInjector`` (on a cluster the signal
 is a missing heartbeat or a collective's timeout), and the supervisor
 takes the recovery path production would: catch -> restore the latest
-checkpoint -> resume from its step.  :func:`reshard_state` re-places a
-state onto given devices; resizing a mesh's data axis waits for the
-models' mesh paths (ROADMAP queue 1 item 5).
+checkpoint -> (optionally re-place it on a resized mesh) -> resume from
+its step.  :func:`reshard_state` is the elastic resize: every leaf moves
+to its new sharding's placement (the port keeps a leaf whole on its
+mesh's first device), its value unchanged.
 """
 
 from __future__ import annotations
@@ -79,19 +80,30 @@ def supervise(make_train_step: Callable[[], Callable],
               total_steps: int,
               max_restarts: int = 5,
               on_step: Optional[Callable[[int], None]] = None,
+              shardings_fn: Optional[Callable[[], Any]] = None,
               device=None):
     """Run to ``total_steps`` surviving worker failures: on one, restore
     the latest checkpoint of ``tcfg.ckpt_dir`` onto ``device`` (None: the
     card) and resume from its step (from ``init_state_fn()`` and step 0
     where there is none), at most ``max_restarts`` times.  A checkpoint
-    already there when it starts is resumed from.  Returns (state,
-    restarts, history)."""
+    already there when it starts is resumed from.  ``shardings_fn()``,
+    where given, is the restored state's tree of shardings (a mesh that
+    may have shrunk or grown since the checkpoint): the state is
+    re-placed by :func:`reshard_state`.  Returns (state, restarts,
+    history)."""
+
+    def restore():
+        state, step = ckpt_lib.restore(tcfg.ckpt_dir, device=device)
+        if shardings_fn is not None:
+            state = reshard_state(state, shardings_fn())
+        return state, step
+
     restarts = 0
     history: List[Dict] = []
     train_step = make_train_step()
     last = ckpt_lib.latest_step(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
     if last is not None:
-        state, step = ckpt_lib.restore(tcfg.ckpt_dir, device=device)
+        state, step = restore()
     else:
         state, step = init_state_fn(), 0
 
@@ -113,14 +125,18 @@ def supervise(make_train_step: Callable[[], Callable],
             if last is None:
                 state, step = init_state_fn(), 0
             else:
-                state, step = ckpt_lib.restore(tcfg.ckpt_dir, device=device)
+                state, step = restore()
     return state, restarts, history
 
 
-def reshard_state(state, devices):
-    """Re-place every tensor of ``state`` onto the device at the same
-    place in ``devices``, a tree like ``state`` (None: left where it
-    is).  The values are unchanged."""
-    return tree.tree_map(
-        lambda x, d: x if d is None else torch.as_tensor(x).to(d),
-        state, devices)
+def reshard_state(state, new_shardings):
+    """Elastic resize: re-place every tensor of ``state`` under the leaf at
+    the same place in ``new_shardings``, a tree like ``state``: a
+    ``sharding.spec.NamedSharding`` (its mesh's first device, where the
+    port keeps a whole leaf), a device, or None (left where it is).  The
+    values are unchanged."""
+    def place(x, s):
+        if s is None:
+            return x
+        return torch.as_tensor(x).to(getattr(s, "device", s))
+    return tree.tree_map(place, state, new_shardings)

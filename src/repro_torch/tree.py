@@ -2,7 +2,8 @@
 package, for the port's params, optimizer state and batches.
 
 A tree is a dict (its keys visited in sorted order, as JAX flattens a
-dict), a list or a tuple of trees, or a leaf (anything else).  A leaf's
+dict), a list or a tuple of trees, or a leaf (anything else, and a
+``PartitionSpec``, a tuple that is a leaf in JAX's trees too).  A leaf's
 key string is JAX's ``keystr`` of its path (``"['opt']['m']['embed']"``,
 ``"[0]"`` for a sequence index), so a checkpoint names its leaves as the
 JAX package's does (``train.checkpoint``).
@@ -21,7 +22,10 @@ def _children(tree) -> List[Tuple[str, Any]]:
 
 
 def _is_node(tree) -> bool:
-    return isinstance(tree, (dict, list, tuple))
+    # a tuple that marks itself a leaf (``sharding.spec.PartitionSpec``)
+    # is one, as ``PartitionSpec`` is a leaf of a JAX tree
+    return (isinstance(tree, (dict, list, tuple))
+            and not getattr(tree, "_tree_leaf", False))
 
 
 def keyed_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -42,7 +46,7 @@ def _build(t, it) -> Any:
     if isinstance(t, dict):
         out = {k: _build(t[k], it) for k in sorted(t)}
         return {k: out[k] for k in t}              # the caller's key order
-    if isinstance(t, (list, tuple)):
+    if _is_node(t):
         return type(t)(_build(x, it) for x in t)
     return next(it)
 

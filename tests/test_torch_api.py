@@ -137,10 +137,34 @@ def test_serve_params_are_bf16_and_realize_f32():
     assert {x.dtype for x in tree.leaves(args[0])} == {torch.float32}
 
 
-def test_mesh_raises():
-    mesh = make_test_mesh(2, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        A.build_cell("bert4rec", "train_batch", mesh=mesh, reduced=True)
+MESH_CELLS = [("qwen3-0.6b", "prefill_32k"), ("qwen3-0.6b", "train_4k"),
+              ("bert4rec", "retrieval_cand"), ("dlrm-rm2", "retrieval_cand"),
+              ("bert4rec", "serve_p99"), ("mind", "serve_p99"),
+              ("wide-deep", "train_batch"),
+              ("graphsage-reddit", "minibatch_lg"),
+              ("graphsage-reddit", "molecule")]
+
+
+@pytest.mark.parametrize("arch,shape", MESH_CELLS,
+                         ids=[f"{a}-{s}" for a, s in MESH_CELLS])
+def test_mesh_cell_runs_as_one_device(arch, shape):
+    """A reduced cell built on a (2, 2) mesh of logical CPU devices has
+    shardings and runs on the one-device cell's arguments to its outputs
+    bit for bit: its sharding constraints change no value, and its
+    retrieval and scoring take the two-level top-k over the item shards,
+    which gives the one-device ids and values.  (The MoE LMs and the
+    destination-partitioned SAGE are other functions on a mesh: held
+    against the reference's sharded ones in
+    ``tests/test_torch_mesh_models.py``.)"""
+    mesh = make_test_mesh(4, device=torch.device("cpu"))
+    on = A.build_cell(arch, shape, mesh=mesh, reduced=True)
+    one = A.build_cell(arch, shape, reduced=True)
+    assert one.in_shardings is None
+    assert len(tree.leaves(on.in_shardings)) == len(tree.leaves(on.args))
+    args = A.realize(one, seed=0, device="cpu")
+    got, want = on.fn(*args), one.fn(*args)
+    for g, w in zip(tree.leaves(got), tree.leaves(want), strict=True):
+        assert torch.equal(g, w)
 
 
 def check_train_step(got, want):

@@ -24,7 +24,7 @@ from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import gnn as G
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.sharding.spec import ShardCtx
+from repro_torch.sharding.spec import SINGLE_POD_RULES, ShardCtx
 
 RTOL, ATOL = 1e-5, 1e-6
 ARCH = "graphsage-reddit"
@@ -244,15 +244,53 @@ def test_init_sage_shapes():
     assert got == jax.tree.map(lambda a: tuple(a.shape), rp)
 
 
-@pytest.mark.parametrize("entry", ["full", "batched"])
-def test_mesh_ctx_raises(entry):
-    _, p, _, cfg = _params()
-    ctx = ShardCtx(mesh=make_test_mesh(2, device=torch.device("cpu")))
-    g = _graph(18)
+def _bf16_bound(p, feats, edges):
+    """The elementwise limit of the dst-partitioned logits against the
+    one-device ones: its layer 2 aggregates the hidden states rounded to
+    bf16 (each off by at most 2^-8 of itself), so a logit moves by at
+    most 2^-8 * mean_neighbours(|h1|) @ |w_neigh| of layer 2."""
+    p1, p2 = p["layers"]
+    h1 = G._sage_layer(feats, G._mean_aggregate(feats, edges, len(feats),
+                                                None), p1, final=False)
+    agg = G._mean_aggregate(h1.abs(), edges, len(feats), None)
+    return 2.0 ** -8 * (agg @ p2["w_neigh"].abs())
+
+
+@pytest.mark.parametrize("entry", ["full", "batched", "dstpart"])
+def test_mesh_ctx_matches_one_device(entry):
+    """On a (2, 2) mesh of logical CPU devices: the full-graph and the
+    batched forwards are the one-device ones bit for bit (the reference
+    has no sharding constraint in them), and the reference's within
+    RTOL; the destination-partitioned forward (edges by
+    ``partition_edges_by_dst`` over the 4 corpus shards) is the
+    reference's one-device forward within the bf16 limit of its hidden
+    states (``_bf16_bound``) plus f32 rounding (1e-5 of the largest
+    logit)."""
+    rp, p, rcfg, cfg = _params()
+    ctx = ShardCtx(mesh=make_test_mesh(4, device=torch.device("cpu")),
+                   rules=SINGLE_POD_RULES)
+    g = _graph(18, n=64, e=300)
     feats = torch.from_numpy(g["features"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        if entry == "full":
-            G.sage_forward_full(p, feats, g["edges"], cfg, ctx)
-        else:
-            G.sage_forward_batched(p, feats, g["edges"],
-                                   np.zeros(60, np.int32), 1, cfg, ctx)
+    want = RG.sage_forward_full(rp, jnp.asarray(g["features"]),
+                                jnp.asarray(g["edges"]), rcfg)
+    if entry == "full":
+        got = G.sage_forward_full(p, feats, g["edges"], cfg, ctx)
+        assert torch.equal(got, G.sage_forward_full(p, feats, g["edges"],
+                                                    cfg))
+    elif entry == "batched":
+        gid = (np.arange(64) // 16).astype(np.int32)
+        got = G.sage_forward_batched(p, feats, g["edges"], gid, 4, cfg, ctx)
+        assert torch.equal(got, G.sage_forward_batched(
+            p, feats, g["edges"], gid, 4, cfg))
+        want = RG.sage_forward_batched(rp, jnp.asarray(g["features"]),
+                                       jnp.asarray(g["edges"]),
+                                       jnp.asarray(gid), 4, rcfg)
+    else:
+        pe, pw = Pa.partition_edges_by_dst(g["edges"], 64, 4)
+        got = G.sage_forward_full_dstpart(p, feats, pe, pw, cfg, ctx)
+        bound = _bf16_bound(p, feats, torch.from_numpy(g["edges"]).long())
+        err = (got - torch.from_numpy(np.array(want))).abs()
+        assert (err <= bound + 1e-5 * got.abs().max()).all()
+        assert float(err.max()) > 0           # it did round in bf16
+        return
+    _close(got, want)

@@ -46,6 +46,9 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.data.graphs, repro_torch.data.partition\n"
         "import repro_torch.models.recsys, repro_torch.models.gnn\n"
         "import repro_torch.models.api\n"
+        "import repro_torch.launch.dryrun\n"
+        "import repro_torch.analysis.model_flops\n"
+        "import repro_torch.analysis.roofline\n"
         "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
         "assert all(get_config(a) and get_config(a, reduced=True) "
         "for a in ARCH_IDS)\n"

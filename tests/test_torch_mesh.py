@@ -116,8 +116,26 @@ def test_test_mesh_shapes_and_refusals():
         pm.make_test_mesh(3, device="cpu")
     with pytest.raises(ValueError, match="multi-pod"):
         pm.make_test_mesh(4, multi_pod=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="TPU pod"):
-        pm.make_production_mesh()
+    prod = pm.make_production_mesh()
+    assert prod.shape == {"data": 16, "model": 16}
+    assert prod.devices_of() == [torch.device("meta")] * 256
+
+
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["single", "multi"])
+def test_production_mesh_is_the_reference_layout(multi_pod):
+    """The reference's production meshes (``repro.launch.mesh``: 16 x 16
+    ``("data", "model")``, 2 x 16 x 16 ``("pod", "data", "model")``) as
+    logical ids row-major, on ``meta`` (shapes only); the rules resolve as on the reference's mesh of that name."""
+    mesh = pm.make_production_mesh(multi_pod=multi_pod)
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    assert mesh.ids.shape == shape
+    assert mesh.axis_names == (("pod", "data", "model") if multi_pod
+                               else ("data", "model"))
+    np.testing.assert_array_equal(mesh.ids.ravel(), np.arange(mesh.size))
+    assert spec.rules_for_mesh(mesh) == (spec.MULTI_POD_RULES if multi_pod
+                                         else spec.SINGLE_POD_RULES)
+    assert mesh.devices_of() == [torch.device("meta")] * mesh.size
 
 
 def test_test_mesh_without_a_card_raises(monkeypatch):
@@ -137,8 +155,11 @@ def test_mesh_refuses_bad_ids_and_unreachable_devices(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="sees 1 CUDA card"):
         pm.Mesh([[0, 1]], ("data", "model"), ["cuda:0", "cuda:1"])
-    with pytest.raises(ValueError, match="CPU or a CUDA card"):
-        pm.Mesh([[0]], ("data", "model"), ["meta"])
+    with pytest.raises(ValueError, match="CPU, a CUDA card or meta"):
+        pm.Mesh([[0]], ("data", "model"), ["mps"])
+    # meta holds a mesh that only places shapes (make_production_mesh)
+    assert pm.Mesh([[0]], ("data", "model"), ["meta"]).first_device == \
+        torch.device("meta")
     mesh = pm.Mesh([[0, 1]], ("data", "model"), ["cuda", "cuda:0"])
     assert mesh.devices_of() == [torch.device("cuda", 0)] * 2
 

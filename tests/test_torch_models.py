@@ -25,10 +25,10 @@ from repro.configs.registry import get_config as ref_config
 from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro_torch.configs.registry import get_config
-from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.sharding.spec import ShardCtx
+from repro_torch.sharding.spec import ShardCtx, rules_for_mesh
 
 F32_TOL = 1e-5
 LOGIT_TOL = 1e-4
@@ -272,13 +272,35 @@ def test_decode_matches_forward(arch):
     np.testing.assert_allclose(_np(dec), _np(full), rtol=2e-3, atol=2e-3)
 
 
-def test_mesh_ctx_raises():
+MESHES = {"2x1": (2, 1), "1x4": (1, 4), "2x2": (2, 2)}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_dense_lm_on_a_mesh_is_the_one_device_lm(mesh):
+    """A dense LM on a mesh: the reference's sharding constraints change
+    no value, so the forward and the decode steps are the one-device
+    ones bit for bit, and the reference's within LOGIT_TOL."""
     cfg = get_config("qwen3-0.6b", reduced=True)
-    _, pp = _params("qwen3-0.6b")
-    ctx = ShardCtx(mesh=make_test_mesh(2, device=torch.device("cpu")))
-    toks = _tokens(cfg, 1, 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.lm_forward(pp, toks, cfg, ctx)
-    cache = T.init_kv_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.lm_decode_step(pp, cache, toks[:, :1], 0, cfg, ctx)
+    rp, pp = _params("qwen3-0.6b")
+    shape = MESHES[mesh]
+    n = int(np.prod(shape))
+    m = Mesh(np.arange(n).reshape(shape), ("data", "model"), ["cpu"] * n)
+    ctx = ShardCtx(mesh=m, rules=rules_for_mesh(m))
+    toks = _tokens(cfg, 2, 8)
+    got = T.lm_forward(pp, toks, cfg, ctx, dtype=torch.float32)
+    assert torch.equal(got, T.lm_forward(pp, toks, cfg,
+                                         dtype=torch.float32))
+    want = RT.lm_forward(rp, jnp.asarray(toks), ref_config(
+        "qwen3-0.6b", reduced=True), dtype=jnp.float32)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    caches = [T.init_kv_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+              for _ in range(2)]
+    for p in range(3):
+        a = T.lm_decode_step(pp, caches[0], toks[:, p:p + 1], p, cfg, ctx,
+                             dtype=torch.float32)[0]
+        b = T.lm_decode_step(pp, caches[1], toks[:, p:p + 1], p, cfg,
+                             dtype=torch.float32)[0]
+        assert torch.equal(a, b)
+
+

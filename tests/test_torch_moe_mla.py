@@ -37,11 +37,11 @@ from repro.serve.engine import LMServer as RefServer
 from repro.serve.engine import ServeConfig as RefServeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.flash_attn import flash_attn_ref
-from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import LMServer, ServeConfig
-from repro_torch.sharding.spec import ShardCtx
+from repro_torch.sharding.spec import ShardCtx, rules_for_mesh
 
 F32_TOL = 1e-5
 LOGIT_TOL = 1e-4
@@ -153,12 +153,31 @@ def test_moe_block_bf16_matches_reference():
     _close_bf16(got, want)
 
 
-def test_moe_block_on_a_mesh_raises():
-    cfg, w = _moe_inputs("qwen3-moe-30b-a3b")
-    ctx = ShardCtx(mesh=make_test_mesh(2, device=torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        L.moe_block(*(_t(w[k]) for k in ("x", "router", "w1", "w2")),
-                    None, None, cfg=cfg, ctx=ctx)
+MESHES = {"2x1": (2, 1), "1x4": (1, 4), "2x2": (2, 2)}
+
+
+@pytest.mark.parametrize("seq", [True, False], ids=["a2a", "replicated"])
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_moe_block_on_a_mesh_matches_one_device(mesh, seq):
+    """moe_block on a mesh of logical CPU devices, expert-parallel (the
+    all-to-all dispatch, or each shard's experts summed in decode), with
+    shared experts, at a capacity factor of 16 (no pair drops on a shard
+    or on one device): the reference's one-device function at 1e-5.
+    (``tests/test_torch_mesh_models.py`` holds the sharded function
+    against the reference's sharded one where pairs drop.)"""
+    cfg, w = _moe_inputs("qwen3-moe-30b-a3b", tokens=(4, 8))
+    cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+    shape = MESHES[mesh]
+    n = int(np.prod(shape))
+    m = Mesh(np.arange(n).reshape(shape), ("data", "model"), ["cpu"] * n)
+    ctx = ShardCtx(mesh=m, rules=rules_for_mesh(m))
+    names = ("x", "router", "w1", "w2", "ws1", "ws2")
+    got = L.moe_block(*(_t(w[k]) for k in names), cfg=cfg, ctx=ctx,
+                      seq_sharded=seq)
+    want = RL.moe_block(*(_j(w[k]) for k in names), cfg=cfg,
+                        ctx=RL.LOCAL_CTX)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=F32_TOL,
+                               atol=F32_TOL)
 
 
 # ------------------------------------------------------------------- MLA

@@ -24,10 +24,10 @@ from repro.data import synthetic as RS
 from repro.models import recsys as RR
 from repro_torch.configs.registry import get_config
 from repro_torch.data import synthetic as S
-from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
-from repro_torch.sharding.spec import ShardCtx
+from repro_torch.sharding.spec import LOCAL_CTX, ShardCtx, rules_for_mesh
 
 RTOL, ATOL = 1e-5, 1e-6
 SCORE_REL = 2.0 ** -8
@@ -296,30 +296,66 @@ def test_item_index_short_answers_match_reference(item_pair, plan):
 
 
 # ------------------------------------------------------------------ mesh
+MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
 @pytest.mark.parametrize("entry", ["dlrm", "wide_deep", "bert4rec", "mind",
                                    "score"])
-def test_mesh_ctx_raises(entry):
-    ctx = ShardCtx(mesh=make_test_mesh(2, device=torch.device("cpu")))
-    cfg = get_config({"dlrm": "dlrm-rm2", "wide_deep": "wide-deep",
-                      "bert4rec": "bert4rec", "mind": "mind",
-                      "score": "bert4rec"}[entry], reduced=True)
-    gen = torch.Generator().manual_seed(0)
-    ids = np.zeros((2, max(cfg.n_sparse, 1), 1), np.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+def test_mesh_ctx_matches_one_device(entry, mesh):
+    """Each forward on a mesh of logical CPU devices is the one-device
+    forward bit for bit (the reference's sharding constraints change no
+    value) and the reference's one-device forward within RTOL;
+    ``score_all_items`` on a mesh (the two-level top-k over the item
+    shards) gives the one-device ids and values, ties to the lowest id."""
+    shape = MESHES[mesh]
+    m = Mesh(np.arange(4).reshape(shape), ("data", "model"), ["cpu"] * 4)
+    ctx = ShardCtx(mesh=m, rules=rules_for_mesh(m))
+    arch, init = {"dlrm": ("dlrm-rm2", "init_dlrm"),
+                  "wide_deep": ("wide-deep", "init_wide_deep"),
+                  "bert4rec": ("bert4rec", "init_bert4rec"),
+                  "mind": ("mind", "init_mind"),
+                  "score": ("bert4rec", "init_bert4rec")}[entry]
+    rp, p, rcfg, cfg = _params(arch, init)
+    rng = np.random.default_rng(11)
+    if entry in ("dlrm", "wide_deep"):
+        ids = rng.integers(0, cfg.vocab_size,
+                           (4, cfg.n_sparse, cfg.multi_hot)).astype(np.int32)
+        dense = rng.standard_normal((4, cfg.n_dense)).astype(np.float32)
         if entry == "dlrm":
-            R.dlrm_forward(R.init_dlrm(gen, cfg, "cpu"),
-                           torch.zeros(2, cfg.n_dense), ids, cfg, ctx)
-        elif entry == "wide_deep":
-            R.wide_deep_forward(R.init_wide_deep(gen, cfg, "cpu"), ids, cfg,
-                                ctx)
-        elif entry == "bert4rec":
-            R.bert4rec_encode(R.init_bert4rec(gen, cfg, "cpu"),
-                              np.zeros((2, cfg.seq_len), np.int32), cfg, ctx)
-        elif entry == "mind":
-            R.mind_interests(R.init_mind(gen, cfg, "cpu"),
-                             np.zeros((2, cfg.hist_len), np.int32), cfg, ctx)
+            run = lambda c: R.dlrm_forward(p, torch.from_numpy(dense), ids,  # noqa: E731
+                                           cfg, c)
+            want = RR.dlrm_forward(rp, jnp.asarray(dense), jnp.asarray(ids),
+                                   rcfg)
         else:
-            R.score_all_items(torch.zeros(2, 4), torch.zeros(8, 4), 3, ctx)
+            run = lambda c: R.wide_deep_forward(p, ids, cfg, c)  # noqa: E731
+            want = RR.wide_deep_forward(rp, jnp.asarray(ids), rcfg)
+    elif entry == "bert4rec":
+        ids = rng.integers(0, cfg.vocab_size, (4, cfg.seq_len)).astype(
+            np.int32)
+        run = lambda c: R.bert4rec_encode(p, ids, cfg, c)  # noqa: E731
+        want = RR.bert4rec_encode(rp, jnp.asarray(ids), rcfg)
+    elif entry == "mind":
+        ids = rng.integers(0, cfg.vocab_size, (4, cfg.hist_len)).astype(
+            np.int32)
+        run = lambda c: R.mind_interests(p, ids, cfg, c)  # noqa: E731
+        want = RR.mind_interests(rp, jnp.asarray(ids), rcfg)
+    else:
+        user = rng.integers(-3, 4, (4, 8)).astype(np.float32)
+        items = rng.integers(-3, 4, (64, 8)).astype(np.float32)
+        items[[15, 16, 47, 48]] = items[0]          # ties across shards
+        got = R.score_all_items(torch.from_numpy(user),
+                                torch.from_numpy(items), 10, ctx)
+        one = R.score_all_items(torch.from_numpy(user),
+                                torch.from_numpy(items), 10)
+        wv, wi = RR.score_all_items(jnp.asarray(user), jnp.asarray(items),
+                                    10, RR.LOCAL_CTX)
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(wi))
+        return
+    got = run(ctx)
+    assert torch.equal(got, run(LOCAL_CTX))
+    _close(got, want)
 
 
 def test_init_shapes_match_the_reference():
